@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the K1 kernel (csrc/block_fused.cu, nvcc, sm_90a);
+  2. build the kernels K1 (csrc/block_fused.cu) and K2 (csrc/block_bwd.cu),
+     one nvcc process each, started together (sm_90a);
   3. hold K1 (``block_fused``) against its plain PyTorch version
      (``block_fused_reference``) at C = 32, 64x64 to 512x512, batch 2, in
      all four variants (plain, pre, pre+skip, pre+skip+post), with the
@@ -14,17 +15,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      512x512, batch 8) against the plain module, 21 K1 launches per call;
   5. serving: the ``mtd_gan_tpu_torch.test`` sweep over 16 synthetic
      512x512 DICOM pairs with seeded weights saved as a reference-layout
-     .pth — the main path, whose K1 launches are counted;
-  6. timings with CUDA events (K1 and its plain version per block call,
-     generate and sweep slices/s), a torch.profiler breakdown of one
-     generate call by kernel, then the kernel JSON line, the card line and
-     the result line.
+     .pth — the serving path, whose K1 launches are counted;
+  6. hold K2 (``block_bwd``) against its plain version
+     (``block_bwd_reference``, autograd through K1's) at 64x64, C = 32,
+     batch 2 and 8, in the four variants, with the reference init, with
+     1/sqrt(fan_in) weights and with sign-certain ("margin") biases;
+  7. the PCGrad train step at full width (generator 32 features x 10
+     layers, discriminator 64 features, 160 patches of 64x64 cut by
+     ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
+     state, the generator gradient and the D losses through K1 + K2 against
+     the plain generator under autograd; then 3 more kernel steps, finite
+     losses and 21 K1 + 21 K2 launches per step;
+  8. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
+     of 20 slices, validation) on synthetic train / valid splits — the
+     training path, whose K1 and K2 launches are counted — then
+     ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
+  9. timings with CUDA events (K1 and K2 and their plain versions per
+     block call, generate and sweep slices/s, ms per train step and
+     patches/s), torch.profiler breakdowns of one generate call and of one
+     train step by kernel, then the kernel JSON line, the card line and the
+     result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -32,15 +49,23 @@ import re
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from mtd_gan_tpu_torch import test as test_cli
+from mtd_gan_tpu_torch import train as train_cli
 from mtd_gan_tpu_torch.data.dicom import write_synthetic_dicom
+from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
+from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.ops import _build
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
-from mtd_gan_tpu_torch import test as test_cli
+from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
+                                              resfft_generator_train)
+from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
+from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 
 # max |kernel - plain| / max |plain| per block call: both sides are fp32;
 # they differ by FFT algorithm (radix-2 in shared memory vs cuFFT) and
@@ -48,6 +73,25 @@ from mtd_gan_tpu_torch import test as test_cli
 TOL_BLOCK_REL = 1e-4
 # max |kernel - plain| on the [0, 1] generator output after 21 blocks
 TOL_GENERATE_ABS = 1e-3
+# K2 against autograd through K1's plain version, per output. With
+# sign-certain masks ("margin" inputs): max |kernel - plain| / max |plain|,
+# fp32 both sides. Otherwise a pre-activation within fp32 rounding of zero
+# can fall on the other side of its ReLU in one version: a flipped spectral
+# mask moves one row of dmix and all of xbar by ~1e-3 (up to 1.4e-3 in the
+# 2-norm on an H100 at batch 8, ~1e-6 without a flip), so those inputs are
+# held in the relative 2-norm
+TOL_BWD_MARGIN_REL = 1e-4
+TOL_BWD_L2 = 1e-2
+# one train step from one state: the generator gradient through K1 + K2
+# against the plain generator under autograd (the same cotangent of fake
+# pulled through both), per leaf in the relative 2-norm (the max-norm is
+# printed beside it), and the stacked D losses. The same ReLU-boundary
+# flips happen in 21 blocks x 160 patches: one flipped spectral mask moves
+# a spectral bias gradient (a sum of 160 x 64 x 33 terms) by ~1/sqrt(338k)
+# = 1.7e-3 of its size, so 1e-3 is not reachable between two fp32 orders
+# of summation (PERF.md, Findings)
+TOL_STEP_GRAD_L2 = 1e-2
+TOL_STEP_DLOSS_REL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth; K1 runs fp32 on the CUDA cores
 PEAK_FP32_FLOPS = 67e12
@@ -55,6 +99,7 @@ PEAK_HBM_BYTES = 3.35e12
 
 C = 32
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
+TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
 
 
 def fail(msg: str):
@@ -94,6 +139,64 @@ def block_inputs(size: int, n: int, init: str, variant: str, seed: int):
         args["post"] = (t(weight(1, C, 3, 3)), t(bias(1)))
         args["img"] = t(rng.random((n, 1, hw)))
     return args
+
+
+def bwd_inputs(n: int, init: str, variant: str, seed: int):
+    """K1's inputs at 64x64 plus seeded cotangents g (of out) and gfin (of
+    final). ``init`` "margin": 1/sqrt(fan_in) weights (the res and post convs
+    x0.05) and every bias +-5, so each ReLU keeps its sign far from zero."""
+    args = block_inputs(64, n, "reference" if init == "reference" else "fan_in",
+                        variant, seed)
+    rng = np.random.default_rng(seed + 100)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+    if init == "margin":
+        signed = lambda b: t(5.0 * rng.choice([-1.0, 1.0], tuple(b.shape)))
+        # the res and post convs read activations of size ~5 (after a
+        # pre conv with a +5 bias): shrink their weights so that each bias
+        # still dominates its pre-activation
+        args.update(km=args["km"] * 0.05, kb=signed(args["kb"]), mb=signed(args["mb"]))
+        if "pre" in args:
+            args["pre"] = (args["pre"][0], signed(args["pre"][1]))
+        if "post" in args:
+            args["post"] = (args["post"][0] * 0.05, signed(args["post"][1]))
+    args["g"] = t(rng.standard_normal((n, C, 64 * 64)))
+    if "post" in variant:
+        args["gfin"] = t(rng.standard_normal((n, 1, 64 * 64)))
+    return args
+
+
+def check_k2():
+    """Phase 6; returns the largest absolute error of the margin checks
+    (the ones no mask flip can disturb)."""
+    worst_margin_abs = 0.0
+    for n in (2, 8):
+        for init in ("reference", "fan_in", "margin"):
+            for vi, variant in enumerate(VARIANTS):
+                args = bwd_inputs(n, init, variant, seed=vi)
+                got = block_bwd(**args)
+                want = block_bwd_reference(**args)
+                torch.cuda.synchronize()
+                parts = []
+                for name, w in want.items():
+                    g = got[name]
+                    if not torch.isfinite(g).all():
+                        fail(f"K2 n={n} {init} {variant}: non-finite {name}")
+                    d = g - w
+                    err = d.abs().max().item()
+                    rel = err / max(w.abs().max().item(), 1e-30)
+                    l2 = (d.norm() / w.norm().clamp_min(1e-30)).item()
+                    parts.append(f"{name} {err:.2e}/{rel:.2e}/{l2:.2e}")
+                    if init == "margin":
+                        worst_margin_abs = max(worst_margin_abs, err)
+                        if rel > TOL_BWD_MARGIN_REL:
+                            fail(f"K2 n={n} margin {variant} {name}: relative error "
+                                 f"{rel:.3e} > {TOL_BWD_MARGIN_REL}")
+                    elif l2 > TOL_BWD_L2:
+                        fail(f"K2 n={n} {init} {variant} {name}: relative 2-norm "
+                             f"error {l2:.3e} > {TOL_BWD_L2}")
+                print(f"K2 check 64x64 C={C} n={n} {init:9s} {variant:14s} "
+                      f"(max_abs/max_rel/l2_rel): " + "; ".join(parts), flush=True)
+    return worst_margin_abs
 
 
 def as_tuple(r):
@@ -184,19 +287,53 @@ def k1_work(n: int, size: int, variant: str):
     return flops, 4 * words
 
 
-def profile_generate(model, x):
-    """Device time by kernel over one generate call (torch.profiler), and
+def k2_work(n: int, size: int, variant: str):
+    """(FLOPs, bytes) one K2 call needs. FLOPs: the recomputed convs (pre,
+    res), their adjoints and their weight gradients, 2*9*C*C per pixel each
+    plus 3-op epilogues; the spectral mix recomputed, its weight gradient
+    and its transpose, 2*(2C)^2 per (h, k) bin each; three real 2-D FFTs
+    (of hin, of g, and the inverse), 2.5*HW*log2(HW) each per channel; with
+    post, the forward's second spectral half (mix, inverse FFT) and the
+    post conv, its weight gradient and its adjoint. Bytes: every input read
+    once (x, g, skip, img, gfin, weights), every output written once (xbar,
+    skipbar, imgbar, weight gradients), fp32."""
+    hw = size * size
+    k = size // 2 + 1
+    n_convs = 1 if variant == "plain" else 2
+    conv = 2 * 9 * C * C * hw + 3 * C * hw
+    mix = 2 * (2 * C) ** 2 * size * k
+    fft = 2.5 * C * hw * math.log2(hw)
+    flops = n * (3 * n_convs * conv + 3 * mix + 3 * fft)
+    weights = n_convs * (9 * C * C + C) + 4 * C * C + 2 * C
+    words = 2 * weights + n * C * hw * 2  # weights and their grads; x, xbar
+    words += n * C * hw  # g
+    if "skip" in variant:
+        words += 2 * n * C * hw  # skip, skipbar
+    if "post" in variant:
+        flops += n * (mix + fft + 3 * (2 * 9 * C * hw + 3 * hw))
+        words += 2 * (9 * C + 1) + 3 * n * hw  # post weights + grads; img, gfin, imgbar
+    return flops, 4 * words
+
+
+def bound(work):
+    flops, nbytes = work
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile(label: str, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share between the first kernel's start and the last
     kernel's end."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.generate(x)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("profile generate: no device events recorded (not measured)")
+        print(f"profile {label}: no device events recorded (not measured)")
         return
     by_name = {}
     for e in kernels:
@@ -207,12 +344,141 @@ def profile_generate(model, x):
     busy = sum(t for t, _ in by_name.values())
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
-    print(f"profile generate 512x512 batch 8: {busy / 1e3:.3f} ms of kernels "
-          f"in a {span / 1e3:.3f} ms span, busy share {busy / span:.4f}",
-          flush=True)
-    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"profile kernel {name}: {total / 1e3:.3f} ms, {count} launches, "
+    print(f"profile {label}: {busy / 1e3:.3f} ms of kernels in a {span / 1e3:.3f} ms "
+          f"span, busy share {busy / span:.4f}", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (total, count) in ranked[:25]:
+        print(f"profile {label} kernel {name}: {total / 1e3:.3f} ms, {count} launches, "
               f"{total / busy:.4f} of kernel time", flush=True)
+
+
+def write_split(root: str, split: str, rng, n: int, size: int = 512):
+    """n synthetic DICOM pairs of the phantom under <root>/<split>."""
+    for i, (lo, hi) in enumerate(zip(phantom(rng, n, size), phantom(rng, n, size))):
+        for key, img in (("n_20", lo), ("n_100", hi)):
+            hu = img * 400.0 - 160.0  # abdomen window [-160, 240] HU
+            write_synthetic_dicom(
+                os.path.join(root, split, "case0", key, f"slice{i:03d}.IMA"),
+                np.round(hu + 1024.0).astype(np.uint16))
+
+
+def plain_forward(gen, x):
+    return gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def train_patches(rng, seed: int):
+    """160 paired 64x64 patches cut by the train preprocess from 20
+    synthetic 512x512 slices (HU), on the card."""
+    lo = phantom(rng, TRAIN_SLICES, 512) * 400.0 - 160.0
+    hi = np.clip(lo + 20.0 * rng.standard_normal(lo.shape), -1024, 3071)
+    hu = lambda a: torch.tensor(np.round(a)[..., None], dtype=torch.int16, device="cuda")
+    pre = make_train_preprocess("window_patch", "mayo")
+    return pre(hu(lo), hu(hi), torch.Generator(device="cuda").manual_seed(seed))
+
+
+def check_train_step(x, y):
+    """Phase 7: one step from one state through K1 + K2 and through the
+    plain generator under autograd: the D losses and g_loss, the cotangent
+    of fake that g_loss_terms gives each path, and the generator gradient
+    with the plain path's cotangent pulled through both generator graphs
+    (so that only K1 and K2 differ); then 3 kernel steps with their launch
+    counts. Returns the kernel trainer."""
+    base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10,
+                       device="cuda", seed=0)
+    order = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]])
+    paths = {}
+    for label, forward in (("kernel", resfft_generator_train), ("plain", plain_forward)):
+        model = copy.deepcopy(base)
+        trainer = MTDGANTrainer(model, method="pcgrad", seed=0)
+        fake = forward(model.generator.train(), x)
+        d_losses, _ = trainer.d_update(x, y, fake, order)
+        total, _ = model.g_loss_terms(fake, x, y, update_stats=True, generator=trainer.rng)
+        (dfake,) = torch.autograd.grad(total, fake, retain_graph=True)
+        paths[label] = (model, fake, d_losses, total.detach(), dfake)
+    (mk, fk, dk, gk, ck), (mp, fp, dp, gp, cp) = paths["kernel"], paths["plain"]
+    grads_k = torch.autograd.grad(fk, list(mk.generator.parameters()), cp)
+    grads_p = torch.autograd.grad(fp, list(mp.generator.parameters()), cp)
+    torch.cuda.synchronize()
+    d_rel = ((dk - dp).abs().max() / dp.abs().max()).item()
+    c_rel = ((ck - cp).norm() / cp.norm()).item()
+    worst = (0.0, 0.0, "")
+    for (name, _), a, b in zip(base.generator.named_parameters(), grads_k, grads_p):
+        if not torch.isfinite(a).all():
+            fail(f"train step: non-finite generator gradient {name}")
+        l2 = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        mx = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (l2, mx, name))
+        if l2 > TOL_STEP_GRAD_L2:
+            fail(f"train step: generator gradient {name} relative 2-norm error "
+                 f"{l2:.3e} > {TOL_STEP_GRAD_L2} (max-norm {mx:.3e})")
+    print(f"train step (160 x 64x64, 32/64 features, 10 layers): D losses kernel "
+          f"{dk.tolist()} plain {dp.tolist()} rel {d_rel:.3e}; g_loss {gk.item():.6f} vs "
+          f"{gp.item():.6f}; cotangent of fake rel {c_rel:.3e} (2-norm); generator "
+          f"gradient worst leaf {worst[2]} {worst[0]:.3e} (2-norm) {worst[1]:.3e} "
+          f"(max-norm) over {len(grads_k)} leaves", flush=True)
+    if d_rel > TOL_STEP_DLOSS_REL:
+        fail(f"train step: D losses differ by {d_rel:.3e} > {TOL_STEP_DLOSS_REL}")
+    del paths, mk, mp, fk, fp, grads_k, grads_p
+
+    trainer = MTDGANTrainer(base, method="pcgrad", seed=0)
+    for step in range(3):
+        block_fused.launches = block_bwd.launches = 0
+        m = trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        k1, k2 = block_fused.launches, block_bwd.launches
+        d, g = m["d_loss"].item(), m["g_loss"].item()
+        print(f"train step {step}: d_loss {d:.6f} g_loss {g:.6f}; K1 launches {k1}, "
+              f"K2 launches {k2}", flush=True)
+        if not (math.isfinite(d) and math.isfinite(g)):
+            fail(f"train step {step}: non-finite losses {d}, {g}")
+        if (k1, k2) != (21, 21):
+            fail(f"train step {step}: {k1} K1 and {k2} K2 launches, expected 21 + 21")
+    return trainer
+
+
+def check_train_cli(rng, tmp: str):
+    """Phase 8: the training path through its CLI, then the test CLI on the
+    checkpoint it wrote. Returns (K1, K2) launches of the train run."""
+    root = os.path.join(tmp, "train_data")
+    write_split(root, "train", rng, 2 * TRAIN_SLICES)
+    write_split(root, "valid", rng, 2)
+    write_split(root, "test", rng, 4)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    kwargs = json.dumps({"gen_features": C, "disc_features": 64, "num_layers": 10})
+    args = train_cli.get_args_parser().parse_args([
+        "--data-root", root, "--batch-size", str(TRAIN_SLICES), "--epochs", "1",
+        "--device", "cuda", "--seed", "0", "--model-kwargs", kwargs,
+        "--checkpoint-dir", ckpt_dir, "--save-dir", os.path.join(tmp, "train_out"),
+        "--print-freq", "1"])
+    block_fused.launches = block_bwd.launches = 0
+    t0 = time.perf_counter()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = (block_fused.launches, block_bwd.launches)
+    if not all(math.isfinite(v) for v in stats.values() if isinstance(v, float)):
+        fail(f"train CLI: non-finite epoch stats {stats}")
+    if launches[1] != 2 * 21 or launches[0] < 2 * 21:
+        fail(f"train CLI: {launches} (K1, K2) launches, expected 2 steps x 21 K2 "
+             f"and at least as many K1")
+    ckpt = os.path.join(ckpt_dir, "epoch_0.pth")
+    keys = load_checkpoint(ckpt)["model_state_dict"]
+    if not (any(k.startswith("Generator.") for k in keys)
+            and any(k.startswith("Discriminator.") for k in keys)):
+        fail("train CLI: the checkpoint lacks Generator.* or Discriminator.* keys")
+    test_dir = os.path.join(tmp, "test_out")
+    summary = test_cli.main(test_cli.get_args_parser().parse_args([
+        "--data-root", root, "--resume", ckpt, "--save-dir", test_dir,
+        "--no-feature-metrics", "--device", "cuda", "--model-kwargs", kwargs]))
+    if not all(math.isfinite(v) for v in summary.values()):
+        fail(f"test CLI after train: non-finite metrics {summary}")
+    print(f"train CLI: 1 epoch of 2 steps x {TRAIN_SLICES} slices in {train_s:.3f} s "
+          f"(validation and checkpoint included), train_d_loss "
+          f"{stats['train_d_loss']:.6f} train_g_loss {stats['train_g_loss']:.6f} "
+          f"valid_loss {stats['valid_loss']:.6f}; K1 launches {launches[0]}, K2 launches "
+          f"{launches[1]}; checkpoint {len(keys)} tensors; test --resume pred_psnr "
+          f"{summary['pred_psnr']:.4f}", flush=True)
+    return launches
 
 
 def main():
@@ -225,13 +491,18 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build both kernels in parallel (one nvcc each)
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(_build.build, ("block_fused", "block_bwd")))
     _build.block_fused_library()
-    print(f"build: block_fused in {time.perf_counter() - t0:.2f} s", flush=True)
-    log = _build.build("block_fused").with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    _build.block_bwd_library()
+    print(f"build: block_fused and block_bwd in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for lib in libs:
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip(), flush=True)
 
     # ---- 3. K1 against its plain version
     irfft2_cuda_vs_cpu()
@@ -240,16 +511,16 @@ def main():
     # ---- 4. generate at full width
     model = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
     rng = np.random.default_rng(0)
-    x = torch.tensor(phantom(rng, 8, 512)[..., None], dtype=torch.float32,
-                     device="cuda")
+    x_gen = torch.tensor(phantom(rng, 8, 512)[..., None], dtype=torch.float32,
+                         device="cuda")
     before = block_fused.launches
-    pred = model.generate(x)
+    pred = model.generate(x_gen)
     torch.cuda.synchronize()
     if block_fused.launches - before != 21:
         fail(f"generate launched K1 {block_fused.launches - before} times, "
              f"expected 21")
     with torch.no_grad():
-        plain = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        plain = plain_forward(model.generator, x_gen)
     if pred.shape != (8, 512, 512, 1) or not torch.isfinite(pred).all():
         fail(f"generate output {tuple(pred.shape)} not finite/expected")
     gen_err = (pred - plain).abs().max().item()
@@ -262,13 +533,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = os.path.join(tmp, "data")
         n_slices = 16
-        for i, (lo, hi) in enumerate(zip(phantom(rng, n_slices, 512),
-                                         phantom(rng, n_slices, 512))):
-            for key, img in (("n_20", lo), ("n_100", hi)):
-                hu = img * 400.0 - 160.0  # abdomen window [-160, 240] HU
-                write_synthetic_dicom(
-                    os.path.join(root, "test", "case0", key, f"slice{i:03d}.IMA"),
-                    np.round(hu + 1024.0).astype(np.uint16))
+        write_split(root, "test", rng, n_slices)
         ckpt = os.path.join(tmp, "weights.pth")
         sd = {f"Generator.{k}": v.detach().cpu()
               for k, v in model.generator.state_dict().items()}
@@ -299,33 +564,79 @@ def main():
           f"{summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}; "
           f"K1 launches {launches}", flush=True)
 
-    # ---- 6. timings (512x512, batch 8, fan_in weights)
+    # ---- 6. K2 against its plain version
+    k2_max_abs_err = check_k2()
+
+    # ---- 7. the train step at full width
+    x, y = train_patches(rng, seed=0)
+    trainer = check_train_step(x, y)
+
+    # ---- 8. the training path through its CLI, then test --resume
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_launches = check_train_cli(rng, tmp)
+
+    # ---- 9. timings (CUDA events)
     times = {}
     for vi, variant in enumerate(VARIANTS):
         args = block_inputs(512, 8, "fan_in", variant, seed=vi)
         k_ms = cuda_ms(lambda: block_fused(**args), 10)
         p_ms = cuda_ms(lambda: block_fused_reference(**args), 10)
-        flops, nbytes = k1_work(8, 512, variant)
-        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-        times[variant] = (k_ms, p_ms, bound, by)
+        b_ms, by = bound(k1_work(8, 512, variant))
+        times[variant] = (k_ms, p_ms, b_ms, by)
         print(f"time K1 512x512 batch 8 {variant:14s}: kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {bound:.3f} ms ({by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
-    gen_ms = cuda_ms(lambda: model.generate(x), 3)
+              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by})", flush=True)
+    bwd_times = {}
+    for vi, variant in enumerate(VARIANTS):
+        args = bwd_inputs(160, "fan_in", variant, seed=vi)
+        k_ms = cuda_ms(lambda: block_bwd(**args), 10)
+        p_ms = cuda_ms(lambda: block_bwd_reference(**args), 5)
+        b_ms, by = bound(k2_work(160, 64, variant))
+        flops, nbytes = k2_work(160, 64, variant)
+        bwd_times[variant] = (k_ms, p_ms, b_ms, by)
+        print(f"time K2 64x64 batch 160 {variant:14s}: kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        del args
+    fwd_args = block_inputs(64, 160, "fan_in", "pre+skip", seed=2)
+    k1_train_ms = cuda_ms(lambda: block_fused(**fwd_args), 10)
+    print(f"time K1 64x64 batch 160 pre+skip: kernel {k1_train_ms:.3f} ms, bound "
+          f"{bound(k1_work(160, 64, 'pre+skip'))[0]:.3f} ms", flush=True)
+    del fwd_args
+    gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
     print(f"time sweep: {n_slices} slices in {sweep_s:.3f} s = "
           f"{n_slices / sweep_s:.2f} slices/s", flush=True)
-    profile_generate(model, x)
+    up_in = torch.randn((320, 64, 32, 32), device="cuda", requires_grad=True)
+    for label, up in (("shift-add (port)", upsample2x_bilinear),
+                      ("F.interpolate", lambda t: torch.nn.functional.interpolate(
+                          t, scale_factor=2, mode="bilinear", align_corners=False))):
+        up_ms = cuda_ms(lambda: torch.autograd.grad(up(up_in).sum(), up_in), 10)
+        print(f"time 2x bilinear upsample fwd+bwd (320, 64, 32, 32) {label}: "
+              f"{up_ms:.3f} ms", flush=True)
+    del up_in
+    step_ms = cuda_ms(lambda: trainer.train_step(x, y), 3)
+    print(f"time train step 160 x 64x64 (32/64 features, 10 layers, PCGrad + "
+          f"AdamW): {step_ms:.2f} ms/step = {160e3 / step_ms:.2f} patches/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile("generate 512x512 batch 8", lambda: model.generate(x_gen))
+    profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
-    k_ms, p_ms, bound, by = times["pre+skip"]
+    k_ms, p_ms, b_ms, by = times["pre+skip"]
+    kb_ms, pb_ms, bb_ms, bby = bwd_times["pre+skip"]
     print(json.dumps({"kernels": [{
         "name": "block_fused", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_fused.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_pipeline.py:954",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+        "launches": train_launches[0], "max_abs_err": max_abs_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None,
+    }, {
+        "name": "block_bwd", "route": "cuda",
+        "source": "mtd_gan_tpu_torch/csrc/block_bwd.cu",
+        "replaces": "mtd_gan_tpu/ops/pallas_train.py:109",
+        "launches": train_launches[1], "max_abs_err": k2_max_abs_err,
+        "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": bb_ms, "bound_by": bby,
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

@@ -5,8 +5,10 @@ against; nothing here imports it (or JAX). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 
 Ported so far: MTD-GAN generator inference and the ``test`` metric sweep
-(``python -m mtd_gan_tpu_torch.test``), with the fused Res-FFT block as a
-hand-written CUDA kernel (``csrc/block_fused.cu``).
+(``python -m mtd_gan_tpu_torch.test``) and the MTD-GAN PCGrad training path
+(``python -m mtd_gan_tpu_torch.train``), with the fused Res-FFT block and
+its backward as hand-written CUDA kernels (``csrc/block_fused.cu``,
+``csrc/block_bwd.cu``).
 """
 
 from mtd_gan_tpu_torch._device import resolve_device

@@ -1,0 +1,431 @@
+// Device code shared by the Res-FFT block kernels K1 (block_fused.cu) and
+// K2 (block_bwd.cu): the direct 3x3 convolution with its fused epilogues,
+// the radix-2 FFT in shared memory, and the three spectral passes of the
+// block (row rFFT, per-(n, k) column FFT -> 2C x 2C mix -> inverse, row
+// c2r accumulated onto an output). fp32 throughout.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Return the first CUDA error from a function returning cudaError_t.
+#define CUDA_TRY(expr)                           \
+  do {                                           \
+    const cudaError_t e_ = (expr);               \
+    if (e_ != cudaSuccess) return e_;            \
+  } while (0)
+
+namespace {
+
+// ---------------------------------------------------------------- conv3x3
+
+constexpr int kConvTileW = 32;            // output columns per block (= threads in x)
+constexpr int kConvRowsPerThread = 4;
+constexpr int kConvThreadsY = 8;
+constexpr int kConvTileH = kConvRowsPerThread * kConvThreadsY;  // 32 output rows
+constexpr int kConvCiChunk = 8;           // input channels staged per step
+constexpr int kConvThreads = kConvTileW * kConvThreadsY;        // 256
+
+// v[n, co] = sum_{ci, ky, kx} w[co, ci, ky, kx] * in[n, ci, y + ky - 1,
+//            x + kx - 1] [+ bias[co]] [+ skip[n, co]], zero padding at the
+// image edges, then the epilogue:
+//   gate != null:  out = v > 0 ? gate[n, co] : 0      (a ReLU's cotangent)
+//   otherwise:     out = [relu](v) [+ in[n, co]]      (residual: c_in == c_out)
+// adjoint != 0 reads the weight of the adjoint convolution from the forward
+// one, w[co, ci, ky, kx] = w_fwd[ci, co, 2 - ky, 2 - kx] with w_fwd of shape
+// (c_in, c_out, 3, 3). CO output channels per block and per thread; c_out
+// must be a multiple of CO.
+template <int CO>
+__global__ void __launch_bounds__(kConvThreads)
+conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ weight,
+               const float* __restrict__ bias, const float* __restrict__ skip,
+               const float* __restrict__ gate, float* __restrict__ out,
+               int c_in, int c_out, int H, int W, int relu, int residual,
+               int adjoint) {
+  __shared__ float tile[kConvCiChunk][kConvTileH + 2][kConvTileW + 2];
+  __shared__ __align__(16) float wsm[kConvCiChunk][9][CO];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kConvTileW + tx;
+  const int groups = c_out / CO;
+  const int n = blockIdx.z / groups;
+  const int co0 = (blockIdx.z % groups) * CO;
+  const int x0 = blockIdx.x * kConvTileW, y0 = blockIdx.y * kConvTileH;
+  const size_t hw = (size_t)H * W;
+  const float* in_n = in + (size_t)n * c_in * hw;
+
+  float acc[kConvRowsPerThread][CO];
+#pragma unroll
+  for (int r = 0; r < kConvRowsPerThread; ++r)
+#pragma unroll
+    for (int co = 0; co < CO; ++co) acc[r][co] = 0.f;
+
+  constexpr int kTileElems = (kConvTileH + 2) * (kConvTileW + 2);
+  for (int ci0 = 0; ci0 < c_in; ci0 += kConvCiChunk) {
+    for (int idx = tid; idx < kConvCiChunk * kTileElems; idx += kConvThreads) {
+      const int ci = idx / kTileElems;
+      const int rem = idx - ci * kTileElems;
+      const int yy = rem / (kConvTileW + 2);
+      const int xx = rem - yy * (kConvTileW + 2);
+      const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
+      float v = 0.f;
+      if (ci0 + ci < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = in_n[(size_t)(ci0 + ci) * hw + (size_t)gy * W + gx];
+      tile[ci][yy][xx] = v;
+    }
+    for (int idx = tid; idx < kConvCiChunk * 9 * CO; idx += kConvThreads) {
+      const int co = idx % CO;
+      const int t = idx / CO;
+      const int tap = t % 9;
+      const int ci = t / 9;
+      float v = 0.f;
+      if (ci0 + ci < c_in)
+        v = adjoint ? weight[((size_t)(ci0 + ci) * c_out + co0 + co) * 9 + (8 - tap)]
+                    : weight[((size_t)(co0 + co) * c_in + ci0 + ci) * 9 + tap];
+      wsm[ci][tap][co] = v;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int ci = 0; ci < kConvCiChunk; ++ci) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float v[kConvRowsPerThread + 2];
+#pragma unroll
+        for (int r = 0; r < kConvRowsPerThread + 2; ++r)
+          v[r] = tile[ci][ty * kConvRowsPerThread + r][tx + dx];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          float wv[CO];
+          if constexpr (CO % 4 == 0) {
+            const float4* w4 = reinterpret_cast<const float4*>(&wsm[ci][dy * 3 + dx][0]);
+#pragma unroll
+            for (int q = 0; q < CO / 4; ++q) {
+              const float4 t = w4[q];
+              wv[4 * q] = t.x; wv[4 * q + 1] = t.y; wv[4 * q + 2] = t.z; wv[4 * q + 3] = t.w;
+            }
+          } else {
+#pragma unroll
+            for (int co = 0; co < CO; ++co) wv[co] = wsm[ci][dy * 3 + dx][co];
+          }
+#pragma unroll
+          for (int co = 0; co < CO; ++co)
+#pragma unroll
+            for (int r = 0; r < kConvRowsPerThread; ++r)
+              acc[r][co] = fmaf(v[r + dy], wv[co], acc[r][co]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int gx = x0 + tx;
+  if (gx >= W) return;
+#pragma unroll
+  for (int r = 0; r < kConvRowsPerThread; ++r) {
+    const int gy = y0 + ty * kConvRowsPerThread + r;
+    if (gy >= H) continue;
+    const size_t pix = (size_t)gy * W + gx;
+#pragma unroll
+    for (int co = 0; co < CO; ++co) {
+      const size_t o = ((size_t)n * c_out + co0 + co) * hw + pix;
+      float v = acc[r][co];
+      if (bias != nullptr) v += bias[co0 + co];
+      if (skip != nullptr) v += skip[o];
+      if (gate != nullptr) {
+        v = v > 0.f ? gate[o] : 0.f;
+      } else {
+        if (relu) v = fmaxf(v, 0.f);
+        if (residual) v += in_n[(size_t)(co0 + co) * hw + pix];
+      }
+      out[o] = v;
+    }
+  }
+}
+
+// ------------------------------------------------------------------- FFTs
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// tw[t] = exp(-2 pi i t / L) for t < L/2 (L a power of two, so 2t/L is exact).
+__device__ void make_twiddles(float2* tw, int L) {
+  for (int t = threadIdx.x; t < L / 2; t += blockDim.x) {
+    float s, c;
+    sincospif(2.0f * (float)t / (float)L, &s, &c);
+    tw[t] = make_float2(c, -s);
+  }
+}
+
+// In-place radix-2 decimation-in-time FFT of `count` complex sequences of
+// length L = 2^log_l stored at data[a * stride + i]. Unnormalised; the
+// inverse uses conjugate twiddles. The caller has synchronised the block
+// after filling `data` and `tw`; the function ends synchronised.
+__device__ void fft_radix2(float2* data, int count, int stride, int log_l,
+                           const float2* tw, bool inverse) {
+  const int L = 1 << log_l;
+  for (int idx = threadIdx.x; idx < (count << log_l); idx += blockDim.x) {
+    const int a = idx >> log_l, i = idx & (L - 1);
+    const int j = (int)(__brev((unsigned)i) >> (32 - log_l));
+    if (i < j) {
+      float2* p = data + (size_t)a * stride;
+      const float2 t = p[i];
+      p[i] = p[j];
+      p[j] = t;
+    }
+  }
+  __syncthreads();
+  const int half = L >> 1;
+  for (int s = 0; s < log_l; ++s) {
+    const int m = 1 << s;
+    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
+      const int a = idx >> (log_l - 1);
+      const int b = idx & (half - 1);
+      const int j = b & (m - 1);
+      const int i0 = ((b >> s) << (s + 1)) + j;
+      float2 w = tw[j << (log_l - 1 - s)];
+      if (inverse) w.y = -w.y;
+      float2* p = data + (size_t)a * stride;
+      const float2 u = p[i0];
+      const float2 v = cmul(w, p[i0 + m]);
+      p[i0] = make_float2(u.x + v.x, u.y + v.y);
+      p[i0 + m] = make_float2(u.x - v.x, u.y - v.y);
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int kRowsPerBlock = 16;         // 8 packed complex rows per block
+constexpr int kRowThreads = 256;
+constexpr int kColThreads = 512;
+
+// Row pass: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W}
+// for k <= W/2. Rows 2p and 2p+1 go through one complex FFT z = a + i b:
+// A[k] = (Z[k] + conj Z[W-k]) / 2, B[k] = (Z[k] - conj Z[W-k]) / 2i.
+__global__ void __launch_bounds__(kRowThreads)
+row_rfft_kernel(const float* __restrict__ x, float2* __restrict__ spec,
+                int C, int H, int W, int log_w, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* buf = reinterpret_cast<float2*>(smem_raw);   // [kRowsPerBlock/2][W]
+  float2* tw = buf + (kRowsPerBlock / 2) * W;          // [W/2]
+  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
+  const int K = W / 2 + 1;
+  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
+
+  make_twiddles(tw, W);
+  for (int idx = threadIdx.x; idx < (kRowsPerBlock / 2) * W; idx += blockDim.x) {
+    const int p = idx >> log_w, col = idx & (W - 1);
+    buf[idx] = make_float2(xs[(size_t)(2 * p) * W + col],
+                           xs[(size_t)(2 * p + 1) * W + col]);
+  }
+  __syncthreads();
+  fft_radix2(buf, kRowsPerBlock / 2, W, log_w, tw, false);
+
+  const float s = 0.5f * scale;
+  float2* dst = spec + ((size_t)n * C + c) * K * H;
+  for (int idx = threadIdx.x; idx < K * kRowsPerBlock; idx += blockDim.x) {
+    const int k = idx / kRowsPerBlock, r = idx - k * kRowsPerBlock;
+    const float2* row = buf + (r >> 1) * W;
+    const float2 z = row[k];
+    const float2 zc = row[(W - k) & (W - 1)];
+    const float2 v = (r & 1) ? make_float2(z.y + zc.y, zc.x - z.x)
+                             : make_float2(z.x + zc.x, z.y - zc.y);
+    dst[(size_t)k * H + r0 + r] = make_float2(v.x * s, v.y * s);
+  }
+}
+
+// Column pass, one block per (k, n): H-point FFT of each channel's column,
+// then at every h the 2C x 2C spectral mix + bias + ReLU over the stacked
+// [Re; Im] channels, then the inverse H-point FFT; both FFTs scaled
+// 1/sqrt(H). mix is (2C_out, 2C_in) row-major. Reads `src`, writes `dst`
+// (both (N, C, K, H) complex; they may be the same buffer: every block
+// reads its whole column before it writes).
+template <int C>
+__global__ void __launch_bounds__(kColThreads)
+column_mix_kernel(const float2* src, float2* dst, const float* __restrict__ mix,
+                  const float* __restrict__ mix_bias, int H, int log_h, int K,
+                  float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* data = reinterpret_cast<float2*>(smem_raw);  // [C][H]
+  float2* tw = data + C * H;                            // [H/2]
+  float* msm = reinterpret_cast<float*>(tw + H / 2);    // [2C][2C]
+  float* bsm = msm + 4 * C * C;                         // [2C]
+  const int k = blockIdx.x, n = blockIdx.y;
+  const size_t base = (size_t)n * C * K * H + (size_t)k * H;
+  const size_t cstride = (size_t)K * H;
+
+  for (int idx = threadIdx.x; idx < C * H; idx += blockDim.x)
+    data[idx] = src[base + (size_t)(idx >> log_h) * cstride + (idx & (H - 1))];
+  for (int idx = threadIdx.x; idx < 4 * C * C; idx += blockDim.x) msm[idx] = mix[idx];
+  for (int idx = threadIdx.x; idx < 2 * C; idx += blockDim.x) bsm[idx] = mix_bias[idx];
+  make_twiddles(tw, H);
+  __syncthreads();
+  fft_radix2(data, C, H, log_h, tw, false);
+
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    float v[2 * C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float2 z = data[c * H + i];
+      v[c] = z.x * scale;
+      v[C + c] = z.y * scale;
+    }
+    // every value of column i is in registers: write the outputs in place
+#pragma unroll 2
+    for (int o = 0; o < 2 * C; ++o) {
+      const float4* row = reinterpret_cast<const float4*>(msm + o * 2 * C);
+      float acc = bsm[o];
+#pragma unroll
+      for (int q = 0; q < C / 2; ++q) {
+        const float4 m = row[q];
+        acc = fmaf(m.x, v[4 * q], acc);
+        acc = fmaf(m.y, v[4 * q + 1], acc);
+        acc = fmaf(m.z, v[4 * q + 2], acc);
+        acc = fmaf(m.w, v[4 * q + 3], acc);
+      }
+      acc = fmaxf(acc, 0.f);
+      if (o < C) data[o * H + i].x = acc;
+      else data[(o - C) * H + i].y = acc;
+    }
+  }
+  __syncthreads();
+  fft_radix2(data, C, H, log_h, tw, true);
+
+  for (int idx = threadIdx.x; idx < C * H; idx += blockDim.x) {
+    const float2 z = data[idx];
+    dst[base + (size_t)(idx >> log_h) * cstride + (idx & (H - 1))] =
+        make_float2(z.x * scale, z.y * scale);
+  }
+}
+
+// Inverse row pass: out[n, c, r, w] += c2r_W(spec[n, c, :, r])[w] (ortho).
+// The c2r keeps only the real part of the bins 0 and W/2, like irfft2.
+// Rows 2p, 2p+1 with half spectra A, B go through one complex inverse FFT
+// of Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i conj B[k].
+__global__ void __launch_bounds__(kRowThreads)
+row_irfft_add_kernel(const float2* __restrict__ spec, float* __restrict__ out,
+                     int C, int H, int W, int log_w, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* buf = reinterpret_cast<float2*>(smem_raw);   // [kRowsPerBlock/2][W]
+  float2* tw = buf + (kRowsPerBlock / 2) * W;
+  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
+  const int K = W / 2 + 1;
+  const float2* src = spec + ((size_t)n * C + c) * K * H;
+
+  make_twiddles(tw, W);
+  constexpr int kPairs = kRowsPerBlock / 2;
+  for (int idx = threadIdx.x; idx < K * kPairs; idx += blockDim.x) {
+    const int k = idx / kPairs, p = idx - k * kPairs;
+    float2 a = src[(size_t)k * H + r0 + 2 * p];
+    float2 b = src[(size_t)k * H + r0 + 2 * p + 1];
+    const bool edge = (k == 0) || (k == W / 2);
+    if (edge) { a.y = 0.f; b.y = 0.f; }
+    float2* row = buf + p * W;
+    row[k] = make_float2(a.x - b.y, a.y + b.x);
+    if (!edge) row[W - k] = make_float2(a.x + b.y, b.x - a.y);
+  }
+  __syncthreads();
+  fft_radix2(buf, kPairs, W, log_w, tw, true);
+
+  float* dst = out + (((size_t)n * C + c) * H + r0) * W;
+  for (int idx = threadIdx.x; idx < kPairs * W; idx += blockDim.x) {
+    const int p = idx >> log_w, col = idx & (W - 1);
+    const float2 z = buf[idx];
+    dst[(size_t)(2 * p) * W + col] += z.x * scale;
+    dst[(size_t)(2 * p + 1) * W + col] += z.y * scale;
+  }
+}
+
+int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+cudaError_t launch_conv(const float* in, const float* weight, const float* bias,
+                        const float* skip, const float* gate, float* out, int n,
+                        int c_in, int c_out, int H, int W, int relu, int residual,
+                        int adjoint, cudaStream_t stream) {
+  const dim3 block(kConvTileW, kConvThreadsY);
+  if (c_out % 8 == 0) {
+    const dim3 grid((W + kConvTileW - 1) / kConvTileW,
+                    (H + kConvTileH - 1) / kConvTileH, n * (c_out / 8));
+    conv3x3_kernel<8><<<grid, block, 0, stream>>>(in, weight, bias, skip, gate, out,
+                                                 c_in, c_out, H, W, relu, residual,
+                                                 adjoint);
+  } else if (c_out == 1) {
+    const dim3 grid((W + kConvTileW - 1) / kConvTileW,
+                    (H + kConvTileH - 1) / kConvTileH, n);
+    conv3x3_kernel<1><<<grid, block, 0, stream>>>(in, weight, bias, skip, gate, out,
+                                                 c_in, c_out, H, W, relu, residual,
+                                                 adjoint);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_column(const float2* src, float2* dst, const float* mix,
+                          const float* mix_bias, int n, int H, int log_h, int K,
+                          float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)C * H * sizeof(float2) + (size_t)(H / 2) * sizeof(float2) +
+                      (size_t)(4 * C * C + 2 * C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      column_mix_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  column_mix_kernel<C><<<dim3(K, n), kColThreads, smem, stream>>>(
+      src, dst, mix, mix_bias, H, log_h, K, scale);
+  return cudaGetLastError();
+}
+
+// The column pass for the channel counts the kernels are instantiated for.
+cudaError_t launch_column_any(const float2* src, float2* dst, const float* mix,
+                              const float* mix_bias, int n, int c, int h, int w,
+                              cudaStream_t stream) {
+  const int log_h = log2_exact(h), K = w / 2 + 1;
+  const float scale = 1.0f / sqrtf((float)h);
+  switch (c) {
+    case 8: return launch_column<8>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
+    case 16: return launch_column<16>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
+    case 32: return launch_column<32>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+size_t row_smem_bytes(int w) {
+  return (size_t)((kRowsPerBlock / 2) * w + w / 2) * sizeof(float2);
+}
+
+// Row rFFT of x (n, c, h, w) into spec (n, c, w/2+1, h) complex, ortho.
+cudaError_t launch_row_rfft(const float* x, float2* spec, int n, int c, int h, int w,
+                            cudaStream_t stream) {
+  const size_t smem = row_smem_bytes(w);
+  cudaError_t err = cudaFuncSetAttribute(
+      row_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  row_rfft_kernel<<<dim3(h / kRowsPerBlock, c, n), kRowThreads, smem, stream>>>(
+      x, spec, c, h, w, log2_exact(w), 1.0f / sqrtf((float)w));
+  return cudaGetLastError();
+}
+
+// out (n, c, h, w) += row c2r of spec (n, c, w/2+1, h) complex, ortho.
+cudaError_t launch_row_irfft_add(const float2* spec, float* out, int n, int c, int h,
+                                 int w, cudaStream_t stream) {
+  const size_t smem = row_smem_bytes(w);
+  cudaError_t err = cudaFuncSetAttribute(
+      row_irfft_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  row_irfft_add_kernel<<<dim3(h / kRowsPerBlock, c, n), kRowThreads, smem, stream>>>(
+      spec, out, c, h, w, log2_exact(w), 1.0f / sqrtf((float)w));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define RETURN_IF_ERROR(expr)                    \
+  do {                                           \
+    const cudaError_t e_ = (expr);               \
+    if (e_ != cudaSuccess) return (int)e_;       \
+  } while (0)

@@ -1,5 +1,12 @@
-"""Test-set metric sweep (counterpart of ``run_test`` and the ``mtd`` branch
-of ``_predictor_for`` in ``mtd_gan_tpu/engine/loops.py``).
+"""Epoch loops of the MTD-GAN family: ``train_one_epoch``, ``validate`` and
+the test-set metric sweep ``run_test`` (counterpart of
+``mtd_gan_tpu/engine/loops.py``).
+
+Training: per batch, the HU pair goes to the model's device, the train
+preprocess cuts and augments the crops there, and one trainer step runs;
+step metrics stay on the device and are fetched at print boundaries.
+Validation: full-slice predictions, the criterion per slice, and PNGs of
+the last slice.
 
 Per slice: RMSE / PSNR / SSIM for the input, gt and prediction columns, a
 PNG of the clipped prediction, and a row of ``pred_results.csv``; the means
@@ -13,13 +20,15 @@ from __future__ import annotations
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, Iterator, List, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mtd_gan_tpu_torch import losses as losses_lib
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
+from mtd_gan_tpu_torch.utils.logging import MetricLogger
 
 _METRIC_COLUMNS = ("input_rmse", "gt_rmse", "pred_rmse",
                    "input_psnr", "gt_psnr", "pred_psnr",
@@ -33,6 +42,57 @@ def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]
             f"family {family!r} is not ported yet (ROADMAP.md queue 1, "
             f"items 8-11)")
     return model.generate
+
+
+def train_one_epoch(trainer, loader: Iterable, preprocess,
+                    generator: torch.Generator, print_freq: int = 10,
+                    header: str = "Train:") -> Dict[str, float]:
+    """One epoch over ``loader`` items ``(hu_x, hu_y)``; returns the epoch
+    means of the step metrics. Non-finite metrics are reported and the
+    epoch goes on (reference engine.py:208-209)."""
+    logger = MetricLogger()
+    device = trainer.model.device
+    pending: List[Tuple[int, Dict[str, torch.Tensor]]] = []
+
+    def flush():
+        for step, metrics in pending:
+            host = {k: float(v) for k, v in metrics.items()}
+            bad = [k for k, v in host.items() if not np.isfinite(v)]
+            if bad:
+                print(f"WARNING: non-finite metrics at step {step}: {bad}", flush=True)
+            logger.update(**host)
+        pending.clear()
+
+    for i, (hu_x, hu_y) in enumerate(logger.log_every(loader, print_freq, header,
+                                                      pre_print=flush)):
+        x, y = preprocess(torch.from_numpy(np.asarray(hu_x)).to(device),
+                          torch.from_numpy(np.asarray(hu_y)).to(device), generator)
+        pending.append((i, trainer.train_step(x, y)))
+    flush()
+    return logger.global_averages()
+
+
+@torch.no_grad()
+def validate(model, loader: Iterable, eval_preprocess, epoch: int,
+             save_dir: Optional[str] = None,
+             criterion: Callable = losses_lib.l1) -> Dict[str, float]:
+    """Criterion of the generator's prediction per validation slice; PNGs of
+    the last slice's input, ground truth and prediction in ``save_dir``."""
+    logger = MetricLogger()
+    pending, last = [], None
+    for batch in loader:
+        x, y = eval_preprocess(torch.from_numpy(np.asarray(batch[0])).to(model.device),
+                               torch.from_numpy(np.asarray(batch[1])).to(model.device))
+        pred = model.generate(x)
+        pending.append(criterion(pred, y))
+        last = (x, y, pred)
+    for v in torch.stack(pending).cpu().tolist() if pending else []:
+        logger.update(loss=v)
+    if save_dir and last is not None:
+        x, y, pred = (t[0].cpu().numpy() for t in last)
+        for name, img in (("input", x), ("gt", y), ("pred", np.clip(pred, 0, 1))):
+            save_png_gray(os.path.join(save_dir, f"epoch_{epoch}_{name}.png"), img)
+    return logger.global_averages()
 
 
 def _grouped(items: Iterable, group_n: int) -> Iterator[Tuple[List, int]]:

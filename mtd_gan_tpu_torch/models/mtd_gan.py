@@ -1,24 +1,36 @@
-"""MTD-GAN generator (counterpart of ``mtd_gan_tpu/models/mtd_gan.py``:
-``ResFFTGenerator`` and the generator half of ``MTDGANModel``).
+"""MTD-GAN: the Res-FFT generator, the multi-task discriminator and the
+losses of the adversarial step (counterpart of
+``mtd_gan_tpu/models/mtd_gan.py``).
 
-State-dict names follow the reference (arch/Ours/networks.py:38-164):
+State-dict names follow the reference (arch/Ours/networks.py:38-474):
 ``encoder.{i}`` (Conv2d), ``decoder.{i}`` (ConvTranspose2d) and
-``enforce.{i}.img_conv`` / ``enforce.{i}.fft_conv`` (the Res-FFT blocks),
-the layout ``mtd_gan_tpu/utils/torch_import.py::convert_resfft_generator``
-reads.
+``enforce.{i}.img_conv`` / ``enforce.{i}.fft_conv`` for the generator, the
+layout ``mtd_gan_tpu/utils/torch_import.py::convert_resfft_generator``
+reads; ``conv{i}{j}``, ``down{i}``, ``bconv{1,2}``, ``c_fc``, ``enc_out``,
+``s_dconv{i}{j}``, ``dec_out``, ``r_up{i}.upsample.0``, ``r_dconv{i}{j}``,
+``rec_out`` with spectral-norm ``weight_orig`` / ``weight_u`` /
+``weight_v`` for the discriminator, the layout ``convert_mtd_discriminator``
+reads. Activations are NCHW inside; the public functions take the JAX
+package's NHWC ``(N, H, W, 1)`` (the same memory for one channel).
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 from torch import nn
 
+from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
 from mtd_gan_tpu_torch.ops.cuda_pipeline import resfft_generator_nchw
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
-from mtd_gan_tpu_torch.ops.layers import normal_init_
+from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
+from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
+from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 
 INIT_STD = 0.01  # reference init N(0, 0.01), zero biases
+Tensor = torch.Tensor
 
 
 class ResFFTGenerator(nn.Module):
@@ -54,24 +66,127 @@ class ResFFTGenerator(nn.Module):
         return torch.relu(self.decoder[0](h) + x)
 
 
+def _lrelu(x: Tensor) -> Tensor:
+    return nn.functional.leaky_relu(x, 0.2)
+
+
+class MultiTaskDiscriminator(nn.Module):
+    """Spectral-norm encoder (six conv-conv-down stages, 1x1 bottleneck) with
+    a CLS head (SN linear, dropout, linear), a SEG decoder (bilinear 2x +
+    skip concat) and a REC decoder (pixel shuffle + skip concat); input
+    64x64 NCHW, outputs ``(cls (N, 1), seg (N, 1, 64, 64), rec (N, 1, 64,
+    64))``. ``update_stats`` stores each spectral-norm layer's power
+    iteration; ``generator`` draws the dropout mask in training."""
+
+    def __init__(self, in_channels: int = 1, features: int = 64,
+                 dropout_rate: float = 0.3):
+        super().__init__()
+        f = features
+        self.dropout_rate = dropout_rate
+        enc_ch = [f, f * 2, f * 4, f * 8, f * 8, f * 8]
+        c_prev = in_channels
+        for i, ch in enumerate(enc_ch, start=1):
+            setattr(self, f"conv{i}1", SNConv2d(c_prev, ch, 3, padding=1))
+            setattr(self, f"conv{i}2", SNConv2d(ch, ch, 3, padding=1))
+            setattr(self, f"down{i}", SNConv2d(ch, ch, 4, stride=2, padding=1))
+            c_prev = ch
+        self.bconv1 = SNConv2d(f * 8, f * 8, 1)
+        self.bconv2 = SNConv2d(f * 8, f * 8, 1)
+        self.c_fc = SNLinear(f * 8, f * 8)
+        self.enc_out = nn.Linear(f * 8, 1)
+        dec_ch = [f * 8, f * 8, f * 4, f * 2, f, 1]
+        s_prev = r_prev = f * 8
+        for i, ch in enumerate(dec_ch, start=1):
+            skip_ch = enc_ch[6 - i]
+            setattr(self, f"s_dconv{i}1", SNConv2d(s_prev + skip_ch, ch, 3, padding=1))
+            setattr(self, f"s_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+            setattr(self, f"r_up{i}", PixelShuffleUpsample(r_prev, 2))
+            setattr(self, f"r_dconv{i}1", SNConv2d(r_prev + skip_ch, ch, 3, padding=1))
+            setattr(self, f"r_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+            s_prev = r_prev = ch
+        self.dec_out = nn.Conv2d(1, 1, 1)
+        self.rec_out = nn.Conv2d(1, 1, 1)
+
+    def forward(self, x: Tensor, train: bool = True, update_stats: bool = True,
+                generator: Optional[torch.Generator] = None):
+        sn = lambda name, v: _lrelu(getattr(self, name)(v, update_stats))
+        h, skips = x, []
+        for i in range(1, 7):
+            h = sn(f"conv{i}2", sn(f"conv{i}1", h))
+            skips.append(h)
+            h = getattr(self, f"down{i}")(h, update_stats)
+        x_bot = sn("bconv2", sn("bconv1", h))
+
+        c = _lrelu(self.c_fc(x_bot.reshape(x_bot.shape[0], -1), update_stats))
+        if train and self.dropout_rate > 0:
+            keep = torch.rand(c.shape, generator=generator, device=c.device) >= self.dropout_rate
+            c = c * keep / (1.0 - self.dropout_rate)
+        cls = self.enc_out(c)
+
+        s = r = x_bot
+        for i in range(1, 7):
+            s = sn(f"s_dconv{i}1", (upsample2x_bilinear(s), skips[6 - i]))
+            s = sn(f"s_dconv{i}2", s)
+            r = sn(f"r_dconv{i}1", (getattr(self, f"r_up{i}")(r), skips[6 - i]))
+            r = sn(f"r_dconv{i}2", r)
+        return cls, self.dec_out(s), self.rec_out(r)
+
+
+# partition labels for MTO gradient surgery (reference :318-380)
+_D_SHARED_PREFIXES = tuple(
+    [f"conv{i}{j}" for i in range(1, 7) for j in (1, 2)]
+    + [f"down{i}" for i in range(1, 7)] + ["bconv1", "bconv2"])
+_D_TASK_PREFIXES = tuple(
+    [f"s_dconv{i}{j}" for i in range(1, 7) for j in (1, 2)]
+    + [f"r_up{i}" for i in range(1, 7)]
+    + [f"r_dconv{i}{j}" for i in range(1, 7) for j in (1, 2)]
+    + ["enc_out", "dec_out", "rec_out"])
+# "c_fc" is in neither list, as in the reference, whose PCGrad path never
+# populates c_fc.grad (PARITY.md:47)
+
+
+def d_param_label(path: Tuple[str, ...]) -> str:
+    if path[0] in _D_SHARED_PREFIXES:
+        return "shared"
+    if path[0] in _D_TASK_PREFIXES:
+        return "task"
+    return "unassigned"
+
+
+def d_last_shared_label(path: Tuple[str, ...]) -> bool:
+    return path[0] == "bconv2"
+
+
 class MTDGANModel:
-    """Flagship model, generator half: seeded init and ``generate``.
+    """Flagship adversarial model: seeded init, ``generate``, and the losses
+    of the train step. ``d_loss`` returns the stacked 3-task vector the MTO
+    layer consumes; ``g_loss_terms`` is a scalar.
 
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the plain PyTorch path."""
 
     name = "MTD_GAN"
+    n_d_tasks = 3
 
-    def __init__(self, gen_features: int = 32, num_layers: int = 10,
+    def __init__(self, gen_features: int = 32, disc_features: int = 64,
+                 num_layers: int = 10, dropout_rate: float = 0.3,
                  device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
         self.num_layers = num_layers
+        init = torch.Generator().manual_seed(seed)
         gen = ResFFTGenerator(1, gen_features, num_layers)
-        normal_init_(gen, INIT_STD, torch.Generator().manual_seed(seed))
+        normal_init_(gen, INIT_STD, init)
         self.generator = gen.to(self.device).eval()
+        disc = MultiTaskDiscriminator(1, disc_features, dropout_rate)
+        normal_init_(disc, INIT_STD, init)
+        with torch.no_grad():  # u, v: unit vectors drawn from the same seed
+            for name, buf in disc.named_buffers():
+                buf.copy_(nn.functional.normalize(
+                    torch.randn(buf.shape, generator=init), dim=0))
+        self.discriminator = disc.to(self.device)
 
     @torch.no_grad()
-    def generate(self, x: torch.Tensor) -> torch.Tensor:
+    def generate(self, x: Tensor) -> Tensor:
         """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` runs the K1
         kernel pipeline (H == W in {64, 128, 256, 512}, else it raises); a
         CPU ``x`` runs the plain module."""
@@ -82,3 +197,72 @@ class MTDGANModel:
             return resfft_generator_nchw(self.generator.state_dict(), x,
                                          self.num_layers)
         return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    # ---- losses (reference arch/Ours/networks.py:1957-2009) ----
+    def _apply_d(self, z: Tensor, update_stats: bool,
+                 generator: Optional[torch.Generator]):
+        return self.discriminator(z.permute(0, 3, 1, 2), train=True,
+                                  update_stats=update_stats, generator=generator)
+
+    def d_loss(self, x: Tensor, y: Tensor, fake: Tensor, update_stats: bool = False,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Stacked ``[disc, rec, consist]`` on NHWC ``x``, ``y`` and the
+        generator output ``fake`` (detached here). D runs twice, each time on
+        a concatenated pair: ``[y; fake]``, then the clipped restorations
+        ``[clip(real_rec); clip(fake_rec)]`` (restoration consistency)."""
+        fake = fake.detach()
+        b = y.shape[0]
+        as_nhwc = lambda t: t.permute(0, 2, 3, 1) if t.dim() == 4 else t
+        pair1 = [as_nhwc(t) for t in self._apply_d(torch.cat([y, fake]), update_stats,
+                                                   generator)]
+        (real_enc, real_dec, real_rec) = [t[:b] for t in pair1]
+        (fake_enc, fake_dec, fake_rec) = [t[b:] for t in pair1]
+        diff = x - y
+        d_real_enc = losses.ls_gan(real_enc, 1.0)
+        d_fake_enc = losses.ls_gan(fake_enc, 0.0)
+        d_real_dec = losses.nds_loss(real_dec, 1.0, diff)
+        d_fake_dec = losses.nds_loss(fake_dec, 0.0, diff)
+        disc_loss = d_real_enc + d_fake_enc + d_real_dec + d_fake_dec
+        rec_loss_real = losses.l1(real_rec, y)
+        rec_loss_fake = losses.l1(fake_rec, fake)
+        rec_loss = rec_loss_real + rec_loss_fake
+
+        pair2 = [as_nhwc(t) for t in self._apply_d(
+            torch.cat([real_rec.clamp(0.0, 1.0), fake_rec.clamp(0.0, 1.0)]),
+            update_stats, generator)]
+        rr_enc, rr_dec = pair2[0][:b], pair2[1][:b]
+        rf_enc, rf_dec = pair2[0][b:], pair2[1][b:]
+        c_re = losses.l2(real_enc, rr_enc)
+        c_rd = losses.l2(real_dec, rr_dec)
+        c_fe = losses.l2(fake_enc, rf_enc)
+        c_fd = losses.l2(fake_dec, rf_dec)
+        consist_loss = c_re + c_rd + c_fe + c_fd
+        details = {
+            "D/real_enc": d_real_enc, "D/fake_enc": d_fake_enc,
+            "D/real_dec": d_real_dec, "D/fake_dec": d_fake_dec,
+            "D/rec_loss_real": rec_loss_real, "D/rec_loss_fake": rec_loss_fake,
+            "D/consist_loss_real_enc": c_re, "D/consist_loss_real_dec": c_rd,
+            "D/consist_loss_fake_enc": c_fe, "D/consist_loss_fake_dec": c_fd,
+        }
+        return torch.stack([disc_loss, rec_loss, consist_loss]), details
+
+    def g_loss_terms(self, fake: Tensor, x: Tensor, y: Tensor,
+                     update_stats: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """The generator's loss given ``fake = G(x)`` (NHWC): LSGAN on the CLS
+        head, NDS on the SEG head, 50 x Charbonnier and 50 x EdgeLoss."""
+        gen_enc, gen_dec, _ = self._apply_d(fake, update_stats, generator)
+        gen_dec = gen_dec.permute(0, 2, 3, 1)
+        adv_enc = losses.ls_gan(gen_enc, 1.0)
+        adv_dec = losses.nds_loss(gen_dec, 1.0, x - y)
+        pix_loss = 50.0 * losses.charbonnier_loss(fake, y)
+        edge = 50.0 * losses.edge_loss(fake.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2))
+        total = adv_enc + adv_dec + pix_loss + edge
+        details = {"G/gen_enc": adv_enc, "G/gen_dec": adv_dec,
+                   "G/pix_loss": pix_loss, "G/edge_loss": edge}
+        return total, details
+
+    d_param_label = staticmethod(d_param_label)
+    d_last_shared_label = staticmethod(d_last_shared_label)

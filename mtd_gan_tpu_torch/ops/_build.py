@@ -40,13 +40,15 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for its current source is
-    already built; returns the library path. The compiler's log (with the
-    ``-Xptxas -v`` register and shared-memory report) is kept beside it as
-    ``.log``."""
+    """Compile ``csrc/<name>.cu`` unless a library for its current source
+    (and the ``csrc/*.cuh`` headers it may include) is already built;
+    returns the library path. The compiler's log (with the ``-Xptxas -v``
+    register and shared-memory report) is kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
@@ -83,4 +85,25 @@ def block_fused_library() -> ctypes.CDLL:
     lib.block_fused_forward.restype = ctypes.c_int
     lib.block_fused_error_string.argtypes = [ctypes.c_int]
     lib.block_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def block_bwd_library() -> ctypes.CDLL:
+    """The K2 library (``csrc/block_bwd.cu``), built on first call."""
+    lib = ctypes.CDLL(str(build("block_bwd")))
+    lib.block_bwd.argtypes = [
+        _P, _P, _I, _I, _I, _I,      # x, g, n, c, h, w
+        _P, _P, _P,                  # pre_w, pre_b, skip
+        _P, _P, _P, _P,              # km, kb, mix, mb
+        _P, _P, _P, _P,              # post_w, post_b, img, gfin
+        _P, _P, _P, _P, _P, _P,      # hbuf, rbuf, obuf, gbuf, spec_a, spec_b
+        _P, _P, _P, _P, _I, _I,      # w_part, b_part, mix_part, mb_part, row/k blocks
+        _P, _P, _P, _P, _P,          # xbar, dkm, dkb, dmix, dmb
+        _P, _P, _P,                  # skipbar, dpre_w, dpre_b
+        _P, _P, _P, _P,              # imgbar, dpost_w, dpost_b, stream
+    ]
+    lib.block_bwd.restype = ctypes.c_int
+    lib.block_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.block_bwd_error_string.restype = ctypes.c_char_p
     return lib

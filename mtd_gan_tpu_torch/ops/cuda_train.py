@@ -1,0 +1,247 @@
+"""Training path of the generator on the hand-written kernels K1 and K2
+(counterpart of ``mtd_gan_tpu/ops/pallas_train.py``).
+
+One :class:`BlockTrain` per Res-FFT block: its forward is
+:func:`~mtd_gan_tpu_torch.ops.cuda_pipeline.block_fused` (K1) and it saves
+only the block's inputs; its backward is :func:`block_bwd` (K2), which
+recomputes the block from them: the "save block inputs, recompute inside
+the block" policy of the JAX ``custom_vjp``. On a CUDA tensor
+:func:`block_bwd` launches ``csrc/block_bwd.cu``; on a CPU tensor it runs
+:func:`block_bwd_reference`, autograd through K1's plain version. There is
+no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (ConvParams, KERNEL_CHANNELS, _check,
+                                                 block_fused, block_fused_reference)
+from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
+
+Tensor = torch.Tensor
+Grads = Dict[str, Tensor]
+
+# the image size K2 takes (H == W): the 64x64 training patches
+KERNEL_SIZES = (64,)
+# launch geometry: aim for about two blocks per SM of an H100 (132 SMs)
+_TARGET_BLOCKS = 264
+
+
+def _zeros_if_none(g: Optional[Tensor], like: Tensor) -> Tensor:
+    return torch.zeros_like(like) if g is None else g
+
+
+def block_bwd_reference(x: Tensor, g: Optional[Tensor], h: int, w: int,
+                        km: Tensor, kb: Tensor, mix: Tensor, mb: Tensor,
+                        pre: Optional[ConvParams] = None,
+                        skip: Optional[Tensor] = None,
+                        post: Optional[ConvParams] = None,
+                        img: Optional[Tensor] = None,
+                        gfin: Optional[Tensor] = None) -> Grads:
+    """Plain K2: ``torch.autograd.grad`` through
+    :func:`~mtd_gan_tpu_torch.ops.cuda_pipeline.block_fused_reference`.
+
+    ``g`` is the cotangent of the block output ``out`` (``None`` = zero),
+    ``gfin`` that of ``final`` when ``post`` is given. Returns a dict with
+    ``xbar`` and the batch-summed ``km``, ``kb``, ``mix``, ``mb``; with
+    ``skip`` also ``skip``; with ``pre`` ``pre_w``, ``pre_b``; with ``post``
+    ``img``, ``post_w``, ``post_b``."""
+    named = {"xbar": x, "km": km, "kb": kb, "mix": mix, "mb": mb}
+    if pre is not None:
+        named.update(pre_w=pre[0], pre_b=pre[1])
+    if skip is not None:
+        named["skip"] = skip
+    if post is not None:
+        named.update(post_w=post[0], post_b=post[1], img=img)
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in named.items()}
+        get = leaves.get
+        pre_l = (get("pre_w"), get("pre_b")) if pre is not None else None
+        post_l = (get("post_w"), get("post_b")) if post is not None else None
+        res = block_fused_reference(leaves["xbar"], h, w, leaves["km"], leaves["kb"],
+                                    leaves["mix"], leaves["mb"], pre=pre_l,
+                                    skip=get("skip"), post=post_l, img=get("img"))
+        if post is None:
+            outs, cots = [res], [_zeros_if_none(g, res)]
+        else:
+            outs = list(res)
+            cots = [_zeros_if_none(g, res[0]), _zeros_if_none(gfin, res[1])]
+        grads = torch.autograd.grad(outs, list(leaves.values()), cots,
+                                    allow_unused=True)
+    return {k: (torch.zeros_like(v) if d is None else d)
+            for (k, v), d in zip(leaves.items(), grads)}
+
+
+def _launch_geometry(n: int, h: int, k: int) -> Tuple[int, int]:
+    """(row bands per sample of the weight-gradient launches, k groups per
+    sample of the spectral column launch): enough blocks to fill the card
+    at small batches, few partials at large ones."""
+    row_blocks = 1
+    while row_blocks < h and n * row_blocks < _TARGET_BLOCKS:
+        row_blocks *= 2
+    k_blocks = min(k, max(1, -(-_TARGET_BLOCKS // n)))
+    return row_blocks, k_blocks
+
+
+def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
+              kb: Tensor, mix: Tensor, mb: Tensor,
+              pre: Optional[ConvParams] = None, skip: Optional[Tensor] = None,
+              post: Optional[ConvParams] = None, img: Optional[Tensor] = None,
+              gfin: Optional[Tensor] = None) -> Grads:
+    """K2: same arguments and result as :func:`block_bwd_reference`.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
+    (one C entry call per block backward, counted in ``block_bwd.launches``)
+    or raises: on an unsupported shape or layout, or on a CUDA error."""
+    if x.device.type == "cpu":
+        return block_bwd_reference(x, g, h, w, km, kb, mix, mb, pre=pre,
+                                   skip=skip, post=post, img=img, gfin=gfin)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_bwd: unsupported device {x.device}")
+    n, c_in, hw = x.shape
+    c = km.shape[0]
+    if h != w or h not in KERNEL_SIZES or hw != h * w:
+        raise ValueError(f"block_bwd: the kernel takes H == W in {KERNEL_SIZES}, "
+                         f"got x {tuple(x.shape)} at {h}x{w}")
+    if c not in KERNEL_CHANNELS or c_in != c:
+        raise ValueError(f"block_bwd: the kernel takes C_in == C in "
+                         f"{KERNEL_CHANNELS}, got {c_in} -> {c}")
+    if skip is not None and pre is None:
+        raise ValueError("block_bwd: skip is added in the pre conv")
+    if (post is None) != (img is None):
+        raise ValueError("block_bwd: post and img go together")
+    dev = x.device
+    g = _zeros_if_none(g, x)
+    if post is not None:
+        gfin = _zeros_if_none(gfin, img)
+    pre_w, pre_b = pre if pre is not None else (None, None)
+    post_w, post_b = post if post is not None else (None, None)
+    for t, shape, name in (
+            (x, (n, c, hw), "x"), (g, (n, c, hw), "g"), (km, (c, c, 3, 3), "km"),
+            (kb, (c,), "kb"), (mix, (2 * c, 2 * c), "mix"), (mb, (2 * c,), "mb"),
+            (pre_w, (c, c, 3, 3), "pre weight"), (pre_b, (c,), "pre bias"),
+            (skip, (n, c, hw), "skip"), (post_w, (1, c, 3, 3), "post weight"),
+            (post_b, (1,), "post bias"), (img, (n, 1, hw), "img"),
+            (gfin if post is not None else None, (n, 1, hw), "gfin")):
+        _check(t, shape, dev, name)
+
+    lib = _build.block_bwd_library()
+    k = w // 2 + 1
+    row_blocks, k_blocks = _launch_geometry(n, h, k)
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    act = lambda: empty(n, c, hw)
+    hbuf = act() if pre is not None else None
+    rbuf = act()
+    obuf = act() if (pre is not None or post is not None) else None
+    gbuf = act() if post is not None else None
+    spec_a, spec_b = empty(n, c, k, h, 2), empty(n, c, k, h, 2)
+    w_part = empty(n * row_blocks, c, 9 * c)
+    b_part = empty(n * row_blocks, c)
+    mix_part = empty(n * k_blocks, 2 * c, 2 * c)
+    mb_part = empty(n * k_blocks, 2 * c)
+    out = {"xbar": act(), "km": empty(c, c, 3, 3), "kb": empty(c),
+           "mix": empty(2 * c, 2 * c), "mb": empty(2 * c)}
+    if pre is not None:
+        out.update(pre_w=empty(c, c, 3, 3), pre_b=empty(c))
+    if skip is not None:
+        out["skip"] = act()
+    if post is not None:
+        out.update(img=empty(n, 1, hw), post_w=empty(1, c, 3, 3), post_b=empty(1))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    o = lambda name: ptr(out.get(name))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.block_bwd(
+            ptr(x), ptr(g), n, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
+            ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
+            ptr(img), ptr(gfin), ptr(hbuf), ptr(rbuf), ptr(obuf), ptr(gbuf),
+            ptr(spec_a), ptr(spec_b), ptr(w_part), ptr(b_part), ptr(mix_part),
+            ptr(mb_part), row_blocks, k_blocks, o("xbar"), o("km"), o("kb"),
+            o("mix"), o("mb"), o("skip"), o("pre_w"), o("pre_b"), o("img"),
+            o("post_w"), o("post_b"), stream)
+    if err != 0:
+        msg = lib.block_bwd_error_string(err).decode()
+        raise RuntimeError(f"block_bwd: CUDA error {err} ({msg})")
+    block_bwd.launches += 1
+    return out
+
+
+block_bwd.launches = 0
+
+
+class BlockTrain(torch.autograd.Function):
+    """One Res-FFT block with K1 forward and K2 backward. Inputs are the
+    block's activations and weights (``None`` where absent), in the order
+    ``x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b``;
+    ``post_w`` is the exit deconv already written as a conv."""
+
+    @staticmethod
+    def forward(ctx, x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b,
+                h, w):
+        pre = (pre_w, pre_b) if pre_w is not None else None
+        post = (post_w, post_b) if post_w is not None else None
+        ctx.save_for_backward(x, skip, img, km, kb, mix, mb, pre_w, pre_b,
+                              post_w, post_b)
+        ctx.hw = (h, w)
+        return block_fused(x, h, w, km, kb, mix, mb, pre=pre, skip=skip,
+                           post=post, img=img)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_final=None):
+        x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b = ctx.saved_tensors
+        h, w = ctx.hw
+        pre = (pre_w, pre_b) if pre_w is not None else None
+        post = (post_w, post_b) if post_w is not None else None
+        d = block_bwd(x, grad_out, h, w, km, kb, mix, mb, pre=pre, skip=skip,
+                      post=post, img=img, gfin=grad_final)
+        return (d["xbar"], d.get("skip"), d.get("img"), d["km"], d["kb"], d["mix"],
+                d["mb"], d.get("pre_w"), d.get("pre_b"), d.get("post_w"),
+                d.get("post_b"), None, None)
+
+
+def resfft_generator_train(generator, x: Tensor) -> Tensor:
+    """Differentiable ResFFT generator forward on K1 + K2.
+
+    ``generator``: a :class:`~mtd_gan_tpu_torch.models.mtd_gan.ResFFTGenerator`;
+    ``x``: ``(N, H, W, 1)``. Returns ``(N, H, W, 1)``, the same function as
+    ``generator(x)`` with gradients to every parameter of ``generator``: the
+    entry conv runs as ``F.conv2d`` under autograd, then 2L+1
+    :class:`BlockTrain` calls with the wiring of
+    ``cuda_pipeline.resfft_generator_nchw``. The block weights are built
+    from the parameters with differentiable ops (the deconv flip, the 1x1
+    mix view), so autograd carries their gradients back to the modules."""
+    n, h, w, _ = x.shape
+    L = generator.num_layers
+    x = x.float().contiguous()
+    enc0 = generator.encoder[0]
+    a = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), enc0.weight, enc0.bias, padding=1))
+    a = a.reshape(n, -1, h * w).contiguous()
+    img = x.reshape(n, 1, h * w)
+    conv = lambda m: (m.weight, m.bias)
+    deconv = lambda m: (conv_transpose_as_conv(m.weight), m.bias)
+
+    def blk(a_, i, pre=None, skip=None, post=None):
+        e = generator.enforce[i]
+        pre_w, pre_b = pre if pre is not None else (None, None)
+        post_w, post_b = post if post is not None else (None, None)
+        return BlockTrain.apply(
+            a_, skip, img if post is not None else None, e.img_conv.weight,
+            e.img_conv.bias, e.fft_conv.weight[:, :, 0, 0], e.fft_conv.bias,
+            pre_w, pre_b, post_w, post_b, h, w)
+
+    skips = []
+    for i in range(L):
+        a = blk(a, i, pre=conv(generator.encoder[i]) if i > 0 else None)
+        skips.append(a)
+    a = blk(a, L, pre=conv(generator.encoder[L]))
+    # decoder block 2L-i takes decoder[i+1] and skips[i]
+    for i in range(L - 1, 0, -1):
+        a = blk(a, 2 * L - i, pre=deconv(generator.decoder[i + 1]), skip=skips[i])
+    _, final = blk(a, 2 * L, pre=deconv(generator.decoder[1]), skip=skips[0],
+                   post=deconv(generator.decoder[0]))
+    return final.reshape(n, h, w, 1)

@@ -59,7 +59,6 @@ def main(args) -> dict:
             f"items 8-11); ported: {PORTED_MODELS}")
     device = resolve_device(args.device)
     kwargs = json.loads(args.model_kwargs or "{}")
-    kwargs.pop("disc_features", None)  # the sweep runs the generator only
     model = MTDGANModel(**kwargs, device=device, seed=args.seed)
     epoch, state = load_reference_checkpoint(args.resume)
     model.generator.load_state_dict(state, strict=True)

@@ -1,8 +1,12 @@
-"""Generator weight carry-over.
+"""Weight carry-over from the JAX package and the reference layout.
 
 * :func:`generator_state_dict_from_flax` turns a flax ``ResFFTGenerator``
   ``params`` tree (nested dicts of numpy arrays) into the port's state dict;
-  it is the inverse of ``convert_resfft_generator`` in the JAX package.
+  it is the inverse of ``convert_resfft_generator`` in the JAX package;
+  :func:`discriminator_state_dict_from_flax` does the same for the
+  discriminator with its spectral-norm ``u`` (inverse of
+  ``convert_mtd_discriminator``) and :func:`mtd_gan_state_dict_from_flax`
+  for the whole model;
 * :func:`load_reference_checkpoint` reads a checkpoint in the reference
   layout (``{"model_state_dict": {"Generator.…": …}, "epoch": …}``, as
   ``tools/import_torch_checkpoint.py`` reads it) and returns the generator's
@@ -73,3 +77,52 @@ def load_reference_checkpoint(path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
     if not gen:
         raise KeyError(f"{path}: no '{prefix}' keys in the model state dict")
     return epoch, gen
+
+
+def _sn_entries(sd: Dict[str, torch.Tensor], name: str, w: np.ndarray,
+                u: np.ndarray) -> None:
+    """``name.weight_orig`` / ``weight_u`` / ``weight_v`` of a spectral-norm
+    layer; ``v = n(W^T u)`` on torch's ``(out, -1)`` view, as the next
+    iteration computes it."""
+    w_mat = w.reshape(w.shape[0], -1).astype(np.float64)
+    u = np.asarray(u, np.float32)
+    v = w_mat.T @ u
+    sd[f"{name}.weight_orig"] = _t(w)
+    sd[f"{name}.weight_u"] = _t(u)
+    sd[f"{name}.weight_v"] = _t(v / (np.linalg.norm(v) + 1e-12))
+
+
+def discriminator_state_dict_from_flax(params_d: Mapping[str, Any],
+                                       state_d: Mapping[str, Any]
+                                       ) -> Dict[str, torch.Tensor]:
+    """flax ``MultiTaskDiscriminator`` params and its ``spectral`` state
+    (each layer's ``u``) -> the port's discriminator state dict, the inverse
+    of ``convert_mtd_discriminator``: conv HWIO -> OIHW, dense (in, out) ->
+    (out, in), ``u`` -> ``weight_u``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params_d.items():
+        if name.startswith("r_up"):
+            q = p["proj"]
+            sd[f"{name}.upsample.0.weight"] = _t(np.asarray(q["kernel"]).transpose(3, 2, 0, 1))
+            sd[f"{name}.upsample.0.bias"] = _t(q["bias"])
+            continue
+        k = np.asarray(p["kernel"])
+        w = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+        if name in state_d:
+            _sn_entries(sd, name, w, state_d[name]["u"])
+        else:
+            sd[f"{name}.weight"] = _t(w)
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def mtd_gan_state_dict_from_flax(params_g: Mapping[str, Any],
+                                 params_d: Mapping[str, Any],
+                                 state_d: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The whole model in the reference's ``model_state_dict`` layout:
+    ``Generator.*`` and ``Discriminator.*``."""
+    sd = {f"Generator.{k}": v for k, v in generator_state_dict_from_flax(params_g).items()}
+    sd.update({f"Discriminator.{k}": v for k, v in
+               discriminator_state_dict_from_flax(params_d, state_d).items()})
+    return sd

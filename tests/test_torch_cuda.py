@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernel K1 (mtd_gan_tpu_torch/csrc/block_fused.cu)
-against its plain PyTorch version, on the card. Every test is marked
+"""The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu)
+and K2 (csrc/block_bwd.cu) against their plain PyTorch versions, on the
+card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
 
@@ -10,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import copy
+
+from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
+from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
+                                              resfft_generator_train)
 
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
 # fp32 on both sides, TF32 off; the kernel's radix-2 FFTs and direct convs
@@ -93,3 +99,109 @@ def test_generate_runs_the_kernel_21_times_and_matches_plain(dev):
     with torch.no_grad():
         want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert (got - want).abs().max().item() < 1e-5
+
+
+def _bwd_inputs(dev, variant, c, n, seed, margin=False):
+    """K1's inputs plus seeded cotangents g (of out) and gfin (of final).
+    ``margin``: every bias +-5 (and the res and post conv weights x0.05), so
+    each ReLU's pre-activation keeps its sign far from zero and no mask
+    depends on summation order."""
+    args = _inputs(dev, variant, c, 64, n=n, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    if margin:
+        signed = lambda b: t(5.0 * rng.choice([-1.0, 1.0], b.shape))
+        # the res and post convs read activations of size ~5 (after a
+        # pre conv with a +5 bias): shrink their weights so that each bias
+        # still dominates its pre-activation
+        args.update(km=args["km"] * 0.05, kb=signed(args["kb"]), mb=signed(args["mb"]))
+        if "pre" in args:
+            args["pre"] = (args["pre"][0], signed(args["pre"][1]))
+        if "post" in args:
+            args["post"] = (args["post"][0] * 0.05, signed(args["post"][1]))
+    args["g"] = t(rng.standard_normal((n, c, 64 * 64)))
+    if "post" in variant:
+        args["gfin"] = t(rng.standard_normal((n, 1, 64 * 64)))
+    return args
+
+
+# K2 against autograd through K1's plain version. With sign-certain masks
+# (margin inputs) every output agrees to TOL_REL of its largest magnitude.
+# With 1/sqrt(fan_in) weights a pre-activation within fp32 rounding of zero
+# can take the other side of its ReLU in one of the two versions: a flip in
+# the spectral mask moves one row of dmix and all of xbar by ~1e-3 relative
+# (up to 1.4e-3 in the 2-norm on an H100 at batch 8), so those inputs are
+# held to TOL_BWD_L2 in the relative 2-norm (without a flip the error is
+# ~1e-6).
+TOL_BWD_L2 = 1e-2
+
+
+@pytest.mark.parametrize("margin", [True, False])
+@pytest.mark.parametrize("c,n", [(8, 2), (32, 2), (32, 8)])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_k2_matches_plain_version(dev, variant, c, n, margin):
+    """Every output of K2 against block_bwd_reference, and the kernel
+    repeats bit for bit (no float atomics)."""
+    args = _bwd_inputs(dev, variant, c, n, seed=VARIANTS.index(variant), margin=margin)
+    before = block_bwd.launches
+    got = block_bwd(**args)
+    again = block_bwd(**args)
+    torch.cuda.synchronize()
+    assert block_bwd.launches == before + 2
+    want = block_bwd_reference(**args)
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        d = got[name] - w
+        if margin:
+            rel = (d.abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            assert rel < TOL_REL, (variant, c, n, name, rel)
+        else:
+            rel = (d.norm() / w.norm().clamp_min(1e-30)).item()
+            assert rel < TOL_BWD_L2, (variant, c, n, name, rel)
+        assert torch.equal(got[name], again[name]), name
+
+
+def test_k2_rejects_unsupported_shapes(dev):
+    args = _bwd_inputs(dev, "plain", 8, 2, seed=0)
+    with pytest.raises(ValueError, match="H == W"):
+        block_bwd(**{**args, "x": torch.zeros((2, 8, 32 * 32), device=dev),
+                     "h": 32, "w": 32})
+    with pytest.raises(ValueError, match="contiguous float32"):
+        block_bwd(**{**args, "g": args["g"].double()})
+
+
+def test_train_step_gradient_matches_plain_generator(dev):
+    """One PCGrad step at full width (32 features, 10 layers, D 64
+    features, 8 patches of 64x64) through K1 + K2 and through the plain
+    generator under autograd, from one state: the D losses within 1e-4,
+    and the generator gradient with the same cotangent of fake pulled
+    through both within 1e-2 per leaf in the relative 2-norm
+    (ReLU-boundary flips, see TOL_BWD_L2); 21 K1 and 21 K2 launches."""
+    base = MTDGANModel(gen_features=32, disc_features=64, num_layers=10, device=dev,
+                       seed=3)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((8, 64, 64, 1), device=dev, generator=g)
+    y = (x + 0.05 * torch.randn(x.shape, device=dev, generator=g)).clamp(0, 1)
+    order = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]])
+    out = {}
+    for label, forward in (
+            ("kernel", resfft_generator_train),
+            ("plain", lambda gen, t: gen(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))):
+        model = copy.deepcopy(base)
+        trainer = MTDGANTrainer(model, method="pcgrad", seed=0)
+        before = block_fused.launches
+        fake = forward(model.generator.train(), x)
+        d_losses, _ = trainer.d_update(x, y, fake, order)
+        total, _ = model.g_loss_terms(fake, x, y, generator=trainer.rng)
+        (dfake,) = torch.autograd.grad(total, fake, retain_graph=True)
+        out[label] = (model, fake, d_losses, dfake, block_fused.launches - before)
+    (mk, fk, dk, _, nk), (mp, fp, dp, cp, np_) = out["kernel"], out["plain"]
+    assert (nk, np_) == (21, 0)
+    assert ((dk - dp).abs().max() / dp.abs().max()).item() < 1e-4
+    before = block_bwd.launches
+    gk = torch.autograd.grad(fk, list(mk.generator.parameters()), cp)
+    gp = torch.autograd.grad(fp, list(mp.generator.parameters()), cp)
+    assert block_bwd.launches - before == 21
+    for (name, _), a, b in zip(base.generator.named_parameters(), gk, gp):
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel < 1e-2, (name, rel)
