@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels K1 (csrc/block_fused.cu) and K2 (csrc/block_bwd.cu),
-     one nvcc process each, started together (sm_90a);
+  2. build the kernels K1 (csrc/block_fused.cu), K2 (csrc/block_bwd.cu) and
+     K8 (csrc/spectral_tiled.cu), one nvcc process each, started together
+     (sm_90a), and print the build logs;
   3. hold K1 (``block_fused``) against its plain PyTorch version
      (``block_fused_reference``) at C = 32, 64x64 to 512x512, batch 2, in
      all four variants (plain, pre, pre+skip, pre+skip+post), with the
@@ -16,25 +17,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. serving: the ``mtd_gan_tpu_torch.test`` sweep over 16 synthetic
      512x512 DICOM pairs with seeded weights saved as a reference-layout
      .pth — the serving path, whose K1 launches are counted;
-  6. hold K2 (``block_bwd``) against its plain version
+  6. hold K8 (``spectral_branch_tiled``) against its plain version
+     (``spectral_branch_tiled_reference``) at C = 32, batch 2, 192x192 to
+     768x768 and 512x320, with and without the residual, with the
+     reference init and with 1/sqrt(fan_in) weights; H = 100 and C = 24
+     must raise;
+  7. ``generate`` at 448x448, batch 8, full width, against the plain
+     module: 21 K8 and 0 K1 launches per call; one 512x320 call at batch 2
+     the same;
+  8. serving at 448x448: the ``test`` sweep over 16 synthetic 448x448
+     DICOM pairs — the tiled serving path, 42 K8 and 0 K1 launches;
+  9. hold K2 (``block_bwd``) against its plain version
      (``block_bwd_reference``, autograd through K1's) at 64x64, C = 32,
      batch 2 and 8, in the four variants, with the reference init, with
      1/sqrt(fan_in) weights and with sign-certain ("margin") biases;
-  7. the PCGrad train step at full width (generator 32 features x 10
+  10. the PCGrad train step at full width (generator 32 features x 10
      layers, discriminator 64 features, 160 patches of 64x64 cut by
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
      state, the generator gradient and the D losses through K1 + K2 against
      the plain generator under autograd; then 3 more kernel steps, finite
      losses and 21 K1 + 21 K2 launches per step;
-  8. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
+  11. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
      of 20 slices, validation) on synthetic train / valid splits — the
      training path, whose K1 and K2 launches are counted — then
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
-  9. timings with CUDA events (K1 and K2 and their plain versions per
-     block call, generate and sweep slices/s, ms per train step and
-     patches/s), torch.profiler breakdowns of one generate call and of one
-     train step by kernel, then the kernel JSON line, the card line and the
-     result line.
+  12. timings with CUDA events (K1, K2 and K8 and their plain versions per
+     call beside their bounds, generate and sweep slices/s at 512x512 and
+     448x448, ms per train step and patches/s), torch.profiler breakdowns
+     of one generate call at each size and of one train step by kernel,
+     then the kernel JSON line, the card line and the result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
 """
@@ -61,6 +72,8 @@ from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_tiled,
+                                                spectral_branch_tiled_reference)
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
@@ -71,6 +84,9 @@ from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 # they differ by FFT algorithm (radix-2 in shared memory vs cuFFT) and
 # summation order, ~1e-6 relative
 TOL_BLOCK_REL = 1e-4
+# max |kernel - plain| / max |plain| per K8 call: fp32 both sides, mixed-
+# radix FFTs in shared memory against cuFFT (other order of summation)
+TOL_TILED_REL = 1e-4
 # max |kernel - plain| on the [0, 1] generator output after 21 blocks
 TOL_GENERATE_ABS = 1e-3
 # K2 against autograd through K1's plain version, per output. With
@@ -99,6 +115,7 @@ PEAK_HBM_BYTES = 3.35e12
 
 C = 32
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
+TILED_SHAPES = ((192, 192), (320, 320), (384, 384), (448, 448), (512, 320), (768, 768))
 TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
 
 
@@ -228,6 +245,118 @@ def check_kernel():
     return worst_abs
 
 
+def tiled_inputs(n: int, h: int, w: int, init: str, seed: int):
+    """Seeded K8 inputs (NCHW, C = 32) on the GPU. ``init``: "reference"
+    (N(0, 0.01) mix, zero bias) or "fan_in" (std 1/sqrt(2C), bias 0.1);
+    the residual N(0, 0.5)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+    std = 0.01 if init == "reference" else 1.0 / math.sqrt(2 * C)
+    bias = np.zeros(2 * C) if init == "reference" else rng.standard_normal(2 * C) * 0.1
+    return dict(x=t(rng.random((n, C, h, w))),
+                mix=t(rng.standard_normal((2 * C, 2 * C)) * std), bias=t(bias),
+                residual=t(rng.standard_normal((n, C, h, w)) * 0.5))
+
+
+def check_k8():
+    """Phase 6; returns the largest absolute error seen."""
+    worst_abs = 0.0
+    for si, (h, w) in enumerate(TILED_SHAPES):
+        for init in ("reference", "fan_in"):
+            args = tiled_inputs(2, h, w, init, seed=si)
+            for with_res in (False, True):
+                call = dict(args) if with_res else {**args, "residual": None}
+                got = spectral_branch_tiled(**call)
+                want = spectral_branch_tiled_reference(**call)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"K8 {h}x{w} {init} residual={with_res}: non-finite output")
+                err = (got - want).abs().max().item()
+                rel = err / max(want.abs().max().item(), 1e-30)
+                worst_abs = max(worst_abs, err)
+                print(f"K8 check {h}x{w} C={C} n=2 {init:9s} residual={with_res!s:5s}: "
+                      f"max_abs {err:.3e} rel {rel:.3e}", flush=True)
+                if rel > TOL_TILED_REL:
+                    fail(f"K8 {h}x{w} {init} residual={with_res}: relative error "
+                         f"{rel:.3e} > {TOL_TILED_REL}")
+    for label, call in (
+            ("H = 100", {**tiled_inputs(1, 64, 64, "fan_in", 0),
+                         "x": torch.zeros((1, C, 100, 100), device="cuda"),
+                         "residual": None}),
+            ("C = 24", {"x": torch.zeros((1, 24, 64, 64), device="cuda"),
+                        "mix": torch.zeros((48, 48), device="cuda"),
+                        "bias": torch.zeros(48, device="cuda")})):
+        try:
+            spectral_branch_tiled(**call)
+        except ValueError as e:
+            print(f"K8 outside its domain ({label}) raises: {e}", flush=True)
+        else:
+            fail(f"K8 took a call outside its domain ({label})")
+    return worst_abs
+
+
+def check_tiled_generate(model, x448):
+    """Phase 7: generate at 448x448 and at 512x320 against the plain module,
+    through K8 only."""
+    rng = np.random.default_rng(7)
+    x_rect = torch.tensor(phantom(rng, 2, 512)[:, :, 96:416, None], dtype=torch.float32,
+                          device="cuda")
+    for x in (x448, x_rect):
+        n, h, w, _ = x.shape
+        block_fused.launches = spectral_branch_tiled.launches = 0
+        pred = model.generate(x)
+        torch.cuda.synchronize()
+        k1, k8 = block_fused.launches, spectral_branch_tiled.launches
+        with torch.no_grad():
+            plain = plain_forward(model.generator, x)
+        if pred.shape != x.shape or not torch.isfinite(pred).all():
+            fail(f"generate {h}x{w} output {tuple(pred.shape)} not finite/expected")
+        err = (pred - plain).abs().max().item()
+        print(f"generate {h}x{w} batch {n} (21 blocks, tiled): max_abs vs plain module "
+              f"{err:.3e} (tol {TOL_GENERATE_ABS}); K8 launches {k8}, K1 launches {k1}",
+              flush=True)
+        if (k8, k1) != (21, 0):
+            fail(f"generate {h}x{w}: {k8} K8 and {k1} K1 launches, expected 21 and 0")
+        if err > TOL_GENERATE_ABS:
+            fail(f"generate {h}x{w} error {err:.3e} > {TOL_GENERATE_ABS}")
+
+
+def run_sweep(model, rng, tmp: str, size: int, n_slices: int = 16):
+    """The ``test`` CLI over ``n_slices`` synthetic size x size DICOM pairs
+    with the model's weights saved as a reference-layout .pth; the launch
+    counts are zeroed just before the run and read just after. Returns
+    (seconds, K1 launches, K8 launches)."""
+    root = os.path.join(tmp, f"data{size}")
+    write_split(root, "test", rng, n_slices, size=size)
+    ckpt = os.path.join(tmp, "weights.pth")
+    sd = {f"Generator.{k}": v.detach().cpu() for k, v in model.generator.state_dict().items()}
+    torch.save({"model_state_dict": sd, "epoch": 0}, ckpt)
+    save_dir = os.path.join(tmp, f"out{size}")
+    args = test_cli.get_args_parser().parse_args([
+        "--data-root", root, "--resume", ckpt, "--save-dir", save_dir,
+        "--no-feature-metrics", "--device", "cuda", "--seed", "0",
+        "--model-kwargs", json.dumps({"gen_features": C, "num_layers": 10}),
+    ])
+    block_fused.launches = spectral_branch_tiled.launches = 0
+    t0 = time.perf_counter()
+    summary = test_cli.main(args)
+    sweep_s = time.perf_counter() - t0
+    k1, k8 = block_fused.launches, spectral_branch_tiled.launches
+    with open(os.path.join(save_dir, "pred_results.csv")) as f:
+        n_rows = sum(1 for _ in f) - 1
+    n_png = len(os.listdir(os.path.join(save_dir, "png")))
+    with open(os.path.join(save_dir, "test_summary.json")) as f:
+        written = json.load(f)
+    if n_rows != n_slices or n_png != n_slices:
+        fail(f"sweep {size}^2 wrote {n_rows} rows and {n_png} PNGs, expected {n_slices}")
+    if not all(math.isfinite(v) for v in list(summary.values()) + list(written.values())):
+        fail(f"non-finite sweep {size}^2 metrics: {summary}")
+    print(f"sweep {size}x{size}: {n_rows} rows, {n_png} PNGs, pred_psnr "
+          f"{summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}; "
+          f"K1 launches {k1}, K8 launches {k8}", flush=True)
+    return sweep_s, k1, k8
+
+
 def irfft2_cuda_vs_cpu():
     """Why the plain spectral branch zeroes the imaginary parts of the W
     bins 0 and W/2 itself: torch.fft.irfft2 of a non-Hermitian spectrum on
@@ -312,6 +441,19 @@ def k2_work(n: int, size: int, variant: str):
     if "post" in variant:
         flops += n * (mix + fft + 3 * (2 * 9 * C * hw + 3 * hw))
         words += 2 * (9 * C + 1) + 3 * n * hw  # post weights + grads; img, gfin, imgbar
+    return flops, 4 * words
+
+
+def k8_work(n: int, h: int, w: int):
+    """(FLOPs, bytes) one K8 call with the residual needs. FLOPs: a real 2-D
+    FFT forward and one inverse, 2.5*HW*log2(HW) each per channel; the
+    spectral mix 2*(2C)^2 per (h, k) bin plus bias and ReLU; the residual
+    add. Bytes: x, residual and out once each, the mix and its bias, fp32."""
+    hw = h * w
+    k = w // 2 + 1
+    flops = n * (2 * 2.5 * C * hw * math.log2(hw)
+                 + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k + C * hw)
+    words = 3 * n * C * hw + 4 * C * C + 2 * C
     return flops, 4 * words
 
 
@@ -491,14 +633,15 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build both kernels in parallel (one nvcc each)
+    # ---- 2. build the three kernels in parallel (one nvcc each)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(_build.build, ("block_fused", "block_bwd")))
+    names = ("block_fused", "block_bwd", "spectral_tiled")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        libs = list(pool.map(_build.build, names))
     _build.block_fused_library()
     _build.block_bwd_library()
-    print(f"build: block_fused and block_bwd in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    _build.spectral_tiled_library()
+    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
@@ -528,54 +671,42 @@ def main():
           f"{gen_err:.3e} (tol {TOL_GENERATE_ABS}); K1 launches 21", flush=True)
     if gen_err > TOL_GENERATE_ABS:
         fail(f"generate error {gen_err:.3e} > {TOL_GENERATE_ABS}")
+    del pred, plain
 
-    # ---- 5. serving: the main path
+    n_slices = 16
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root = os.path.join(tmp, "data")
-        n_slices = 16
-        write_split(root, "test", rng, n_slices)
-        ckpt = os.path.join(tmp, "weights.pth")
-        sd = {f"Generator.{k}": v.detach().cpu()
-              for k, v in model.generator.state_dict().items()}
-        torch.save({"model_state_dict": sd, "epoch": 0}, ckpt)
-        save_dir = os.path.join(tmp, "out")
-        args = test_cli.get_args_parser().parse_args([
-            "--data-root", root, "--resume", ckpt, "--save-dir", save_dir,
-            "--no-feature-metrics", "--device", "cuda", "--seed", "0",
-            "--model-kwargs", json.dumps({"gen_features": C, "num_layers": 10}),
-        ])
-        block_fused.launches = 0
-        t0 = time.perf_counter()
-        summary = test_cli.main(args)
-        sweep_s = time.perf_counter() - t0
-        launches = block_fused.launches
-        with open(os.path.join(save_dir, "pred_results.csv")) as f:
-            n_rows = sum(1 for _ in f) - 1
-        n_png = len(os.listdir(os.path.join(save_dir, "png")))
-        with open(os.path.join(save_dir, "test_summary.json")) as f:
-            written = json.load(f)
-    if n_rows != n_slices or n_png != n_slices:
-        fail(f"sweep wrote {n_rows} rows and {n_png} PNGs, expected {n_slices}")
-    if not all(math.isfinite(v) for v in list(summary.values()) + list(written.values())):
-        fail(f"non-finite sweep metrics: {summary}")
-    if launches != 2 * 21:
-        fail(f"sweep launched K1 {launches} times, expected 42 (2 groups of 8)")
-    print(f"sweep: {n_rows} rows, {n_png} PNGs, pred_psnr "
-          f"{summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}; "
-          f"K1 launches {launches}", flush=True)
+        # ---- 5. serving at 512x512: the main path on K1
+        sweep_s, launches, k8_launches = run_sweep(model, rng, tmp, 512, n_slices)
+        if (launches, k8_launches) != (2 * 21, 0):
+            fail(f"sweep 512^2: {launches} K1 and {k8_launches} K8 launches, expected "
+                 f"42 (2 groups of 8) and 0")
 
-    # ---- 6. K2 against its plain version
+        # ---- 6. K8 against its plain version
+        k8_max_abs_err = check_k8()
+
+        # ---- 7. generate at 448x448 and 512x320 on the tiled path
+        x448 = torch.tensor(phantom(rng, 8, 448)[..., None], dtype=torch.float32,
+                            device="cuda")
+        check_tiled_generate(model, x448)
+
+        # ---- 8. serving at 448x448: the main path on K8
+        sweep448_s, k1_448, k8_sweep = run_sweep(model, rng, tmp, 448, n_slices)
+        if (k8_sweep, k1_448) != (2 * 21, 0):
+            fail(f"sweep 448^2: {k8_sweep} K8 and {k1_448} K1 launches, expected 42 "
+                 f"(2 groups of 8) and 0")
+
+    # ---- 9. K2 against its plain version
     k2_max_abs_err = check_k2()
 
-    # ---- 7. the train step at full width
+    # ---- 10. the train step at full width
     x, y = train_patches(rng, seed=0)
     trainer = check_train_step(x, y)
 
-    # ---- 8. the training path through its CLI, then test --resume
+    # ---- 11. the training path through its CLI, then test --resume
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches = check_train_cli(rng, tmp)
 
-    # ---- 9. timings (CUDA events)
+    # ---- 12. timings (CUDA events)
     times = {}
     for vi, variant in enumerate(VARIANTS):
         args = block_inputs(512, 8, "fan_in", variant, seed=vi)
@@ -602,11 +733,25 @@ def main():
     print(f"time K1 64x64 batch 160 pre+skip: kernel {k1_train_ms:.3f} ms, bound "
           f"{bound(k1_work(160, 64, 'pre+skip'))[0]:.3f} ms", flush=True)
     del fwd_args
+    k8_args = tiled_inputs(8, 448, 448, "fan_in", seed=3)
+    k8_ms = cuda_ms(lambda: spectral_branch_tiled(**k8_args), 10)
+    k8_plain_ms = cuda_ms(lambda: spectral_branch_tiled_reference(**k8_args), 10)
+    k8_bound_ms, k8_by = bound(k8_work(8, 448, 448))
+    flops, nbytes = k8_work(8, 448, 448)
+    print(f"time K8 448x448 batch 8 C={C} with residual: kernel {k8_ms:.3f} ms, plain "
+          f"{k8_plain_ms:.3f} ms, bound {k8_bound_ms:.3f} ms ({k8_by}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    del k8_args
     gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
-    print(f"time sweep: {n_slices} slices in {sweep_s:.3f} s = "
+    gen448_ms = cuda_ms(lambda: model.generate(x448), 3)
+    print(f"time generate 448x448 batch 8: {gen448_ms:.2f} ms/call = "
+          f"{8e3 / gen448_ms:.2f} slices/s", flush=True)
+    print(f"time sweep 512x512: {n_slices} slices in {sweep_s:.3f} s = "
           f"{n_slices / sweep_s:.2f} slices/s", flush=True)
+    print(f"time sweep 448x448: {n_slices} slices in {sweep448_s:.3f} s = "
+          f"{n_slices / sweep448_s:.2f} slices/s", flush=True)
     up_in = torch.randn((320, 64, 32, 32), device="cuda", requires_grad=True)
     for label, up in (("shift-add (port)", upsample2x_bilinear),
                       ("F.interpolate", lambda t: torch.nn.functional.interpolate(
@@ -620,6 +765,7 @@ def main():
           f"AdamW): {step_ms:.2f} ms/step = {160e3 / step_ms:.2f} patches/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile("generate 512x512 batch 8", lambda: model.generate(x_gen))
+    profile("generate 448x448 batch 8", lambda: model.generate(x448))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
     k_ms, p_ms, b_ms, by = times["pre+skip"]
@@ -638,6 +784,13 @@ def main():
         "launches": train_launches[1], "max_abs_err": k2_max_abs_err,
         "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": bb_ms, "bound_by": bby,
         "library_ms": None,
+    }, {
+        "name": "spectral_tiled", "route": "cuda",
+        "source": "mtd_gan_tpu_torch/csrc/spectral_tiled.cu",
+        "replaces": "mtd_gan_tpu/ops/pallas_fftconv.py:351",
+        "launches": k8_sweep, "max_abs_err": k8_max_abs_err,
+        "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound_ms,
+        "bound_by": k8_by, "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

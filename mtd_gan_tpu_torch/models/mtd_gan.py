@@ -23,7 +23,9 @@ from torch import nn
 
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
-from mtd_gan_tpu_torch.ops.cuda_pipeline import resfft_generator_nchw
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (TILED_H_MULTIPLE, TILED_MAX_H,
+                                                TILED_MAX_W, in_tiled_domain)
+from mtd_gan_tpu_torch.ops.cuda_pipeline import KERNEL_SIZES, resfft_generator_nchw
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
 from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
 from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
@@ -35,10 +37,12 @@ Tensor = torch.Tensor
 
 class ResFFTGenerator(nn.Module):
     """Symmetric encoder/decoder with 2L+1 interleaved Res-FFT-Conv blocks
-    and long skip-adds; NCHW in and out."""
+    and long skip-adds; NCHW in and out. ``spectral_impl`` selects the
+    blocks' spectral path (``ops/fft_conv.py``); the parameters and their
+    names are the same for every impl."""
 
     def __init__(self, in_channels: int = 1, features: int = 32,
-                 num_layers: int = 10):
+                 num_layers: int = 10, spectral_impl: str = "auto"):
         super().__init__()
         L, f = num_layers, features
         self.num_layers = L
@@ -48,7 +52,8 @@ class ResFFTGenerator(nn.Module):
         self.decoder = nn.ModuleList(
             [nn.ConvTranspose2d(f, in_channels, 3, padding=1)]
             + [nn.ConvTranspose2d(f, f, 3, padding=1) for _ in range(L)])
-        self.enforce = nn.ModuleList([FFTConvBlock(f) for _ in range(2 * L + 1)])
+        self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl)
+                                      for _ in range(2 * L + 1)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L = self.num_layers
@@ -64,6 +69,40 @@ class ResFFTGenerator(nn.Module):
             h = torch.relu(self.decoder[i](h) + skips[i - 1])
         h = self.enforce[2 * L](h)
         return torch.relu(self.decoder[0](h) + x)
+
+
+def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
+    """Give ``view`` the parameter objects of ``source`` (same names): one
+    set of parameters, so an update or a ``load_state_dict`` through either
+    module shows in both. Returns ``view``."""
+    params = dict(source.named_parameters())
+    for name, _ in list(view.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(view.get_submodule(owner), leaf, params[name])
+    return view
+
+
+def generate_route(h: int, w: int) -> str:
+    """The kernel path ``MTDGANModel.generate`` takes for a CUDA input of
+    H x W: ``"k1"``, the fused-block pipeline (``ops/cuda_pipeline.py``),
+    for H == W in {64, 128, 256, 512}; else ``"tiled"``, the generator with
+    the K8 spectral branch (``ops/cuda_fftconv.py``), for H % 64 == 0 with
+    64 <= H <= 768 and W even with 2 <= W <= 1024; else a ``ValueError``.
+
+    The one difference from the JAX routing (``mtd_gan_tpu/models/
+    mtd_gan.py`` generate): there, multiples of 128 outside K1's sizes
+    (384^2, 640^2, 768^2, H != W) go to the JAX K1 pipeline; here they go
+    to K8. It is the same function on another kernel, until the port's K1
+    takes those sizes (ROADMAP.md)."""
+    if h == w and h in KERNEL_SIZES:
+        return "k1"
+    if in_tiled_domain(h, w):
+        return "tiled"
+    raise ValueError(
+        f"generate: no kernel path takes {h}x{w} slices on the GPU: K1 takes "
+        f"H == W in {KERNEL_SIZES}, K8 takes H % {TILED_H_MULTIPLE} == 0 with "
+        f"{TILED_H_MULTIPLE} <= H <= {TILED_MAX_H} and W even with "
+        f"2 <= W <= {TILED_MAX_W}")
 
 
 def _lrelu(x: Tensor) -> Tensor:
@@ -177,6 +216,12 @@ class MTDGANModel:
         gen = ResFFTGenerator(1, gen_features, num_layers)
         normal_init_(gen, INIT_STD, init)
         self.generator = gen.to(self.device).eval()
+        # the JAX GeneratorTiled: the same parameters (shared, not copied),
+        # the Res-FFT blocks on the tiled spectral branch; built on "meta",
+        # so its own placeholder weights take no memory and no random draws
+        with torch.device("meta"):
+            tiled = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="tiled")
+        self.generator_tiled = share_parameters(tiled, self.generator).eval()
         disc = MultiTaskDiscriminator(1, disc_features, dropout_rate)
         normal_init_(disc, INIT_STD, init)
         with torch.no_grad():  # u, v: unit vectors drawn from the same seed
@@ -187,16 +232,21 @@ class MTDGANModel:
 
     @torch.no_grad()
     def generate(self, x: Tensor) -> Tensor:
-        """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` runs the K1
-        kernel pipeline (H == W in {64, 128, 256, 512}, else it raises); a
-        CPU ``x`` runs the plain module."""
+        """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` takes the kernel
+        path :func:`generate_route` names: the K1 pipeline, or the tiled
+        generator on K8 (the 3x3 convs in cuDNN); outside both domains it
+        raises. A CPU ``x`` runs the plain module."""
         if x.device.type != self.device.type:
             raise ValueError(f"generate: input on {x.device}, model on "
                              f"{self.device}")
-        if x.device.type == "cuda":
+        if x.device.type == "cpu":
+            return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        n, h, w, _ = x.shape
+        if generate_route(h, w) == "k1":
             return resfft_generator_nchw(self.generator.state_dict(), x,
                                          self.num_layers)
-        return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        # reshape, not permute: NCHW strides for the kernel's layout checks
+        return self.generator_tiled(x.reshape(n, 1, h, w)).reshape(n, h, w, 1)
 
     # ---- losses (reference arch/Ours/networks.py:1957-2009) ----
     def _apply_d(self, z: Tensor, update_stats: bool,

@@ -107,3 +107,18 @@ def block_bwd_library() -> ctypes.CDLL:
     lib.block_bwd_error_string.argtypes = [ctypes.c_int]
     lib.block_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def spectral_tiled_library() -> ctypes.CDLL:
+    """The K8 library (``csrc/spectral_tiled.cu``), built on first call."""
+    lib = ctypes.CDLL(str(build("spectral_tiled")))
+    lib.spectral_tiled_forward.argtypes = [
+        _P, _I, _I, _I, _I,          # x, n, c, h, w
+        _P, _P, _P,                  # mix, mix_bias, residual
+        _P, _P, _P,                  # spec, out, stream
+    ]
+    lib.spectral_tiled_forward.restype = ctypes.c_int
+    lib.spectral_tiled_error_string.argtypes = [ctypes.c_int]
+    lib.spectral_tiled_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,103 @@
+"""The tiled spectral branch on the hand-written K8 kernel (counterpart of
+``spectral_branch_tiled`` in ``mtd_gan_tpu/ops/pallas_fftconv.py``).
+
+:func:`spectral_branch_tiled` computes, on NCHW fp32 ``x`` ``(N, C, H, W)``,
+
+    [residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))
+
+with orthonormal FFTs and the Hermitian-fold inverse (the imaginary parts
+of the W bins 0 and W/2 dropped). On a CUDA tensor it launches
+``csrc/spectral_tiled.cu``; on a CPU tensor it runs
+:func:`spectral_branch_tiled_reference`, the plain PyTorch version. There
+is no fallback from one to the other.
+
+The kernel's domain: C in {8, 16, 32}; H % 64 == 0 with 64 <= H <= 768
+(the column pass holds C*H complex values of one bin in shared memory);
+W even with 2 <= W <= 1024. The JAX kernel takes H % th == 0 (th = 64 by
+default) and pads K = W/2 + 1 to a multiple of 128.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops.cuda_pipeline import _check
+from mtd_gan_tpu_torch.ops.fft_conv import spectral_branch
+
+Tensor = torch.Tensor
+
+TILED_CHANNELS = (8, 16, 32)
+TILED_H_MULTIPLE = 64
+TILED_MAX_H = 768
+TILED_MAX_W = 1024
+
+
+def in_tiled_domain(h: int, w: int) -> bool:
+    """Whether the kernel takes an H x W image (any channel count it is
+    instantiated for)."""
+    return (h % TILED_H_MULTIPLE == 0 and TILED_H_MULTIPLE <= h <= TILED_MAX_H
+            and w % 2 == 0 and 2 <= w <= TILED_MAX_W)
+
+
+def spectral_branch_tiled_reference(x: Tensor, mix: Tensor, bias: Tensor,
+                                    residual: Optional[Tensor] = None) -> Tensor:
+    """Plain PyTorch K8: ``fft_conv.spectral_branch`` plus the residual."""
+    out = spectral_branch(x, mix, bias)
+    return out if residual is None else residual + out
+
+
+def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
+                          residual: Optional[Tensor] = None) -> Tensor:
+    """K8: same arguments and result as :func:`spectral_branch_tiled_reference`;
+    ``mix`` is ``(2C_out, 2C_in)``, ``bias`` ``(2C,)``.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
+    (one C entry call, counted in ``spectral_branch_tiled.launches``) or
+    raises: outside the kernel's domain, on a wrong layout, when a gradient
+    is asked for (the kernel has no backward), or on a CUDA error."""
+    if x.device.type == "cpu":
+        return spectral_branch_tiled_reference(x, mix, bias, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectral_branch_tiled: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"spectral_branch_tiled: x must be (N, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    n, c, h, w = x.shape
+    if not in_tiled_domain(h, w):
+        raise ValueError(
+            f"spectral_branch_tiled: the kernel takes H % {TILED_H_MULTIPLE} == 0 "
+            f"with {TILED_H_MULTIPLE} <= H <= {TILED_MAX_H} and W even with "
+            f"2 <= W <= {TILED_MAX_W}, got {h}x{w}")
+    if c not in TILED_CHANNELS:
+        raise ValueError(f"spectral_branch_tiled: the kernel takes C in "
+                         f"{TILED_CHANNELS}, got {c}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, mix, bias, residual)):
+        raise ValueError("spectral_branch_tiled: the kernel is inference only "
+                         "(no backward); call it under torch.no_grad()")
+    dev = x.device
+    for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
+                           (bias, (2 * c,), "bias"),
+                           (residual, (n, c, h, w), "residual")):
+        _check(t, shape, dev, name, "spectral_branch_tiled")
+
+    lib = _build.spectral_tiled_library()
+    spec = torch.empty((n, c, w // 2 + 1, h, 2), device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spectral_tiled_forward(
+            x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
+            None if residual is None else residual.data_ptr(), spec.data_ptr(),
+            out.data_ptr(), stream)
+    if err != 0:
+        msg = lib.spectral_tiled_error_string(err).decode()
+        raise RuntimeError(f"spectral_branch_tiled: CUDA error {err} ({msg})")
+    spectral_branch_tiled.launches += 1
+    return out
+
+
+spectral_branch_tiled.launches = 0

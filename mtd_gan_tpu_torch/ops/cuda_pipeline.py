@@ -60,14 +60,15 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
     return flat, final.reshape(n, 1, h * w)
 
 
-def _check(t: Optional[Tensor], shape, device, name: str) -> None:
+def _check(t: Optional[Tensor], shape, device, name: str,
+           who: str = "block_fused") -> None:
     if t is None:
         return
     if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"block_fused: {name} must be a contiguous float32 "
+        raise ValueError(f"{who}: {name} must be a contiguous float32 "
                          f"tensor on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"block_fused: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
 
 

@@ -6,6 +6,13 @@
 with orthonormal FFTs (reference arch/Ours/networks.py:15-36). Activations
 are NCHW. ``mix`` is the spectral 1x1 conv weight ``(2C_out, 2C_in)``: the
 transpose of the flax ``fft_kernel``.
+
+``impl`` selects the spectral branch, as the JAX ``impl`` /
+``spectral_impl`` do: ``"auto"`` is the plain PyTorch block (``torch.fft``);
+``"tiled"`` is the inference path of the JAX ``"pallas_tiled"``: the 3x3
+conv branch and residual in ``F.conv2d`` (the JAX package leaves that conv
+to XLA), then the spectral branch with that residual fused into its last
+pass, on the K8 kernel (``ops/cuda_fftconv.py``) for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -40,26 +47,42 @@ def spectral_branch(x: torch.Tensor, mix: torch.Tensor,
     return torch.fft.irfft(z, n=w, dim=-1, norm="ortho")
 
 
+SPECTRAL_IMPLS = ("auto", "tiled")
+
+
 def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
                    img_bias: torch.Tensor, mix: torch.Tensor,
-                   mix_bias: torch.Tensor) -> torch.Tensor:
+                   mix_bias: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Functional Res-FFT-Conv block on NCHW ``x``; ``img_weight`` is the
-    ``(C, C, 3, 3)`` conv weight."""
-    img = torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
-    return x + img + spectral_branch(x, mix, mix_bias)
+    ``(C, C, 3, 3)`` conv weight. ``impl``: ``"auto"`` or ``"tiled"``
+    (module docstring)."""
+    res = x + torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
+    if impl == "tiled":
+        from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_tiled
+
+        return spectral_branch_tiled(x, mix, mix_bias, residual=res)
+    if impl != "auto":
+        raise ValueError(f"fft_conv_block: impl must be one of {SPECTRAL_IMPLS}, "
+                         f"got {impl!r}")
+    return res + spectral_branch(x, mix, mix_bias)
 
 
 class FFTConvBlock(nn.Module):
     """The reference's ``FFT_ConvBlock``: ``img_conv`` (3x3) and ``fft_conv``
     (1x1 over the 2C stacked real/imag channels), state-dict names as in
-    arch/Ours/networks.py."""
+    arch/Ours/networks.py. ``spectral_impl`` selects the path
+    (:func:`fft_conv_block`); the parameters are the same for every impl."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, spectral_impl: str = "auto"):
         super().__init__()
+        if spectral_impl not in SPECTRAL_IMPLS:
+            raise ValueError(f"FFTConvBlock: spectral_impl must be one of "
+                             f"{SPECTRAL_IMPLS}, got {spectral_impl!r}")
+        self.spectral_impl = spectral_impl
         self.img_conv = nn.Conv2d(channels, channels, 3, padding=1)
         self.fft_conv = nn.Conv2d(2 * channels, 2 * channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fft_conv_block(x, self.img_conv.weight, self.img_conv.bias,
                               self.fft_conv.weight[:, :, 0, 0],
-                              self.fft_conv.bias)
+                              self.fft_conv.bias, impl=self.spectral_impl)

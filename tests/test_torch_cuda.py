@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu)
-and K2 (csrc/block_bwd.cu) against their plain PyTorch versions, on the
-card. Every test is marked
+"""The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu),
+K2 (csrc/block_bwd.cu) and K8 (csrc/spectral_tiled.cu) against their plain
+PyTorch versions, on the card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
 
@@ -15,6 +15,8 @@ import copy
 
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_tiled,
+                                                spectral_branch_tiled_reference)
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
@@ -205,3 +207,57 @@ def test_train_step_gradient_matches_plain_generator(dev):
     for (name, _), a, b in zip(base.generator.named_parameters(), gk, gp):
         rel = ((a - b).norm() / b.norm()).item()
         assert rel < 1e-2, (name, rel)
+
+
+def _tiled_inputs(dev, n, c, h, w, seed=0):
+    """x in [0, 1), 1/sqrt(fan_in) mix, 0.1 biases, a N(0, 0.5) residual."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return dict(x=t(rng.random((n, c, h, w))),
+                mix=t(rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)),
+                bias=t(rng.standard_normal(2 * c) * 0.1),
+                residual=t(rng.standard_normal((n, c, h, w)) * 0.5))
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (3, 8, 192, 70)])
+def test_k8_matches_plain_version(dev, n, c, h, w):
+    """K8 with the residual against its plain version (cuFFT), and one
+    launch per call."""
+    args = _tiled_inputs(dev, n, c, h, w)
+    before = spectral_branch_tiled.launches
+    got = spectral_branch_tiled(**args)
+    torch.cuda.synchronize()
+    assert spectral_branch_tiled.launches == before + 1
+    want = spectral_branch_tiled_reference(**args)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel < TOL_REL, (n, c, h, w, rel)
+
+
+def test_k8_rejects_unsupported_shapes(dev):
+    args = _tiled_inputs(dev, 1, 8, 64, 64)
+    with pytest.raises(ValueError, match="H % 64 == 0"):
+        spectral_branch_tiled(**_tiled_inputs(dev, 1, 8, 100, 100))
+    with pytest.raises(ValueError, match="W even"):
+        spectral_branch_tiled(**_tiled_inputs(dev, 1, 8, 64, 63))
+    with pytest.raises(ValueError, match="C in"):
+        spectral_branch_tiled(**_tiled_inputs(dev, 1, 24, 64, 64))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        spectral_branch_tiled(**{**args, "x": args["x"].transpose(2, 3)})
+    with pytest.raises(ValueError, match="inference only"):
+        spectral_branch_tiled(**{**args, "x": args["x"].requires_grad_()})
+
+
+def test_generate_at_320_runs_k8_21_times_and_no_k1(dev):
+    """Full-width generator at 320x320 (outside K1's sizes): the tiled
+    generator with 21 K8 launches and no K1 launch, within 1e-5 of the
+    plain module (reference init, fp32)."""
+    model = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1)
+    x = torch.rand((1, 320, 320, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    k1, k8 = block_fused.launches, spectral_branch_tiled.launches
+    got = model.generate(x)
+    torch.cuda.synchronize()
+    assert (block_fused.launches - k1, spectral_branch_tiled.launches - k8) == (0, 21)
+    with torch.no_grad():
+        want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert (got - want).abs().max().item() < 1e-5
