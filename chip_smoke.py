@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels K1 (csrc/block_fused.cu), K2 (csrc/block_bwd.cu) and
-     K8 (csrc/spectral_tiled.cu), one nvcc process each, started together
-     (sm_90a), and print the build logs;
+  2. build the kernels K1 (csrc/block_fused.cu), K2 (csrc/block_bwd.cu), K8
+     (csrc/spectral_tiled.cu) and K7 (csrc/spectral_fused.cu), one nvcc
+     process each, started together (sm_90a), and print the build logs;
   3. hold K1 (``block_fused``) against its plain PyTorch version
      (``block_fused_reference``) at C = 32, 64x64 to 512x512, batch 2, in
      all four variants (plain, pre, pre+skip, pre+skip+post), with the
@@ -27,25 +27,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the same;
   8. serving at 448x448: the ``test`` sweep over 16 synthetic 448x448
      DICOM pairs — the tiled serving path, 42 K8 and 0 K1 launches;
-  9. hold K2 (``block_bwd``) against its plain version
+  9. hold K7 (``spectral_branch_fused``) against its plain version
+     (``spectral_branch_fused_reference``) at C = 32, batch 2, 32x32 to
+     128x128 with odd and prime sizes (100x72, 97x66, 127x127), and at
+     C = 8, 33x27, with the reference init and with 1/sqrt(fan_in)
+     weights; H = 129, C = 24 and a gradient request must raise;
+  10. ``generate`` at 96x96, batch 64, full width, against the plain
+     module: 21 K7 and 0 K1 / K8 launches per call; one 100x72 call at
+     batch 4 the same;
+  11. serving at 96x96: the ``test`` sweep over 16 synthetic 96x96 DICOM
+     pairs — the fused serving path, 42 K7 and 0 K1 / K8 launches;
+  12. hold K2 (``block_bwd``) against its plain version
      (``block_bwd_reference``, autograd through K1's) at 64x64, C = 32,
      batch 2 and 8, in the four variants, with the reference init, with
      1/sqrt(fan_in) weights and with sign-certain ("margin") biases;
-  10. the PCGrad train step at full width (generator 32 features x 10
+  13. the PCGrad train step at full width (generator 32 features x 10
      layers, discriminator 64 features, 160 patches of 64x64 cut by
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
      state, the generator gradient and the D losses through K1 + K2 against
      the plain generator under autograd; then 3 more kernel steps, finite
      losses and 21 K1 + 21 K2 launches per step;
-  11. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
+  14. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
      of 20 slices, validation) on synthetic train / valid splits — the
      training path, whose K1 and K2 launches are counted — then
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
-  12. timings with CUDA events (K1, K2 and K8 and their plain versions per
-     call beside their bounds, generate and sweep slices/s at 512x512 and
-     448x448, ms per train step and patches/s), torch.profiler breakdowns
-     of one generate call at each size and of one train step by kernel,
-     then the kernel JSON line, the card line and the result line.
+  15. timings with CUDA events (K1, K2, K8 and K7 and their plain versions
+     per call beside their bounds, generate and sweep slices/s at 512x512,
+     448x448 and 96x96, ms per train step and patches/s), torch.profiler
+     breakdowns of one generate call at each size and of one train step by
+     kernel, then the kernel JSON line, the card line and the result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
 """
@@ -72,7 +82,9 @@ from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_tiled,
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
+                                                spectral_branch_fused_reference,
+                                                spectral_branch_tiled,
                                                 spectral_branch_tiled_reference)
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
@@ -84,9 +96,9 @@ from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 # they differ by FFT algorithm (radix-2 in shared memory vs cuFFT) and
 # summation order, ~1e-6 relative
 TOL_BLOCK_REL = 1e-4
-# max |kernel - plain| / max |plain| per K8 call: fp32 both sides, mixed-
-# radix FFTs in shared memory against cuFFT (other order of summation)
-TOL_TILED_REL = 1e-4
+# max |kernel - plain| / max |plain| per K8 or K7 call: fp32 both sides,
+# mixed-radix FFTs in shared memory against cuFFT (other order of summation)
+TOL_SPECTRAL_REL = 1e-4
 # max |kernel - plain| on the [0, 1] generator output after 21 blocks
 TOL_GENERATE_ABS = 1e-3
 # K2 against autograd through K1's plain version, per output. With
@@ -116,6 +128,11 @@ PEAK_HBM_BYTES = 3.35e12
 C = 32
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
 TILED_SHAPES = ((192, 192), (320, 320), (384, 384), (448, 448), (512, 320), (768, 768))
+# K7 at C = 32, then one C = 8 shape; 97 and 127 are prime
+FUSED_SHAPES = tuple((32, hw) for hw in ((32, 32), (64, 64), (96, 96), (100, 72),
+                                         (97, 66), (127, 127), (128, 128))) + ((8, (33, 27)),)
+# the launch counts the main paths are held to, by kernel
+COUNTED = {"K1": block_fused, "K8": spectral_branch_tiled, "K7": spectral_branch_fused}
 TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
 
 
@@ -183,7 +200,7 @@ def bwd_inputs(n: int, init: str, variant: str, seed: int):
 
 
 def check_k2():
-    """Phase 6; returns the largest absolute error of the margin checks
+    """Phase 12; returns the largest absolute error of the margin checks
     (the ones no mask flip can disturb)."""
     worst_margin_abs = 0.0
     for n in (2, 8):
@@ -245,17 +262,17 @@ def check_kernel():
     return worst_abs
 
 
-def tiled_inputs(n: int, h: int, w: int, init: str, seed: int):
-    """Seeded K8 inputs (NCHW, C = 32) on the GPU. ``init``: "reference"
-    (N(0, 0.01) mix, zero bias) or "fan_in" (std 1/sqrt(2C), bias 0.1);
-    the residual N(0, 0.5)."""
+def tiled_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
+    """Seeded spectral-branch inputs (NCHW) on the GPU. ``init``:
+    "reference" (N(0, 0.01) mix, zero bias) or "fan_in" (std 1/sqrt(2C),
+    bias 0.1); the residual N(0, 0.5)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
-    std = 0.01 if init == "reference" else 1.0 / math.sqrt(2 * C)
-    bias = np.zeros(2 * C) if init == "reference" else rng.standard_normal(2 * C) * 0.1
-    return dict(x=t(rng.random((n, C, h, w))),
-                mix=t(rng.standard_normal((2 * C, 2 * C)) * std), bias=t(bias),
-                residual=t(rng.standard_normal((n, C, h, w)) * 0.5))
+    std = 0.01 if init == "reference" else 1.0 / math.sqrt(2 * c)
+    bias = np.zeros(2 * c) if init == "reference" else rng.standard_normal(2 * c) * 0.1
+    return dict(x=t(rng.random((n, c, h, w))),
+                mix=t(rng.standard_normal((2 * c, 2 * c)) * std), bias=t(bias),
+                residual=t(rng.standard_normal((n, c, h, w)) * 0.5))
 
 
 def check_k8():
@@ -276,9 +293,9 @@ def check_k8():
                 worst_abs = max(worst_abs, err)
                 print(f"K8 check {h}x{w} C={C} n=2 {init:9s} residual={with_res!s:5s}: "
                       f"max_abs {err:.3e} rel {rel:.3e}", flush=True)
-                if rel > TOL_TILED_REL:
+                if rel > TOL_SPECTRAL_REL:
                     fail(f"K8 {h}x{w} {init} residual={with_res}: relative error "
-                         f"{rel:.3e} > {TOL_TILED_REL}")
+                         f"{rel:.3e} > {TOL_SPECTRAL_REL}")
     for label, call in (
             ("H = 100", {**tiled_inputs(1, 64, 64, "fan_in", 0),
                          "x": torch.zeros((1, C, 100, 100), device="cuda"),
@@ -295,37 +312,92 @@ def check_k8():
     return worst_abs
 
 
-def check_tiled_generate(model, x448):
-    """Phase 7: generate at 448x448 and at 512x320 against the plain module,
-    through K8 only."""
-    rng = np.random.default_rng(7)
-    x_rect = torch.tensor(phantom(rng, 2, 512)[:, :, 96:416, None], dtype=torch.float32,
-                          device="cuda")
-    for x in (x448, x_rect):
-        n, h, w, _ = x.shape
-        block_fused.launches = spectral_branch_tiled.launches = 0
-        pred = model.generate(x)
-        torch.cuda.synchronize()
-        k1, k8 = block_fused.launches, spectral_branch_tiled.launches
-        with torch.no_grad():
-            plain = plain_forward(model.generator, x)
-        if pred.shape != x.shape or not torch.isfinite(pred).all():
-            fail(f"generate {h}x{w} output {tuple(pred.shape)} not finite/expected")
-        err = (pred - plain).abs().max().item()
-        print(f"generate {h}x{w} batch {n} (21 blocks, tiled): max_abs vs plain module "
-              f"{err:.3e} (tol {TOL_GENERATE_ABS}); K8 launches {k8}, K1 launches {k1}",
-              flush=True)
-        if (k8, k1) != (21, 0):
-            fail(f"generate {h}x{w}: {k8} K8 and {k1} K1 launches, expected 21 and 0")
-        if err > TOL_GENERATE_ABS:
-            fail(f"generate {h}x{w} error {err:.3e} > {TOL_GENERATE_ABS}")
+def fused_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
+    """``(x, mix, bias)`` for K7: :func:`tiled_inputs` without the residual."""
+    args = tiled_inputs(n, h, w, init, seed, c)
+    return args["x"], args["mix"], args["bias"]
 
 
-def run_sweep(model, rng, tmp: str, size: int, n_slices: int = 16):
+def check_k7():
+    """Phase 9; returns the largest absolute error seen."""
+    worst_abs = 0.0
+    for si, (c, (h, w)) in enumerate(FUSED_SHAPES):
+        for init in ("reference", "fan_in"):
+            args = fused_inputs(2, h, w, init, seed=si, c=c)
+            before = spectral_branch_fused.launches
+            got = spectral_branch_fused(*args)
+            torch.cuda.synchronize()
+            if spectral_branch_fused.launches != before + 1:
+                fail(f"K7 {h}x{w}: {spectral_branch_fused.launches - before} launches")
+            want = spectral_branch_fused_reference(*args)
+            if not torch.isfinite(got).all():
+                fail(f"K7 {h}x{w} C={c} {init}: non-finite output")
+            err = (got - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            worst_abs = max(worst_abs, err)
+            print(f"K7 check {h}x{w} C={c} n=2 {init:9s}: max_abs {err:.3e} "
+                  f"rel {rel:.3e}", flush=True)
+            if rel > TOL_SPECTRAL_REL:
+                fail(f"K7 {h}x{w} C={c} {init}: relative error {rel:.3e} > "
+                     f"{TOL_SPECTRAL_REL}")
+    x, mix, bias = fused_inputs(1, 64, 64, "fan_in", 0)
+    zeros = lambda *shape: torch.zeros(shape, device="cuda")
+    for label, call in (
+            ("H = 129", (zeros(1, C, 129, 64), mix, bias)),
+            ("C = 24", (zeros(1, 24, 64, 64), zeros(48, 48), zeros(48))),
+            ("mix.requires_grad", (x, mix.clone().requires_grad_(), bias))):
+        try:
+            with torch.enable_grad():
+                spectral_branch_fused(*call)
+        except ValueError as e:
+            print(f"K7 raises ({label}): {e}", flush=True)
+        else:
+            fail(f"K7 took a call it must refuse ({label})")
+    return worst_abs
+
+
+def zero_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def expect_counts(label: str, got, want):
+    """Fail unless the launch counts ``got`` equal ``want`` (every kernel
+    not named in ``want`` must not have launched)."""
+    want = {name: want.get(name, 0) for name in COUNTED}
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+
+
+def check_generate(model, x, route: str, want):
+    """``generate`` on ``x`` against the plain module; the launch counts
+    zeroed just before the call and read just after must equal ``want``."""
+    n, h, w, _ = x.shape
+    zero_counts()
+    pred = model.generate(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with torch.no_grad():
+        plain = plain_forward(model.generator, x)
+    if pred.shape != x.shape or not torch.isfinite(pred).all():
+        fail(f"generate {h}x{w} output {tuple(pred.shape)} not finite/expected")
+    err = (pred - plain).abs().max().item()
+    print(f"generate {h}x{w} batch {n} (21 blocks, {route}): max_abs vs plain module "
+          f"{err:.3e} (tol {TOL_GENERATE_ABS}); launches {counts}", flush=True)
+    expect_counts(f"generate {h}x{w}", counts, want)
+    if err > TOL_GENERATE_ABS:
+        fail(f"generate {h}x{w} error {err:.3e} > {TOL_GENERATE_ABS}")
+
+
+def run_sweep(model, rng, tmp: str, size: int, want, n_slices: int = 16):
     """The ``test`` CLI over ``n_slices`` synthetic size x size DICOM pairs
     with the model's weights saved as a reference-layout .pth; the launch
-    counts are zeroed just before the run and read just after. Returns
-    (seconds, K1 launches, K8 launches)."""
+    counts are zeroed just before the run and read just after, and must
+    equal ``want``. Returns (seconds, launch counts)."""
     root = os.path.join(tmp, f"data{size}")
     write_split(root, "test", rng, n_slices, size=size)
     ckpt = os.path.join(tmp, "weights.pth")
@@ -337,11 +409,11 @@ def run_sweep(model, rng, tmp: str, size: int, n_slices: int = 16):
         "--no-feature-metrics", "--device", "cuda", "--seed", "0",
         "--model-kwargs", json.dumps({"gen_features": C, "num_layers": 10}),
     ])
-    block_fused.launches = spectral_branch_tiled.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     summary = test_cli.main(args)
     sweep_s = time.perf_counter() - t0
-    k1, k8 = block_fused.launches, spectral_branch_tiled.launches
+    counts = read_counts()
     with open(os.path.join(save_dir, "pred_results.csv")) as f:
         n_rows = sum(1 for _ in f) - 1
     n_png = len(os.listdir(os.path.join(save_dir, "png")))
@@ -353,8 +425,9 @@ def run_sweep(model, rng, tmp: str, size: int, n_slices: int = 16):
         fail(f"non-finite sweep {size}^2 metrics: {summary}")
     print(f"sweep {size}x{size}: {n_rows} rows, {n_png} PNGs, pred_psnr "
           f"{summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}; "
-          f"K1 launches {k1}, K8 launches {k8}", flush=True)
-    return sweep_s, k1, k8
+          f"launches {counts}", flush=True)
+    expect_counts(f"sweep {size}^2 (2 groups of 8)", counts, want)
+    return sweep_s, counts
 
 
 def irfft2_cuda_vs_cpu():
@@ -457,6 +530,16 @@ def k8_work(n: int, h: int, w: int):
     return flops, 4 * words
 
 
+def k7_work(n: int, h: int, w: int):
+    """(FLOPs, bytes) one K7 call needs: ``k8_work`` without the residual
+    (its add and its bytes)."""
+    hw = h * w
+    k = w // 2 + 1
+    flops = n * (2 * 2.5 * C * hw * math.log2(hw) + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k)
+    words = 2 * n * C * hw + 4 * C * C + 2 * C
+    return flops, 4 * words
+
+
 def bound(work):
     flops, nbytes = work
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -519,7 +602,7 @@ def train_patches(rng, seed: int):
 
 
 def check_train_step(x, y):
-    """Phase 7: one step from one state through K1 + K2 and through the
+    """Phase 13: one step from one state through K1 + K2 and through the
     plain generator under autograd: the D losses and g_loss, the cotangent
     of fake that g_loss_terms gives each path, and the generator gradient
     with the plain path's cotangent pulled through both generator graphs
@@ -579,7 +662,7 @@ def check_train_step(x, y):
 
 
 def check_train_cli(rng, tmp: str):
-    """Phase 8: the training path through its CLI, then the test CLI on the
+    """Phase 14: the training path through its CLI, then the test CLI on the
     checkpoint it wrote. Returns (K1, K2) launches of the train run."""
     root = os.path.join(tmp, "train_data")
     write_split(root, "train", rng, 2 * TRAIN_SLICES)
@@ -633,14 +716,15 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build the three kernels in parallel (one nvcc each)
+    # ---- 2. build the four kernels in parallel (one nvcc each)
     t0 = time.perf_counter()
-    names = ("block_fused", "block_bwd", "spectral_tiled")
+    names = ("block_fused", "block_bwd", "spectral_tiled", "spectral_fused")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     _build.block_fused_library()
     _build.block_bwd_library()
     _build.spectral_tiled_library()
+    _build.spectral_fused_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
         log = lib.with_suffix(".log")
@@ -656,30 +740,12 @@ def main():
     rng = np.random.default_rng(0)
     x_gen = torch.tensor(phantom(rng, 8, 512)[..., None], dtype=torch.float32,
                          device="cuda")
-    before = block_fused.launches
-    pred = model.generate(x_gen)
-    torch.cuda.synchronize()
-    if block_fused.launches - before != 21:
-        fail(f"generate launched K1 {block_fused.launches - before} times, "
-             f"expected 21")
-    with torch.no_grad():
-        plain = plain_forward(model.generator, x_gen)
-    if pred.shape != (8, 512, 512, 1) or not torch.isfinite(pred).all():
-        fail(f"generate output {tuple(pred.shape)} not finite/expected")
-    gen_err = (pred - plain).abs().max().item()
-    print(f"generate 512x512 batch 8 (21 blocks): max_abs vs plain module "
-          f"{gen_err:.3e} (tol {TOL_GENERATE_ABS}); K1 launches 21", flush=True)
-    if gen_err > TOL_GENERATE_ABS:
-        fail(f"generate error {gen_err:.3e} > {TOL_GENERATE_ABS}")
-    del pred, plain
+    check_generate(model, x_gen, "k1", {"K1": 21})
 
     n_slices = 16
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- 5. serving at 512x512: the main path on K1
-        sweep_s, launches, k8_launches = run_sweep(model, rng, tmp, 512, n_slices)
-        if (launches, k8_launches) != (2 * 21, 0):
-            fail(f"sweep 512^2: {launches} K1 and {k8_launches} K8 launches, expected "
-                 f"42 (2 groups of 8) and 0")
+        sweep_s, _ = run_sweep(model, rng, tmp, 512, {"K1": 2 * 21}, n_slices)
 
         # ---- 6. K8 against its plain version
         k8_max_abs_err = check_k8()
@@ -687,26 +753,42 @@ def main():
         # ---- 7. generate at 448x448 and 512x320 on the tiled path
         x448 = torch.tensor(phantom(rng, 8, 448)[..., None], dtype=torch.float32,
                             device="cuda")
-        check_tiled_generate(model, x448)
+        x_rect = torch.tensor(phantom(rng, 2, 512)[:, :, 96:416, None],
+                              dtype=torch.float32, device="cuda")
+        for x in (x448, x_rect):
+            check_generate(model, x, "tiled", {"K8": 21})
 
         # ---- 8. serving at 448x448: the main path on K8
-        sweep448_s, k1_448, k8_sweep = run_sweep(model, rng, tmp, 448, n_slices)
-        if (k8_sweep, k1_448) != (2 * 21, 0):
-            fail(f"sweep 448^2: {k8_sweep} K8 and {k1_448} K1 launches, expected 42 "
-                 f"(2 groups of 8) and 0")
+        sweep448_s, counts = run_sweep(model, rng, tmp, 448, {"K8": 2 * 21}, n_slices)
+        k8_sweep = counts["K8"]
 
-    # ---- 9. K2 against its plain version
+        # ---- 9. K7 against its plain version
+        k7_max_abs_err = check_k7()
+
+        # ---- 10. generate at 96x96 and 100x72 on the fused path
+        x96 = torch.tensor(phantom(rng, 64, 96)[..., None], dtype=torch.float32,
+                           device="cuda")
+        x_small = torch.tensor(phantom(rng, 4, 100)[:, :, 14:86, None],
+                               dtype=torch.float32, device="cuda")
+        for x in (x96, x_small):
+            check_generate(model, x, "fused", {"K7": 21})
+
+        # ---- 11. serving at 96x96: the main path on K7
+        sweep96_s, counts = run_sweep(model, rng, tmp, 96, {"K7": 2 * 21}, n_slices)
+        k7_sweep = counts["K7"]
+
+    # ---- 12. K2 against its plain version
     k2_max_abs_err = check_k2()
 
-    # ---- 10. the train step at full width
+    # ---- 13. the train step at full width
     x, y = train_patches(rng, seed=0)
     trainer = check_train_step(x, y)
 
-    # ---- 11. the training path through its CLI, then test --resume
+    # ---- 14. the training path through its CLI, then test --resume
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches = check_train_cli(rng, tmp)
 
-    # ---- 12. timings (CUDA events)
+    # ---- 15. timings (CUDA events)
     times = {}
     for vi, variant in enumerate(VARIANTS):
         args = block_inputs(512, 8, "fan_in", variant, seed=vi)
@@ -742,16 +824,30 @@ def main():
           f"{k8_plain_ms:.3f} ms, bound {k8_bound_ms:.3f} ms ({k8_by}; "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     del k8_args
+    k7_args = fused_inputs(64, 96, 96, "fan_in", seed=4)
+    k7_ms = cuda_ms(lambda: spectral_branch_fused(*k7_args), 10)
+    k7_plain_ms = cuda_ms(lambda: spectral_branch_fused_reference(*k7_args), 10)
+    k7_bound_ms, k7_by = bound(k7_work(64, 96, 96))
+    flops, nbytes = k7_work(64, 96, 96)
+    print(f"time K7 96x96 batch 64 C={C}: kernel {k7_ms:.3f} ms, plain "
+          f"{k7_plain_ms:.3f} ms, bound {k7_bound_ms:.3f} ms ({k7_by}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    del k7_args
     gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
     gen448_ms = cuda_ms(lambda: model.generate(x448), 3)
     print(f"time generate 448x448 batch 8: {gen448_ms:.2f} ms/call = "
           f"{8e3 / gen448_ms:.2f} slices/s", flush=True)
+    gen96_ms = cuda_ms(lambda: model.generate(x96), 3)
+    print(f"time generate 96x96 batch 64: {gen96_ms:.2f} ms/call = "
+          f"{64e3 / gen96_ms:.2f} slices/s", flush=True)
     print(f"time sweep 512x512: {n_slices} slices in {sweep_s:.3f} s = "
           f"{n_slices / sweep_s:.2f} slices/s", flush=True)
     print(f"time sweep 448x448: {n_slices} slices in {sweep448_s:.3f} s = "
           f"{n_slices / sweep448_s:.2f} slices/s", flush=True)
+    print(f"time sweep 96x96: {n_slices} slices in {sweep96_s:.3f} s = "
+          f"{n_slices / sweep96_s:.2f} slices/s", flush=True)
     up_in = torch.randn((320, 64, 32, 32), device="cuda", requires_grad=True)
     for label, up in (("shift-add (port)", upsample2x_bilinear),
                       ("F.interpolate", lambda t: torch.nn.functional.interpolate(
@@ -766,6 +862,7 @@ def main():
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile("generate 512x512 batch 8", lambda: model.generate(x_gen))
     profile("generate 448x448 batch 8", lambda: model.generate(x448))
+    profile("generate 96x96 batch 64", lambda: model.generate(x96))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
     k_ms, p_ms, b_ms, by = times["pre+skip"]
@@ -791,6 +888,13 @@ def main():
         "launches": k8_sweep, "max_abs_err": k8_max_abs_err,
         "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound_ms,
         "bound_by": k8_by, "library_ms": None,
+    }, {
+        "name": "spectral_fused", "route": "cuda",
+        "source": "mtd_gan_tpu_torch/csrc/spectral_fused.cu",
+        "replaces": "mtd_gan_tpu/ops/pallas_fftconv.py:267",
+        "launches": k7_sweep, "max_abs_err": k7_max_abs_err,
+        "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound_ms,
+        "bound_by": k7_by, "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

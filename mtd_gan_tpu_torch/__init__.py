@@ -7,9 +7,11 @@ unless the caller passes ``device="cpu"``; without a GPU they raise.
 Ported so far: MTD-GAN generator inference and the ``test`` metric sweep
 (``python -m mtd_gan_tpu_torch.test``) and the MTD-GAN PCGrad training path
 (``python -m mtd_gan_tpu_torch.train``), with the fused Res-FFT block, its
-backward and the tiled spectral branch (for the slice sizes the fused
-block does not take) as hand-written CUDA kernels (``csrc/block_fused.cu``,
-``csrc/block_bwd.cu``, ``csrc/spectral_tiled.cu``).
+backward, the tiled spectral branch (for the slice sizes the fused block
+does not take) and the per-sample fused spectral branch (for the small
+inputs neither takes) as hand-written CUDA kernels
+(``csrc/block_fused.cu``, ``csrc/block_bwd.cu``, ``csrc/spectral_tiled.cu``,
+``csrc/spectral_fused.cu``).
 """
 
 from mtd_gan_tpu_torch._device import resolve_device

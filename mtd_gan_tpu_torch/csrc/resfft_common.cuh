@@ -2,7 +2,9 @@
 // K2 (block_bwd.cu): the direct 3x3 convolution with its fused epilogues,
 // the radix-2 FFT in shared memory, and the three spectral passes of the
 // block (row rFFT, per-(n, k) column FFT -> 2C x 2C mix -> inverse, row
-// c2r accumulated onto an output). fp32 throughout.
+// c2r accumulated onto an output); and the mixed-radix helpers of the
+// spectral-branch kernels K8 (spectral_tiled.cu) and K7
+// (spectral_fused.cu). fp32 throughout.
 
 #pragma once
 
@@ -194,6 +196,68 @@ __device__ void fft_radix2(float2* data, int count, int stride, int log_l,
     }
     __syncthreads();
   }
+}
+
+// ------------------------------------------------- mixed-radix FFT helpers
+//
+// Shared by the spectral-branch kernels K8 (spectral_tiled.cu) and K7
+// (spectral_fused.cu), whose lengths need not be powers of two. A length
+// L = P * Q (P the largest power of two dividing L, Q odd) is transformed
+// in two steps: the P-point FFTs of the Q decimated subsequences in place
+// with fft_radix2, then a dense Q-point step with the twiddles folded in.
+
+__device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
+  return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x)),
+                     fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y)));
+}
+
+// tw[t] = exp(-2 pi i t / L) for 0 <= t < L, any L.
+__device__ void make_twiddles_full(float2* tw, int L) {
+  for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    double s, c;
+    sincospi(2.0 * (double)t / (double)L, &s, &c);
+    tw[t] = make_float2((float)c, (float)-s);
+  }
+}
+
+// Position of element m of a length-L sequence in decimated order: the
+// subsequence m = Q p + q (q fixed) sits contiguous at q * P.
+__device__ __forceinline__ int decimated(int m, int P, int Q) {
+  return (m % Q) * P + m / Q;
+}
+
+// The odd step, one output. y holds the P-point FFTs Y_q of the Q
+// decimated subsequences at y + q * P; returns X[m] = sum_q w^(q m)
+// Y_q[m mod P], w = exp(-2 pi i / L), conjugate twiddles when inverse.
+// Out of place, so Q may be any odd number.
+__device__ __forceinline__ float2 odd_output(const float2* y, int m, int L, int P,
+                                             int Q, const float2* tw, bool inverse) {
+  const float2* yq = y + (m & (P - 1));
+  float2 acc = yq[0];
+  int t = 0;  // q * m mod L
+  for (int q = 1; q < Q; ++q) {
+    t += m;
+    if (t >= L) t -= L;
+    float2 w = tw[t];
+    if (inverse) w.y = -w.y;
+    acc = cfma(w, yq[q * P], acc);
+  }
+  return acc;
+}
+
+// L = p * q with p = 2^log_p the largest power of two dividing L (q = L
+// and p = 1 for odd L).
+inline void split_length(int L, int* p, int* log_p, int* q) {
+  *log_p = 0;
+  while (L % (2 << *log_p) == 0) ++*log_p;
+  *p = 1 << *log_p;
+  *q = L / *p;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 constexpr int kRowsPerBlock = 16;         // 8 packed complex rows per block

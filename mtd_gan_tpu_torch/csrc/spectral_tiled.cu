@@ -56,44 +56,6 @@ constexpr int kMaxW = 1024;
 constexpr int kMaxOddH = 11;    // the odd part of H = 64 * m, m <= 12
 constexpr int kPairs = kRowsPerBlock / 2;
 
-__device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
-  return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x)),
-                     fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y)));
-}
-
-// tw[t] = exp(-2 pi i t / L) for 0 <= t < L, any L.
-__device__ void make_twiddles_full(float2* tw, int L) {
-  for (int t = threadIdx.x; t < L; t += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * (double)t / (double)L, &s, &c);
-    tw[t] = make_float2((float)c, (float)-s);
-  }
-}
-
-// Position of element m of a length-L sequence in decimated order: the
-// subsequence m = Q p + q (q fixed) sits contiguous at q * P.
-__device__ __forceinline__ int decimated(int m, int P, int Q) {
-  return (m % Q) * P + m / Q;
-}
-
-// The odd step of a row FFT, one output. y holds the P-point FFTs Y_q of
-// the Q decimated subsequences at y + q * P; returns X[m] = sum_q w^(q m)
-// Y_q[m mod P], w = exp(-2 pi i / L), conjugate twiddles when inverse.
-__device__ __forceinline__ float2 odd_output(const float2* y, int m, int L, int P,
-                                             int Q, const float2* tw, bool inverse) {
-  const float2* yq = y + (m & (P - 1));
-  float2 acc = yq[0];
-  int t = 0;  // q * m mod L
-  for (int q = 1; q < Q; ++q) {
-    t += m;
-    if (t >= L) t -= L;
-    float2 w = tw[t];
-    if (inverse) w.y = -w.y;
-    acc = cfma(w, yq[q * P], acc);
-  }
-  return acc;
-}
-
 // The odd step of the column FFTs, in place on `count` sequences of length
 // L = P * Q at data + a * L. Forward: the input holds the P-point FFTs Y_q
 // at q * P; the output X[k1 + P k2] = sum_q w^(q (k1 + P k2)) Y_q[k1] is in
@@ -284,22 +246,8 @@ tiled_row_inv_kernel(const float2* __restrict__ spec, const float* __restrict__ 
   }
 }
 
-// L = p * q with p = 2^log_p the largest power of two dividing L (L even).
-void split_length(int L, int* p, int* log_p, int* q) {
-  *log_p = 0;
-  while (L % (2 << *log_p) == 0) ++*log_p;
-  *p = 1 << *log_p;
-  *q = L / *p;
-}
-
 size_t tiled_row_smem_bytes(int w, int p) {
   return (size_t)(kPairs * w + w + p / 2) * sizeof(float2);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <int C>

@@ -23,8 +23,9 @@ from torch import nn
 
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
-from mtd_gan_tpu_torch.ops.cuda_fftconv import (TILED_H_MULTIPLE, TILED_MAX_H,
-                                                TILED_MAX_W, in_tiled_domain)
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (FUSED_MAX_HW, TILED_H_MULTIPLE,
+                                                TILED_MAX_H, TILED_MAX_W,
+                                                in_fused_domain, in_tiled_domain)
 from mtd_gan_tpu_torch.ops.cuda_pipeline import KERNEL_SIZES, resfft_generator_nchw
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
 from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
@@ -87,22 +88,28 @@ def generate_route(h: int, w: int) -> str:
     H x W: ``"k1"``, the fused-block pipeline (``ops/cuda_pipeline.py``),
     for H == W in {64, 128, 256, 512}; else ``"tiled"``, the generator with
     the K8 spectral branch (``ops/cuda_fftconv.py``), for H % 64 == 0 with
-    64 <= H <= 768 and W even with 2 <= W <= 1024; else a ``ValueError``.
+    64 <= H <= 768 and W even with 2 <= W <= 1024; else ``"fused"``, the
+    generator with the K7 spectral branch, for 2 <= H, W <= 128; else a
+    ``ValueError``.
 
-    The one difference from the JAX routing (``mtd_gan_tpu/models/
-    mtd_gan.py`` generate): there, multiples of 128 outside K1's sizes
-    (384^2, 640^2, 768^2, H != W) go to the JAX K1 pipeline; here they go
-    to K8. It is the same function on another kernel, until the port's K1
-    takes those sizes (ROADMAP.md)."""
+    Differences from the JAX routing (``mtd_gan_tpu/models/mtd_gan.py``
+    generate), each the same function on another kernel: there, multiples
+    of 128 outside K1's sizes (384^2, 640^2, 768^2, H != W) go to the JAX
+    K1 pipeline; here they go to K8, until the port's K1 takes those
+    sizes (ROADMAP.md). And there every H < 256 runs the XLA generator;
+    here the small sizes that neither K1 nor K8 takes (96^2, 100x72,
+    33x33, ...) run the JAX package's own small-input kernel, K7."""
     if h == w and h in KERNEL_SIZES:
         return "k1"
     if in_tiled_domain(h, w):
         return "tiled"
+    if in_fused_domain(h, w):
+        return "fused"
     raise ValueError(
         f"generate: no kernel path takes {h}x{w} slices on the GPU: K1 takes "
         f"H == W in {KERNEL_SIZES}, K8 takes H % {TILED_H_MULTIPLE} == 0 with "
         f"{TILED_H_MULTIPLE} <= H <= {TILED_MAX_H} and W even with "
-        f"2 <= W <= {TILED_MAX_W}")
+        f"2 <= W <= {TILED_MAX_W}, K7 takes 2 <= H, W <= {FUSED_MAX_HW}")
 
 
 def _lrelu(x: Tensor) -> Tensor:
@@ -222,6 +229,10 @@ class MTDGANModel:
         with torch.device("meta"):
             tiled = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="tiled")
         self.generator_tiled = share_parameters(tiled, self.generator).eval()
+        # the JAX ResFFTGenerator(spectral_impl="pallas_fused") in the same way
+        with torch.device("meta"):
+            fused = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="fused")
+        self.generator_fused = share_parameters(fused, self.generator).eval()
         disc = MultiTaskDiscriminator(1, disc_features, dropout_rate)
         normal_init_(disc, INIT_STD, init)
         with torch.no_grad():  # u, v: unit vectors drawn from the same seed
@@ -234,19 +245,22 @@ class MTDGANModel:
     def generate(self, x: Tensor) -> Tensor:
         """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` takes the kernel
         path :func:`generate_route` names: the K1 pipeline, or the tiled
-        generator on K8 (the 3x3 convs in cuDNN); outside both domains it
-        raises. A CPU ``x`` runs the plain module."""
+        generator on K8, or the fused generator on K7 (the 3x3 convs of
+        both in cuDNN); outside all three domains it raises. A CPU ``x``
+        runs the plain module."""
         if x.device.type != self.device.type:
             raise ValueError(f"generate: input on {x.device}, model on "
                              f"{self.device}")
         if x.device.type == "cpu":
             return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         n, h, w, _ = x.shape
-        if generate_route(h, w) == "k1":
+        route = generate_route(h, w)
+        if route == "k1":
             return resfft_generator_nchw(self.generator.state_dict(), x,
                                          self.num_layers)
-        # reshape, not permute: NCHW strides for the kernel's layout checks
-        return self.generator_tiled(x.reshape(n, 1, h, w)).reshape(n, h, w, 1)
+        gen = self.generator_tiled if route == "tiled" else self.generator_fused
+        # reshape, not permute: NCHW strides for the kernels' layout checks
+        return gen(x.reshape(n, 1, h, w)).reshape(n, h, w, 1)
 
     # ---- losses (reference arch/Ours/networks.py:1957-2009) ----
     def _apply_d(self, z: Tensor, update_stats: bool,

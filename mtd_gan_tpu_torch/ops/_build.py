@@ -122,3 +122,20 @@ def spectral_tiled_library() -> ctypes.CDLL:
     lib.spectral_tiled_error_string.argtypes = [ctypes.c_int]
     lib.spectral_tiled_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def spectral_fused_library() -> ctypes.CDLL:
+    """The K7 library (``csrc/spectral_fused.cu``), built on first call."""
+    lib = ctypes.CDLL(str(build("spectral_fused")))
+    lib.spectral_fused_scratch_floats.argtypes = [_I, _I, _I]  # c, h, w
+    lib.spectral_fused_scratch_floats.restype = ctypes.c_longlong
+    lib.spectral_fused_forward.argtypes = [
+        _P, _I, _I, _I, _I,          # x, n, c, h, w
+        _P, _P,                      # mix, mix_bias
+        _P, _P, _P,                  # scratch, out, stream
+    ]
+    lib.spectral_fused_forward.restype = ctypes.c_int
+    lib.spectral_fused_error_string.argtypes = [ctypes.c_int]
+    lib.spectral_fused_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,20 +1,26 @@
-"""The tiled spectral branch on the hand-written K8 kernel (counterpart of
-``spectral_branch_tiled`` in ``mtd_gan_tpu/ops/pallas_fftconv.py``).
+"""The spectral branch on the hand-written kernels K8 and K7 (counterparts
+of ``spectral_branch_tiled`` and ``spectral_branch_fused`` in
+``mtd_gan_tpu/ops/pallas_fftconv.py``).
 
-:func:`spectral_branch_tiled` computes, on NCHW fp32 ``x`` ``(N, C, H, W)``,
+Both compute, on NCHW fp32 ``x`` ``(N, C, H, W)``,
 
     [residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))
 
 with orthonormal FFTs and the Hermitian-fold inverse (the imaginary parts
-of the W bins 0 and W/2 dropped). On a CUDA tensor it launches
-``csrc/spectral_tiled.cu``; on a CPU tensor it runs
-:func:`spectral_branch_tiled_reference`, the plain PyTorch version. There
-is no fallback from one to the other.
+of the W bins 0 and, for even W, W/2 dropped); K7 returns the branch
+alone, as the JAX K7 does. On a CUDA tensor each wrapper launches its
+kernel; on a CPU tensor it runs the plain PyTorch version. There is no
+fallback from one to the other.
 
-The kernel's domain: C in {8, 16, 32}; H % 64 == 0 with 64 <= H <= 768
-(the column pass holds C*H complex values of one bin in shared memory);
-W even with 2 <= W <= 1024. The JAX kernel takes H % th == 0 (th = 64 by
-default) and pads K = W/2 + 1 to a multiple of 128.
+:func:`spectral_branch_tiled` (K8, ``csrc/spectral_tiled.cu``) takes C in
+{8, 16, 32}; H % 64 == 0 with 64 <= H <= 768 (the column pass holds C*H
+complex values of one bin in shared memory); W even with 2 <= W <= 1024.
+The JAX kernel takes H % th == 0 (th = 64 by default) and pads K = W/2 + 1
+to a multiple of 128.
+
+:func:`spectral_branch_fused` (K7, ``csrc/spectral_fused.cu``) takes C in
+{8, 16, 32} and 2 <= H, W <= 128 of any parity: the JAX kernel's
+"H, W <= 128", one sample per thread-block cluster.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ TILED_MAX_W = 1024
 
 
 def in_tiled_domain(h: int, w: int) -> bool:
-    """Whether the kernel takes an H x W image (any channel count it is
+    """Whether K8 takes an H x W image (any channel count it is
     instantiated for)."""
     return (h % TILED_H_MULTIPLE == 0 and TILED_H_MULTIPLE <= h <= TILED_MAX_H
             and w % 2 == 0 and 2 <= w <= TILED_MAX_W)
@@ -101,3 +107,71 @@ def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
 
 
 spectral_branch_tiled.launches = 0
+
+
+FUSED_CHANNELS = (8, 16, 32)
+FUSED_MAX_HW = 128
+
+# the plain K7 is the plain spectral branch itself
+spectral_branch_fused_reference = spectral_branch
+
+
+def in_fused_domain(h: int, w: int) -> bool:
+    """Whether K7 takes an H x W image (any channel count it is
+    instantiated for)."""
+    return 2 <= h <= FUSED_MAX_HW and 2 <= w <= FUSED_MAX_HW
+
+
+def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
+    """K7: ``irfft2(relu(mix([Re; Im] rfft2(x)) + bias))`` on NCHW fp32
+    ``x`` ``(N, C, H, W)``, the same arguments and result as
+    :func:`spectral_branch_fused_reference`; ``mix`` is ``(2C_out,
+    2C_in)``, ``bias`` ``(2C,)``. Domain: C in {8, 16, 32} and
+    2 <= H, W <= 128, odd or even.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
+    (one launch per call, counted in ``spectral_branch_fused.launches``) or
+    raises: outside the kernel's domain, on a wrong layout, when a gradient
+    is asked for (the kernel has no backward), or on a CUDA error."""
+    if x.device.type == "cpu":
+        return spectral_branch_fused_reference(x, mix, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectral_branch_fused: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"spectral_branch_fused: x must be (N, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    n, c, h, w = x.shape
+    if not in_fused_domain(h, w):
+        raise ValueError(f"spectral_branch_fused: the kernel takes 2 <= H, W <= "
+                         f"{FUSED_MAX_HW}, got {h}x{w}")
+    if c not in FUSED_CHANNELS:
+        raise ValueError(f"spectral_branch_fused: the kernel takes C in "
+                         f"{FUSED_CHANNELS}, got {c}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, mix, bias)):
+        raise ValueError("spectral_branch_fused: the kernel is inference only "
+                         "(no backward); call it under torch.no_grad()")
+    dev = x.device
+    for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
+                           (bias, (2 * c,), "bias")):
+        _check(t, shape, dev, name, "spectral_branch_fused")
+
+    lib = _build.spectral_fused_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        # where the half spectrum does not fit the cluster's shared memory
+        # the kernel keeps it in a device-memory scratch
+        floats = lib.spectral_fused_scratch_floats(c, h, w)
+        scratch = (torch.empty(n * floats, device=dev, dtype=torch.float32)
+                   if floats > 0 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spectral_fused_forward(
+            x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        msg = lib.spectral_fused_error_string(err).decode()
+        raise RuntimeError(f"spectral_branch_fused: CUDA error {err} ({msg})")
+    spectral_branch_fused.launches += 1
+    return out
+
+
+spectral_branch_fused.launches = 0

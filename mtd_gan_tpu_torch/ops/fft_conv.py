@@ -9,10 +9,12 @@ transpose of the flax ``fft_kernel``.
 
 ``impl`` selects the spectral branch, as the JAX ``impl`` /
 ``spectral_impl`` do: ``"auto"`` is the plain PyTorch block (``torch.fft``);
-``"tiled"`` is the inference path of the JAX ``"pallas_tiled"``: the 3x3
-conv branch and residual in ``F.conv2d`` (the JAX package leaves that conv
-to XLA), then the spectral branch with that residual fused into its last
-pass, on the K8 kernel (``ops/cuda_fftconv.py``) for a CUDA tensor.
+``"tiled"`` and ``"fused"`` are the inference paths of the JAX
+``"pallas_tiled"`` and ``"pallas_fused"``: the 3x3 conv branch and residual
+in ``F.conv2d`` (the JAX package leaves that conv to XLA), then the
+spectral branch on a kernel of ``ops/cuda_fftconv.py`` for a CUDA tensor:
+K8 with that residual fused into its last pass (``"tiled"``), or K7, whose
+branch the residual is added to (``"fused"``).
 """
 
 from __future__ import annotations
@@ -47,20 +49,24 @@ def spectral_branch(x: torch.Tensor, mix: torch.Tensor,
     return torch.fft.irfft(z, n=w, dim=-1, norm="ortho")
 
 
-SPECTRAL_IMPLS = ("auto", "tiled")
+SPECTRAL_IMPLS = ("auto", "tiled", "fused")
 
 
 def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
                    img_bias: torch.Tensor, mix: torch.Tensor,
                    mix_bias: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Functional Res-FFT-Conv block on NCHW ``x``; ``img_weight`` is the
-    ``(C, C, 3, 3)`` conv weight. ``impl``: ``"auto"`` or ``"tiled"``
-    (module docstring)."""
+    ``(C, C, 3, 3)`` conv weight. ``impl``: ``"auto"``, ``"tiled"`` or
+    ``"fused"`` (module docstring)."""
     res = x + torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
     if impl == "tiled":
         from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_tiled
 
         return spectral_branch_tiled(x, mix, mix_bias, residual=res)
+    if impl == "fused":
+        from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_fused
+
+        return res + spectral_branch_fused(x, mix, mix_bias)
     if impl != "auto":
         raise ValueError(f"fft_conv_block: impl must be one of {SPECTRAL_IMPLS}, "
                          f"got {impl!r}")

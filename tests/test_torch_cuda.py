@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu),
-K2 (csrc/block_bwd.cu) and K8 (csrc/spectral_tiled.cu) against their plain
-PyTorch versions, on the card. Every test is marked
+K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu) and K7
+(csrc/spectral_fused.cu) against their plain PyTorch versions, on the card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
 
@@ -15,7 +15,9 @@ import copy
 
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
-from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_tiled,
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
+                                                spectral_branch_fused_reference,
+                                                spectral_branch_tiled,
                                                 spectral_branch_tiled_reference)
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
@@ -258,6 +260,54 @@ def test_generate_at_320_runs_k8_21_times_and_no_k1(dev):
     got = model.generate(x)
     torch.cuda.synchronize()
     assert (block_fused.launches - k1, spectral_branch_tiled.launches - k8) == (0, 21)
+    with torch.no_grad():
+        want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("h,w", [(96, 96), (127, 127)])
+def test_k7_matches_plain_version(dev, h, w):
+    """K7 against its plain version (cuFFT) with one launch per call: 96^2
+    keeps the half spectrum in the cluster's shared memory, 127^2 (prime)
+    in the device-memory scratch."""
+    a = _tiled_inputs(dev, 2, 32, h, w)
+    args = (a["x"], a["mix"], a["bias"])
+    before = spectral_branch_fused.launches
+    got = spectral_branch_fused(*args)
+    torch.cuda.synchronize()
+    assert spectral_branch_fused.launches == before + 1
+    want = spectral_branch_fused_reference(*args)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel < TOL_REL, (h, w, rel)
+
+
+def test_k7_rejects_unsupported_calls(dev):
+    args = _tiled_inputs(dev, 1, 8, 64, 64)
+    x, mix, bias = args["x"], args["mix"], args["bias"]
+    with pytest.raises(ValueError, match="2 <= H, W <= 128"):
+        spectral_branch_fused(_tiled_inputs(dev, 1, 8, 129, 64)["x"], mix, bias)
+    with pytest.raises(ValueError, match="C in"):
+        a24 = _tiled_inputs(dev, 1, 24, 64, 64)
+        spectral_branch_fused(a24["x"], a24["mix"], a24["bias"])
+    with pytest.raises(ValueError, match="contiguous float32"):
+        spectral_branch_fused(x.transpose(2, 3), mix, bias)
+    with pytest.raises(ValueError, match="inference only"):
+        spectral_branch_fused(x, mix.clone().requires_grad_(), bias)
+
+
+def test_generate_at_100x72_runs_k7_21_times_and_no_k1_or_k8(dev):
+    """Full-width generator at 100x72 (outside K1's and K8's domains): the
+    fused generator with 21 K7 launches and no K1 or K8 launch, within 1e-5
+    of the plain module (reference init, fp32)."""
+    model = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1)
+    x = torch.rand((2, 100, 72, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    counts = (block_fused.launches, spectral_branch_tiled.launches,
+              spectral_branch_fused.launches)
+    got = model.generate(x)
+    torch.cuda.synchronize()
+    assert (block_fused.launches - counts[0], spectral_branch_tiled.launches - counts[1],
+            spectral_branch_fused.launches - counts[2]) == (0, 0, 21)
     with torch.no_grad():
         want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert (got - want).abs().max().item() < 1e-5

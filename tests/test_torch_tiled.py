@@ -13,7 +13,7 @@ from mtd_gan_tpu.models.mtd_gan import MTDGANModel as JaxModel
 from mtd_gan_tpu.ops.pallas_fftconv import spectral_branch_tiled as jax_tiled
 from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
                                               generate_route)
-from mtd_gan_tpu_torch.ops.cuda_fftconv import (in_tiled_domain,
+from mtd_gan_tpu_torch.ops.cuda_fftconv import (in_fused_domain, in_tiled_domain,
                                                 spectral_branch_tiled,
                                                 spectral_branch_tiled_reference)
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
@@ -118,12 +118,13 @@ def test_tiled_generator_matches_jax_generator_tiled(tiled_generator_case, which
 
 @pytest.mark.parametrize("h,w,route", [
     (64, 64, "k1"), (512, 512, "k1"), (448, 448, "tiled"), (384, 384, "tiled"),
-    (512, 320, "tiled"), (192, 192, "tiled"), (100, 100, None), (448, 449, None),
-    (832, 832, None)])
+    (512, 320, "tiled"), (192, 192, "tiled"), (100, 100, "fused"), (96, 96, "fused"),
+    (64, 127, "fused"), (33, 33, "fused"), (448, 449, None), (832, 832, None),
+    (129, 129, None)])
 def test_generate_route(h, w, route):
     if route is None:
-        assert not in_tiled_domain(h, w)
-        with pytest.raises(ValueError, match="K1 takes H == W"):
+        assert not in_tiled_domain(h, w) and not in_fused_domain(h, w)
+        with pytest.raises(ValueError, match=r"K1 takes H == W.*K8 takes.*K7 takes"):
             generate_route(h, w)
     else:
         assert generate_route(h, w) == route
@@ -138,6 +139,7 @@ def test_fft_conv_block_tiled_equals_auto_on_cpu():
     x = torch.tensor(rng.random((2, 8, 64, 40)), dtype=torch.float32)
     with torch.no_grad():
         assert torch.equal(tiled(x), auto(x))
+    # the JAX name stays unknown to the port, whose name is "fused"
     with pytest.raises(ValueError, match="spectral_impl"):
         FFTConvBlock(8, spectral_impl="pallas_fused")
 
