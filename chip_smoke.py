@@ -6,8 +6,9 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels K1 (csrc/block_fused.cu), K2 (csrc/block_bwd.cu), K8
-     (csrc/spectral_tiled.cu) and K7 (csrc/spectral_fused.cu), one nvcc
-     process each, started together (sm_90a), and print the build logs;
+     (csrc/spectral_tiled.cu), K7 (csrc/spectral_fused.cu), K3
+     (csrc/conv3x3.cu) and K4 - K6 (csrc/spectral_staged.cu), one nvcc
+     process per source, started together (sm_90a), and print the build logs;
   3. hold K1 (``block_fused``) against its plain PyTorch version
      (``block_fused_reference``) at C = 32, 64x64 to 512x512, batch 2, in
      all four variants (plain, pre, pre+skip, pre+skip+post), with the
@@ -23,38 +24,62 @@ Phases, each fatal on failure (non-zero exit, no result line):
      reference init and with 1/sqrt(fan_in) weights; H = 100 and C = 24
      must raise;
   7. ``generate`` at 448x448, batch 8, full width, against the plain
-     module: 21 K8 and 0 K1 launches per call; one 512x320 call at batch 2
-     the same;
+     module: 21 K8, 42 K3 and 0 K1 launches per call; one 512x320 call at
+     batch 2 the same;
   8. serving at 448x448: the ``test`` sweep over 16 synthetic 448x448
-     DICOM pairs — the tiled serving path, 42 K8 and 0 K1 launches;
+     DICOM pairs — the tiled serving path, 42 K8, 84 K3 and 0 K1 launches;
   9. hold K7 (``spectral_branch_fused``) against its plain version
      (``spectral_branch_fused_reference``) at C = 32, batch 2, 32x32 to
      128x128 with odd and prime sizes (100x72, 97x66, 127x127), and at
      C = 8, 33x27, with the reference init and with 1/sqrt(fan_in)
      weights; H = 129, C = 24 and a gradient request must raise;
   10. ``generate`` at 96x96, batch 64, full width, against the plain
-     module: 21 K7 and 0 K1 / K8 launches per call; one 100x72 call at
-     batch 4 the same;
+     module: 21 K7, 42 K3 and 0 K1 / K8 launches per call; one 100x72 call
+     at batch 4 the same;
   11. serving at 96x96: the ``test`` sweep over 16 synthetic 96x96 DICOM
-     pairs — the fused serving path, 42 K7 and 0 K1 / K8 launches;
-  12. hold K2 (``block_bwd``) against its plain version
+     pairs — the fused serving path, 42 K7, 84 K3 and 0 K1 / K8 launches;
+  12. hold K3 (``conv3x3``) against its plain version (``F.conv2d`` plus
+     the elementwise ops) in its four epilogues (plain, relu, skip+relu,
+     relu+residual), the flipped deconv with skip+relu and the C -> 1 exit
+     deconv, at 448x448, 96x96, 200x200, 1024x1024 and 449x130, C = 32,
+     batch 2, with both inits; C_out = 12, a residual with C_in != C_out
+     and a gradient request must raise;
+  13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``)
+     each against its plain version (``torch.fft``), each fed the plain
+     input, at 1024x1024, 800x800, 200x200, 130x64, 448x449 and 2x2, at
+     C = 32 and C = 8, batch 2, with both inits; C = 24, a side of 1025
+     and a gradient request must raise;
+  14. ``generate`` at 1024x1024, batch 2, and 200x200, batch 8, full width,
+     against the plain module: 42 K3, 21 each of K4, K5 and K6 and 0 K1 /
+     K7 / K8 launches per call;
+  15. serving at 1024x1024: the ``test`` sweep over 8 synthetic 1024x1024
+     DICOM pairs — the staged serving path, its K3 - K6 launches counted;
+  16. F1: ``generate`` at gen_features=64 (200x200, batch 2) and on a 1x64
+     input (32 features) runs the plain module on the card with no kernel
+     launch, within 1e-3 of the same module on the CPU;
+  17. hold K2 (``block_bwd``) against its plain version
      (``block_bwd_reference``, autograd through K1's) at 64x64, C = 32,
      batch 2 and 8, in the four variants, with the reference init, with
      1/sqrt(fan_in) weights and with sign-certain ("margin") biases;
-  13. the PCGrad train step at full width (generator 32 features x 10
+  18. the PCGrad train step at full width (generator 32 features x 10
      layers, discriminator 64 features, 160 patches of 64x64 cut by
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
      state, the generator gradient and the D losses through K1 + K2 against
      the plain generator under autograd; then 3 more kernel steps, finite
      losses and 21 K1 + 21 K2 launches per step;
-  14. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
+  19. F2: one train step at gen_features=64 (16 of those patches): the
+     plain generator under autograd, no kernel launch, finite losses;
+  20. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
      of 20 slices, validation) on synthetic train / valid splits — the
      training path, whose K1 and K2 launches are counted — then
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
-  15. timings with CUDA events (K1, K2, K8 and K7 and their plain versions
-     per call beside their bounds, generate and sweep slices/s at 512x512,
-     448x448 and 96x96, ms per train step and patches/s), torch.profiler
-     breakdowns of one generate call at each size and of one train step by
+  21. timings with CUDA events (K1, K2, K8, K7 and K3 - K6 and their plain
+     versions per call beside their bounds and, for K3, K4 and K6, one
+     library call of the same function; generate and sweep slices/s at
+     512x512, 448x448, 96x96, 1024x1024 and 200x200; generate at 448x448
+     and 96x96 with the convs on K3 and on cuDNN, in turns; ms per train
+     step and patches/s), torch.profiler breakdowns of one generate call at
+     512x512, 448x448, 96x96 and 1024x1024 and of one train step by
      kernel, then the kernel JSON line, the card line and the result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
@@ -80,8 +105,13 @@ from mtd_gan_tpu_torch import train as train_cli
 from mtd_gan_tpu_torch.data.dicom import write_synthetic_dicom
 from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
-from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
+from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
+                                              share_parameters)
 from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops.cuda_staged import (conv3x3, conv3x3_reference, irdft_w_add,
+                                               irdft_w_add_reference, rdft_w,
+                                               rdft_w_reference, spectral_mix_h,
+                                               spectral_mix_h_reference)
 from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
                                                 spectral_branch_fused_reference,
                                                 spectral_branch_tiled,
@@ -131,8 +161,19 @@ TILED_SHAPES = ((192, 192), (320, 320), (384, 384), (448, 448), (512, 320), (768
 # K7 at C = 32, then one C = 8 shape; 97 and 127 are prime
 FUSED_SHAPES = tuple((32, hw) for hw in ((32, 32), (64, 64), (96, 96), (100, 72),
                                          (97, 66), (127, 127), (128, 128))) + ((8, (33, 27)),)
+# K3 at the generators' sizes; K4 - K6 at the staged route's sizes (449 is
+# prime; 200 and 800 have the odd factor 25), each at C = 32 and C = 8
+K3_SHAPES = ((448, 448), (96, 96), (200, 200), (1024, 1024), (449, 130))
+STAGED_SHAPES = ((1024, 1024), (800, 800), (200, 200), (130, 64), (448, 449), (2, 2))
 # the launch counts the main paths are held to, by kernel
-COUNTED = {"K1": block_fused, "K8": spectral_branch_tiled, "K7": spectral_branch_fused}
+COUNTED = {"K1": block_fused, "K2": block_bwd, "K8": spectral_branch_tiled,
+           "K7": spectral_branch_fused, "K3": conv3x3, "K4": rdft_w,
+           "K5": spectral_mix_h, "K6": irdft_w_add}
+# one generate call on the tiled, fused or staged route: 42 K3 (10 encoder,
+# 21 residual, 10 decoder convs and the exit deconv) besides its spectral
+# kernel; the staged route's spectral branch is 21 each of K4, K5 and K6
+K3_PER_CALL = 42
+STAGED_PER_CALL = {"K3": K3_PER_CALL, "K4": 21, "K5": 21, "K6": 21}
 TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
 
 
@@ -262,6 +303,17 @@ def check_kernel():
     return worst_abs
 
 
+def expect_raise(label: str, fn):
+    """Fail unless ``fn()`` raises ValueError (with gradients enabled)."""
+    try:
+        with torch.enable_grad():
+            fn()
+    except ValueError as e:
+        print(f"{label} raises: {e}", flush=True)
+    else:
+        fail(f"{label} did not raise")
+
+
 def tiled_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
     """Seeded spectral-branch inputs (NCHW) on the GPU. ``init``:
     "reference" (N(0, 0.01) mix, zero bias) or "fan_in" (std 1/sqrt(2C),
@@ -303,12 +355,7 @@ def check_k8():
             ("C = 24", {"x": torch.zeros((1, 24, 64, 64), device="cuda"),
                         "mix": torch.zeros((48, 48), device="cuda"),
                         "bias": torch.zeros(48, device="cuda")})):
-        try:
-            spectral_branch_tiled(**call)
-        except ValueError as e:
-            print(f"K8 outside its domain ({label}) raises: {e}", flush=True)
-        else:
-            fail(f"K8 took a call outside its domain ({label})")
+        expect_raise(f"K8 with {label}", lambda: spectral_branch_tiled(**call))
     return worst_abs
 
 
@@ -346,14 +393,156 @@ def check_k7():
             ("H = 129", (zeros(1, C, 129, 64), mix, bias)),
             ("C = 24", (zeros(1, 24, 64, 64), zeros(48, 48), zeros(48))),
             ("mix.requires_grad", (x, mix.clone().requires_grad_(), bias))):
-        try:
-            with torch.enable_grad():
-                spectral_branch_fused(*call)
-        except ValueError as e:
-            print(f"K7 raises ({label}): {e}", flush=True)
-        else:
-            fail(f"K7 took a call it must refuse ({label})")
+        expect_raise(f"K7 with {label}", lambda: spectral_branch_fused(*call))
     return worst_abs
+
+
+def k3_calls(n: int, h: int, w: int, init: str, seed: int):
+    """The K3 calls of the generators at one shape, by epilogue: ``(args,
+    keywords)`` on seeded GPU tensors (``init`` as :func:`block_inputs`)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+    std = 0.01 if init == "reference" else 1.0 / math.sqrt(9 * C)
+    bias = lambda k: t(np.zeros(k) if init == "reference" else rng.standard_normal(k) * 0.1)
+    x = t(rng.random((n, C, h, w)))
+    wt, b = t(rng.standard_normal((C, C, 3, 3)) * std), bias(C)
+    skip = t(rng.standard_normal((n, C, h, w)) * 0.5)
+    w1, b1 = t(rng.standard_normal((C, 1, 3, 3)) * std), bias(1)
+    img = t(rng.random((n, 1, h, w)))
+    return {"plain": ((x, wt, b), dict(relu=False)),
+            "relu": ((x, wt, b), dict()),
+            "skip+relu": ((x, wt, b), dict(skip=skip)),
+            "relu+residual": ((x, wt, b), dict(residual=True)),
+            "deconv+skip+relu": ((x, wt, b), dict(skip=skip, transpose=True)),
+            "exit deconv C->1": ((x, w1, b1), dict(skip=img, transpose=True))}
+
+
+def check_k3():
+    """Phase 12; returns the largest absolute error seen."""
+    worst_abs = 0.0
+    for si, (h, w) in enumerate(K3_SHAPES):
+        for init in ("reference", "fan_in"):
+            for label, (args, kw) in k3_calls(2, h, w, init, seed=si).items():
+                before = conv3x3.launches
+                got = conv3x3(*args, **kw)
+                torch.cuda.synchronize()
+                if conv3x3.launches != before + 1:
+                    fail(f"K3 {h}x{w} {label}: {conv3x3.launches - before} launches")
+                want = conv3x3_reference(*args, **kw)
+                if not torch.isfinite(got).all():
+                    fail(f"K3 {h}x{w} {init} {label}: non-finite output")
+                err = (got - want).abs().max().item()
+                rel = err / max(want.abs().max().item(), 1e-30)
+                worst_abs = max(worst_abs, err)
+                print(f"K3 check {h}x{w} C={C} n=2 {init:9s} {label:16s}: max_abs "
+                      f"{err:.3e} rel {rel:.3e}", flush=True)
+                if rel > TOL_SPECTRAL_REL:
+                    fail(f"K3 {h}x{w} {init} {label}: relative error {rel:.3e} > "
+                         f"{TOL_SPECTRAL_REL}")
+    calls = k3_calls(1, 64, 64, "fan_in", 0)
+    (x, wt, b), _ = calls["plain"]
+    w1 = calls["exit deconv C->1"][0][1]
+    expect_raise("K3 with C_out = 12", lambda: conv3x3(x, wt[:12], b[:12]))
+    expect_raise("K3 residual with C_in != C_out",
+                 lambda: conv3x3(x, w1, None, transpose=True, residual=True))
+    expect_raise("K3 with weight.requires_grad",
+                 lambda: conv3x3(x, wt.clone().requires_grad_(), b))
+    return worst_abs
+
+
+def check_staged(lib):
+    """Phase 13: K4, K5 and K6 each against its plain version, each fed the
+    plain version's input of the stage before; returns the largest
+    absolute error of each."""
+    worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+    for c in (C, 8):
+        for si, (h, w) in enumerate(STAGED_SHAPES):
+            for init in ("reference", "fan_in"):
+                a = tiled_inputs(2, h, w, init, seed=si, c=c)
+                before = [COUNTED[k].launches for k in worst]
+                zr = rdft_w_reference(a["x"])
+                tr = spectral_mix_h_reference(zr, a["mix"], a["bias"])
+                outs = {"K4": (rdft_w(a["x"]), zr),
+                        "K5": (spectral_mix_h(zr.clone(), a["mix"], a["bias"]), tr),
+                        "K6": (irdft_w_add(tr, a["residual"]),
+                               irdft_w_add_reference(tr, a["residual"]))}
+                torch.cuda.synchronize()
+                if [COUNTED[k].launches - b for k, b in zip(worst, before)] != [1, 1, 1]:
+                    fail(f"K4-K6 {h}x{w}: not one launch each")
+                parts = []
+                for name, (got, want) in outs.items():
+                    got, want = (torch.view_as_real(t) if t.is_complex() else t
+                                 for t in (got, want))
+                    if not torch.isfinite(got).all():
+                        fail(f"{name} {h}x{w} C={c} {init}: non-finite output")
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    worst[name] = max(worst[name], err)
+                    parts.append(f"{name} {err:.3e}/{rel:.3e}")
+                    if rel > TOL_SPECTRAL_REL:
+                        fail(f"{name} {h}x{w} C={c} {init}: relative error {rel:.3e} "
+                             f"> {TOL_SPECTRAL_REL}")
+                print(f"K4-K6 check {h}x{w} C={c} n=2 {init:9s} (K5 cluster of "
+                      f"{lib.staged_mix_cluster_size(c, h)}; max_abs/rel): "
+                      + "; ".join(parts), flush=True)
+    a = tiled_inputs(1, 64, 64, "fan_in", 0)
+    z = rdft_w(a["x"])
+    zeros = lambda *shape, **kw: torch.zeros(shape, device="cuda", **kw)
+    expect_raise("K4 with C = 24", lambda: rdft_w(zeros(1, 24, 64, 64)))
+    expect_raise("K4 with H = 1025", lambda: rdft_w(zeros(1, C, 1025, 64)))
+    expect_raise("K5 with H = 1025", lambda: spectral_mix_h(
+        zeros(1, C, 33, 1025, dtype=torch.complex64), a["mix"], a["bias"]))
+    expect_raise("K5 with C = 24", lambda: spectral_mix_h(
+        zeros(1, 24, 33, 64, dtype=torch.complex64), zeros(48, 48), zeros(48)))
+    expect_raise("K5 with mix.requires_grad", lambda: spectral_mix_h(
+        z, a["mix"].clone().requires_grad_(), a["bias"]))
+    expect_raise("K6 with W = 1025", lambda: irdft_w_add(
+        zeros(1, C, 513, 64, dtype=torch.complex64), zeros(1, C, 64, 1025)))
+    expect_raise("K6 with res.requires_grad", lambda: irdft_w_add(
+        z, a["residual"].clone().requires_grad_()))
+    return worst
+
+
+def check_plain_route(label: str, features: int, num_layers: int, x):
+    """F1: ``generate`` on a route no kernel takes runs the plain module on
+    the card with no kernel launch, within TOL_GENERATE_ABS of the same
+    module on the CPU."""
+    model = MTDGANModel(gen_features=features, num_layers=num_layers, device="cuda",
+                        seed=0)
+    cpu = MTDGANModel(gen_features=features, num_layers=num_layers, device="cpu", seed=0)
+    zero_counts()
+    pred = model.generate(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = cpu.generate(x.cpu())
+    if pred.shape != x.shape or not torch.isfinite(pred).all():
+        fail(f"{label}: output {tuple(pred.shape)} not finite/expected")
+    err = (pred.cpu() - want).abs().max().item()
+    print(f"{label} (plain route, {features} features, {num_layers} layers): max_abs "
+          f"vs the CPU module {err:.3e} (tol {TOL_GENERATE_ABS}); launches {counts}",
+          flush=True)
+    expect_counts(label, counts, {})
+    if err > TOL_GENERATE_ABS:
+        fail(f"{label}: error {err:.3e} > {TOL_GENERATE_ABS}")
+
+
+def check_train_width64(x, y):
+    """F2: a train step at gen_features=64 (outside K1's and K2's widths)
+    runs the plain generator under autograd: no kernel launch, finite
+    losses."""
+    model = MTDGANModel(gen_features=64, disc_features=64, num_layers=10, device="cuda",
+                        seed=0)
+    trainer = MTDGANTrainer(model, method="pcgrad", seed=0)
+    zero_counts()
+    m = trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    d, g = m["d_loss"].item(), m["g_loss"].item()
+    print(f"train step at gen_features=64 ({x.shape[0]} patches): d_loss {d:.6f} "
+          f"g_loss {g:.6f}; launches {counts}", flush=True)
+    expect_counts("train step at gen_features=64", counts, {})
+    if not (math.isfinite(d) and math.isfinite(g)):
+        fail(f"train step at gen_features=64: non-finite losses {d}, {g}")
 
 
 def zero_counts():
@@ -426,7 +615,7 @@ def run_sweep(model, rng, tmp: str, size: int, want, n_slices: int = 16):
     print(f"sweep {size}x{size}: {n_rows} rows, {n_png} PNGs, pred_psnr "
           f"{summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}; "
           f"launches {counts}", flush=True)
-    expect_counts(f"sweep {size}^2 (2 groups of 8)", counts, want)
+    expect_counts(f"sweep {size}^2 ({n_slices // 8} groups of 8)", counts, want)
     return sweep_s, counts
 
 
@@ -538,6 +727,46 @@ def k7_work(n: int, h: int, w: int):
     flops = n * (2 * 2.5 * C * hw * math.log2(hw) + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k)
     words = 2 * n * C * hw + 4 * C * C + 2 * C
     return flops, 4 * words
+
+
+def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C):
+    """(FLOPs, bytes) one K3 call needs: 2*9*C_in multiply-adds per output
+    value plus one op each for the bias, the skip, the ReLU and the
+    residual it applies; x, the weights, the bias and the skip read once,
+    out written once, fp32."""
+    ops = 1 + ("skip" in variant) + ("relu" in variant) + ("residual" in variant)
+    flops = n * h * w * c_out * (2 * 9 * c_in + ops)
+    words = n * h * w * (c_in + c_out) + 9 * c_in * c_out + c_out
+    if "skip" in variant:
+        words += n * h * w * c_out
+    return flops, 4 * words
+
+
+def k4_work(n: int, h: int, w: int, c: int = C):
+    """(FLOPs, bytes) one K4 call needs: a real W-point FFT per row,
+    2.5*W*log2(W); x read once (fp32), the half spectrum written once
+    (complex64)."""
+    k = w // 2 + 1
+    return n * c * h * 2.5 * w * math.log2(w), 4 * n * c * h * w + 8 * n * c * k * h
+
+
+def k5_work(n: int, h: int, w: int, c: int = C):
+    """(FLOPs, bytes) one K5 call needs: per (n, k) bin a complex H-point
+    FFT and its inverse per channel, 5*H*log2(H) each, and at every h the
+    2C x 2C mix, 2*(2C)^2, plus bias and ReLU; the spectrum read and
+    written once (complex64), the mix and its bias read once."""
+    k = w // 2 + 1
+    flops = n * k * (2 * c * 5 * h * math.log2(h) + (2 * (2 * c) ** 2 + 2 * 2 * c) * h)
+    return flops, 2 * 8 * n * c * k * h + 4 * (4 * c * c + 2 * c)
+
+
+def k6_work(n: int, h: int, w: int, c: int = C):
+    """(FLOPs, bytes) one K6 call needs: a Hermitian W-point c2r per row,
+    2.5*W*log2(W), and the residual add; the spectrum (complex64) and the
+    residual read once, out written once."""
+    k = w // 2 + 1
+    flops = n * c * h * (2.5 * w * math.log2(w) + w)
+    return flops, 8 * n * c * k * h + 2 * 4 * n * c * h * w
 
 
 def bound(work):
@@ -716,15 +945,18 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build the four kernels in parallel (one nvcc each)
+    # ---- 2. build the six sources in parallel (one nvcc each)
     t0 = time.perf_counter()
-    names = ("block_fused", "block_bwd", "spectral_tiled", "spectral_fused")
+    names = ("block_fused", "block_bwd", "spectral_tiled", "spectral_fused", "conv3x3",
+             "spectral_staged")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     _build.block_fused_library()
     _build.block_bwd_library()
     _build.spectral_tiled_library()
     _build.spectral_fused_library()
+    _build.conv3x3_library()
+    staged_lib = _build.spectral_staged_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
         log = lib.with_suffix(".log")
@@ -756,10 +988,11 @@ def main():
         x_rect = torch.tensor(phantom(rng, 2, 512)[:, :, 96:416, None],
                               dtype=torch.float32, device="cuda")
         for x in (x448, x_rect):
-            check_generate(model, x, "tiled", {"K8": 21})
+            check_generate(model, x, "tiled", {"K8": 21, "K3": K3_PER_CALL})
 
         # ---- 8. serving at 448x448: the main path on K8
-        sweep448_s, counts = run_sweep(model, rng, tmp, 448, {"K8": 2 * 21}, n_slices)
+        sweep448_s, counts = run_sweep(model, rng, tmp, 448,
+                                       {"K8": 2 * 21, "K3": 2 * K3_PER_CALL}, n_slices)
         k8_sweep = counts["K8"]
 
         # ---- 9. K7 against its plain version
@@ -771,24 +1004,55 @@ def main():
         x_small = torch.tensor(phantom(rng, 4, 100)[:, :, 14:86, None],
                                dtype=torch.float32, device="cuda")
         for x in (x96, x_small):
-            check_generate(model, x, "fused", {"K7": 21})
+            check_generate(model, x, "fused", {"K7": 21, "K3": K3_PER_CALL})
 
         # ---- 11. serving at 96x96: the main path on K7
-        sweep96_s, counts = run_sweep(model, rng, tmp, 96, {"K7": 2 * 21}, n_slices)
+        sweep96_s, counts = run_sweep(model, rng, tmp, 96,
+                                      {"K7": 2 * 21, "K3": 2 * K3_PER_CALL}, n_slices)
         k7_sweep = counts["K7"]
 
-    # ---- 12. K2 against its plain version
+        # ---- 12. K3 against its plain version
+        k3_max_abs_err = check_k3()
+
+        # ---- 13. K4, K5 and K6 against their plain versions
+        staged_max_abs_err = check_staged(staged_lib)
+
+        # ---- 14. generate at 1024x1024 and 200x200 on the staged path
+        x1024 = torch.tensor(phantom(rng, 2, 1024)[..., None], dtype=torch.float32,
+                             device="cuda")
+        x200 = torch.tensor(phantom(rng, 8, 200)[..., None], dtype=torch.float32,
+                            device="cuda")
+        for x in (x1024, x200):
+            check_generate(model, x, "staged", STAGED_PER_CALL)
+
+        # ---- 15. serving at 1024x1024: the main path on K3 - K6
+        n_hires = 8
+        sweep1024_s, staged_sweep = run_sweep(
+            model, rng, tmp, 1024, dict(STAGED_PER_CALL), n_hires)
+
+    # ---- 16. F1: generate on the plain route, no kernel launch
+    check_plain_route("generate 200x200 batch 2 at gen_features=64", 64, 10,
+                      torch.tensor(phantom(rng, 2, 200)[..., None], dtype=torch.float32,
+                                   device="cuda"))
+    check_plain_route("generate 1x64 at gen_features=32", C, 10,
+                      torch.tensor(phantom(rng, 1, 64)[:, 32:33, :, None],
+                                   dtype=torch.float32, device="cuda"))
+
+    # ---- 17. K2 against its plain version
     k2_max_abs_err = check_k2()
 
-    # ---- 13. the train step at full width
+    # ---- 18. the train step at full width
     x, y = train_patches(rng, seed=0)
     trainer = check_train_step(x, y)
 
-    # ---- 14. the training path through its CLI, then test --resume
+    # ---- 19. F2: a train step at a width K1 and K2 do not take
+    check_train_width64(x[:16], y[:16])
+
+    # ---- 20. the training path through its CLI, then test --resume
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches = check_train_cli(rng, tmp)
 
-    # ---- 15. timings (CUDA events)
+    # ---- 21. timings (CUDA events)
     times = {}
     for vi, variant in enumerate(VARIANTS):
         args = block_inputs(512, 8, "fan_in", variant, seed=vi)
@@ -833,6 +1097,42 @@ def main():
           f"{k7_plain_ms:.3f} ms, bound {k7_bound_ms:.3f} ms ({k7_by}; "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     del k7_args
+    # K3 - K6 at the staged route's main-path shape, 1024x1024 batch 2
+    staged_times = {}
+    args, kw = k3_calls(2, 1024, 1024, "fan_in", seed=5)["relu+residual"]
+    k3_x, k3_w, k3_b = args
+    staged_times["K3"] = (
+        cuda_ms(lambda: conv3x3(*args, **kw), 10),
+        cuda_ms(lambda: conv3x3_reference(*args, **kw), 10),
+        cuda_ms(lambda: torch.nn.functional.conv2d(k3_x, k3_w, k3_b, padding=1), 10),
+        bound(k3_work(2, 1024, 1024, "relu+residual")))
+    del args, kw, k3_x, k3_w, k3_b
+    a = tiled_inputs(2, 1024, 1024, "fan_in", seed=6)
+    z = rdft_w_reference(a["x"])
+    staged_times["K4"] = (
+        cuda_ms(lambda: rdft_w(a["x"]), 10), cuda_ms(lambda: rdft_w_reference(a["x"]), 10),
+        cuda_ms(lambda: torch.fft.rfft(a["x"], dim=-1, norm="ortho"), 10),
+        bound(k4_work(2, 1024, 1024)))
+    z5 = z.clone()  # K5 works in place: time it on a copy
+    staged_times["K5"] = (
+        cuda_ms(lambda: spectral_mix_h(z5, a["mix"], a["bias"]), 10),
+        cuda_ms(lambda: spectral_mix_h_reference(z, a["mix"], a["bias"]), 10), None,
+        bound(k5_work(2, 1024, 1024)))
+    # the library's c2r on the same spectrum with the bins 0 and W/2 zeroed
+    zz = z.clone()
+    zz[:, :, 0].imag.zero_()
+    zz[:, :, -1].imag.zero_()
+    staged_times["K6"] = (
+        cuda_ms(lambda: irdft_w_add(z, a["residual"]), 10),
+        cuda_ms(lambda: irdft_w_add_reference(z, a["residual"]), 10),
+        cuda_ms(lambda: a["residual"] + torch.fft.irfft(
+            zz.transpose(-1, -2), n=1024, dim=-1, norm="ortho"), 10),
+        bound(k6_work(2, 1024, 1024)))
+    del a, z, z5, zz
+    for name, (k_ms, p_ms, l_ms, (b_ms, by)) in staged_times.items():
+        lib_txt = "none" if l_ms is None else f"{l_ms:.3f} ms"
+        print(f"time {name} 1024x1024 batch 2 C={C}: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({by})", flush=True)
     gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
@@ -842,12 +1142,35 @@ def main():
     gen96_ms = cuda_ms(lambda: model.generate(x96), 3)
     print(f"time generate 96x96 batch 64: {gen96_ms:.2f} ms/call = "
           f"{64e3 / gen96_ms:.2f} slices/s", flush=True)
+    gen1024_ms = cuda_ms(lambda: model.generate(x1024), 3)
+    print(f"time generate 1024x1024 batch 2: {gen1024_ms:.2f} ms/call = "
+          f"{2e3 / gen1024_ms:.2f} slices/s", flush=True)
+    gen200_ms = cuda_ms(lambda: model.generate(x200), 3)
+    print(f"time generate 200x200 batch 8: {gen200_ms:.2f} ms/call = "
+          f"{8e3 / gen200_ms:.2f} slices/s", flush=True)
+    # K3 against cuDNN on the tiled and fused routes: the same generator
+    # with its convs on cuDNN, in turns (K3, cuDNN, cuDNN, K3)
+    for impl, x_in, n_in in (("tiled", x448, 8), ("fused", x96, 64)):
+        with torch.device("meta"):
+            cudnn = ResFFTGenerator(1, C, 10, spectral_impl=impl, conv_impl="torch")
+        cudnn = share_parameters(cudnn, model.generator).eval()
+        nchw_in = x_in.reshape(n_in, 1, *x_in.shape[1:3])
+        with torch.no_grad():
+            run_cudnn = lambda: cudnn(nchw_in)
+            turns = [cuda_ms(f, 3) for f in (lambda: model.generate(x_in), run_cudnn,
+                                              run_cudnn, lambda: model.generate(x_in))]
+        size = x_in.shape[1]
+        print(f"time generate {size}x{size} batch {n_in} ({impl}): 3x3 convs on K3 "
+              f"{turns[0]:.2f} / {turns[3]:.2f} ms, on cuDNN {turns[1]:.2f} / "
+              f"{turns[2]:.2f} ms (K3, cuDNN, cuDNN, K3)", flush=True)
     print(f"time sweep 512x512: {n_slices} slices in {sweep_s:.3f} s = "
           f"{n_slices / sweep_s:.2f} slices/s", flush=True)
     print(f"time sweep 448x448: {n_slices} slices in {sweep448_s:.3f} s = "
           f"{n_slices / sweep448_s:.2f} slices/s", flush=True)
     print(f"time sweep 96x96: {n_slices} slices in {sweep96_s:.3f} s = "
           f"{n_slices / sweep96_s:.2f} slices/s", flush=True)
+    print(f"time sweep 1024x1024: {n_hires} slices in {sweep1024_s:.3f} s = "
+          f"{n_hires / sweep1024_s:.2f} slices/s", flush=True)
     up_in = torch.randn((320, 64, 32, 32), device="cuda", requires_grad=True)
     for label, up in (("shift-add (port)", upsample2x_bilinear),
                       ("F.interpolate", lambda t: torch.nn.functional.interpolate(
@@ -863,6 +1186,7 @@ def main():
     profile("generate 512x512 batch 8", lambda: model.generate(x_gen))
     profile("generate 448x448 batch 8", lambda: model.generate(x448))
     profile("generate 96x96 batch 64", lambda: model.generate(x96))
+    profile("generate 1024x1024 batch 2", lambda: model.generate(x1024))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
     k_ms, p_ms, b_ms, by = times["pre+skip"]
@@ -895,7 +1219,19 @@ def main():
         "launches": k7_sweep, "max_abs_err": k7_max_abs_err,
         "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound_ms,
         "bound_by": k7_by, "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
+        "replaces": f"mtd_gan_tpu/ops/pallas_pipeline.py:{line}",
+        "launches": staged_sweep[key],
+        "max_abs_err": k3_max_abs_err if key == "K3" else staged_max_abs_err[key],
+        "ms": staged_times[key][0], "plain_ms": staged_times[key][1],
+        "bound_ms": staged_times[key][3][0], "bound_by": staged_times[key][3][1],
+        "library_ms": staged_times[key][2],
+    } for key, name, src, line in (
+        ("K3", "conv3x3", "conv3x3.cu", 439),
+        ("K4", "staged_rdft_w", "spectral_staged.cu", 588),
+        ("K5", "staged_mix_h", "spectral_staged.cu", 844),
+        ("K6", "staged_irdft_w_add", "spectral_staged.cu", 908))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

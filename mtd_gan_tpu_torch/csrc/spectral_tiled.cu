@@ -34,8 +34,8 @@
 //                    every h, inverse H-point FFT, in place;
 //   C. inverse rows  Hermitian c2r of length W, two rows per complex FFT,
 //                    plus the residual, written to `out`.
-// A and C work on K1's channel-major rows, so they can later stand alone
-// as the port's K4 and K6.
+// A and C are the mixed-radix row passes of resfft_common.cuh, which the
+// port's K4 and K6 (spectral_staged.cu) run alone.
 // The lengths are not powers of two (H = 448 = 64 * 7), so every FFT is
 // mixed radix: L = P * Q with P the largest power of two dividing L and Q
 // odd. The P-point FFTs of the Q decimated subsequences run in place with
@@ -54,7 +54,6 @@ namespace {
 constexpr int kMaxH = 768;      // C * H complex of the column pass fit one SM
 constexpr int kMaxW = 1024;
 constexpr int kMaxOddH = 11;    // the odd part of H = 64 * m, m <= 12
-constexpr int kPairs = kRowsPerBlock / 2;
 
 // The odd step of the column FFTs, in place on `count` sequences of length
 // L = P * Q at data + a * L. Forward: the input holds the P-point FFTs Y_q
@@ -94,42 +93,6 @@ __device__ void odd_columns(float2* data, int count, int L, int P, int log_p, in
     }
   }
   __syncthreads();
-}
-
-// Pass A: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W}
-// for k <= W/2. Rows 2j and 2j+1 go through one complex FFT of z = a + i b:
-// A[k] = (Z[k] + conj Z[W-k]) / 2, B[k] = (Z[k] - conj Z[W-k]) / 2i.
-__global__ void __launch_bounds__(kRowThreads)
-tiled_row_fwd_kernel(const float* __restrict__ x, float2* __restrict__ spec, int C,
-                     int H, int W, int P, int log_p, int Q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);  // [kPairs][W], decimated
-  float2* tw = buf + kPairs * W;                       // [W]
-  float2* twp = tw + W;                                // [P/2]
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
-
-  make_twiddles_full(tw, W);
-  make_twiddles(twp, P);
-  for (int idx = threadIdx.x; idx < kPairs * W; idx += blockDim.x) {
-    const int j = idx / W, col = idx - j * W;
-    buf[j * W + decimated(col, P, Q)] =
-        make_float2(xs[(size_t)(2 * j) * W + col], xs[(size_t)(2 * j + 1) * W + col]);
-  }
-  __syncthreads();
-  fft_radix2(buf, kPairs * Q, P, log_p, twp, false);
-
-  const float s = 0.5f * scale;
-  float2* dst = spec + ((size_t)n * C + c) * K * H + r0;
-  for (int idx = threadIdx.x; idx < K * kPairs; idx += blockDim.x) {
-    const int k = idx / kPairs, j = idx - k * kPairs;
-    const float2* y = buf + j * W;
-    const float2 z = odd_output(y, k, W, P, Q, tw, false);
-    const float2 zc = odd_output(y, k == 0 ? 0 : W - k, W, P, Q, tw, false);
-    dst[(size_t)k * H + 2 * j] = make_float2((z.x + zc.x) * s, (z.y - zc.y) * s);
-    dst[(size_t)k * H + 2 * j + 1] = make_float2((z.y + zc.y) * s, (zc.x - z.x) * s);
-  }
 }
 
 // Pass B, one block per (k, n): H-point FFT of each channel's column, the
@@ -200,56 +163,6 @@ tiled_column_kernel(float2* spec, const float* __restrict__ mix,
   }
 }
 
-// Pass C: out[n, c, r, w] = c2r_W(spec[n, c, :, r])[w] (ortho) [+ residual].
-// The c2r keeps only the real part of the bins 0 and W/2, like irfft2.
-// Rows 2j, 2j+1 with half spectra A, B go through one complex inverse FFT
-// of Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i conj B[k].
-__global__ void __launch_bounds__(kRowThreads)
-tiled_row_inv_kernel(const float2* __restrict__ spec, const float* __restrict__ residual,
-                     float* __restrict__ out, int C, int H, int W, int P, int log_p,
-                     int Q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);  // [kPairs][W], decimated
-  float2* tw = buf + kPairs * W;                       // [W]
-  float2* twp = tw + W;                                // [P/2]
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const float2* src = spec + ((size_t)n * C + c) * K * H + r0;
-
-  make_twiddles_full(tw, W);
-  make_twiddles(twp, P);
-  for (int idx = threadIdx.x; idx < K * kPairs; idx += blockDim.x) {
-    const int k = idx / kPairs, j = idx - k * kPairs;
-    float2 a = src[(size_t)k * H + 2 * j];
-    float2 b = src[(size_t)k * H + 2 * j + 1];
-    const bool edge = (k == 0) || (2 * k == W);
-    if (edge) { a.y = 0.f; b.y = 0.f; }
-    float2* row = buf + j * W;
-    row[decimated(k, P, Q)] = make_float2(a.x - b.y, a.y + b.x);
-    if (!edge) row[decimated(W - k, P, Q)] = make_float2(a.x + b.y, b.x - a.y);
-  }
-  __syncthreads();
-  fft_radix2(buf, kPairs * Q, P, log_p, twp, true);
-
-  const size_t base = (((size_t)n * C + c) * H + r0) * W;
-  for (int idx = threadIdx.x; idx < kPairs * W; idx += blockDim.x) {
-    const int j = idx / W, col = idx - j * W;
-    const float2 z = odd_output(buf + j * W, col, W, P, Q, tw, true);
-    const size_t o = base + (size_t)(2 * j) * W + col;
-    float v0 = z.x * scale, v1 = z.y * scale;
-    if (residual != nullptr) {
-      v0 += residual[o];
-      v1 += residual[o + W];
-    }
-    out[o] = v0;
-    out[o + W] = v1;
-  }
-}
-
-size_t tiled_row_smem_bytes(int w, int p) {
-  return (size_t)(kPairs * w + w + p / 2) * sizeof(float2);
-}
-
 template <int C>
 cudaError_t launch_tiled_column(float2* spec, const float* mix, const float* mix_bias,
                                 int n, int h, int w, cudaStream_t stream) {
@@ -283,27 +196,13 @@ int spectral_tiled_forward(const float* x, int n, int c, int h, int w, const flo
     return (int)cudaErrorInvalidValue;
   if (c != 8 && c != 16 && c != 32) return (int)cudaErrorInvalidValue;
   float2* spec2 = reinterpret_cast<float2*>(spec);
-  int pw, log_pw, qw;
-  split_length(w, &pw, &log_pw, &qw);
-  const size_t row_smem = tiled_row_smem_bytes(w, pw);
-  const dim3 row_grid(h / kRowsPerBlock, c, n);
-  const float scale_w = 1.0f / sqrtf((float)w);
-
-  RETURN_IF_ERROR(allow_smem(tiled_row_fwd_kernel, row_smem));
-  tiled_row_fwd_kernel<<<row_grid, kRowThreads, row_smem, stream>>>(
-      x, spec2, c, h, w, pw, log_pw, qw, scale_w);
-  RETURN_IF_ERROR(cudaGetLastError());
-
+  RETURN_IF_ERROR(launch_mixed_row_fwd(x, spec2, n, c, h, w, stream));
   switch (c) {
     case 8: RETURN_IF_ERROR(launch_tiled_column<8>(spec2, mix, mix_bias, n, h, w, stream)); break;
     case 16: RETURN_IF_ERROR(launch_tiled_column<16>(spec2, mix, mix_bias, n, h, w, stream)); break;
     default: RETURN_IF_ERROR(launch_tiled_column<32>(spec2, mix, mix_bias, n, h, w, stream)); break;
   }
-
-  RETURN_IF_ERROR(allow_smem(tiled_row_inv_kernel, row_smem));
-  tiled_row_inv_kernel<<<row_grid, kRowThreads, row_smem, stream>>>(
-      spec2, residual, out, c, h, w, pw, log_pw, qw, scale_w);
-  RETURN_IF_ERROR(cudaGetLastError());
+  RETURN_IF_ERROR(launch_mixed_row_inv(spec2, residual, out, n, c, h, w, stream));
   return 0;
 }
 

@@ -3,10 +3,12 @@
 
 One step, on NHWC ``(N, 64, 64, 1)`` patches:
 
-1. one generator forward ``fake = G(x)`` through
+1. one generator forward ``fake = G(x)``, whose graph is kept for the G
+   update: through
    :func:`~mtd_gan_tpu_torch.ops.cuda_train.resfft_generator_train` (K1
-   forward, K2 backward on the card; their plain versions on the CPU),
-   whose graph is kept for the G update;
+   forward, K2 backward on the card; their plain versions on the CPU) where
+   both kernels take the batch, else the plain generator under autograd
+   (:func:`~mtd_gan_tpu_torch.ops.cuda_train.train_route`);
 2. the D update on the detached fake: ``d_loss`` with the spectral-norm
    state frozen, one gradient per task, PCGrad (or the plain sum without a
    method), AdamW; under PCGrad the unassigned D parameters take no step
@@ -26,7 +28,7 @@ from mtd_gan_tpu_torch import optim
 from mtd_gan_tpu_torch.models.base import param_labels
 from mtd_gan_tpu_torch.mto.methods import (check_method, combine_grads,
                                            per_task_grads, random_order)
-from mtd_gan_tpu_torch.ops.cuda_train import resfft_generator_train
+from mtd_gan_tpu_torch.ops.cuda_train import resfft_generator_train, train_route
 from mtd_gan_tpu_torch.ops.layers import advance_spectral_state
 
 Tensor = torch.Tensor
@@ -94,7 +96,11 @@ class MTDGANTrainer:
         (``d_loss`` the sum of the three task losses, ``g_loss`` the total)."""
         model = self.model
         gen = model.generator.train()
-        fake = resfft_generator_train(gen, x)
+        _, h, w, _ = x.shape
+        if train_route(h, w, model.gen_features) == "kernels":
+            fake = resfft_generator_train(gen, x)
+        else:
+            fake = gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         d_losses, d_details = self.d_update(x, y, fake, order)
         g_total, g_details, grads = self.generator_grads(fake, x, y)
         for p, g in zip(gen.parameters(), grads):

@@ -23,11 +23,11 @@ from torch import nn
 
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
-from mtd_gan_tpu_torch.ops.cuda_fftconv import (FUSED_MAX_HW, TILED_H_MULTIPLE,
-                                                TILED_MAX_H, TILED_MAX_W,
-                                                in_fused_domain, in_tiled_domain)
-from mtd_gan_tpu_torch.ops.cuda_pipeline import KERNEL_SIZES, resfft_generator_nchw
-from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
+from mtd_gan_tpu_torch.ops.cuda_fftconv import in_fused_domain, in_tiled_domain
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (KERNEL_CHANNELS, KERNEL_SIZES,
+                                                 resfft_generator_nchw)
+from mtd_gan_tpu_torch.ops.cuda_staged import conv3x3, in_staged_domain
+from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock, check_impls
 from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
 from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
@@ -39,37 +39,56 @@ Tensor = torch.Tensor
 class ResFFTGenerator(nn.Module):
     """Symmetric encoder/decoder with 2L+1 interleaved Res-FFT-Conv blocks
     and long skip-adds; NCHW in and out. ``spectral_impl`` selects the
-    blocks' spectral path (``ops/fft_conv.py``); the parameters and their
-    names are the same for every impl."""
+    blocks' spectral path and ``conv_impl`` the path of every 3x3 conv but
+    the C_in = 1 entry conv (``ops/fft_conv.py``): ``"torch"`` (cuDNN and
+    elementwise ops) or ``"k3"`` (the hand-written K3 with its fused
+    epilogue; ``None``: K3 with a kernel spectral path, else ``"torch"``).
+    The parameters and their names are the same for every choice."""
 
     def __init__(self, in_channels: int = 1, features: int = 32,
-                 num_layers: int = 10, spectral_impl: str = "auto"):
+                 num_layers: int = 10, spectral_impl: str = "auto",
+                 conv_impl: Optional[str] = None):
         super().__init__()
+        if conv_impl is None:
+            conv_impl = "torch" if spectral_impl == "auto" else "k3"
+        check_impls(spectral_impl, conv_impl, "ResFFTGenerator")
         L, f = num_layers, features
         self.num_layers = L
+        self.conv_impl = conv_impl
         self.encoder = nn.ModuleList(
             [nn.Conv2d(in_channels, f, 3, padding=1)]
             + [nn.Conv2d(f, f, 3, padding=1) for _ in range(L)])
         self.decoder = nn.ModuleList(
             [nn.ConvTranspose2d(f, in_channels, 3, padding=1)]
             + [nn.ConvTranspose2d(f, f, 3, padding=1) for _ in range(L)])
-        self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl)
+        self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl, conv_impl)
                                       for _ in range(2 * L + 1)])
+
+    def _layer(self, conv: nn.Module, h: Tensor,
+               skip: Optional[Tensor] = None) -> Tensor:
+        """``relu(conv(h) [+ skip])`` for a 3x3 layer conv or deconv."""
+        if self.conv_impl == "k3":
+            return conv3x3(h, conv.weight, conv.bias, skip=skip, relu=True,
+                           transpose=isinstance(conv, nn.ConvTranspose2d))
+        out = conv(h)
+        return torch.relu(out if skip is None else out + skip)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L = self.num_layers
         skips = []
-        h = x
+        h = torch.relu(self.encoder[0](x))  # C_in = 1: cuDNN on every path
         for i in range(L):
-            h = self.enforce[i](torch.relu(self.encoder[i](h)))
+            if i > 0:
+                h = self._layer(self.encoder[i], h)
+            h = self.enforce[i](h)
             skips.append(h)
-        h = self.enforce[L](torch.relu(self.encoder[L](h)))
-        h = torch.relu(self.decoder[L](h) + skips[-1])
+        h = self.enforce[L](self._layer(self.encoder[L], h))
+        h = self._layer(self.decoder[L], h, skips[-1])
         for i in range(L - 1, 0, -1):
             h = self.enforce[2 * L - i](h)
-            h = torch.relu(self.decoder[i](h) + skips[i - 1])
+            h = self._layer(self.decoder[i], h, skips[i - 1])
         h = self.enforce[2 * L](h)
-        return torch.relu(self.decoder[0](h) + x)
+        return self._layer(self.decoder[0], h, x)
 
 
 def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
@@ -83,33 +102,48 @@ def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
     return view
 
 
-def generate_route(h: int, w: int) -> str:
-    """The kernel path ``MTDGANModel.generate`` takes for a CUDA input of
-    H x W: ``"k1"``, the fused-block pipeline (``ops/cuda_pipeline.py``),
-    for H == W in {64, 128, 256, 512}; else ``"tiled"``, the generator with
-    the K8 spectral branch (``ops/cuda_fftconv.py``), for H % 64 == 0 with
-    64 <= H <= 768 and W even with 2 <= W <= 1024; else ``"fused"``, the
-    generator with the K7 spectral branch, for 2 <= H, W <= 128; else a
-    ``ValueError``.
+def generate_route(h: int, w: int, c: int) -> str:
+    """The path ``MTDGANModel.generate`` takes for a CUDA input of H x W
+    with a generator of C features, chosen by shape and width before any
+    launch, the first that takes it of:
+
+    - ``"k1"``: the fused-block pipeline (``ops/cuda_pipeline.py``), H == W
+      in {64, 128, 256, 512};
+    - ``"tiled"``: the generator with the K8 spectral branch
+      (``ops/cuda_fftconv.py``), H % 64 == 0 with 64 <= H <= 768 and W even
+      with 2 <= W <= 1024;
+    - ``"fused"``: the generator with the K7 spectral branch, 2 <= H, W <= 128;
+    - ``"staged"``: the generator with the K4 -> K5 -> K6 spectral branch
+      (``ops/cuda_staged.py``), 2 <= H, W <= 1024, any parity;
+    - ``"plain"``: the plain module (cuDNN, cuFFT and ``spectral_branch``'s
+      own zeroing of the W bins 0 and W/2), for every other shape (a side
+      of 1, a side above 1024) and for C outside {8, 16, 32}, which no
+      kernel is instantiated for.
+
+    The tiled, fused and staged generators run every 3x3 conv but the entry
+    conv on K3.
 
     Differences from the JAX routing (``mtd_gan_tpu/models/mtd_gan.py``
-    generate), each the same function on another kernel: there, multiples
-    of 128 outside K1's sizes (384^2, 640^2, 768^2, H != W) go to the JAX
-    K1 pipeline; here they go to K8, until the port's K1 takes those
-    sizes (ROADMAP.md). And there every H < 256 runs the XLA generator;
-    here the small sizes that neither K1 nor K8 takes (96^2, 100x72,
-    33x33, ...) run the JAX package's own small-input kernel, K7."""
-    if h == w and h in KERNEL_SIZES:
-        return "k1"
-    if in_tiled_domain(h, w):
-        return "tiled"
-    if in_fused_domain(h, w):
-        return "fused"
-    raise ValueError(
-        f"generate: no kernel path takes {h}x{w} slices on the GPU: K1 takes "
-        f"H == W in {KERNEL_SIZES}, K8 takes H % {TILED_H_MULTIPLE} == 0 with "
-        f"{TILED_H_MULTIPLE} <= H <= {TILED_MAX_H} and W even with "
-        f"2 <= W <= {TILED_MAX_W}, K7 takes 2 <= H, W <= {FUSED_MAX_HW}")
+    generate), each the same function on another path: there, on the TPU,
+    H >= 256 with H and W multiples of 128 goes to the K1 pipeline (384^2,
+    640^2, 1024^2, H != W), other H >= 256 with H % 64 == 0 and W even to
+    ``GeneratorTiled`` (K8), and everything else, at any width, to the XLA
+    generator. Here K1 takes only its four square sizes; K8 takes H from
+    64; the small inputs neither takes (96^2, 100x72, 33x33, ...) run the
+    JAX package's small-input kernel, K7; and what none of those takes up
+    to 1024 a side (1024^2, 800^2, 200^2, 130x64, 448x449, ...) runs the
+    JAX package's unfused kernels K3 - K6. Only the rest runs the plain
+    module, the port of the XLA path."""
+    if c in KERNEL_CHANNELS:
+        if h == w and h in KERNEL_SIZES:
+            return "k1"
+        if in_tiled_domain(h, w):
+            return "tiled"
+        if in_fused_domain(h, w):
+            return "fused"
+        if in_staged_domain(h, w):
+            return "staged"
+    return "plain"
 
 
 def _lrelu(x: Tensor) -> Tensor:
@@ -218,6 +252,7 @@ class MTDGANModel:
                  num_layers: int = 10, dropout_rate: float = 0.3,
                  device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
+        self.gen_features = gen_features
         self.num_layers = num_layers
         init = torch.Generator().manual_seed(seed)
         gen = ResFFTGenerator(1, gen_features, num_layers)
@@ -233,6 +268,10 @@ class MTDGANModel:
         with torch.device("meta"):
             fused = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="fused")
         self.generator_fused = share_parameters(fused, self.generator).eval()
+        # the JAX unfused pipeline, fft_block_nchw(fused=False), as a generator
+        with torch.device("meta"):
+            staged = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="staged")
+        self.generator_staged = share_parameters(staged, self.generator).eval()
         disc = MultiTaskDiscriminator(1, disc_features, dropout_rate)
         normal_init_(disc, INIT_STD, init)
         with torch.no_grad():  # u, v: unit vectors drawn from the same seed
@@ -243,24 +282,24 @@ class MTDGANModel:
 
     @torch.no_grad()
     def generate(self, x: Tensor) -> Tensor:
-        """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` takes the kernel
-        path :func:`generate_route` names: the K1 pipeline, or the tiled
-        generator on K8, or the fused generator on K7 (the 3x3 convs of
-        both in cuDNN); outside all three domains it raises. A CPU ``x``
-        runs the plain module."""
+        """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` takes the path
+        :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
+        (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs
+        on K3, or the plain module. A CPU ``x`` runs the plain module."""
         if x.device.type != self.device.type:
             raise ValueError(f"generate: input on {x.device}, model on "
                              f"{self.device}")
         if x.device.type == "cpu":
             return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         n, h, w, _ = x.shape
-        route = generate_route(h, w)
+        route = generate_route(h, w, self.gen_features)
         if route == "k1":
             return resfft_generator_nchw(self.generator.state_dict(), x,
                                          self.num_layers)
-        gen = self.generator_tiled if route == "tiled" else self.generator_fused
+        gen = {"tiled": self.generator_tiled, "fused": self.generator_fused,
+               "staged": self.generator_staged, "plain": self.generator}[route]
         # reshape, not permute: NCHW strides for the kernels' layout checks
-        return gen(x.reshape(n, 1, h, w)).reshape(n, h, w, 1)
+        return gen(x.reshape(n, 1, h, w).contiguous()).reshape(n, h, w, 1)
 
     # ---- losses (reference arch/Ours/networks.py:1957-2009) ----
     def _apply_d(self, z: Tensor, update_stats: bool,

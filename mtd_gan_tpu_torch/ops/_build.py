@@ -139,3 +139,41 @@ def spectral_fused_library() -> ctypes.CDLL:
     lib.spectral_fused_error_string.argtypes = [ctypes.c_int]
     lib.spectral_fused_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def conv3x3_library() -> ctypes.CDLL:
+    """The K3 library (``csrc/conv3x3.cu``), built on first call."""
+    lib = ctypes.CDLL(str(build("conv3x3")))
+    lib.conv3x3_forward.argtypes = [
+        _P, _I, _I, _I, _I, _I,      # x, n, c_in, c_out, h, w
+        _P, _P, _P, _P,              # weight, bias, skip, out
+        _I, _I, _I, _P,              # relu, residual, adjoint, stream
+    ]
+    lib.conv3x3_forward.restype = ctypes.c_int
+    lib.conv3x3_error_string.argtypes = [ctypes.c_int]
+    lib.conv3x3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def spectral_staged_library() -> ctypes.CDLL:
+    """The K4, K5 and K6 library (``csrc/spectral_staged.cu``), built on
+    first call."""
+    lib = ctypes.CDLL(str(build("spectral_staged")))
+    lib.staged_rdft_w.argtypes = [_P, _I, _I, _I, _I, _P, _P]  # x, n, c, h, w, spec, stream
+    lib.staged_mix_h.argtypes = [
+        _P, _I, _I, _I, _I,          # spec, n, c, h, k
+        _P, _P, _P,                  # mix, mix_bias, stream
+    ]
+    lib.staged_irdft_w_add.argtypes = [
+        _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
+        _P, _P,                      # out, stream
+    ]
+    lib.staged_mix_cluster_size.argtypes = [_I, _I]  # c, h
+    for fn in (lib.staged_rdft_w, lib.staged_mix_h, lib.staged_irdft_w_add,
+               lib.staged_mix_cluster_size):
+        fn.restype = ctypes.c_int
+    lib.spectral_staged_error_string.argtypes = [ctypes.c_int]
+    lib.spectral_staged_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,305 @@
+"""The staged Res-FFT block on the hand-written kernels K3, K4, K5 and K6
+(counterparts of ``conv3x3`` / ``_conv3x3_call``, ``_stage_a_call``,
+``_stage_b_call`` and ``_stage_c_call`` in
+``mtd_gan_tpu/ops/pallas_pipeline.py``, the JAX package's unfused block
+pipeline ``fft_block_nchw(fused=False)``).
+
+On NCHW fp32 activations the staged block is
+
+    res = conv3x3(x, relu=True, residual=True)   # K3: x + relu(conv(x) + b)
+    z   = rdft_w(x)                              # K4: (N, C, W/2+1, H) complex
+    z   = spectral_mix_h(z, mix, bias)           # K5: in place
+    out = irdft_w_add(z, res)                    # K6: res + c2r_W(z)
+
+the same function as ``fft_conv.fft_conv_block(impl="auto")``. Each
+wrapper has a plain PyTorch version beside it, cut at the same points as
+``fft_conv.spectral_branch``: ``torch.fft.rfft`` along W, ``torch.fft.fft``
+along H, the mix, the inverse along H, the Hermitian c2r along W with the
+imaginary parts of the bins 0 and, for even W, W/2 dropped. The half
+spectrum is complex64 ``(N, C, W/2+1, H)``, H contiguous; the JAX stages
+pad K to Kp, keep Re and Im in separate K-rows and interleave K5's output
+rows by chunk (layout, not semantics).
+
+On a CUDA tensor each wrapper launches its kernel (one launch per call,
+counted in ``<wrapper>.launches``) or raises; on a CPU tensor it runs the
+plain version. There is no fallback from one to the other. Domains: K3
+takes fp32 contiguous input without a gradient request, C_out a multiple
+of 8 or 1, any C_in and any H, W (C_in == C_out with the residual); K4,
+K5 and K6 take C in {8, 16, 32} and 2 <= H, W <= 1024 of any parity.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops.cuda_pipeline import _check
+
+Tensor = torch.Tensor
+
+STAGED_CHANNELS = (8, 16, 32)
+STAGED_MAX_HW = 1024
+_MAX_GRID = 65535
+
+
+def in_staged_domain(h: int, w: int) -> bool:
+    """Whether K4, K5 and K6 take an H x W image (any channel count they
+    are instantiated for)."""
+    return 2 <= h <= STAGED_MAX_HW and 2 <= w <= STAGED_MAX_HW
+
+
+def _wants_grad(*tensors: Optional[Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _device_of(x: Tensor, who: str) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {x.device}")
+    return x.device
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------- K3
+
+
+def conv3x3_reference(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
+                      skip: Optional[Tensor] = None, relu: bool = True,
+                      residual: bool = False, transpose: bool = False) -> Tensor:
+    """Plain K3: ``[x +] [relu](conv(x) + bias [+ skip])`` with padding 1;
+    ``conv`` is ``F.conv2d`` of a ``(C_out, C_in, 3, 3)`` weight or, with
+    ``transpose``, ``F.conv_transpose2d`` of a ``ConvTranspose2d`` weight
+    ``(C_in, C_out, 3, 3)`` (the flipped-kernel conv)."""
+    conv = F.conv_transpose2d if transpose else F.conv2d
+    out = conv(x, weight, bias, padding=1)
+    if skip is not None:
+        out = out + skip
+    if relu:
+        out = torch.relu(out)
+    return x + out if residual else out
+
+
+def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
+            skip: Optional[Tensor] = None, relu: bool = True,
+            residual: bool = False, transpose: bool = False) -> Tensor:
+    """K3: same arguments and result as :func:`conv3x3_reference`.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
+    (``csrc/conv3x3.cu``, one launch per call, counted in
+    ``conv3x3.launches``) or raises: outside the kernel's domain, on a
+    wrong layout, when a gradient is asked for (the kernel has no
+    backward), or on a CUDA error."""
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, weight, bias, skip=skip, relu=relu,
+                                 residual=residual, transpose=transpose)
+    who = "conv3x3"
+    dev = _device_of(x, who)
+    if x.dim() != 4 or weight.dim() != 4 or tuple(weight.shape[2:]) != (3, 3):
+        raise ValueError(f"{who}: x must be (N, C, H, W) and the weight 3x3, got "
+                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    n, c_in, h, w = x.shape
+    c_out = weight.shape[1] if transpose else weight.shape[0]
+    if c_out != 1 and c_out % 8 != 0:
+        raise ValueError(f"{who}: the kernel takes C_out a multiple of 8 or 1, "
+                         f"got {c_out}")
+    if residual and c_in != c_out:
+        raise ValueError(f"{who}: the residual needs C_in == C_out, got "
+                         f"{c_in} and {c_out}")
+    if n * max(1, c_out // 8) > _MAX_GRID or h < 1 or w < 1:
+        raise ValueError(f"{who}: the kernel takes N * C_out / 8 <= {_MAX_GRID} "
+                         f"and H, W >= 1, got {tuple(x.shape)} -> C_out {c_out}")
+    if _wants_grad(x, weight, bias, skip):
+        raise ValueError(f"{who}: the kernel is inference only (no backward); "
+                         f"call it under torch.no_grad()")
+    w_shape = (c_in, c_out, 3, 3) if transpose else (c_out, c_in, 3, 3)
+    for t, shape, name in ((x, (n, c_in, h, w), "x"), (weight, w_shape, "weight"),
+                           (bias, (c_out,), "bias"), (skip, (n, c_out, h, w), "skip")):
+        _check(t, shape, dev, name, who)
+
+    lib = _build.conv3x3_library()
+    out = torch.empty((n, c_out, h, w), device=dev, dtype=torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = lib.conv3x3_forward(
+            x.data_ptr(), n, c_in, c_out, h, w, weight.data_ptr(), ptr(bias),
+            ptr(skip), out.data_ptr(), int(relu), int(residual), int(transpose),
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA error {err} "
+                           f"({lib.conv3x3_error_string(err).decode()})")
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+
+
+# ------------------------------------------------------------ K4 - K6
+
+
+def _check_staged(who: str, n: int, c: int, h: int, w: int) -> None:
+    if not in_staged_domain(h, w):
+        raise ValueError(f"{who}: the kernel takes 2 <= H, W <= {STAGED_MAX_HW}, "
+                         f"got {h}x{w}")
+    if c not in STAGED_CHANNELS:
+        raise ValueError(f"{who}: the kernel takes C in {STAGED_CHANNELS}, got {c}")
+    if n > _MAX_GRID:
+        raise ValueError(f"{who}: the kernel takes N <= {_MAX_GRID}, got {n}")
+
+
+def _check_spec(z: Tensor, shape, dev: torch.device, who: str) -> None:
+    if z.device != dev or z.dtype != torch.complex64 or not z.is_contiguous():
+        raise ValueError(f"{who}: the spectrum must be a contiguous complex64 "
+                         f"tensor on {dev}, got {z.dtype} on {z.device}")
+    if tuple(z.shape) != tuple(shape):
+        raise ValueError(f"{who}: the spectrum has shape {tuple(z.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _raise_on(lib, err: int, who: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA error {err} "
+                           f"({lib.spectral_staged_error_string(err).decode()})")
+
+
+def rdft_w_reference(x: Tensor) -> Tensor:
+    """Plain K4: the orthonormal real DFT of each row of NCHW ``x``, as
+    ``(N, C, W/2+1, H)`` complex64, H contiguous."""
+    return torch.fft.rfft(x, dim=-1, norm="ortho").transpose(-1, -2).contiguous()
+
+
+def rdft_w(x: Tensor) -> Tensor:
+    """K4: same argument and result as :func:`rdft_w_reference`.
+
+    A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
+    (``csrc/spectral_staged.cu`` ``staged_rdft_w``, counted in
+    ``rdft_w.launches``) or raises: outside its domain, on a wrong layout,
+    when a gradient is asked for, or on a CUDA error."""
+    if x.device.type == "cpu":
+        return rdft_w_reference(x)
+    who = "rdft_w"
+    dev = _device_of(x, who)
+    if x.dim() != 4:
+        raise ValueError(f"{who}: x must be (N, C, H, W), got {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    _check_staged(who, n, c, h, w)
+    if _wants_grad(x):
+        raise ValueError(f"{who}: the kernel is inference only (no backward)")
+    _check(x, (n, c, h, w), dev, "x", who)
+
+    lib = _build.spectral_staged_library()
+    z = torch.empty((n, c, w // 2 + 1, h), device=dev, dtype=torch.complex64)
+    with torch.cuda.device(dev):
+        err = lib.staged_rdft_w(x.data_ptr(), n, c, h, w, z.data_ptr(), _stream(dev))
+    _raise_on(lib, err, who)
+    rdft_w.launches += 1
+    return z
+
+
+rdft_w.launches = 0
+
+
+def spectral_mix_h_reference(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
+    """Plain K5 on a half spectrum ``z`` ``(N, C, K, H)``: the orthonormal
+    FFT along H, ``relu(mix [Re; Im] + bias)`` over the stacked 2C channels
+    (``mix`` ``(2C_out, 2C_in)``), the orthonormal inverse FFT along H.
+    Returns a new tensor."""
+    zf = torch.fft.fft(z, dim=-1, norm="ortho")
+    spec = torch.cat([zf.real, zf.imag], dim=1)
+    spec = torch.relu(F.conv2d(spec, mix[:, :, None, None], bias))
+    re, im = spec.chunk(2, dim=1)
+    return torch.fft.ifft(torch.complex(re, im), dim=-1, norm="ortho")
+
+
+def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
+    """K5: the function of :func:`spectral_mix_h_reference`, computed in
+    place: ``z`` holds the result and is returned.
+
+    A CPU ``z`` takes the plain version (copied into ``z``). A CUDA ``z``
+    launches the kernel (``csrc/spectral_staged.cu`` ``staged_mix_h``,
+    counted in ``spectral_mix_h.launches``) or raises: outside its domain,
+    on a wrong layout, when a gradient is asked for, or on a CUDA error."""
+    if z.device.type == "cpu":
+        return z.copy_(spectral_mix_h_reference(z, mix, bias))
+    who = "spectral_mix_h"
+    dev = _device_of(z, who)
+    if z.dim() != 4:
+        raise ValueError(f"{who}: z must be (N, C, K, H), got {tuple(z.shape)}")
+    n, c, k, h = z.shape
+    # K = W/2 + 1 for 2 <= W <= 1024
+    if not 2 <= k <= STAGED_MAX_HW // 2 + 1:
+        raise ValueError(f"{who}: the kernel takes 2 <= K <= "
+                         f"{STAGED_MAX_HW // 2 + 1} bins, got {k}")
+    _check_staged(who, n, c, h, 2)
+    if _wants_grad(z, mix, bias):
+        raise ValueError(f"{who}: the kernel is inference only (no backward)")
+    _check_spec(z, (n, c, k, h), dev, who)
+    _check(mix, (2 * c, 2 * c), dev, "mix", who)
+    _check(bias, (2 * c,), dev, "bias", who)
+
+    lib = _build.spectral_staged_library()
+    with torch.cuda.device(dev):
+        err = lib.staged_mix_h(z.data_ptr(), n, c, h, k, mix.data_ptr(),
+                               bias.data_ptr(), _stream(dev))
+    _raise_on(lib, err, who)
+    spectral_mix_h.launches += 1
+    return z
+
+
+spectral_mix_h.launches = 0
+
+
+def irdft_w_add_reference(z: Tensor, res: Tensor) -> Tensor:
+    """Plain K6: ``res + c2r_W(z)`` for a half spectrum ``z`` ``(N, C,
+    W/2+1, H)`` and ``res`` ``(N, C, H, W)``: the orthonormal Hermitian
+    inverse along W, the imaginary parts of the bins 0 and, for even W,
+    W/2 dropped (as ``fft_conv.spectral_branch`` does: cuFFT's c2r does
+    not drop them at every size)."""
+    w = res.shape[-1]
+    zt = z.transpose(-1, -2)
+    edge = torch.zeros(zt.shape[-1], dtype=torch.bool, device=z.device)
+    edge[0] = True
+    if w % 2 == 0:
+        edge[w // 2] = True
+    zt = torch.where(edge, zt.real.to(zt.dtype), zt)
+    return res + torch.fft.irfft(zt, n=w, dim=-1, norm="ortho")
+
+
+def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
+    """K6: same arguments and result as :func:`irdft_w_add_reference`.
+
+    A CPU ``res`` takes the plain version. A CUDA ``res`` launches the
+    kernel (``csrc/spectral_staged.cu`` ``staged_irdft_w_add``, counted in
+    ``irdft_w_add.launches``) or raises: outside its domain, on a wrong
+    layout, when a gradient is asked for, or on a CUDA error."""
+    if res.device.type == "cpu":
+        return irdft_w_add_reference(z, res)
+    who = "irdft_w_add"
+    dev = _device_of(res, who)
+    if res.dim() != 4:
+        raise ValueError(f"{who}: res must be (N, C, H, W), got {tuple(res.shape)}")
+    n, c, h, w = res.shape
+    _check_staged(who, n, c, h, w)
+    if _wants_grad(z, res):
+        raise ValueError(f"{who}: the kernel is inference only (no backward)")
+    _check_spec(z, (n, c, w // 2 + 1, h), dev, who)
+    _check(res, (n, c, h, w), dev, "res", who)
+
+    lib = _build.spectral_staged_library()
+    out = torch.empty_like(res)
+    with torch.cuda.device(dev):
+        err = lib.staged_irdft_w_add(z.data_ptr(), res.data_ptr(), n, c, h, w,
+                                     out.data_ptr(), _stream(dev))
+    _raise_on(lib, err, who)
+    irdft_w_add.launches += 1
+    return out
+
+
+irdft_w_add.launches = 0
+

@@ -204,6 +204,18 @@ class BlockTrain(torch.autograd.Function):
                 d.get("post_b"), None, None)
 
 
+def train_route(h: int, w: int, c: int) -> str:
+    """The generator forward of a train step on ``(N, H, W, 1)`` patches
+    with C features: ``"kernels"`` (:func:`resfft_generator_train`, K1 +
+    K2 on the card) where both kernels take the batch, H == W in
+    ``KERNEL_SIZES`` and C in ``KERNEL_CHANNELS``; else ``"autograd"``, the
+    plain generator under autograd (the JAX trainer's ``g_forward="auto"``
+    fallback, ``mtd_gan_tpu/engine/gan.py``)."""
+    if h == w and h in KERNEL_SIZES and c in KERNEL_CHANNELS:
+        return "kernels"
+    return "autograd"
+
+
 def resfft_generator_train(generator, x: Tensor) -> Tensor:
     """Differentiable ResFFT generator forward on K1 + K2.
 

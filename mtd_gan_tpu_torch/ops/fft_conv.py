@@ -10,11 +10,18 @@ transpose of the flax ``fft_kernel``.
 ``impl`` selects the spectral branch, as the JAX ``impl`` /
 ``spectral_impl`` do: ``"auto"`` is the plain PyTorch block (``torch.fft``);
 ``"tiled"`` and ``"fused"`` are the inference paths of the JAX
-``"pallas_tiled"`` and ``"pallas_fused"``: the 3x3 conv branch and residual
-in ``F.conv2d`` (the JAX package leaves that conv to XLA), then the
-spectral branch on a kernel of ``ops/cuda_fftconv.py`` for a CUDA tensor:
-K8 with that residual fused into its last pass (``"tiled"``), or K7, whose
-branch the residual is added to (``"fused"``).
+``"pallas_tiled"`` and ``"pallas_fused"``: the spectral branch on a kernel
+of ``ops/cuda_fftconv.py`` for a CUDA tensor, K8 with the residual fused
+into its last pass (``"tiled"``), or K7, whose branch the residual is added
+to (``"fused"``); ``"staged"`` is the JAX unfused pipeline
+``fft_block_nchw(fused=False)``: K4, K5 and K6 of ``ops/cuda_staged.py`` on
+one spectrum buffer, the residual added in K6.
+
+``conv_impl`` selects the 3x3 conv branch with its residual,
+``x + relu(conv3x3(x) + b)``: ``"torch"`` is ``F.conv2d`` plus the
+elementwise ops (the JAX package leaves that conv to XLA except in its
+unfused pipeline), ``"k3"`` the hand-written K3 of ``ops/cuda_staged.py``
+(its plain version on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -49,16 +56,39 @@ def spectral_branch(x: torch.Tensor, mix: torch.Tensor,
     return torch.fft.irfft(z, n=w, dim=-1, norm="ortho")
 
 
-SPECTRAL_IMPLS = ("auto", "tiled", "fused")
+SPECTRAL_IMPLS = ("auto", "tiled", "fused", "staged")
+CONV_IMPLS = ("torch", "k3")
+
+
+def check_impls(spectral_impl: str, conv_impl: str, who: str) -> None:
+    if spectral_impl not in SPECTRAL_IMPLS:
+        raise ValueError(f"{who}: spectral_impl must be one of {SPECTRAL_IMPLS}, "
+                         f"got {spectral_impl!r}")
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"{who}: conv_impl must be one of {CONV_IMPLS}, "
+                         f"got {conv_impl!r}")
 
 
 def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
                    img_bias: torch.Tensor, mix: torch.Tensor,
-                   mix_bias: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+                   mix_bias: torch.Tensor, impl: str = "auto",
+                   conv_impl: str = "torch") -> torch.Tensor:
     """Functional Res-FFT-Conv block on NCHW ``x``; ``img_weight`` is the
-    ``(C, C, 3, 3)`` conv weight. ``impl``: ``"auto"``, ``"tiled"`` or
-    ``"fused"`` (module docstring)."""
-    res = x + torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
+    ``(C, C, 3, 3)`` conv weight. ``impl``: ``"auto"``, ``"tiled"``,
+    ``"fused"`` or ``"staged"``; ``conv_impl``: ``"torch"`` or ``"k3"``
+    (module docstring)."""
+    check_impls(impl, conv_impl, "fft_conv_block")
+    if conv_impl == "k3":
+        from mtd_gan_tpu_torch.ops.cuda_staged import conv3x3
+
+        res = conv3x3(x, img_weight, img_bias, relu=True, residual=True)
+    else:
+        res = x + torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
+    if impl == "staged":
+        from mtd_gan_tpu_torch.ops.cuda_staged import irdft_w_add, rdft_w, spectral_mix_h
+
+        # one spectrum buffer: K4 writes it, K5 works in place, K6 reads it
+        return irdft_w_add(spectral_mix_h(rdft_w(x), mix, mix_bias), res)
     if impl == "tiled":
         from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_tiled
 
@@ -67,28 +97,27 @@ def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
         from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_fused
 
         return res + spectral_branch_fused(x, mix, mix_bias)
-    if impl != "auto":
-        raise ValueError(f"fft_conv_block: impl must be one of {SPECTRAL_IMPLS}, "
-                         f"got {impl!r}")
     return res + spectral_branch(x, mix, mix_bias)
 
 
 class FFTConvBlock(nn.Module):
     """The reference's ``FFT_ConvBlock``: ``img_conv`` (3x3) and ``fft_conv``
     (1x1 over the 2C stacked real/imag channels), state-dict names as in
-    arch/Ours/networks.py. ``spectral_impl`` selects the path
-    (:func:`fft_conv_block`); the parameters are the same for every impl."""
+    arch/Ours/networks.py. ``spectral_impl`` and ``conv_impl`` select the
+    path (:func:`fft_conv_block`); the parameters are the same for every
+    choice."""
 
-    def __init__(self, channels: int, spectral_impl: str = "auto"):
+    def __init__(self, channels: int, spectral_impl: str = "auto",
+                 conv_impl: str = "torch"):
         super().__init__()
-        if spectral_impl not in SPECTRAL_IMPLS:
-            raise ValueError(f"FFTConvBlock: spectral_impl must be one of "
-                             f"{SPECTRAL_IMPLS}, got {spectral_impl!r}")
+        check_impls(spectral_impl, conv_impl, "FFTConvBlock")
         self.spectral_impl = spectral_impl
+        self.conv_impl = conv_impl
         self.img_conv = nn.Conv2d(channels, channels, 3, padding=1)
         self.fft_conv = nn.Conv2d(2 * channels, 2 * channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fft_conv_block(x, self.img_conv.weight, self.img_conv.bias,
                               self.fft_conv.weight[:, :, 0, 0],
-                              self.fft_conv.bias, impl=self.spectral_impl)
+                              self.fft_conv.bias, impl=self.spectral_impl,
+                              conv_impl=self.conv_impl)

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu),
-K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu) and K7
-(csrc/spectral_fused.cu) against their plain PyTorch versions, on the card. Every test is marked
+K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu), K7
+(csrc/spectral_fused.cu), K3 (csrc/conv3x3.cu) and K4 - K6
+(csrc/spectral_staged.cu) against their plain PyTorch versions, and the
+routes of ``generate`` and of the train step, on the card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
 
@@ -19,6 +21,7 @@ from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
                                                 spectral_branch_fused_reference,
                                                 spectral_branch_tiled,
                                                 spectral_branch_tiled_reference)
+from mtd_gan_tpu_torch.ops import cuda_staged as cs
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
@@ -311,3 +314,136 @@ def test_generate_at_100x72_runs_k7_21_times_and_no_k1_or_k8(dev):
     with torch.no_grad():
         want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert (got - want).abs().max().item() < 1e-5
+
+
+STAGED = (cs.conv3x3, cs.rdft_w, cs.spectral_mix_h, cs.irdft_w_add)
+ALL_COUNTED = (block_fused, block_bwd, spectral_branch_tiled,
+               spectral_branch_fused) + STAGED
+
+
+def _counts():
+    return [f.launches for f in ALL_COUNTED]
+
+
+def _k3_inputs(dev, n, c, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return dict(x=t(rng.random((n, c, h, w))),
+                weight=t(rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c)),
+                bias=t(rng.standard_normal(c) * 0.1),
+                skip=t(rng.standard_normal((n, c, h, w)) * 0.5),
+                w1=t(rng.standard_normal((c, 1, 3, 3)) / np.sqrt(9 * c)),
+                b1=t(rng.standard_normal(1) * 0.1), img=t(rng.random((n, 1, h, w))))
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 200, 200), (1, 8, 449, 130)])
+def test_k3_matches_plain_version(dev, n, c, h, w):
+    """K3 in its four epilogues and the C -> 1 exit deconv against its
+    plain version (cuDNN), one launch per call."""
+    a = _k3_inputs(dev, n, c, h, w)
+    calls = [((a["x"], a["weight"], a["bias"]), kw) for kw in (
+        dict(relu=False), dict(relu=True), dict(skip=a["skip"]), dict(residual=True),
+        dict(skip=a["skip"], transpose=True))]
+    calls.append(((a["x"], a["w1"], a["b1"]), dict(skip=a["img"], transpose=True)))
+    for args, kw in calls:
+        before = cs.conv3x3.launches
+        got = cs.conv3x3(*args, **kw)
+        torch.cuda.synchronize()
+        assert cs.conv3x3.launches == before + 1
+        want = cs.conv3x3_reference(*args, **kw)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel < TOL_REL, (sorted(kw), rel)
+
+
+def test_k3_rejects_unsupported_calls(dev):
+    a = _k3_inputs(dev, 1, 8, 32, 32)
+    x, wt, b = a["x"], a["weight"], a["bias"]
+    with pytest.raises(ValueError, match="multiple of 8 or 1"):
+        cs.conv3x3(x, wt[:4], b[:4])
+    with pytest.raises(ValueError, match="C_in == C_out"):
+        cs.conv3x3(x, a["w1"], a["b1"], transpose=True, residual=True)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        cs.conv3x3(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError, match="inference only"):
+        cs.conv3x3(x, wt.clone().requires_grad_(), b)
+
+
+@pytest.mark.parametrize("c,h,w", [(32, 1024, 1024), (32, 448, 449), (8, 130, 64),
+                                   (16, 200, 200), (8, 2, 2)])
+def test_k4_k5_k6_match_plain_versions(dev, c, h, w):
+    """K4, K5 and K6 each against its plain version (cuFFT), one launch per
+    call; K5 at 1024 and 449 runs on a 8- and 4-CTA cluster."""
+    a = _tiled_inputs(dev, 2, c, h, w)
+    rel = lambda g, r: ((g - r).abs().max() / r.abs().max()).item()
+    before = [f.launches for f in STAGED[1:]]
+    z = cs.rdft_w(a["x"])
+    zr = cs.rdft_w_reference(a["x"])
+    t = cs.spectral_mix_h(zr.clone(), a["mix"], a["bias"])
+    tr = cs.spectral_mix_h_reference(zr, a["mix"], a["bias"])
+    out = cs.irdft_w_add(tr, a["residual"])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(STAGED[1:], before)] == [1, 1, 1]
+    errs = (rel(torch.view_as_real(z), torch.view_as_real(zr)),
+            rel(torch.view_as_real(t), torch.view_as_real(tr)),
+            rel(out, cs.irdft_w_add_reference(tr, a["residual"])))
+    assert max(errs) < TOL_REL, errs
+
+
+def test_k4_k5_k6_reject_unsupported_calls(dev):
+    a = _tiled_inputs(dev, 1, 8, 64, 64)
+    z = cs.rdft_w(a["x"])
+    with pytest.raises(ValueError, match="C in"):
+        cs.rdft_w(_tiled_inputs(dev, 1, 24, 64, 64)["x"])
+    with pytest.raises(ValueError, match="2 <= H, W <= 1024"):
+        cs.rdft_w(torch.zeros((1, 8, 1025, 64), device=dev))
+    with pytest.raises(ValueError, match="2 <= H, W <= 1024"):
+        cs.spectral_mix_h(torch.zeros((1, 8, 33, 1025), device=dev, dtype=torch.complex64),
+                          a["mix"], a["bias"])
+    with pytest.raises(ValueError, match="inference only"):
+        cs.spectral_mix_h(z, a["mix"].clone().requires_grad_(), a["bias"])
+    with pytest.raises(ValueError, match="complex64"):
+        cs.irdft_w_add(torch.view_as_real(z).contiguous(), a["residual"])
+
+
+def test_generate_at_200_runs_the_staged_route(dev):
+    """Full-width generator at 200x200 (outside K1's, K8's and K7's
+    domains): the staged generator, 42 K3 and 21 each of K4, K5 and K6,
+    no K1, K8 or K7, within 1e-5 of the plain module (reference init)."""
+    model = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1)
+    x = torch.rand((2, 200, 200, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    before = _counts()
+    got = model.generate(x)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 0, 42, 21, 21, 21]
+    with torch.no_grad():
+        want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("features,shape", [(64, (2, 96, 96, 1)), (32, (1, 1, 64, 1))])
+def test_generate_plain_route_launches_nothing(dev, features, shape):
+    """A width no kernel takes, or a side of 1: the plain module on the
+    card, no kernel launch, within 1e-3 of the module on the CPU."""
+    model = MTDGANModel(gen_features=features, num_layers=2, device=dev, seed=1)
+    x = torch.rand(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    before = _counts()
+    got = model.generate(x)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    cpu = MTDGANModel(gen_features=features, num_layers=2, device="cpu", seed=1)
+    assert (got.cpu() - cpu.generate(x.cpu())).abs().max().item() < 1e-3
+
+
+def test_train_step_at_width_64_runs_no_kernel(dev):
+    """gen_features=64 (K1 + K2 take C in {8, 16, 32}): the train step runs
+    the plain generator under autograd, no K1 or K2 launch, finite losses."""
+    model = MTDGANModel(gen_features=64, disc_features=16, num_layers=2, device=dev)
+    trainer = MTDGANTrainer(model, method="pcgrad", seed=0)
+    x = torch.rand((4, 64, 64, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    before = _counts()
+    m = trainer.train_step(x, (x + 0.01).clamp(0, 1))
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert torch.isfinite(m["d_loss"]) and torch.isfinite(m["g_loss"])

@@ -119,15 +119,13 @@ def test_tiled_generator_matches_jax_generator_tiled(tiled_generator_case, which
 @pytest.mark.parametrize("h,w,route", [
     (64, 64, "k1"), (512, 512, "k1"), (448, 448, "tiled"), (384, 384, "tiled"),
     (512, 320, "tiled"), (192, 192, "tiled"), (100, 100, "fused"), (96, 96, "fused"),
-    (64, 127, "fused"), (33, 33, "fused"), (448, 449, None), (832, 832, None),
-    (129, 129, None)])
+    (64, 127, "fused"), (33, 33, "fused"), (448, 449, "staged"), (832, 832, "staged"),
+    (129, 129, "staged")])
 def test_generate_route(h, w, route):
-    if route is None:
+    if route == "staged":
+        # neither K8 nor K7 takes them: the staged generator (K3 - K6) does
         assert not in_tiled_domain(h, w) and not in_fused_domain(h, w)
-        with pytest.raises(ValueError, match=r"K1 takes H == W.*K8 takes.*K7 takes"):
-            generate_route(h, w)
-    else:
-        assert generate_route(h, w) == route
+    assert generate_route(h, w, 32) == route
 
 
 def test_fft_conv_block_tiled_equals_auto_on_cpu():
