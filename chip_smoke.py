@@ -24,7 +24,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      reference init and with 1/sqrt(fan_in) weights; H = 100 and C = 24
      must raise;
   7. ``generate`` at 448x448, batch 8, full width, against the plain
-     module: 21 K8, 42 K3 and 0 K1 launches per call; one 512x320 call at
+     module: 21 K8, 42 K3 (41 on the tensor cores, the C -> 1 exit deconv
+     on the direct path) and 0 K1 launches per call; one 512x320 call at
      batch 2 the same;
   8. serving at 448x448: the ``test`` sweep over 16 synthetic 448x448
      DICOM pairs — the tiled serving path, 42 K8, 84 K3 and 0 K1 launches;
@@ -34,24 +35,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      C = 8, 33x27, with the reference init and with 1/sqrt(fan_in)
      weights; H = 129, C = 24 and a gradient request must raise;
   10. ``generate`` at 96x96, batch 64, full width, against the plain
-     module: 21 K7, 42 K3 and 0 K1 / K8 launches per call; one 100x72 call
-     at batch 4 the same;
+     module: 21 K7, 42 K3 (41 on the tensor cores) and 0 K1 / K8 launches
+     per call; one 100x72 call at batch 4 the same;
   11. serving at 96x96: the ``test`` sweep over 16 synthetic 96x96 DICOM
      pairs — the fused serving path, 42 K7, 84 K3 and 0 K1 / K8 launches;
   12. hold K3 (``conv3x3``) against its plain version (``F.conv2d`` plus
      the elementwise ops) in its four epilogues (plain, relu, skip+relu,
-     relu+residual), the flipped deconv with skip+relu and the C -> 1 exit
-     deconv, at 448x448, 96x96, 200x200, 1024x1024 and 449x130, C = 32,
-     batch 2, with both inits; C_out = 12, a residual with C_in != C_out
-     and a gradient request must raise;
+     relu+residual), the flipped deconv with skip+relu (these five on the
+     tensor-core path) and the C -> 1 exit deconv (the direct path), at
+     448x448, 96x96, 200x200, 1024x1024, 449x130 and 448x449, C = 32,
+     batch 2, with both inits, each call's path counted; C_out = 12, a
+     residual with C_in != C_out and a gradient request must raise; where
+     the toolkit has ``cuobjdump``, count the tensor-core instructions
+     (HMMA, HGMMA) in K3's library: none is fatal;
   13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``)
      each against its plain version (``torch.fft``), each fed the plain
-     input, at 1024x1024, 800x800, 200x200, 130x64, 448x449 and 2x2, at
-     C = 32 and C = 8, batch 2, with both inits; C = 24, a side of 1025
-     and a gradient request must raise;
+     input, at 1024x1024, 800x800, 200x200, 130x64, 448x449, 2x2 and the
+     odd heights 101x1024 and 33x200, at C = 32 and C = 8, batch 2, with
+     both inits; C = 24, a side of 1025 and a gradient request must raise;
   14. ``generate`` at 1024x1024, batch 2, and 200x200, batch 8, full width,
-     against the plain module: 42 K3, 21 each of K4, K5 and K6 and 0 K1 /
-     K7 / K8 launches per call;
+     against the plain module: 42 K3 (41 on the tensor cores), 21 each of
+     K4, K5 and K6 and 0 K1 / K7 / K8 launches per call;
   15. serving at 1024x1024: the ``test`` sweep over 8 synthetic 1024x1024
      DICOM pairs — the staged serving path, its K3 - K6 launches counted;
   16. F1: ``generate`` at gen_features=64 (200x200, batch 2) and on a 1x64
@@ -74,12 +78,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      training path, whose K1 and K2 launches are counted — then
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
   21. timings with CUDA events (K1, K2, K8, K7 and K3 - K6 and their plain
-     versions per call beside their bounds and, for K3, K4 and K6, one
-     library call of the same function; generate and sweep slices/s at
+     versions per call beside their bounds (K3: the fp32 CUDA-core bound
+     and the 3xTF32 tensor-core bound of its path) and, for K3, K4 and
+     K6, one library call of the same function (K4: ``torch.fft.rfft``,
+     and beside it the same with K4's transposed layout); K3 at 448x448
+     and 96x96 too; generate and sweep slices/s at
      512x512, 448x448, 96x96, 1024x1024 and 200x200; generate at 448x448
      and 96x96 with the convs on K3 and on cuDNN, in turns; ms per train
      step and patches/s), torch.profiler breakdowns of one generate call at
-     512x512, 448x448, 96x96 and 1024x1024 and of one train step by
+     512x512, 448x448, 96x96, 1024x1024 and 200x200 and of one train step by
      kernel, then the kernel JSON line, the card line and the result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
@@ -92,6 +99,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -151,8 +159,10 @@ TOL_BWD_L2 = 1e-2
 TOL_STEP_GRAD_L2 = 1e-2
 TOL_STEP_DLOSS_REL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth; K1 runs fp32 on the CUDA cores
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth; K1 runs fp32
+# on the CUDA cores, K3's tensor-core path three TF32 products (3xTF32)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 C = 32
@@ -163,17 +173,23 @@ FUSED_SHAPES = tuple((32, hw) for hw in ((32, 32), (64, 64), (96, 96), (100, 72)
                                          (97, 66), (127, 127), (128, 128))) + ((8, (33, 27)),)
 # K3 at the generators' sizes; K4 - K6 at the staged route's sizes (449 is
 # prime; 200 and 800 have the odd factor 25), each at C = 32 and C = 8
-K3_SHAPES = ((448, 448), (96, 96), (200, 200), (1024, 1024), (449, 130))
-STAGED_SHAPES = ((1024, 1024), (800, 800), (200, 200), (130, 64), (448, 449), (2, 2))
+K3_SHAPES = ((448, 448), (96, 96), (200, 200), (1024, 1024), (449, 130), (448, 449))
+# odd H with a tail block of fewer than 16 rows: 101 (W = 1024 reads its
+# rows in K4's first radix step), 33 (W = 200 is staged first)
+STAGED_SHAPES = ((1024, 1024), (800, 800), (200, 200), (130, 64), (448, 449), (2, 2),
+                 (101, 1024), (33, 200))
 # the launch counts the main paths are held to, by kernel
 COUNTED = {"K1": block_fused, "K2": block_bwd, "K8": spectral_branch_tiled,
            "K7": spectral_branch_fused, "K3": conv3x3, "K4": rdft_w,
            "K5": spectral_mix_h, "K6": irdft_w_add}
+# K3's launches on its tensor-core path, counted beside COUNTED
+K3_TC = "K3tc"
 # one generate call on the tiled, fused or staged route: 42 K3 (10 encoder,
-# 21 residual, 10 decoder convs and the exit deconv) besides its spectral
-# kernel; the staged route's spectral branch is 21 each of K4, K5 and K6
-K3_PER_CALL = 42
-STAGED_PER_CALL = {"K3": K3_PER_CALL, "K4": 21, "K5": 21, "K6": 21}
+# 21 residual, 10 decoder convs and the exit deconv; all but the C -> 1
+# exit deconv on the tensor cores) besides its spectral kernel; the staged
+# route's spectral branch is 21 each of K4, K5 and K6
+K3_PER_CALL = {"K3": 42, K3_TC: 41}
+STAGED_PER_CALL = {**K3_PER_CALL, "K4": 21, "K5": 21, "K6": 21}
 TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
 
 
@@ -423,19 +439,25 @@ def check_k3():
     for si, (h, w) in enumerate(K3_SHAPES):
         for init in ("reference", "fan_in"):
             for label, (args, kw) in k3_calls(2, h, w, init, seed=si).items():
-                before = conv3x3.launches
+                before = (conv3x3.launches, conv3x3.launches_tc)
                 got = conv3x3(*args, **kw)
                 torch.cuda.synchronize()
-                if conv3x3.launches != before + 1:
-                    fail(f"K3 {h}x{w} {label}: {conv3x3.launches - before} launches")
+                # every call at C = 32 takes the tensor cores but the exit
+                # deconv (C_out = 1), which takes the direct path
+                tc = 0 if label.startswith("exit") else 1
+                if (conv3x3.launches - before[0], conv3x3.launches_tc - before[1]) != (1, tc):
+                    fail(f"K3 {h}x{w} {label}: {conv3x3.launches - before[0]} launches, "
+                         f"{conv3x3.launches_tc - before[1]} on the tensor cores, "
+                         f"expected 1 and {tc}")
                 want = conv3x3_reference(*args, **kw)
                 if not torch.isfinite(got).all():
                     fail(f"K3 {h}x{w} {init} {label}: non-finite output")
                 err = (got - want).abs().max().item()
                 rel = err / max(want.abs().max().item(), 1e-30)
                 worst_abs = max(worst_abs, err)
-                print(f"K3 check {h}x{w} C={C} n=2 {init:9s} {label:16s}: max_abs "
-                      f"{err:.3e} rel {rel:.3e}", flush=True)
+                print(f"K3 check {h}x{w} C={C} n=2 {init:9s} {label:16s} "
+                      f"({'tensor cores' if tc else 'direct'}): max_abs {err:.3e} "
+                      f"rel {rel:.3e}", flush=True)
                 if rel > TOL_SPECTRAL_REL:
                     fail(f"K3 {h}x{w} {init} {label}: relative error {rel:.3e} > "
                          f"{TOL_SPECTRAL_REL}")
@@ -448,6 +470,25 @@ def check_k3():
     expect_raise("K3 with weight.requires_grad",
                  lambda: conv3x3(x, wt.clone().requires_grad_(), b))
     return worst_abs
+
+
+def count_tensor_core_instructions(lib_path) -> None:
+    """Count the tensor-core instructions in K3's built library with
+    ``cuobjdump -sass``, where the toolkit has it; fail if there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
+    if not tool or not os.path.exists(tool):
+        print("K3 SASS: cuobjdump not found (not counted)", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, hgmma = (len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA"))
+    print(f"K3 SASS ({lib_path.name}): {hmma} HMMA, {hgmma} HGMMA instructions",
+          flush=True)
+    if hmma + hgmma == 0:
+        fail("K3's library holds no tensor-core instruction (HMMA / HGMMA)")
 
 
 def check_staged(lib):
@@ -548,16 +589,18 @@ def check_train_width64(x, y):
 def zero_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    conv3x3.launches_tc = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    return {**{name: fn.launches for name, fn in COUNTED.items()},
+            K3_TC: conv3x3.launches_tc}
 
 
 def expect_counts(label: str, got, want):
     """Fail unless the launch counts ``got`` equal ``want`` (every kernel
     not named in ``want`` must not have launched)."""
-    want = {name: want.get(name, 0) for name in COUNTED}
+    want = {name: want.get(name, 0) for name in list(COUNTED) + [K3_TC]}
     if got != want:
         fail(f"{label}: launches {got}, expected {want}")
 
@@ -729,13 +772,14 @@ def k7_work(n: int, h: int, w: int):
     return flops, 4 * words
 
 
-def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C):
+def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C,
+            passes: int = 1):
     """(FLOPs, bytes) one K3 call needs: 2*9*C_in multiply-adds per output
-    value plus one op each for the bias, the skip, the ReLU and the
-    residual it applies; x, the weights, the bias and the skip read once,
-    out written once, fp32."""
+    value (``passes`` times: 3 on the 3xTF32 tensor-core path) plus one op
+    each for the bias, the skip, the ReLU and the residual it applies; x,
+    the weights, the bias and the skip read once, out written once, fp32."""
     ops = 1 + ("skip" in variant) + ("relu" in variant) + ("residual" in variant)
-    flops = n * h * w * c_out * (2 * 9 * c_in + ops)
+    flops = n * h * w * c_out * (passes * 2 * 9 * c_in + ops)
     words = n * h * w * (c_in + c_out) + 9 * c_in * c_out + c_out
     if "skip" in variant:
         words += n * h * w * c_out
@@ -769,9 +813,9 @@ def k6_work(n: int, h: int, w: int, c: int = C):
     return flops, 8 * n * c * k * h + 2 * 4 * n * c * h * w
 
 
-def bound(work):
+def bound(work, peak_flops: float = PEAK_FP32_FLOPS):
     flops, nbytes = work
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -988,11 +1032,12 @@ def main():
         x_rect = torch.tensor(phantom(rng, 2, 512)[:, :, 96:416, None],
                               dtype=torch.float32, device="cuda")
         for x in (x448, x_rect):
-            check_generate(model, x, "tiled", {"K8": 21, "K3": K3_PER_CALL})
+            check_generate(model, x, "tiled", {"K8": 21, **K3_PER_CALL})
 
         # ---- 8. serving at 448x448: the main path on K8
-        sweep448_s, counts = run_sweep(model, rng, tmp, 448,
-                                       {"K8": 2 * 21, "K3": 2 * K3_PER_CALL}, n_slices)
+        two_calls = {k: 2 * v for k, v in K3_PER_CALL.items()}
+        sweep448_s, counts = run_sweep(model, rng, tmp, 448, {"K8": 2 * 21, **two_calls},
+                                       n_slices)
         k8_sweep = counts["K8"]
 
         # ---- 9. K7 against its plain version
@@ -1004,15 +1049,16 @@ def main():
         x_small = torch.tensor(phantom(rng, 4, 100)[:, :, 14:86, None],
                                dtype=torch.float32, device="cuda")
         for x in (x96, x_small):
-            check_generate(model, x, "fused", {"K7": 21, "K3": K3_PER_CALL})
+            check_generate(model, x, "fused", {"K7": 21, **K3_PER_CALL})
 
         # ---- 11. serving at 96x96: the main path on K7
-        sweep96_s, counts = run_sweep(model, rng, tmp, 96,
-                                      {"K7": 2 * 21, "K3": 2 * K3_PER_CALL}, n_slices)
+        sweep96_s, counts = run_sweep(model, rng, tmp, 96, {"K7": 2 * 21, **two_calls},
+                                      n_slices)
         k7_sweep = counts["K7"]
 
         # ---- 12. K3 against its plain version
         k3_max_abs_err = check_k3()
+        count_tensor_core_instructions(libs[names.index("conv3x3")])
 
         # ---- 13. K4, K5 and K6 against their plain versions
         staged_max_abs_err = check_staged(staged_lib)
@@ -1099,20 +1145,40 @@ def main():
     del k7_args
     # K3 - K6 at the staged route's main-path shape, 1024x1024 batch 2
     staged_times = {}
+    # K3 on its tensor-core path (3xTF32): the bound of that path, and
+    # beside it the fp32 CUDA-core bound of the same convolution
+    k3_cuda_core = bound(k3_work(2, 1024, 1024, "relu+residual"))
     args, kw = k3_calls(2, 1024, 1024, "fan_in", seed=5)["relu+residual"]
     k3_x, k3_w, k3_b = args
     staged_times["K3"] = (
         cuda_ms(lambda: conv3x3(*args, **kw), 10),
         cuda_ms(lambda: conv3x3_reference(*args, **kw), 10),
         cuda_ms(lambda: torch.nn.functional.conv2d(k3_x, k3_w, k3_b, padding=1), 10),
-        bound(k3_work(2, 1024, 1024, "relu+residual")))
+        bound(k3_work(2, 1024, 1024, "relu+residual", passes=3), PEAK_TF32_FLOPS))
     del args, kw, k3_x, k3_w, k3_b
+    for n_k3, size in ((8, 448), (64, 96)):
+        args, kw = k3_calls(n_k3, size, size, "fan_in", seed=5)["relu+residual"]
+        k_ms = cuda_ms(lambda: conv3x3(*args, **kw), 10)
+        c_ms = cuda_ms(lambda: torch.nn.functional.conv2d(*args, padding=1), 10)
+        b_ms, by = bound(k3_work(n_k3, size, size, "relu+residual", passes=3),
+                         PEAK_TF32_FLOPS)
+        print(f"time K3 {size}x{size} batch {n_k3} C={C} relu+residual: kernel {k_ms:.3f} "
+              f"ms, library {c_ms:.3f} ms, bound {b_ms:.3f} ms ({by}, tensor cores)",
+              flush=True)
+        del args, kw
     a = tiled_inputs(2, 1024, 1024, "fan_in", seed=6)
     z = rdft_w_reference(a["x"])
     staged_times["K4"] = (
         cuda_ms(lambda: rdft_w(a["x"]), 10), cuda_ms(lambda: rdft_w_reference(a["x"]), 10),
         cuda_ms(lambda: torch.fft.rfft(a["x"], dim=-1, norm="ortho"), 10),
         bound(k4_work(2, 1024, 1024)))
+    k4_layout_ms = cuda_ms(lambda: torch.fft.rfft(a["x"], dim=-1, norm="ortho")
+                           .transpose(-1, -2).contiguous(), 10)
+    # what streaming K4's bytes costs on this card: a device copy of x
+    # (268 MB read, 268 MB written, against K4's 269 MB written)
+    copy_out = torch.empty_like(a["x"])
+    k4_copy_ms = cuda_ms(lambda: copy_out.copy_(a["x"]), 10)
+    del copy_out
     z5 = z.clone()  # K5 works in place: time it on a copy
     staged_times["K5"] = (
         cuda_ms(lambda: spectral_mix_h(z5, a["mix"], a["bias"]), 10),
@@ -1131,8 +1197,16 @@ def main():
     del a, z, z5, zz
     for name, (k_ms, p_ms, l_ms, (b_ms, by)) in staged_times.items():
         lib_txt = "none" if l_ms is None else f"{l_ms:.3f} ms"
+        extra = ""
+        if name == "K3":
+            extra = (f" (tensor cores, 3xTF32; fp32 CUDA-core bound {k3_cuda_core[0]:.3f} ms, "
+                     f"{k3_cuda_core[1]})")
+        elif name == "K4":
+            extra = (f"; library with K4's layout (rfft, transpose, contiguous) "
+                     f"{k4_layout_ms:.3f} ms; a device copy of x {k4_copy_ms:.3f} ms")
         print(f"time {name} 1024x1024 batch 2 C={C}: kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({by})", flush=True)
+              f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({by}){extra}",
+              flush=True)
     gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
@@ -1187,6 +1261,7 @@ def main():
     profile("generate 448x448 batch 8", lambda: model.generate(x448))
     profile("generate 96x96 batch 64", lambda: model.generate(x96))
     profile("generate 1024x1024 batch 2", lambda: model.generate(x1024))
+    profile("generate 200x200 batch 8", lambda: model.generate(x200))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
     k_ms, p_ms, b_ms, by = times["pre+skip"]

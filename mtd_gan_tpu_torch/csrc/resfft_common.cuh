@@ -1,11 +1,12 @@
 // Device code shared by the Res-FFT block kernels K1 (block_fused.cu) and
 // K2 (block_bwd.cu): the direct 3x3 convolution with its fused epilogues
-// (K3, conv3x3.cu, runs it alone), the radix-2 FFT in shared memory, and
-// the three spectral passes of the block (row rFFT, per-(n, k) column FFT
-// -> 2C x 2C mix -> inverse, row c2r accumulated onto an output); and the
-// mixed-radix helpers and row passes of the spectral-branch kernels K8
-// (spectral_tiled.cu), K7 (spectral_fused.cu) and K4 - K6
-// (spectral_staged.cu). fp32 throughout.
+// (K3, conv3x3.cu, runs it alone for the calls outside its tensor-core
+// path), the radix-2 FFT in shared memory, and the three spectral passes
+// of the block (row rFFT, per-(n, k) column FFT -> 2C x 2C mix -> inverse,
+// row c2r accumulated onto an output); and the mixed-radix helpers and row
+// passes of the spectral-branch kernels K8 (spectral_tiled.cu), K7
+// (spectral_fused.cu) and K5, K6 (spectral_staged.cu; K4 there has a row
+// pass of its own). fp32 throughout.
 
 #pragma once
 
@@ -490,7 +491,7 @@ cudaError_t launch_row_irfft_add(const float2* spec, float* out, int n, int c, i
 // ------------------------------------------------ mixed-radix row passes
 //
 // The W-axis passes of the spectral-branch kernels K8 (spectral_tiled.cu,
-// its passes A and C) and K4 / K6 (spectral_staged.cu, alone): any W and
+// its passes A and C) and K6 (spectral_staged.cu, alone): any W and
 // H, one block per 16 rows of one (n, c), the odd step written straight
 // from shared memory, so W's odd part may be anything.
 

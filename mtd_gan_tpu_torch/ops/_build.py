@@ -151,6 +151,8 @@ def conv3x3_library() -> ctypes.CDLL:
         _I, _I, _I, _P,              # relu, residual, adjoint, stream
     ]
     lib.conv3x3_forward.restype = ctypes.c_int
+    lib.conv3x3_tensor_cores.argtypes = [_I, _I]  # c_in, c_out
+    lib.conv3x3_tensor_cores.restype = ctypes.c_int
     lib.conv3x3_error_string.argtypes = [ctypes.c_int]
     lib.conv3x3_error_string.restype = ctypes.c_char_p
     return lib
@@ -161,7 +163,10 @@ def spectral_staged_library() -> ctypes.CDLL:
     """The K4, K5 and K6 library (``csrc/spectral_staged.cu``), built on
     first call."""
     lib = ctypes.CDLL(str(build("spectral_staged")))
-    lib.staged_rdft_w.argtypes = [_P, _I, _I, _I, _I, _P, _P]  # x, n, c, h, w, spec, stream
+    lib.staged_rdft_w.argtypes = [
+        _P, _I, _I, _I, _I,          # x, n, c, h, w
+        _P, _P, _P,                  # twiddles, spec, stream
+    ]
     lib.staged_mix_h.argtypes = [
         _P, _I, _I, _I, _I,          # spec, n, c, h, k
         _P, _P, _P,                  # mix, mix_bias, stream

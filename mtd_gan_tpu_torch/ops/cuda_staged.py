@@ -24,14 +24,19 @@ On a CUDA tensor each wrapper launches its kernel (one launch per call,
 counted in ``<wrapper>.launches``) or raises; on a CPU tensor it runs the
 plain version. There is no fallback from one to the other. Domains: K3
 takes fp32 contiguous input without a gradient request, C_out a multiple
-of 8 or 1, any C_in and any H, W (C_in == C_out with the residual); K4,
-K5 and K6 take C in {8, 16, 32} and 2 <= H, W <= 1024 of any parity.
+of 8 or 1, any C_in and any H, W (C_in == C_out with the residual),
+and runs on the tensor cores in 3xTF32 for C_in in {8, 16, 24, 32} and
+C_out a multiple of 8 (those launches also counted in
+``conv3x3.launches_tc``), on its direct fp32 path otherwise; K4, K5 and
+K6 take C in {8, 16, 32} and 2 <= H, W <= 1024 of any parity.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -85,6 +90,20 @@ def conv3x3_reference(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
     return x + out if residual else out
 
 
+def conv3x3_kmat(weight: Tensor, transpose: bool = False) -> Tensor:
+    """K3's B operand: the weight as a K-major ``(9 C_in, C_out)`` matrix,
+    row ``tap * C_in + c_in`` with ``tap = 3 ky + kx`` (the JAX
+    ``conv_kmat`` column order, transposed). ``weight`` is ``(C_out, C_in,
+    3, 3)``, or with ``transpose`` a ``ConvTranspose2d`` weight ``(C_in,
+    C_out, 3, 3)``, flipped spatially (``conv_kmat(flip=True)``). The
+    kernel's prologue builds the same matrix in shared memory."""
+    if transpose:
+        k = weight.flip(2, 3).permute(2, 3, 0, 1)
+    else:
+        k = weight.permute(2, 3, 1, 0)
+    return k.reshape(-1, k.shape[-1])
+
+
 def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
             skip: Optional[Tensor] = None, relu: bool = True,
             residual: bool = False, transpose: bool = False) -> Tensor:
@@ -94,7 +113,10 @@ def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
     (``csrc/conv3x3.cu``, one launch per call, counted in
     ``conv3x3.launches``) or raises: outside the kernel's domain, on a
     wrong layout, when a gradient is asked for (the kernel has no
-    backward), or on a CUDA error."""
+    backward), or on a CUDA error. The kernel picks its path by the
+    channel counts before the launch: the tensor cores in 3xTF32 for C_in
+    in {8, 16, 24, 32} and C_out a multiple of 8 (those launches are also
+    counted in ``conv3x3.launches_tc``), the direct fp32 conv otherwise."""
     if x.device.type == "cpu":
         return conv3x3_reference(x, weight, bias, skip=skip, relu=relu,
                                  residual=residual, transpose=transpose)
@@ -134,10 +156,12 @@ def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
         raise RuntimeError(f"{who}: CUDA error {err} "
                            f"({lib.conv3x3_error_string(err).decode()})")
     conv3x3.launches += 1
+    conv3x3.launches_tc += lib.conv3x3_tensor_cores(c_in, c_out)
     return out
 
 
 conv3x3.launches = 0
+conv3x3.launches_tc = 0
 
 
 # ------------------------------------------------------------ K4 - K6
@@ -174,13 +198,28 @@ def rdft_w_reference(x: Tensor) -> Tensor:
     return torch.fft.rfft(x, dim=-1, norm="ortho").transpose(-1, -2).contiguous()
 
 
+def rdft_twiddles(w: int) -> Tensor:
+    """K4's twiddle table: ``exp(-2 pi i t / W)`` for ``t < W``, computed
+    in float64 and rounded once to complex64 (CPU tensor)."""
+    t = np.arange(w, dtype=np.float64)
+    return torch.from_numpy(np.exp(-2j * np.pi * t / w).astype(np.complex64))
+
+
+@functools.cache
+def _device_twiddles(w: int, dev: torch.device) -> Tensor:
+    """:func:`rdft_twiddles` on ``dev``, built once per (W, device) like a
+    cuFFT plan (at most 8 KB each, W <= 1024)."""
+    return rdft_twiddles(w).to(dev)
+
+
 def rdft_w(x: Tensor) -> Tensor:
     """K4: same argument and result as :func:`rdft_w_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (``csrc/spectral_staged.cu`` ``staged_rdft_w``, counted in
     ``rdft_w.launches``) or raises: outside its domain, on a wrong layout,
-    when a gradient is asked for, or on a CUDA error."""
+    when a gradient is asked for, or on a CUDA error. The kernel reads its
+    twiddles from :func:`rdft_twiddles`, cached per device and W."""
     if x.device.type == "cpu":
         return rdft_w_reference(x)
     who = "rdft_w"
@@ -194,9 +233,11 @@ def rdft_w(x: Tensor) -> Tensor:
     _check(x, (n, c, h, w), dev, "x", who)
 
     lib = _build.spectral_staged_library()
+    tw = _device_twiddles(w, dev)
     z = torch.empty((n, c, w // 2 + 1, h), device=dev, dtype=torch.complex64)
     with torch.cuda.device(dev):
-        err = lib.staged_rdft_w(x.data_ptr(), n, c, h, w, z.data_ptr(), _stream(dev))
+        err = lib.staged_rdft_w(x.data_ptr(), n, c, h, w, tw.data_ptr(), z.data_ptr(),
+                                _stream(dev))
     _raise_on(lib, err, who)
     rdft_w.launches += 1
     return z

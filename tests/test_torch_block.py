@@ -21,6 +21,10 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_referen
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block, spectral_branch
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 N, C, H, W = 2, 8, 64, 64
 INITS = ("reference", "fan_in")
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")

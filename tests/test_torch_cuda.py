@@ -26,6 +26,10 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_referen
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
 # fp32 on both sides, TF32 off; the kernel's radix-2 FFTs and direct convs
 # sum in another order than cuFFT and cuDNN (measured ~1e-7 relative)
@@ -336,23 +340,45 @@ def _k3_inputs(dev, n, c, h, w, seed=0):
                 b1=t(rng.standard_normal(1) * 0.1), img=t(rng.random((n, 1, h, w))))
 
 
-@pytest.mark.parametrize("n,c,h,w", [(2, 32, 200, 200), (1, 8, 449, 130)])
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 200, 200), (1, 8, 449, 130),
+                                     (1, 32, 1024, 1024), (2, 32, 448, 448),
+                                     (2, 32, 96, 96), (1, 16, 448, 449), (2, 16, 200, 200),
+                                     (1, 8, 96, 96)])
 def test_k3_matches_plain_version(dev, n, c, h, w):
-    """K3 in its four epilogues and the C -> 1 exit deconv against its
-    plain version (cuDNN), one launch per call."""
+    """K3 in its four epilogues and the flipped deconv, on the tensor-core
+    path (3xTF32) at C = 8, 16 and 32, and the C -> 1 exit deconv on the
+    direct path, against its plain version (cuDNN): one launch per call,
+    counted on the path it took."""
     a = _k3_inputs(dev, n, c, h, w)
-    calls = [((a["x"], a["weight"], a["bias"]), kw) for kw in (
+    calls = [((a["x"], a["weight"], a["bias"]), kw, 1) for kw in (
         dict(relu=False), dict(relu=True), dict(skip=a["skip"]), dict(residual=True),
         dict(skip=a["skip"], transpose=True))]
-    calls.append(((a["x"], a["w1"], a["b1"]), dict(skip=a["img"], transpose=True)))
-    for args, kw in calls:
-        before = cs.conv3x3.launches
+    calls.append(((a["x"], a["w1"], a["b1"]), dict(skip=a["img"], transpose=True), 0))
+    for args, kw, tc in calls:
+        before = (cs.conv3x3.launches, cs.conv3x3.launches_tc)
         got = cs.conv3x3(*args, **kw)
         torch.cuda.synchronize()
-        assert cs.conv3x3.launches == before + 1
+        assert (cs.conv3x3.launches - before[0], cs.conv3x3.launches_tc - before[1]) == (1, tc)
         want = cs.conv3x3_reference(*args, **kw)
         rel = ((got - want).abs().max() / want.abs().max()).item()
         assert rel < TOL_REL, (sorted(kw), rel)
+
+
+def test_k3_takes_the_direct_path_outside_the_tensor_core_channels(dev):
+    """C_in = 12 (not a multiple of 8) and C_in = 40 (above the staged
+    tile's 32) run the direct fp32 conv, within the same tolerance."""
+    rng = np.random.default_rng(3)
+    t = lambda arr: torch.tensor(arr, dtype=torch.float32, device=dev)
+    for c_in in (12, 40):
+        x = t(rng.random((2, c_in, 50, 70)))
+        wt = t(rng.standard_normal((16, c_in, 3, 3)) / np.sqrt(9 * c_in))
+        b = t(rng.standard_normal(16) * 0.1)
+        before = (cs.conv3x3.launches, cs.conv3x3.launches_tc)
+        got = cs.conv3x3(x, wt, b)
+        torch.cuda.synchronize()
+        assert (cs.conv3x3.launches - before[0], cs.conv3x3.launches_tc - before[1]) == (1, 0)
+        want = cs.conv3x3_reference(x, wt, b)
+        assert ((got - want).abs().max() / want.abs().max()).item() < TOL_REL
 
 
 def test_k3_rejects_unsupported_calls(dev):
@@ -387,6 +413,34 @@ def test_k4_k5_k6_match_plain_versions(dev, c, h, w):
             rel(torch.view_as_real(t), torch.view_as_real(tr)),
             rel(out, cs.irdft_w_add_reference(tr, a["residual"])))
     assert max(errs) < TOL_REL, errs
+
+
+@pytest.mark.parametrize("c", [8, 32])
+@pytest.mark.parametrize("h,w", [(1024, 1024), (101, 1024), (33, 200), (7, 449), (2, 2),
+                                 (130, 2), (17, 9), (100, 512), (3, 64)])
+def test_k4_matches_plain_version(dev, c, h, w):
+    """K4 alone at odd H (a tail block of fewer than 16 rows, an odd last
+    row paired with zeros), H not a multiple of 16, odd W, W = 2 and
+    1024^2, against torch.fft.rfft; one launch per call."""
+    x = _tiled_inputs(dev, 2, c, h, w)["x"]
+    before = cs.rdft_w.launches
+    got = cs.rdft_w(x)
+    torch.cuda.synchronize()
+    assert cs.rdft_w.launches == before + 1
+    want = torch.view_as_real(cs.rdft_w_reference(x))
+    rel = ((torch.view_as_real(got) - want).abs().max() / want.abs().max()).item()
+    assert rel < TOL_REL, rel
+
+
+def test_k4_reads_an_unaligned_input(dev):
+    """x whose data does not start on 16 bytes: K4 takes its scalar loads
+    (same result)."""
+    flat = _tiled_inputs(dev, 1, 8, 64, 64 * 2 + 1)["x"].reshape(-1)
+    x = flat[1:1 + 2 * 8 * 64 * 64].view(2, 8, 64, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    want = torch.view_as_real(cs.rdft_w_reference(x))
+    got = torch.view_as_real(cs.rdft_w(x))
+    assert ((got - want).abs().max() / want.abs().max()).item() < TOL_REL
 
 
 def test_k4_k5_k6_reject_unsupported_calls(dev):

@@ -30,6 +30,10 @@ from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.torch_import import discriminator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 F_D, B = 8, 2
 nchw = lambda a: torch.tensor(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
 

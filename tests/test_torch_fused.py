@@ -18,6 +18,10 @@ from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 # (N, H, W, C): odd H and odd W among them
 K7_SHAPES = [(2, 40, 36, 8), (1, 33, 27, 4)]
 

@@ -12,6 +12,10 @@ from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.ops import cuda_pipeline
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 L, C, N, S = 2, 8, 2, 64
 INITS = ("reference", "fan_in")
 

@@ -13,6 +13,10 @@ import torch
 
 from mtd_gan_tpu_torch import resolve_device
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "pandas",
              "mtd_gan_tpu")

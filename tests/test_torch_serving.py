@@ -33,6 +33,10 @@ from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -162,6 +166,7 @@ def test_cli_sweep_matches_jax_run_test(tmp_path):
 
     port_dir = tmp_path / "port"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # as this process: one intra-op thread
     proc = subprocess.run(
         [sys.executable, "-m", "mtd_gan_tpu_torch.test", "--device", "cpu",
          "--no-feature-metrics", "--data-root", data, "--resume", str(ckpt),

@@ -22,6 +22,10 @@ from mtd_gan_tpu_torch.ops.cuda_train import train_route
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 nchw = lambda a: torch.tensor(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
 oihw = lambda k: torch.tensor(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
 
@@ -93,6 +97,21 @@ def test_plain_k3_matches_jax_k3(epilogue):
         got = cs.conv3x3_reference(nchw(x), oihw(k), torch.tensor(b), residual=True)
     want = np.asarray(want).reshape(n, c, h, w)
     assert np.abs(got.numpy() - want).max() <= 2e-2
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["conv", "flipped deconv"])
+def test_k3_kmat_order_matches_jax_conv_kmat(flip):
+    """K3's B operand (conv3x3_kmat: row tap * C_in + c_in) is the JAX
+    conv_kmat transposed, bit for bit, for a conv weight and for a
+    ConvTranspose weight with the spatial flip."""
+    rng = np.random.default_rng(5)
+    k = rng.standard_normal((3, 3, 16, 8)).astype(np.float32)  # HWIO
+    want = np.asarray(pp.conv_kmat(jnp.asarray(k), flip=flip)).T
+    # conv: (C_out, C_in, 3, 3); deconv: ConvTranspose2d (C_in, C_out, 3, 3)
+    weight = k.transpose(2, 3, 0, 1) if flip else k.transpose(3, 2, 0, 1)
+    got = cs.conv3x3_kmat(torch.tensor(weight.copy()), transpose=flip).numpy()
+    assert got.shape == want.shape == (9 * 16, 8)
+    assert np.array_equal(got, want)
 
 
 N, C, H, W = 1, 8, 64, 64

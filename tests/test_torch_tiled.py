@@ -19,6 +19,10 @@ from mtd_gan_tpu_torch.ops.cuda_fftconv import (in_fused_domain, in_tiled_domain
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 # (N, H, W, C) and the JAX kernel's H-tile th
 K8_SHAPES = [((1, 48, 40, 4), 24), ((2, 64, 96, 8), 32)]
 

@@ -28,6 +28,10 @@ from mtd_gan_tpu_torch.ops.fft_conv import spectral_branch
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 N, C, H, PW = 2, 8, 32, 32
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
 LEAVES = ("x", "skip", "img", "ik", "ib", "fk", "fb", "pk", "pb", "qk", "qb")

@@ -24,6 +24,10 @@ from mtd_gan_tpu_torch.data.dicom import write_synthetic_dicom
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, batched_indices, train_loader
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PATCH = 64
 
@@ -135,6 +139,7 @@ def _write_dataset(root, splits, size=96):
 
 def _run(*args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # as this process: one intra-op thread
     return subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
 

@@ -24,6 +24,10 @@ from mtd_gan_tpu_torch.optim import get_scheduler
 from mtd_gan_tpu_torch.utils.torch_import import (discriminator_state_dict_from_flax,
                                                   generator_state_dict_from_flax)
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 B = 4
 host = lambda t: jax.tree_util.tree_map(np.asarray, t)
 

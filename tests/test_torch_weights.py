@@ -15,6 +15,10 @@ from mtd_gan_tpu_torch.utils.torch_import import (
     generator_state_dict_from_flax, load_reference_checkpoint,
     strip_module_prefixes)
 
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
 L, C = 2, 8
 
 
