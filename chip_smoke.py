@@ -47,12 +47,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      batch 2, with both inits, each call's path counted; C_out = 12, a
      residual with C_in != C_out and a gradient request must raise; where
      the toolkit has ``cuobjdump``, count the tensor-core instructions
-     (HMMA, HGMMA) in K3's library: none is fatal;
-  13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``)
-     each against its plain version (``torch.fft``), each fed the plain
-     input, at 1024x1024, 800x800, 200x200, 130x64, 448x449, 2x2 and the
-     odd heights 101x1024 and 33x200, at C = 32 and C = 8, batch 2, with
-     both inits; C = 24, a side of 1025 and a gradient request must raise;
+     (HMMA, HGMMA) in K3's and in K1's library (K1 runs its C -> C convs
+     on K3's kernel): none is fatal;
+  13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``,
+     and K6 in place, its output the residual, as K1 calls it) each
+     against its plain version (``torch.fft``), each fed the plain input,
+     at 1024x1024, 800x800, 200x200, 130x64, 448x449, 2x2 and the odd
+     heights 101x1024 and 33x200, at C = 32 and C = 8, batch 2, with both
+     inits; C = 24, a side of 1025 and a gradient request must raise;
   14. ``generate`` at 1024x1024, batch 2, and 200x200, batch 8, full width,
      against the plain module: 42 K3 (41 on the tensor cores), 21 each of
      K4, K5 and K6 and 0 K1 / K7 / K8 launches per call;
@@ -70,7 +72,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
      state, the generator gradient and the D losses through K1 + K2 against
      the plain generator under autograd; then 3 more kernel steps, finite
-     losses and 21 K1 + 21 K2 launches per step;
+     losses and 21 K1 + 21 K2 launches per step; the same check on three
+     more states and patch sets, each read twice, and as a witness (not
+     held) with K1's plain version as the forward K2 differentiates;
   19. F2: one train step at gen_features=64 (16 of those patches): the
      plain generator under autograd, no kernel launch, finite losses;
   20. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
@@ -78,16 +82,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      training path, whose K1 and K2 launches are counted — then
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
   21. timings with CUDA events (K1, K2, K8, K7 and K3 - K6 and their plain
-     versions per call beside their bounds (K3: the fp32 CUDA-core bound
-     and the 3xTF32 tensor-core bound of its path) and, for K3, K4 and
-     K6, one library call of the same function (K4: ``torch.fft.rfft``,
-     and beside it the same with K4's transposed layout); K3 at 448x448
-     and 96x96 too; generate and sweep slices/s at
-     512x512, 448x448, 96x96, 1024x1024 and 200x200; generate at 448x448
-     and 96x96 with the convs on K3 and on cuDNN, in turns; ms per train
-     step and patches/s), torch.profiler breakdowns of one generate call at
-     512x512, 448x448, 96x96, 1024x1024 and 200x200 and of one train step by
-     kernel, then the kernel JSON line, the card line and the result line.
+     versions per call beside their bounds (K1 and K3: the fp32 CUDA-core
+     bound and the bound with their convs on the tensor cores in 3xTF32)
+     and, for K3, K4 and K6, one library call of the same function (K4:
+     ``torch.fft.rfft``, and beside it the same with K4's transposed
+     layout; K6: ``torch.fft.irfft`` + the residual, and K6 in place; K6
+     beside K8's pass C, its former kernel, at 1024x1024, 200x200 and
+     448x449); K1
+     split by its launches (pre conv, residual conv, rows, column pass,
+     inverse rows) under torch.profiler; K3 at 448x448 and 96x96 too;
+     generate and sweep slices/s at 512x512, 448x448, 96x96, 1024x1024 and
+     200x200; generate at 512x512 on the K1 route and on the staged
+     generator, in turns (a measurement only: the route stays K1); generate
+     at 448x448 and 96x96 with the convs on K3 and on cuDNN, in turns; ms
+     per train step and patches/s), torch.profiler breakdowns of one
+     generate call at 512x512, 448x448, 96x96, 1024x1024 and 200x200 and of
+     one train step by kernel, then the kernel JSON line, the card line and
+     the result line.
 TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
 sides compute in fp32.
 """
@@ -115,7 +126,7 @@ from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
                                               share_parameters)
-from mtd_gan_tpu_torch.ops import _build
+from mtd_gan_tpu_torch.ops import _build, cuda_train
 from mtd_gan_tpu_torch.ops.cuda_staged import (conv3x3, conv3x3_reference, irdft_w_add,
                                                irdft_w_add_reference, rdft_w,
                                                rdft_w_reference, spectral_mix_h,
@@ -124,15 +135,16 @@ from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
                                                 spectral_branch_fused_reference,
                                                 spectral_branch_tiled,
                                                 spectral_branch_tiled_reference)
-from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (_device_twiddles, block_fused,
+                                               block_fused_reference)
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 
-# max |kernel - plain| / max |plain| per block call: both sides are fp32;
-# they differ by FFT algorithm (radix-2 in shared memory vs cuFFT) and
-# summation order, ~1e-6 relative
+# max |kernel - plain| / max |plain| per block call: both sides are fp32
+# quality (K1's convs in 3xTF32); they differ by FFT algorithm (radix
+# steps in shared memory vs cuFFT) and summation order, ~1e-6 relative
 TOL_BLOCK_REL = 1e-4
 # max |kernel - plain| / max |plain| per K8 or K7 call: fp32 both sides,
 # mixed-radix FFTs in shared memory against cuFFT (other order of summation)
@@ -159,8 +171,9 @@ TOL_BWD_L2 = 1e-2
 TOL_STEP_GRAD_L2 = 1e-2
 TOL_STEP_DLOSS_REL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense TF32 on the tensor cores and HBM3 bandwidth; K1 runs fp32
-# on the CUDA cores, K3's tensor-core path three TF32 products (3xTF32)
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth; the C -> C
+# convs of K1 and K3 run three TF32 products (3xTF32) on the tensor cores,
+# everything else fp32 on the CUDA cores
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
@@ -472,23 +485,36 @@ def check_k3():
     return worst_abs
 
 
-def count_tensor_core_instructions(lib_path) -> None:
-    """Count the tensor-core instructions in K3's built library with
-    ``cuobjdump -sass``, where the toolkit has it; fail if there is none."""
+def count_tensor_core_instructions(label: str, lib_path) -> None:
+    """Count the tensor-core instructions in a built library (K3's, K1's)
+    with ``cuobjdump -sass``, where the toolkit has it; fail if there is
+    none."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump") or (
         os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
     if not tool or not os.path.exists(tool):
-        print("K3 SASS: cuobjdump not found (not counted)", flush=True)
+        print(f"{label} SASS: cuobjdump not found (not counted)", flush=True)
         return
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
     hmma, hgmma = (len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA"))
-    print(f"K3 SASS ({lib_path.name}): {hmma} HMMA, {hgmma} HGMMA instructions",
+    print(f"{label} SASS ({lib_path.name}): {hmma} HMMA, {hgmma} HGMMA instructions",
           flush=True)
     if hmma + hgmma == 0:
-        fail("K3's library holds no tensor-core instruction (HMMA / HGMMA)")
+        fail(f"{label}'s library holds no tensor-core instruction (HMMA / HGMMA)")
+
+
+def k6_in_place(lib, z, inout):
+    """K6 as K1 calls it: the C entry with the residual as its output, the
+    sum written over the residual (no wrapper, so no launch is counted)."""
+    n, c, h, w = inout.shape
+    err = lib.staged_irdft_w_add(z.data_ptr(), inout.data_ptr(), n, c, h, w,
+                                 _device_twiddles(w, inout.device).data_ptr(),
+                                 inout.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"K6 in place {h}x{w}: CUDA error {err}")
+    return inout
 
 
 def check_staged(lib):
@@ -503,10 +529,12 @@ def check_staged(lib):
                 before = [COUNTED[k].launches for k in worst]
                 zr = rdft_w_reference(a["x"])
                 tr = spectral_mix_h_reference(zr, a["mix"], a["bias"])
+                k6_want = irdft_w_add_reference(tr, a["residual"])
+                inout = a["residual"].clone()
                 outs = {"K4": (rdft_w(a["x"]), zr),
                         "K5": (spectral_mix_h(zr.clone(), a["mix"], a["bias"]), tr),
-                        "K6": (irdft_w_add(tr, a["residual"]),
-                               irdft_w_add_reference(tr, a["residual"]))}
+                        "K6": (irdft_w_add(tr, a["residual"]), k6_want),
+                        "K6 in place": (k6_in_place(lib, tr, inout), k6_want)}
                 torch.cuda.synchronize()
                 if [COUNTED[k].launches - b for k, b in zip(worst, before)] != [1, 1, 1]:
                     fail(f"K4-K6 {h}x{w}: not one launch each")
@@ -518,7 +546,7 @@ def check_staged(lib):
                         fail(f"{name} {h}x{w} C={c} {init}: non-finite output")
                     err = (got - want).abs().max().item()
                     rel = err / max(want.abs().max().item(), 1e-30)
-                    worst[name] = max(worst[name], err)
+                    worst[name[:2]] = max(worst[name[:2]], err)
                     parts.append(f"{name} {err:.3e}/{rel:.3e}")
                     if rel > TOL_SPECTRAL_REL:
                         fail(f"{name} {h}x{w} C={c} {init}: relative error {rel:.3e} "
@@ -701,24 +729,37 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def k1_work(n: int, size: int, variant: str):
-    """(FLOPs, bytes) one K1 call needs. FLOPs: each C->C 3x3 conv
-    2*9*C*C per pixel plus a 3-op epilogue per output; the spectral mix
-    2*(2C)^2 per (h, k) bin plus bias and ReLU; a real 2-D FFT forward and
-    one inverse, 2.5*HW*log2(HW) each per channel; the spectral add; the
-    C->1 post conv. Bytes: every input read once, every output written
-    once, fp32."""
+    """(conv FLOPs, other FLOPs, bytes) one K1 call needs. Conv FLOPs: the
+    multiply-adds of each C->C 3x3 conv, 2*9*C*C per pixel. Other FLOPs:
+    each conv's 3-op epilogue per output; the spectral mix 2*(2C)^2 per
+    (h, k) bin plus bias and ReLU; a real 2-D FFT forward and one inverse,
+    2.5*HW*log2(HW) each per channel; the spectral add; the C->1 post
+    conv. Bytes: every input read once, every output written once, fp32."""
     hw = size * size
     k = size // 2 + 1
     n_convs = 1 if variant == "plain" else 2
-    flops = n * (n_convs * (2 * 9 * C * C + 3 * C) * hw
+    conv = n * n_convs * 2 * 9 * C * C * hw
+    other = n * (n_convs * 3 * C * hw
                  + (2 * (2 * C) ** 2 + 2 * 2 * C) * size * k
                  + 2 * 2.5 * C * hw * math.log2(hw) + C * hw)
     words = n_convs * (9 * C * C + C) + 4 * C * C + 2 * C
     words += n * C * hw * (3 if "skip" in variant else 2)  # x [, skip], out
     if "post" in variant:
-        flops += n * (2 * 9 * C + 3) * hw
+        other += n * (2 * 9 * C + 3) * hw
         words += 9 * C + 1 + 2 * n * hw  # post weights, img, final
-    return flops, 4 * words
+    return conv, other, 4 * words
+
+
+def k1_bounds(n: int, size: int, variant: str):
+    """K1's bounds ((ms, by), (ms, by)): every operation fp32 on the CUDA
+    cores; and, as K1 runs, the convs' multiply-adds as three TF32 products
+    on the tensor cores and the rest fp32 on the CUDA cores, the larger of
+    the two engines' times (they can run at once), of the bytes' time."""
+    conv, other, nbytes = k1_work(n, size, variant)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(3 * conv / PEAK_TF32_FLOPS, other / PEAK_FP32_FLOPS)
+    tc = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    return bound((conv + other, nbytes)), tc
 
 
 def k2_work(n: int, size: int, variant: str):
@@ -819,6 +860,52 @@ def bound(work, peak_flops: float = PEAK_FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_name(event) -> str:
+    """A profiler event's kernel name without namespaces and arguments."""
+    name = re.sub(r"\(anonymous namespace\)::|^void ", "", event.name)
+    return name.split("(")[0][:70]
+
+
+# K1's launches in the order one call with "pre" makes them
+K1_LAUNCHES = ("pre conv", "residual conv", "rows (K4)", "column pass", "inverse rows (K6)")
+
+
+def profile_k1_split(label: str, args, calls: int = 5):
+    """K1 split by its launches: the device time of each of the five
+    launches of a call with "pre" (no "post"), averaged over ``calls``
+    calls under torch.profiler. Fails unless both convs ran K3's
+    tensor-core kernel. Returns {launch: ms}, or None when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    block_fused(**args)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            block_fused(**args)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if len(kernels) != calls * len(K1_LAUNCHES):
+        print(f"K1 split {label}: {len(kernels)} device events for {calls} calls "
+              f"(not measured)", flush=True)
+        return None
+    split = {}
+    for i, launch in enumerate(K1_LAUNCHES):
+        events = kernels[i::len(K1_LAUNCHES)]
+        names = {kernel_name(e) for e in events}
+        split[launch] = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+        if "conv" in launch and not all("conv3x3_tc_kernel" in n for n in names):
+            fail(f"K1 {launch} ran {names}, not K3's tensor-core kernel")
+        print(f"K1 split {label} {launch:17s}: {', '.join(sorted(names))} "
+              f"{split[launch]:.3f} ms", flush=True)
+    total = sum(split.values())
+    print(f"K1 split {label}: {total:.3f} ms of kernels per call; shares "
+          + ", ".join(f"{k} {v / total:.4f}" for k, v in split.items()), flush=True)
+    return split
+
+
 def profile(label: str, fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share between the first kernel's start and the last
@@ -835,8 +922,7 @@ def profile(label: str, fn):
         return
     by_name = {}
     for e in kernels:
-        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
-        name = name.split("(")[0][:70]
+        name = kernel_name(e)
         total, count = by_name.get(name, (0.0, 0))
         by_name[name] = (total + e.time_range.elapsed_us(), count + 1)
     busy = sum(t for t, _ in by_name.values())
@@ -874,25 +960,26 @@ def train_patches(rng, seed: int):
     return pre(hu(lo), hu(hi), torch.Generator(device="cuda").manual_seed(seed))
 
 
-def check_train_step(x, y):
-    """Phase 13: one step from one state through K1 + K2 and through the
-    plain generator under autograd: the D losses and g_loss, the cotangent
-    of fake that g_loss_terms gives each path, and the generator gradient
-    with the plain path's cotangent pulled through both generator graphs
-    (so that only K1 and K2 differ); then 3 kernel steps with their launch
-    counts. Returns the kernel trainer."""
+def step_errors(x, y, model_seed: int, label: str, hold: bool = True):
+    """One step from one state through K1 + K2 and through the plain
+    generator under autograd: the D losses and g_loss, the cotangent of
+    fake that g_loss_terms gives each path, and the generator gradient with
+    the plain path's cotangent pulled through both generator graphs (so
+    that only K1 and K2 differ). Held to the tolerances when ``hold``.
+    Returns (D-loss error, worst leaf's 2-norm error, its max-norm error,
+    its name) and the state the step started from."""
     base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10,
-                       device="cuda", seed=0)
+                       device="cuda", seed=model_seed)
     order = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]])
     paths = {}
-    for label, forward in (("kernel", resfft_generator_train), ("plain", plain_forward)):
+    for path, forward in (("kernel", resfft_generator_train), ("plain", plain_forward)):
         model = copy.deepcopy(base)
         trainer = MTDGANTrainer(model, method="pcgrad", seed=0)
         fake = forward(model.generator.train(), x)
         d_losses, _ = trainer.d_update(x, y, fake, order)
         total, _ = model.g_loss_terms(fake, x, y, update_stats=True, generator=trainer.rng)
         (dfake,) = torch.autograd.grad(total, fake, retain_graph=True)
-        paths[label] = (model, fake, d_losses, total.detach(), dfake)
+        paths[path] = (model, fake, d_losses, total.detach(), dfake)
     (mk, fk, dk, gk, ck), (mp, fp, dp, gp, cp) = paths["kernel"], paths["plain"]
     grads_k = torch.autograd.grad(fk, list(mk.generator.parameters()), cp)
     grads_p = torch.autograd.grad(fp, list(mp.generator.parameters()), cp)
@@ -902,22 +989,27 @@ def check_train_step(x, y):
     worst = (0.0, 0.0, "")
     for (name, _), a, b in zip(base.generator.named_parameters(), grads_k, grads_p):
         if not torch.isfinite(a).all():
-            fail(f"train step: non-finite generator gradient {name}")
+            fail(f"{label}: non-finite generator gradient {name}")
         l2 = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
         mx = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
         worst = max(worst, (l2, mx, name))
-        if l2 > TOL_STEP_GRAD_L2:
-            fail(f"train step: generator gradient {name} relative 2-norm error "
+        if hold and l2 > TOL_STEP_GRAD_L2:
+            fail(f"{label}: generator gradient {name} relative 2-norm error "
                  f"{l2:.3e} > {TOL_STEP_GRAD_L2} (max-norm {mx:.3e})")
-    print(f"train step (160 x 64x64, 32/64 features, 10 layers): D losses kernel "
+    print(f"{label} (160 x 64x64, 32/64 features, 10 layers): D losses kernel "
           f"{dk.tolist()} plain {dp.tolist()} rel {d_rel:.3e}; g_loss {gk.item():.6f} vs "
           f"{gp.item():.6f}; cotangent of fake rel {c_rel:.3e} (2-norm); generator "
           f"gradient worst leaf {worst[2]} {worst[0]:.3e} (2-norm) {worst[1]:.3e} "
           f"(max-norm) over {len(grads_k)} leaves", flush=True)
-    if d_rel > TOL_STEP_DLOSS_REL:
-        fail(f"train step: D losses differ by {d_rel:.3e} > {TOL_STEP_DLOSS_REL}")
-    del paths, mk, mp, fk, fp, grads_k, grads_p
+    if hold and d_rel > TOL_STEP_DLOSS_REL:
+        fail(f"{label}: D losses differ by {d_rel:.3e} > {TOL_STEP_DLOSS_REL}")
+    return (d_rel, worst[0], worst[1], worst[2]), base
 
+
+def check_train_step(x, y):
+    """Phase 18: :func:`step_errors` from one state, then 3 kernel steps
+    with their launch counts. Returns the kernel trainer."""
+    _, base = step_errors(x, y, 0, "train step")
     trainer = MTDGANTrainer(base, method="pcgrad", seed=0)
     for step in range(3):
         block_fused.launches = block_bwd.launches = 0
@@ -932,6 +1024,33 @@ def check_train_step(x, y):
         if (k1, k2) != (21, 21):
             fail(f"train step {step}: {k1} K1 and {k2} K2 launches, expected 21 + 21")
     return trainer
+
+
+def train_step_spread():
+    """Phase 18: the train step's gradient check on three more states and
+    patch sets (seeds 0, 1, 2), each read twice; and a witness on the same
+    seeds with K1's plain version (``F.conv2d`` in fp32
+    and ``torch.fft``) as the forward that K2 differentiates, so that K1's
+    3xTF32 convs and FFTs are out of the comparison (not held to the
+    tolerance)."""
+    spread = {}
+    for seed in (0, 1, 2):
+        x, y = train_patches(np.random.default_rng(100 + seed), seed=seed)
+        for label, reps in (("kernel", 2), ("witness", 1)):
+            for rep in range(reps):
+                tag = f"train step seed {seed} {label} read {rep + 1}"
+                if label == "witness":
+                    cuda_train.block_fused = block_fused_reference
+                try:
+                    (_, l2, _, _), _ = step_errors(x, y, seed, tag, hold=label == "kernel")
+                finally:
+                    cuda_train.block_fused = block_fused
+                spread[tag] = l2
+        del x, y
+    for label in ("kernel", "witness"):
+        got = [v for k, v in spread.items() if f" {label} " in k]
+        print(f"train step spread {label}: worst leaf 2-norm error min {min(got):.3e} "
+              f"max {max(got):.3e} over {len(got)} reads", flush=True)
 
 
 def check_train_cli(rng, tmp: str):
@@ -1058,7 +1177,8 @@ def main():
 
         # ---- 12. K3 against its plain version
         k3_max_abs_err = check_k3()
-        count_tensor_core_instructions(libs[names.index("conv3x3")])
+        count_tensor_core_instructions("K3", libs[names.index("conv3x3")])
+        count_tensor_core_instructions("K1", libs[names.index("block_fused")])
 
         # ---- 13. K4, K5 and K6 against their plain versions
         staged_max_abs_err = check_staged(staged_lib)
@@ -1090,6 +1210,7 @@ def main():
     # ---- 18. the train step at full width
     x, y = train_patches(rng, seed=0)
     trainer = check_train_step(x, y)
+    train_step_spread()
 
     # ---- 19. F2: a train step at a width K1 and K2 do not take
     check_train_width64(x[:16], y[:16])
@@ -1104,10 +1225,15 @@ def main():
         args = block_inputs(512, 8, "fan_in", variant, seed=vi)
         k_ms = cuda_ms(lambda: block_fused(**args), 10)
         p_ms = cuda_ms(lambda: block_fused_reference(**args), 10)
-        b_ms, by = bound(k1_work(8, 512, variant))
+        (cc_ms, cc_by), (b_ms, by) = k1_bounds(8, 512, variant)
         times[variant] = (k_ms, p_ms, b_ms, by)
         print(f"time K1 512x512 batch 8 {variant:14s}: kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by})", flush=True)
+              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}, convs on the tensor "
+              f"cores in 3xTF32; fp32 CUDA-core bound {cc_ms:.3f} ms, {cc_by})",
+              flush=True)
+        if variant == "pre+skip":
+            profile_k1_split("512x512 batch 8 pre+skip", args)
+        del args
     bwd_times = {}
     for vi, variant in enumerate(VARIANTS):
         args = bwd_inputs(160, "fan_in", variant, seed=vi)
@@ -1122,8 +1248,10 @@ def main():
         del args
     fwd_args = block_inputs(64, 160, "fan_in", "pre+skip", seed=2)
     k1_train_ms = cuda_ms(lambda: block_fused(**fwd_args), 10)
+    (cc_ms, _), (b_ms, _) = k1_bounds(160, 64, "pre+skip")
     print(f"time K1 64x64 batch 160 pre+skip: kernel {k1_train_ms:.3f} ms, bound "
-          f"{bound(k1_work(160, 64, 'pre+skip'))[0]:.3f} ms", flush=True)
+          f"{b_ms:.3f} ms (fp32 CUDA-core bound {cc_ms:.3f} ms)", flush=True)
+    profile_k1_split("64x64 batch 160 pre+skip", fwd_args)
     del fwd_args
     k8_args = tiled_inputs(8, 448, 448, "fan_in", seed=3)
     k8_ms = cuda_ms(lambda: spectral_branch_tiled(**k8_args), 10)
@@ -1194,7 +1322,39 @@ def main():
         cuda_ms(lambda: a["residual"] + torch.fft.irfft(
             zz.transpose(-1, -2), n=1024, dim=-1, norm="ortho"), 10),
         bound(k6_work(2, 1024, 1024)))
-    del a, z, z5, zz
+    # K6 as K1 calls it: the sum written over the residual
+    inout = a["residual"].clone()
+    k6_inplace_ms = cuda_ms(lambda: k6_in_place(staged_lib, z, inout), 10)
+    del a, z, z5, zz, inout
+    # K6 beside K8's pass C (the row c2r K6 ran before it had a kernel of
+    # its own) on the same inputs: W = 1024 (Q = 1), 200 (Q = 25) and 449
+    # (prime: the whole transform is the odd step)
+    tiled_lib = _build.spectral_tiled_library()
+    for n6, h6, w6 in ((2, 1024, 1024), (8, 200, 200), (2, 448, 449)):
+        a = tiled_inputs(n6, h6, w6, "fan_in", seed=7)
+        z = rdft_w_reference(a["x"])
+        out = torch.empty_like(a["residual"])
+
+        def pass_c():
+            err = tiled_lib.tiled_row_inv_add(z.data_ptr(), a["residual"].data_ptr(), n6, C,
+                                              h6, w6, out.data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                fail(f"K8's pass C {h6}x{w6}: CUDA error {err}")
+
+        want = irdft_w_add_reference(z, a["residual"])
+        pass_c()
+        for label, got in (("K6", irdft_w_add(z, a["residual"])), ("K8's pass C", out)):
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if rel > TOL_SPECTRAL_REL:
+                fail(f"{label} {h6}x{w6}: relative error {rel:.3e} > {TOL_SPECTRAL_REL}")
+        # in turns: K6, pass C, K6, pass C
+        runs = [cuda_ms(fn, 10) for fn in (lambda: irdft_w_add(z, a["residual"]), pass_c) * 2]
+        b_ms, by = bound(k6_work(n6, h6, w6))
+        print(f"time K6 {h6}x{w6} batch {n6} C={C}: kernel {runs[0]:.3f} / {runs[2]:.3f} ms, "
+              f"K8's pass C {runs[1]:.3f} / {runs[3]:.3f} ms (in turns), bound {b_ms:.3f} ms "
+              f"({by})", flush=True)
+        del a, z, out, want, got
     for name, (k_ms, p_ms, l_ms, (b_ms, by)) in staged_times.items():
         lib_txt = "none" if l_ms is None else f"{l_ms:.3f} ms"
         extra = ""
@@ -1204,12 +1364,27 @@ def main():
         elif name == "K4":
             extra = (f"; library with K4's layout (rfft, transpose, contiguous) "
                      f"{k4_layout_ms:.3f} ms; a device copy of x {k4_copy_ms:.3f} ms")
+        elif name == "K6":
+            extra = f"; in place (out = residual) {k6_inplace_ms:.3f} ms"
         print(f"time {name} 1024x1024 batch 2 C={C}: kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms ({by}){extra}",
               flush=True)
     gen_ms = cuda_ms(lambda: model.generate(x_gen), 3)
     print(f"time generate 512x512 batch 8: {gen_ms:.2f} ms/call = "
           f"{8e3 / gen_ms:.2f} slices/s", flush=True)
+    # is generate_route's order (K1 before staged) still right at 512^2? The
+    # staged generator on the same input, in turns with the K1 route; the
+    # route itself is not changed here
+    x_nchw = x_gen.reshape(8, 1, 512, 512).contiguous()
+    with torch.no_grad():
+        run_staged = lambda: model.generator_staged(x_nchw)
+        staged_err = (run_staged().reshape(x_gen.shape) - model.generate(x_gen)).abs().max()
+        turns = [cuda_ms(f, 3) for f in (lambda: model.generate(x_gen), run_staged,
+                                          run_staged, lambda: model.generate(x_gen))]
+    print(f"time generate 512x512 batch 8, K1 route {turns[0]:.2f} / {turns[3]:.2f} ms, "
+          f"staged generator {turns[1]:.2f} / {turns[2]:.2f} ms (K1, staged, staged, K1); "
+          f"outputs differ by {staged_err.item():.3e} max abs", flush=True)
+    del x_nchw
     gen448_ms = cuda_ms(lambda: model.generate(x448), 3)
     print(f"time generate 448x448 batch 8: {gen448_ms:.2f} ms/call = "
           f"{8e3 / gen448_ms:.2f} slices/s", flush=True)

@@ -21,7 +21,9 @@
 // 0.58 ms; on the tensor cores in 3xTF32 (three TF32 products per
 // multiply-add at 495 TFLOP/s) at 0.235 ms.
 //
-// Two paths, chosen by shape before the launch (conv3x3_tensor_cores):
+// Two paths, chosen by shape before the launch (conv3x3_tensor_cores;
+// the tensor-core device code and the choice, launch_conv3x3, are in
+// conv3x3_tc.cuh, which K1's block_fused.cu includes too):
 //
 // Tensor cores (C_in in {8, 16, 24, 32}, C_out a multiple of 8): an
 // implicit GEMM out[M, C_out] = A[M, 9 C_in] B[9 C_in, C_out] per tile of M
@@ -61,334 +63,7 @@
 // (resfft_common.cuh conv3x3_kernel): a 32 x 32 output tile per block, 8
 // input channels staged per step, 4 rows x 8 output channels per thread.
 
-#include <algorithm>
-#include <cstdint>
-
-#include "resfft_common.cuh"
-
-namespace {
-
-constexpr int kTcTileH = 16;             // output rows per tile
-constexpr int kTcTileW = 32;             // output columns per tile
-constexpr int kTcThreads = 512;          // 4 warpgroups x 4 output rows
-constexpr int kTcHaloW = kTcTileW + 2;   // 34
-constexpr int kTcPlane = 616;            // 18 x 34 = 612 floats, padded to 8 mod 32
-constexpr int kTcMaxCin = 32;
-
-size_t tc_smem_bytes(int c_in, int co) {
-  // B split into big and small TF32 matrices, then two input tiles
-  return (size_t)2 * 9 * c_in * co * sizeof(float) + (size_t)2 * kTcPlane * c_in * sizeof(float);
-}
-
-// Output channels per block on the tensor-core path: 32, 16 or 8.
-int tc_co_tile(int c_out) { return c_out % 32 == 0 ? 32 : c_out % 16 == 0 ? 16 : 8; }
-
-bool tensor_core_path(int c_in, int c_out) {
-  return c_in % 8 == 0 && c_in <= kTcMaxCin && c_out % 8 == 0;
-}
-
-// v rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero) for every finite v: half a unit of the 10-bit mantissa added
-// to the magnitude, the 13 low bits cleared. Two integer instructions;
-// ptxas expands cvt.rna.tf32.f32 itself into about ten (NaN and infinity
-// checks), which cost the kernel half its time.
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = to_tf32(v);
-  small = to_tf32(v - __uint_as_float(big));
-}
-
-// Shared-memory matrix descriptor of wgmma for a K-major operand without
-// swizzle: core matrices of 8 rows x 16 bytes, `lbo` bytes apart along K,
-// `sbo` bytes apart along N.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses of an accumulator register across
-// the asynchronous products that own it
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N per warpgroup, N / 2 registers a thread) += a (64 x 8, TF32,
-// registers: a thread holds rows g, g + 8 by columns t, t + 4 of its
-// warp's 16 rows) * b (8 x N, TF32, shared memory, K-major)
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
-                                           uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// 4 bytes global -> shared, asynchronous; zeros when !valid
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Stage the halo'd input tile of output tile (y0, x0): rows y0 - 1 ..
-// y0 + 16, columns x0 - 1 .. x0 + 32 of all CIN channels, zeros outside
-// the image; one warp per (channel, row).
-template <int CIN>
-__device__ __forceinline__ void stage_tile(float* dst, const float* x_n, int H, int W,
-                                           int y0, int x0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < CIN * (kTcTileH + 2); r += kTcThreads / 32) {
-    const int ci = r / (kTcTileH + 2), yy = r - ci * (kTcTileH + 2);
-    const int gy = y0 - 1 + yy;
-    const bool row_ok = gy >= 0 && gy < H;
-    const float* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
-    float* d = dst + ci * kTcPlane + yy * kTcHaloW;
-    for (int xx = lane; xx < kTcHaloW; xx += 32) {
-      const int gx = x0 - 1 + xx;
-      const bool ok = row_ok && gx >= 0 && gx < W;
-      cp_async4(d + xx, ok ? src + gx : x_n, ok);
-    }
-  }
-}
-
-// The tensor-core K3. CIN = 8 * CI8 input channels, CO = 8 * NT output
-// channels per block (blockIdx.y picks the group); blockIdx.x walks the
-// n_tiles output tiles (n, ty, tx) with stride gridDim.x. Warpgroup wg
-// (warps 4wg .. 4wg + 3) computes the m-tiles 2wg and 2wg + 1: m-tile m is
-// output rows 2m and 2m + 1, 64 pixels, warp w of the group rows 16w ..
-// 16w + 15 of it (output row 2m + w / 2, columns 16 (w % 2) ..).
-template <int CI8, int NT>
-__global__ void __launch_bounds__(kTcThreads, 1)
-conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
-                  const float* __restrict__ bias, const float* __restrict__ skip,
-                  float* __restrict__ out, int c_out, int H, int W, int tiles_x,
-                  int tiles_y, int n_tiles, int relu, int residual, int adjoint) {
-  constexpr int CIN = 8 * CI8, CO = 8 * NT, K = 9 * CIN;
-  extern __shared__ __align__(128) float smem[];
-  // B as core matrices of 8 output channels x 4 k (K-major): big, small
-  float* b_big = smem;          // [K / 4][NT][8][4]
-  float* b_small = smem + K * CO;
-  float* tiles = smem + 2 * K * CO;  // [2][CIN][kTcPlane]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const int wg = warp >> 2, ww = warp & 3;
-  const int col0 = (ww & 1) * 16;
-  const int co0 = blockIdx.y * CO;
-  const size_t hw = (size_t)H * W;
-  const int per_image = tiles_x * tiles_y;
-
-  auto origin = [&](int id, int& n, int& y0, int& x0) {
-    n = id / per_image;
-    const int r = id - n * per_image;
-    y0 = (r / tiles_x) * kTcTileH;
-    x0 = (r - (r / tiles_x) * tiles_x) * kTcTileW;
-  };
-
-  int tile = blockIdx.x;
-  {
-    int n, y0, x0;
-    origin(tile, n, y0, x0);
-    stage_tile<CIN>(tiles, x + (size_t)n * CIN * hw, H, W, y0, x0);
-  }
-  cp_async_commit();
-  for (int i = tid; i < K * CO; i += kTcThreads) {
-    const int co = i % CO, k = i / CO, tap = k / CIN, ci = k - tap * CIN;
-    const float v = adjoint ? weight[((size_t)ci * c_out + co0 + co) * 9 + (8 - tap)]
-                            : weight[((size_t)(co0 + co) * CIN + ci) * 9 + tap];
-    uint32_t big, small;
-    split_tf32(v, big, small);
-    const int at = (((k >> 2) * NT + (co >> 3)) * 8 + (co & 7)) * 4 + (k & 3);
-    b_big[at] = __uint_as_float(big);
-    b_small[at] = __uint_as_float(small);
-  }
-  // the products read B through the async proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  float bv[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      bv[nt][e] = bias != nullptr ? bias[co0 + nt * 8 + 2 * t + e] : 0.f;
-
-  constexpr uint32_t kLbo = NT * 128, kSbo = 128;  // bytes between core matrices: K, N
-  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
-    const float* cur = tiles + (it & 1) * CIN * kTcPlane;
-    const int next = tile + gridDim.x;
-    if (next < n_tiles) {
-      int n, y0, x0;
-      origin(next, n, y0, x0);
-      stage_tile<CIN>(tiles + ((it + 1) & 1) * CIN * kTcPlane, x + (size_t)n * CIN * hw, H,
-                      W, y0, x0);
-    }
-    cp_async_commit();
-    cp_async_wait_one();  // this tile's group has landed
-    __syncthreads();
-
-    // acc[i]: m-tile 2wg + i, columns 8j + 2t + e at [4j + 2h + e], rows
-    // g + 8h of the warp's 16
-    float acc[2][CO / 2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < CO / 2; ++e) acc[i][e] = 0.f;
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-      for (int kc = 0; kc < CI8; ++kc) {
-        // A: pixel rows g, g + 8 of the warp's 16 by channels t, t + 4
-        uint32_t ab[2][4], as[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float* p = cur + (kc * 8 + t) * kTcPlane +
-                           (2 * (2 * wg + i) + (ww >> 1) + dy) * kTcHaloW + col0 + g + dx;
-          split_tf32(p[0], ab[i][0], as[i][0]);
-          split_tf32(p[8], ab[i][1], as[i][1]);
-          split_tf32(p[4 * kTcPlane], ab[i][2], as[i][2]);
-          split_tf32(p[4 * kTcPlane + 8], ab[i][3], as[i][3]);
-        }
-        const int kg = 2 * (tap * CI8 + kc);  // first core matrix of these 8 k
-        const uint64_t db = smem_desc(b_big + kg * NT * 32, kLbo, kSbo);
-        const uint64_t ds = smem_desc(b_small + kg * NT * 32, kLbo, kSbo);
-        wgmma_fence();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wgmma_tf32<CO>(acc[i], as[i], db);  // small * big
-          wgmma_tf32<CO>(acc[i], ab[i], ds);  // big * small
-          wgmma_tf32<CO>(acc[i], ab[i], db);  // big * big
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) fence_regs(acc[i]);
-      }
-    }
-
-    int n, y0, x0;
-    origin(tile, n, y0, x0);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int yl = 2 * (2 * wg + i) + (ww >> 1), y = y0 + yl;
-      if (y >= H) continue;
-#pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8) {
-        const int xl = col0 + g + 8 * h8, xg = x0 + xl;
-        if (xg >= W) continue;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int co = co0 + nt * 8 + 2 * t + e;
-            const size_t o = ((size_t)n * c_out + co) * hw + (size_t)y * W + xg;
-            float v = acc[i][4 * nt + 2 * h8 + e] + bv[nt][e];
-            if (skip != nullptr) v += skip[o];
-            if (relu) v = fmaxf(v, 0.f);
-            if (residual) v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
-            out[o] = v;
-          }
-      }
-    }
-    __syncthreads();  // the next iteration stages into the buffer read here
-  }
-}
-
-template <int CI8, int NT>
-cudaError_t launch_tc(const float* x, const float* weight, const float* bias,
-                      const float* skip, float* out, int n, int c_out, int h, int w,
-                      int relu, int residual, int adjoint, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(8 * CI8, 8 * NT);
-  CUDA_TRY(allow_smem(conv3x3_tc_kernel<CI8, NT>, smem));
-  int dev, sms, per_sm;
-  CUDA_TRY(cudaGetDevice(&dev));
-  CUDA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  CUDA_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv3x3_tc_kernel<CI8, NT>, kTcThreads, smem));
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int tiles_x = (w + kTcTileW - 1) / kTcTileW, tiles_y = (h + kTcTileH - 1) / kTcTileH;
-  const long long n_tiles = (long long)n * tiles_x * tiles_y;
-  if (n_tiles > (1LL << 30)) return cudaErrorInvalidValue;
-  const int groups = c_out / (8 * NT);
-  const int blocks = (int)std::min<long long>(n_tiles, std::max(1, sms * per_sm / groups));
-  conv3x3_tc_kernel<CI8, NT><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
-      x, weight, bias, skip, out, c_out, h, w, tiles_x, tiles_y, (int)n_tiles, relu,
-      residual, adjoint);
-  return cudaGetLastError();
-}
-
-template <int CI8>
-cudaError_t launch_tc_co(const float* x, const float* weight, const float* bias,
-                         const float* skip, float* out, int n, int c_out, int h, int w,
-                         int relu, int residual, int adjoint, cudaStream_t stream) {
-  switch (tc_co_tile(c_out)) {
-    case 32: return launch_tc<CI8, 4>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
-    case 16: return launch_tc<CI8, 2>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
-    default: return launch_tc<CI8, 1>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
-  }
-}
-
-}  // namespace
+#include "conv3x3_tc.cuh"
 
 extern "C" {
 
@@ -410,24 +85,12 @@ int conv3x3_forward(const float* x, int n, int c_in, int c_out, int h, int w,
   if (n < 1 || c_in < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
   if (c_out != 1 && c_out % 8 != 0) return (int)cudaErrorInvalidValue;
   if (residual && c_in != c_out) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (tensor_core_path(c_in, c_out)) {
-    switch (c_in / 8) {
-      case 1: return (int)launch_tc_co<1>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                          residual, adjoint, stream);
-      case 2: return (int)launch_tc_co<2>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                          residual, adjoint, stream);
-      case 3: return (int)launch_tc_co<3>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                          residual, adjoint, stream);
-      default: return (int)launch_tc_co<4>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                           residual, adjoint, stream);
-    }
-  }
-  if ((long long)n * (c_out == 1 ? 1 : c_out / 8) > 65535 ||
-      (h + kConvTileH - 1) / kConvTileH > 65535)
+  if (!tensor_core_path(c_in, c_out) &&
+      ((long long)n * (c_out == 1 ? 1 : c_out / 8) > 65535 ||
+       (h + kConvTileH - 1) / kConvTileH > 65535))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_conv(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w, relu,
-                          residual, adjoint, stream);
+  return (int)launch_conv3x3(x, weight, bias, skip, out, n, c_in, c_out, h, w, relu,
+                             residual, adjoint, reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* conv3x3_error_string(int err) {

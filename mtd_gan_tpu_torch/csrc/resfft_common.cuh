@@ -5,8 +5,10 @@
 // of the block (row rFFT, per-(n, k) column FFT -> 2C x 2C mix -> inverse,
 // row c2r accumulated onto an output); and the mixed-radix helpers and row
 // passes of the spectral-branch kernels K8 (spectral_tiled.cu), K7
-// (spectral_fused.cu) and K5, K6 (spectral_staged.cu; K4 there has a row
-// pass of its own). fp32 throughout.
+// (spectral_fused.cu) and K5 (spectral_staged.cu). K1 takes only its
+// column pass and its C -> 1 exit conv from here: its C -> C convs run on
+// K3's tensor-core kernel (conv3x3_tc.cuh), its row passes on
+// rdft_rows.cuh. fp32 throughout.
 
 #pragma once
 
@@ -490,10 +492,10 @@ cudaError_t launch_row_irfft_add(const float2* spec, float* out, int n, int c, i
 
 // ------------------------------------------------ mixed-radix row passes
 //
-// The W-axis passes of the spectral-branch kernels K8 (spectral_tiled.cu,
-// its passes A and C) and K6 (spectral_staged.cu, alone): any W and
-// H, one block per 16 rows of one (n, c), the odd step written straight
-// from shared memory, so W's odd part may be anything.
+// The W-axis passes A and C of the spectral-branch kernel K8
+// (spectral_tiled.cu): any W and H, one block per 16 rows of one (n, c),
+// the odd step written straight from shared memory, so W's odd part may
+// be anything.
 
 constexpr int kRowPairs = kRowsPerBlock / 2;
 

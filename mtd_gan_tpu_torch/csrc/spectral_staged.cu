@@ -29,56 +29,31 @@
 // residual, out), 0.24 ms. Each kernel is a pass over device memory, so
 // the design keeps every pass to one read and one write of its data.
 //
-// Design of K4 (rdft_w_kernel). One block per 16 rows of one (n, c):
-// each bin's run of 16 rows is 16 x 8 B, one whole 128-byte line, and rows
-// 2j and 2j+1 go through one complex W-point FFT of z = a + i b. W = P * Q
-// with P a power of two and Q odd. The P-point FFTs run in place in shared
-// memory, decimation in frequency, as radix-2/4/8 butterflies in
-// registers: a thread takes 8 points per step (one radix-8, two radix-4
-// or four radix-2 butterflies), reads them, transforms them and writes
-// them back where it read them, so a step needs one block-wide sync and no
-// second buffer. For W a power of two >= 8 the first step is radix 2 and
-// reads the rows from device memory itself (four 16-byte loads per
-// thread: columns 4u..4u+3 and P/2+4u..), then radix 8: 1024 = 2 * 8 * 8
-// * 8 is four steps and four syncs, against ten radix-2 stages and a
-// bit-reversal pass (eleven syncs) in K8's row pass. Other W are staged
-// first (16-byte loads where W % 4 == 0, scalar otherwise) in decimated
-// order. The read-out finds X[k] at its digit-reversed position; for Q > 1
-// it applies the out-of-place odd step. Twiddles come from a table
-// exp(-2 pi i t / W), t < W, built once per (device, W) on the host in
-// float64 and passed in as fp32 (ops/cuda_staged.py caches it, as a cuFFT
-// plan is cached): the kernel computes no sine or cosine. The pair (A_k,
-// B_k) of rows 2j and 2j+1 goes out as one 16-byte store where H is even.
-// Shared memory is the 16 rows alone, padded by one complex per 8 so that
-// the radix-8 steps read without bank conflicts: 73.8 KB at W = 1024; with
-// registers held to 40 a thread (__launch_bounds__(512, 3), no spills),
-// three blocks of 512 threads, 48 warps, run on each SM. Two blocks (32
-// warps, 64 registers) ran slower on an H100 at 1024^2.
+// K4 and K6 are the row rDFT of rdft_rows.cuh and its inverse: one block
+// per 16 rows of one (n, c), in-place radix-2/4/8 steps in registers with
+// one sync per step (four at W = 1024), twiddles from a host table, 16-byte
+// loads and stores. K6 runs the same forward steps on conj Z and writes
+// the real rows with the residual added (the design note of rdft_rows.cuh).
 //
-// K6 is the mixed-radix row pass K8 runs as its pass C (resfft_common.cuh):
-// one block per 16 rows of one (n, c), with a tail for H not a multiple of
-// 16 (odd H included) and no radix-2 step for odd W. K5 is K8's pass B on one
-// thread-block cluster per (n, k): one bin's C * H complex values are 256
-// KB at H = 1024 and C = 32, above the 227 KB one CTA can hold, and the
-// odd step of a mixed-radix FFT needs a second buffer of the same size. So
-// the bin's channels are split over S = 1, 2, 4 or 8 CTAs (the smallest S
-// whose share fits two CTAs per SM): each CTA runs the FFTs of its C/S
-// columns, publishes the forward result in its shared memory, and the mix
-// of its 2C/S outputs reads all 2C inputs at h through distributed shared
-// memory (cluster.map_shared_rank). The mix writes a second buffer, never
-// the one its partners read, so one cluster.sync before the mix and one
-// before exit are all it needs. Every FFT of K5 and K6 is mixed radix, L =
-// P * Q: the P-point FFTs in place with K1's radix-2 code, the dense
-// Q-point step out of place (odd_output, resfft_common.cuh), so Q may be
-// any odd number (H = 200 and 800 have Q = 25; 449 is prime). fp32
-// throughout; tensor cores for the mix and fusing K4 and K6 into the
-// neighbouring convolutions are later work.
+// K5 is K8's pass B on one thread-block cluster per (n, k): one bin's C *
+// H complex values are 256 KB at H = 1024 and C = 32, above the 227 KB one
+// CTA can hold, and the odd step of a mixed-radix FFT needs a second
+// buffer of the same size. So the bin's channels are split over S = 1, 2,
+// 4 or 8 CTAs (the smallest S whose share fits two CTAs per SM): each CTA
+// runs the FFTs of its C/S columns, publishes the forward result in its
+// shared memory, and the mix of its 2C/S outputs reads all 2C inputs at h
+// through distributed shared memory (cluster.map_shared_rank). The mix
+// writes a second buffer, never the one its partners read, so one
+// cluster.sync before the mix and one before exit are all it needs. Its
+// FFTs are mixed radix, L = P * Q: the P-point FFTs in place with K1's
+// radix-2 code, the dense Q-point step out of place (odd_output,
+// resfft_common.cuh), so Q may be any odd number (H = 200 and 800 have Q
+// = 25; 449 is prime). fp32 throughout; tensor cores for the mix and
+// fusing K4 and K6 into the neighbouring convolutions are later work.
 
 #include <cooperative_groups.h>
 
-#include <cstdint>
-
-#include "resfft_common.cuh"
+#include "rdft_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -94,284 +69,6 @@ bool channels_ok(int c) { return c == 8 || c == 16 || c == 32; }
 bool rows_in_domain(int n, int c, int h, int w) {
   return n >= 1 && n <= 65535 && channels_ok(c) && h >= 2 && h <= kMaxLen && w >= 2 &&
          w <= kMaxLen;
-}
-
-// ------------------------------------------------------------------- K4
-
-constexpr int kRdftRows = 16;           // rows per block: 16 x 8 B per bin
-constexpr int kRdftPairs = kRdftRows / 2;
-constexpr int kRdftMaxThreads = 512;
-constexpr int kRdftMaxSteps = 4;        // 2^10 = 2 * 8 * 8 * 8
-
-// The FFT schedule of one W: W = P * Q, the P-point FFT's radix steps
-// (log2 of the radix and of the butterfly span M = L / R of each), and
-// which load and store paths the call takes.
-struct RdftPlan {
-  int P, Q;
-  int direct;     // Q == 1, P >= 8, x 16-byte aligned: step 0 is radix 2 read from x
-  int vec_load;   // W % 4 == 0 and x 16-byte aligned (staged loads)
-  int vec_store;  // H even, spec 16-byte aligned: (A_k, B_k) as one 16-byte store
-  int steps;
-  int log_r[kRdftMaxSteps];
-  int log_m[kRdftMaxSteps];
-};
-
-RdftPlan rdft_plan(int w, int h, bool x_aligned, bool spec_aligned) {
-  RdftPlan pl = {};
-  int log_p;
-  split_length(w, &pl.P, &log_p, &pl.Q);
-  pl.direct = pl.Q == 1 && pl.P >= 8 && x_aligned;
-  pl.vec_load = w % 4 == 0 && x_aligned;
-  pl.vec_store = h % 2 == 0 && spec_aligned;
-  int rest = log_p;
-  auto add = [&](int lr) {
-    rest -= lr;
-    pl.log_r[pl.steps] = lr;
-    pl.log_m[pl.steps] = rest;  // the span of a step is what the later steps cover
-    ++pl.steps;
-  };
-  if (pl.direct) add(1);
-  while (rest >= 3) add(3);
-  if (rest > 0) add(rest);
-  return pl;
-}
-
-// position of element p of a pair's row: one complex of padding per 8
-__device__ __forceinline__ int rdft_pad(int p) { return p + (p >> 3); }
-
-__host__ __device__ inline int rdft_row_pitch(int w) { return w + (w >> 3) + 1; }
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-// (x + iy) * -i
-__device__ __forceinline__ float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }
-
-__device__ __forceinline__ void dft2(float2& a, float2& b) {
-  const float2 t = a;
-  a = cadd(t, b);
-  b = csub(t, b);
-}
-
-// forward 4-point DFT in place, natural order in and out
-__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2, float2& a3) {
-  const float2 t0 = cadd(a0, a2), t1 = csub(a0, a2), t2 = cadd(a1, a3),
-               t3 = mul_mi(csub(a1, a3));
-  a0 = cadd(t0, t2);
-  a1 = cadd(t1, t3);
-  a2 = csub(t0, t2);
-  a3 = csub(t1, t3);
-}
-
-// forward 8-point DFT in place, natural order in and out
-__device__ __forceinline__ void dft8(float2 (&a)[8]) {
-  constexpr float c = 0.70710678118654752f;
-  float2 u[4], v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    u[i] = cadd(a[i], a[i + 4]);
-    v[i] = csub(a[i], a[i + 4]);
-  }
-  v[1] = make_float2((v[1].x + v[1].y) * c, (v[1].y - v[1].x) * c);  // * e^{-i pi/4}
-  v[2] = mul_mi(v[2]);                                                // * e^{-i pi/2}
-  v[3] = make_float2((v[3].y - v[3].x) * c, -(v[3].x + v[3].y) * c);  // * e^{-3i pi/4}
-  dft4(u[0], u[1], u[2], u[3]);
-  dft4(v[0], v[1], v[2], v[3]);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    a[2 * k] = u[k];
-    a[2 * k + 1] = v[k];
-  }
-}
-
-// One in-place decimation-in-frequency step of radix R = 2^LR on the
-// sequence at `base` of a pair's row, butterfly g of span M = 2^lm:
-// reads the R points b L + j + r M (L = R M, b = g / M, j = g % M), applies
-// the R-point DFT and the twiddles W_L^{j s} = tw[j s W / L], writes output
-// s where it read input s.
-template <int LR>
-__device__ __forceinline__ void dif_butterfly(float2* row, int base, int g, int lm,
-                                              int tw_step, const float2* __restrict__ tw) {
-  constexpr int R = 1 << LR;
-  const int j = g & ((1 << lm) - 1);
-  const int p0 = base + ((g >> lm) << (lm + LR)) + j;
-  float2 v[8];
-#pragma unroll
-  for (int r = 0; r < R; ++r) v[r] = row[rdft_pad(p0 + (r << lm))];
-  if constexpr (LR == 3) {
-    dft8(v);
-  } else if constexpr (LR == 2) {
-    dft4(v[0], v[1], v[2], v[3]);
-  } else {
-    dft2(v[0], v[1]);
-  }
-  row[rdft_pad(p0)] = v[0];
-#pragma unroll
-  for (int s = 1; s < R; ++s)
-    row[rdft_pad(p0 + (s << lm))] = j == 0 ? v[s] : cmul(v[s], __ldg(tw + j * s * tw_step));
-}
-
-// Digit-reversed position of output k of the P-point FFT after the steps
-// of `pl`: digit s of k in the mixed radix of the steps sits at span M_s.
-__device__ __forceinline__ int rdft_position(int k, const RdftPlan& pl) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 0; s < kRdftMaxSteps; ++s) {
-    if (s < pl.steps) {
-      pos += (k & ((1 << pl.log_r[s]) - 1)) << pl.log_m[s];
-      k >>= pl.log_r[s];
-    }
-  }
-  return pos;
-}
-
-// K4: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W},
-// k <= W/2, for the 16 rows r0 .. r0 + 15 of (n, c) = (blockIdx.z,
-// blockIdx.y). tw[t] = e^{-2 pi i t / W}, t < W. The last block of an H
-// that is not a multiple of 16 has fewer rows; an odd last row is paired
-// with zeros.
-__global__ void __launch_bounds__(kRdftMaxThreads, 3)
-rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
-              const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
-              float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);  // [pairs][pitch], padded
-  const int pitch = rdft_row_pitch(W);
-  const int r0 = blockIdx.x * kRdftRows, c = blockIdx.y, n = blockIdx.z;
-  const int rows = min(kRdftRows, H - r0), pairs = (rows + 1) >> 1;
-  const int P = pl.P, Q = pl.Q;
-  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
-  int first = 0;
-
-  if (pl.direct) {
-    // step 0, radix 2 over the whole row: butterflies 4u .. 4u + 3 read
-    // columns 4u .. 4u + 3 and P/2 + 4u .. straight from x
-    const int half = P >> 1, quads = half >> 2;
-    for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
-      const int j = u / quads, col = (u - j * quads) * 4;
-      const float* ra = xs + (size_t)(2 * j) * W + col;
-      const bool has_b = 2 * j + 1 < rows;
-      const float4 a0 = __ldg(reinterpret_cast<const float4*>(ra));
-      const float4 a1 = __ldg(reinterpret_cast<const float4*>(ra + half));
-      const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 b0 = has_b ? __ldg(reinterpret_cast<const float4*>(ra + W)) : z4;
-      const float4 b1 = has_b ? __ldg(reinterpret_cast<const float4*>(ra + W + half)) : z4;
-      const float lo_a[4] = {a0.x, a0.y, a0.z, a0.w}, hi_a[4] = {a1.x, a1.y, a1.z, a1.w};
-      const float lo_b[4] = {b0.x, b0.y, b0.z, b0.w}, hi_b[4] = {b1.x, b1.y, b1.z, b1.w};
-      float2* row = buf + j * pitch;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float2 v0 = make_float2(lo_a[i], lo_b[i]), v1 = make_float2(hi_a[i], hi_b[i]);
-        dft2(v0, v1);
-        row[rdft_pad(col + i)] = v0;
-        row[rdft_pad(col + i + half)] = col + i == 0 ? v1 : cmul(v1, __ldg(tw + col + i));
-      }
-    }
-    first = 1;
-  } else {
-    // stage the rows in decimated order: column m = Q p + q at q P + p
-    if (pl.vec_load) {
-      const int quads = W >> 2;
-      for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
-        const int j = u / quads, col = (u - j * quads) * 4;
-        const float* ra = xs + (size_t)(2 * j) * W + col;
-        const float4 a = __ldg(reinterpret_cast<const float4*>(ra));
-        const float4 b = 2 * j + 1 < rows ? __ldg(reinterpret_cast<const float4*>(ra + W))
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-        float2* row = buf + j * pitch;
-        row[rdft_pad(decimated(col, P, Q))] = make_float2(a.x, b.x);
-        row[rdft_pad(decimated(col + 1, P, Q))] = make_float2(a.y, b.y);
-        row[rdft_pad(decimated(col + 2, P, Q))] = make_float2(a.z, b.z);
-        row[rdft_pad(decimated(col + 3, P, Q))] = make_float2(a.w, b.w);
-      }
-    } else {
-      for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
-        const int j = u / W, col = u - j * W;
-        const float a = xs[(size_t)(2 * j) * W + col];
-        const float b = 2 * j + 1 < rows ? xs[(size_t)(2 * j + 1) * W + col] : 0.f;
-        buf[j * pitch + rdft_pad(decimated(col, P, Q))] = make_float2(a, b);
-      }
-    }
-  }
-  __syncthreads();
-
-  // the remaining radix steps: each thread takes 8 points (E = P < 8: one
-  // butterfly of all P points) per unit of work
-  const int E = min(P, 8);
-  const int units_per_seq = P / E;
-  for (int s = first; s < pl.steps; ++s) {
-    const int lr = pl.log_r[s], lm = pl.log_m[s];
-    const int tw_step = Q << (pl.log_r[0] + pl.log_m[0] - lr - lm);  // W / L
-    const int per = E >> lr;  // butterflies per unit
-    for (int u = threadIdx.x; u < pairs * Q * units_per_seq; u += blockDim.x) {
-      const int seq = u / units_per_seq, ui = u - seq * units_per_seq;
-      const int j = seq / Q, q = seq - j * Q;
-      float2* row = buf + j * pitch;
-      if (lr == 3) {
-        dif_butterfly<3>(row, q * P, ui, lm, tw_step, tw);
-      } else if (lr == 2) {
-        for (int i = 0; i < per; ++i) dif_butterfly<2>(row, q * P, ui * per + i, lm, tw_step, tw);
-      } else {
-        for (int i = 0; i < per; ++i) dif_butterfly<1>(row, q * P, ui * per + i, lm, tw_step, tw);
-      }
-    }
-    __syncthreads();
-  }
-
-  // read-out: Z[m] of the pair's complex FFT, then A_k = (Z_k + conj
-  // Z_{W-k}) / 2 and B_k = (Z_k - conj Z_{W-k}) / 2i for rows 2j, 2j + 1
-  const int K = W / 2 + 1;
-  const float sc = 0.5f * scale;
-  float2* dst = spec + ((size_t)n * C + c) * K * H + r0;
-  auto value = [&](const float2* row, int m) {
-    if (Q == 1) return row[rdft_pad(rdft_position(m, pl))];
-    const int pm = rdft_position(m & (P - 1), pl);
-    float2 acc = row[rdft_pad(pm)];
-    int t = 0;  // q m mod W
-    for (int q = 1; q < Q; ++q) {
-      t += m;
-      if (t >= W) t -= W;
-      acc = cfma(__ldg(tw + t), row[rdft_pad(q * P + pm)], acc);
-    }
-    return acc;
-  };
-  for (int u = threadIdx.x; u < K * pairs; u += blockDim.x) {
-    const int k = u / pairs, j = u - k * pairs;
-    const float2* row = buf + j * pitch;
-    const float2 z = value(row, k);
-    const float2 zc = value(row, k == 0 ? 0 : W - k);
-    const float2 a = make_float2((z.x + zc.x) * sc, (z.y - zc.y) * sc);
-    const float2 b = make_float2((z.y + zc.y) * sc, (zc.x - z.x) * sc);
-    float2* o = dst + (size_t)k * H + 2 * j;
-    if (2 * j + 1 < rows) {
-      if (pl.vec_store) {
-        *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
-      } else {
-        o[0] = a;
-        o[1] = b;
-      }
-    } else {
-      o[0] = a;
-    }
-  }
-}
-
-cudaError_t launch_rdft_w(const float* x, float2* spec, const float2* tw, int n, int c,
-                          int h, int w, cudaStream_t stream) {
-  const RdftPlan pl = rdft_plan(w, h, reinterpret_cast<uintptr_t>(x) % 16 == 0,
-                                reinterpret_cast<uintptr_t>(spec) % 16 == 0);
-  const size_t smem = (size_t)kRdftPairs * rdft_row_pitch(w) * sizeof(float2);
-  CUDA_TRY(allow_smem(rdft_w_kernel, smem));
-  CUDA_TRY(cudaFuncSetAttribute(rdft_w_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                (int)cudaSharedmemCarveoutMaxShared));
-  // one thread per 8 points of the block's 8 row pairs
-  const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  rdft_w_kernel<<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
-      x, spec, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- K5
@@ -573,12 +270,14 @@ int staged_mix_h(void* spec, int n, int c, int h, int k, const float* mix,
 }
 
 // One K6 call: spec (n, c, w/2+1, h) complex and residual (n, c, h, w) or
-// null -> out (n, c, h, w). Returns as staged_rdft_w.
+// null -> out (n, c, h, w); residual may be out (in place). twiddles as
+// staged_rdft_w's. Returns as staged_rdft_w.
 int staged_irdft_w_add(const void* spec, const float* residual, int n, int c, int h,
-                       int w, float* out, void* stream_ptr) {
+                       int w, const void* twiddles, float* out, void* stream_ptr) {
   if (!rows_in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
-  return (int)launch_mixed_row_inv(reinterpret_cast<const float2*>(spec), residual, out, n,
-                                   c, h, w, reinterpret_cast<cudaStream_t>(stream_ptr));
+  return (int)launch_irdft_w(reinterpret_cast<const float2*>(spec), residual, out,
+                             reinterpret_cast<const float2*>(twiddles), n, c, h, w,
+                             reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* spectral_staged_error_string(int err) {

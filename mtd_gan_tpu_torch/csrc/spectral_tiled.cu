@@ -206,6 +206,18 @@ int spectral_tiled_forward(const float* x, int n, int c, int h, int w, const flo
   return 0;
 }
 
+// K8's pass C alone, at any 2 <= H, W <= 1024 (the row pass K6 ran
+// before it had a kernel of its own): out = [residual +] the ortho c2r
+// along W of spec (n, c, w/2+1, h) complex. Not on a model route: it lets
+// K6 be timed against this kernel on the same inputs.
+int tiled_row_inv_add(const void* spec, const float* residual, int n, int c, int h, int w,
+                      float* out, void* stream_ptr) {
+  if (n < 1 || h < 2 || h > 1024 || w < 2 || w > 1024) return (int)cudaErrorInvalidValue;
+  RETURN_IF_ERROR(launch_mixed_row_inv(reinterpret_cast<const float2*>(spec), residual, out,
+                                       n, c, h, w, reinterpret_cast<cudaStream_t>(stream_ptr)));
+  return 0;
+}
+
 const char* spectral_tiled_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -79,7 +79,7 @@ def block_fused_library() -> ctypes.CDLL:
         _P, _I, _I, _I, _I, _I,      # x, n, c_in, c, h, w
         _P, _P, _P,                  # pre_w, pre_b, skip
         _P, _P, _P, _P,              # km, kb, mix, mb
-        _P, _P, _P,                  # post_w, post_b, img
+        _P, _P, _P, _P,              # post_w, post_b, img, twiddles
         _P, _P, _P, _P, _P,          # hbuf, spec, out, final_out, stream
     ]
     lib.block_fused_forward.restype = ctypes.c_int
@@ -119,6 +119,11 @@ def spectral_tiled_library() -> ctypes.CDLL:
         _P, _P, _P,                  # spec, out, stream
     ]
     lib.spectral_tiled_forward.restype = ctypes.c_int
+    lib.tiled_row_inv_add.argtypes = [
+        _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
+        _P, _P,                      # out, stream
+    ]
+    lib.tiled_row_inv_add.restype = ctypes.c_int
     lib.spectral_tiled_error_string.argtypes = [ctypes.c_int]
     lib.spectral_tiled_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,7 +178,7 @@ def spectral_staged_library() -> ctypes.CDLL:
     ]
     lib.staged_irdft_w_add.argtypes = [
         _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
-        _P, _P,                      # out, stream
+        _P, _P, _P,                  # twiddles, out, stream
     ]
     lib.staged_mix_cluster_size.argtypes = [_I, _I]  # c, h
     for fn in (lib.staged_rdft_w, lib.staged_mix_h, lib.staged_irdft_w_add,

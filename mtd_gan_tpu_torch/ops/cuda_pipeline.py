@@ -12,8 +12,10 @@ function. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,6 +62,21 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
     return flat, final.reshape(n, 1, h * w)
 
 
+def rdft_twiddles(w: int) -> Tensor:
+    """The twiddle table of the row passes K4 and K6 and of K1's FFTs
+    (which run the same steps): ``exp(-2 pi i t / W)`` for ``t < W``, computed in
+    float64 and rounded once to complex64 (CPU tensor)."""
+    t = np.arange(w, dtype=np.float64)
+    return torch.from_numpy(np.exp(-2j * np.pi * t / w).astype(np.complex64))
+
+
+@functools.cache
+def _device_twiddles(w: int, dev: torch.device) -> Tensor:
+    """:func:`rdft_twiddles` on ``dev``, built once per (W, device) like a
+    cuFFT plan (at most 8 KB each, W <= 1024)."""
+    return rdft_twiddles(w).to(dev)
+
+
 def _check(t: Optional[Tensor], shape, device, name: str,
            who: str = "block_fused") -> None:
     if t is None:
@@ -81,7 +98,9 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one C entry call per block, counted in ``block_fused.launches``) or
-    raises: on an unsupported shape or layout, or on a CUDA error."""
+    raises: on an unsupported shape or layout, or on a CUDA error. The
+    kernel's FFTs, along W and along H (H == W), read K4's twiddle table
+    (:func:`rdft_twiddles`, cached per device and W)."""
     if x.device.type == "cpu":
         return block_fused_reference(x, h, w, km, kb, mix, mb, pre=pre,
                                      skip=skip, post=post, img=img)
@@ -113,6 +132,7 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         _check(t, shape, dev, name)
 
     lib = _build.block_fused_library()
+    tw = _device_twiddles(w, dev)
     out = torch.empty((n, c, hw), device=dev, dtype=torch.float32)
     hbuf = torch.empty_like(out) if pre is not None else None
     spec = torch.empty((n, c, w // 2 + 1, h, 2), device=dev,
@@ -125,7 +145,7 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         err = lib.block_fused_forward(
             ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
             ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-            ptr(img), ptr(hbuf), ptr(spec), ptr(out), ptr(final), stream)
+            ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(out), ptr(final), stream)
     if err != 0:
         msg = lib.block_fused_error_string(err).decode()
         raise RuntimeError(f"block_fused: CUDA error {err} ({msg})")

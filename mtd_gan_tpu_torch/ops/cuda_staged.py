@@ -33,15 +33,13 @@ K6 take C in {8, 16, 32} and 2 <= H, W <= 1024 of any parity.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import _check
+from mtd_gan_tpu_torch.ops.cuda_pipeline import _check, _device_twiddles
 
 Tensor = torch.Tensor
 
@@ -198,20 +196,6 @@ def rdft_w_reference(x: Tensor) -> Tensor:
     return torch.fft.rfft(x, dim=-1, norm="ortho").transpose(-1, -2).contiguous()
 
 
-def rdft_twiddles(w: int) -> Tensor:
-    """K4's twiddle table: ``exp(-2 pi i t / W)`` for ``t < W``, computed
-    in float64 and rounded once to complex64 (CPU tensor)."""
-    t = np.arange(w, dtype=np.float64)
-    return torch.from_numpy(np.exp(-2j * np.pi * t / w).astype(np.complex64))
-
-
-@functools.cache
-def _device_twiddles(w: int, dev: torch.device) -> Tensor:
-    """:func:`rdft_twiddles` on ``dev``, built once per (W, device) like a
-    cuFFT plan (at most 8 KB each, W <= 1024)."""
-    return rdft_twiddles(w).to(dev)
-
-
 def rdft_w(x: Tensor) -> Tensor:
     """K4: same argument and result as :func:`rdft_w_reference`.
 
@@ -219,7 +203,8 @@ def rdft_w(x: Tensor) -> Tensor:
     (``csrc/spectral_staged.cu`` ``staged_rdft_w``, counted in
     ``rdft_w.launches``) or raises: outside its domain, on a wrong layout,
     when a gradient is asked for, or on a CUDA error. The kernel reads its
-    twiddles from :func:`rdft_twiddles`, cached per device and W."""
+    twiddles from ``cuda_pipeline.rdft_twiddles``, cached per device and
+    W."""
     if x.device.type == "cpu":
         return rdft_w_reference(x)
     who = "rdft_w"
@@ -318,7 +303,10 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     A CPU ``res`` takes the plain version. A CUDA ``res`` launches the
     kernel (``csrc/spectral_staged.cu`` ``staged_irdft_w_add``, counted in
     ``irdft_w_add.launches``) or raises: outside its domain, on a wrong
-    layout, when a gradient is asked for, or on a CUDA error."""
+    layout, when a gradient is asked for, or on a CUDA error. The kernel
+    reads K4's twiddle table (``cuda_pipeline.rdft_twiddles``, cached per
+    device and W) and runs K4's forward steps on the conjugate spectrum.
+    Its C entry also runs in place (``residual == out``), as K1 calls it."""
     if res.device.type == "cpu":
         return irdft_w_add_reference(z, res)
     who = "irdft_w_add"
@@ -333,10 +321,11 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     _check(res, (n, c, h, w), dev, "res", who)
 
     lib = _build.spectral_staged_library()
+    tw = _device_twiddles(w, dev)
     out = torch.empty_like(res)
     with torch.cuda.device(dev):
         err = lib.staged_irdft_w_add(z.data_ptr(), res.data_ptr(), n, c, h, w,
-                                     out.data_ptr(), _stream(dev))
+                                     tw.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(lib, err, who)
     irdft_w_add.launches += 1
     return out

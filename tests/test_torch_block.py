@@ -187,7 +187,7 @@ def test_block_fused_on_cpu_takes_plain_version():
 
 def _fft_radix2(data, inverse):
     """In-place radix-2 DIT FFT over the last axis, written as
-    csrc/block_fused.cu::fft_radix2 computes it (bit reversal, then
+    csrc/resfft_common.cuh::fft_radix2 computes it (bit reversal, then
     butterflies with twiddles tw[j << (log_l - 1 - s)])."""
     L = data.shape[-1]
     log_l = L.bit_length() - 1
@@ -207,8 +207,9 @@ def _fft_radix2(data, inverse):
 
 
 def _kernel_spectral(x, mix, mb):
-    """The spectral branch as the CUDA kernel's three passes compute it on
-    one sample (C, H, W): two real rows per complex row FFT, the per-bin
+    """The spectral branch as the radix-2 passes of resfft_common.cuh (K2's
+    recompute of K1's forward) compute it on one sample (C, H, W): two
+    real rows per complex row FFT, the per-bin
     column FFT -> mix -> inverse, and the Hermitian c2r that keeps only the
     real part of the W bins 0 and W/2, two rows per complex inverse FFT."""
     c, h, w = x.shape
@@ -236,7 +237,7 @@ def _kernel_spectral(x, mix, mb):
 
 
 def test_kernel_spectral_algorithm_matches_irfft2():
-    """The kernel's FFT algorithm (emulated in float64) equals the plain
+    """K2's FFT algorithm (emulated in float64) equals the plain
     spectral branch to float64 round-off: the row packing/unpacking, the
     scaling and the irfft2 treatment of non-Hermitian input are right."""
     rng = np.random.default_rng(5)

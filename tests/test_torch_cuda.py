@@ -70,7 +70,7 @@ def _as_tuple(r):
     return r if isinstance(r, tuple) else (r,)
 
 
-@pytest.mark.parametrize("c,size", [(8, 64), (16, 128), (32, 256)])
+@pytest.mark.parametrize("c,size", [(8, 64), (16, 128), (32, 256), (32, 64), (32, 512)])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_kernel_matches_plain_version(dev, variant, c, size):
     args = _inputs(dev, variant, c, size, seed=VARIANTS.index(variant))
@@ -83,6 +83,43 @@ def test_kernel_matches_plain_version(dev, variant, c, size):
     for g, w in zip(got, want):
         rel = ((g - w).abs().max() / w.abs().max()).item()
         assert rel < TOL_REL, (variant, c, size, rel)
+
+
+@pytest.mark.parametrize("c_in", [16, 12])
+def test_kernel_takes_a_pre_conv_of_another_width(dev, c_in):
+    """A pre conv from C_in != C channels: C_in = 16 on the tensor cores
+    (C = 32 out), C_in = 12 on the direct conv; the rest of the block as
+    always."""
+    args = _inputs(dev, "pre+skip", 32, 128, seed=4)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    args["x"] = t(rng.random((2, c_in, 128 * 128)))
+    args["pre"] = (t(rng.standard_normal((32, c_in, 3, 3)) / np.sqrt(9 * c_in)),
+                   args["pre"][1])
+    got = block_fused(**args)
+    want = block_fused_reference(**args)
+    assert ((got - want).abs().max() / want.abs().max()).item() < TOL_REL
+
+
+def test_kernel_library_holds_tensor_core_instructions(dev):
+    """K1's convs run K3's wgmma path: its built library has HGMMA
+    instructions (cuobjdump -sass, where the toolkit has it)."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mtd_gan_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else "")
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build("block_fused"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert len(re.findall(r"\bHGMMA\b", sass)) > 0
 
 
 def test_kernel_rejects_unsupported_shapes(dev):
@@ -429,6 +466,46 @@ def test_k4_matches_plain_version(dev, c, h, w):
     assert cs.rdft_w.launches == before + 1
     want = torch.view_as_real(cs.rdft_w_reference(x))
     rel = ((torch.view_as_real(got) - want).abs().max() / want.abs().max()).item()
+    assert rel < TOL_REL, rel
+
+
+@pytest.mark.parametrize("mode", ["residual", "no residual", "in place"])
+@pytest.mark.parametrize("c,h,w", [(32, 1024, 1024), (32, 200, 200), (8, 448, 449),
+                                   (8, 33, 200), (8, 2, 2), (8, 101, 1024), (8, 7, 449),
+                                   (8, 17, 9)])
+def test_k6_matches_plain_version(dev, c, h, w, mode):
+    """K6 alone (the inverse of K4's row rDFT) against its plain version
+    (torch.fft.irfft of the spectrum with the edge bins' imaginary parts
+    dropped) at 1024^2, W = 200 (Q = 25), 449 (prime), 9, 2 and odd H:
+    with the residual; and, the library called directly, with none (the C
+    entry's null residual) and in place, the output being the residual, as
+    K1 calls it. One launch per wrapper call."""
+    a = _tiled_inputs(dev, 2, c, h, w)
+    rng = np.random.default_rng(h + w)
+    shape = (2, c, w // 2 + 1, h)
+    t = lambda arr: torch.tensor(arr, dtype=torch.float32, device=dev)
+    z = torch.complex(t(rng.standard_normal(shape)), t(rng.standard_normal(shape)))
+    res = a["residual"]
+    want = cs.irdft_w_add_reference(z, torch.zeros_like(res) if mode == "no residual" else res)
+    before = cs.irdft_w_add.launches
+    if mode == "residual":
+        got = cs.irdft_w_add(z, res)
+        launches = 1
+    else:
+        from mtd_gan_tpu_torch.ops import _build
+
+        # the C entry itself: a null residual, or the residual as the output
+        got = torch.empty_like(res) if mode == "no residual" else res.clone()
+        res_ptr = None if mode == "no residual" else got.data_ptr()
+        lib = _build.spectral_staged_library()
+        err = lib.staged_irdft_w_add(z.data_ptr(), res_ptr, 2, c, h, w,
+                                     cs._device_twiddles(w, res.device).data_ptr(),
+                                     got.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        launches = 0
+    torch.cuda.synchronize()
+    assert cs.irdft_w_add.launches == before + launches
+    rel = ((got - want).abs().max() / want.abs().max()).item()
     assert rel < TOL_REL, rel
 
 

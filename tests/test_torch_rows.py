@@ -1,0 +1,254 @@
+"""The FFT passes on the radix steps of mtd_gan_tpu_torch/csrc/rdft_rows.cuh,
+modelled in float64 numpy on the CPU: K4's row rDFT (rdft_w_kernel), its
+inverse (irdft_w_kernel), which K6 and K1 run, and K1's column pass
+(block_fused.cu column_mix_rows_kernel). Each model follows the kernel's
+schedule step by step (the radix plan, the radix-2 step fused with the
+load, the in-place decimation-in-frequency steps and their twiddle
+indices into the host table, the digit-reversed read-out, the odd step;
+for the inverse the Hermitian fold and the conjugation that lets it reuse
+the forward steps; for the column pass the mix in digit-reversed order
+and the decimation-in-time steps back), so an indexing slip shows here at
+1e-12 against ``np.fft``. The kernels themselves run only on the card
+(tests/test_torch_cuda.py); this file imports no JAX."""
+
+import numpy as np
+import pytest
+import torch
+
+from mtd_gan_tpu_torch.ops.cuda_pipeline import rdft_twiddles
+
+# the tests share the machine with other test workers: one intra-op
+# thread each keeps PyTorch from oversubscribing the cores
+torch.set_num_threads(1)
+
+# both lengths' odd parts (200 = 8 * 25, 449 prime), the smallest W, and
+# powers of two with and without the fused first step
+WIDTHS = [2, 3, 64, 200, 449, 512, 1024]
+TOL = 1e-12
+
+
+def _plan(w, direct=True):
+    """rdft_plan(w, direct): (P, Q, direct, [(log_r, log_m), ...])."""
+    log_p = 0
+    while w % (2 << log_p) == 0:
+        log_p += 1
+    p, q = 1 << log_p, w >> log_p
+    direct = direct and q == 1 and p >= 8
+    steps, rest = [], log_p
+    for lr in ([1] if direct else []) + [3] * ((log_p - direct) // 3):
+        rest -= lr
+        steps.append((lr, rest))
+    if rest > 0:
+        steps.append((rest, 0))
+    return p, q, direct, steps
+
+
+def _position(k, steps):
+    """rdft_position: digit s of k (in the steps' mixed radix) at span M_s."""
+    pos = 0
+    for lr, lm in steps:
+        pos += (k & ((1 << lr) - 1)) << lm
+        k >>= lr
+    return pos
+
+
+def _decimated(m, p, q):
+    return (m % q) * p + m // q
+
+
+def _dft_step(buf, w, p, q, lr, lm, tw):
+    """dif_butterfly<lr> over every butterfly of every P-point sequence:
+    the R points b L + j + r M, an R-point DFT, output s times tw[j s W/L],
+    written where input s was read."""
+    r_, m_ = 1 << lr, 1 << lm
+    g = np.arange(p // r_)
+    j = g & (m_ - 1)
+    p0 = ((g >> lm) << (lm + lr)) + j
+    r = np.arange(r_)
+    dft = np.exp(-2j * np.pi * np.outer(r, r) / r_)
+    twid = tw[(j[:, None] * r[None, :] * (w // (r_ * m_))) % w]
+    for qq in range(q):
+        idx = qq * p + p0[:, None] + r[None, :] * m_
+        buf[:, idx] = np.einsum("sr,abr->abs", dft, buf[:, idx]) * twid
+
+
+def _dit_step(buf, w, lr, lm, tw):
+    """dit_butterfly<lr> over every butterfly (W a power of two): the
+    transpose of _dft_step, input r times tw[j r W/L] first, then the
+    R-point DFT, output s written where input s was read."""
+    r_, m_ = 1 << lr, 1 << lm
+    g = np.arange(w // r_)
+    j = g & (m_ - 1)
+    p0 = ((g >> lm) << (lm + lr)) + j
+    r = np.arange(r_)
+    dft = np.exp(-2j * np.pi * np.outer(r, r) / r_)
+    twid = tw[(j[:, None] * r[None, :] * (w // (r_ * m_))) % w]
+    idx = p0[:, None] + r[None, :] * m_
+    buf[:, idx] = np.einsum("sr,abr->abs", dft, buf[:, idx] * twid)
+
+
+def _value(buf, m, w, p, q, steps, tw):
+    """rdft_value: X[m] at its digit-reversed position, through the odd
+    step for Q > 1."""
+    pm = _position(m % p, steps)
+    acc = buf[:, pm].copy()
+    for qq in range(1, q):
+        acc += tw[(qq * m) % w] * buf[:, qq * p + pm]
+    return acc
+
+
+def _k4_model(x, tw):
+    """rdft_w_kernel on real rows x (2 * pairs, W) -> (A, B) half spectra,
+    each (pairs, K)."""
+    w = x.shape[1]
+    p, q, direct, steps = _plan(w)
+    z = x[0::2] + 1j * x[1::2]
+    buf = np.empty_like(z)
+    if direct:
+        # step 0 from the rows themselves: columns c and c + W/2
+        half = w // 2
+        c = np.arange(half)
+        v0, v1 = z[:, c], z[:, c + half]
+        buf[:, c], buf[:, c + half] = v0 + v1, (v0 - v1) * tw[c]
+    else:
+        buf[:, [_decimated(m, p, q) for m in range(w)]] = z
+    for lr, lm in steps[int(direct):]:
+        _dft_step(buf, w, p, q, lr, lm, tw)
+    k = np.arange(w // 2 + 1)
+    zk = np.stack([_value(buf, m, w, p, q, steps, tw) for m in k], 1)
+    zc = np.stack([_value(buf, (w - m) % w, w, p, q, steps, tw) for m in k], 1)
+    scale = 1 / np.sqrt(w)
+    return (zk + np.conj(zc)) / 2 * scale, (zk - np.conj(zc)) / 2j * scale
+
+
+def _k6_model(a, b, tw):
+    """irdft_w_kernel on the half spectra a, b (pairs, K) of rows 2j and
+    2j + 1 -> the real rows (2 * pairs, W), without the residual."""
+    w = tw.shape[0]
+    p, q, direct, steps = _plan(w)
+    edge = [0] + ([w // 2] if w % 2 == 0 else [])
+    a, b = a.copy(), b.copy()
+    a[:, edge], b[:, edge] = a[:, edge].real, b[:, edge].real
+    conj_zk = lambda k: np.conj(a[:, k] + 1j * b[:, k])                    # conj Z[k]
+    conj_zwk = lambda k: np.conj(np.conj(a[:, k]) + 1j * np.conj(b[:, k]))  # conj Z[W - k]
+    buf = np.empty((a.shape[0], w), complex)
+    if direct:
+        # step 0 fused with the load: unit k takes the bins k and W/2 - k
+        half = w // 2
+        for k in range(w // 4 + 1):
+            k2 = half - k
+            v0, v1 = conj_zk(k), conj_zwk(k2)
+            buf[:, k], buf[:, k + half] = v0 + v1, (v0 - v1) * tw[k]
+            if k not in (0, k2):
+                v0, v1 = conj_zk(k2), conj_zwk(k)
+                buf[:, k2], buf[:, k2 + half] = v0 + v1, (v0 - v1) * tw[k2]
+    else:
+        for k in range(w // 2 + 1):
+            buf[:, _decimated(k, p, q)] = conj_zk(k)
+            if k not in edge:
+                buf[:, _decimated(w - k, p, q)] = conj_zwk(k)
+    for lr, lm in steps[int(direct):]:
+        _dft_step(buf, w, p, q, lr, lm, tw)
+    y = np.stack([_value(buf, m, w, p, q, steps, tw) for m in range(w)], 1)
+    out = np.empty((2 * a.shape[0], w))
+    out[0::2], out[1::2] = y.real / np.sqrt(w), -y.imag / np.sqrt(w)
+    return out
+
+
+def _table(w):
+    """The host table as the kernels read it, widened back to complex128."""
+    return rdft_twiddles(w).numpy().astype(np.complex128)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_k6_inverse_twiddles_are_the_conjugate_table(w):
+    """The inverse reads K4's table: its twiddles exp(+2 pi i t / W) are
+    the table's conjugates, within 1e-7 of numpy (one complex64 rounding),
+    so K6 needs no second table or cache."""
+    want = np.exp(2j * np.pi * np.arange(w) / w)
+    assert np.abs(np.conj(_table(w)) - want).max() <= 1e-7
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_k4_row_schedule_matches_rfft(w):
+    """K4's schedule in float64 (its table widened) equals np.fft.rfft of
+    each row, ortho: 4 row pairs, the fused first step for W = 64, 512 and
+    1024, staged loads and the odd step for 3, 200 and 449."""
+    rng = np.random.default_rng(w)
+    x = rng.standard_normal((8, w))
+    tw = np.exp(-2j * np.pi * np.arange(w) / w)
+    a, b = _k4_model(x, tw)
+    want = np.fft.rfft(x, axis=1, norm="ortho")
+    assert np.abs(a - want[0::2]).max() <= TOL
+    assert np.abs(b - want[1::2]).max() <= TOL
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_k6_row_schedule_matches_irfft(w):
+    """K6's schedule in float64 equals np.fft.irfft (ortho) of each row's
+    half spectrum with the imaginary parts of the bins 0 and, for even W,
+    W/2 zeroed: the Hermitian fold, the conjugation, the forward steps and
+    their digit-reversed order, the odd step. The spectra are not
+    Hermitian at the edges, as K5's output is not."""
+    rng = np.random.default_rng(100 + w)
+    k = w // 2 + 1
+    a, b = (rng.standard_normal((4, k)) + 1j * rng.standard_normal((4, k)) for _ in range(2))
+    tw = np.exp(-2j * np.pi * np.arange(w) / w)
+    got = _k6_model(a, b, tw)
+    spec = np.empty((8, k), complex)
+    spec[0::2], spec[1::2] = a, b
+    spec[:, 0] = spec[:, 0].real
+    if w % 2 == 0:
+        spec[:, -1] = spec[:, -1].real
+    want = np.fft.irfft(spec, n=w, axis=1, norm="ortho")
+    assert np.abs(got - want).max() <= TOL
+
+
+@pytest.mark.parametrize("w", [64, 200, 1024])
+def test_k6_row_schedule_inverts_k4_on_the_fp32_table(w):
+    """K4 then K6 on the table as the kernels read it (complex64, widened):
+    the rows come back within fp32 rounding of the table (5e-6 absolute on
+    unit-variance rows); the kernels run fp32 throughout, so this is the
+    size of error the table alone brings."""
+    rng = np.random.default_rng(w)
+    x = rng.standard_normal((8, w))
+    tw = _table(w)
+    back = _k6_model(*_k4_model(x, tw), tw)
+    assert np.abs(back - x).max() <= 5e-6
+
+
+def _column_model(z, mix, mb, tw):
+    """K1's column pass (column_mix_rows_kernel) on the columns z (C, H)
+    of one bin: the forward DIF steps leave X in digit-reversed order; the
+    mix is pointwise in h, so it runs there; it writes conj of its output,
+    the DIT steps in reverse order bring that back to natural order, and
+    the store takes conj again: the inverse FFT, with no permutation."""
+    c, h = z.shape
+    _, _, _, steps = _plan(h, direct=False)
+    buf = z.copy()
+    for lr, lm in steps:
+        _dft_step(buf, h, h, 1, lr, lm, tw)
+    scale = 1 / np.sqrt(h)
+    v = np.concatenate([buf.real, buf.imag]) * scale
+    o = np.maximum(mix @ v + mb[:, None], 0)
+    buf = o[:c] - 1j * o[c:]
+    for lr, lm in reversed(steps):
+        _dit_step(buf, h, lr, lm, tw)
+    return np.conj(buf) * scale
+
+
+@pytest.mark.parametrize("h", [2, 8, 64, 128, 256, 512])
+def test_k1_column_schedule_matches_fft(h):
+    """K1's column pass in float64 equals the plain one: the ortho FFT
+    along H, relu(mix [Re; Im] + bias), the ortho inverse FFT (as
+    cuda_staged.spectral_mix_h_reference computes it), at 4 channels."""
+    rng = np.random.default_rng(h)
+    c = 4
+    z = rng.standard_normal((c, h)) + 1j * rng.standard_normal((c, h))
+    mix = rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)
+    mb = rng.standard_normal(2 * c) * 0.1
+    tw = np.exp(-2j * np.pi * np.arange(h) / h)
+    zf = np.fft.fft(z, axis=1, norm="ortho")
+    o = np.maximum(mix @ np.concatenate([zf.real, zf.imag]) + mb[:, None], 0)
+    want = np.fft.ifft(o[:c] + 1j * o[c:], axis=1, norm="ortho")
+    assert np.abs(_column_model(z, mix, mb, tw) - want).max() <= TOL

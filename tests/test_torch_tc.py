@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import cuda_staged as cs
+from mtd_gan_tpu_torch.ops.cuda_pipeline import rdft_twiddles
 
 # the tests share the machine with other test workers: one intra-op
 # thread each keeps PyTorch from oversubscribing the cores
@@ -21,7 +22,7 @@ torch.set_num_threads(1)
 def test_k4_twiddle_table_matches_numpy(w):
     """The table K4 reads, exp(-2 pi i t / W) for t < W, built in float64
     and rounded once to complex64: within 1e-7 of numpy's complex128."""
-    got = cs.rdft_twiddles(w)
+    got = rdft_twiddles(w)
     assert got.dtype == torch.complex64 and tuple(got.shape) == (w,)
     want = np.exp(-2j * np.pi * np.arange(w) / w)
     assert np.abs(got.numpy().astype(np.complex128) - want).max() <= 1e-7
