@@ -47,8 +47,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      batch 2, with both inits, each call's path counted; C_out = 12, a
      residual with C_in != C_out and a gradient request must raise; where
      the toolkit has ``cuobjdump``, count the tensor-core instructions
-     (HMMA, HGMMA) in K3's and in K1's library (K1 runs its C -> C convs
-     on K3's kernel): none is fatal;
+     (HMMA, HGMMA) in K3's, K1's and K2's libraries (K1 and K2 run their
+     C -> C convs on K3's kernel, K2 its weight gradients on mma.sync):
+     none is fatal;
   13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``,
      and K6 in place, its output the residual, as K1 calls it) each
      against its plain version (``torch.fft``), each fed the plain input,
@@ -63,18 +64,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
   16. F1: ``generate`` at gen_features=64 (200x200, batch 2) and on a 1x64
      input (32 features) runs the plain module on the card with no kernel
      launch, within 1e-3 of the same module on the CPU;
-  17. hold K2 (``block_bwd``) against its plain version
-     (``block_bwd_reference``, autograd through K1's) at 64x64, C = 32,
-     batch 2 and 8, in the four variants, with the reference init, with
-     1/sqrt(fan_in) weights and with sign-certain ("margin") biases;
+  17. hold K2 (``block_bwd``) and its fp32 plain version against the
+     plain version in float64 on sign-certain ("margin") inputs at batch 8
+     and 160, K2 also with one block per band and per bin; hold K2
+     against its plain version (``block_bwd_reference``, autograd through
+     K1's) at 64x64, C = 32, batch 2 and 8 in the four variants, with the
+     reference init, with 1/sqrt(fan_in) weights and with margin biases,
+     and at batch 160 (the train step's) in pre+skip and pre+skip+post
+     with the last two; and the forward K2 recomputes against K1's, bit
+     for bit: hin (every variant with pre) and out (pre+skip+post), at
+     C = 8 and 32;
   18. the PCGrad train step at full width (generator 32 features x 10
      layers, discriminator 64 features, 160 patches of 64x64 cut by
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
      state, the generator gradient and the D losses through K1 + K2 against
      the plain generator under autograd; then 3 more kernel steps, finite
-     losses and 21 K1 + 21 K2 launches per step; the same check on three
-     more states and patch sets, each read twice, and as a witness (not
-     held) with K1's plain version as the forward K2 differentiates;
+     losses and 21 K1 + 21 K2 launches per step; the first state's
+     gradients also read against the plain generator in float64; the same
+     check on three more states and patch sets, each read twice, and as
+     witnesses (not held) with another forward in place of K1: K1's plain
+     version, K1's convs alone and hand-written FFTs alone;
   19. F2: one train step at gen_features=64 (16 of those patches): the
      plain generator under autograd, no kernel launch, finite losses;
   20. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
@@ -90,7 +99,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      beside K8's pass C, its former kernel, at 1024x1024, 200x200 and
      448x449); K1
      split by its launches (pre conv, residual conv, rows, column pass,
-     inverse rows) under torch.profiler; K3 at 448x448 and 96x96 too;
+     inverse rows) under torch.profiler; K2 at 64x64, batch 160, pre+skip,
+     split by its 14 launches the same way, its convs and weight gradients
+     beside cuDNN's (``F.conv2d``, ``aten.convolution_backward``) on the
+     same tensors; K3 at 448x448 and 96x96 too;
      generate and sweep slices/s at 512x512, 448x448, 96x96, 1024x1024 and
      200x200; generate at 512x512 on the K1 route and on the staged
      generator, in turns (a measurement only: the route stays K1); generate
@@ -139,6 +151,7 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import (_device_twiddles, block_fused,
                                                block_fused_reference)
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
+from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -153,9 +166,11 @@ TOL_SPECTRAL_REL = 1e-4
 TOL_GENERATE_ABS = 1e-3
 # K2 against autograd through K1's plain version, per output. With
 # sign-certain masks ("margin" inputs): max |kernel - plain| / max |plain|,
-# fp32 both sides. Otherwise a pre-activation within fp32 rounding of zero
+# fp32 both sides (against the plain version in float64 on an H100, K2
+# reads up to 2.5e-6 and the fp32 plain version up to 1.3e-5:
+# k2_accuracy). Otherwise a pre-activation within fp32 rounding of zero
 # can fall on the other side of its ReLU in one version: a flipped spectral
-# mask moves one row of dmix and all of xbar by ~1e-3 (up to 1.4e-3 in the
+# mask moves one row of dmix and all of xbar by ~1e-3 (up to 4.3e-3 in the
 # 2-norm on an H100 at batch 8, ~1e-6 without a flip), so those inputs are
 # held in the relative 2-norm
 TOL_BWD_MARGIN_REL = 1e-4
@@ -217,9 +232,10 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def block_inputs(size: int, n: int, init: str, variant: str, seed: int):
-    """Seeded K1 inputs on the GPU. ``init``: "reference" (N(0, 0.01)
-    weights, zero biases) or "fan_in" (std 1/sqrt(fan_in), biases 0.1)."""
+def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int = C):
+    """Seeded K1 inputs on the GPU at C = ``c``. ``init``: "reference"
+    (N(0, 0.01) weights, zero biases) or "fan_in" (std 1/sqrt(fan_in),
+    biases 0.1)."""
     rng = np.random.default_rng(seed)
     hw = size * size
 
@@ -232,25 +248,25 @@ def block_inputs(size: int, n: int, init: str, variant: str, seed: int):
         return np.zeros(k) if init == "reference" else rng.standard_normal(k) * 0.1
 
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
-    args = dict(x=t(rng.random((n, C, hw))), h=size, w=size,
-                km=t(weight(C, C, 3, 3)), kb=t(bias(C)),
-                mix=t(weight(2 * C, 2 * C)), mb=t(bias(2 * C)))
+    args = dict(x=t(rng.random((n, c, hw))), h=size, w=size,
+                km=t(weight(c, c, 3, 3)), kb=t(bias(c)),
+                mix=t(weight(2 * c, 2 * c)), mb=t(bias(2 * c)))
     if variant != "plain":
-        args["pre"] = (t(weight(C, C, 3, 3)), t(bias(C)))
+        args["pre"] = (t(weight(c, c, 3, 3)), t(bias(c)))
     if "skip" in variant:
-        args["skip"] = t(rng.standard_normal((n, C, hw)) * 0.5)
+        args["skip"] = t(rng.standard_normal((n, c, hw)) * 0.5)
     if "post" in variant:
-        args["post"] = (t(weight(1, C, 3, 3)), t(bias(1)))
+        args["post"] = (t(weight(1, c, 3, 3)), t(bias(1)))
         args["img"] = t(rng.random((n, 1, hw)))
     return args
 
 
-def bwd_inputs(n: int, init: str, variant: str, seed: int):
+def bwd_inputs(n: int, init: str, variant: str, seed: int, c: int = C):
     """K1's inputs at 64x64 plus seeded cotangents g (of out) and gfin (of
     final). ``init`` "margin": 1/sqrt(fan_in) weights (the res and post convs
     x0.05) and every bias +-5, so each ReLU keeps its sign far from zero."""
     args = block_inputs(64, n, "reference" if init == "reference" else "fan_in",
-                        variant, seed)
+                        variant, seed, c)
     rng = np.random.default_rng(seed + 100)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
     if init == "margin":
@@ -263,19 +279,50 @@ def bwd_inputs(n: int, init: str, variant: str, seed: int):
             args["pre"] = (args["pre"][0], signed(args["pre"][1]))
         if "post" in args:
             args["post"] = (args["post"][0] * 0.05, signed(args["post"][1]))
-    args["g"] = t(rng.standard_normal((n, C, 64 * 64)))
+    args["g"] = t(rng.standard_normal((n, c, 64 * 64)))
     if "post" in variant:
         args["gfin"] = t(rng.standard_normal((n, 1, 64 * 64)))
     return args
 
 
+def check_k2_recompute():
+    """Phase 17: the forward K2 recomputes is K1's, bit for bit: its hin
+    against K1's pre conv output (every variant with pre), its out against
+    K1's out (pre+skip+post), at C = 8 and 32, batch 2 and 8."""
+    for c in (8, C):
+        for n in (2, 8):
+            for vi, variant in enumerate(VARIANTS[1:], start=1):
+                args = bwd_inputs(n, "fan_in", variant, seed=vi, c=c)
+                fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
+                k1, k2 = {}, {}
+                out = as_tuple(block_fused(**fwd, scratch=k1))[0]
+                block_bwd(**args, scratch=k2)
+                torch.cuda.synchronize()
+                pairs = [("hin", k2["hin"], k1["hin"])]
+                if "post" in variant:
+                    pairs.append(("out", k2["out"], out))
+                parts = []
+                for name, a, b in pairs:
+                    same = torch.equal(a, b)
+                    parts.append(f"{name} {'equal' if same else 'DIFFERS'} (max abs "
+                                 f"{(a - b).abs().max().item():.3e})")
+                    if not same:
+                        fail(f"K2 recompute C={c} n={n} {variant}: {name} is not K1's")
+                print(f"K2 recompute vs K1 64x64 C={c} n={n} {variant:14s}: "
+                      + "; ".join(parts), flush=True)
+
+
 def check_k2():
-    """Phase 12; returns the largest absolute error of the margin checks
-    (the ones no mask flip can disturb)."""
+    """Phase 17; returns the largest absolute error of the margin checks
+    (the ones no mask flip can disturb). Batch 2 and 8 give each block of
+    the weight-gradient and column launches one band or one bin; batch 160,
+    the train step's, gives each about 10 bands and 20 bins."""
     worst_margin_abs = 0.0
-    for n in (2, 8):
+    for n in (2, 8, 160):
         for init in ("reference", "fan_in", "margin"):
             for vi, variant in enumerate(VARIANTS):
+                if n == 160 and (init == "reference" or variant not in VARIANTS[2:]):
+                    continue
                 args = bwd_inputs(n, init, variant, seed=vi)
                 got = block_bwd(**args)
                 want = block_bwd_reference(**args)
@@ -301,6 +348,48 @@ def check_k2():
                 print(f"K2 check 64x64 C={C} n={n} {init:9s} {variant:14s} "
                       f"(max_abs/max_rel/l2_rel): " + "; ".join(parts), flush=True)
     return worst_margin_abs
+
+
+def as_float64(args):
+    """``args`` with every tensor (and every tensor of a tuple) in float64."""
+    wide = lambda v: v.double() if torch.is_tensor(v) else v
+    return {k: tuple(map(wide, v)) if isinstance(v, tuple) else wide(v)
+            for k, v in args.items()}
+
+
+def k2_accuracy():
+    """Phase 17: K2 and the fp32 plain version against the plain version in
+    float64 on margin inputs (pre+skip), at batch 8 and 160; K2 with the
+    wrapper's persistent launches and with one block per band and per bin
+    (so that no accumulator runs over more than one band or bin). Per
+    output max |err| / max |float64|; K2's held to TOL_BWD_MARGIN_REL."""
+    per_unit = lambda n, h, k: (n * (h // cuda_train._WGRAD_ROWS), n * k)
+    for n in (8, 160):
+        args = bwd_inputs(n, "margin", "pre+skip", seed=2)
+        want = block_bwd_reference(**as_float64(args))
+        runs = {"K2": block_bwd(**args)}
+        geometry = cuda_train._launch_geometry
+        cuda_train._launch_geometry = per_unit
+        try:
+            runs["K2 one unit per block"] = block_bwd(**args)
+        finally:
+            cuda_train._launch_geometry = geometry
+        runs["plain fp32"] = block_bwd_reference(**args)
+        torch.cuda.synchronize()
+        blocks = geometry(n, 64, 33)
+        for label, got in runs.items():
+            errs = {name: ((got[name].double() - w).abs().max()
+                           / w.abs().max().clamp_min(1e-300)).item()
+                    for name, w in want.items()}
+            print(f"K2 accuracy 64x64 C={C} n={n} margin pre+skip {label} (blocks "
+                  f"{per_unit(n, 64, 33) if 'unit' in label else blocks}) against "
+                  f"float64, max_rel: " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+                  flush=True)
+            worst = max(errs.values())
+            if label == "K2" and worst > TOL_BWD_MARGIN_REL:
+                fail(f"K2 n={n} margin pre+skip: relative error {worst:.3e} against "
+                     f"float64 > {TOL_BWD_MARGIN_REL}")
+        del args, want, runs
 
 
 def as_tuple(r):
@@ -486,7 +575,7 @@ def check_k3():
 
 
 def count_tensor_core_instructions(label: str, lib_path) -> None:
-    """Count the tensor-core instructions in a built library (K3's, K1's)
+    """Count the tensor-core instructions in a built library (K3's, K1's, K2's)
     with ``cuobjdump -sass``, where the toolkit has it; fail if there is
     none."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -763,31 +852,48 @@ def k1_bounds(n: int, size: int, variant: str):
 
 
 def k2_work(n: int, size: int, variant: str):
-    """(FLOPs, bytes) one K2 call needs. FLOPs: the recomputed convs (pre,
-    res), their adjoints and their weight gradients, 2*9*C*C per pixel each
-    plus 3-op epilogues; the spectral mix recomputed, its weight gradient
-    and its transpose, 2*(2C)^2 per (h, k) bin each; three real 2-D FFTs
-    (of hin, of g, and the inverse), 2.5*HW*log2(HW) each per channel; with
-    post, the forward's second spectral half (mix, inverse FFT) and the
-    post conv, its weight gradient and its adjoint. Bytes: every input read
-    once (x, g, skip, img, gfin, weights), every output written once (xbar,
+    """(conv FLOPs, other FLOPs, bytes) one K2 call needs. Conv FLOPs: the
+    C->C contractions, 2*9*C*C per pixel each: the recomputed convs (pre,
+    res), their adjoints and their weight gradients (with post the
+    recomputed res conv too). Other FLOPs: the convs' 3-op epilogues; the
+    spectral mix recomputed, its weight gradient and its transpose,
+    2*(2C)^2 per (h, k) bin each; three real 2-D FFTs (of hin, of g, and
+    the inverse), 2.5*HW*log2(HW) each per channel; with post, the
+    forward's second spectral half (mix, inverse FFT) and the C->1 post
+    conv, its weight gradient and its adjoint. Bytes: every input read once
+    (x, g, skip, img, gfin, weights), every output written once (xbar,
     skipbar, imgbar, weight gradients), fp32."""
     hw = size * size
     k = size // 2 + 1
     n_convs = 1 if variant == "plain" else 2
-    conv = 2 * 9 * C * C * hw + 3 * C * hw
+    mac = 2 * 9 * C * C * hw
     mix = 2 * (2 * C) ** 2 * size * k
     fft = 2.5 * C * hw * math.log2(hw)
-    flops = n * (3 * n_convs * conv + 3 * mix + 3 * fft)
+    conv = n * 3 * n_convs * mac
+    other = n * (3 * n_convs * 3 * C * hw + 3 * mix + 3 * fft)
     weights = n_convs * (9 * C * C + C) + 4 * C * C + 2 * C
     words = 2 * weights + n * C * hw * 2  # weights and their grads; x, xbar
     words += n * C * hw  # g
     if "skip" in variant:
         words += 2 * n * C * hw  # skip, skipbar
     if "post" in variant:
-        flops += n * (mix + fft + 3 * (2 * 9 * C * hw + 3 * hw))
+        conv += n * mac
+        other += n * (mix + fft + 3 * (2 * 9 * C * hw + 3 * hw))
         words += 2 * (9 * C + 1) + 3 * n * hw  # post weights + grads; img, gfin, imgbar
-    return flops, 4 * words
+    return conv, other, 4 * words
+
+
+def k2_bounds(n: int, size: int, variant: str):
+    """K2's bounds ((ms, by), (ms, by)), as :func:`k1_bounds`: every
+    operation fp32 on the CUDA cores; and, as K2 runs, the C->C
+    contractions as three TF32 products on the tensor cores and the rest
+    fp32 on the CUDA cores, the larger of the two engines' times, or of
+    the bytes' time."""
+    conv, other, nbytes = k2_work(n, size, variant)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(3 * conv / PEAK_TF32_FLOPS, other / PEAK_FP32_FLOPS)
+    tc = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    return bound((conv + other, nbytes)), tc
 
 
 def k8_work(n: int, h: int, w: int):
@@ -906,6 +1012,84 @@ def profile_k1_split(label: str, args, calls: int = 5):
     return split
 
 
+# K2's launches in the order one call with "pre" and "skip" makes them,
+# and the kernel each must be
+K2_LAUNCHES = (("pre conv", "conv3x3_tc_kernel"), ("rows of hin (K4)", "rdft_w_kernel"),
+               ("gate conv", "conv3x3_tc_kernel"), ("residual wgrad", "wgrad_tc_kernel"),
+               ("residual wgrad sum", "sum_partials_kernel"),
+               ("residual adjoint conv", "conv3x3_tc_kernel"),
+               ("rows of g (K4)", "rdft_w_kernel"), ("column pass", "column_bwd_kernel"),
+               ("column sums", "sum_partials_kernel"), ("inverse rows (K6)", "irdft_w_kernel"),
+               ("ReLU mask", "relu_grad_kernel"), ("pre wgrad", "wgrad_tc_kernel"),
+               ("pre wgrad sum", "sum_partials_kernel"),
+               ("pre adjoint conv", "conv3x3_tc_kernel"))
+
+
+def cudnn_k2_parts(args):
+    """cuDNN's counterparts of K2's conv and weight-gradient launches on
+    tensors of the same shapes (64x64, "pre+skip"; TF32 off): the two
+    forward convs as ``F.conv2d``, each adjoint conv and each weight and
+    bias gradient as ``aten.convolution_backward`` with the output mask of
+    that gradient alone. Returns {launch: fn}."""
+    n, c, hw = args["x"].shape
+    size = int(math.isqrt(hw))
+    img = lambda t: t.reshape(n, c, size, size)
+    x, g = img(args["x"]), img(args["g"])
+    (pre_w, pre_b), km, kb = args["pre"], args["km"], args["kb"]
+    bwd = lambda gout, inp, wt, mask: torch.ops.aten.convolution_backward(
+        gout, inp, wt, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+    grads, inputs = [False, True, True], [True, False, False]
+    return {"pre conv": lambda: torch.nn.functional.conv2d(x, pre_w, pre_b, padding=1),
+            "gate conv": lambda: torch.nn.functional.conv2d(x, km, kb, padding=1),
+            "residual wgrad": lambda: bwd(g, x, km, grads),
+            "residual adjoint conv": lambda: bwd(g, x, km, inputs),
+            "pre wgrad": lambda: bwd(g, x, pre_w, grads),
+            "pre adjoint conv": lambda: bwd(g, x, pre_w, inputs)}
+
+
+def profile_k2_split(label: str, args, calls: int = 5):
+    """K2 split by its launches: the device time of each of the 14 launches
+    of a call with "pre" and "skip", averaged over ``calls`` calls under
+    torch.profiler, and beside each conv and weight-gradient launch the
+    time of cuDNN's call for the same part (CUDA events). Fails unless
+    every launch ran the kernel K2_LAUNCHES names (the convs K3's
+    tensor-core kernel, the weight gradients the mma.sync GEMM). Returns
+    {launch: ms}, or None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    block_bwd(**args)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            block_bwd(**args)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if len(kernels) != calls * len(K2_LAUNCHES):
+        print(f"K2 split {label}: {len(kernels)} device events for {calls} calls "
+              f"(not measured)", flush=True)
+        return None
+    library = {name: cuda_ms(fn, 10) for name, fn in cudnn_k2_parts(args).items()}
+    split = {}
+    for i, (launch, kernel) in enumerate(K2_LAUNCHES):
+        events = kernels[i::len(K2_LAUNCHES)]
+        names = {kernel_name(e) for e in events}
+        split[launch] = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+        if not all(kernel in name for name in names):
+            fail(f"K2 {launch} ran {names}, not {kernel}")
+        lib = f", cuDNN {library[launch]:.3f} ms" if launch in library else ""
+        print(f"K2 split {label} {launch:22s}: {', '.join(sorted(names))} "
+              f"{split[launch]:.3f} ms{lib}", flush=True)
+    total = sum(split.values())
+    lib_total = sum(library.values())
+    ours = sum(split[k] for k in library)
+    print(f"K2 split {label}: {total:.3f} ms of kernels per call; its convs and weight "
+          f"gradients {ours:.3f} ms against cuDNN's {lib_total:.3f} ms; shares "
+          + ", ".join(f"{k} {v / total:.4f}" for k, v in split.items()), flush=True)
+    return split
+
+
 def profile(label: str, fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share between the first kernel's start and the last
@@ -960,12 +1144,38 @@ def train_patches(rng, seed: int):
     return pre(hu(lo), hu(hi), torch.Generator(device="cuda").manual_seed(seed))
 
 
-def step_errors(x, y, model_seed: int, label: str, hold: bool = True):
+def k1_hybrid(convs: str, spectral: str):
+    """A stand-in for K1 (``block_fused``'s arguments and result) in the
+    train step's witnesses, a measurement only: its C -> C convs on K3's
+    tensor-core kernel, which K1 runs (``convs="K3"``), or on cuDNN
+    (``"cuDNN"``); its spectral branch on ``torch.fft`` (``spectral="torch"``)
+    or on K4 -> K5 -> K6 (``"K4-K6"``: K4 and K6 are K1's row kernels, K5 a
+    hand-written column pass like K1's); the exit conv on cuDNN."""
+    def forward(x, h, w, km, kb, mix, mb, pre=None, skip=None, post=None, img=None):
+        n = x.shape[0]
+        a = x.reshape(n, -1, h, w)
+        conv = conv3x3 if convs == "K3" else conv3x3_reference
+        if pre is not None:
+            a = conv(a, pre[0], pre[1], skip=None if skip is None else skip.reshape(a.shape))
+        out = fft_conv_block(a, km, kb, mix, mb,
+                             impl="staged" if spectral == "K4-K6" else "auto",
+                             conv_impl="k3" if convs == "K3" else "torch")
+        if post is None:
+            return out.reshape(n, -1, h * w)
+        final = conv3x3_reference(out, post[0], post[1], skip=img.reshape(n, 1, h, w))
+        return out.reshape(n, -1, h * w), final.reshape(n, 1, h * w)
+    return forward
+
+
+def step_errors(x, y, model_seed: int, label: str, hold: bool = True,
+                truth: bool = False):
     """One step from one state through K1 + K2 and through the plain
     generator under autograd: the D losses and g_loss, the cotangent of
     fake that g_loss_terms gives each path, and the generator gradient with
     the plain path's cotangent pulled through both generator graphs (so
-    that only K1 and K2 differ). Held to the tolerances when ``hold``.
+    that only K1 and K2 differ). Held to the tolerances when ``hold``. With
+    ``truth`` the same cotangent is also pulled through the plain generator
+    in float64, and both fp32 gradients are read against it (not held).
     Returns (D-loss error, worst leaf's 2-norm error, its max-norm error,
     its name) and the state the step started from."""
     base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10,
@@ -1003,13 +1213,26 @@ def step_errors(x, y, model_seed: int, label: str, hold: bool = True):
           f"(max-norm) over {len(grads_k)} leaves", flush=True)
     if hold and d_rel > TOL_STEP_DLOSS_REL:
         fail(f"{label}: D losses differ by {d_rel:.3e} > {TOL_STEP_DLOSS_REL}")
+    if truth:
+        gen64 = copy.deepcopy(base.generator).double().train()
+        f64 = plain_forward(gen64, x.double())
+        grads_t = torch.autograd.grad(f64, list(gen64.parameters()), cp.double())
+        names = [name for name, _ in base.generator.named_parameters()]
+        for path, grads in (("kernel", grads_k), ("plain", grads_p)):
+            errs = [((a.double() - t).norm() / t.norm().clamp_min(1e-300)).item()
+                    for a, t in zip(grads, grads_t)]
+            i = int(np.argmax(errs))
+            print(f"{label}: {path} generator gradient against the plain generator in "
+                  f"float64, worst leaf {names[i]} {errs[i]:.3e} (2-norm), median leaf "
+                  f"{float(np.median(errs)):.3e}", flush=True)
+        del gen64, f64, grads_t
     return (d_rel, worst[0], worst[1], worst[2]), base
 
 
 def check_train_step(x, y):
     """Phase 18: :func:`step_errors` from one state, then 3 kernel steps
     with their launch counts. Returns the kernel trainer."""
-    _, base = step_errors(x, y, 0, "train step")
+    _, base = step_errors(x, y, 0, "train step", truth=True)
     trainer = MTDGANTrainer(base, method="pcgrad", seed=0)
     for step in range(3):
         block_fused.launches = block_bwd.launches = 0
@@ -1026,29 +1249,36 @@ def check_train_step(x, y):
     return trainer
 
 
+# the train step's witnesses: the forward K2 differentiates in place of K1
+WITNESSES = {"witness": block_fused_reference,
+             "witness K3 convs": k1_hybrid("K3", "torch"),
+             "witness K4-K6 FFTs": k1_hybrid("cuDNN", "K4-K6")}
+
+
 def train_step_spread():
     """Phase 18: the train step's gradient check on three more states and
-    patch sets (seeds 0, 1, 2), each read twice; and a witness on the same
-    seeds with K1's plain version (``F.conv2d`` in fp32
-    and ``torch.fft``) as the forward that K2 differentiates, so that K1's
-    3xTF32 convs and FFTs are out of the comparison (not held to the
-    tolerance)."""
+    patch sets (seeds 0, 1, 2), each read twice; and witnesses on the same
+    seeds (not held to the tolerance), each with another forward in place
+    of K1 that K2 differentiates: K1's plain version (``F.conv2d`` in fp32
+    and ``torch.fft``), so that K1's 3xTF32 convs and FFTs are out of the
+    comparison; and :func:`k1_hybrid` with K1's convs alone, and with
+    hand-written FFTs alone, to tell which part of K1's forward moves the
+    masks."""
     spread = {}
     for seed in (0, 1, 2):
         x, y = train_patches(np.random.default_rng(100 + seed), seed=seed)
-        for label, reps in (("kernel", 2), ("witness", 1)):
+        for label, reps in (("kernel", 2), *((w, 1) for w in WITNESSES)):
             for rep in range(reps):
                 tag = f"train step seed {seed} {label} read {rep + 1}"
-                if label == "witness":
-                    cuda_train.block_fused = block_fused_reference
+                cuda_train.block_fused = WITNESSES.get(label, block_fused)
                 try:
                     (_, l2, _, _), _ = step_errors(x, y, seed, tag, hold=label == "kernel")
                 finally:
                     cuda_train.block_fused = block_fused
-                spread[tag] = l2
+                spread[(label, seed, rep)] = l2
         del x, y
-    for label in ("kernel", "witness"):
-        got = [v for k, v in spread.items() if f" {label} " in k]
+    for label in ("kernel", *WITNESSES):
+        got = [v for k, v in spread.items() if k[0] == label]
         print(f"train step spread {label}: worst leaf 2-norm error min {min(got):.3e} "
               f"max {max(got):.3e} over {len(got)} reads", flush=True)
 
@@ -1179,6 +1409,7 @@ def main():
         k3_max_abs_err = check_k3()
         count_tensor_core_instructions("K3", libs[names.index("conv3x3")])
         count_tensor_core_instructions("K1", libs[names.index("block_fused")])
+        count_tensor_core_instructions("K2", libs[names.index("block_bwd")])
 
         # ---- 13. K4, K5 and K6 against their plain versions
         staged_max_abs_err = check_staged(staged_lib)
@@ -1205,7 +1436,9 @@ def main():
                                    dtype=torch.float32, device="cuda"))
 
     # ---- 17. K2 against its plain version
+    k2_accuracy()
     k2_max_abs_err = check_k2()
+    check_k2_recompute()
 
     # ---- 18. the train step at full width
     x, y = train_patches(rng, seed=0)
@@ -1239,12 +1472,16 @@ def main():
         args = bwd_inputs(160, "fan_in", variant, seed=vi)
         k_ms = cuda_ms(lambda: block_bwd(**args), 10)
         p_ms = cuda_ms(lambda: block_bwd_reference(**args), 5)
-        b_ms, by = bound(k2_work(160, 64, variant))
-        flops, nbytes = k2_work(160, 64, variant)
+        (cc_ms, cc_by), (b_ms, by) = k2_bounds(160, 64, variant)
+        conv, other, nbytes = k2_work(160, 64, variant)
         bwd_times[variant] = (k_ms, p_ms, b_ms, by)
         print(f"time K2 64x64 batch 160 {variant:14s}: kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+              f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}, convs and weight "
+              f"gradients on the tensor cores in 3xTF32; fp32 CUDA-core bound "
+              f"{cc_ms:.3f} ms, {cc_by}; {conv / 1e9:.2f} + {other / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB)", flush=True)
+        if variant == "pre+skip":
+            profile_k2_split("64x64 batch 160 pre+skip", args)
         del args
     fwd_args = block_inputs(64, 160, "fan_in", "pre+skip", seed=2)
     k1_train_ms = cuda_ms(lambda: block_fused(**fwd_args), 10)

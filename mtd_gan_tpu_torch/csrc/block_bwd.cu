@@ -23,36 +23,55 @@
 //
 // Bound on an H100 SXM (64x64, C = 32, batch 160, pre + skip): six
 // convolution-sized contractions (2 recomputed, 2 adjoint, 2 weight
-// gradients) of 2*9*C*C FLOP per pixel, ~72 GFLOP, plus the FFTs and the
-// spectral mix, against ~0.4 GB of compulsory traffic: ~1.1 ms of fp32
-// CUDA-core work against ~0.12 ms of HBM time, so it is bound by fp32
-// operations (chip_smoke.py::k2_work counts both).
+// gradients) of 2*9*C*C FLOP per pixel, 72.5 GFLOP, as three TF32 products
+// each on the tensor cores (0.44 ms at 495 TFLOP/s); the FFTs, the spectral
+// mix, its gradient and its transpose, ~10.6 GFLOP on the CUDA cores (0.16
+// ms); ~0.42 GB of compulsory traffic (0.125 ms). So it is bound by the
+// tensor cores' operations (chip_smoke.py::k2_bounds counts both engines).
 //
-// Design. A sample's spectrum (32 x 33 x 64 complex fp32, 540 KB) does not
-// fit one SM's shared memory, so, like K1, the backward is a sequence of
-// launches on one stream behind one C entry point (one entry call == one
-// K2 call), with the spectra of hin and g in device memory:
-//   convs        resfft_common.cuh's direct conv with a gate epilogue
-//                (out = v > 0 ? g : 0, a ReLU's cotangent) and an adjoint
-//                weight read (flip + io swap), so masks and adjoint
-//                weights cost no extra pass;
-//   row passes   K1's row rFFT (of hin and of g) and c2r;
-//   column pass  one block per (n, group of k): H-FFTs of both spectra,
-//                recomputed s_pre and its mask, the dmix / dmb partial
-//                sums kept in registers across the group's bins, mix^T,
-//                inverse H-FFT, written back in place;
-//   weight grads one block per (n, band of rows) stages a row of the
-//                cotangent and three rows of the input and accumulates the
-//                (C_out, 9 C_in) products in registers.
+// Design. Recompute on K1's own device code: the masks K2 applies are the
+// ReLUs K1's forward took, bit for bit, only if the pre-activations are
+// the same bits. So the pre conv is K1's launch_conv3x3 call, the rows are
+// K4 (launch_rdft_w) on the same host table, and on the last block the
+// whole of `out` is recomputed through K1's launches (residual conv, K4,
+// K1's column pass of block_columns.cuh, K6 in place); the residual conv's
+// mask comes from the same tensor-core kernel with a gate epilogue, and the
+// spectral mask from the mix function K1's column pass calls. A sample's
+// spectrum (32 x 33 x 64 complex fp32, 540 KB) does not fit one SM, so the
+// backward is a sequence of launches on one stream behind one C entry
+// point (one entry call == one K2 call), with the spectra in device memory:
+//   convs        K3's implicit GEMM on wgmma in 3xTF32 (conv3x3_tc.cuh):
+//                the recomputed pre conv, the gate conv (out = v > 0 ? g :
+//                0), the adjoints (adjoint = 1, "+ g" as the skip); the
+//                C -> 1 exit conv and its adjoint on the direct conv, where
+//                K1 runs it too;
+//   weight grads an implicit GEMM on mma.sync m16n8k8 in 3xTF32
+//                (wgrad_tc_kernel): dW (C_out x 9 C_in) = g (C_out x
+//                pixels) times im2col(in) (pixels x 9 C_in). mma.sync and
+//                not wgmma: a wgmma's 64 rows fit neither side (C_out <=
+//                32, 9 C_in = 288 = 4.5 x 64), while m16n8k8 tiles both
+//                exactly, one warp per tap; persistent blocks walk bands of
+//                4 rows, staged with cp.async, each band summed in a fresh
+//                tensor-core accumulator and added to the block's partial;
+//   row passes   K4 for hin and for g, K6 in place onto hbar;
+//   column pass  column_bwd_kernel, persistent blocks over the (n, k) bins: K4's
+//                DIF steps on both spectra, the mask from K1's mix
+//                function, dmix and dmb summed in registers across the
+//                block's bins and positions, mix^T, K4's DIT steps back.
 // Weight gradients are per-block partials reduced by a second kernel in a
 // fixed order: no float atomics, so a gradient repeats bit for bit from run
-// to run. fp32 CUDA cores throughout; tensor cores are later work.
+// to run.
 
-#include "resfft_common.cuh"
+#include <cstdint>
+
+#include "block_columns.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
 constexpr int kBwdThreads = 256;
+constexpr int kWgRows = 4;       // image rows per unit of the weight-gradient GEMM
+constexpr int kWgThreads = 288;  // 9 warps, one per tap
 
 // out[i] = mask[i] > 0 ? a[i] : 0   (a ReLU's cotangent from its output)
 __global__ void __launch_bounds__(kBwdThreads)
@@ -63,102 +82,12 @@ relu_grad_kernel(const float* __restrict__ a, const float* __restrict__ mask,
     out[i] = mask[i] > 0.f ? a[i] : 0.f;
 }
 
-// Weight gradient of a 3x3 'same' conv: per block (band of `rows` rows of
-// one sample n) the partial sums
-//   w_part[blk, co, ci, ky, kx] = sum_{y in band, x} g[n, co, y, x] *
-//                                 in[n, ci, y + ky - 1, x + kx - 1]
-//   b_part[blk, co]             = sum_{y in band, x} g[n, co, y, x]
-// with blk = n * gridDim.x + band. Each thread owns P (co, ci) pairs and
-// their 9 taps in registers; a row of g and three rows of the input (zero
-// halo) are staged in shared memory per output row.
-template <int P>
+// out = sum_p part[p, :] in a fixed order (32 outputs x 8 partial lanes per
+// block, then a fixed-order sum of the 8 lanes); outputs i < m_a go to
+// out_a[i], the rest to out_b[i - m_a].
 __global__ void __launch_bounds__(kBwdThreads)
-conv_wgrad_kernel(const float* __restrict__ g, const float* __restrict__ in,
-                  float* __restrict__ w_part, float* __restrict__ b_part,
-                  int c_out, int c_in, int H, int W, int rows) {
-  extern __shared__ __align__(16) float wg_smem[];
-  const int gstride = W + 1;                 // odd strides: no bank conflicts
-  const int rstride = W + 2;
-  const int istride = (3 * rstride) | 1;
-  float* gsm = wg_smem;                      // [c_out][W + 1]
-  float* ism = wg_smem + c_out * gstride;    // [c_in][3 rows of W + 2]
-  const int n = blockIdx.y, y0 = blockIdx.x * rows;
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t hw = (size_t)H * W;
-  const int pairs = c_out * c_in;
-  const float* g_n = g + (size_t)n * c_out * hw;
-  const float* in_n = in + (size_t)n * c_in * hw;
-
-  float acc[P][9];
-#pragma unroll
-  for (int j = 0; j < P; ++j)
-#pragma unroll
-    for (int t = 0; t < 9; ++t) acc[j][t] = 0.f;
-  float bacc = 0.f;
-
-  for (int y = y0; y < y0 + rows; ++y) {
-    for (int idx = tid; idx < c_out * W; idx += kBwdThreads) {
-      const int co = idx / W, x = idx - co * W;
-      gsm[co * gstride + x] = g_n[(size_t)co * hw + (size_t)y * W + x];
-    }
-    for (int idx = tid; idx < c_in * 3 * rstride; idx += kBwdThreads) {
-      const int ci = idx / (3 * rstride);
-      const int r = idx - ci * 3 * rstride;
-      const int ky = r / rstride, xx = r - ky * rstride;
-      const int gy = y + ky - 1, gx = xx - 1;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = in_n[(size_t)ci * hw + (size_t)gy * W + gx];
-      ism[ci * istride + r] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int q = tid + j * kBwdThreads;
-      if (q < pairs) {
-        const int co = q / c_in, ci = q - co * c_in;
-        const float* gr = gsm + co * gstride;
-        const float* ir = ism + ci * istride;
-        for (int x0 = 0; x0 < W; x0 += 8) {
-          float gv[8];
-#pragma unroll
-          for (int t = 0; t < 8; ++t) gv[t] = gr[x0 + t];
-#pragma unroll
-          for (int ky = 0; ky < 3; ++ky) {
-            float v[10];
-#pragma unroll
-            for (int t = 0; t < 10; ++t) v[t] = ir[ky * rstride + x0 + t];
-#pragma unroll
-            for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                acc[j][ky * 3 + kx] = fmaf(gv[t], v[t + kx], acc[j][ky * 3 + kx]);
-          }
-        }
-      }
-    }
-    if (tid < c_out)
-      for (int x = 0; x < W; ++x) bacc += gsm[tid * gstride + x];
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int q = tid + j * kBwdThreads;
-    if (q < pairs)
-#pragma unroll
-      for (int t = 0; t < 9; ++t) w_part[((size_t)blk * pairs + q) * 9 + t] = acc[j][t];
-  }
-  if (tid < c_out) b_part[(size_t)blk * c_out + tid] = bacc;
-}
-
-// out[i] = sum_p part[p, i] in a fixed order (32 outputs x 8 partial lanes
-// per block, then a fixed-order sum of the 8 lanes).
-__global__ void __launch_bounds__(kBwdThreads)
-sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    int parts, int m) {
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out_a, int m_a,
+                    float* __restrict__ out_b, int parts, int m) {
   __shared__ float red[8][33];
   const int x = threadIdx.x & 31, lane = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + x;
@@ -171,119 +100,358 @@ sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
     float t = 0.f;
 #pragma unroll
     for (int r = 0; r < 8; ++r) t += red[r][x];
-    out[i] = t;
+    if (i < m_a) out_a[i] = t;
+    else out_b[i - m_a] = t;
   }
 }
 
-// The [Re; Im] channel ch of a (C, H) complex array, as floats.
-__device__ __forceinline__ float& chan(float2* a, int C, int H, int ch, int h) {
-  float* f = reinterpret_cast<float*>(a);
-  return ch < C ? f[2 * (ch * H + h)] : f[2 * ((ch - C) * H + h) + 1];
+// 16 bytes global -> shared, asynchronous; zeros when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
-// Column pass of the spectral adjoint, one block per (group of k, n).
-// spec_in: row spectrum of hin; spec_g: row spectrum of g, overwritten with
-// the row spectrum that the c2r of the adjoint rFFT takes. For each bin k:
-//   a  = H-FFT(spec_in[n, :, k, :]) / sqrt(H)             (= s_in)
-//   b  = H-FFT(c_k * spec_g[n, :, k, :]) / sqrt(H)         (adjoint of the c2r
-//        and of the inverse H-FFT; c_k = 2 for interior bins, 1 at k = 0 and
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 sums. A
+// thread holds a at rows q, q + 8 by columns t, t + 4; b at rows t, t + 4
+// of column q; d at rows q, q + 8 by columns 2t, 2t + 1 (q = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory strides of the weight-gradient tile: g's rows (a band's
+// pixels + 4) and the input's channels ((kWgRows + 2) rows of W + 8, the
+// column x at x + 4 so that the 16-byte copies land aligned), both 4 mod
+// 32 so that a fragment's 8 x 4 reads hit 32 banks.
+__host__ __device__ inline int wgrad_gstride(int w) { return kWgRows * w + 4; }
+__host__ __device__ inline int wgrad_istride(int w) {
+  return ((kWgRows + 2) * (w + 8) + 27) / 32 * 32 + 4;
+}
+
+// Dynamic shared memory above 48 KB, and the largest carveout, so that two
+// blocks of the size the launch geometry assumes fit on one SM.
+template <typename Kernel>
+cudaError_t allow_two_blocks(Kernel kernel, size_t bytes) {
+  CUDA_TRY(allow_smem(kernel, bytes));
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+size_t wgrad_smem_bytes(int co, int cin, int w) {
+  return ((size_t)co * wgrad_gstride(w) + (size_t)cin * wgrad_istride(w)) * sizeof(float);
+}
+
+// Weight and bias gradients of a 3x3 'same' conv as an implicit GEMM on the
+// tensor cores in 3xTF32 (big/small split of both operands, three products
+// summed in fp32, as K3):
+//   part[blk, co, ci, tap] = sum_{p in blk's units} g[n, co, p] * in[n, ci, p + off(tap)]
+//   part[blk, c_out * 9 CIN + co] = sum g[n, co, p]   (on the CUDA cores)
+// A unit is a band of kWgRows rows of one sample; block blk takes the
+// units blk, blk + gridDim.x, ... Warp w computes tap w = 3 dy + dx: its
+// (CO x CIN) slice, MT x CI8 m16n8 tiles in registers, over the band's
+// pixels 8 at a time (one k-step). Rows of g from c_out to CO stay zero
+// (C_out = 1 for the exit conv). The error of the tensor cores' fp32
+// accumulator grows with the k-steps it runs over (on an H100 at batch
+// 160, ten bands in one accumulator read 8x the error of one band against
+// float64: chip_smoke.py, k2_accuracy). So each unit's sums start from
+// zero and are added to the block's partial row in memory on the CUDA
+// cores, in unit order: staged through the shared tiles in the row's
+// order, so that the row (37 KB at C = 32, in L2) is read and written
+// coalesced; a thread's own fragments lie 288 floats apart in it.
+template <int CI8, int MT>
+__global__ void __launch_bounds__(kWgThreads, 2)
+wgrad_tc_kernel(const float* __restrict__ g, const float* __restrict__ in,
+                float* __restrict__ part, int c_out, int H, int W, int units) {
+  constexpr int CIN = 8 * CI8, CO = 16 * MT;
+  extern __shared__ __align__(16) float wg_smem[];
+  const int P = kWgRows * W, gstride = wgrad_gstride(W), hs = W + 8;
+  const int istride = wgrad_istride(W);
+  float* gsm = wg_smem;                 // [CO][gstride]
+  float* ism = wg_smem + CO * gstride;  // [CIN][istride]: rows y0 - 1 .. y0 + kWgRows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q = lane >> 2, t = lane & 3;
+  const int dy = warp / 3, dx = warp % 3;
+  const size_t hw = (size_t)H * W;
+  const int bands = H / kWgRows;
+
+  const int mw = c_out * CIN * 9;
+  float* out = part + (size_t)blockIdx.x * (mw + c_out);
+  float bacc = 0.f;
+
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    // zeros that no copy writes (the previous unit's staged sums may lie
+    // there): g's rows past c_out, the input's columns x = -1 and x = W
+    for (int i = tid; i < (CO - c_out) * gstride; i += blockDim.x) gsm[c_out * gstride + i] = 0.f;
+    for (int i = tid; i < CIN * (kWgRows + 2); i += blockDim.x) {
+      float* row = ism + (i / (kWgRows + 2)) * istride + (i % (kWgRows + 2)) * hs;
+      row[3] = 0.f;
+      row[W + 4] = 0.f;
+    }
+    float acc[MT][CI8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < CI8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    const int n = u / bands, y0 = (u - n * bands) * kWgRows;
+    const int q4 = P / 4, w4 = W / 4;
+    for (int i = tid; i < c_out * q4; i += blockDim.x) {
+      const int co = i / q4, j = (i - co * q4) * 4;
+      cp_async16(gsm + co * gstride + j,
+                 g + ((size_t)n * c_out + co) * hw + (size_t)y0 * W + j, true);
+    }
+    for (int i = tid; i < CIN * (kWgRows + 2) * w4; i += blockDim.x) {
+      const int r = i / w4, j = (i - r * w4) * 4;
+      const int ci = r / (kWgRows + 2), yy = r - ci * (kWgRows + 2);
+      const int gy = y0 - 1 + yy;
+      const bool ok = gy >= 0 && gy < H;
+      cp_async16(ism + ci * istride + yy * hs + 4 + j,
+                 in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + j, ok);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int yl = 0; yl < kWgRows; ++yl) {
+      for (int x0 = 0; x0 < W; x0 += 8) {
+        const int p0 = yl * W + x0;
+        // A: g at rows co = 16 mt + q (+ 8), pixels p0 + t (+ 4)
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* ga = gsm + (16 * mt + q) * gstride + p0 + t;
+          split_tf32(ga[0], ab[mt][0], as[mt][0]);
+          split_tf32(ga[8 * gstride], ab[mt][1], as[mt][1]);
+          split_tf32(ga[4], ab[mt][2], as[mt][2]);
+          split_tf32(ga[8 * gstride + 4], ab[mt][3], as[mt][3]);
+        }
+        // B: the input at channel ci = 8 j + q, pixel p0 + t (+ 4) shifted by the tap
+        const float* ib = ism + q * istride + (yl + dy) * hs + x0 + t + dx + 3;
+#pragma unroll
+        for (int j = 0; j < CI8; ++j) {
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(ib[8 * j * istride], bb0, bs0);
+          split_tf32(ib[8 * j * istride + 4], bb1, bs1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_tf32(acc[mt][j], as[mt], bb0, bb1);  // small * big
+            mma_tf32(acc[mt][j], ab[mt], bs0, bs1);  // big * small
+            mma_tf32(acc[mt][j], ab[mt], bb0, bb1);  // big * big
+          }
+        }
+      }
+    }
+    if (tid < c_out * 8) {
+      const float* gr = gsm + (tid >> 3) * gstride;
+      for (int p = tid & 7; p < P; p += 8) bacc += gr[p];
+    }
+    __syncthreads();  // every warp is past its last read of the tiles
+    // [c_out][CIN * 9 + 1], the partial row's order; the pad spreads a
+    // warp's stores over the banks (at most 2 per bank at C_in = 32)
+    float* stage = wg_smem;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < CI8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = 16 * mt + q + (e >= 2 ? 8 : 0), ci = 8 * j + 2 * t + (e & 1);
+          if (co < c_out) stage[co * (CIN * 9 + 1) + ci * 9 + warp] = acc[mt][j][e];
+        }
+    __syncthreads();
+    // the row's earlier sum, loaded all at once, then the band added
+    constexpr int kRow = (CO * CIN * 9 + kWgThreads - 1) / kWgThreads;
+    const bool first = u == (int)blockIdx.x;
+    float prev[kRow];
+    if (!first) {
+#pragma unroll
+      for (int r = 0; r < kRow; ++r) {
+        const int i = tid + r * kWgThreads;
+        prev[r] = i < mw ? out[i] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRow; ++r) {
+      const int i = tid + r * kWgThreads;
+      if (i < mw) {
+        const float v = stage[i + i / (CIN * 9)];
+        out[i] = first ? v : prev[r] + v;
+      }
+    }
+    __syncthreads();  // the next unit stages into the tiles
+  }
+
+  // the 8 lanes of one co, summed in a fixed order; lane 0 of each writes
+#pragma unroll
+  for (int s = 4; s >= 1; s >>= 1) bacc += __shfl_xor_sync(0xffffffffu, bacc, s);
+  if (tid < c_out * 8 && (tid & 7) == 0) out[mw + (tid >> 3)] = bacc;
+}
+
+// The [Re; Im] channel ch of the C columns at padded position p
+template <int C>
+__device__ __forceinline__ float& chan(float2* s, int pitch, int ch, int p) {
+  return ch < C ? s[ch * pitch + p].x : s[(ch - C) * pitch + p].y;
+}
+
+// Column pass of the spectral adjoint: persistent blocks, block blk takes
+// the bins u = n K + k = blk, blk + gridDim.x, ... (so that `bins` spread
+// evenly over one wave of blocks). spec_in: row spectrum of hin (K4's); spec_g: row spectrum of g (K4's),
+// overwritten with the row spectrum whose c2r (K6) is the adjoint of the
+// forward rFFT. For each bin k, with K1's schedule (block_columns.cuh):
+//   a = DIF steps of spec_in[n, :, k, :]                  (s_in / scale, digit-reversed)
+//   b = DIF steps of c_k spec_g[n, :, k, :]               (c_k = 2 inside, 1 at k = 0 and
 //        W/2, whose imaginary parts are zeroed: the forward c2r drops them)
-//   b  = b * [mix a + mb > 0]                              (= sbar_pre)
-//   dmix += b a^T, dmb += b                                (partials, registers)
-//   a  = mix^T b; spec_g[n, :, k, :] = IFFT-H(a) / sqrt(H) / c_k
+//   b = b * [mix_output(s_in) > 0]                         (K1's mix function: its mask)
+//   dmix += b a^T, dmb += b                                (registers, all bins and positions)
+//   a = conj(mix^T b); DIT steps; spec_g = conj(a) scale^2 / c_k
+// Each FFT is ortho (scale = 1/sqrt(H)); a and b are kept unscaled, the
+// scales are applied to the sums and the store. Partials per block, summed
+// over its bins: part[blk] = [dmix (2C x 2C), dmb (2C)].
 template <int C>
 __global__ void __launch_bounds__(kBwdThreads)
 column_bwd_kernel(const float2* __restrict__ spec_in, float2* __restrict__ spec_g,
                   const float* __restrict__ mix, const float* __restrict__ mix_bias,
-                  float* __restrict__ dmix_part, float* __restrict__ dmb_part,
-                  int H, int log_h, int K, int k_per_block, float scale) {
+                  const float2* __restrict__ tw, float* __restrict__ part, int H, int K,
+                  int bins, RdftPlan pl, float scale) {
   constexpr int C2 = 2 * C;
-  constexpr int kPairs = C2 * C2 / kBwdThreads;  // dmix entries per thread
-  static_assert(kPairs >= 1 && C2 <= kBwdThreads, "channel count");
+  constexpr int kPer = C2 * C2 / kBwdThreads;  // dmix entries per thread: 16, 4, 1
+  constexpr int CB = kPer >= 16 ? 4 : kPer >= 4 ? 2 : 1;
+  constexpr int RB = kPer / CB;
+  static_assert(RB * CB * kBwdThreads == C2 * C2, "channel count");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* a = reinterpret_cast<float2*>(smem_raw);   // [C][H]
-  float2* b = a + C * H;                             // [C][H], right after a
-  float2* tw = b + C * H;                            // [H/2]
-  float* msm = reinterpret_cast<float*>(tw + H / 2); // [2C][2C]
-  float* bsm = msm + C2 * C2;                        // [2C]
-  const int n = blockIdx.y, tid = threadIdx.x;
-  const int k_begin = blockIdx.x * k_per_block;
-  const int k_end = min(K, k_begin + k_per_block);
+  const int pitch = rdft_row_pitch(H);
+  float2* a = reinterpret_cast<float2*>(smem_raw);       // [C][pitch]
+  float2* b = a + C * pitch;                             // [C][pitch], right after a
+  float* msm = reinterpret_cast<float*>(b + C * pitch);  // mix [2C][2C]
+  float* mtsm = msm + C2 * C2;                           // mix^T
+  float* bsm = mtsm + C2 * C2;                           // [2C]
+  const int tid = threadIdx.x;
   const size_t cstride = (size_t)K * H;
-  const size_t nbase = (size_t)n * C * cstride;
 
-  for (int idx = tid; idx < C2 * C2; idx += kBwdThreads) msm[idx] = mix[idx];
+  for (int idx = tid; idx < C2 * C2; idx += kBwdThreads) {
+    msm[idx] = mix[idx];
+    mtsm[(idx % C2) * C2 + idx / C2] = mix[idx];
+  }
   for (int idx = tid; idx < C2; idx += kBwdThreads) bsm[idx] = mix_bias[idx];
-  make_twiddles(tw, H);
 
-  const int p0 = tid * kPairs;
-  const int po = p0 / C2, pi = p0 - po * C2;  // this thread's dmix row, columns
-  float acc[kPairs];
+  // this thread's RB x CB block of dmix
+  const int r0 = (tid / (C2 / CB)) * RB, c0 = (tid % (C2 / CB)) * CB;
+  float acc[RB][CB];
 #pragma unroll
-  for (int j = 0; j < kPairs; ++j) acc[j] = 0.f;
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[r][c] = 0.f;
   float bacc = 0.f;
+  // threads per position: they split its 2C outputs, as in K1's pass
+  const int groups = min(C2, max(1, kBwdThreads / H));
+  const int span = kBwdThreads / groups, per = C2 / groups;
+  const int halves = H >> 1;
 
-  for (int k = k_begin; k < k_end; ++k) {
-    const bool edge = (k == 0) || (k == K - 1);
+  for (int u = blockIdx.x; u < bins; u += gridDim.x) {
+    const int n = u / K, k = u - n * K;
+    const bool edge = k == 0 || k == K - 1;
     const float wk = edge ? 1.f : 2.f;
-    for (int idx = tid; idx < C * H; idx += kBwdThreads) {
-      const size_t off = nbase + (size_t)(idx >> log_h) * cstride + (size_t)k * H +
-                         (idx & (H - 1));
-      a[idx] = spec_in[off];
-      const float2 z = spec_g[off];
-      b[idx] = make_float2(z.x * wk, edge ? 0.f : z.y * wk);
+    const size_t off = (size_t)n * C * cstride + (size_t)k * H;
+    for (int idx = tid; idx < C * halves; idx += kBwdThreads) {
+      const int c = idx / halves, h = (idx - c * halves) * 2;
+      const float4 u = *reinterpret_cast<const float4*>(spec_in + off + c * cstride + h);
+      const float4 z = *reinterpret_cast<const float4*>(spec_g + off + c * cstride + h);
+      float2* ra = a + c * pitch;
+      float2* rb = b + c * pitch;
+      ra[rdft_pad(h)] = make_float2(u.x, u.y);
+      ra[rdft_pad(h + 1)] = make_float2(u.z, u.w);
+      rb[rdft_pad(h)] = make_float2(z.x * wk, edge ? 0.f : z.y * wk);
+      rb[rdft_pad(h + 1)] = make_float2(z.z * wk, edge ? 0.f : z.w * wk);
     }
     __syncthreads();
-    fft_radix2(a, 2 * C, H, log_h, tw, false);  // a and b: 2C sequences
-    for (int idx = tid; idx < 2 * C * H; idx += kBwdThreads) {
-      a[idx].x *= scale;
-      a[idx].y *= scale;
+    rdft_steps(a, pitch, C2, pl, 0, tw);  // a and b: 2C rows of one pitch
+
+    // sbar = b * [s_pre > 0], in place in b
+    for (int i0 = 0; i0 < H; i0 += span) {
+      const int i = i0 + tid % span, gi = tid / span;
+      if (i < H && gi < groups) {
+        const int p = rdft_pad(i);
+        float v[C2];
+        mix_inputs<C>(a, pitch, p, scale, v);
+#pragma unroll 2
+        for (int o = gi * per; o < (gi + 1) * per; ++o)
+          if (!(mix_output<C>(msm, bsm, o, v) > 0.f)) chan<C>(b, pitch, o, p) = 0.f;
+      }
     }
     __syncthreads();
 
-    // sbar_pre = tbar * [s_pre > 0], in place in b (each thread owns its (o, h))
-    for (int idx = tid; idx < C2 * H; idx += kBwdThreads) {
-      const int o = idx >> log_h, h = idx & (H - 1);
-      float s = bsm[o];
-      for (int i = 0; i < C2; ++i) s = fmaf(msm[o * C2 + i], chan(a, C, H, i, h), s);
-      float& t = chan(b, C, H, o, h);
-      if (!(s > 0.f)) t = 0.f;
-    }
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h) {
-      const float sb = chan(b, C, H, po, h);
+    for (int i = 0; i < H; ++i) {
+      const int p = rdft_pad(i);
+      float bv[RB], av[CB];
 #pragma unroll
-      for (int j = 0; j < kPairs; ++j)
-        acc[j] = fmaf(sb, chan(a, C, H, pi + j, h), acc[j]);
+      for (int r = 0; r < RB; ++r) bv[r] = chan<C>(b, pitch, r0 + r, p);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) av[c] = chan<C>(a, pitch, c0 + c, p);
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int c = 0; c < CB; ++c) acc[r][c] = fmaf(bv[r], av[c], acc[r][c]);
     }
     if (tid < C2)
-      for (int h = 0; h < H; ++h) bacc += chan(b, C, H, tid, h);
+      for (int i = 0; i < H; ++i) bacc += chan<C>(b, pitch, tid, rdft_pad(i));
     __syncthreads();
 
-    // s_in's cotangent mix^T sbar_pre, into a
-    for (int idx = tid; idx < C2 * H; idx += kBwdThreads) {
-      const int i = idx >> log_h, h = idx & (H - 1);
-      float s = 0.f;
-      for (int o = 0; o < C2; ++o) s = fmaf(msm[o * C2 + i], chan(b, C, H, o, h), s);
-      chan(a, C, H, i, h) = s;
+    // s_in's cotangent mix^T sbar, conjugated, into a
+    for (int i0 = 0; i0 < H; i0 += span) {
+      const int i = i0 + tid % span, gi = tid / span;
+      if (i < H && gi < groups) {
+        const int p = rdft_pad(i);
+        float v[C2];
+#pragma unroll
+        for (int o = 0; o < C2; ++o) v[o] = chan<C>(b, pitch, o, p);
+#pragma unroll 2
+        for (int j = gi * per; j < (gi + 1) * per; ++j) {
+          const float4* row = reinterpret_cast<const float4*>(mtsm + j * C2);
+          float s = 0.f;
+#pragma unroll
+          for (int q = 0; q < C / 2; ++q) {
+            const float4 m = row[q];
+            s = fmaf(m.x, v[4 * q], s);
+            s = fmaf(m.y, v[4 * q + 1], s);
+            s = fmaf(m.z, v[4 * q + 2], s);
+            s = fmaf(m.w, v[4 * q + 3], s);
+          }
+          if (j < C) a[j * pitch + p].x = s;
+          else a[(j - C) * pitch + p].y = -s;
+        }
+      }
     }
     __syncthreads();
-    fft_radix2(a, C, H, log_h, tw, true);
+    rdft_steps<true>(a, pitch, C, pl, 0, tw);
 
-    const float out_scale = scale / wk;
-    for (int idx = tid; idx < C * H; idx += kBwdThreads) {
-      const size_t off = nbase + (size_t)(idx >> log_h) * cstride + (size_t)k * H +
-                         (idx & (H - 1));
-      spec_g[off] = make_float2(a[idx].x * out_scale, a[idx].y * out_scale);
+    const float so = scale * scale / wk;
+    for (int idx = tid; idx < C * halves; idx += kBwdThreads) {
+      const int c = idx / halves, h = (idx - c * halves) * 2;
+      const float2* row = a + c * pitch;
+      const float2 x = row[rdft_pad(h)], y = row[rdft_pad(h + 1)];
+      *reinterpret_cast<float4*>(spec_g + off + c * cstride + h) =
+          make_float4(x.x * so, -x.y * so, y.x * so, -y.y * so);
     }
-    __syncthreads();
+    __syncthreads();  // the next bin loads into a and b
   }
 
-  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  float* out = part + (size_t)blockIdx.x * (C2 * C2 + C2);
+  const float s2 = scale * scale;
 #pragma unroll
-  for (int j = 0; j < kPairs; ++j) dmix_part[blk * C2 * C2 + p0 + j] = acc[j];
-  if (tid < C2) dmb_part[blk * C2 + tid] = bacc;
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) out[(r0 + r) * C2 + c0 + c] = acc[r][c] * s2;
+  if (tid < C2) out[C2 * C2 + tid] = bacc * scale;
 }
 
 cudaError_t launch_relu_grad(const float* a, const float* mask, float* out,
@@ -294,72 +462,91 @@ cudaError_t launch_relu_grad(const float* a, const float* mask, float* out,
   return cudaGetLastError();
 }
 
-cudaError_t launch_sum(const float* part, float* out, int parts, int m,
-                       cudaStream_t stream) {
-  sum_partials_kernel<<<(m + 31) / 32, kBwdThreads, 0, stream>>>(part, out, parts, m);
+cudaError_t launch_sum(const float* part, float* out_a, int m_a, float* out_b, int parts,
+                       int m, cudaStream_t stream) {
+  sum_partials_kernel<<<(m + 31) / 32, kBwdThreads, 0, stream>>>(part, out_a, m_a, out_b,
+                                                                 parts, m);
   return cudaGetLastError();
 }
 
-// Weight and bias gradients of a 3x3 conv: partials per (n, band of rows),
-// then the fixed-order sums into dw (c_out, c_in, 3, 3) and db (c_out).
-cudaError_t launch_wgrad(const float* g, const float* in, float* w_part, float* b_part,
-                         float* dw, float* db, int n, int c_out, int c_in, int h, int w,
-                         int row_blocks, cudaStream_t stream) {
-  if (c_out * c_in > 4 * kBwdThreads || c_out > kBwdThreads || w % 8 != 0 ||
-      h % row_blocks != 0)
+template <int CI8, int MT>
+cudaError_t launch_wgrad_tc(const float* g, const float* in, float* part, int n, int c_out,
+                            int h, int w, int blocks, cudaStream_t stream) {
+  const size_t smem = wgrad_smem_bytes(16 * MT, 8 * CI8, w);
+  CUDA_TRY(allow_two_blocks(wgrad_tc_kernel<CI8, MT>, smem));
+  wgrad_tc_kernel<CI8, MT><<<blocks, kWgThreads, smem, stream>>>(g, in, part, c_out, h, w,
+                                                                 n * (h / kWgRows));
+  return cudaGetLastError();
+}
+
+// Weight and bias gradients of a 3x3 conv from C_in in {8, 16, 32} to
+// C_out in {1, 8, 16, 32}: `blocks` partials on the tensor cores, then
+// their fixed-order sums into dw (c_out, c_in, 3, 3) and db (c_out).
+cudaError_t launch_wgrad(const float* g, const float* in, float* part, float* dw, float* db,
+                         int n, int c_out, int c_in, int h, int w, int blocks,
+                         cudaStream_t stream) {
+  if (h % kWgRows != 0 || w % 8 != 0 || blocks < 1 || blocks > n * (h / kWgRows) ||
+      (c_out != 1 && c_out != 8 && c_out != 16 && c_out != 32))
     return cudaErrorInvalidValue;
-  const size_t smem = ((size_t)c_out * (w + 1) + (size_t)c_in * ((3 * (w + 2)) | 1)) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_wgrad_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  conv_wgrad_kernel<4><<<dim3(row_blocks, n), kBwdThreads, smem, stream>>>(
-      g, in, w_part, b_part, c_out, c_in, h, w, h / row_blocks);
-  CUDA_TRY(cudaGetLastError());
-  const int parts = n * row_blocks;
-  CUDA_TRY(launch_sum(w_part, dw, parts, c_out * c_in * 9, stream));
-  return launch_sum(b_part, db, parts, c_out, stream);
+  const bool two = c_out > 16;
+  cudaError_t err;
+  switch (c_in) {
+    case 8:
+      err = two ? launch_wgrad_tc<1, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<1, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      break;
+    case 16:
+      err = two ? launch_wgrad_tc<2, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<2, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      break;
+    case 32:
+      err = two ? launch_wgrad_tc<4, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<4, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  CUDA_TRY(err);
+  const int m_w = c_out * c_in * 9;
+  return launch_sum(part, dw, m_w, db, blocks, m_w + c_out, stream);
 }
 
 template <int C>
 cudaError_t launch_column_bwd_c(const float2* spec_in, float2* spec_g, const float* mix,
-                                const float* mb, float* dmix_part, float* dmb_part,
-                                int n, int h, int w, int k_blocks, cudaStream_t stream) {
+                                const float* mb, const float2* tw, float* part, int n,
+                                int h, int w, int blocks, cudaStream_t stream) {
   const int K = w / 2 + 1;
-  const int k_per_block = (K + k_blocks - 1) / k_blocks;
-  const size_t smem = (size_t)(2 * C * h + h / 2) * sizeof(float2) +
-                      (size_t)(4 * C * C + 2 * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      column_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  column_bwd_kernel<C><<<dim3(k_blocks, n), kBwdThreads, smem, stream>>>(
-      spec_in, spec_g, mix, mb, dmix_part, dmb_part, h, log2_exact(h), K, k_per_block,
+  const size_t smem = (size_t)2 * C * rdft_row_pitch(h) * sizeof(float2) +
+                      (size_t)(8 * C * C + 2 * C) * sizeof(float);
+  CUDA_TRY(allow_two_blocks(column_bwd_kernel<C>, smem));
+  column_bwd_kernel<C><<<blocks, kBwdThreads, smem, stream>>>(
+      spec_in, spec_g, mix, mb, tw, part, h, K, n * K, rdft_plan(h, false),
       1.0f / sqrtf((float)h));
   return cudaGetLastError();
 }
 
 cudaError_t launch_column_bwd(const float2* spec_in, float2* spec_g, const float* mix,
-                              const float* mb, float* dmix_part, float* dmb_part,
-                              float* dmix, float* dmb, int n, int c, int h, int w,
-                              int k_blocks, cudaStream_t stream) {
+                              const float* mb, const float2* tw, float* part, float* dmix,
+                              float* dmb, int n, int c, int h, int w, int blocks,
+                              cudaStream_t stream) {
+  if (blocks < 1 || blocks > n * (w / 2 + 1)) return cudaErrorInvalidValue;
   switch (c) {
     case 8:
-      CUDA_TRY(launch_column_bwd_c<8>(spec_in, spec_g, mix, mb, dmix_part,
-                                             dmb_part, n, h, w, k_blocks, stream));
+      CUDA_TRY(launch_column_bwd_c<8>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
+                                      blocks, stream));
       break;
     case 16:
-      CUDA_TRY(launch_column_bwd_c<16>(spec_in, spec_g, mix, mb, dmix_part,
-                                              dmb_part, n, h, w, k_blocks, stream));
+      CUDA_TRY(launch_column_bwd_c<16>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
+                                       blocks, stream));
       break;
     case 32:
-      CUDA_TRY(launch_column_bwd_c<32>(spec_in, spec_g, mix, mb, dmix_part,
-                                              dmb_part, n, h, w, k_blocks, stream));
+      CUDA_TRY(launch_column_bwd_c<32>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
+                                       blocks, stream));
       break;
     default:
       return cudaErrorInvalidValue;
   }
-  CUDA_TRY(launch_sum(dmix_part, dmix, n * k_blocks, 4 * c * c, stream));
-  return launch_sum(dmb_part, dmb, n * k_blocks, 2 * c, stream);
+  return launch_sum(part, dmix, 4 * c * c, dmb, blocks, 4 * c * c + 2 * c, stream);
 }
 
 }  // namespace
@@ -370,13 +557,15 @@ extern "C" {
 // Inputs: x (n, c, h*w), g (n, c, h*w); pre_w (c, c, 3, 3), pre_b (c),
 //   skip (n, c, h*w); km (c, c, 3, 3), kb (c), mix (2c, 2c) as [out, in],
 //   mb (2c); post_w (1, c, 3, 3) (the exit deconv already flipped), post_b
-//   (1), img (n, 1, h*w), gfin (n, 1, h*w). pre_w, skip and post_w may be
-//   null (pre_b with pre_w, img / gfin / post_b with post_w).
-// Scratch: hbuf (n, c, h*w) with pre; rbuf (n, c, h*w); obuf (n, c, h*w)
-//   with pre or post; gbuf (n, c, h*w) with post; spec_a, spec_b
-//   (n, c, w/2+1, h) complex; w_part (n*row_blocks, c, 9c), b_part
-//   (n*row_blocks, c); mix_part (n*k_blocks, 2c, 2c), mb_part
-//   (n*k_blocks, 2c).
+//   (1), img (n, 1, h*w), gfin (n, 1, h*w); twiddles (w) complex, K4's
+//   table e^{-2 pi i t / w}. pre_w, skip and post_w may be null (pre_b
+//   with pre_w, img / gfin / post_b with post_w). h == w, a power of two
+//   from 8 to 128; c in {8, 16, 32}.
+// Scratch: hbuf (n, c, h*w) with pre: the recomputed hin; rbuf (n, c, h*w);
+//   obuf (n, c, h*w) with post: the recomputed out; gbuf (n, c, h*w) with
+//   post; abuf (n, c, h*w) with pre: hbar; spec_a, spec_b (n, c, w/2+1, h)
+//   complex; w_part (wgrad_blocks, c * 9c + c); mix_part (col_blocks,
+//   4c^2 + 2c): one row per block of the weight-gradient and column launches.
 // Outputs: xbar (n, c, h*w), dkm (c, c, 3, 3), dkb (c), dmix (2c, 2c), dmb
 //   (2c); with skip skipbar (n, c, h*w); with pre dpre_w (c, c, 3, 3),
 //   dpre_b (c); with post imgbar (n, 1, h*w), dpost_w (1, c, 3, 3),
@@ -387,43 +576,44 @@ int block_bwd(const float* x, const float* g, int n, int c, int h, int w,
               const float* pre_w, const float* pre_b, const float* skip,
               const float* km, const float* kb, const float* mix, const float* mb,
               const float* post_w, const float* post_b, const float* img,
-              const float* gfin, float* hbuf, float* rbuf, float* obuf, float* gbuf,
-              void* spec_a, void* spec_b, float* w_part, float* b_part,
-              float* mix_part, float* mb_part, int row_blocks, int k_blocks,
+              const float* gfin, const void* twiddles, float* hbuf, float* rbuf,
+              float* obuf, float* gbuf, float* abuf, void* spec_a, void* spec_b,
+              float* w_part, float* mix_part, int wgrad_blocks, int col_blocks,
               float* xbar, float* dkm, float* dkb, float* dmix, float* dmb,
               float* skipbar, float* dpre_w, float* dpre_b, float* imgbar,
               float* dpost_w, float* dpost_b, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int log_h = log2_exact(h), log_w = log2_exact(w);
-  if (log_h < 1 || log_w < 3 || h % kRowsPerBlock != 0 || n < 1 || row_blocks < 1 ||
-      k_blocks < 1)
+  if (h != w || log2_exact(h) < 3 || h > 128 || n < 1 || n > 65535 ||
+      (c != 8 && c != 16 && c != 32))
     return (int)cudaErrorInvalidValue;
   if ((skip != nullptr && pre_w == nullptr) || (post_w != nullptr && gfin == nullptr))
     return (int)cudaErrorInvalidValue;
   float2* sa = reinterpret_cast<float2*>(spec_a);
   float2* sb = reinterpret_cast<float2*>(spec_b);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
 
-  // forward recompute: hin = relu(pre_conv(x) + pre_b [+ skip])
+  // forward recompute with K1's launches: hin = relu(pre_conv(x) + pre_b [+ skip])
   const float* hin = x;
   if (pre_w != nullptr) {
-    RETURN_IF_ERROR(launch_conv(x, pre_w, pre_b, skip, nullptr, hbuf, n, c, c, h, w, 1,
-                                0, 0, stream));
+    RETURN_IF_ERROR(launch_conv3x3(x, pre_w, pre_b, skip, hbuf, n, c, c, h, w, 1, 0, 0,
+                                   stream));
     hin = hbuf;
   }
-  RETURN_IF_ERROR(launch_row_rfft(hin, sa, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_rdft_w(hin, sa, tw, n, c, h, w, stream));
 
   const float* gt = g;
   if (post_w != nullptr) {
-    // finish the forward: out = hin + relu(res_pre) + spectral(hin)
-    RETURN_IF_ERROR(launch_conv(hin, km, kb, nullptr, nullptr, obuf, n, c, c, h, w, 1,
-                                1, 0, stream));
-    RETURN_IF_ERROR(launch_column_any(sa, sb, mix, mb, n, c, h, w, stream));
-    RETURN_IF_ERROR(launch_row_irfft_add(sb, obuf, n, c, h, w, stream));
+    // out = hin + relu(res_pre) + spectral(hin), K1's sequence
+    RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, obuf, n, c, c, h, w, 1, 1, 0,
+                                   stream));
+    RETURN_IF_ERROR(launch_rdft_w(hin, sb, tw, n, c, h, w, stream));
+    RETURN_IF_ERROR(launch_column_rows_any(sb, mix, mb, tw, n, c, h, w, stream));
+    RETURN_IF_ERROR(launch_irdft_w(sb, obuf, obuf, tw, n, c, h, w, stream));
     // dpost = gfin * [post_conv(out) + post_b + img > 0] = imgbar
     RETURN_IF_ERROR(launch_conv(obuf, post_w, post_b, img, gfin, imgbar, n, c, 1, h, w,
                                 0, 0, 0, stream));
-    RETURN_IF_ERROR(launch_wgrad(imgbar, obuf, w_part, b_part, dpost_w, dpost_b, n, 1,
-                                 c, h, w, row_blocks, stream));
+    RETURN_IF_ERROR(launch_wgrad(imgbar, obuf, w_part, dpost_w, dpost_b, n, 1, c, h, w,
+                                 wgrad_blocks, stream));
     // g_total = g + adj_post(dpost)
     RETURN_IF_ERROR(launch_conv(imgbar, post_w, nullptr, g, nullptr, gbuf, n, 1, c, h,
                                 w, 0, 0, 1, stream));
@@ -431,28 +621,27 @@ int block_bwd(const float* x, const float* g, int n, int c, int h, int w,
   }
 
   // residual conv: gres = g * [conv(hin) + kb > 0]; dkm, dkb; hbar = g + adj(gres)
-  RETURN_IF_ERROR(launch_conv(hin, km, kb, nullptr, gt, rbuf, n, c, c, h, w, 0, 0, 0,
-                              stream));
-  RETURN_IF_ERROR(launch_wgrad(rbuf, hin, w_part, b_part, dkm, dkb, n, c, c, h, w,
-                               row_blocks, stream));
-  float* hbar = pre_w != nullptr ? obuf : xbar;
-  RETURN_IF_ERROR(launch_conv(rbuf, km, nullptr, gt, nullptr, hbar, n, c, c, h, w, 0, 0,
-                              1, stream));
+  RETURN_IF_ERROR(launch_conv3x3_gate(hin, km, kb, gt, rbuf, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_wgrad(rbuf, hin, w_part, dkm, dkb, n, c, c, h, w, wgrad_blocks,
+                               stream));
+  float* hbar = pre_w != nullptr ? abuf : xbar;
+  RETURN_IF_ERROR(launch_conv3x3(rbuf, km, nullptr, gt, hbar, n, c, c, h, w, 0, 0, 1,
+                                 stream));
 
-  // spectral path: adjoint c2r, H-FFT, mask, dmix / dmb, mix^T, inverse, adjoint rFFT
-  RETURN_IF_ERROR(launch_row_rfft(gt, sb, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_column_bwd(sa, sb, mix, mb, mix_part, mb_part, dmix, dmb, n, c,
-                                    h, w, k_blocks, stream));
-  RETURN_IF_ERROR(launch_row_irfft_add(sb, hbar, n, c, h, w, stream));
+  // spectral path: adjoint c2r (K4 of g), columns, adjoint rFFT (K6 onto hbar)
+  RETURN_IF_ERROR(launch_rdft_w(gt, sb, tw, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_column_bwd(sa, sb, mix, mb, tw, mix_part, dmix, dmb, n, c, h, w,
+                                    col_blocks, stream));
+  RETURN_IF_ERROR(launch_irdft_w(sb, hbar, hbar, tw, n, c, h, w, stream));
 
   if (pre_w != nullptr) {
     // dpre = hbar * [pre_act > 0] (= skipbar); dpre_w, dpre_b; xbar = adj_pre(dpre)
     float* dpre = skip != nullptr ? skipbar : rbuf;
     RETURN_IF_ERROR(launch_relu_grad(hbar, hin, dpre, (size_t)n * c * h * w, stream));
-    RETURN_IF_ERROR(launch_wgrad(dpre, x, w_part, b_part, dpre_w, dpre_b, n, c, c, h, w,
-                                 row_blocks, stream));
-    RETURN_IF_ERROR(launch_conv(dpre, pre_w, nullptr, nullptr, nullptr, xbar, n, c, c,
-                                h, w, 0, 0, 1, stream));
+    RETURN_IF_ERROR(launch_wgrad(dpre, x, w_part, dpre_w, dpre_b, n, c, c, h, w,
+                                 wgrad_blocks, stream));
+    RETURN_IF_ERROR(launch_conv3x3(dpre, pre_w, nullptr, nullptr, xbar, n, c, c, h, w, 0,
+                                   0, 1, stream));
   }
   return 0;
 }

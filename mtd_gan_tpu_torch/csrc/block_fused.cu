@@ -32,10 +32,11 @@
 //   4. column pass   one block per (n, k) holds all C columns (C*H complex,
 //                    148 KB padded at C = 32, H = 512): H-point FFT, 2C x 2C
 //                    mix + bias + ReLU at every h, inverse H-point FFT, in
-//                    place (column_mix_rows_kernel below: K4's register radix
-//                    steps on the host table, DIF forward and DIT inverse so
-//                    that the mix runs in digit-reversed order and no pass
-//                    permutes; K2 keeps resfft_common.cuh's column pass);
+//                    place (block_columns.cuh column_mix_rows_kernel: K4's
+//                    register radix steps on the host table, DIF forward and
+//                    DIT inverse so that the mix runs in digit-reversed order
+//                    and no pass permutes; K2 recomputes the forward with the
+//                    same launches and the same mix function);
 //   5. inverse rows  K6's Hermitian c2r (rdft_rows.cuh irdft_w_kernel:
 //                    imaginary parts of the bins 0 and W/2 dropped, as
 //                    irfft2 does), accumulated onto out in place;
@@ -47,122 +48,8 @@
 // reads its twiddles from one host table (H == W); no sine or cosine is
 // computed on the card. Fusing the passes is later work.
 
+#include "block_columns.cuh"
 #include "conv3x3_tc.cuh"
-#include "rdft_rows.cuh"
-
-namespace {
-
-// K1's column pass, one block per (k, n) = (blockIdx.x, blockIdx.y): the
-// C columns of bin k (C x H complex, H a power of two) in shared memory,
-// padded as K4's rows; the H-point FFT of each as K4's DIF radix steps,
-// which leave X[h] at its digit-reversed position, the same for every
-// channel; at each position the 2C x 2C mix + bias + ReLU over the stacked
-// [Re; Im] channels, written back conjugated; then the DIT steps in reverse
-// order, which take the digit-reversed order back to natural order, and the
-// store conjugates again: conj(FFT(conj Y)) is the inverse FFT of Y. Both
-// FFTs are scaled 1/sqrt(H); tw[t] = e^{-2 pi i t / H}. In place on spec
-// (n, c, k, h). When H < blockDim, the G = blockDim / H threads of one
-// position split its 2C outputs.
-template <int C>
-__global__ void __launch_bounds__(kColThreads)
-column_mix_rows_kernel(float2* spec, const float* __restrict__ mix,
-                       const float* __restrict__ mix_bias, const float2* __restrict__ tw,
-                       int H, int K, RdftPlan pl, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pitch = rdft_row_pitch(H);
-  float2* data = reinterpret_cast<float2*>(smem_raw);        // [C][pitch], padded
-  float* msm = reinterpret_cast<float*>(data + C * pitch);    // [2C][2C]
-  float* bsm = msm + 4 * C * C;                               // [2C]
-  const int k = blockIdx.x, n = blockIdx.y;
-  float2* col = spec + (size_t)n * C * K * H + (size_t)k * H;
-  const size_t cstride = (size_t)K * H;
-
-  const int halves = H >> 1;  // two complex (16 bytes) per load
-  for (int idx = threadIdx.x; idx < C * halves; idx += blockDim.x) {
-    const int c = idx / halves, h = (idx - c * halves) * 2;
-    const float4 v = *reinterpret_cast<const float4*>(col + c * cstride + h);
-    float2* row = data + c * pitch;
-    row[rdft_pad(h)] = make_float2(v.x, v.y);
-    row[rdft_pad(h + 1)] = make_float2(v.z, v.w);
-  }
-  for (int idx = threadIdx.x; idx < 4 * C * C; idx += blockDim.x) msm[idx] = mix[idx];
-  for (int idx = threadIdx.x; idx < 2 * C; idx += blockDim.x) bsm[idx] = mix_bias[idx];
-  __syncthreads();
-  rdft_steps(data, pitch, C, pl, 0, tw);
-
-  // the mix: thread (g, i) reads every channel at position i, then (after
-  // all have read) writes its share of the 2C outputs there, conjugated
-  const int groups = min(2 * C, max(1, (int)blockDim.x / H));
-  const int per = 2 * C / groups;
-  for (int i0 = 0; i0 < H; i0 += blockDim.x / groups) {
-    const int i = i0 + (int)threadIdx.x % (blockDim.x / groups);
-    const int g = (int)threadIdx.x / (blockDim.x / groups);
-    const bool active = i < H && g < groups;
-    const int p = rdft_pad(i);
-    float v[2 * C];
-    if (active) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float2 z = data[c * pitch + p];
-        v[c] = z.x * scale;
-        v[C + c] = z.y * scale;
-      }
-    }
-    if (groups > 1) __syncthreads();
-    if (active) {
-#pragma unroll 2
-      for (int o = g * per; o < (g + 1) * per; ++o) {
-        const float4* row = reinterpret_cast<const float4*>(msm + o * 2 * C);
-        float acc = bsm[o];
-#pragma unroll
-        for (int q = 0; q < C / 2; ++q) {
-          const float4 m = row[q];
-          acc = fmaf(m.x, v[4 * q], acc);
-          acc = fmaf(m.y, v[4 * q + 1], acc);
-          acc = fmaf(m.z, v[4 * q + 2], acc);
-          acc = fmaf(m.w, v[4 * q + 3], acc);
-        }
-        acc = fmaxf(acc, 0.f);
-        if (o < C) data[o * pitch + p].x = acc;
-        else data[(o - C) * pitch + p].y = -acc;
-      }
-    }
-  }
-  __syncthreads();
-  rdft_steps<true>(data, pitch, C, pl, 0, tw);
-
-  for (int idx = threadIdx.x; idx < C * halves; idx += blockDim.x) {
-    const int c = idx / halves, h = (idx - c * halves) * 2;
-    const float2* row = data + c * pitch;
-    const float2 a = row[rdft_pad(h)], b = row[rdft_pad(h + 1)];
-    *reinterpret_cast<float4*>(col + c * cstride + h) =
-        make_float4(a.x * scale, -a.y * scale, b.x * scale, -b.y * scale);
-  }
-}
-
-template <int C>
-cudaError_t launch_column_rows(float2* spec, const float* mix, const float* mix_bias,
-                               const float2* tw, int n, int h, int k, cudaStream_t stream) {
-  const size_t smem = (size_t)C * rdft_row_pitch(h) * sizeof(float2) +
-                      (size_t)(4 * C * C + 2 * C) * sizeof(float);
-  CUDA_TRY(allow_smem(column_mix_rows_kernel<C>, smem));
-  column_mix_rows_kernel<C><<<dim3(k, n), kColThreads, smem, stream>>>(
-      spec, mix, mix_bias, tw, h, k, rdft_plan(h, false), 1.0f / sqrtf((float)h));
-  return cudaGetLastError();
-}
-
-cudaError_t launch_column_rows_any(float2* spec, const float* mix, const float* mix_bias,
-                                   const float2* tw, int n, int c, int h, int w,
-                                   cudaStream_t stream) {
-  const int k = w / 2 + 1;
-  switch (c) {
-    case 8: return launch_column_rows<8>(spec, mix, mix_bias, tw, n, h, k, stream);
-    case 16: return launch_column_rows<16>(spec, mix, mix_bias, tw, n, h, k, stream);
-    default: return launch_column_rows<32>(spec, mix, mix_bias, tw, n, h, k, stream);
-  }
-}
-
-}  // namespace
 
 extern "C" {
 

@@ -160,12 +160,16 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* x_n, int H, 
 // n_tiles output tiles (n, ty, tx) with stride gridDim.x. Warpgroup wg
 // (warps 4wg .. 4wg + 3) computes the m-tiles 2wg and 2wg + 1: m-tile m is
 // output rows 2m and 2m + 1, 64 pixels, warp w of the group rows 16w ..
-// 16w + 15 of it (output row 2m + w / 2, columns 16 (w % 2) ..).
-template <int CI8, int NT>
+// 16w + 15 of it (output row 2m + w / 2, columns 16 (w % 2) ..). GATE:
+// the epilogue out = v > 0 ? gate : 0 (a ReLU's cotangent, K2's residual
+// conv) in place of relu / residual; a template parameter, so that K3's
+// and K1's instances compile without it.
+template <int CI8, int NT, bool GATE = false>
 __global__ void __launch_bounds__(kTcThreads, 1)
 conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
                   const float* __restrict__ bias, const float* __restrict__ skip,
-                  float* __restrict__ out, int c_out, int H, int W, int tiles_x,
+                  const float* __restrict__ gate, float* __restrict__ out, int c_out,
+                  int H, int W, int tiles_x,
                   int tiles_y, int n_tiles, int relu, int residual, int adjoint) {
   constexpr int CIN = 8 * CI8, CO = 8 * NT, K = 9 * CIN;
   extern __shared__ __align__(128) float smem[];
@@ -287,9 +291,13 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
             const size_t o = ((size_t)n * c_out + co) * hw + (size_t)y * W + xg;
             float v = acc[i][4 * nt + 2 * h8 + e] + bv[nt][e];
             if (skip != nullptr) v += skip[o];
-            if (relu) v = fmaxf(v, 0.f);
-            if (residual) v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
-            out[o] = v;
+            if constexpr (GATE) {
+              out[o] = v > 0.f ? gate[o] : 0.f;
+            } else {
+              if (relu) v = fmaxf(v, 0.f);
+              if (residual) v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
+              out[o] = v;
+            }
           }
       }
     }
@@ -297,40 +305,62 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
   }
 }
 
-template <int CI8, int NT>
+template <int CI8, int NT, bool GATE = false>
 cudaError_t launch_tc(const float* x, const float* weight, const float* bias,
                       const float* skip, float* out, int n, int c_out, int h, int w,
-                      int relu, int residual, int adjoint, cudaStream_t stream) {
+                      int relu, int residual, int adjoint, cudaStream_t stream,
+                      const float* gate = nullptr) {
   const size_t smem = tc_smem_bytes(8 * CI8, 8 * NT);
-  CUDA_TRY(allow_smem(conv3x3_tc_kernel<CI8, NT>, smem));
+  CUDA_TRY(allow_smem(conv3x3_tc_kernel<CI8, NT, GATE>, smem));
   int dev, sms, per_sm;
   CUDA_TRY(cudaGetDevice(&dev));
   CUDA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   CUDA_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv3x3_tc_kernel<CI8, NT>, kTcThreads, smem));
+      &per_sm, conv3x3_tc_kernel<CI8, NT, GATE>, kTcThreads, smem));
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_x = (w + kTcTileW - 1) / kTcTileW, tiles_y = (h + kTcTileH - 1) / kTcTileH;
   const long long n_tiles = (long long)n * tiles_x * tiles_y;
   if (n_tiles > (1LL << 30)) return cudaErrorInvalidValue;
   const int groups = c_out / (8 * NT);
   const int blocks = (int)std::min<long long>(n_tiles, std::max(1, sms * per_sm / groups));
-  conv3x3_tc_kernel<CI8, NT><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
-      x, weight, bias, skip, out, c_out, h, w, tiles_x, tiles_y, (int)n_tiles, relu,
+  conv3x3_tc_kernel<CI8, NT, GATE><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
+      x, weight, bias, skip, gate, out, c_out, h, w, tiles_x, tiles_y, (int)n_tiles, relu,
       residual, adjoint);
   return cudaGetLastError();
 }
 
-template <int CI8>
+template <int CI8, bool GATE>
 cudaError_t launch_tc_co(const float* x, const float* weight, const float* bias,
-                         const float* skip, float* out, int n, int c_out, int h, int w,
-                         int relu, int residual, int adjoint, cudaStream_t stream) {
+                         const float* skip, const float* gate, float* out, int n,
+                         int c_out, int h, int w, int relu, int residual, int adjoint,
+                         cudaStream_t stream) {
   switch (tc_co_tile(c_out)) {
-    case 32: return launch_tc<CI8, 4>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
-    case 16: return launch_tc<CI8, 2>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
-    default: return launch_tc<CI8, 1>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                      residual, adjoint, stream);
+    case 32: return launch_tc<CI8, 4, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
+                                            relu, residual, adjoint, stream, gate);
+    case 16: return launch_tc<CI8, 2, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
+                                            relu, residual, adjoint, stream, gate);
+    default: return launch_tc<CI8, 1, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
+                                            relu, residual, adjoint, stream, gate);
+  }
+}
+
+// The tensor-core dispatch by C_in, then by C_out: one for K3's epilogues
+// and for K2's gate, so that the gate conv runs the tile shape K1's
+// residual conv ran and its mask is that ReLU's, bit for bit.
+template <bool GATE>
+cudaError_t launch_tc_any(const float* x, const float* weight, const float* bias,
+                          const float* skip, const float* gate, float* out, int n,
+                          int c_in, int c_out, int h, int w, int relu, int residual,
+                          int adjoint, cudaStream_t stream) {
+  switch (c_in / 8) {
+    case 1: return launch_tc_co<1, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
+                                         relu, residual, adjoint, stream);
+    case 2: return launch_tc_co<2, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
+                                         relu, residual, adjoint, stream);
+    case 3: return launch_tc_co<3, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
+                                         relu, residual, adjoint, stream);
+    default: return launch_tc_co<4, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
+                                          relu, residual, adjoint, stream);
   }
 }
 
@@ -344,16 +374,18 @@ cudaError_t launch_conv3x3(const float* x, const float* weight, const float* bia
   if (!tensor_core_path(c_in, c_out))
     return launch_conv(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w, relu,
                        residual, adjoint, stream);
-  switch (c_in / 8) {
-    case 1: return launch_tc_co<1>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                   residual, adjoint, stream);
-    case 2: return launch_tc_co<2>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                   residual, adjoint, stream);
-    case 3: return launch_tc_co<3>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                   residual, adjoint, stream);
-    default: return launch_tc_co<4>(x, weight, bias, skip, out, n, c_out, h, w, relu,
-                                    residual, adjoint, stream);
-  }
+  return launch_tc_any<false>(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w,
+                              relu, residual, adjoint, stream);
+}
+
+// K2's gate conv, C -> C on the tensor cores: out = (conv(x) + bias > 0) ?
+// gate : 0, through launch_conv3x3's dispatch.
+cudaError_t launch_conv3x3_gate(const float* x, const float* weight, const float* bias,
+                                const float* gate, float* out, int n, int c, int h, int w,
+                                cudaStream_t stream) {
+  if (!tensor_core_path(c, c)) return cudaErrorInvalidValue;
+  return launch_tc_any<true>(x, weight, bias, nullptr, gate, out, n, c, c, h, w, 0, 0, 0,
+                             stream);
 }
 
 }  // namespace

@@ -1,14 +1,13 @@
-// Device code shared by the Res-FFT block kernels K1 (block_fused.cu) and
-// K2 (block_bwd.cu): the direct 3x3 convolution with its fused epilogues
-// (K3, conv3x3.cu, runs it alone for the calls outside its tensor-core
-// path), the radix-2 FFT in shared memory, and the three spectral passes
-// of the block (row rFFT, per-(n, k) column FFT -> 2C x 2C mix -> inverse,
-// row c2r accumulated onto an output); and the mixed-radix helpers and row
-// passes of the spectral-branch kernels K8 (spectral_tiled.cu), K7
-// (spectral_fused.cu) and K5 (spectral_staged.cu). K1 takes only its
-// column pass and its C -> 1 exit conv from here: its C -> C convs run on
-// K3's tensor-core kernel (conv3x3_tc.cuh), its row passes on
-// rdft_rows.cuh. fp32 throughout.
+// Device code shared by the port's CUDA kernels: the direct 3x3
+// convolution with its fused epilogues (K3, conv3x3.cu, runs it for the
+// calls outside its tensor-core path; K1 (block_fused.cu) and K2
+// (block_bwd.cu) run their C -> 1 exit conv, and K2 that conv's adjoint,
+// on it), the radix-2 FFT in shared memory and the mixed-radix helpers
+// and row passes of the spectral-branch kernels K8 (spectral_tiled.cu),
+// K7 (spectral_fused.cu) and K5 (spectral_staged.cu). K1's and K2's C -> C
+// convs run on K3's tensor-core kernel (conv3x3_tc.cuh), their row passes
+// on rdft_rows.cuh and their column passes on block_columns.cuh. fp32
+// throughout.
 
 #pragma once
 
@@ -268,143 +267,6 @@ constexpr int kRowsPerBlock = 16;         // 8 packed complex rows per block
 constexpr int kRowThreads = 256;
 constexpr int kColThreads = 512;
 
-// Row pass: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W}
-// for k <= W/2. Rows 2p and 2p+1 go through one complex FFT z = a + i b:
-// A[k] = (Z[k] + conj Z[W-k]) / 2, B[k] = (Z[k] - conj Z[W-k]) / 2i.
-__global__ void __launch_bounds__(kRowThreads)
-row_rfft_kernel(const float* __restrict__ x, float2* __restrict__ spec,
-                int C, int H, int W, int log_w, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);   // [kRowsPerBlock/2][W]
-  float2* tw = buf + (kRowsPerBlock / 2) * W;          // [W/2]
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
-
-  make_twiddles(tw, W);
-  for (int idx = threadIdx.x; idx < (kRowsPerBlock / 2) * W; idx += blockDim.x) {
-    const int p = idx >> log_w, col = idx & (W - 1);
-    buf[idx] = make_float2(xs[(size_t)(2 * p) * W + col],
-                           xs[(size_t)(2 * p + 1) * W + col]);
-  }
-  __syncthreads();
-  fft_radix2(buf, kRowsPerBlock / 2, W, log_w, tw, false);
-
-  const float s = 0.5f * scale;
-  float2* dst = spec + ((size_t)n * C + c) * K * H;
-  for (int idx = threadIdx.x; idx < K * kRowsPerBlock; idx += blockDim.x) {
-    const int k = idx / kRowsPerBlock, r = idx - k * kRowsPerBlock;
-    const float2* row = buf + (r >> 1) * W;
-    const float2 z = row[k];
-    const float2 zc = row[(W - k) & (W - 1)];
-    const float2 v = (r & 1) ? make_float2(z.y + zc.y, zc.x - z.x)
-                             : make_float2(z.x + zc.x, z.y - zc.y);
-    dst[(size_t)k * H + r0 + r] = make_float2(v.x * s, v.y * s);
-  }
-}
-
-// Column pass, one block per (k, n): H-point FFT of each channel's column,
-// then at every h the 2C x 2C spectral mix + bias + ReLU over the stacked
-// [Re; Im] channels, then the inverse H-point FFT; both FFTs scaled
-// 1/sqrt(H). mix is (2C_out, 2C_in) row-major. Reads `src`, writes `dst`
-// (both (N, C, K, H) complex; they may be the same buffer: every block
-// reads its whole column before it writes).
-template <int C>
-__global__ void __launch_bounds__(kColThreads)
-column_mix_kernel(const float2* src, float2* dst, const float* __restrict__ mix,
-                  const float* __restrict__ mix_bias, int H, int log_h, int K,
-                  float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* data = reinterpret_cast<float2*>(smem_raw);  // [C][H]
-  float2* tw = data + C * H;                            // [H/2]
-  float* msm = reinterpret_cast<float*>(tw + H / 2);    // [2C][2C]
-  float* bsm = msm + 4 * C * C;                         // [2C]
-  const int k = blockIdx.x, n = blockIdx.y;
-  const size_t base = (size_t)n * C * K * H + (size_t)k * H;
-  const size_t cstride = (size_t)K * H;
-
-  for (int idx = threadIdx.x; idx < C * H; idx += blockDim.x)
-    data[idx] = src[base + (size_t)(idx >> log_h) * cstride + (idx & (H - 1))];
-  for (int idx = threadIdx.x; idx < 4 * C * C; idx += blockDim.x) msm[idx] = mix[idx];
-  for (int idx = threadIdx.x; idx < 2 * C; idx += blockDim.x) bsm[idx] = mix_bias[idx];
-  make_twiddles(tw, H);
-  __syncthreads();
-  fft_radix2(data, C, H, log_h, tw, false);
-
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    float v[2 * C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float2 z = data[c * H + i];
-      v[c] = z.x * scale;
-      v[C + c] = z.y * scale;
-    }
-    // every value of column i is in registers: write the outputs in place
-#pragma unroll 2
-    for (int o = 0; o < 2 * C; ++o) {
-      const float4* row = reinterpret_cast<const float4*>(msm + o * 2 * C);
-      float acc = bsm[o];
-#pragma unroll
-      for (int q = 0; q < C / 2; ++q) {
-        const float4 m = row[q];
-        acc = fmaf(m.x, v[4 * q], acc);
-        acc = fmaf(m.y, v[4 * q + 1], acc);
-        acc = fmaf(m.z, v[4 * q + 2], acc);
-        acc = fmaf(m.w, v[4 * q + 3], acc);
-      }
-      acc = fmaxf(acc, 0.f);
-      if (o < C) data[o * H + i].x = acc;
-      else data[(o - C) * H + i].y = acc;
-    }
-  }
-  __syncthreads();
-  fft_radix2(data, C, H, log_h, tw, true);
-
-  for (int idx = threadIdx.x; idx < C * H; idx += blockDim.x) {
-    const float2 z = data[idx];
-    dst[base + (size_t)(idx >> log_h) * cstride + (idx & (H - 1))] =
-        make_float2(z.x * scale, z.y * scale);
-  }
-}
-
-// Inverse row pass: out[n, c, r, w] += c2r_W(spec[n, c, :, r])[w] (ortho).
-// The c2r keeps only the real part of the bins 0 and W/2, like irfft2.
-// Rows 2p, 2p+1 with half spectra A, B go through one complex inverse FFT
-// of Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i conj B[k].
-__global__ void __launch_bounds__(kRowThreads)
-row_irfft_add_kernel(const float2* __restrict__ spec, float* __restrict__ out,
-                     int C, int H, int W, int log_w, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);   // [kRowsPerBlock/2][W]
-  float2* tw = buf + (kRowsPerBlock / 2) * W;
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const float2* src = spec + ((size_t)n * C + c) * K * H;
-
-  make_twiddles(tw, W);
-  constexpr int kPairs = kRowsPerBlock / 2;
-  for (int idx = threadIdx.x; idx < K * kPairs; idx += blockDim.x) {
-    const int k = idx / kPairs, p = idx - k * kPairs;
-    float2 a = src[(size_t)k * H + r0 + 2 * p];
-    float2 b = src[(size_t)k * H + r0 + 2 * p + 1];
-    const bool edge = (k == 0) || (k == W / 2);
-    if (edge) { a.y = 0.f; b.y = 0.f; }
-    float2* row = buf + p * W;
-    row[k] = make_float2(a.x - b.y, a.y + b.x);
-    if (!edge) row[W - k] = make_float2(a.x + b.y, b.x - a.y);
-  }
-  __syncthreads();
-  fft_radix2(buf, kPairs, W, log_w, tw, true);
-
-  float* dst = out + (((size_t)n * C + c) * H + r0) * W;
-  for (int idx = threadIdx.x; idx < kPairs * W; idx += blockDim.x) {
-    const int p = idx >> log_w, col = idx & (W - 1);
-    const float2 z = buf[idx];
-    dst[(size_t)(2 * p) * W + col] += z.x * scale;
-    dst[(size_t)(2 * p + 1) * W + col] += z.y * scale;
-  }
-}
-
 int log2_exact(int v) {
   int l = 0;
   while ((1 << l) < v) ++l;
@@ -431,62 +293,6 @@ cudaError_t launch_conv(const float* in, const float* weight, const float* bias,
   } else {
     return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_column(const float2* src, float2* dst, const float* mix,
-                          const float* mix_bias, int n, int H, int log_h, int K,
-                          float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)C * H * sizeof(float2) + (size_t)(H / 2) * sizeof(float2) +
-                      (size_t)(4 * C * C + 2 * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      column_mix_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  column_mix_kernel<C><<<dim3(K, n), kColThreads, smem, stream>>>(
-      src, dst, mix, mix_bias, H, log_h, K, scale);
-  return cudaGetLastError();
-}
-
-// The column pass for the channel counts the kernels are instantiated for.
-cudaError_t launch_column_any(const float2* src, float2* dst, const float* mix,
-                              const float* mix_bias, int n, int c, int h, int w,
-                              cudaStream_t stream) {
-  const int log_h = log2_exact(h), K = w / 2 + 1;
-  const float scale = 1.0f / sqrtf((float)h);
-  switch (c) {
-    case 8: return launch_column<8>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
-    case 16: return launch_column<16>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
-    case 32: return launch_column<32>(src, dst, mix, mix_bias, n, h, log_h, K, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-size_t row_smem_bytes(int w) {
-  return (size_t)((kRowsPerBlock / 2) * w + w / 2) * sizeof(float2);
-}
-
-// Row rFFT of x (n, c, h, w) into spec (n, c, w/2+1, h) complex, ortho.
-cudaError_t launch_row_rfft(const float* x, float2* spec, int n, int c, int h, int w,
-                            cudaStream_t stream) {
-  const size_t smem = row_smem_bytes(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      row_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  row_rfft_kernel<<<dim3(h / kRowsPerBlock, c, n), kRowThreads, smem, stream>>>(
-      x, spec, c, h, w, log2_exact(w), 1.0f / sqrtf((float)w));
-  return cudaGetLastError();
-}
-
-// out (n, c, h, w) += row c2r of spec (n, c, w/2+1, h) complex, ortho.
-cudaError_t launch_row_irfft_add(const float2* spec, float* out, int n, int c, int h,
-                                 int w, cudaStream_t stream) {
-  const size_t smem = row_smem_bytes(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      row_irfft_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  row_irfft_add_kernel<<<dim3(h / kRowsPerBlock, c, n), kRowThreads, smem, stream>>>(
-      spec, out, c, h, w, log2_exact(w), 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }
 

@@ -96,9 +96,9 @@ def block_bwd_library() -> ctypes.CDLL:
         _P, _P, _I, _I, _I, _I,      # x, g, n, c, h, w
         _P, _P, _P,                  # pre_w, pre_b, skip
         _P, _P, _P, _P,              # km, kb, mix, mb
-        _P, _P, _P, _P,              # post_w, post_b, img, gfin
-        _P, _P, _P, _P, _P, _P,      # hbuf, rbuf, obuf, gbuf, spec_a, spec_b
-        _P, _P, _P, _P, _I, _I,      # w_part, b_part, mix_part, mb_part, row/k blocks
+        _P, _P, _P, _P, _P,          # post_w, post_b, img, gfin, twiddles
+        _P, _P, _P, _P, _P,          # hbuf, rbuf, obuf, gbuf, abuf
+        _P, _P, _P, _P, _I, _I,      # spec_a, spec_b, w_part, mix_part, wgrad/column blocks
         _P, _P, _P, _P, _P,          # xbar, dkm, dkb, dmix, dmb
         _P, _P, _P,                  # skipbar, dpre_w, dpre_b
         _P, _P, _P, _P,              # imgbar, dpost_w, dpost_b, stream

@@ -93,14 +93,17 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
                 mix: Tensor, mb: Tensor, pre: Optional[ConvParams] = None,
                 skip: Optional[Tensor] = None,
                 post: Optional[ConvParams] = None,
-                img: Optional[Tensor] = None):
+                img: Optional[Tensor] = None,
+                scratch: Optional[Dict[str, Tensor]] = None):
     """K1: same arguments and result as :func:`block_fused_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one C entry call per block, counted in ``block_fused.launches``) or
     raises: on an unsupported shape or layout, or on a CUDA error. The
     kernel's FFTs, along W and along H (H == W), read K4's twiddle table
-    (:func:`rdft_twiddles`, cached per device and W)."""
+    (:func:`rdft_twiddles`, cached per device and W). A dict passed as
+    ``scratch`` receives the pre conv's output ``hin`` (with ``pre``), on
+    the card only."""
     if x.device.type == "cpu":
         return block_fused_reference(x, h, w, km, kb, mix, mb, pre=pre,
                                      skip=skip, post=post, img=img)
@@ -150,6 +153,8 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         msg = lib.block_fused_error_string(err).decode()
         raise RuntimeError(f"block_fused: CUDA error {err} ({msg})")
     block_fused.launches += 1
+    if scratch is not None and hbuf is not None:
+        scratch["hin"] = hbuf
     return out if post is None else (out, final)
 
 

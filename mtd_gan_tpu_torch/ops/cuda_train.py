@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import _build
 from mtd_gan_tpu_torch.ops.cuda_pipeline import (ConvParams, KERNEL_CHANNELS, _check,
-                                                 block_fused, block_fused_reference)
+                                                 _device_twiddles, block_fused,
+                                                 block_fused_reference)
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
 Tensor = torch.Tensor
@@ -30,6 +31,9 @@ Grads = Dict[str, Tensor]
 KERNEL_SIZES = (64,)
 # launch geometry: aim for about two blocks per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 264
+# image rows per unit of work of the weight-gradient GEMM (kWgRows in
+# csrc/block_bwd.cu)
+_WGRAD_ROWS = 4
 
 
 def _zeros_if_none(g: Optional[Tensor], like: Tensor) -> Tensor:
@@ -78,26 +82,28 @@ def block_bwd_reference(x: Tensor, g: Optional[Tensor], h: int, w: int,
 
 
 def _launch_geometry(n: int, h: int, k: int) -> Tuple[int, int]:
-    """(row bands per sample of the weight-gradient launches, k groups per
-    sample of the spectral column launch): enough blocks to fill the card
-    at small batches, few partials at large ones."""
-    row_blocks = 1
-    while row_blocks < h and n * row_blocks < _TARGET_BLOCKS:
-        row_blocks *= 2
-    k_blocks = min(k, max(1, -(-_TARGET_BLOCKS // n)))
-    return row_blocks, k_blocks
+    """(blocks of the weight-gradient launches, blocks of the spectral
+    column launch): both persistent, a block per unit of work (a band of
+    rows; an (n, k) bin) up to about two blocks per SM, one wave; each
+    block writes one partial, so few partials at large batches."""
+    return (min(n * (h // _WGRAD_ROWS), _TARGET_BLOCKS),
+            min(n * k, _TARGET_BLOCKS))
 
 
 def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
               kb: Tensor, mix: Tensor, mb: Tensor,
               pre: Optional[ConvParams] = None, skip: Optional[Tensor] = None,
               post: Optional[ConvParams] = None, img: Optional[Tensor] = None,
-              gfin: Optional[Tensor] = None) -> Grads:
+              gfin: Optional[Tensor] = None,
+              scratch: Optional[Dict[str, Tensor]] = None) -> Grads:
     """K2: same arguments and result as :func:`block_bwd_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one C entry call per block backward, counted in ``block_bwd.launches``)
-    or raises: on an unsupported shape or layout, or on a CUDA error."""
+    or raises: on an unsupported shape or layout, or on a CUDA error. The
+    kernel recomputes the forward it differentiates with K1's launches; a
+    dict passed as ``scratch`` receives what it recomputed, ``hin`` (with
+    ``pre``) and ``out`` (with ``post``), on the card only."""
     if x.device.type == "cpu":
         return block_bwd_reference(x, g, h, w, km, kb, mix, mb, pre=pre,
                                    skip=skip, post=post, img=img, gfin=gfin)
@@ -131,19 +137,19 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
         _check(t, shape, dev, name)
 
     lib = _build.block_bwd_library()
+    tw = _device_twiddles(w, dev)
     k = w // 2 + 1
-    row_blocks, k_blocks = _launch_geometry(n, h, k)
+    wgrad_blocks, col_blocks = _launch_geometry(n, h, k)
     empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
     act = lambda: empty(n, c, hw)
-    hbuf = act() if pre is not None else None
+    hbuf = act() if pre is not None else None  # hin
     rbuf = act()
-    obuf = act() if (pre is not None or post is not None) else None
+    obuf = act() if post is not None else None  # out
     gbuf = act() if post is not None else None
+    abuf = act() if pre is not None else None  # hbar
     spec_a, spec_b = empty(n, c, k, h, 2), empty(n, c, k, h, 2)
-    w_part = empty(n * row_blocks, c, 9 * c)
-    b_part = empty(n * row_blocks, c)
-    mix_part = empty(n * k_blocks, 2 * c, 2 * c)
-    mb_part = empty(n * k_blocks, 2 * c)
+    w_part = empty(wgrad_blocks, c * 9 * c + c)
+    mix_part = empty(col_blocks, 4 * c * c + 2 * c)
     out = {"xbar": act(), "km": empty(c, c, 3, 3), "kb": empty(c),
            "mix": empty(2 * c, 2 * c), "mb": empty(2 * c)}
     if pre is not None:
@@ -159,15 +165,18 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
         err = lib.block_bwd(
             ptr(x), ptr(g), n, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
             ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-            ptr(img), ptr(gfin), ptr(hbuf), ptr(rbuf), ptr(obuf), ptr(gbuf),
-            ptr(spec_a), ptr(spec_b), ptr(w_part), ptr(b_part), ptr(mix_part),
-            ptr(mb_part), row_blocks, k_blocks, o("xbar"), o("km"), o("kb"),
+            ptr(img), ptr(gfin), ptr(tw), ptr(hbuf), ptr(rbuf), ptr(obuf),
+            ptr(gbuf), ptr(abuf), ptr(spec_a), ptr(spec_b), ptr(w_part),
+            ptr(mix_part), wgrad_blocks, col_blocks, o("xbar"), o("km"), o("kb"),
             o("mix"), o("mb"), o("skip"), o("pre_w"), o("pre_b"), o("img"),
             o("post_w"), o("post_b"), stream)
     if err != 0:
         msg = lib.block_bwd_error_string(err).decode()
         raise RuntimeError(f"block_bwd: CUDA error {err} ({msg})")
     block_bwd.launches += 1
+    if scratch is not None:
+        scratch.update({name: t for name, t in (("hin", hbuf), ("out", obuf))
+                        if t is not None})
     return out
 
 

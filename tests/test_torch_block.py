@@ -207,8 +207,8 @@ def _fft_radix2(data, inverse):
 
 
 def _kernel_spectral(x, mix, mb):
-    """The spectral branch as the radix-2 passes of resfft_common.cuh (K2's
-    recompute of K1's forward) compute it on one sample (C, H, W): two
+    """The spectral branch on resfft_common.cuh's radix-2 FFT (fft_radix2,
+    which K8, K7 and K5 run) on one sample (C, H, W): two
     real rows per complex row FFT, the per-bin
     column FFT -> mix -> inverse, and the Hermitian c2r that keeps only the
     real part of the W bins 0 and W/2, two rows per complex inverse FFT."""
@@ -237,7 +237,7 @@ def _kernel_spectral(x, mix, mb):
 
 
 def test_kernel_spectral_algorithm_matches_irfft2():
-    """K2's FFT algorithm (emulated in float64) equals the plain
+    """The radix-2 FFT algorithm (emulated in float64) equals the plain
     spectral branch to float64 round-off: the row packing/unpacking, the
     scaling and the irfft2 treatment of non-Hermitian input are right."""
     rng = np.random.default_rng(5)

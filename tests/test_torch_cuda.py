@@ -31,8 +31,8 @@ from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
 torch.set_num_threads(1)
 
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
-# fp32 on both sides, TF32 off; the kernel's radix-2 FFTs and direct convs
-# sum in another order than cuFFT and cuDNN (measured ~1e-7 relative)
+# fp32 on both sides, TF32 off; the kernels' FFTs and 3xTF32 convs sum in
+# another order than cuFFT and cuDNN (measured ~1e-7 - 3e-6 relative)
 TOL_REL = 1e-4
 
 pytestmark = pytest.mark.cuda
@@ -178,18 +178,20 @@ def _bwd_inputs(dev, variant, c, n, seed, margin=False):
 # With 1/sqrt(fan_in) weights a pre-activation within fp32 rounding of zero
 # can take the other side of its ReLU in one of the two versions: a flip in
 # the spectral mask moves one row of dmix and all of xbar by ~1e-3 relative
-# (up to 1.4e-3 in the 2-norm on an H100 at batch 8), so those inputs are
+# (up to 4.3e-3 in the 2-norm on an H100 at batch 8), so those inputs are
 # held to TOL_BWD_L2 in the relative 2-norm (without a flip the error is
 # ~1e-6).
 TOL_BWD_L2 = 1e-2
 
 
 @pytest.mark.parametrize("margin", [True, False])
-@pytest.mark.parametrize("c,n", [(8, 2), (32, 2), (32, 8)])
+@pytest.mark.parametrize("c,n", [(8, 2), (32, 2), (32, 8), (32, 20)])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_k2_matches_plain_version(dev, variant, c, n, margin):
     """Every output of K2 against block_bwd_reference, and the kernel
-    repeats bit for bit (no float atomics)."""
+    repeats bit for bit (no float atomics). At batch 20 the persistent
+    weight-gradient and column launches give some blocks more than one
+    band or bin (320 bands, 660 bins over 264 blocks)."""
     args = _bwd_inputs(dev, variant, c, n, seed=VARIANTS.index(variant), margin=margin)
     before = block_bwd.launches
     got = block_bwd(**args)
@@ -216,6 +218,47 @@ def test_k2_rejects_unsupported_shapes(dev):
                      "h": 32, "w": 32})
     with pytest.raises(ValueError, match="contiguous float32"):
         block_bwd(**{**args, "g": args["g"].double()})
+
+
+@pytest.mark.parametrize("c", [8, 32])
+@pytest.mark.parametrize("variant", VARIANTS[1:])
+def test_k2_recomputes_k1_forward_bit_for_bit(dev, variant, c):
+    """K2 recomputes the forward it differentiates with K1's own launches:
+    its hin equals K1's pre conv output bit for bit (every variant with
+    pre), and on the last block its out equals K1's out, so the ReLU masks
+    K2 applies are the ones K1's forward took."""
+    args = _bwd_inputs(dev, variant, c, 2, seed=VARIANTS.index(variant))
+    fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
+    k1, k2 = {}, {}
+    got = _as_tuple(block_fused(**fwd, scratch=k1))
+    block_bwd(**args, scratch=k2)
+    torch.cuda.synchronize()
+    assert torch.equal(k2["hin"], k1["hin"])
+    if "post" in variant:
+        assert torch.equal(k2["out"], got[0])
+
+
+def test_k2_library_holds_tensor_core_instructions(dev):
+    """K2's convs and weight gradients run on the tensor cores: its built
+    library has HGMMA (K3's conv) and HMMA (the weight-gradient mma.sync)
+    instructions (cuobjdump -sass, where the toolkit has it)."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mtd_gan_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else "")
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build("block_bwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert len(re.findall(r"\bHGMMA\b", sass)) > 0
+    assert len(re.findall(r"\bHMMA\b", sass)) > 0
 
 
 def test_train_step_gradient_matches_plain_generator(dev):

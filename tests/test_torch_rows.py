@@ -1,13 +1,16 @@
 """The FFT passes on the radix steps of mtd_gan_tpu_torch/csrc/rdft_rows.cuh,
 modelled in float64 numpy on the CPU: K4's row rDFT (rdft_w_kernel), its
-inverse (irdft_w_kernel), which K6 and K1 run, and K1's column pass
-(block_fused.cu column_mix_rows_kernel). Each model follows the kernel's
+inverse (irdft_w_kernel), which K6, K1 and K2 run, K1's column pass
+(block_columns.cuh column_mix_rows_kernel) and K2's backward column pass
+(block_bwd.cu column_bwd_kernel). Each model follows the kernel's
 schedule step by step (the radix plan, the radix-2 step fused with the
 load, the in-place decimation-in-frequency steps and their twiddle
 indices into the host table, the digit-reversed read-out, the odd step;
 for the inverse the Hermitian fold and the conjugation that lets it reuse
 the forward steps; for the column pass the mix in digit-reversed order
-and the decimation-in-time steps back), so an indexing slip shows here at
+and the decimation-in-time steps back; for K2's pass the weighted load,
+the mask, dmix and the transposed mix in digit-reversed order and the
+scales folded into the sums and the store), so an indexing slip shows here at
 1e-12 against ``np.fft``. The kernels themselves run only on the card
 (tests/test_torch_cuda.py); this file imports no JAX."""
 
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from mtd_gan_tpu_torch.ops.cuda_pipeline import rdft_twiddles
+from mtd_gan_tpu_torch.ops.fft_conv import spectral_branch
 
 # the tests share the machine with other test workers: one intra-op
 # thread each keeps PyTorch from oversubscribing the cores
@@ -252,3 +256,69 @@ def test_k1_column_schedule_matches_fft(h):
     o = np.maximum(mix @ np.concatenate([zf.real, zf.imag]) + mb[:, None], 0)
     want = np.fft.ifft(o[:c] + 1j * o[c:], axis=1, norm="ortho")
     assert np.abs(_column_model(z, mix, mb, tw) - want).max() <= TOL
+
+
+def _k2_column_model(a, b, edge, mix, mb, tw):
+    """K2's backward column pass (column_bwd_kernel) on one bin: a (C, H)
+    the row spectrum of hin, b (C, H) that of g. b is weighted c_k (2
+    inside, 1 at the bins 0 and W/2 with its imaginary part zeroed), both
+    go through the DIF steps and stay in digit-reversed order, unscaled;
+    the mask is that of K1's mix at each position; dmix and dmb are summed
+    there with the scales folded in; the transposed mix is written
+    conjugated, the DIT steps bring it back to natural order, and the store
+    conjugates and scales by scale^2 / c_k. Returns (the new b, dmix, dmb)."""
+    c, h = a.shape
+    _, _, _, steps = _plan(h, direct=False)
+    wk = 1.0 if edge else 2.0
+    buf = np.concatenate([a, (b.real + 1j * (0.0 if edge else 1.0) * b.imag) * wk])
+    for lr, lm in steps:
+        _dft_step(buf, h, h, 1, lr, lm, tw)
+    scale = 1 / np.sqrt(h)
+    s_in = np.concatenate([buf[:c].real, buf[:c].imag])           # / scale
+    s_pre = mix @ (s_in * scale) + mb[:, None]
+    sbar = np.concatenate([buf[c:].real, buf[c:].imag]) * (s_pre > 0)  # / scale
+    dmix = sbar @ s_in.T * scale ** 2
+    dmb = sbar.sum(1) * scale
+    t = mix.T @ sbar
+    back = t[:c] - 1j * t[c:]
+    for lr, lm in reversed(steps):
+        _dit_step(back, h, lr, lm, tw)
+    return np.conj(back) * scale ** 2 / wk, dmix, dmb
+
+
+def _k2_spectral_model(hin, g, mix, mb, tw):
+    """K2's spectral path on one sample (C, H, W), H == W: K4's rows of hin
+    and of g, the backward column pass bin by bin, K6's rows of the result
+    (the adjoint of the forward rFFT). Returns (hbar's spectral part,
+    dmix, dmb)."""
+    c, h, w = hin.shape
+    k = w // 2 + 1
+    rows = lambda x: np.stack(_k4_model(x.reshape(-1, w), tw), 1)  # (C H / 2, 2, K)
+    spec = lambda x: rows(x).reshape(c, h, k).transpose(0, 2, 1)   # (C, K, H)
+    sa, sg = spec(hin), spec(g)
+    back = np.empty_like(sg)
+    dmix, dmb = 0.0, 0.0
+    for kk in range(k):
+        back[:, kk], dm, db = _k2_column_model(sa[:, kk], sg[:, kk], kk in (0, k - 1),
+                                               mix, mb, tw)
+        dmix, dmb = dmix + dm, dmb + db
+    pairs = back.transpose(0, 2, 1).reshape(c * h // 2, 2, k)
+    return _k6_model(pairs[:, 0], pairs[:, 1], tw).reshape(c, h, w), dmix, dmb
+
+
+@pytest.mark.parametrize("c", [4, 8])
+@pytest.mark.parametrize("h", [16, 64])
+def test_k2_column_schedule_matches_autograd(h, c):
+    """K2's spectral adjoint on K4's, K6's and its own column schedule, in
+    float64, equals autograd through the plain spectral branch (the
+    gradients of hin, mix and the mix bias for the cotangent g) to 1e-12."""
+    rng = np.random.default_rng(h + c)
+    hin, g = rng.standard_normal((2, c, h, h))
+    mix = rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)
+    mb = rng.standard_normal(2 * c) * 0.1
+    tw = np.exp(-2j * np.pi * np.arange(h) / h)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (hin[None], mix, mb)]
+    want = torch.autograd.grad(spectral_branch(*leaves), leaves, torch.tensor(g[None]))
+    got = _k2_spectral_model(hin, g, mix, mb, tw)
+    for a, b in zip(got, (want[0][0], want[1], want[2])):
+        assert np.abs(a - b.numpy()).max() <= TOL

@@ -1,8 +1,10 @@
-"""What the CPU can hold of the Hopper redesigns of K3 and K4
-(mtd_gan_tpu_torch/csrc/conv3x3.cu, csrc/spectral_staged.cu): K4's host
-twiddle table, and the arithmetic of K3's tensor-core path, 3xTF32 through
-a conv in the ``conv_kmat`` column order, emulated here in float32 against
-float64 convolutions. The kernels themselves run only on the card
+"""What the CPU can hold of the Hopper redesigns of K3, K4 and K2
+(mtd_gan_tpu_torch/csrc/conv3x3.cu, csrc/spectral_staged.cu,
+csrc/block_bwd.cu): K4's host twiddle table, the arithmetic of K3's
+tensor-core path, 3xTF32 through a conv in the ``conv_kmat`` column order,
+and of K2's weight-gradient GEMM (wgrad_tc_kernel), 3xTF32 through g times
+the im2col of the input, each emulated here in float32 against float64
+convolutions. The kernels themselves run only on the card
 (tests/test_torch_cuda.py); this file imports no JAX."""
 
 import numpy as np
@@ -77,4 +79,48 @@ def test_3xtf32_conv_in_kmat_order_matches_float64(transpose):
     errs = {p: (_kmat_conv(x, weight, transpose, p).double() - want).abs().max().item()
             / scale for p in (3, 1)}
     print(f"{conv.__name__}: 3xTF32 {errs[3]:.2e}, 1xTF32 {errs[1]:.2e} relative")
+    assert errs[3] <= TOL_3XTF32
+
+
+def _wgrad_3xtf32(g: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tensor:
+    """The weight gradient as wgrad_tc_kernel forms it, in float32: A = g
+    (C_out x pixels), B = im2col(x) (pixels x 9 C_in, column tap * C_in +
+    c_in), both split into TF32 big and small parts; ``passes`` 3 sums
+    small*big + big*small + big*big, 1 only big*big. Returns (C_out, C_in,
+    3, 3)."""
+    n, c_out, h, w = g.shape
+    a = g.permute(1, 0, 2, 3).reshape(c_out, n * h * w)
+    b = _im2col(x)
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    out = ab @ bb
+    if passes == 3:
+        out = (_tf32_rna(a - ab) @ bb + ab @ _tf32_rna(b - bb)) + out
+    return out.reshape(c_out, 9, -1).permute(0, 2, 1).reshape(c_out, -1, 3, 3)
+
+
+@pytest.mark.parametrize("shape", ["pre", "residual", "post"])
+def test_3xtf32_weight_gradient_matches_float64(shape):
+    """K2's weight-gradient GEMM in 3xTF32 (float32 emulation) against the
+    float64 conv2d weight gradient, at the shapes K2 gives it (batch 2,
+    24 x 24): the pre conv (C -> C, the block input x in [0, 1) and its
+    cotangent), the residual conv (C -> C, the ReLU'd hin and the gated
+    cotangent, half of it zero) and the exit conv (C -> 1). Relative error
+    max |err| / max |want| within TOL_3XTF32; one TF32 product printed
+    beside it, not asserted."""
+    rng = np.random.default_rng(11)
+    c = 32
+    c_out = 1 if shape == "post" else c
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    x = t(rng.random((2, c, 24, 24)))
+    g = t(rng.standard_normal((2, c_out, 24, 24)))
+    if shape == "residual":
+        x = torch.relu(x - 0.5)
+        g = g * t(rng.random(g.shape) > 0.5)
+    weight = torch.zeros((c_out, c, 3, 3), dtype=torch.float64, requires_grad=True)
+    out = F.conv2d(x.double(), weight, padding=1)
+    (want,) = torch.autograd.grad(out, weight, g.double())
+    scale = want.abs().max().item()
+    errs = {p: (_wgrad_3xtf32(g, x, p).double() - want).abs().max().item() / scale
+            for p in (3, 1)}
+    print(f"weight gradient {shape}: 3xTF32 {errs[3]:.2e}, 1xTF32 {errs[1]:.2e} relative")
     assert errs[3] <= TOL_3XTF32

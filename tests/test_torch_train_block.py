@@ -4,8 +4,9 @@ plain version (``block_bwd_reference``) through ``BlockTrain`` against
 ``resfft_generator_train`` against ``jax.grad`` of ``Generator.apply`` and
 against the JAX K2 path (``pallas_train.resfft_generator_train``, interpret
 mode), whose five blocks at L = 2 run all four variants; and a float64
-emulation of the kernel's spectral adjoint
-(csrc/block_bwd.cu::column_bwd_kernel) against autograd.
+emulation of the kernel's spectral adjoint with numpy's FFTs
+(csrc/block_bwd.cu::column_bwd_kernel; its radix schedule is modelled in
+tests/test_torch_rows.py) against autograd.
 
 Every comparison is a worst-leaf relative error: max|port - jax| /
 max|jax| over each gradient leaf, in the flax layouts."""
@@ -146,12 +147,12 @@ def test_block_bwd_on_cpu_takes_plain_version():
 
 
 def test_launch_geometry_fills_the_card():
-    """Weight-gradient bands and spectral k groups per sample: about two
-    blocks per SM at small batches, one band per sample at large ones."""
-    assert cuda_train._launch_geometry(2, 64, 33) == (64, 33)
-    assert cuda_train._launch_geometry(160, 64, 33) == (2, 2)
-    rb, kb = cuda_train._launch_geometry(8, 64, 33)
-    assert 8 * rb >= 256 and kb == 33
+    """Weight-gradient and spectral column blocks: a block per unit of
+    work (a 4-row band, an (n, k) bin) at small batches, about two blocks
+    per SM (one wave, one partial each) at large ones."""
+    assert cuda_train._launch_geometry(2, 64, 33) == (32, 66)
+    assert cuda_train._launch_geometry(160, 64, 33) == (264, 264)
+    assert cuda_train._launch_geometry(8, 64, 33) == (8 * 64 // 4, 264)
 
 
 def _k2_spectral_adjoint(hin, g, mix, mb):
