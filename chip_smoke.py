@@ -19,10 +19,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      512x512 DICOM pairs with seeded weights saved as a reference-layout
      .pth — the serving path, whose K1 launches are counted;
   6. hold K8 (``spectral_branch_tiled``) against its plain version
-     (``spectral_branch_tiled_reference``) at C = 32, batch 2, 192x192 to
-     768x768 and 512x320, with and without the residual, with the
-     reference init and with 1/sqrt(fan_in) weights; H = 100 and C = 24
-     must raise;
+     (``spectral_branch_tiled_reference``) and against a second call of
+     itself (bit for bit) at C = 32 and C = 8, batch 2, 192x192 to 768x768
+     and 512x320, with and without the residual, with the reference init
+     and with 1/sqrt(fan_in) weights; H = 100 and C = 24 must raise;
   7. ``generate`` at 448x448, batch 8, full width, against the plain
      module: 21 K8, 42 K3 (41 on the tensor cores, the C -> 1 exit deconv
      on the direct path) and 0 K1 launches per call; one 512x320 call at
@@ -53,9 +53,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
   13. hold K4 (``rdft_w``), K5 (``spectral_mix_h``) and K6 (``irdft_w_add``,
      and K6 in place, its output the residual, as K1 calls it) each
      against its plain version (``torch.fft``), each fed the plain input,
-     at 1024x1024, 800x800, 200x200, 130x64, 448x449, 2x2 and the odd
-     heights 101x1024 and 33x200, at C = 32 and C = 8, batch 2, with both
-     inits; C = 24, a side of 1025 and a gradient request must raise;
+     and K5 against a second call of itself (bit for bit), at 1024x1024,
+     800x800, 200x200, 130x64, 448x449, 2x2, 1000x64 and the odd heights
+     101x1024, 33x200 and 449x130, at C = 32 and C = 8, batch 2, with both
+     inits, printing the branch of K5's odd step and its cluster size at
+     each;
+     C = 24, a side of 1025 and a gradient request must raise;
   14. ``generate`` at 1024x1024, batch 2, and 200x200, batch 8, full width,
      against the plain module: 42 K3 (41 on the tensor cores), 21 each of
      K4, K5 and K6 and 0 K1 / K7 / K8 launches per call;
@@ -95,14 +98,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bound and the bound with their convs on the tensor cores in 3xTF32)
      and, for K3, K4 and K6, one library call of the same function (K4:
      ``torch.fft.rfft``, and beside it the same with K4's transposed
-     layout; K6: ``torch.fft.irfft`` + the residual, and K6 in place; K6
-     beside K8's pass C, its former kernel, at 1024x1024, 200x200 and
-     448x449); K1
-     split by its launches (pre conv, residual conv, rows, column pass,
-     inverse rows) under torch.profiler; K2 at 64x64, batch 160, pre+skip,
-     split by its 14 launches the same way, its convs and weight gradients
-     beside cuDNN's (``F.conv2d``, ``aten.convolution_backward``) on the
-     same tensors; K3 at 448x448 and 96x96 too;
+     layout; K6: ``torch.fft.irfft`` + the residual, and K6 in place); K5
+     at 800x800, batch 2, and 200x200, batch 8, too; K1 split by its
+     launches (pre conv, residual conv, rows, column pass, inverse rows)
+     under torch.profiler; K8 split the same way (K4's rows, the column
+     pass, K6's inverse rows); K2 at 64x64, batch 160, pre+skip, split by
+     its 14 launches the same way, its convs and weight gradients beside
+     cuDNN's (``F.conv2d``, ``aten.convolution_backward``) on the same
+     tensors; K3 at 448x448 and 96x96 too;
      generate and sweep slices/s at 512x512, 448x448, 96x96, 1024x1024 and
      200x200; generate at 512x512 on the K1 route and on the staged
      generator, in turns (a measurement only: the route stays K1); generate
@@ -203,9 +206,13 @@ FUSED_SHAPES = tuple((32, hw) for hw in ((32, 32), (64, 64), (96, 96), (100, 72)
 # prime; 200 and 800 have the odd factor 25), each at C = 32 and C = 8
 K3_SHAPES = ((448, 448), (96, 96), (200, 200), (1024, 1024), (449, 130), (448, 449))
 # odd H with a tail block of fewer than 16 rows: 101 (W = 1024 reads its
-# rows in K4's first radix step), 33 (W = 200 is staged first)
+# rows in K4's first radix step), 33 (W = 200 is staged first). K5's odd
+# step by H: none at 1024 and 2; in registers at 448 (dense, Q = 7), 200
+# and 800 (Q = 25 as 5 x 5; 800 and 1024 on a 2-CTA cluster at C = 32);
+# in two buffers at 130 (Q = 65), 101, 33, 449 (a 2-CTA cluster at C = 32)
+# and 1000 (Q = 125, a 4-CTA cluster at C = 32)
 STAGED_SHAPES = ((1024, 1024), (800, 800), (200, 200), (130, 64), (448, 449), (2, 2),
-                 (101, 1024), (33, 200))
+                 (101, 1024), (33, 200), (449, 130), (1000, 64))
 # the launch counts the main paths are held to, by kernel
 COUNTED = {"K1": block_fused, "K2": block_bwd, "K8": spectral_branch_tiled,
            "K7": spectral_branch_fused, "K3": conv3x3, "K4": rdft_w,
@@ -448,24 +455,29 @@ def tiled_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
 def check_k8():
     """Phase 6; returns the largest absolute error seen."""
     worst_abs = 0.0
-    for si, (h, w) in enumerate(TILED_SHAPES):
-        for init in ("reference", "fan_in"):
-            args = tiled_inputs(2, h, w, init, seed=si)
-            for with_res in (False, True):
-                call = dict(args) if with_res else {**args, "residual": None}
-                got = spectral_branch_tiled(**call)
-                want = spectral_branch_tiled_reference(**call)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    fail(f"K8 {h}x{w} {init} residual={with_res}: non-finite output")
-                err = (got - want).abs().max().item()
-                rel = err / max(want.abs().max().item(), 1e-30)
-                worst_abs = max(worst_abs, err)
-                print(f"K8 check {h}x{w} C={C} n=2 {init:9s} residual={with_res!s:5s}: "
-                      f"max_abs {err:.3e} rel {rel:.3e}", flush=True)
-                if rel > TOL_SPECTRAL_REL:
-                    fail(f"K8 {h}x{w} {init} residual={with_res}: relative error "
-                         f"{rel:.3e} > {TOL_SPECTRAL_REL}")
+    for c in (C, 8):
+        for si, (h, w) in enumerate(TILED_SHAPES):
+            for init in ("reference", "fan_in"):
+                args = tiled_inputs(2, h, w, init, seed=si, c=c)
+                for with_res in (False, True):
+                    call = dict(args) if with_res else {**args, "residual": None}
+                    got = spectral_branch_tiled(**call)
+                    again = spectral_branch_tiled(**call)
+                    want = spectral_branch_tiled_reference(**call)
+                    torch.cuda.synchronize()
+                    label = f"K8 {h}x{w} C={c} {init} residual={with_res}"
+                    if not torch.isfinite(got).all():
+                        fail(f"{label}: non-finite output")
+                    if not torch.equal(got, again):
+                        fail(f"{label}: two calls differ")
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    worst_abs = max(worst_abs, err)
+                    print(f"K8 check {h}x{w} C={c} n=2 {init:9s} residual={with_res!s:5s}: "
+                          f"max_abs {err:.3e} rel {rel:.3e}, two calls bit for bit",
+                          flush=True)
+                    if rel > TOL_SPECTRAL_REL:
+                        fail(f"{label}: relative error {rel:.3e} > {TOL_SPECTRAL_REL}")
     for label, call in (
             ("H = 100", {**tiled_inputs(1, 64, 64, "fan_in", 0),
                          "x": torch.zeros((1, C, 100, 100), device="cuda"),
@@ -606,10 +618,14 @@ def k6_in_place(lib, z, inout):
     return inout
 
 
+# the branch of K5's odd step by the library's code (staged_mix_odd_branch)
+K5_BRANCHES = ("none", "in registers", "in two buffers")
+
+
 def check_staged(lib):
     """Phase 13: K4, K5 and K6 each against its plain version, each fed the
-    plain version's input of the stage before; returns the largest
-    absolute error of each."""
+    plain version's input of the stage before, K5 also against a second
+    call of itself; returns the largest absolute error of each."""
     worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
     for c in (C, 8):
         for si, (h, w) in enumerate(STAGED_SHAPES):
@@ -620,13 +636,16 @@ def check_staged(lib):
                 tr = spectral_mix_h_reference(zr, a["mix"], a["bias"])
                 k6_want = irdft_w_add_reference(tr, a["residual"])
                 inout = a["residual"].clone()
+                k5 = spectral_mix_h(zr.clone(), a["mix"], a["bias"])
                 outs = {"K4": (rdft_w(a["x"]), zr),
-                        "K5": (spectral_mix_h(zr.clone(), a["mix"], a["bias"]), tr),
+                        "K5": (k5, tr),
                         "K6": (irdft_w_add(tr, a["residual"]), k6_want),
                         "K6 in place": (k6_in_place(lib, tr, inout), k6_want)}
                 torch.cuda.synchronize()
                 if [COUNTED[k].launches - b for k, b in zip(worst, before)] != [1, 1, 1]:
                     fail(f"K4-K6 {h}x{w}: not one launch each")
+                if not torch.equal(k5, spectral_mix_h(zr.clone(), a["mix"], a["bias"])):
+                    fail(f"K5 {h}x{w} C={c} {init}: two calls differ")
                 parts = []
                 for name, (got, want) in outs.items():
                     got, want = (torch.view_as_real(t) if t.is_complex() else t
@@ -640,9 +659,10 @@ def check_staged(lib):
                     if rel > TOL_SPECTRAL_REL:
                         fail(f"{name} {h}x{w} C={c} {init}: relative error {rel:.3e} "
                              f"> {TOL_SPECTRAL_REL}")
-                print(f"K4-K6 check {h}x{w} C={c} n=2 {init:9s} (K5 cluster of "
-                      f"{lib.staged_mix_cluster_size(c, h)}; max_abs/rel): "
-                      + "; ".join(parts), flush=True)
+                print(f"K4-K6 check {h}x{w} C={c} n=2 {init:9s} (K5: odd step "
+                      f"{K5_BRANCHES[lib.staged_mix_odd_branch(h)]}, cluster of "
+                      f"{lib.staged_mix_cluster_size(c, h)}, two calls bit for bit; "
+                      f"max_abs/rel): " + "; ".join(parts), flush=True)
     a = tiled_inputs(1, 64, 64, "fan_in", 0)
     z = rdft_w(a["x"])
     zeros = lambda *shape, **kw: torch.zeros(shape, device="cuda", **kw)
@@ -972,46 +992,52 @@ def kernel_name(event) -> str:
     return name.split("(")[0][:70]
 
 
-# K1's launches in the order one call with "pre" makes them
-K1_LAUNCHES = ("pre conv", "residual conv", "rows (K4)", "column pass", "inverse rows (K6)")
-
-
-def profile_k1_split(label: str, args, calls: int = 5):
-    """K1 split by its launches: the device time of each of the five
-    launches of a call with "pre" (no "post"), averaged over ``calls``
-    calls under torch.profiler. Fails unless both convs ran K3's
-    tensor-core kernel. Returns {launch: ms}, or None when the profiler
+def launch_split(label: str, fn, launches, calls: int = 5, beside=None):
+    """``fn`` split by its launches: the device time of each launch of one
+    call, averaged over ``calls`` calls under torch.profiler, in the order
+    ``launches`` ((launch, kernel), ...) names them; fails unless every
+    launch ran the kernel it names. ``beside`` ({launch: text}) is printed
+    after a launch's time. Returns {launch: ms}, or None when the profiler
     records no device time."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    block_fused(**args)
+    fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            block_fused(**args)
+            fn()
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    if len(kernels) != calls * len(K1_LAUNCHES):
-        print(f"K1 split {label}: {len(kernels)} device events for {calls} calls "
-              f"(not measured)", flush=True)
+    if len(kernels) != calls * len(launches):
+        print(f"{label}: {len(kernels)} device events for {calls} calls (not measured)",
+              flush=True)
         return None
     split = {}
-    for i, launch in enumerate(K1_LAUNCHES):
-        events = kernels[i::len(K1_LAUNCHES)]
+    for i, (launch, kernel) in enumerate(launches):
+        events = kernels[i::len(launches)]
         names = {kernel_name(e) for e in events}
         split[launch] = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
-        if "conv" in launch and not all("conv3x3_tc_kernel" in n for n in names):
-            fail(f"K1 {launch} ran {names}, not K3's tensor-core kernel")
-        print(f"K1 split {label} {launch:17s}: {', '.join(sorted(names))} "
-              f"{split[launch]:.3f} ms", flush=True)
+        if not all(kernel in name for name in names):
+            fail(f"{label} {launch} ran {names}, not {kernel}")
+        print(f"{label} {launch:22s}: {', '.join(sorted(names))} {split[launch]:.3f} ms"
+              f"{(beside or {}).get(launch, '')}", flush=True)
     total = sum(split.values())
-    print(f"K1 split {label}: {total:.3f} ms of kernels per call; shares "
+    print(f"{label}: {total:.3f} ms of kernels per call; shares "
           + ", ".join(f"{k} {v / total:.4f}" for k, v in split.items()), flush=True)
     return split
 
 
+# K1's launches in the order one call with "pre" makes them, and the
+# kernel each must be: its convs K3's tensor-core kernel
+K1_LAUNCHES = (("pre conv", "conv3x3_tc_kernel"), ("residual conv", "conv3x3_tc_kernel"),
+               ("rows (K4)", "rdft_w_kernel"), ("column pass", "column_mix_rows_kernel"),
+               ("inverse rows (K6)", "irdft_w_kernel"))
+# K8's launches: K4's row rDFT, the mixed-radix column pass K5 runs, K6's
+# inverse rows with the residual
+K8_LAUNCHES = (("rows (K4)", "rdft_w_kernel"), ("column pass", "columns_mixed_kernel"),
+               ("inverse rows (K6)", "irdft_w_kernel"))
 # K2's launches in the order one call with "pre" and "skip" makes them,
 # and the kernel each must be
 K2_LAUNCHES = (("pre conv", "conv3x3_tc_kernel"), ("rows of hin (K4)", "rdft_w_kernel"),
@@ -1047,46 +1073,17 @@ def cudnn_k2_parts(args):
             "pre adjoint conv": lambda: bwd(g, x, pre_w, inputs)}
 
 
-def profile_k2_split(label: str, args, calls: int = 5):
-    """K2 split by its launches: the device time of each of the 14 launches
-    of a call with "pre" and "skip", averaged over ``calls`` calls under
-    torch.profiler, and beside each conv and weight-gradient launch the
-    time of cuDNN's call for the same part (CUDA events). Fails unless
-    every launch ran the kernel K2_LAUNCHES names (the convs K3's
-    tensor-core kernel, the weight gradients the mma.sync GEMM). Returns
-    {launch: ms}, or None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    block_bwd(**args)
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            block_bwd(**args)
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    if len(kernels) != calls * len(K2_LAUNCHES):
-        print(f"K2 split {label}: {len(kernels)} device events for {calls} calls "
-              f"(not measured)", flush=True)
-        return None
+def profile_k2_split(label: str, args):
+    """K2 split by its 14 launches (:func:`launch_split`), and beside each
+    conv and weight-gradient launch the time of cuDNN's call for the same
+    part (CUDA events)."""
     library = {name: cuda_ms(fn, 10) for name, fn in cudnn_k2_parts(args).items()}
-    split = {}
-    for i, (launch, kernel) in enumerate(K2_LAUNCHES):
-        events = kernels[i::len(K2_LAUNCHES)]
-        names = {kernel_name(e) for e in events}
-        split[launch] = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
-        if not all(kernel in name for name in names):
-            fail(f"K2 {launch} ran {names}, not {kernel}")
-        lib = f", cuDNN {library[launch]:.3f} ms" if launch in library else ""
-        print(f"K2 split {label} {launch:22s}: {', '.join(sorted(names))} "
-              f"{split[launch]:.3f} ms{lib}", flush=True)
-    total = sum(split.values())
-    lib_total = sum(library.values())
-    ours = sum(split[k] for k in library)
-    print(f"K2 split {label}: {total:.3f} ms of kernels per call; its convs and weight "
-          f"gradients {ours:.3f} ms against cuDNN's {lib_total:.3f} ms; shares "
-          + ", ".join(f"{k} {v / total:.4f}" for k, v in split.items()), flush=True)
+    split = launch_split(f"K2 split {label}", lambda: block_bwd(**args), K2_LAUNCHES,
+                         beside={k: f", cuDNN {v:.3f} ms" for k, v in library.items()})
+    if split is not None:
+        print(f"K2 split {label}: its convs and weight gradients "
+              f"{sum(split[k] for k in library):.3f} ms against cuDNN's "
+              f"{sum(library.values()):.3f} ms", flush=True)
     return split
 
 
@@ -1465,7 +1462,8 @@ def main():
               f"cores in 3xTF32; fp32 CUDA-core bound {cc_ms:.3f} ms, {cc_by})",
               flush=True)
         if variant == "pre+skip":
-            profile_k1_split("512x512 batch 8 pre+skip", args)
+            launch_split("K1 split 512x512 batch 8 pre+skip", lambda: block_fused(**args),
+                         K1_LAUNCHES)
         del args
     bwd_times = {}
     for vi, variant in enumerate(VARIANTS):
@@ -1488,7 +1486,8 @@ def main():
     (cc_ms, _), (b_ms, _) = k1_bounds(160, 64, "pre+skip")
     print(f"time K1 64x64 batch 160 pre+skip: kernel {k1_train_ms:.3f} ms, bound "
           f"{b_ms:.3f} ms (fp32 CUDA-core bound {cc_ms:.3f} ms)", flush=True)
-    profile_k1_split("64x64 batch 160 pre+skip", fwd_args)
+    launch_split("K1 split 64x64 batch 160 pre+skip", lambda: block_fused(**fwd_args),
+                 K1_LAUNCHES)
     del fwd_args
     k8_args = tiled_inputs(8, 448, 448, "fan_in", seed=3)
     k8_ms = cuda_ms(lambda: spectral_branch_tiled(**k8_args), 10)
@@ -1498,6 +1497,9 @@ def main():
     print(f"time K8 448x448 batch 8 C={C} with residual: kernel {k8_ms:.3f} ms, plain "
           f"{k8_plain_ms:.3f} ms, bound {k8_bound_ms:.3f} ms ({k8_by}; "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    with torch.no_grad():
+        launch_split("K8 split 448x448 batch 8 with residual",
+                     lambda: spectral_branch_tiled(**k8_args), K8_LAUNCHES)
     del k8_args
     k7_args = fused_inputs(64, 96, 96, "fan_in", seed=4)
     k7_ms = cuda_ms(lambda: spectral_branch_fused(*k7_args), 10)
@@ -1563,35 +1565,20 @@ def main():
     inout = a["residual"].clone()
     k6_inplace_ms = cuda_ms(lambda: k6_in_place(staged_lib, z, inout), 10)
     del a, z, z5, zz, inout
-    # K6 beside K8's pass C (the row c2r K6 ran before it had a kernel of
-    # its own) on the same inputs: W = 1024 (Q = 1), 200 (Q = 25) and 449
-    # (prime: the whole transform is the odd step)
-    tiled_lib = _build.spectral_tiled_library()
-    for n6, h6, w6 in ((2, 1024, 1024), (8, 200, 200), (2, 448, 449)):
-        a = tiled_inputs(n6, h6, w6, "fan_in", seed=7)
+    # K5 at the staged route's other sizes: 800x800 (Q = 25 on a 2-CTA
+    # cluster) and 200x200 (Q = 25, one CTA per bin), the generators' batches
+    for n5, h5 in ((2, 800), (8, 200)):
+        a = tiled_inputs(n5, h5, h5, "fan_in", seed=6)
         z = rdft_w_reference(a["x"])
-        out = torch.empty_like(a["residual"])
-
-        def pass_c():
-            err = tiled_lib.tiled_row_inv_add(z.data_ptr(), a["residual"].data_ptr(), n6, C,
-                                              h6, w6, out.data_ptr(),
-                                              torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                fail(f"K8's pass C {h6}x{w6}: CUDA error {err}")
-
-        want = irdft_w_add_reference(z, a["residual"])
-        pass_c()
-        for label, got in (("K6", irdft_w_add(z, a["residual"])), ("K8's pass C", out)):
-            rel = ((got - want).abs().max() / want.abs().max()).item()
-            if rel > TOL_SPECTRAL_REL:
-                fail(f"{label} {h6}x{w6}: relative error {rel:.3e} > {TOL_SPECTRAL_REL}")
-        # in turns: K6, pass C, K6, pass C
-        runs = [cuda_ms(fn, 10) for fn in (lambda: irdft_w_add(z, a["residual"]), pass_c) * 2]
-        b_ms, by = bound(k6_work(n6, h6, w6))
-        print(f"time K6 {h6}x{w6} batch {n6} C={C}: kernel {runs[0]:.3f} / {runs[2]:.3f} ms, "
-              f"K8's pass C {runs[1]:.3f} / {runs[3]:.3f} ms (in turns), bound {b_ms:.3f} ms "
-              f"({by})", flush=True)
-        del a, z, out, want, got
+        z5 = z.clone()
+        k_ms = cuda_ms(lambda: spectral_mix_h(z5, a["mix"], a["bias"]), 10)
+        p_ms = cuda_ms(lambda: spectral_mix_h_reference(z, a["mix"], a["bias"]), 10)
+        b_ms, by = bound(k5_work(n5, h5, h5))
+        print(f"time K5 {h5}x{h5} batch {n5} C={C}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({by}); odd step "
+              f"{K5_BRANCHES[staged_lib.staged_mix_odd_branch(h5)]}, cluster of "
+              f"{staged_lib.staged_mix_cluster_size(C, h5)}", flush=True)
+        del a, z, z5
     for name, (k_ms, p_ms, l_ms, (b_ms, by)) in staged_times.items():
         lib_txt = "none" if l_ms is None else f"{l_ms:.3f} ms"
         extra = ""
@@ -1601,6 +1588,9 @@ def main():
         elif name == "K4":
             extra = (f"; library with K4's layout (rfft, transpose, contiguous) "
                      f"{k4_layout_ms:.3f} ms; a device copy of x {k4_copy_ms:.3f} ms")
+        elif name == "K5":
+            extra = (f"; odd step {K5_BRANCHES[staged_lib.staged_mix_odd_branch(1024)]}, "
+                     f"cluster of {staged_lib.staged_mix_cluster_size(C, 1024)}")
         elif name == "K6":
             extra = f"; in place (out = residual) {k6_inplace_ms:.3f} ms"
         print(f"time {name} 1024x1024 batch 2 C={C}: kernel {k_ms:.3f} ms, plain "

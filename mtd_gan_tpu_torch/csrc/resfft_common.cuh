@@ -2,12 +2,12 @@
 // convolution with its fused epilogues (K3, conv3x3.cu, runs it for the
 // calls outside its tensor-core path; K1 (block_fused.cu) and K2
 // (block_bwd.cu) run their C -> 1 exit conv, and K2 that conv's adjoint,
-// on it), the radix-2 FFT in shared memory and the mixed-radix helpers
-// and row passes of the spectral-branch kernels K8 (spectral_tiled.cu),
-// K7 (spectral_fused.cu) and K5 (spectral_staged.cu). K1's and K2's C -> C
-// convs run on K3's tensor-core kernel (conv3x3_tc.cuh), their row passes
-// on rdft_rows.cuh and their column passes on block_columns.cuh. fp32
-// throughout.
+// on it), the radix-2 FFT in shared memory and the mixed-radix helpers of
+// the per-sample spectral branch K7 (spectral_fused.cu). The other
+// spectral passes run K4's register radix steps: rows on rdft_rows.cuh,
+// K1's and K2's column passes on block_columns.cuh, K5's and K8's on
+// columns_mixed.cuh. K1's and K2's C -> C convs run on K3's tensor-core
+// kernel (conv3x3_tc.cuh). fp32 throughout.
 
 #pragma once
 
@@ -203,11 +203,12 @@ __device__ void fft_radix2(float2* data, int count, int stride, int log_l,
 
 // ------------------------------------------------- mixed-radix FFT helpers
 //
-// Shared by the spectral-branch kernels K8 (spectral_tiled.cu) and K7
-// (spectral_fused.cu), whose lengths need not be powers of two. A length
-// L = P * Q (P the largest power of two dividing L, Q odd) is transformed
-// in two steps: the P-point FFTs of the Q decimated subsequences in place
-// with fft_radix2, then a dense Q-point step with the twiddles folded in.
+// Used by the spectral-branch kernel K7 (spectral_fused.cu), whose lengths
+// need not be powers of two, and (split_length, decimated, cfma) by the
+// row and column passes. A length L = P * Q (P the largest power of two
+// dividing L, Q odd) is transformed in two steps: the P-point FFTs of the
+// Q decimated subsequences in place with fft_radix2, then a dense Q-point
+// step with the twiddles folded in.
 
 __device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
   return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x)),
@@ -263,8 +264,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-constexpr int kRowsPerBlock = 16;         // 8 packed complex rows per block
-constexpr int kRowThreads = 256;
 constexpr int kColThreads = 512;
 
 int log2_exact(int v) {
@@ -293,136 +292,6 @@ cudaError_t launch_conv(const float* in, const float* weight, const float* bias,
   } else {
     return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------ mixed-radix row passes
-//
-// The W-axis passes A and C of the spectral-branch kernel K8
-// (spectral_tiled.cu): any W and H, one block per 16 rows of one (n, c),
-// the odd step written straight from shared memory, so W's odd part may
-// be anything.
-
-constexpr int kRowPairs = kRowsPerBlock / 2;
-
-size_t mixed_row_smem_bytes(int w, int p) {
-  return (size_t)(kRowPairs * w + w + p / 2) * sizeof(float2);
-}
-
-// Forward rows: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W}
-// for k <= W/2. Rows 2j and 2j+1 of the block go through one complex FFT
-// of z = a + i b: A[k] = (Z[k] + conj Z[W-k]) / 2, B[k] = (Z[k] - conj
-// Z[W-k]) / 2i. The last block of an H that is not a multiple of 16 has
-// fewer rows; an odd last row is paired with zeros.
-__global__ void __launch_bounds__(kRowThreads)
-mixed_row_fwd_kernel(const float* __restrict__ x, float2* __restrict__ spec, int C,
-                     int H, int W, int P, int log_p, int Q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);  // [kRowPairs][W], decimated
-  float2* tw = buf + kRowPairs * W;                    // [W]
-  float2* twp = tw + W;                                // [P/2]
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const int rows = min(kRowsPerBlock, H - r0);
-  const int pairs = (rows + 1) / 2;
-  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
-
-  make_twiddles_full(tw, W);
-  make_twiddles(twp, P);
-  for (int idx = threadIdx.x; idx < pairs * W; idx += blockDim.x) {
-    const int j = idx / W, col = idx - j * W;
-    const float a = xs[(size_t)(2 * j) * W + col];
-    const float b = 2 * j + 1 < rows ? xs[(size_t)(2 * j + 1) * W + col] : 0.f;
-    buf[j * W + decimated(col, P, Q)] = make_float2(a, b);
-  }
-  __syncthreads();
-  if (log_p > 0) fft_radix2(buf, pairs * Q, P, log_p, twp, false);
-
-  const float s = 0.5f * scale;
-  float2* dst = spec + ((size_t)n * C + c) * K * H + r0;
-  for (int idx = threadIdx.x; idx < K * pairs; idx += blockDim.x) {
-    const int k = idx / pairs, j = idx - k * pairs;
-    const float2* y = buf + j * W;
-    const float2 z = odd_output(y, k, W, P, Q, tw, false);
-    const float2 zc = odd_output(y, k == 0 ? 0 : W - k, W, P, Q, tw, false);
-    dst[(size_t)k * H + 2 * j] = make_float2((z.x + zc.x) * s, (z.y - zc.y) * s);
-    if (2 * j + 1 < rows)
-      dst[(size_t)k * H + 2 * j + 1] = make_float2((z.y + zc.y) * s, (zc.x - z.x) * s);
-  }
-}
-
-// Inverse rows: out[n, c, r, w] = c2r_W(spec[n, c, :, r])[w] (ortho) [+ residual].
-// The c2r keeps only the real part of the bins 0 and, for even W, W/2.
-// Rows 2j, 2j+1 with half spectra A, B go through one complex inverse FFT
-// of Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i conj B[k]; for odd W
-// the bins k and W - k, 1 <= k <= W/2, fill every position once.
-__global__ void __launch_bounds__(kRowThreads)
-mixed_row_inv_kernel(const float2* __restrict__ spec, const float* __restrict__ residual,
-                     float* __restrict__ out, int C, int H, int W, int P, int log_p,
-                     int Q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* buf = reinterpret_cast<float2*>(smem_raw);  // [kRowPairs][W], decimated
-  float2* tw = buf + kRowPairs * W;                    // [W]
-  float2* twp = tw + W;                                // [P/2]
-  const int r0 = blockIdx.x * kRowsPerBlock, c = blockIdx.y, n = blockIdx.z;
-  const int K = W / 2 + 1;
-  const int rows = min(kRowsPerBlock, H - r0);
-  const int pairs = (rows + 1) / 2;
-  const float2* src = spec + ((size_t)n * C + c) * K * H + r0;
-
-  make_twiddles_full(tw, W);
-  make_twiddles(twp, P);
-  for (int idx = threadIdx.x; idx < K * pairs; idx += blockDim.x) {
-    const int k = idx / pairs, j = idx - k * pairs;
-    float2 a = src[(size_t)k * H + 2 * j];
-    float2 b = 2 * j + 1 < rows ? src[(size_t)k * H + 2 * j + 1] : make_float2(0.f, 0.f);
-    const bool edge = (k == 0) || (2 * k == W);
-    if (edge) { a.y = 0.f; b.y = 0.f; }
-    float2* row = buf + j * W;
-    row[decimated(k, P, Q)] = make_float2(a.x - b.y, a.y + b.x);
-    if (!edge) row[decimated(W - k, P, Q)] = make_float2(a.x + b.y, b.x - a.y);
-  }
-  __syncthreads();
-  if (log_p > 0) fft_radix2(buf, pairs * Q, P, log_p, twp, true);
-
-  const size_t base = (((size_t)n * C + c) * H + r0) * W;
-  for (int idx = threadIdx.x; idx < pairs * W; idx += blockDim.x) {
-    const int j = idx / W, col = idx - j * W;
-    const float2 z = odd_output(buf + j * W, col, W, P, Q, tw, true);
-    const size_t o = base + (size_t)(2 * j) * W + col;
-    float v0 = z.x * scale, v1 = z.y * scale;
-    if (residual != nullptr) {
-      v0 += residual[o];
-      if (2 * j + 1 < rows) v1 += residual[o + W];
-    }
-    out[o] = v0;
-    if (2 * j + 1 < rows) out[o + W] = v1;
-  }
-}
-
-// Forward rows of x (n, c, h, w) into spec (n, c, w/2+1, h) complex, ortho.
-cudaError_t launch_mixed_row_fwd(const float* x, float2* spec, int n, int c, int h, int w,
-                                 cudaStream_t stream) {
-  int p, log_p, q;
-  split_length(w, &p, &log_p, &q);
-  const size_t smem = mixed_row_smem_bytes(w, p);
-  CUDA_TRY(allow_smem(mixed_row_fwd_kernel, smem));
-  mixed_row_fwd_kernel<<<dim3((h + kRowsPerBlock - 1) / kRowsPerBlock, c, n), kRowThreads,
-                         smem, stream>>>(x, spec, c, h, w, p, log_p, q,
-                                         1.0f / sqrtf((float)w));
-  return cudaGetLastError();
-}
-
-// out (n, c, h, w) = [residual +] row c2r of spec (n, c, w/2+1, h), ortho.
-cudaError_t launch_mixed_row_inv(const float2* spec, const float* residual, float* out,
-                                 int n, int c, int h, int w, cudaStream_t stream) {
-  int p, log_p, q;
-  split_length(w, &p, &log_p, &q);
-  const size_t smem = mixed_row_smem_bytes(w, p);
-  CUDA_TRY(allow_smem(mixed_row_inv_kernel, smem));
-  mixed_row_inv_kernel<<<dim3((h + kRowsPerBlock - 1) / kRowsPerBlock, c, n), kRowThreads,
-                         smem, stream>>>(spec, residual, out, c, h, w, p, log_p, q,
-                                         1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }
 

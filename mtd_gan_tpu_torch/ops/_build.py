@@ -116,14 +116,10 @@ def spectral_tiled_library() -> ctypes.CDLL:
     lib.spectral_tiled_forward.argtypes = [
         _P, _I, _I, _I, _I,          # x, n, c, h, w
         _P, _P, _P,                  # mix, mix_bias, residual
+        _P, _P,                      # twiddles of W, twiddles of H
         _P, _P, _P,                  # spec, out, stream
     ]
     lib.spectral_tiled_forward.restype = ctypes.c_int
-    lib.tiled_row_inv_add.argtypes = [
-        _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
-        _P, _P,                      # out, stream
-    ]
-    lib.tiled_row_inv_add.restype = ctypes.c_int
     lib.spectral_tiled_error_string.argtypes = [ctypes.c_int]
     lib.spectral_tiled_error_string.restype = ctypes.c_char_p
     return lib
@@ -174,15 +170,16 @@ def spectral_staged_library() -> ctypes.CDLL:
     ]
     lib.staged_mix_h.argtypes = [
         _P, _I, _I, _I, _I,          # spec, n, c, h, k
-        _P, _P, _P,                  # mix, mix_bias, stream
+        _P, _P, _P, _P,              # mix, mix_bias, twiddles, stream
     ]
     lib.staged_irdft_w_add.argtypes = [
         _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
         _P, _P, _P,                  # twiddles, out, stream
     ]
     lib.staged_mix_cluster_size.argtypes = [_I, _I]  # c, h
+    lib.staged_mix_odd_branch.argtypes = [_I]  # h
     for fn in (lib.staged_rdft_w, lib.staged_mix_h, lib.staged_irdft_w_add,
-               lib.staged_mix_cluster_size):
+               lib.staged_mix_cluster_size, lib.staged_mix_odd_branch):
         fn.restype = ctypes.c_int
     lib.spectral_staged_error_string.argtypes = [ctypes.c_int]
     lib.spectral_staged_error_string.restype = ctypes.c_char_p

@@ -16,7 +16,10 @@ fallback from one to the other.
 {8, 16, 32}; H % 64 == 0 with 64 <= H <= 768 (the column pass holds C*H
 complex values of one bin in shared memory); W even with 2 <= W <= 1024.
 The JAX kernel takes H % th == 0 (th = 64 by default) and pads K = W/2 + 1
-to a multiple of 128.
+to a multiple of 128. Its three launches are K4's row rDFT, K5's
+mixed-radix column pass and K6's inverse rows with the residual, on the
+twiddle tables of W and H (``cuda_pipeline.rdft_twiddles``, cached per
+device).
 
 :func:`spectral_branch_fused` (K7, ``csrc/spectral_fused.cu``) takes C in
 {8, 16, 32} and 2 <= H, W <= 128 of any parity: the JAX kernel's
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import _check
+from mtd_gan_tpu_torch.ops.cuda_pipeline import _check, _device_twiddles
 from mtd_gan_tpu_torch.ops.fft_conv import spectral_branch
 
 Tensor = torch.Tensor
@@ -91,14 +94,15 @@ def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
         _check(t, shape, dev, name, "spectral_branch_tiled")
 
     lib = _build.spectral_tiled_library()
+    tw_w, tw_h = _device_twiddles(w, dev), _device_twiddles(h, dev)
     spec = torch.empty((n, c, w // 2 + 1, h, 2), device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spectral_tiled_forward(
             x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), spec.data_ptr(),
-            out.data_ptr(), stream)
+            None if residual is None else residual.data_ptr(), tw_w.data_ptr(),
+            tw_h.data_ptr(), spec.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         msg = lib.spectral_tiled_error_string(err).decode()
         raise RuntimeError(f"spectral_branch_tiled: CUDA error {err} ({msg})")

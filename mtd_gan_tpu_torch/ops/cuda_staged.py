@@ -248,9 +248,14 @@ def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     place: ``z`` holds the result and is returned.
 
     A CPU ``z`` takes the plain version (copied into ``z``). A CUDA ``z``
-    launches the kernel (``csrc/spectral_staged.cu`` ``staged_mix_h``,
-    counted in ``spectral_mix_h.launches``) or raises: outside its domain,
-    on a wrong layout, when a gradient is asked for, or on a CUDA error."""
+    launches the kernel (``csrc/spectral_staged.cu`` ``staged_mix_h``, the
+    column pass of ``csrc/columns_mixed.cuh``, counted in
+    ``spectral_mix_h.launches``) or raises: outside its domain, on a wrong
+    layout, when a gradient is asked for, or on a CUDA error. The kernel
+    reads the twiddle table of H points (``cuda_pipeline.rdft_twiddles``,
+    cached per device and H); its cluster size and the branch of its odd
+    step follow from (C, H) before the launch (``staged_mix_cluster_size``,
+    ``staged_mix_odd_branch`` in the library)."""
     if z.device.type == "cpu":
         return z.copy_(spectral_mix_h_reference(z, mix, bias))
     who = "spectral_mix_h"
@@ -270,9 +275,10 @@ def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     _check(bias, (2 * c,), dev, "bias", who)
 
     lib = _build.spectral_staged_library()
+    tw = _device_twiddles(h, dev)
     with torch.cuda.device(dev):
         err = lib.staged_mix_h(z.data_ptr(), n, c, h, k, mix.data_ptr(),
-                               bias.data_ptr(), _stream(dev))
+                               bias.data_ptr(), tw.data_ptr(), _stream(dev))
     _raise_on(lib, err, who)
     spectral_mix_h.launches += 1
     return z

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels K1 (mtd_gan_tpu_torch/csrc/block_fused.cu),
 K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu), K7
 (csrc/spectral_fused.cu), K3 (csrc/conv3x3.cu) and K4 - K6
-(csrc/spectral_staged.cu) against their plain PyTorch versions, and the
+(csrc/spectral_staged.cu; K5's and K8's column pass is csrc/columns_mixed.cuh)
+against their plain PyTorch versions, and the
 routes of ``generate`` and of the train step, on the card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
@@ -308,15 +309,21 @@ def _tiled_inputs(dev, n, c, h, w, seed=0):
                 residual=t(rng.standard_normal((n, c, h, w)) * 0.5))
 
 
-@pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (3, 8, 192, 70)])
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (3, 8, 192, 70), (2, 32, 768, 768)])
 def test_k8_matches_plain_version(dev, n, c, h, w):
-    """K8 with the residual against its plain version (cuFFT), and one
-    launch per call."""
+    """K8 with the residual against its plain version (cuFFT), one launch
+    per call, and two calls bit for bit. Its column pass runs 225 and 36
+    CTAs per sample at 448 and 192, more than one wave of the card at
+    these batches (448 = 64 * 7: the odd step in registers), and 385 2-CTA
+    clusters per sample at 768^2, C = 32 (the bin with the mix is over
+    227 KB)."""
     args = _tiled_inputs(dev, n, c, h, w)
     before = spectral_branch_tiled.launches
     got = spectral_branch_tiled(**args)
+    again = spectral_branch_tiled(**args)
     torch.cuda.synchronize()
-    assert spectral_branch_tiled.launches == before + 1
+    assert spectral_branch_tiled.launches == before + 2
+    assert torch.equal(got, again)
     want = spectral_branch_tiled_reference(**args)
     rel = ((got - want).abs().max() / want.abs().max()).item()
     assert rel < TOL_REL, (n, c, h, w, rel)
@@ -474,13 +481,30 @@ def test_k3_rejects_unsupported_calls(dev):
         cs.conv3x3(x, wt.clone().requires_grad_(), b)
 
 
+# K5's plan by (C, H): the branch of its odd step (0 none, 1 in registers,
+# 2 in two buffers) and its cluster size
+K5_PLANS = {(32, 1024): (0, 2), (32, 800): (1, 2), (32, 448): (1, 1), (32, 449): (2, 2),
+            (32, 200): (1, 1), (16, 200): (1, 1), (8, 130): (2, 1), (8, 2): (0, 1),
+            (32, 1000): (2, 4), (16, 1000): (2, 2)}
+
+
 @pytest.mark.parametrize("c,h,w", [(32, 1024, 1024), (32, 448, 449), (8, 130, 64),
-                                   (16, 200, 200), (8, 2, 2)])
+                                   (16, 200, 200), (8, 2, 2), (32, 800, 800), (32, 449, 130),
+                                   (32, 200, 200), (32, 1000, 64), (16, 1000, 64)])
 def test_k4_k5_k6_match_plain_versions(dev, c, h, w):
     """K4, K5 and K6 each against its plain version (cuFFT), one launch per
-    call; K5 at 1024 and 449 runs on a 8- and 4-CTA cluster."""
+    call, and K5 against a second call of itself bit for bit. At C = 32
+    K5 takes each of its branches at batch 2, more than one wave of the
+    card: no odd step on a 2-CTA cluster (1024), the odd step in registers
+    on a 2-CTA cluster (800 = 32 * 25) and on one CTA (448 = 64 * 7, 200 =
+    8 * 25), in two buffers on a 2-CTA cluster (449, prime) and on a 4-CTA
+    cluster (1000 = 8 * 125; at C = 16 a 2-CTA cluster)."""
     a = _tiled_inputs(dev, 2, c, h, w)
     rel = lambda g, r: ((g - r).abs().max() / r.abs().max()).item()
+    from mtd_gan_tpu_torch.ops import _build
+
+    lib = _build.spectral_staged_library()
+    assert (lib.staged_mix_odd_branch(h), lib.staged_mix_cluster_size(c, h)) == K5_PLANS[c, h]
     before = [f.launches for f in STAGED[1:]]
     z = cs.rdft_w(a["x"])
     zr = cs.rdft_w_reference(a["x"])
@@ -489,6 +513,7 @@ def test_k4_k5_k6_match_plain_versions(dev, c, h, w):
     out = cs.irdft_w_add(tr, a["residual"])
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(STAGED[1:], before)] == [1, 1, 1]
+    assert torch.equal(t, cs.spectral_mix_h(zr.clone(), a["mix"], a["bias"]))
     errs = (rel(torch.view_as_real(z), torch.view_as_real(zr)),
             rel(torch.view_as_real(t), torch.view_as_real(tr)),
             rel(out, cs.irdft_w_add_reference(tr, a["residual"])))

@@ -322,3 +322,150 @@ def test_k2_column_schedule_matches_autograd(h, c):
     got = _k2_spectral_model(hin, g, mix, mb, tw)
     for a, b in zip(got, (want[0][0], want[1], want[2])):
         assert np.abs(a - b.numpy()).max() <= TOL
+
+
+# columns_mixed.cuh odd_branch: the odd step runs in place in registers as a
+# dense DFT for Q <= 11 and as two radix-5 steps for Q = 25; any other Q
+# runs out of place
+MAX_ODD_DENSE = 11
+
+
+def _dit_step_mixed(buf, h, p, q, lr, lm, tw):
+    """dit_butterfly<lr> over every butterfly of every P-point sequence
+    (rdft_steps<true> with Q > 1): the transpose of _dft_step, input r
+    times tw[j r H/L] first, then the R-point DFT."""
+    r_, m_ = 1 << lr, 1 << lm
+    g = np.arange(p // r_)
+    j = g & (m_ - 1)
+    p0 = ((g >> lm) << (lm + lr)) + j
+    r = np.arange(r_)
+    dft = np.exp(-2j * np.pi * np.outer(r, r) / r_)
+    twid = tw[(j[:, None] * r[None, :] * (h // (r_ * m_))) % h]
+    for qq in range(q):
+        idx = qq * p + p0[:, None] + r[None, :] * m_
+        buf[:, idx] = np.einsum("sr,abr->abs", dft, buf[:, idx] * twid)
+
+
+def _dft_5x5(v, tw, p):
+    """odd_25's DFT on v (C, 25, P): with n = 5 a + b and s = ka + 5 kb,
+    five 5-point DFTs over a, the twist tw[b ka P], five 5-point DFTs over
+    b on w_5^j = tw[5 j P]. Returns the outputs (C, 25, P), index s."""
+    j = np.arange(5)
+    w5 = tw[(np.outer(j, j) % 5) * 5 * p]                    # [k, a]
+    x = v.reshape(v.shape[0], 5, 5, -1)                      # [c, a, b, k1]
+    z = np.einsum("ia,cabz->cbiz", w5, x)                     # [c, b, ka, k1]
+    z = z * tw[np.outer(j, j) * p][None, :, :, None]         # w_25^(b ka)
+    out = np.einsum("lb,cbiz->cilz", w5, z)                   # [c, ka, kb, k1]
+    return out.transpose(0, 2, 1, 3).reshape(v.shape)         # s = ka + 5 kb
+
+
+def _odd_registers(buf, h, p, q, steps, tw, transpose):
+    """odd_in_place<transpose> on every (channel, k1): the Q values at
+    q P + pos(k1); forward, each twisted by tw[q k1], then the Q-point DFT
+    (dense on tw[t P] for Q <= 11, _dft_5x5 for 25), output s written at
+    s P + pos(k1); transposed, the DFT first and output s twisted by
+    tw[s k1]. The twiddle indices stay below H, so no index wraps."""
+    k1, qs = np.arange(p), np.arange(q)
+    pk = np.array([_position(k, steps) for k in k1])
+    idx = qs[:, None] * p + pk[None, :]                     # (Q, P) positions
+    twist = tw[qs[:, None] * k1[None, :]]
+    v = buf[:, idx]
+    if not transpose:
+        v = v * twist
+    if q == 25:
+        out = _dft_5x5(v, tw, p)
+    else:
+        assert q <= MAX_ODD_DENSE
+        out = np.einsum("sq,cqk->csk", tw[(np.outer(qs, qs) % q) * p], v)
+    buf[:, idx] = out * twist if transpose else out
+
+
+def _odd_two_buffers(buf, h, p, q, steps, tw):
+    """The forward odd step out of place (rdft_value<true> for every m):
+    nat[m] = sum_q tw[q m mod H] buf[q P + pos(m mod P)], natural order."""
+    m, qs = np.arange(h), np.arange(q)
+    pm = np.array([_position(k, steps) for k in range(p)])[m % p]
+    idx = qs[:, None] * p + pm[None, :]
+    return np.einsum("qm,cqm->cm", tw[(np.outer(qs, m)) % h], buf[:, idx])
+
+
+def _odd_two_buffers_transposed(nat, h, p, q, steps, tw):
+    """odd_transposed_value for every (q, k1): sum_k2 tw[q (k1 + P k2) mod
+    H] nat[k1 + P k2], written at q P + pos(k1)."""
+    k1, qs = np.arange(p), np.arange(q)
+    pk = np.array([_position(k, steps) for k in k1])
+    twid = tw[(qs[:, None, None] * (k1[None, :, None] + p * qs[None, None, :])) % h]
+    by = nat.reshape(nat.shape[0], q, p)                     # [c, k2, k1]
+    out = np.einsum("qkt,ctk->cqk", twid, by)
+    buf = np.empty_like(nat)
+    buf[:, qs[:, None] * p + pk[None, :]] = out
+    return buf
+
+
+def _mixed_column_model(z, mix, mb, tw, s):
+    """columns_mixed_kernel on the columns z (C, H) of one bin, on a
+    cluster of S CTAs, each holding C/S channels: the load in decimated
+    order, the P-point DIF steps, the odd step (in registers for Q <= 11
+    and Q = 25, else out of place), then the mix by position (CTA r takes the positions
+    [r H / S, (r + 1) H / S) of every CTA's channels and writes conj of its
+    outputs back there), the odd step transposed, the DIT steps in reverse
+    order, and the store from the decimated positions, conjugated."""
+    c, h = z.shape
+    p, q, _, steps = _plan(h, direct=False)
+    two = q > MAX_ODD_DENSE and q != 25
+    dec = np.array([_decimated(m, p, q) for m in range(h)])
+    ctas = []
+    for r in range(s):
+        buf = np.empty((c // s, h), complex)
+        buf[:, dec] = z[r * c // s:(r + 1) * c // s]
+        for lr, lm in steps:
+            _dft_step(buf, h, p, q, lr, lm, tw)
+        if two:
+            buf = _odd_two_buffers(buf, h, p, q, steps, tw)
+        elif q > 1:
+            _odd_registers(buf, h, p, q, steps, tw, transpose=False)
+        ctas.append(buf)
+    scale = 1 / np.sqrt(h)
+    owner = np.full(h, -1)
+    for r in range(s):
+        lo, hi = r * h // s, (r + 1) * h // s
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = r
+        x = np.concatenate([b[:, lo:hi] for b in ctas])
+        o = np.maximum(mix @ np.concatenate([x.real, x.imag]) * scale + mb[:, None], 0)
+        y = o[:c] - 1j * o[c:]
+        for rr, b in enumerate(ctas):
+            b[:, lo:hi] = y[rr * c // s:(rr + 1) * c // s]
+    assert (owner >= 0).all()
+    out = []
+    for buf in ctas:
+        if two:
+            buf = _odd_two_buffers_transposed(buf, h, p, q, steps, tw)
+        elif q > 1:
+            _odd_registers(buf, h, p, q, steps, tw, transpose=True)
+        for lr, lm in reversed(steps):
+            _dit_step_mixed(buf, h, p, q, lr, lm, tw)
+        out.append(np.conj(buf[:, dec]) * scale)
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4])
+@pytest.mark.parametrize("h", [2, 3, 64, 200, 448, 449, 768, 800, 1024, 130, 120, 1000])
+def test_k5_k8_column_schedule_matches_fft(h, s):
+    """K5's and K8's column pass (columns_mixed.cuh) in float64 equals the
+    plain one: the ortho FFT along H, relu(mix [Re; Im] + bias), the ortho
+    inverse FFT, at 8 channels on a cluster of 1, 2 or 4 CTAs. H covers
+    both branches of the odd step (registers: 448 = 64 * 7 and 768 = 256 *
+    3 dense, 200 and 800 = 8, 32 * 25 as 5 x 5; two buffers: 449, prime,
+    130 = 2 * 65, 120 = 8 * 15, 1000 = 8 * 125), no odd step (2, 64,
+    1024) and the smallest odd H (3 = 1 * 3, dense)."""
+    rng = np.random.default_rng(h + s)
+    c = 8
+    z = rng.standard_normal((c, h)) + 1j * rng.standard_normal((c, h))
+    mix = rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)
+    mb = rng.standard_normal(2 * c) * 0.1
+    tw = np.exp(-2j * np.pi * np.arange(h) / h)
+    zf = np.fft.fft(z, axis=1, norm="ortho")
+    o = np.maximum(mix @ np.concatenate([zf.real, zf.imag]) + mb[:, None], 0)
+    want = np.fft.ifft(o[:c] + 1j * o[c:], axis=1, norm="ortho")
+    assert np.abs(_mixed_column_model(z, mix, mb, tw, s) - want).max() <= TOL
