@@ -20,9 +20,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      .pth — the serving path, whose K1 launches are counted;
   6. hold K8 (``spectral_branch_tiled``) against its plain version
      (``spectral_branch_tiled_reference``) and against a second call of
-     itself (bit for bit) at C = 32 and C = 8, batch 2, 192x192 to 768x768
-     and 512x320, with and without the residual, with the reference init
-     and with 1/sqrt(fan_in) weights; H = 100 and C = 24 must raise;
+     itself (bit for bit), one launch a call, at C = 32 and C = 8, batch 2,
+     192x192 to 768x768 and 512x320, with and without the residual, with
+     the reference init and with 1/sqrt(fan_in) weights; H = 100 and C = 24
+     must raise;
   7. ``generate`` at 448x448, batch 8, full width, against the plain
      module: 21 K8, 42 K3 (41 on the tensor cores, the C -> 1 exit deconv
      on the direct path) and 0 K1 launches per call; one 512x320 call at
@@ -30,13 +31,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. serving at 448x448: the ``test`` sweep over 16 synthetic 448x448
      DICOM pairs — the tiled serving path, 42 K8, 84 K3 and 0 K1 launches;
   9. hold K7 (``spectral_branch_fused``) against its plain version
-     (``spectral_branch_fused_reference``) at C = 32, batch 2, 32x32 to
-     128x128 with odd and prime sizes (100x72, 97x66, 127x127), and at
-     C = 8, 33x27, with the reference init and with 1/sqrt(fan_in)
-     weights; H = 129, C = 24 and a gradient request must raise;
+     (``spectral_branch_fused_reference``) and against a second call of
+     itself (bit for bit) at C = 32, batch 2, 32x32 to 128x128 with odd and
+     prime sizes (100x72, 97x66, 127x127; 127x127 and 128x128 with the
+     spectrum in the device-memory scratch), and at C = 8, 33x27, with and
+     without the residual, with the reference init and with 1/sqrt(fan_in)
+     weights; H = 129, C = 24, a residual of another shape and a gradient
+     request must raise;
   10. ``generate`` at 96x96, batch 64, full width, against the plain
-     module: 21 K7, 42 K3 (41 on the tensor cores) and 0 K1 / K8 launches
-     per call; one 100x72 call at batch 4 the same;
+     module: 21 K7 (each with the block's residual in its store), 42 K3 (41
+     on the tensor cores) and 0 K1 / K8 launches per call, and as many
+     ``aten::add`` calls as the tiled route's ``generate`` (no separate
+     residual add); one 100x72 call at batch 4 the same;
   11. serving at 96x96: the ``test`` sweep over 16 synthetic 96x96 DICOM
      pairs — the fused serving path, 42 K7, 84 K3 and 0 K1 / K8 launches;
   12. hold K3 (``conv3x3``) against its plain version (``F.conv2d`` plus
@@ -95,7 +101,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
   21. timings with CUDA events (K1, K2, K8, K7 and K3 - K6 and their plain
      versions per call beside their bounds (K1 and K3: the fp32 CUDA-core
-     bound and the bound with their convs on the tensor cores in 3xTF32)
+     bound and the bound with their convs on the tensor cores in 3xTF32;
+     K7 with the residual, as the fused route calls it, and without, and
+     in turns with the staged branch K4 -> K5 -> K6 on the same input)
      and, for K3, K4 and K6, one library call of the same function (K4:
      ``torch.fft.rfft``, and beside it the same with K4's transposed
      layout; K6: ``torch.fft.irfft`` + the residual, and K6 in place); K5
@@ -452,32 +460,44 @@ def tiled_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
                 residual=t(rng.standard_normal((n, c, h, w)) * 0.5))
 
 
+def hold_spectral(name: str, kernel, reference, cases) -> float:
+    """Hold a spectral-branch kernel (K8 or K7) against its plain version
+    and against a second call of itself (bit for bit), one launch per
+    call, at each (c, (h, w), seed) of ``cases``, batch 2, both inits, with
+    and without the residual; returns the largest absolute error seen."""
+    worst_abs = 0.0
+    for c, (h, w), seed in cases:
+        for init in ("reference", "fan_in"):
+            args = tiled_inputs(2, h, w, init, seed=seed, c=c)
+            for with_res in (False, True):
+                call = dict(args) if with_res else {**args, "residual": None}
+                before = kernel.launches
+                got = kernel(**call)
+                again = kernel(**call)
+                torch.cuda.synchronize()
+                label = f"{name} {h}x{w} C={c} {init} residual={with_res}"
+                if kernel.launches != before + 2:
+                    fail(f"{label}: {kernel.launches - before} launches for 2 calls")
+                want = reference(**call)
+                if not torch.isfinite(got).all():
+                    fail(f"{label}: non-finite output")
+                if not torch.equal(got, again):
+                    fail(f"{label}: two calls differ")
+                err = (got - want).abs().max().item()
+                rel = err / max(want.abs().max().item(), 1e-30)
+                worst_abs = max(worst_abs, err)
+                print(f"{name} check {h}x{w} C={c} n=2 {init:9s} residual={with_res!s:5s}: "
+                      f"max_abs {err:.3e} rel {rel:.3e}, two calls bit for bit", flush=True)
+                if rel > TOL_SPECTRAL_REL:
+                    fail(f"{label}: relative error {rel:.3e} > {TOL_SPECTRAL_REL}")
+    return worst_abs
+
+
 def check_k8():
     """Phase 6; returns the largest absolute error seen."""
-    worst_abs = 0.0
-    for c in (C, 8):
-        for si, (h, w) in enumerate(TILED_SHAPES):
-            for init in ("reference", "fan_in"):
-                args = tiled_inputs(2, h, w, init, seed=si, c=c)
-                for with_res in (False, True):
-                    call = dict(args) if with_res else {**args, "residual": None}
-                    got = spectral_branch_tiled(**call)
-                    again = spectral_branch_tiled(**call)
-                    want = spectral_branch_tiled_reference(**call)
-                    torch.cuda.synchronize()
-                    label = f"K8 {h}x{w} C={c} {init} residual={with_res}"
-                    if not torch.isfinite(got).all():
-                        fail(f"{label}: non-finite output")
-                    if not torch.equal(got, again):
-                        fail(f"{label}: two calls differ")
-                    err = (got - want).abs().max().item()
-                    rel = err / max(want.abs().max().item(), 1e-30)
-                    worst_abs = max(worst_abs, err)
-                    print(f"K8 check {h}x{w} C={c} n=2 {init:9s} residual={with_res!s:5s}: "
-                          f"max_abs {err:.3e} rel {rel:.3e}, two calls bit for bit",
-                          flush=True)
-                    if rel > TOL_SPECTRAL_REL:
-                        fail(f"{label}: relative error {rel:.3e} > {TOL_SPECTRAL_REL}")
+    worst_abs = hold_spectral("K8", spectral_branch_tiled, spectral_branch_tiled_reference,
+                              [(c, hw, si) for c in (C, 8)
+                               for si, hw in enumerate(TILED_SHAPES)])
     for label, call in (
             ("H = 100", {**tiled_inputs(1, 64, 64, "fan_in", 0),
                          "x": torch.zeros((1, C, 100, 100), device="cuda"),
@@ -489,42 +509,30 @@ def check_k8():
     return worst_abs
 
 
-def fused_inputs(n: int, h: int, w: int, init: str, seed: int, c: int = C):
-    """``(x, mix, bias)`` for K7: :func:`tiled_inputs` without the residual."""
-    args = tiled_inputs(n, h, w, init, seed, c)
-    return args["x"], args["mix"], args["bias"]
-
-
 def check_k7():
     """Phase 9; returns the largest absolute error seen."""
-    worst_abs = 0.0
-    for si, (c, (h, w)) in enumerate(FUSED_SHAPES):
-        for init in ("reference", "fan_in"):
-            args = fused_inputs(2, h, w, init, seed=si, c=c)
-            before = spectral_branch_fused.launches
-            got = spectral_branch_fused(*args)
-            torch.cuda.synchronize()
-            if spectral_branch_fused.launches != before + 1:
-                fail(f"K7 {h}x{w}: {spectral_branch_fused.launches - before} launches")
-            want = spectral_branch_fused_reference(*args)
-            if not torch.isfinite(got).all():
-                fail(f"K7 {h}x{w} C={c} {init}: non-finite output")
-            err = (got - want).abs().max().item()
-            rel = err / max(want.abs().max().item(), 1e-30)
-            worst_abs = max(worst_abs, err)
-            print(f"K7 check {h}x{w} C={c} n=2 {init:9s}: max_abs {err:.3e} "
-                  f"rel {rel:.3e}", flush=True)
-            if rel > TOL_SPECTRAL_REL:
-                fail(f"K7 {h}x{w} C={c} {init}: relative error {rel:.3e} > "
-                     f"{TOL_SPECTRAL_REL}")
-    x, mix, bias = fused_inputs(1, 64, 64, "fan_in", 0)
+    worst_abs = hold_spectral("K7", spectral_branch_fused, spectral_branch_fused_reference,
+                              [(c, hw, si) for si, (c, hw) in enumerate(FUSED_SHAPES)])
+    x, mix, bias = (tiled_inputs(1, 64, 64, "fan_in", 0)[k] for k in ("x", "mix", "bias"))
     zeros = lambda *shape: torch.zeros(shape, device="cuda")
     for label, call in (
             ("H = 129", (zeros(1, C, 129, 64), mix, bias)),
             ("C = 24", (zeros(1, 24, 64, 64), zeros(48, 48), zeros(48))),
+            ("a residual of another shape", (x, mix, bias, zeros(1, C, 64, 32))),
             ("mix.requires_grad", (x, mix.clone().requires_grad_(), bias))):
         expect_raise(f"K7 with {label}", lambda: spectral_branch_fused(*call))
     return worst_abs
+
+
+def count_adds(fn) -> int:
+    """The ``aten::add`` calls of one call of ``fn`` (torch.profiler, CPU
+    side)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name in ("aten::add", "aten::add_"))
 
 
 def k3_calls(n: int, h: int, w: int, init: str, seed: int):
@@ -929,9 +937,11 @@ def k8_work(n: int, h: int, w: int):
     return flops, 4 * words
 
 
-def k7_work(n: int, h: int, w: int):
-    """(FLOPs, bytes) one K7 call needs: ``k8_work`` without the residual
-    (its add and its bytes)."""
+def k7_work(n: int, h: int, w: int, residual: bool):
+    """(FLOPs, bytes) one K7 call needs: ``k8_work``, without the residual
+    (its add and its bytes) where the call passes none."""
+    if residual:
+        return k8_work(n, h, w)
     hw = h * w
     k = w // 2 + 1
     flops = n * (2 * 2.5 * C * hw * math.log2(hw) + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k)
@@ -1396,6 +1406,15 @@ def main():
                                dtype=torch.float32, device="cuda")
         for x in (x96, x_small):
             check_generate(model, x, "fused", {"K7": 21, **K3_PER_CALL})
+        # the fused route adds the block's residual inside K7, as the tiled
+        # route does inside K8: both generators make the same aten::add calls
+        adds = {route: count_adds(lambda: model.generate(x_in))
+                for route, x_in in (("fused", x96), ("tiled", x448))}
+        print(f"generate aten::add calls: fused 96x96 {adds['fused']}, tiled 448x448 "
+              f"{adds['tiled']}", flush=True)
+        if adds["fused"] != adds["tiled"]:
+            fail(f"the fused route makes {adds['fused']} aten::add calls, the tiled "
+                 f"{adds['tiled']}: a separate residual add")
 
         # ---- 11. serving at 96x96: the main path on K7
         sweep96_s, counts = run_sweep(model, rng, tmp, 96, {"K7": 2 * 21, **two_calls},
@@ -1501,15 +1520,32 @@ def main():
         launch_split("K8 split 448x448 batch 8 with residual",
                      lambda: spectral_branch_tiled(**k8_args), K8_LAUNCHES)
     del k8_args
-    k7_args = fused_inputs(64, 96, 96, "fan_in", seed=4)
-    k7_ms = cuda_ms(lambda: spectral_branch_fused(*k7_args), 10)
-    k7_plain_ms = cuda_ms(lambda: spectral_branch_fused_reference(*k7_args), 10)
-    k7_bound_ms, k7_by = bound(k7_work(64, 96, 96))
-    flops, nbytes = k7_work(64, 96, 96)
-    print(f"time K7 96x96 batch 64 C={C}: kernel {k7_ms:.3f} ms, plain "
+    # K7 as the fused route calls it (with the block's residual), and
+    # without; beside it, in turns, the staged branch on the same input
+    k7_args = tiled_inputs(64, 96, 96, "fan_in", seed=4)
+    k7_alone = {**k7_args, "residual": None}
+    k7_ms = cuda_ms(lambda: spectral_branch_fused(**k7_args), 10)
+    k7_plain_ms = cuda_ms(lambda: spectral_branch_fused_reference(**k7_args), 10)
+    k7_bound_ms, k7_by = bound(k7_work(64, 96, 96, residual=True))
+    flops, nbytes = k7_work(64, 96, 96, residual=True)
+    print(f"time K7 96x96 batch 64 C={C} with residual: kernel {k7_ms:.3f} ms, plain "
           f"{k7_plain_ms:.3f} ms, bound {k7_bound_ms:.3f} ms ({k7_by}; "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
-    del k7_args
+    alone_ms = cuda_ms(lambda: spectral_branch_fused(**k7_alone), 10)
+    alone_plain_ms = cuda_ms(lambda: spectral_branch_fused_reference(**k7_alone), 10)
+    alone_bound = bound(k7_work(64, 96, 96, residual=False))
+    print(f"time K7 96x96 batch 64 C={C} without residual: kernel {alone_ms:.3f} ms, plain "
+          f"{alone_plain_ms:.3f} ms, bound {alone_bound[0]:.3f} ms ({alone_bound[1]})",
+          flush=True)
+    with torch.no_grad():
+        k7_call = lambda: spectral_branch_fused(**k7_args)
+        staged_call = lambda: irdft_w_add(spectral_mix_h(rdft_w(k7_args["x"]), k7_args["mix"],
+                                                         k7_args["bias"]), k7_args["residual"])
+        turns = [cuda_ms(f, 10) for f in (k7_call, staged_call, staged_call, k7_call)]
+    print(f"time K7 96x96 batch 64 C={C} with residual {turns[0]:.3f} / {turns[3]:.3f} ms, "
+          f"staged K4 -> K5 -> K6 with residual {turns[1]:.3f} / {turns[2]:.3f} ms "
+          f"(K7, staged, staged, K7)", flush=True)
+    del k7_args, k7_alone
     # K3 - K6 at the staged route's main-path shape, 1024x1024 batch 2
     staged_times = {}
     # K3 on its tensor-core path (3xTF32): the bound of that path, and
@@ -1696,6 +1732,10 @@ def main():
         "launches": k7_sweep, "max_abs_err": k7_max_abs_err,
         "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound_ms,
         "bound_by": k7_by, "library_ms": None,
+        # ms, plain_ms and bound_ms above are with the block's residual, as
+        # the fused route calls K7; these without it
+        "no_residual_ms": alone_ms, "no_residual_plain_ms": alone_plain_ms,
+        "no_residual_bound_ms": alone_bound[0],
     }] + [{
         "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
         "replaces": f"mtd_gan_tpu/ops/pallas_pipeline.py:{line}",

@@ -1,5 +1,6 @@
 // The column pass of the spectral branch at any H on Hopper (sm_90a), fp32:
-// K8's pass B (spectral_tiled.cu) and K5 (spectral_staged.cu). In place on
+// K8's pass B (spectral_tiled.cu) and K5 (spectral_staged.cu); its device
+// functions also run K7's (spectral_fused.cu) on a CTA's bins. In place on
 // the half spectrum (N, C, K, H) complex, one bin (n, k) per CTA or per
 // thread-block cluster of S CTAs: the H-point FFT of each channel's column,
 // at every position relu(mix [Re; Im] + bias) over the stacked 2C channels,
@@ -24,8 +25,8 @@
 //                into a second buffer in natural order, a thread per
 //                output position and eight channels, from a copy of the
 //                table in shared memory.
-// The mix is pointwise, so it runs in that order, through K1's mix_inputs
-// / mix_output, and writes conj of its outputs. The inverse is
+// The mix is pointwise, so it runs in that order (mix_positions, on K1's
+// mix_output), and writes conj of its outputs. The inverse is
 // conj(FFT(conj Y)) on the transposed schedule (the DFT matrix is
 // symmetric): the odd step transposed, K4's DIT steps in reverse order,
 // and a store that reads the decimated positions and conjugates again.
@@ -78,17 +79,44 @@ size_t columns_smem(int c, int s, int h) {
 
 int max_cluster(int c) { return c == 32 ? 4 : 2; }
 
-// The cluster size of a bin of C channels and H points: the smallest S
-// whose share fits one CTA; 0 if none does.
-int columns_cluster_size(int c, int h) {
+// The shared memory a CTA of the current device may opt in to; 0 on error.
+int shared_optin() {
   int dev, optin;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess)
     return 0;
+  return optin;
+}
+
+// The cluster size of a bin of C channels and H points: the smallest S
+// whose share fits one CTA; 0 if none does.
+int columns_cluster_size(int c, int h) {
+  const int optin = shared_optin();
   for (int s = 1; s <= max_cluster(c); s *= 2)
     if (columns_smem(c, s, h) <= (size_t)optin) return s;
   return 0;
+}
+
+// Launches `kernel` on `grid` in clusters of `cluster` CTAs along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                            int cluster, cudaStream_t stream, Args... args) {
+  CUDA_TRY(allow_smem(kernel, smem));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  CUDA_TRY(cudaLaunchKernelEx(&cfg, kernel, args...));
+  return cudaGetLastError();
 }
 
 // dif_butterfly (DIT: dit_butterfly) of rdft_rows.cuh with its twiddles
@@ -326,6 +354,86 @@ __device__ __forceinline__ void odd_two_buffers(float2* data, float2* nat, int p
   }
 }
 
+// The forward column FFT of `rows` channels at `data` (pitch apart), staged
+// in decimated order: the DIF steps, then the odd step, in place or (TWO)
+// out of place into `nat` in natural order. The caller synchronises.
+template <int CL, bool TWO>
+__device__ __forceinline__ void columns_forward(float2* data, float2* nat, int pitch, int rows,
+                                                int H, const RdftPlan& pl,
+                                                const float2* __restrict__ tw,
+                                                const float2* stw) {
+  column_steps<false>(data, pitch, rows, pl, tw);
+  if constexpr (TWO) {
+    odd_two_buffers<CL, false>(data, nat, pitch, H, pl, stw);
+  } else if (pl.Q > 1) {
+    odd_in_place<false>(data, pitch, rows, pl, tw);
+  }
+}
+
+// Its transpose, after the mix (the caller has synchronised): the odd step
+// transposed (from `nat` for TWO), then the DIT steps in reverse order,
+// leaving conj of the inverse, unscaled, in decimated order. Ends
+// synchronised.
+template <int CL, bool TWO>
+__device__ __forceinline__ void columns_inverse(float2* data, float2* nat, int pitch, int rows,
+                                                int H, const RdftPlan& pl,
+                                                const float2* __restrict__ tw,
+                                                const float2* stw) {
+  if constexpr (TWO) {
+    odd_two_buffers<CL, true>(data, nat, pitch, H, pl, stw);
+    __syncthreads();
+  } else if (pl.Q > 1) {
+    odd_in_place<true>(data, pitch, rows, pl, tw);
+    __syncthreads();
+  }
+  column_steps<true>(data, pitch, rows, pl, tw);
+}
+
+// The mix + bias + ReLU at `npos` positions of the spectrum: position u is
+// element lo + u % span of bin u / span, whose channel c is the row
+// row_of(bin, c) (padded as rdft_pad). Thread (g, t) reads the 2C inputs
+// at its position, then (after all have read) writes its share of the 2C
+// outputs there, conjugated, eight at a time: `groups` threads (a power of
+// two, at most 2C / 8) share a position. The caller synchronises before
+// and after.
+template <int C, class RowOf>
+__device__ __forceinline__ void mix_positions(RowOf row_of, int npos, int span, int lo,
+                                              int groups, const float* msm, const float* bsm,
+                                              float scale) {
+  const int per = 2 * C / groups, threads = blockDim.x / groups;
+  const int g = threadIdx.x / threads, t = threadIdx.x - g * threads;
+  for (int i0 = 0; i0 < npos; i0 += threads) {
+    const int u = i0 + t;
+    const bool active = u < npos;
+    const int b = active ? u / span : 0;
+    const int p = rdft_pad(lo + u - b * span);
+    float v[2 * C];
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float2 z = row_of(b, c)[p];
+        v[c] = z.x * scale;
+        v[C + c] = z.y * scale;
+      }
+    }
+    if (groups > 1) __syncthreads();
+    if (active) {
+      // eight outputs unrolled: on an H100 K7's mix at 96^2 took 29% less
+      // time than with two; K5's at 200^2 and 1024^2 within 2% of it
+      for (int o0 = g * per; o0 < (g + 1) * per; o0 += 8) {
+#pragma unroll
+        for (int oo = 0; oo < 8; ++oo) {
+          const int o = o0 + oo;
+          const float acc = fmaxf(mix_output<C>(msm, bsm, o, v), 0.f);
+          float2* z = row_of(b, o < C ? o : o - C) + p;
+          if (o < C) z->x = acc;
+          else z->y = -acc;
+        }
+      }
+    }
+  }
+}
+
 // The column pass, one cluster of S CTAs per (k, n) = (blockIdx.y,
 // blockIdx.z); CTA `rank` holds the channels [rank * CL, (rank + 1) * CL).
 // mix is (2C_out, 2C_in) row-major over the stacked [Re; Im] channels;
@@ -372,23 +480,15 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
   }
   __syncthreads();
 
-  // forward: the P-point DIF steps, then the odd step
-  column_steps<false>(data, pitch, CL, pl, tw);
-  if constexpr (TWO) {
-    odd_two_buffers<CL, false>(data, nat, pitch, H, pl, stw);
-  } else if (Q > 1) {
-    odd_in_place<false>(data, pitch, CL, pl, tw);
-  }
+  columns_forward<CL, TWO>(data, nat, pitch, CL, H, pl, tw, stw);
   if constexpr (S > 1) {
     cg::this_cluster().sync();
   } else {
     __syncthreads();
   }
 
-  // the mix of this CTA's positions [lo, hi): thread (g, i) reads every
-  // channel at position i, then (after all have read) writes its share of
-  // the 2C outputs there, conjugated. G = `groups` threads split one
-  // position's outputs where the CTA has fewer positions than threads.
+  // the mix of this CTA's positions [lo, hi) of all 2C channels, the
+  // partners' through distributed shared memory
   float2* peer[S];
 #pragma unroll
   for (int r = 0; r < S; ++r) {
@@ -398,59 +498,26 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
       peer[r] = nat;
     }
   }
+  const auto row_of = [&](int, int c) {
+    float2* row = peer[0];
+#pragma unroll
+    for (int r = 1; r < S; ++r)
+      if (c / CL == r) row = peer[r];
+    return row + (c % CL) * pitch;
+  };
+  // G threads split a position's outputs where the CTA has fewer positions
+  // than threads
   const int lo = rank * H / S, npos = (rank + 1) * H / S - lo;
   int groups = 1;
-  while (groups < 2 * C && 2 * groups * npos <= (int)blockDim.x) groups *= 2;
-  const int per = 2 * C / groups, span = blockDim.x / groups;
-  const int g = threadIdx.x / span, t = threadIdx.x - g * span;
-  for (int i0 = 0; i0 < npos; i0 += span) {
-    const bool active = i0 + t < npos && g < groups;
-    const int p = rdft_pad(lo + i0 + t);
-    float v[2 * C];
-    if (active) {
-      if constexpr (S == 1) {
-        mix_inputs<C>(nat, pitch, p, scale, v);
-      } else {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float2 z = peer[c / CL][(c % CL) * pitch + p];
-          v[c] = z.x * scale;
-          v[C + c] = z.y * scale;
-        }
-      }
-    }
-    if (groups > 1) __syncthreads();
-    if (active) {
-#pragma unroll 2
-      for (int o = g * per; o < (g + 1) * per; ++o) {
-        const float acc = fmaxf(mix_output<C>(msm, bsm, o, v), 0.f);
-        const int ch = o < C ? o : o - C;
-        float2* row = peer[0];
-#pragma unroll
-        for (int r = 1; r < S; ++r)
-          if (ch / CL == r) row = peer[r];
-        float2* z = row + (ch % CL) * pitch + p;
-        if (o < C) z->x = acc;
-        else z->y = -acc;
-      }
-    }
-  }
+  while (groups < C / 4 && 2 * groups * npos <= (int)blockDim.x) groups *= 2;
+  mix_positions<C>(row_of, npos, npos, lo, groups, msm, bsm, scale);
   // every partner's outputs are in place before its inverse reads them
   if constexpr (S > 1) {
     cg::this_cluster().sync();
   } else {
     __syncthreads();
   }
-
-  // inverse: the odd step transposed, then the DIT steps in reverse order
-  if constexpr (TWO) {
-    odd_two_buffers<CL, true>(data, nat, pitch, H, pl, stw);
-    __syncthreads();
-  } else if (Q > 1) {
-    odd_in_place<true>(data, pitch, CL, pl, tw);
-    __syncthreads();
-  }
-  column_steps<true>(data, pitch, CL, pl, tw);
+  columns_inverse<CL, TWO>(data, nat, pitch, CL, H, pl, tw, stw);
 
   // the store reads the decimated positions and conjugates: the inverse FFT
   if (H % 2 == 0) {
@@ -474,23 +541,9 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
 template <int C, int S, bool TWO>
 cudaError_t launch_columns(float2* spec, const float* mix, const float* mix_bias,
                            const float2* tw, int n, int h, int k, cudaStream_t stream) {
-  const size_t smem = columns_smem(C, S, h);
-  CUDA_TRY(allow_smem(columns_mixed_kernel<C, S, TWO>, smem));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, k, n);
-  cfg.blockDim = dim3(kColThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  CUDA_TRY(cudaLaunchKernelEx(&cfg, columns_mixed_kernel<C, S, TWO>, spec, mix, mix_bias, tw,
-                              h, k, rdft_plan(h, false), 1.0f / sqrtf((float)h)));
-  return cudaGetLastError();
+  return launch_clusters(columns_mixed_kernel<C, S, TWO>, dim3(S, k, n), kColThreads,
+                         columns_smem(C, S, h), S, stream, spec, mix, mix_bias, tw, h, k,
+                         rdft_plan(h, false), 1.0f / sqrtf((float)h));
 }
 
 template <int C, bool TWO>

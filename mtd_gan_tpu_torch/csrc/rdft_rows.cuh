@@ -266,6 +266,122 @@ __device__ __forceinline__ float2 rdft_value(const float2* row, int m, int W,
   return acc;
 }
 
+// Stages rows 2j and 2j + 1 of xs (W apart), j < pairs, into buf (pitch
+// apart) as a + i b in decimated order: column m = Q p + q at q P + p; a
+// row 2j + 1 >= rows is zero. VEC: four columns per 16-byte load (W % 4 ==
+// 0, xs 16-byte aligned). The caller synchronises.
+__device__ __forceinline__ void load_row_pairs(float2* buf, int pitch,
+                                               const float* __restrict__ xs, int W, int pairs,
+                                               int rows, int P, int Q, bool vec) {
+  if (vec) {
+    const int quads = W >> 2;
+    for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
+      const int j = u / quads, col = (u - j * quads) * 4;
+      const float* ra = xs + (size_t)(2 * j) * W + col;
+      const float4 a = __ldg(reinterpret_cast<const float4*>(ra));
+      const float4 b = 2 * j + 1 < rows ? __ldg(reinterpret_cast<const float4*>(ra + W))
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      float2* row = buf + j * pitch;
+      row[rdft_pad(decimated(col, P, Q))] = make_float2(a.x, b.x);
+      row[rdft_pad(decimated(col + 1, P, Q))] = make_float2(a.y, b.y);
+      row[rdft_pad(decimated(col + 2, P, Q))] = make_float2(a.z, b.z);
+      row[rdft_pad(decimated(col + 3, P, Q))] = make_float2(a.w, b.w);
+    }
+  } else {
+    for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
+      const int j = u / W, col = u - j * W;
+      const float* ra = xs + (size_t)(2 * j) * W + col;
+      const float a = __ldg(ra), b = 2 * j + 1 < rows ? __ldg(ra + W) : 0.f;
+      buf[j * pitch + rdft_pad(decimated(col, P, Q))] = make_float2(a, b);
+    }
+  }
+}
+
+// Bin k of the pair's rows from their complex FFT Z in `row` (after
+// rdft_steps): A_k = (Z_k + conj Z_{W-k}) sc and B_k = (Z_k - conj
+// Z_{W-k}) sc / i, for sc half the scale. SHARED as rdft_value's.
+template <bool SHARED = false>
+__device__ __forceinline__ void rdft_pair_bins(const float2* row, int k, int W,
+                                               const RdftPlan& pl,
+                                               const float2* __restrict__ tw, float sc,
+                                               float2& a, float2& b) {
+  const float2 z = rdft_value<SHARED>(row, k, W, pl, tw);
+  const float2 zc = rdft_value<SHARED>(row, k == 0 ? 0 : W - k, W, pl, tw);
+  a = make_float2((z.x + zc.x) * sc, (z.y - zc.y) * sc);
+  b = make_float2((z.y + zc.y) * sc, (zc.x - z.x) * sc);
+}
+
+// conj Z[k] and conj Z[W - k] of a pair's bins A_k, B_k, Z = A + i B
+__device__ __forceinline__ float2 conj_zk(float2 a, float2 b) {
+  return make_float2(a.x - b.y, -a.y - b.x);
+}
+__device__ __forceinline__ float2 conj_zwk(float2 a, float2 b) {
+  return make_float2(a.x + b.y, a.y - b.x);
+}
+
+// Stages conj Z of the pair's bins (A_k, B_k) in `row` in decimated order
+// (position m = Q p + q at q P + p): conj Z[k], and conj Z[W - k] for 0 <
+// k < W/2; for odd W the bins 1 <= k <= W/2 fill every position.
+__device__ __forceinline__ void stage_conj_bins(float2* row, int k, float2 a, float2 b,
+                                                int W, int P, int Q) {
+  row[rdft_pad(decimated(k, P, Q))] = conj_zk(a, b);
+  if (k != 0 && 2 * k != W) row[rdft_pad(decimated(W - k, P, Q))] = conj_zwk(a, b);
+}
+
+// The inverse's store from `buf` after rdft_steps on conj Z: y = FFT(conj
+// Z) of pair j, row 2j of out (at base, rows W apart) gets Re y * scale and
+// row 2j + 1, where < rows, -Im y * scale, each with the residual's element
+// added where `residual` is not null. VEC: four columns per 16-byte store
+// (W % 4 == 0, out and residual aligned). BY_PAIR: neighbouring threads take
+// the pairs of one output, so that a warp's odd steps (Q > 1) read few
+// distinct twiddles; else neighbouring columns of a pair, so that a warp's
+// stores and residual loads are whole lines. stw: the table in shared
+// memory. `residual` may be `out`: each element of it is read by the thread
+// that then writes the same element of `out`, so a thread loads both rows'
+// residuals before it stores either.
+__device__ __forceinline__ void store_row_pairs(float* out, const float* residual, size_t base,
+                                                int W, const float2* buf, int pitch, int pairs,
+                                                int rows, const RdftPlan& pl,
+                                                const float2* stw, float scale, bool vec,
+                                                bool by_pair) {
+  if (vec) {
+    const int quads = W >> 2;
+    for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
+      const int j = by_pair ? u % pairs : u / quads;
+      const int m = (by_pair ? u / pairs : u - j * quads) * 4;
+      const float2* row = buf + j * pitch;
+      float2 y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = rdft_value<true>(row, m + i, W, pl, stw);
+      const size_t o = base + (size_t)(2 * j) * W + m;
+      const bool has_b = 2 * j + 1 < rows;
+      float4 v = make_float4(y[0].x * scale, y[1].x * scale, y[2].x * scale, y[3].x * scale);
+      float4 v2 = make_float4(-y[0].y * scale, -y[1].y * scale, -y[2].y * scale, -y[3].y * scale);
+      if (residual != nullptr) {
+        const float4 r = *reinterpret_cast<const float4*>(residual + o);
+        const float4 r2 = has_b ? *reinterpret_cast<const float4*>(residual + o + W)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
+        v2 = make_float4(v2.x + r2.x, v2.y + r2.y, v2.z + r2.z, v2.w + r2.w);
+      }
+      *reinterpret_cast<float4*>(out + o) = v;
+      if (has_b) *reinterpret_cast<float4*>(out + o + W) = v2;
+    }
+  } else {
+    for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
+      const int j = by_pair ? u % pairs : u / W;
+      const int m = by_pair ? u / pairs : u - j * W;
+      const float2 y = rdft_value<true>(buf + j * pitch, m, W, pl, stw);
+      const size_t o = base + (size_t)(2 * j) * W + m;
+      const bool has_b = 2 * j + 1 < rows;
+      const float ra = residual != nullptr ? residual[o] : 0.f;
+      const float rb = residual != nullptr && has_b ? residual[o + W] : 0.f;
+      out[o] = y.x * scale + ra;
+      if (has_b) out[o + W] = -y.y * scale + rb;
+    }
+  }
+}
+
 // K4: spec[n, c, k, r] = (1/sqrt(W)) sum_w x[n, c, r, w] e^{-2 pi i k w / W},
 // k <= W/2, for the 16 rows r0 .. r0 + 15 of (n, c) = (blockIdx.z,
 // blockIdx.y). tw[t] = e^{-2 pi i t / W}, t < W. The last block of an H
@@ -310,29 +426,7 @@ rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
     }
     first = 1;
   } else {
-    // stage the rows in decimated order: column m = Q p + q at q P + p
-    if (pl.vec_load) {
-      const int quads = W >> 2;
-      for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
-        const int j = u / quads, col = (u - j * quads) * 4;
-        const float* ra = xs + (size_t)(2 * j) * W + col;
-        const float4 a = __ldg(reinterpret_cast<const float4*>(ra));
-        const float4 b = 2 * j + 1 < rows ? __ldg(reinterpret_cast<const float4*>(ra + W))
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-        float2* row = buf + j * pitch;
-        row[rdft_pad(decimated(col, P, Q))] = make_float2(a.x, b.x);
-        row[rdft_pad(decimated(col + 1, P, Q))] = make_float2(a.y, b.y);
-        row[rdft_pad(decimated(col + 2, P, Q))] = make_float2(a.z, b.z);
-        row[rdft_pad(decimated(col + 3, P, Q))] = make_float2(a.w, b.w);
-      }
-    } else {
-      for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
-        const int j = u / W, col = u - j * W;
-        const float a = xs[(size_t)(2 * j) * W + col];
-        const float b = 2 * j + 1 < rows ? xs[(size_t)(2 * j + 1) * W + col] : 0.f;
-        buf[j * pitch + rdft_pad(decimated(col, P, Q))] = make_float2(a, b);
-      }
-    }
+    load_row_pairs(buf, pitch, xs, W, pairs, rows, P, Q, pl.vec_load);
   }
   __syncthreads();
   rdft_steps(buf, pitch, pairs, pl, first, tw);
@@ -344,11 +438,8 @@ rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
   float2* dst = spec + ((size_t)n * C + c) * K * H + r0;
   for (int u = threadIdx.x; u < K * pairs; u += blockDim.x) {
     const int k = u / pairs, j = u - k * pairs;
-    const float2* row = buf + j * pitch;
-    const float2 z = rdft_value(row, k, W, pl, tw);
-    const float2 zc = rdft_value(row, k == 0 ? 0 : W - k, W, pl, tw);
-    const float2 a = make_float2((z.x + zc.x) * sc, (z.y - zc.y) * sc);
-    const float2 b = make_float2((z.y + zc.y) * sc, (zc.x - z.x) * sc);
+    float2 a, b;
+    rdft_pair_bins(buf + j * pitch, k, W, pl, tw, sc, a, b);
     float2* o = dst + (size_t)k * H + 2 * j;
     if (2 * j + 1 < rows) {
       if (pl.vec_store) {
@@ -423,9 +514,6 @@ irdft_w_kernel(const float2* __restrict__ spec, const float* residual, float* ou
     }
     if (k == 0 || 2 * k == W) a.y = b.y = 0.f;
   };
-  // conj Z[k] and conj Z[W - k] of A_k, B_k
-  auto conj_zk = [](float2 a, float2 b) { return make_float2(a.x - b.y, -a.y - b.x); };
-  auto conj_zwk = [](float2 a, float2 b) { return make_float2(a.x + b.y, a.y - b.x); };
 
   if (pl.direct) {
     // step 0, radix 2 over the whole row: butterfly g pairs x[g] and
@@ -452,15 +540,11 @@ irdft_w_kernel(const float2* __restrict__ spec, const float* residual, float* ou
     }
     first = 1;
   } else {
-    // stage conj Z in decimated order: position m = Q p + q at q P + p;
-    // for odd W the bins k and W - k, 1 <= k <= W/2, fill every position
     for (int u = threadIdx.x; u < K * pairs; u += blockDim.x) {
       const int k = u / pairs, j = u - k * pairs;
       float2 a, b;
       load(k, j, a, b);
-      float2* row = buf + j * pitch;
-      row[rdft_pad(decimated(k, P, Q))] = conj_zk(a, b);
-      if (k != 0 && 2 * k != W) row[rdft_pad(decimated(W - k, P, Q))] = conj_zwk(a, b);
+      stage_conj_bins(buf + j * pitch, k, a, b, W, P, Q);
     }
     if (Q > 1)
       for (int t = threadIdx.x; t < W; t += blockDim.x) stw[t] = __ldg(tw + t);
@@ -468,46 +552,11 @@ irdft_w_kernel(const float2* __restrict__ spec, const float* residual, float* ou
   __syncthreads();
   rdft_steps(buf, pitch, pairs, pl, first, tw);
 
-  // read-out: y = FFT(conj Z), so row 2j gets Re y and row 2j + 1 gets -Im y.
-  // For Q > 1 the pairs of one output sit in neighbouring threads, as in
-  // K4's read-out, so that a warp's odd steps read few distinct twiddles
-  const size_t base = (((size_t)n * C + c) * H + r0) * W;
-  if (pl.vec_store) {
-    const int quads = W >> 2;
-    for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
-      const int j = Q > 1 ? u % pairs : u / quads;
-      const int m = (Q > 1 ? u / pairs : u - j * quads) * 4;
-      const float2* row = buf + j * pitch;
-      float2 y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) y[i] = rdft_value<true>(row, m + i, W, pl, stw);
-      const size_t o = base + (size_t)(2 * j) * W + m;
-      float4 v = make_float4(y[0].x * scale, y[1].x * scale, y[2].x * scale, y[3].x * scale);
-      if (residual != nullptr) {
-        const float4 r = *reinterpret_cast<const float4*>(residual + o);
-        v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
-      }
-      *reinterpret_cast<float4*>(out + o) = v;
-      if (2 * j + 1 < rows) {
-        v = make_float4(-y[0].y * scale, -y[1].y * scale, -y[2].y * scale, -y[3].y * scale);
-        if (residual != nullptr) {
-          const float4 r = *reinterpret_cast<const float4*>(residual + o + W);
-          v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
-        }
-        *reinterpret_cast<float4*>(out + o + W) = v;
-      }
-    }
-  } else {
-    for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
-      const int j = Q > 1 ? u % pairs : u / W;
-      const int m = Q > 1 ? u / pairs : u - j * W;
-      const float2 y = rdft_value<true>(buf + j * pitch, m, W, pl, stw);
-      const size_t o = base + (size_t)(2 * j) * W + m;
-      out[o] = y.x * scale + (residual != nullptr ? residual[o] : 0.f);
-      if (2 * j + 1 < rows)
-        out[o + W] = -y.y * scale + (residual != nullptr ? residual[o + W] : 0.f);
-    }
-  }
+  // read-out: y = FFT(conj Z), so row 2j gets Re y and row 2j + 1 gets -Im y;
+  // for Q > 1 the pairs of one output sit in neighbouring threads, as in
+  // K4's read-out
+  store_row_pairs(out, residual, (((size_t)n * C + c) * H + r0) * W, W, buf, pitch, pairs,
+                  rows, pl, stw, scale, pl.vec_store, Q > 1);
 }
 
 // out (n, c, h, w) = [residual +] the ortho c2r along W of spec (n, c,

@@ -2,11 +2,11 @@
 // convolution with its fused epilogues (K3, conv3x3.cu, runs it for the
 // calls outside its tensor-core path; K1 (block_fused.cu) and K2
 // (block_bwd.cu) run their C -> 1 exit conv, and K2 that conv's adjoint,
-// on it), the radix-2 FFT in shared memory and the mixed-radix helpers of
-// the per-sample spectral branch K7 (spectral_fused.cu). The other
-// spectral passes run K4's register radix steps: rows on rdft_rows.cuh,
-// K1's and K2's column passes on block_columns.cuh, K5's and K8's on
-// columns_mixed.cuh. K1's and K2's C -> C convs run on K3's tensor-core
+// on it), and the complex and mixed-radix index helpers of the spectral
+// passes. Every spectral pass runs K4's register radix steps: rows on
+// rdft_rows.cuh, K1's and K2's column passes on block_columns.cuh, K5's,
+// K8's and K7's on columns_mixed.cuh (K7, spectral_fused.cu, its rows on
+// rdft_rows.cuh too). K1's and K2's C -> C convs run on K3's tensor-core
 // kernel (conv3x3_tc.cuh). fp32 throughout.
 
 #pragma once
@@ -154,99 +154,20 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// tw[t] = exp(-2 pi i t / L) for t < L/2 (L a power of two, so 2t/L is exact).
-__device__ void make_twiddles(float2* tw, int L) {
-  for (int t = threadIdx.x; t < L / 2; t += blockDim.x) {
-    float s, c;
-    sincospif(2.0f * (float)t / (float)L, &s, &c);
-    tw[t] = make_float2(c, -s);
-  }
-}
-
-// In-place radix-2 decimation-in-time FFT of `count` complex sequences of
-// length L = 2^log_l stored at data[a * stride + i]. Unnormalised; the
-// inverse uses conjugate twiddles. The caller has synchronised the block
-// after filling `data` and `tw`; the function ends synchronised.
-__device__ void fft_radix2(float2* data, int count, int stride, int log_l,
-                           const float2* tw, bool inverse) {
-  const int L = 1 << log_l;
-  for (int idx = threadIdx.x; idx < (count << log_l); idx += blockDim.x) {
-    const int a = idx >> log_l, i = idx & (L - 1);
-    const int j = (int)(__brev((unsigned)i) >> (32 - log_l));
-    if (i < j) {
-      float2* p = data + (size_t)a * stride;
-      const float2 t = p[i];
-      p[i] = p[j];
-      p[j] = t;
-    }
-  }
-  __syncthreads();
-  const int half = L >> 1;
-  for (int s = 0; s < log_l; ++s) {
-    const int m = 1 << s;
-    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
-      const int a = idx >> (log_l - 1);
-      const int b = idx & (half - 1);
-      const int j = b & (m - 1);
-      const int i0 = ((b >> s) << (s + 1)) + j;
-      float2 w = tw[j << (log_l - 1 - s)];
-      if (inverse) w.y = -w.y;
-      float2* p = data + (size_t)a * stride;
-      const float2 u = p[i0];
-      const float2 v = cmul(w, p[i0 + m]);
-      p[i0] = make_float2(u.x + v.x, u.y + v.y);
-      p[i0 + m] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------------- mixed-radix FFT helpers
-//
-// Used by the spectral-branch kernel K7 (spectral_fused.cu), whose lengths
-// need not be powers of two, and (split_length, decimated, cfma) by the
-// row and column passes. A length L = P * Q (P the largest power of two
-// dividing L, Q odd) is transformed in two steps: the P-point FFTs of the
-// Q decimated subsequences in place with fft_radix2, then a dense Q-point
-// step with the twiddles folded in.
+// Mixed-radix helpers of the row and column passes. A length L = P * Q (P
+// the largest power of two dividing L, Q odd) is transformed in two steps:
+// the P-point FFTs of the Q decimated subsequences in place, then the odd
+// step over Q.
 
 __device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
   return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x)),
                      fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y)));
 }
 
-// tw[t] = exp(-2 pi i t / L) for 0 <= t < L, any L.
-__device__ void make_twiddles_full(float2* tw, int L) {
-  for (int t = threadIdx.x; t < L; t += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * (double)t / (double)L, &s, &c);
-    tw[t] = make_float2((float)c, (float)-s);
-  }
-}
-
 // Position of element m of a length-L sequence in decimated order: the
 // subsequence m = Q p + q (q fixed) sits contiguous at q * P.
 __device__ __forceinline__ int decimated(int m, int P, int Q) {
   return (m % Q) * P + m / Q;
-}
-
-// The odd step, one output. y holds the P-point FFTs Y_q of the Q
-// decimated subsequences at y + q * P; returns X[m] = sum_q w^(q m)
-// Y_q[m mod P], w = exp(-2 pi i / L), conjugate twiddles when inverse.
-// Out of place, so Q may be any odd number.
-__device__ __forceinline__ float2 odd_output(const float2* y, int m, int L, int P,
-                                             int Q, const float2* tw, bool inverse) {
-  const float2* yq = y + (m & (P - 1));
-  float2 acc = yq[0];
-  int t = 0;  // q * m mod L
-  for (int q = 1; q < Q; ++q) {
-    t += m;
-    if (t >= L) t -= L;
-    float2 w = tw[t];
-    if (inverse) w.y = -w.y;
-    acc = cfma(w, yq[q * P], acc);
-  }
-  return acc;
 }
 
 // L = p * q with p = 2^log_p the largest power of two dividing L (q = L

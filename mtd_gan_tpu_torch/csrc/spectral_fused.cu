@@ -5,58 +5,55 @@
 // spectral_branch_fused (:267; its pallas_call at :338). For NCHW
 // activations x (N, C, H, W) it computes
 //
-//   out = irfft2(relu(mix([Re; Im] rfft2(x)) + bias))
+//   out = [residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))
 //
 // with orthonormal FFTs; the inverse along W keeps only the real parts of
 // the W bins 0 and, for even W, W/2 (the Hermitian fold of the JAX
-// _irdft_w_factors). Domain: C in {8, 16, 32}; 2 <= H <= 128 and
-// 2 <= W <= 128, any parity (the JAX kernel's "H, W <= 128"). It serves
-// the small inputs that neither K1 (block_fused.cu) nor K8
-// (spectral_tiled.cu) takes: 96^2, 100x72, 64x127, 33x33, ...
+// _irdft_w_factors). Domain: C in {8, 16, 32}; 2 <= H, W <= 128, any parity
+// (the JAX kernel's "H, W <= 128"): the small inputs that neither K1
+// (block_fused.cu) nor K8 (spectral_tiled.cu) takes, 96^2, 100x72, 33x33.
 //
-// Bound on an H100 SXM (96x96, C = 32, batch 64): 3.7 GFLOP (the 2C x 2C
-// spectral mix 2.5 G, two real 2-D FFTs 1.2 G at 2.5 N log2 N), 0.056 ms
-// of fp32 CUDA-core work (67 TFLOP/s), against 151 MB of compulsory
-// traffic (x and out), 0.045 ms at 3.35 TB/s: operations first, bytes
-// close behind. So the half spectrum must not go through device memory
-// (it would add 4 x 77 MB), and the mix must keep many threads busy.
+// Bound on an H100 SXM (96x96, C = 32, batch 64, with the residual): 3.7
+// GFLOP (the 2C x 2C mix 2.5 G, two real 2-D FFTs 1.2 G at 2.5 N log2 N),
+// 0.056 ms at 67 TFLOP/s fp32, against 226 MB of x, residual and out, 0.068
+// ms at 3.35 TB/s: bytes first, operations close behind. So the half
+// spectrum stays on chip (through device memory it would add 4 x 77 MB).
 //
-// Design. The TPU kernel runs one grid step per sample with the whole
-// working set in VMEM. One sample's half spectrum, C * H * (W/2+1)
-// complex, is 1.2 MB at 96^2 and C = 32: no single SM holds it, so here a
-// sample is one thread-block cluster of 8 CTAs (the portable cluster
-// size) on 8 SMs, and one launch runs every sample (grid 8 x N). Bin k of
-// the half spectrum, all C * H values of it, is owned by CTA k % 8. The
-// phases, separated by cluster.sync():
+// Design. One launch; a sample is one thread-block cluster of 8 CTAs (the
+// portable cluster size), one CTA per SM, grid 8 x N. CTA k % 8 owns bin k
+// of the half spectrum, all C * H values of it, as C rows of the padded
+// pitch of H (columns_mixed.cuh's layout of a bin) in natural order
+// between the phases, so that a warp's row pairs reach neighbouring
+// addresses of it. The phases, separated by cluster.sync(), run the device
+// code of the staged passes on the host tables of W and H:
 //   1. rows          each CTA takes an eighth of the C * H rows, two real
-//                    rows per complex W-point FFT, and stores bin k of
-//                    each row into its owner's bin block;
-//   2. columns       each CTA, for each bin it owns: the H-point FFT of
-//                    all C columns, the 2C x 2C mix + bias + ReLU at every
-//                    h, the inverse H-point FFT (K8's pass B on one bin);
-//   3. inverse rows  each CTA gathers the bins of its rows from their
-//                    owners and runs the Hermitian c2r of length W into
-//                    `out`.
-// Where the owned bin blocks fit in a CTA's shared memory beside the
-// working buffers (at C = 32 up to 104^2, 96^2 and 100x72 included; every
-// size at C <= 16), they live there and phases 1 and 3 reach them through
-// distributed shared memory (cluster.map_shared_rank): the spectrum never
-// touches device memory. Above that (105^2 to 128^2 at C = 32: 2.1 MB at
-// 128^2, more than 8 SMs hold) the bin blocks live in a per-sample
-// scratch in device memory that only the clusters in flight touch, so it
-// stays in the 50 MB L2. The code of the phases is the same; only the
-// bins' base address differs.
-// Every FFT is mixed radix for any length up to 128 (97 and 127 are
-// prime): L = P * Q, the P-point FFTs in place with K1's radix-2 code,
-// the dense Q-point step out of place (odd_output, resfft_common.cuh), so
-// Q may be any odd number. fp32 throughout; tensor cores for the mix and
-// bf16 boundaries are later work.
+//                    rows per complex W-point FFT, in batches, as K4 does
+//                    (rdft_rows.cuh load_row_pairs, rdft_steps,
+//                    rdft_pair_bins); bin k of each row goes to its owner;
+//   2. columns       each CTA moves its bins into the column pass's
+//                    decimated order, runs them through K5's column FFT,
+//                    mix and inverse (columns_mixed.cuh columns_forward,
+//                    mix_positions, columns_inverse), all of them through
+//                    each step together where the odd step is in place,
+//                    one at a time where it takes two buffers (H = 97,
+//                    127, ...), and moves them back;
+//   3. inverse rows  each CTA gathers its rows' bins and runs K6's inverse
+//                    (stage_conj_bins, rdft_steps, store_row_pairs), the
+//                    residual added in its store.
+// Where a CTA's bins fit its shared memory beside the working region (at
+// C = 32: 96^2, 100x72, 97x66, ...; every size at C <= 16) phases 1 and 3
+// reach them through distributed shared memory (cluster.map_shared_rank)
+// and the spectrum never touches device memory. Otherwise (at C = 32 from
+// about 105^2 to 128^2) they live in a per-sample scratch in device memory,
+// and phase 2 moves them through shared memory in groups that fit, with
+// the same code. The working region holds a batch of row pairs with the
+// table of W in phases 1 and 3, the mix (and, for the odd step in two
+// buffers, its second buffer and the table of H) in phase 2. No sine or
+// cosine is computed on the card; fp32 throughout.
 
-#include <cooperative_groups.h>
+#include <algorithm>
 
-#include "resfft_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "columns_mixed.cuh"
 
 namespace {
 
@@ -64,35 +61,62 @@ constexpr int kCluster = 8;        // CTAs per sample (portable cluster size)
 constexpr int kFusedThreads = 512;
 constexpr int kMaxLen = 128;
 constexpr int kMinPairs = 8;       // row pairs per batch at least
-constexpr int kMixOut = 8;         // mix outputs per thread and pixel
 
-// Complex elements of the working buffer: one bin's C * H values, or a
-// batch of at least kMinPairs packed rows of length W.
-int work_elems(int c, int h, int w) {
-  return c * h > kMinPairs * w ? c * h : kMinPairs * w;
+// The schedule of one (C, H, W): the row and column FFT plans, their
+// padded pitches, the row pairs of a batch, the bins a CTA processes
+// together (all it owns where they are resident), the working region's
+// bytes and the 16-byte load and store paths of the rows.
+struct FusedPlan {
+  RdftPlan row, col;
+  int pitch_w, pitch_h;
+  int batch;
+  int group;
+  int region_bytes;
+  int vec_in, vec_out;
+};
+
+size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+// Phase 2's part of the working region: mix (2C x 2C) and bias (2C); for
+// the odd step in two buffers, the second buffer and the table of H.
+size_t columns_region(int c, int h) {
+  const bool two = odd_branch(h) == kOddTwoBuffers;
+  return (size_t)(4 * c * c + 2 * c) * sizeof(float) +
+         (two ? ((size_t)c * rdft_row_pitch(h) + h) * sizeof(float2) : 0);
 }
 
 int owned_bins(int w) { return (w / 2 + 1 + kCluster - 1) / kCluster; }
 
-// Dynamic shared memory of one CTA: mix (2C x 2C) and bias (2C), the
-// twiddle tables (W and H full, P_W/2 and P_H/2 radix-2), the working
-// buffer and, when resident, the owned bin blocks.
-size_t fused_smem_bytes(int c, int h, int w, int ph, int pw, bool resident) {
-  size_t elems = (size_t)w + h + pw / 2 + ph / 2 + work_elems(c, h, w);
-  if (resident) elems += (size_t)owned_bins(w) * c * h;
-  return (size_t)(4 * c * c + 2 * c) * sizeof(float) + elems * sizeof(float2);
-}
-
-// Whether the owned bin blocks fit a CTA's shared memory on this device.
-bool resident_fits(int c, int h, int w) {
-  int ph, pw, log_p, q, dev, optin;
-  split_length(h, &ph, &log_p, &q);
-  split_length(w, &pw, &log_p, &q);
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess)
-    return false;
-  return fused_smem_bytes(c, h, w, ph, pw, true) <= (size_t)optin;
+// The plan of (c, h, w) for `optin` bytes of shared memory a CTA may use;
+// `resident` whether the owned bins live there. False if not even one bin
+// fits beside the region.
+bool plan_fused(int c, int h, int w, size_t optin, FusedPlan* fp, bool* resident,
+                size_t* smem) {
+  fp->row = rdft_plan(w, false);
+  fp->col = rdft_plan(h, false);
+  fp->pitch_w = rdft_row_pitch(w);
+  fp->pitch_h = rdft_row_pitch(h);
+  const size_t bin_bytes = (size_t)c * fp->pitch_h * sizeof(float2);
+  const size_t pair_bytes = (size_t)fp->pitch_w * sizeof(float2);
+  // the odd step's table of W (Q > 1)
+  const size_t table_bytes = fp->row.Q > 1 ? (size_t)w * sizeof(float2) : 0;
+  const int owned = owned_bins(w);
+  const int per_rank = (c * h / 2 + kCluster - 1) / kCluster;
+  const size_t region_min =
+      round16(std::max(columns_region(c, h), kMinPairs * pair_bytes + table_bytes));
+  *resident = region_min + owned * bin_bytes <= optin;
+  if (*resident) {
+    fp->group = owned;
+  } else {
+    if (region_min + bin_bytes > optin) return false;
+    fp->group = (int)((optin - region_min) / bin_bytes);
+  }
+  const size_t left = optin - fp->group * bin_bytes - table_bytes;
+  fp->batch = std::max(1, std::min(per_rank, (int)(left / pair_bytes)));
+  fp->region_bytes = (int)round16(
+      std::max(columns_region(c, h), (size_t)fp->batch * pair_bytes + table_bytes));
+  *smem = fp->region_bytes + fp->group * bin_bytes;
+  return true;
 }
 
 bool in_domain(int n, int c, int h, int w) {
@@ -100,78 +124,165 @@ bool in_domain(int n, int c, int h, int w) {
          h <= kMaxLen && w >= 2 && w <= kMaxLen;
 }
 
+// Threads per position in K7's mix: G threads split a position's 2C
+// outputs, 8 or more each. The G of the least work per thread: rounds
+// times (2C / G outputs, each a row of the mix, plus one position's 2C
+// inputs, weighed 4 : 5 per output). K7's rule only: for K5 it chose G = 8
+// for a CTA's 400 positions at 800^2 and took K5 from 0.74 to 0.93 ms on
+// an H100, so the column pass keeps its own (the fewest rounds).
+__device__ __forceinline__ int mix_groups(int npos, int outs) {
+  int best = 1, best_cost = 1 << 30;
+  for (int g = 1; g <= outs / 8; g *= 2) {
+    const int span = blockDim.x / g;
+    const int cost = (npos + span - 1) / span * (4 * (outs / g) + 5);
+    if (cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Moves the H values of `rows` rows (pitch ph) from src to dst between
+// natural order (element h at pad(h)) and the column pass's decimated
+// order (element h = p Q + q at pad(q P + p)): TO_DEC from natural to
+// decimated, else back. dst may be src: each thread stages up to kStage
+// values of one position h in registers, the block syncs, then writes
+// them; a chunk of rows is read and written by one pass. Ends synchronised.
+template <bool TO_DEC>
+__device__ void reorder_columns(float2* dst, const float2* src, int rows, int H, int ph,
+                                const RdftPlan& pl) {
+  constexpr int kStage = 8;
+  const int sweep = blockDim.x / H;  // rows per sweep of the block (H <= 128)
+  const int h = threadIdx.x % H, r0 = threadIdx.x / H;
+  const bool on = r0 < sweep;
+  const int pn = rdft_pad(h), pd = rdft_pad(decimated(h, pl.P, pl.Q));
+  const int from = TO_DEC ? pn : pd, to = TO_DEC ? pd : pn;
+  for (int c0 = 0; c0 < rows; c0 += sweep * kStage) {
+    float2 v[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int r = c0 + r0 + i * sweep;
+      if (on && r < rows) v[i] = src[(size_t)r * ph + from];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int r = c0 + r0 + i * sweep;
+      if (on && r < rows) dst[(size_t)r * ph + to] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Phase 2 on `nbin` bins at `buf` (bin_elems apart, C rows of pitch `ph`
+// each) in the column pass's decimated order: columns_mixed.cuh's column
+// FFTs, mix and inverse, leaving conj of the inverse in place, unscaled.
+// All bins go through each step together, or, where the odd step runs in
+// two buffers, one bin at a time, mixed in `nat`. The caller has
+// synchronised after filling buf; the function ends synchronised.
+template <int C, bool TWO>
+__device__ void columns_group(float2* buf, int nbin, size_t bin_elems, int H, int ph,
+                              const RdftPlan& pl, const float2* __restrict__ tw,
+                              const float* msm, const float* bsm, float2* nat,
+                              const float2* stw, float scale) {
+  const int bins = TWO ? 1 : nbin;  // bins per pass
+  for (int i = 0; i < nbin; i += bins) {
+    float2* d = buf + i * bin_elems;
+    float2* mixed = TWO ? nat : d;
+    const auto row_of = [&](int b, int c) { return mixed + b * bin_elems + c * ph; };
+    columns_forward<C, TWO>(d, mixed, ph, bins * C, H, pl, tw, stw);
+    __syncthreads();
+    mix_positions<C>(row_of, bins * H, H, 0, mix_groups(bins * H, 2 * C), msm, bsm, scale);
+    __syncthreads();
+    columns_inverse<C, TWO>(d, mixed, ph, bins * C, H, pl, tw, stw);
+  }
+}
+
 // One cluster per sample n = blockIdx.y; CTA `rank` of the cluster.
 // `scratch` is null when the bin blocks are resident in shared memory,
-// else (N, W/2+1, C, H) complex in device memory.
-template <int C>
+// else (N, 8, owned, C, pitch_h) complex in device memory, CTA r's bins
+// k = r + 8 b at [n, r, b] (owned = ceil((W/2+1) / 8)). tw_w and tw_h:
+// e^{-2 pi i t / L}, t < L, for L = W and H. `residual` may be null.
+template <int C, bool TWO>
 __global__ void __launch_bounds__(kFusedThreads, 1)
 spectral_fused_kernel(const float* __restrict__ x, const float* __restrict__ mix,
-                      const float* __restrict__ mix_bias, float2* scratch,
-                      float* __restrict__ out, int H, int W, int ph, int log_ph, int qh,
-                      int pw, int log_pw, int qw, int n_work, float scale_h,
-                      float scale_w) {
+                      const float* __restrict__ mix_bias, const float* residual,
+                      const float2* __restrict__ tw_w, const float2* __restrict__ tw_h,
+                      float2* scratch, float* out, int H, int W, FusedPlan fp,
+                      float scale_h, float scale_w) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n = blockIdx.y;
   const int K = W / 2 + 1;
   const int CH = C * H;
+  const int pw = fp.pitch_w, ph = fp.pitch_h;
+  const RdftPlan& rp = fp.row;
+  const size_t bin_elems = (size_t)C * ph;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* msm = reinterpret_cast<float*>(smem_raw);      // [2C][2C]
-  float* bsm = msm + 4 * C * C;                          // [2C]
-  float2* tw_w = reinterpret_cast<float2*>(bsm + 2 * C);  // [W]
-  float2* tw_h = tw_w + W;                               // [H]
-  float2* twp_w = tw_h + H;                              // [P_W/2]
-  float2* twp_h = twp_w + pw / 2;                        // [P_H/2]
-  float2* work = twp_h + ph / 2;                         // [n_work]
-  float2* slots = work + n_work;                         // [owned bins][C][H]
+  float2* rows = reinterpret_cast<float2*>(smem_raw);  // phases 1, 3: [batch][pw]
+  float* msm = reinterpret_cast<float*>(smem_raw);     // phase 2: [2C][2C]
+  float* bsm = msm + 4 * C * C;                         // [2C]
+  float2* nat = reinterpret_cast<float2*>(bsm + 2 * C);  // [C][ph], two buffers only
+  float2* stw = nat + C * ph;                           // [H], two buffers only
+  float2* cols = reinterpret_cast<float2*>(smem_raw + fp.region_bytes);  // [group][C][ph]
 
-  float2* scratch_n = scratch == nullptr ? nullptr : scratch + (size_t)n * K * CH;
-  // bin block k (C * H complex, c-major) wherever its owner keeps it
+  const int owned_max = (K + kCluster - 1) / kCluster;
+  float2* scratch_n =
+      scratch == nullptr ? nullptr : scratch + (size_t)n * kCluster * owned_max * bin_elems;
+  // the bin blocks of CTA r, wherever it keeps them
+  auto bins_of = [&](int r) -> float2* {
+    if (scratch_n != nullptr) return scratch_n + (size_t)r * owned_max * bin_elems;
+    return cluster.map_shared_rank(cols, r);
+  };
+  // bin block k; between the phases its rows are in natural order, so that
+  // a warp's row pairs reach neighbouring addresses of it
   auto bin = [&](int k) -> float2* {
-    if (scratch_n != nullptr) return scratch_n + (size_t)k * CH;
-    return cluster.map_shared_rank(slots, k % kCluster) + (size_t)(k / kCluster) * CH;
+    return bins_of(k % kCluster) + (size_t)(k / kCluster) * bin_elems;
+  };
+  // where row r = c H + h sits in a bin block: element h of channel c
+  auto slot = [&](int r) {
+    const int c = r / H;
+    return c * ph + rdft_pad(r - c * H);
   };
 
-  for (int i = threadIdx.x; i < 4 * C * C; i += blockDim.x) msm[i] = mix[i];
-  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) bsm[i] = mix_bias[i];
-  make_twiddles_full(tw_w, W);
-  make_twiddles_full(tw_h, H);
-  make_twiddles(twp_w, pw);
-  make_twiddles(twp_h, ph);
-  // every CTA of the cluster has started (its shared memory may be
-  // written) and this CTA's tables are in place
-  cluster.sync();
-
-  // rows 2p and 2p+1 (flat c * H + h) of this CTA, a batch at a time
+  // this CTA's row pairs (rows 2p, 2p + 1 of the flat c H + h; C H is even)
   const int n_pairs = CH / 2;
   const int per_rank = (n_pairs + kCluster - 1) / kCluster;
-  const int p_begin = rank * per_rank;
+  const int p_begin = min(n_pairs, rank * per_rank);
   const int p_end = min(n_pairs, p_begin + per_rank);
-  const int batch = n_work / W;
   const float* xs = x + (size_t)n * CH * W;
 
-  // ---- 1. rows: bin k of row r to bin(k)[r], (1/sqrt(W)) sum_w x e^{-2 pi i k w / W}.
+  // beside the batch of rows in phases 1 and 3, for Q > 1: the odd step's
+  // twiddles (a warp of the read-out reads many distinct entries)
+  float2* stw_w = rows + fp.batch * pw;
+  auto stage_row_table = [&]() {
+    if (rp.Q > 1)
+      for (int t = threadIdx.x; t < W; t += blockDim.x) stw_w[t] = __ldg(tw_w + t);
+  };
+  stage_row_table();
+
+  // every CTA of the cluster has started: its shared memory may be written
+  cluster.sync();
+
+  // ---- 1. rows: bin k of row r to bin(k), (1/sqrt(W)) sum_w x e^{-2 pi i k w / W}.
   // Rows a, b through one complex FFT of z = a + i b:
   // A[k] = (Z[k] + conj Z[W-k]) / 2, B[k] = (Z[k] - conj Z[W-k]) / 2i.
-  for (int p0 = p_begin; p0 < p_end; p0 += batch) {
-    const int nb = min(batch, p_end - p0);
-    for (int idx = threadIdx.x; idx < nb * W; idx += blockDim.x) {
-      const int j = idx / W, col = idx - j * W;
-      const float* r = xs + (size_t)(2 * (p0 + j)) * W;
-      work[j * W + decimated(col, pw, qw)] = make_float2(r[col], r[W + col]);
-    }
+  for (int p0 = p_begin; p0 < p_end; p0 += fp.batch) {
+    const int nb = min(fp.batch, p_end - p0);
+    load_row_pairs(rows, pw, xs + (size_t)(2 * p0) * W, W, nb, 2 * nb, rp.P, rp.Q,
+                   fp.vec_in);
     __syncthreads();
-    if (log_pw > 0) fft_radix2(work, nb * qw, pw, log_pw, twp_w, false);
-    const float s = 0.5f * scale_w;
-    for (int idx = threadIdx.x; idx < K * nb; idx += blockDim.x) {
-      const int k = idx / nb, j = idx - k * nb;
-      const float2* y = work + j * W;
-      const float2 z = odd_output(y, k, W, pw, qw, tw_w, false);
-      const float2 zc = odd_output(y, k == 0 ? 0 : W - k, W, pw, qw, tw_w, false);
-      float2* d = bin(k) + 2 * (p0 + j);
-      d[0] = make_float2((z.x + zc.x) * s, (z.y - zc.y) * s);
-      d[1] = make_float2((z.y + zc.y) * s, (zc.x - z.x) * s);
+    rdft_steps(rows, pw, nb, rp, 0, tw_w);
+    for (int u = threadIdx.x; u < K * nb; u += blockDim.x) {
+      const int k = u / nb, j = u - k * nb;
+      float2 a, b;
+      rdft_pair_bins<true>(rows + j * pw, k, W, rp, stw_w, 0.5f * scale_w, a, b);
+      float2* d = bin(k);
+      const int r = 2 * (p0 + j);
+      d[slot(r)] = a;
+      d[slot(r + 1)] = b;
     }
     __syncthreads();
   }
@@ -180,125 +291,70 @@ spectral_fused_kernel(const float* __restrict__ x, const float* __restrict__ mix
   __threadfence();
   cluster.sync();
 
-  // ---- 2. columns, per owned bin: H-point FFT, mix + bias + ReLU at every
-  // h over the stacked [Re; Im] channels, inverse H-point FFT, all scaled
-  // 1/sqrt(H). mix is (2C_out, 2C_in) row-major. The bin block takes the
-  // forward step's natural-order output; `work` the mix's output in
-  // decimated order, ready for the inverse.
-  constexpr int kGroups = 2 * C / kMixOut;
-  for (int k = rank; k < K; k += kCluster) {
-    float2* col = scratch_n != nullptr ? scratch_n + (size_t)k * CH
-                                       : slots + (size_t)(k / kCluster) * CH;
-    for (int idx = threadIdx.x; idx < CH; idx += blockDim.x) {
-      const int c = idx / H, h = idx - c * H;
-      work[c * H + decimated(h, ph, qh)] = col[idx];
+  // ---- 2. columns, the bins k = rank + 8 b this CTA owns, `group` at a time
+  for (int i = threadIdx.x; i < 4 * C * C; i += blockDim.x) msm[i] = __ldg(mix + i);
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) bsm[i] = __ldg(mix_bias + i);
+  if constexpr (TWO)
+    for (int t = threadIdx.x; t < H; t += blockDim.x) stw[t] = __ldg(tw_h + t);
+  // into the column pass's decimated order and back: in place where the
+  // bins are resident, on the copy in and out of the scratch otherwise
+  const int owned = (K - rank + kCluster - 1) / kCluster;
+  const bool reorder = fp.col.P > 1 && fp.col.Q > 1;
+  for (int b0 = 0; b0 < owned; b0 += fp.group) {
+    const int nbin = min(fp.group, owned - b0);
+    float2* home = scratch_n != nullptr ? bins_of(rank) + (size_t)b0 * bin_elems : cols;
+    if (scratch_n != nullptr || reorder) {
+      reorder_columns<true>(cols, home, nbin * C, H, ph, fp.col);
+    } else {
+      __syncthreads();
     }
-    __syncthreads();
-    if (log_ph > 0) fft_radix2(work, C * qh, ph, log_ph, twp_h, false);
-    for (int idx = threadIdx.x; idx < CH; idx += blockDim.x) {
-      const int c = idx / H, m = idx - c * H;
-      col[idx] = odd_output(work + c * H, m, H, ph, qh, tw_h, false);
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < H * kGroups; idx += blockDim.x) {
-      const int g = idx / H, i = idx - g * H;
-      float v[2 * C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float2 z = col[c * H + i];
-        v[c] = z.x * scale_h;
-        v[C + c] = z.y * scale_h;
-      }
-      const int di = decimated(i, ph, qh);
-#pragma unroll
-      for (int oo = 0; oo < kMixOut; ++oo) {
-        const int o = g * kMixOut + oo;
-        const float4* row = reinterpret_cast<const float4*>(msm + o * 2 * C);
-        float acc = bsm[o];
-#pragma unroll
-        for (int q = 0; q < C / 2; ++q) {
-          const float4 m = row[q];
-          acc = fmaf(m.x, v[4 * q], acc);
-          acc = fmaf(m.y, v[4 * q + 1], acc);
-          acc = fmaf(m.z, v[4 * q + 2], acc);
-          acc = fmaf(m.w, v[4 * q + 3], acc);
-        }
-        acc = fmaxf(acc, 0.f);
-        if (o < C) work[o * H + di].x = acc;
-        else work[(o - C) * H + di].y = acc;
-      }
-    }
-    __syncthreads();
-    if (log_ph > 0) fft_radix2(work, C * qh, ph, log_ph, twp_h, true);
-    for (int idx = threadIdx.x; idx < CH; idx += blockDim.x) {
-      const int c = idx / H, m = idx - c * H;
-      const float2 z = odd_output(work + c * H, m, H, ph, qh, tw_h, true);
-      col[idx] = make_float2(z.x * scale_h, z.y * scale_h);
-    }
-    __syncthreads();
+    columns_group<C, TWO>(cols, nbin, bin_elems, H, ph, fp.col, tw_h, msm, bsm, nat, stw,
+                          scale_h);
+    if (scratch_n != nullptr || reorder) reorder_columns<false>(home, cols, nbin * C, H, ph, fp.col);
   }
   __threadfence();
   cluster.sync();
 
-  // ---- 3. inverse rows: out[n, r] = c2r_W(bins of row r) (ortho). The c2r
-  // keeps only the real part of the bins 0 and W/2, like irfft2. Rows a, b
-  // with half spectra A, B through one complex inverse FFT of
-  // Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i conj B[k].
-  for (int p0 = p_begin; p0 < p_end; p0 += batch) {
-    const int nb = min(batch, p_end - p0);
-    for (int idx = threadIdx.x; idx < K * nb; idx += blockDim.x) {
-      const int k = idx / nb, j = idx - k * nb;
-      const float2* src = bin(k) + 2 * (p0 + j);
-      float2 a = src[0], b = src[1];
-      const bool edge = (k == 0) || (2 * k == W);
-      if (edge) { a.y = 0.f; b.y = 0.f; }
-      float2* row = work + j * W;
-      row[decimated(k, pw, qw)] = make_float2(a.x - b.y, a.y + b.x);
-      if (!edge) row[decimated(W - k, pw, qw)] = make_float2(a.x + b.y, b.x - a.y);
+  // ---- 3. inverse rows: out[n, r] = [residual +] c2r_W(bins of row r)
+  // (ortho). A bin block holds conj of the column inverse, unscaled; the
+  // c2r keeps only the real part of the bins 0 and W/2, like irfft2. As
+  // K6: y = FFT(conj Z) with Z[k] = A[k] + i B[k], Z[W-k] = conj A[k] + i
+  // conj B[k] for rows a, b; row a gets Re y, row b gets -Im y.
+  const float s = scale_h * scale_w;
+  stage_row_table();
+  __syncthreads();
+  for (int p0 = p_begin; p0 < p_end; p0 += fp.batch) {
+    const int nb = min(fp.batch, p_end - p0);
+    for (int u = threadIdx.x; u < K * nb; u += blockDim.x) {
+      const int k = u / nb, j = u - k * nb;
+      const float2* src = bin(k);
+      const int r = 2 * (p0 + j);
+      const float2 ya = src[slot(r)], yb = src[slot(r + 1)];
+      float2 a = make_float2(ya.x, -ya.y), b = make_float2(yb.x, -yb.y);
+      if (k == 0 || 2 * k == W) a.y = b.y = 0.f;
+      stage_conj_bins(rows + j * pw, k, a, b, W, rp.P, rp.Q);
     }
     __syncthreads();
-    if (log_pw > 0) fft_radix2(work, nb * qw, pw, log_pw, twp_w, true);
-    float* dst = out + ((size_t)n * CH + 2 * p0) * W;
-    for (int idx = threadIdx.x; idx < nb * W; idx += blockDim.x) {
-      const int j = idx / W, col = idx - j * W;
-      const float2 z = odd_output(work + j * W, col, W, pw, qw, tw_w, true);
-      dst[(size_t)(2 * j) * W + col] = z.x * scale_w;
-      dst[(size_t)(2 * j + 1) * W + col] = z.y * scale_w;
-    }
+    rdft_steps(rows, pw, nb, rp, 0, tw_w);
+    // a warp's outputs are neighbouring columns of a row pair: its stores
+    // and residual loads are whole lines
+    store_row_pairs(out, residual, ((size_t)n * CH + 2 * p0) * W, W, rows, pw, nb, 2 * nb, rp,
+                    stw_w, s, fp.vec_out, false);
     __syncthreads();
   }
   // no CTA leaves while another may still read its shared memory
   cluster.sync();
 }
 
-template <int C>
-cudaError_t launch_fused(const float* x, int n, int h, int w, const float* mix,
-                         const float* mix_bias, float2* scratch, float* out,
-                         cudaStream_t stream) {
-  int ph, log_ph, qh, pw, log_pw, qw;
-  split_length(h, &ph, &log_ph, &qh);
-  split_length(w, &pw, &log_pw, &qw);
-  const size_t smem = fused_smem_bytes(C, h, w, ph, pw, scratch == nullptr);
-  CUDA_TRY(allow_smem(spectral_fused_kernel<C>, smem));
+using FusedKernel = void (*)(const float*, const float*, const float*, const float*,
+                            const float2*, const float2*, float2*, float*, int, int, FusedPlan,
+                            float, float);
 
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, n, 1);
-  cfg.blockDim = dim3(kFusedThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  CUDA_TRY(cudaLaunchKernelEx(&cfg, spectral_fused_kernel<C>, x, mix, mix_bias, scratch,
-                              out, h, w, ph, log_ph, qh, pw, log_pw, qw,
-                              work_elems(C, h, w), 1.0f / sqrtf((float)h),
-                              1.0f / sqrtf((float)w)));
-  return cudaGetLastError();
+// The instance for C and the odd step's branch of H.
+template <int C>
+FusedKernel fused_kernel(int h) {
+  if (odd_branch(h) == kOddTwoBuffers) return spectral_fused_kernel<C, true>;
+  return spectral_fused_kernel<C, false>;
 }
 
 }  // namespace
@@ -306,33 +362,47 @@ cudaError_t launch_fused(const float* x, int n, int h, int w, const float* mix,
 extern "C" {
 
 // Floats of device-memory scratch one sample needs: 0 where the bin blocks
-// are resident in the cluster's shared memory, else (W/2+1) * C * H * 2;
-// -1 outside the domain.
+// are resident in the cluster's shared memory, else 8 * ceil((W/2+1) / 8)
+// * C * pitch_h * 2; -1 outside the domain or where no plan fits.
 long long spectral_fused_scratch_floats(int c, int h, int w) {
   if (!in_domain(1, c, h, w)) return -1;
-  if (resident_fits(c, h, w)) return 0;
-  return (long long)(w / 2 + 1) * c * h * 2;
+  FusedPlan fp;
+  bool resident;
+  size_t smem;
+  if (!plan_fused(c, h, w, shared_optin(), &fp, &resident, &smem)) return -1;
+  return resident ? 0 : (long long)kCluster * owned_bins(w) * c * fp.pitch_h * 2;
 }
 
 // One K7 call: one launch of N clusters. All pointers are device pointers
-// to contiguous fp32 arrays: x (n, c, h, w); mix (2c, 2c) as [out, in],
-// mix_bias (2c); scratch as spectral_fused_scratch_floats asks (n times
-// it), or null where it asks for none; output out (n, c, h, w).
-// Returns the first CUDA error (0 on success), cudaErrorInvalidValue
-// outside the domain or without a scratch that is needed; the launch is
-// asynchronous on `stream`.
+// to contiguous arrays: x (n, c, h, w) fp32; mix (2c, 2c) as [out, in],
+// mix_bias (2c); residual (n, c, h, w) or null; tw_w and tw_h the complex64
+// tables e^{-2 pi i t / L}, t < L, of L = w and L = h; scratch as
+// spectral_fused_scratch_floats asks (n times it), or null where it asks
+// for none; output out (n, c, h, w). Returns the first CUDA error (0 on
+// success), cudaErrorInvalidValue outside the domain or without a
+// scratch that is needed; the launch is asynchronous on `stream`.
 int spectral_fused_forward(const float* x, int n, int c, int h, int w, const float* mix,
-                           const float* mix_bias, void* scratch, float* out,
-                           void* stream_ptr) {
+                           const float* mix_bias, const float* residual, const void* tw_w,
+                           const void* tw_h, void* scratch, float* out, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (!in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
-  float2* scratch2 = reinterpret_cast<float2*>(scratch);
-  if (scratch2 == nullptr && !resident_fits(c, h, w)) return (int)cudaErrorInvalidValue;
-  switch (c) {
-    case 8: return (int)launch_fused<8>(x, n, h, w, mix, mix_bias, scratch2, out, stream);
-    case 16: return (int)launch_fused<16>(x, n, h, w, mix, mix_bias, scratch2, out, stream);
-    default: return (int)launch_fused<32>(x, n, h, w, mix, mix_bias, scratch2, out, stream);
-  }
+  FusedPlan fp;
+  bool resident;
+  size_t smem;
+  if (!plan_fused(c, h, w, shared_optin(), &fp, &resident, &smem))
+    return (int)cudaErrorInvalidValue;
+  float2* scratch2 = resident ? nullptr : reinterpret_cast<float2*>(scratch);
+  if (!resident && scratch2 == nullptr) return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  fp.vec_in = w % 4 == 0 && aligned(x);
+  fp.vec_out = w % 4 == 0 && aligned(out) && (residual == nullptr || aligned(residual));
+  const FusedKernel kernel =
+      c == 8 ? fused_kernel<8>(h) : c == 16 ? fused_kernel<16>(h) : fused_kernel<32>(h);
+  return (int)launch_clusters(kernel, dim3(kCluster, n, 1), kFusedThreads, smem, kCluster,
+                              stream, x, mix, mix_bias, residual,
+                              reinterpret_cast<const float2*>(tw_w),
+                              reinterpret_cast<const float2*>(tw_h), scratch2, out, h, w, fp,
+                              1.0f / sqrtf((float)h), 1.0f / sqrtf((float)w));
 }
 
 const char* spectral_fused_error_string(int err) {

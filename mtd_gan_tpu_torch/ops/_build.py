@@ -133,7 +133,8 @@ def spectral_fused_library() -> ctypes.CDLL:
     lib.spectral_fused_scratch_floats.restype = ctypes.c_longlong
     lib.spectral_fused_forward.argtypes = [
         _P, _I, _I, _I, _I,          # x, n, c, h, w
-        _P, _P,                      # mix, mix_bias
+        _P, _P, _P,                  # mix, mix_bias, residual
+        _P, _P,                      # twiddles of W, twiddles of H
         _P, _P, _P,                  # scratch, out, stream
     ]
     lib.spectral_fused_forward.restype = ctypes.c_int

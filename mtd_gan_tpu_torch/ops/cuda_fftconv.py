@@ -7,10 +7,10 @@ Both compute, on NCHW fp32 ``x`` ``(N, C, H, W)``,
     [residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))
 
 with orthonormal FFTs and the Hermitian-fold inverse (the imaginary parts
-of the W bins 0 and, for even W, W/2 dropped); K7 returns the branch
-alone, as the JAX K7 does. On a CUDA tensor each wrapper launches its
-kernel; on a CPU tensor it runs the plain PyTorch version. There is no
-fallback from one to the other.
+of the W bins 0 and, for even W, W/2 dropped); without a residual each
+returns the branch alone, as the JAX K7 does. On a CUDA tensor each
+wrapper launches its kernel; on a CPU tensor it runs the plain PyTorch
+version. There is no fallback from one to the other.
 
 :func:`spectral_branch_tiled` (K8, ``csrc/spectral_tiled.cu``) takes C in
 {8, 16, 32}; H % 64 == 0 with 64 <= H <= 768 (the column pass holds C*H
@@ -23,7 +23,9 @@ device).
 
 :func:`spectral_branch_fused` (K7, ``csrc/spectral_fused.cu``) takes C in
 {8, 16, 32} and 2 <= H, W <= 128 of any parity: the JAX kernel's
-"H, W <= 128", one sample per thread-block cluster.
+"H, W <= 128", one sample per thread-block cluster, in one launch that
+runs K4's row steps, the column pass of K5 and K6's inverse rows (with the
+residual in its store) on the twiddle tables of W and H.
 """
 
 from __future__ import annotations
@@ -116,8 +118,8 @@ spectral_branch_tiled.launches = 0
 FUSED_CHANNELS = (8, 16, 32)
 FUSED_MAX_HW = 128
 
-# the plain K7 is the plain spectral branch itself
-spectral_branch_fused_reference = spectral_branch
+# the plain K7 is the plain K8: the spectral branch plus the residual
+spectral_branch_fused_reference = spectral_branch_tiled_reference
 
 
 def in_fused_domain(h: int, w: int) -> bool:
@@ -126,9 +128,10 @@ def in_fused_domain(h: int, w: int) -> bool:
     return 2 <= h <= FUSED_MAX_HW and 2 <= w <= FUSED_MAX_HW
 
 
-def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
-    """K7: ``irfft2(relu(mix([Re; Im] rfft2(x)) + bias))`` on NCHW fp32
-    ``x`` ``(N, C, H, W)``, the same arguments and result as
+def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
+                          residual: Optional[Tensor] = None) -> Tensor:
+    """K7: ``[residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))`` on
+    NCHW fp32 ``x`` ``(N, C, H, W)``, the same arguments and result as
     :func:`spectral_branch_fused_reference`; ``mix`` is ``(2C_out,
     2C_in)``, ``bias`` ``(2C,)``. Domain: C in {8, 16, 32} and
     2 <= H, W <= 128, odd or even.
@@ -138,7 +141,7 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     raises: outside the kernel's domain, on a wrong layout, when a gradient
     is asked for (the kernel has no backward), or on a CUDA error."""
     if x.device.type == "cpu":
-        return spectral_branch_fused_reference(x, mix, bias)
+        return spectral_branch_fused_reference(x, mix, bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"spectral_branch_fused: unsupported device {x.device}")
     if x.dim() != 4:
@@ -151,15 +154,17 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     if c not in FUSED_CHANNELS:
         raise ValueError(f"spectral_branch_fused: the kernel takes C in "
                          f"{FUSED_CHANNELS}, got {c}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, mix, bias)):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, mix, bias, residual)):
         raise ValueError("spectral_branch_fused: the kernel is inference only "
                          "(no backward); call it under torch.no_grad()")
     dev = x.device
     for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
-                           (bias, (2 * c,), "bias")):
+                           (bias, (2 * c,), "bias"), (residual, (n, c, h, w), "residual")):
         _check(t, shape, dev, name, "spectral_branch_fused")
 
     lib = _build.spectral_fused_library()
+    tw_w, tw_h = _device_twiddles(w, dev), _device_twiddles(h, dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         # where the half spectrum does not fit the cluster's shared memory
@@ -170,7 +175,9 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spectral_fused_forward(
             x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream)
+            None if residual is None else residual.data_ptr(), tw_w.data_ptr(),
+            tw_h.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), stream)
     if err != 0:
         msg = lib.spectral_fused_error_string(err).decode()
         raise RuntimeError(f"spectral_branch_fused: CUDA error {err} ({msg})")

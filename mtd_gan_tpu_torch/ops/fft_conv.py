@@ -11,9 +11,9 @@ transpose of the flax ``fft_kernel``.
 ``spectral_impl`` do: ``"auto"`` is the plain PyTorch block (``torch.fft``);
 ``"tiled"`` and ``"fused"`` are the inference paths of the JAX
 ``"pallas_tiled"`` and ``"pallas_fused"``: the spectral branch on a kernel
-of ``ops/cuda_fftconv.py`` for a CUDA tensor, K8 with the residual fused
-into its last pass (``"tiled"``), or K7, whose branch the residual is added
-to (``"fused"``); ``"staged"`` is the JAX unfused pipeline
+of ``ops/cuda_fftconv.py`` for a CUDA tensor, each with the residual fused
+into its last pass: K8 (``"tiled"``) or K7 (``"fused"``); ``"staged"`` is
+the JAX unfused pipeline
 ``fft_block_nchw(fused=False)``: K4, K5 and K6 of ``ops/cuda_staged.py`` on
 one spectrum buffer, the residual added in K6.
 
@@ -96,7 +96,7 @@ def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
     if impl == "fused":
         from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_fused
 
-        return res + spectral_branch_fused(x, mix, mix_bias)
+        return spectral_branch_fused(x, mix, mix_bias, residual=res)
     return res + spectral_branch(x, mix, mix_bias)
 
 

@@ -186,9 +186,8 @@ def test_block_fused_on_cpu_takes_plain_version():
 
 
 def _fft_radix2(data, inverse):
-    """In-place radix-2 DIT FFT over the last axis, written as
-    csrc/resfft_common.cuh::fft_radix2 computes it (bit reversal, then
-    butterflies with twiddles tw[j << (log_l - 1 - s)])."""
+    """In-place radix-2 DIT FFT over the last axis: bit reversal, then
+    butterflies with twiddles tw[j << (log_l - 1 - s)]."""
     L = data.shape[-1]
     log_l = L.bit_length() - 1
     rev = np.array([int(format(i, f"0{log_l}b")[::-1], 2) for i in range(L)])
@@ -207,11 +206,10 @@ def _fft_radix2(data, inverse):
 
 
 def _kernel_spectral(x, mix, mb):
-    """The spectral branch on resfft_common.cuh's radix-2 FFT (fft_radix2,
-    which K8, K7 and K5 run) on one sample (C, H, W): two
-    real rows per complex row FFT, the per-bin
-    column FFT -> mix -> inverse, and the Hermitian c2r that keeps only the
-    real part of the W bins 0 and W/2, two rows per complex inverse FFT."""
+    """A radix-2 model of the spectral branch on one sample (C, H, W): two
+    real rows per complex row FFT, the per-bin column FFT -> mix ->
+    inverse, and the Hermitian c2r that keeps only the real part of the W
+    bins 0 and W/2, two rows per complex inverse FFT."""
     c, h, w = x.shape
     k = np.arange(w // 2 + 1)
     z = _fft_radix2(x[:, 0::2] + 1j * x[:, 1::2], False)        # (C, H/2, W)
@@ -237,7 +235,7 @@ def _kernel_spectral(x, mix, mb):
 
 
 def test_kernel_spectral_algorithm_matches_irfft2():
-    """The radix-2 FFT algorithm (emulated in float64) equals the plain
+    """A radix-2 model of the branch (emulated in float64) equals the plain
     spectral branch to float64 round-off: the row packing/unpacking, the
     scaling and the irfft2 treatment of non-Hermitian input are right."""
     rng = np.random.default_rng(5)

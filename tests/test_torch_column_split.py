@@ -1,8 +1,9 @@
-"""tools/torch_column_split.py instruments the column kernels by text: its
-anchors must still be found in the port's kernel sources, or the split
-stops on the card. Here on the CPU: the stamps it adds to
-``csrc/columns_mixed.cuh`` and the stamp pointer's setter it adds to
-``csrc/spectral_staged.cu``. No JAX, no GPU."""
+"""tools/torch_column_split.py instruments the column kernels and K7 by
+text: its anchors must still be found in the port's kernel sources, or the
+split stops on the card. Here on the CPU: the stamps it adds to
+``csrc/columns_mixed.cuh`` and to ``csrc/spectral_fused.cu`` (``--k7``),
+and the stamp pointer's setter it adds to their C interfaces. No JAX, no
+GPU."""
 
 import importlib.util
 import os
@@ -33,3 +34,20 @@ def test_column_split_stamps_every_phase(tmp_path):
     staged = (csrc / "spectral_staged.cu").read_text()
     staged = tool.replace(staged, 'extern "C" {\n', tool.SET_STAMPS)
     assert staged.count("int set_stamps(void* p)") == 1
+
+
+def test_k7_split_stamps_every_phase():
+    """``--k7``: every phase stamp of K7 (csrc/spectral_fused.cu) finds its
+    anchor once, the stamps' slots fit the tool's 16, and the kernel's
+    planner is left room for them; the stamp pointer's setter goes into the
+    C interface."""
+    tool = _tool()
+    with open(os.path.join(ROOT, "mtd_gan_tpu_torch", "csrc", "spectral_fused.cu")) as f:
+        text = f.read()
+    stamped, phases = tool.stamp_k7(text)
+    assert len(phases) < tool.K7_SLOTS
+    assert [stamped.count(f"stamp({i});") for i in range(len(phases))] == [1] * len(phases)
+    assert stamped.count("stamp_begin();") == 1 and stamped.count("stamp_end();") == 1
+    assert stamped.count("shared_optin() - 256,") == 2
+    stamped = tool.replace(stamped, 'extern "C" {\n', tool.SET_STAMPS)
+    assert stamped.count("int set_stamps(void* p)") == 1

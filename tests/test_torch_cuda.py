@@ -359,17 +359,23 @@ def test_generate_at_320_runs_k8_21_times_and_no_k1(dev):
     assert (got - want).abs().max().item() < 1e-5
 
 
-@pytest.mark.parametrize("h,w", [(96, 96), (127, 127)])
-def test_k7_matches_plain_version(dev, h, w):
-    """K7 against its plain version (cuFFT) with one launch per call: 96^2
-    keeps the half spectrum in the cluster's shared memory, 127^2 (prime)
-    in the device-memory scratch."""
-    a = _tiled_inputs(dev, 2, 32, h, w)
-    args = (a["x"], a["mix"], a["bias"])
+@pytest.mark.parametrize("with_res", [False, True], ids=["branch", "residual"])
+@pytest.mark.parametrize("c,h,w", [(32, 96, 96), (32, 100, 72), (32, 97, 66), (32, 127, 127),
+                                   (32, 128, 128), (8, 33, 27)])
+def test_k7_matches_plain_version(dev, c, h, w, with_res):
+    """K7 against its plain version (cuFFT) with one launch per call, with
+    and without the residual, and against a second call of itself bit for
+    bit: 96^2, 100x72 and 97x66 (prime H, the odd step in two buffers) keep
+    the half spectrum in the cluster's shared memory, 127^2 and 128^2 at
+    C = 32 in the device-memory scratch."""
+    a = _tiled_inputs(dev, 2, c, h, w)
+    args = (a["x"], a["mix"], a["bias"], a["residual"] if with_res else None)
     before = spectral_branch_fused.launches
     got = spectral_branch_fused(*args)
+    again = spectral_branch_fused(*args)
     torch.cuda.synchronize()
-    assert spectral_branch_fused.launches == before + 1
+    assert spectral_branch_fused.launches == before + 2
+    assert torch.equal(got, again)
     want = spectral_branch_fused_reference(*args)
     rel = ((got - want).abs().max() / want.abs().max()).item()
     assert rel < TOL_REL, (h, w, rel)
@@ -387,6 +393,8 @@ def test_k7_rejects_unsupported_calls(dev):
         spectral_branch_fused(x.transpose(2, 3), mix, bias)
     with pytest.raises(ValueError, match="inference only"):
         spectral_branch_fused(x, mix.clone().requires_grad_(), bias)
+    with pytest.raises(ValueError, match="residual has shape"):
+        spectral_branch_fused(x, mix, bias, residual=torch.zeros((1, 8, 32, 64), device=dev))
 
 
 def test_generate_at_100x72_runs_k7_21_times_and_no_k1_or_k8(dev):

@@ -15,7 +15,7 @@ from mtd_gan_tpu.ops.pallas_fftconv import spectral_branch_fused as jax_fused
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel, ResFFTGenerator
 from mtd_gan_tpu_torch.ops.cuda_fftconv import (spectral_branch_fused,
                                                 spectral_branch_fused_reference)
-from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock
+from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock, fft_conv_block, spectral_branch
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
 
 # the tests share the machine with other test workers: one intra-op
@@ -53,15 +53,34 @@ def test_plain_k7_matches_jax_k7(k7_case):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def test_plain_k7_with_residual_matches_jax_k7_plus_residual(k7_case):
+    """The plain K7 with a residual (NCHW) against the JAX K7 plus the same
+    residual, at the tolerance of test_plain_k7_matches_jax_k7 on the
+    residual-free part; without one it is the plain spectral branch bit
+    for bit."""
+    c = k7_case
+    nchw = lambda a: torch.tensor(a).permute(0, 3, 1, 2).contiguous()
+    x, mix, bias = nchw(c["x"]), torch.tensor(c["mix"].T.copy()), torch.tensor(c["bias"])
+    res = np.random.default_rng(5).standard_normal(c["x"].shape).astype(np.float32)
+    got = spectral_branch_fused_reference(x, mix, bias, nchw(res)).permute(0, 2, 3, 1).numpy()
+    want = c["want"] + res
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(c["want"]).max() + 1e-6
+    assert torch.equal(spectral_branch_fused_reference(x, mix, bias, None),
+                       spectral_branch(x, mix, bias))
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(1)
     x = torch.tensor(rng.random((2, 8, 33, 27)), dtype=torch.float32)
     mix = torch.tensor(rng.standard_normal((16, 16)), dtype=torch.float32)
     bias = torch.tensor(rng.standard_normal(16), dtype=torch.float32)
+    res = torch.tensor(rng.standard_normal((2, 8, 33, 27)), dtype=torch.float32)
     before = spectral_branch_fused.launches
     got = spectral_branch_fused(x, mix, bias)
+    got_res = spectral_branch_fused(x, mix, bias, residual=res)
     assert spectral_branch_fused.launches == before
     assert torch.equal(got, spectral_branch_fused_reference(x, mix, bias))
+    assert torch.equal(got_res, spectral_branch_fused_reference(x, mix, bias, res))
     with pytest.raises(ValueError, match="unsupported device"):
         spectral_branch_fused(x.to("meta"), mix.to("meta"), bias.to("meta"))
 
@@ -126,3 +145,17 @@ def test_fft_conv_block_fused_equals_auto_on_cpu():
     x = torch.tensor(rng.random((2, 8, 33, 27)), dtype=torch.float32)
     with torch.no_grad():
         assert torch.equal(fused(x), auto(x))
+
+
+@pytest.mark.parametrize("conv_impl", ["torch", "k3"])
+def test_fft_conv_block_function_fused_equals_auto_on_cpu(conv_impl):
+    """fft_conv_block(impl="fused"), which hands the block's residual to
+    K7's wrapper, equals impl="auto" bit for bit on CPU tensors, with the
+    3x3 conv branch on F.conv2d or on K3's plain version."""
+    rng = np.random.default_rng(6)
+    t = lambda *shape: torch.tensor(rng.standard_normal(shape) * 0.2, dtype=torch.float32)
+    x, w, b, mix, mb = t(2, 8, 20, 17), t(8, 8, 3, 3), t(8), t(16, 16), t(16)
+    with torch.no_grad():
+        fused = fft_conv_block(x, w, b, mix, mb, impl="fused", conv_impl=conv_impl)
+        auto = fft_conv_block(x, w, b, mix, mb, impl="auto", conv_impl=conv_impl)
+    assert torch.equal(fused, auto)

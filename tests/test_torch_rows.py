@@ -1,8 +1,10 @@
 """The FFT passes on the radix steps of mtd_gan_tpu_torch/csrc/rdft_rows.cuh,
 modelled in float64 numpy on the CPU: K4's row rDFT (rdft_w_kernel), its
 inverse (irdft_w_kernel), which K6, K1 and K2 run, K1's column pass
-(block_columns.cuh column_mix_rows_kernel) and K2's backward column pass
-(block_bwd.cu column_bwd_kernel). Each model follows the kernel's
+(block_columns.cuh column_mix_rows_kernel), K2's backward column pass
+(block_bwd.cu column_bwd_kernel), K5's and K8's mixed-radix column pass
+(columns_mixed.cuh) and K7 (spectral_fused.cu), which runs those row and
+column steps in one cluster per sample. Each model follows the kernel's
 schedule step by step (the radix plan, the radix-2 step fused with the
 load, the in-place decimation-in-frequency steps and their twiddle
 indices into the host table, the digit-reversed read-out, the odd step;
@@ -101,11 +103,12 @@ def _value(buf, m, w, p, q, steps, tw):
     return acc
 
 
-def _k4_model(x, tw):
+def _k4_model(x, tw, direct=True):
     """rdft_w_kernel on real rows x (2 * pairs, W) -> (A, B) half spectra,
-    each (pairs, K)."""
+    each (pairs, K); ``direct=False``: the plan without the radix-2 step
+    fused with the load, as K7's row phase runs it."""
     w = x.shape[1]
-    p, q, direct, steps = _plan(w)
+    p, q, direct, steps = _plan(w, direct)
     z = x[0::2] + 1j * x[1::2]
     buf = np.empty_like(z)
     if direct:
@@ -125,11 +128,12 @@ def _k4_model(x, tw):
     return (zk + np.conj(zc)) / 2 * scale, (zk - np.conj(zc)) / 2j * scale
 
 
-def _k6_model(a, b, tw):
+def _k6_model(a, b, tw, direct=True):
     """irdft_w_kernel on the half spectra a, b (pairs, K) of rows 2j and
-    2j + 1 -> the real rows (2 * pairs, W), without the residual."""
+    2j + 1 -> the real rows (2 * pairs, W), without the residual;
+    ``direct=False`` as K7's inverse row phase runs it."""
     w = tw.shape[0]
-    p, q, direct, steps = _plan(w)
+    p, q, direct, steps = _plan(w, direct)
     edge = [0] + ([w // 2] if w % 2 == 0 else [])
     a, b = a.copy(), b.copy()
     a[:, edge], b[:, edge] = a[:, edge].real, b[:, edge].real
@@ -469,3 +473,145 @@ def test_k5_k8_column_schedule_matches_fft(h, s):
     o = np.maximum(mix @ np.concatenate([zf.real, zf.imag]) + mb[:, None], 0)
     want = np.fft.ifft(o[:c] + 1j * o[c:], axis=1, norm="ortho")
     assert np.abs(_mixed_column_model(z, mix, mb, tw, s) - want).max() <= TOL
+
+
+# spectral_fused.cu: CTAs per sample (the cluster), the bins a CTA owns
+K7_CLUSTER = 8
+
+
+def _k7_owned(w):
+    """The bins k = r + 8 b of each CTA r (b < its count) and the largest
+    count, which sizes a CTA's share of the scratch."""
+    k = w // 2 + 1
+    owned = [list(range(r, k, K7_CLUSTER)) for r in range(K7_CLUSTER)]
+    return owned, -(-k // K7_CLUSTER)
+
+
+def _k7_pairs(c, h):
+    """The row pairs (2p, 2p + 1 of the flat c H + h) of each CTA."""
+    pairs = c * h // 2
+    per = -(-pairs // K7_CLUSTER)
+    return [range(min(pairs, r * per), min(pairs, (r + 1) * per)) for r in range(K7_CLUSTER)]
+
+
+def _k7_model(x, mix, mb, tw_w, tw_h, residual=None, group=None):
+    """spectral_fused_kernel on one sample x (C, H, W), step by step: CTA r
+    takes its eighth of the row pairs (_k7_pairs) through K4's row steps
+    (no fused first step) and stores bin k of each row,
+    natural order, into the bin block of CTA k % 8 at slot k / 8; each CTA
+    moves its bins into the column pass's decimated order, runs all of them
+    (or ``group`` at a time, as in scratch mode; one at a time where the odd
+    step takes two buffers) through the DIF steps, the odd step, the mix,
+    the transposed odd step and the DIT steps together, and moves them
+    back, unscaled and conjugated; then each CTA gathers
+    its rows' bins and runs K6's inverse steps on them, the scales of H and
+    W applied in the store with the residual."""
+    c, h, w = x.shape
+    k = w // 2 + 1
+    owned, _ = _k7_owned(w)
+    ph, qh, _, steps_h = _plan(h, direct=False)
+    two = qh > MAX_ODD_DENSE and qh != 25
+    dec = np.array([_decimated(m, ph, qh) for m in range(h)])
+    blocks = {kk: np.empty((c, h), complex) for kk in range(k)}  # natural order
+    flat = x.reshape(c * h, w)
+    spans = [sp for sp in _k7_pairs(c, h) if len(sp)]
+    for sp in spans:
+        a, b = _k4_model(flat[2 * sp.start:2 * sp.stop], tw_w, direct=False)
+        for kk in range(k):
+            rows = blocks[kk].reshape(-1)
+            rows[2 * sp.start:2 * sp.stop:2], rows[2 * sp.start + 1:2 * sp.stop:2] = a[:, kk], b[:, kk]
+    scale_h = 1 / np.sqrt(h)
+    for r in range(K7_CLUSTER):
+        mine = owned[r]
+        step = 1 if two else group or max(1, len(mine))
+        for g0 in range(0, len(mine), step):
+            ks = mine[g0:g0 + step]
+            buf = np.empty((len(ks) * c, h), complex)
+            for i, kk in enumerate(ks):
+                buf[i * c:(i + 1) * c, dec] = blocks[kk]
+            for lr, lm in steps_h:
+                _dft_step(buf, h, ph, qh, lr, lm, tw_h)
+            if two:
+                buf = _odd_two_buffers(buf, h, ph, qh, steps_h, tw_h)
+            elif qh > 1:
+                _odd_registers(buf, h, ph, qh, steps_h, tw_h, transpose=False)
+            for i in range(len(ks)):
+                v = buf[i * c:(i + 1) * c]
+                o = np.maximum(mix @ np.concatenate([v.real, v.imag]) * scale_h + mb[:, None], 0)
+                buf[i * c:(i + 1) * c] = o[:c] - 1j * o[c:]
+            if two:
+                buf = _odd_two_buffers_transposed(buf, h, ph, qh, steps_h, tw_h)
+            elif qh > 1:
+                _odd_registers(buf, h, ph, qh, steps_h, tw_h, transpose=True)
+            for lr, lm in reversed(steps_h):
+                _dit_step_mixed(buf, h, ph, qh, lr, lm, tw_h)
+            for i, kk in enumerate(ks):
+                blocks[kk] = buf[i * c:(i + 1) * c, dec]
+    out = np.empty_like(flat)
+    for sp in spans:
+        spec = np.stack([np.conj(blocks[kk].reshape(-1)[2 * sp.start:2 * sp.stop])
+                         for kk in range(k)], 1) * scale_h     # (rows, K)
+        out[2 * sp.start:2 * sp.stop] = _k6_model(spec[0::2], spec[1::2], tw_w, direct=False)
+    out = out.reshape(c, h, w)
+    return out if residual is None else residual + out
+
+
+def _plain_branch(x, mix, mb):
+    """irfft2(relu(mix [Re; Im] rfft2 x + mb)) in float64 numpy, ortho,
+    the imaginary parts of the W bins 0 and W/2 dropped before the c2r (as
+    fft_conv.spectral_branch)."""
+    c, h, w = x.shape
+    xf = np.fft.rfft2(x, norm="ortho")
+    o = np.einsum("oi,ihk->ohk", mix, np.concatenate([xf.real, xf.imag])) + mb[:, None, None]
+    o = np.maximum(o, 0)
+    z = np.fft.ifft(o[:c] + 1j * o[c:], axis=1, norm="ortho")
+    z[:, :, 0] = z[:, :, 0].real
+    if w % 2 == 0:
+        z[:, :, -1] = z[:, :, -1].real
+    return np.fft.irfft(z, n=w, axis=2, norm="ortho")
+
+
+@pytest.mark.parametrize("w", [2, 27, 72, 96, 127, 128])
+def test_k7_every_bin_has_one_owner(w):
+    """K7's ownership at its cluster of 8: every bin k <= W/2 has exactly
+    one owner, CTA k % 8 at slot k / 8; no CTA owns more than the
+    largest count, and the scratch places (r, slot) are distinct; every
+    row pair of C in {8, 16, 32} belongs to exactly one CTA, C / 8 whole
+    channels each for even H."""
+    k = w // 2 + 1
+    owned, most = _k7_owned(w)
+    seen = {}
+    for r, ks in enumerate(owned):
+        assert len(ks) <= most
+        for b, kk in enumerate(ks):
+            assert kk not in seen and kk % K7_CLUSTER == r and kk // K7_CLUSTER == b
+            seen[kk] = r * most + b
+    assert sorted(seen) == list(range(k))
+    assert len(set(seen.values())) == k and max(seen.values()) < K7_CLUSTER * most
+    for c in (8, 16, 32):
+        for h in (2, 33, 96):
+            spans = _k7_pairs(c, h)
+            assert sorted(p for sp in spans for p in sp) == list(range(c * h // 2))
+            if h % 2 == 0:
+                assert all(len(sp) == c // K7_CLUSTER * h // 2 for sp in spans)
+
+
+@pytest.mark.parametrize("h,w,group", [(96, 96, None), (100, 72, None), (33, 27, None),
+                                       (97, 66, None), (66, 20, None), (128, 128, 2),
+                                       (2, 2, None), (24, 40, 3)])
+def test_k7_schedule_matches_rfft2(h, w, group):
+    """K7's schedule in float64 equals the plain spectral branch plus the
+    residual (np.fft.rfft2, the mix, the inverse), at C = 8: H with the odd
+    step in registers (96 = 32 * 3, 100 = 4 * 25, 24 = 8 * 3), in two
+    buffers (33, 97 and 66 = 2 * 33, which needs the reorder), none (128,
+    2); W with an odd part (27, 72 = 8 * 9, 66, 20) or none; all owned bins
+    at once, or 2 and 3 at a time as in scratch mode."""
+    rng = np.random.default_rng(h * w)
+    c = 8
+    x = rng.standard_normal((c, h, w))
+    res = rng.standard_normal((c, h, w))
+    mix = rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)
+    mb = rng.standard_normal(2 * c) * 0.1
+    tw_w, tw_h = (np.exp(-2j * np.pi * np.arange(n) / n) for n in (w, h))
+    got = _k7_model(x, mix, mb, tw_w, tw_h, residual=res, group=group)
+    assert np.abs(got - (res + _plain_branch(x, mix, mb))).max() <= TOL
