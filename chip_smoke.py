@@ -95,10 +95,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      version, K1's convs alone and hand-written FFTs alone;
   19. F2: one train step at gen_features=64 (16 of those patches): the
      plain generator under autograd, no kernel launch, finite losses;
-  20. training: ``python -m mtd_gan_tpu_torch.train`` (one epoch, 2 steps
-     of 20 slices, validation) on synthetic train / valid splits — the
-     training path, whose K1 and K2 launches are counted — then
-     ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
+  20. training: ``python -m mtd_gan_tpu_torch.train --method pcgrad`` (one
+     epoch, 2 steps of 20 slices, validation) on synthetic train / valid
+     splits — the training path, whose K1 and K2 launches are counted —
+     then ``python -m mtd_gan_tpu_torch.test --resume`` on its checkpoint;
+     then a second 1-epoch run with ``--method uw --scheduler
+     cosine_annealing_warm_restart --dataset-type-train full_patch
+     --from-pretrained`` (the first run's checkpoint) ``--profile-dir``,
+     its K2 launches counted and UW's state in its checkpoint, and ``test
+     --checkpoint-dir --epoch 0`` without ``--resume``;
   21. timings with CUDA events (K1, K2, K8, K7 and K3 - K6 and their plain
      versions per call beside their bounds (K1 and K3: the fp32 CUDA-core
      bound and the bound with their convs on the tensor cores in 3xTF32;
@@ -142,10 +147,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mtd_gan_tpu_torch import bench
 from mtd_gan_tpu_torch import test as test_cli
 from mtd_gan_tpu_torch import train as train_cli
-from mtd_gan_tpu_torch.data.dicom import write_synthetic_dicom
+from mtd_gan_tpu_torch.bench import block_work as k1_work
+from mtd_gan_tpu_torch.data import native
+from mtd_gan_tpu_torch.data.dicom import get_pixels_hu, write_synthetic_dicom
+from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset
 from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
+from mtd_gan_tpu_torch.engine import gan
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
                                               share_parameters)
@@ -162,8 +172,10 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import (_device_twiddles, block_fused,
                                                block_fused_reference)
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
+from mtd_gan_tpu_torch.mto.methods import METHODS, MTOState
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
+from mtd_gan_tpu_torch.utils.artifacts import save_png_gray
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
 
 # max |kernel - plain| / max |plain| per block call: both sides are fp32
@@ -196,12 +208,19 @@ TOL_BWD_L2 = 1e-2
 # of summation (PERF.md, Findings)
 TOL_STEP_GRAD_L2 = 1e-2
 TOL_STEP_DLOSS_REL = 1e-4
+# an MTO method's combined D gradient, over every leaf the method gives
+# one, 2-norm relative, against the same combine_grads in float64 on the
+# same per-task gradients: both take the Gram matrix and the solve in
+# float64, so what differs is the fp32 weighted sum on the card (held in
+# the 2-norm, not by the weights: IMTL's and NashMTL's weights span up to
+# ten decades, and the largest would hide an error in the others)
+TOL_MTO = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth; the C -> C
 # convs of K1 and K3 run three TF32 products (3xTF32) on the tensor cores,
 # everything else fp32 on the CUDA cores
 PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
+PEAK_TF32_FLOPS = bench.PEAK_TF32_FLOPS
 PEAK_HBM_BYTES = 3.35e12
 
 C = 32
@@ -238,13 +257,6 @@ TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patche
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip()
 
 
 def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int = C):
@@ -798,6 +810,7 @@ def run_sweep(model, rng, tmp: str, size: int, want, n_slices: int = 16):
         written = json.load(f)
     if n_rows != n_slices or n_png != n_slices:
         fail(f"sweep {size}^2 wrote {n_rows} rows and {n_png} PNGs, expected {n_slices}")
+    expect_native(f"sweep {size}^2", read_decoded(save_dir))
     if not all(math.isfinite(v) for v in list(summary.values()) + list(written.values())):
         fail(f"non-finite sweep {size}^2 metrics: {summary}")
     print(f"sweep {size}x{size}: {n_rows} rows, {n_png} PNGs, pred_psnr "
@@ -843,28 +856,6 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def k1_work(n: int, size: int, variant: str):
-    """(conv FLOPs, other FLOPs, bytes) one K1 call needs. Conv FLOPs: the
-    multiply-adds of each C->C 3x3 conv, 2*9*C*C per pixel. Other FLOPs:
-    each conv's 3-op epilogue per output; the spectral mix 2*(2C)^2 per
-    (h, k) bin plus bias and ReLU; a real 2-D FFT forward and one inverse,
-    2.5*HW*log2(HW) each per channel; the spectral add; the C->1 post
-    conv. Bytes: every input read once, every output written once, fp32."""
-    hw = size * size
-    k = size // 2 + 1
-    n_convs = 1 if variant == "plain" else 2
-    conv = n * n_convs * 2 * 9 * C * C * hw
-    other = n * (n_convs * 3 * C * hw
-                 + (2 * (2 * C) ** 2 + 2 * 2 * C) * size * k
-                 + 2 * 2.5 * C * hw * math.log2(hw) + C * hw)
-    words = n_convs * (9 * C * C + C) + 4 * C * C + 2 * C
-    words += n * C * hw * (3 if "skip" in variant else 2)  # x [, skip], out
-    if "post" in variant:
-        other += n * (2 * 9 * C + 3) * hw
-        words += 9 * C + 1 + 2 * n * hw  # post weights, img, final
-    return conv, other, 4 * words
 
 
 def k1_bounds(n: int, size: int, variant: str):
@@ -1302,8 +1293,8 @@ def check_train_cli(rng, tmp: str):
     args = train_cli.get_args_parser().parse_args([
         "--data-root", root, "--batch-size", str(TRAIN_SLICES), "--epochs", "1",
         "--device", "cuda", "--seed", "0", "--model-kwargs", kwargs,
-        "--checkpoint-dir", ckpt_dir, "--save-dir", os.path.join(tmp, "train_out"),
-        "--print-freq", "1"])
+        "--method", "pcgrad", "--checkpoint-dir", ckpt_dir,
+        "--save-dir", os.path.join(tmp, "train_out"), "--print-freq", "1"])
     block_fused.launches = block_bwd.launches = 0
     t0 = time.perf_counter()
     stats = train_cli.main(args)
@@ -1315,6 +1306,8 @@ def check_train_cli(rng, tmp: str):
     if launches[1] != 2 * 21 or launches[0] < 2 * 21:
         fail(f"train CLI: {launches} (K1, K2) launches, expected 2 steps x 21 K2 "
              f"and at least as many K1")
+    for split, decoded in stats["decoded"].items():
+        expect_native(f"train CLI {split}", decoded)
     ckpt = os.path.join(ckpt_dir, "epoch_0.pth")
     keys = load_checkpoint(ckpt)["model_state_dict"]
     if not (any(k.startswith("Generator.") for k in keys)
@@ -1324,6 +1317,7 @@ def check_train_cli(rng, tmp: str):
     summary = test_cli.main(test_cli.get_args_parser().parse_args([
         "--data-root", root, "--resume", ckpt, "--save-dir", test_dir,
         "--no-feature-metrics", "--device", "cuda", "--model-kwargs", kwargs]))
+    expect_native("test --resume", read_decoded(test_dir))
     if not all(math.isfinite(v) for v in summary.values()):
         fail(f"test CLI after train: non-finite metrics {summary}")
     print(f"train CLI: 1 epoch of 2 steps x {TRAIN_SLICES} slices in {train_s:.3f} s "
@@ -1332,15 +1326,242 @@ def check_train_cli(rng, tmp: str):
           f"valid_loss {stats['valid_loss']:.6f}; K1 launches {launches[0]}, K2 launches "
           f"{launches[1]}; checkpoint {len(keys)} tensors; test --resume pred_psnr "
           f"{summary['pred_psnr']:.4f}", flush=True)
+    check_train_cli_second(root, tmp, ckpt)
     return launches
 
 
+def read_decoded(save_dir: str):
+    """The decoder counts of the last line of a sweep's test_log.txt."""
+    with open(os.path.join(save_dir, "test_log.txt")) as f:
+        return json.loads(f.read().splitlines()[-1])["decoded"]
+
+
+def expect_native(label: str, decoded) -> None:
+    """Fail if any file was decoded in Python: this machine has g++."""
+    if decoded["python"] or not decoded["native"]:
+        fail(f"{label}: decoded {decoded}: every file must go through the native codec")
+
+
+def check_decoder(root: str):
+    """Phase 22: the native DICOM decoder (``csrc/dicom_codec.cc``, g++ into
+    ``_build/``) on the synthetic DICOMs under ``root``: present, bit for bit
+    the Python codec, and its ms per file next to the Python codec's."""
+    if native.library() is None:
+        fail("the native DICOM decoder did not build (g++)")
+    ds = PairedDicomDataset(root, "test")
+    paths = ds.low_paths + ds.high_paths
+    times = {}
+    for label, decode in (("native", native.decode_hu), ("python", get_pixels_hu)):
+        t0 = time.perf_counter()
+        out = [decode(p) for p in paths]
+        times[label] = (time.perf_counter() - t0) * 1e3 / len(paths)
+        if label == "native":
+            ours = out
+    for p, a, b in zip(paths, ours, out):
+        if a is None or a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"native decoder differs from the Python codec on {p}")
+    print(f"decoder: {len(paths)} files {ours[0].shape[0]}x{ours[0].shape[1]}, native "
+          f"{times['native']:.4f} ms/file, python {times['python']:.4f} ms/file, bit for "
+          f"bit equal", flush=True)
+    return times
+
+
+SPLIT_PHASES = ("load", "decode", "h2d", "generate", "metrics", "png", "csv")
+
+
+def sweep_split(model, root: str, tmp: str, n_slices: int):
+    """Phase 23: the 512x512 ``test`` sweep over ``n_slices`` DICOM pairs,
+    twice, its host time split by phase (each phase ends in a device
+    synchronize): model construction and checkpoint load, decode, H2D and
+    window, ``generate`` (K1, its launches counted), metrics with their copy
+    back, the PNG encoders' drain, CSV and summary; beside it one PNG
+    encode of a 512x512 slice on this thread. The steady-state slices/s
+    divide the slices by the loop's phases (decode to PNG), without the
+    fixed costs (load, CSV)."""
+    ckpt = os.path.join(tmp, "split_weights.pth")
+    sd = {f"Generator.{k}": v.detach().cpu() for k, v in model.generator.state_dict().items()}
+    torch.save({"model_state_dict": sd, "epoch": 0}, ckpt)
+    png = np.zeros((512, 512), np.uint8)
+    t0 = time.perf_counter()
+    for i in range(8):
+        save_png_gray(os.path.join(tmp, "split_png", f"{i}.png"), png)
+    png_ms = (time.perf_counter() - t0) * 1e3 / 8
+    out = []
+    for run in (1, 2):
+        save_dir = os.path.join(tmp, f"split{run}")
+        args = test_cli.get_args_parser().parse_args([
+            "--data-root", root, "--resume", ckpt, "--save-dir", save_dir,
+            "--no-feature-metrics", "--device", "cuda", "--seed", "0",
+            "--model-kwargs", json.dumps({"gen_features": model.gen_features,
+                                          "num_layers": model.num_layers})])
+        phases = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = test_cli.main(args, phases)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(f"sweep split {n_slices} slices", counts,
+                      {"K1": n_slices // 8 * 21})
+        expect_native(f"sweep split run {run}", read_decoded(save_dir))
+        if not all(math.isfinite(v) for v in summary.values()):
+            fail(f"sweep split: non-finite metrics {summary}")
+        secs = {p: phases[p].summary()["total_s"] for p in SPLIT_PHASES}
+        loop = sum(secs[p] for p in ("decode", "h2d", "generate", "metrics", "png"))
+        print(f"sweep split 512x512 run {run}: {n_slices} slices, wall {wall:.4f} s; "
+              + ", ".join(f"{p} {secs[p]:.4f} s" for p in SPLIT_PHASES)
+              + f"; steady state {n_slices / loop:.4f} slices/s; one PNG encode "
+              f"{png_ms:.3f} ms on this thread; launches {counts}", flush=True)
+        out.append((secs, n_slices / loop, wall))
+    return out
+
+
+def check_bench():
+    """Phase 24: ``bench.run`` at the root's batches (64, 32, 16, 8, 4):
+    every one of them ran (the sweep skips the batches at and above one
+    that failed), on the K1 route, with a value above 0."""
+    result = bench.run(device="cuda")
+    print(f"bench: {json.dumps(result)}", flush=True)
+    if result["value"] <= 0 or result.get("route") != "k1":
+        fail(f"bench: value {result['value']} on route {result.get('route')}")
+    if result["batches"] != list(bench.BATCHES):
+        fail(f"bench: batches {result['batches']} ran, expected {list(bench.BATCHES)}")
+    if not 0 < result["mfu"] <= 1:
+        fail(f"bench: mfu {result['mfu']} outside (0, 1]")
+    return result
+
+
+def _flat(grads):
+    return torch.cat([g.reshape(-1).double() for g in grads if g is not None])
+
+
+def check_mto_methods(x, y):
+    """Phase 25: one full-width train step per MTO method (generator 32 x 10
+    layers, discriminator 64, the 160 patches of phase 18) on K1 + K2: 21
+    launches of each, finite losses, and the method against
+    ``combine_grads`` run in float64 on the same per-task gradients,
+    losses, state and draws: the combined gradient over every leaf the
+    method gives one (2-norm) held to ``TOL_MTO``, the task weights' worst
+    error relative to each weight itself printed beside it. Then one step
+    timed with CUDA events. Returns {method: ms per step}."""
+    captured = {}
+    real = gan.combine_grads
+
+    def capture(method, task_grads, labels, order=None, losses=None, state=None, draw=None):
+        # a copy of the state: UW's optimizer steps log-sigma in place after
+        snap = MTOState(**{k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in state.to_dict().items()})
+        out = real(method, task_grads, labels, order, losses, state, draw)
+        captured.update(args=(method, task_grads, labels, order, losses, snap, draw),
+                        out=out)
+        return out
+
+    base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10, device="cuda",
+                       seed=0)
+    ms = {}
+    gan.combine_grads = capture
+    try:
+        for name in METHODS:
+            model = copy.deepcopy(base)
+            trainer = MTDGANTrainer(model, method=name, seed=0)
+            block_fused.launches = block_bwd.launches = 0
+            m = trainer.train_step(x, y)
+            torch.cuda.synchronize()
+            k1, k2 = block_fused.launches, block_bwd.launches
+            d, g = m["d_loss"].item(), m["g_loss"].item()
+            method, task_grads, labels, order, losses, state, draw = captured["args"]
+            grads = captured["out"][0]
+            weights = trainer.task_weights
+            state64 = MTOState(**{k: v.double() if torch.is_tensor(v) else v
+                                  for k, v in state.to_dict().items()})
+            grads64, _, weights64 = real(
+                method, [[t.double() for t in gs] for gs in task_grads], labels, order,
+                losses.double(), state64, None if draw is None else draw.double())
+            if [g is None for g in grads] != [g is None for g in grads64]:
+                fail(f"MTO {name}: the leaves given a gradient differ from float64")
+            err = ((_flat(grads) - _flat(grads64)).norm() / _flat(grads64).norm()).item()
+            nz = weights64 != 0
+            w_err = ((weights.double() - weights64)[nz].abs()
+                     / weights64[nz].abs()).max().item()
+            del grads64, captured["args"], captured["out"]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            trainer.train_step(x, y)
+            end.record()
+            end.synchronize()
+            ms[name] = start.elapsed_time(end)
+            print(f"MTO {name}: d_loss {d:.6f} g_loss {g:.6f}; weights "
+                  f"{weights.tolist()}; vs float64: combined D gradient {err:.3e} "
+                  f"(2-norm, tol {TOL_MTO}), weights {w_err:.3e} (each relative to "
+                  f"itself); K1 {k1} K2 {k2}; {ms[name]:.2f} ms/step", flush=True)
+            if not (math.isfinite(d) and math.isfinite(g)):
+                fail(f"MTO {name}: non-finite losses {d}, {g}")
+            if (k1, k2) != (21, 21):
+                fail(f"MTO {name}: {k1} K1 and {k2} K2 launches, expected 21 + 21")
+            if not err <= TOL_MTO:
+                fail(f"MTO {name}: combined D gradient {err:.3e} from float64 > {TOL_MTO}")
+            del model, trainer, m
+            torch.cuda.empty_cache()
+    finally:
+        gan.combine_grads = real
+    return ms
+
+
+def check_train_cli_second(root: str, tmp: str, pretrained: str):
+    """Phase 26: the train CLI again, one epoch of 2 steps, with UW, the
+    cosine warm-restart scheduler, the ``full_patch`` preset, a warm start
+    from the first run's checkpoint and a profiler trace of the epoch; then
+    ``test --checkpoint-dir --epoch 0`` without ``--resume``."""
+    ckpt_dir = os.path.join(tmp, "ckpt_uw")
+    prof = os.path.join(tmp, "prof")
+    kwargs = json.dumps({"gen_features": C, "disc_features": 64, "num_layers": 10})
+    args = train_cli.get_args_parser().parse_args([
+        "--data-root", root, "--batch-size", str(TRAIN_SLICES), "--epochs", "1",
+        "--device", "cuda", "--seed", "1", "--model-kwargs", kwargs,
+        "--method", "uw", "--scheduler", "cosine_annealing_warm_restart",
+        "--dataset-type-train", "full_patch", "--from-pretrained", pretrained,
+        "--profile-dir", prof, "--checkpoint-dir", ckpt_dir,
+        "--save-dir", os.path.join(tmp, "train_uw_out"), "--print-freq", "1"])
+    block_fused.launches = block_bwd.launches = 0
+    t0 = time.perf_counter()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = (block_fused.launches, block_bwd.launches)
+    if not all(math.isfinite(v) for v in stats.values() if isinstance(v, float)):
+        fail(f"train CLI (uw): non-finite epoch stats {stats}")
+    if launches[1] != 2 * 21 or launches[0] < 2 * 21:
+        fail(f"train CLI (uw): {launches} (K1, K2) launches, expected 2 steps x 21 K2")
+    for split, decoded in stats["decoded"].items():
+        expect_native(f"train CLI (uw) {split}", decoded)
+    trace_mb = os.path.getsize(os.path.join(prof, "trace.json")) / 2**20
+    saved = load_checkpoint(os.path.join(ckpt_dir, "epoch_0.pth"))
+    logsigma = saved["mto_state"]["logsigma"]
+    if saved["mto_method"] != "uw" or saved["optimizer_mto"] is None or not torch.any(logsigma):
+        fail(f"train CLI (uw): the checkpoint lacks UW's state ({saved['mto_method']}, "
+             f"logsigma {logsigma})")
+    test_dir = os.path.join(tmp, "test_uw_out")
+    summary = test_cli.main(test_cli.get_args_parser().parse_args([
+        "--data-root", root, "--checkpoint-dir", ckpt_dir, "--epoch", "0",
+        "--save-dir", test_dir, "--no-feature-metrics", "--device", "cuda",
+        "--model-kwargs", kwargs]))
+    expect_native("test --checkpoint-dir", read_decoded(test_dir))
+    if not all(math.isfinite(v) for v in summary.values()):
+        fail(f"test --checkpoint-dir --epoch 0: non-finite metrics {summary}")
+    print(f"train CLI (uw, cosine warm restarts, full_patch, from-pretrained): 1 epoch of "
+          f"2 steps in {train_s:.3f} s, lr {stats['lr']:.3e}, train_d_loss "
+          f"{stats['train_d_loss']:.6f} train_g_loss {stats['train_g_loss']:.6f}; K1 "
+          f"launches {launches[0]}, K2 launches {launches[1]}; logsigma "
+          f"{logsigma.tolist()}; trace {trace_mb:.1f} MiB; test --checkpoint-dir --epoch 0 "
+          f"pred_psnr {summary['pred_psnr']:.4f}", flush=True)
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
+    card = bench.card_name()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1464,9 +1685,25 @@ def main():
     # ---- 19. F2: a train step at a width K1 and K2 do not take
     check_train_width64(x[:16], y[:16])
 
-    # ---- 20. the training path through its CLI, then test --resume
+    # ---- 20. the training path through its CLI, then test --resume; a
+    # second run with UW and the rest of the root flags, then test
+    # --checkpoint-dir --epoch 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches = check_train_cli(rng, tmp)
+
+    # ---- 22. the native DICOM decoder; 23. the sweep's host-time split
+    n_split = 64
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as tmp:
+        split_root = os.path.join(tmp, "data")
+        write_split(split_root, "test", rng, n_split)
+        check_decoder(split_root)
+        sweep_split(model, split_root, tmp, n_split)
+
+    # ---- 24. the bench CLI's sweep on the K1 route
+    check_bench()
+
+    # ---- 25. one train step per MTO method on K1 + K2
+    check_mto_methods(x, y)
 
     # ---- 21. timings (CUDA events)
     times = {}
@@ -1691,6 +1928,9 @@ def main():
         print(f"time 2x bilinear upsample fwd+bwd (320, 64, 32, 32) {label}: "
               f"{up_ms:.3f} ms", flush=True)
     del up_in
+    # the step's own peak, not the earlier phases' (phase 25 holds eleven
+    # models' gradients in float64)
+    torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: trainer.train_step(x, y), 3)
     print(f"time train step 160 x 64x64 (32/64 features, 10 layers, PCGrad + "
           f"AdamW): {step_ms:.2f} ms/step = {160e3 / step_ms:.2f} patches/s; peak "
@@ -1704,6 +1944,8 @@ def main():
 
     k_ms, p_ms, b_ms, by = times["pre+skip"]
     kb_ms, pb_ms, bb_ms, bby = bwd_times["pre+skip"]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here, the builds "
+          f"included", flush=True)
     print(json.dumps({"kernels": [{
         "name": "block_fused", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_fused.cu",

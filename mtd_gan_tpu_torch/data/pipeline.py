@@ -1,7 +1,10 @@
-"""Paired DICOM dataset, the shuffled training loader with threaded decode
-and the sequential evaluation loader (counterpart of
-``mtd_gan_tpu/data/pipeline.py:30-143``). Batches are host numpy arrays;
-the caller moves them to the device and runs the preprocess there.
+"""Paired DICOM dataset, the shuffled training loader with threaded decode,
+the sequential evaluation loader and the device prefetcher (counterpart of
+``mtd_gan_tpu/data/pipeline.py``). Slices decode through the native codec
+(``data/native.py``) and through the Python one (``data/dicom.py``) only
+where the native one is missing or refuses a file. Loader batches are host
+numpy arrays; :class:`prefetch_to_device` moves them to the device ahead of
+the consumer, which runs the preprocess there.
 
 Layout convention of the Mayo LDCT release:
   <root>/<split>/*/n_20/*.(IMA|dcm)   quarter-dose inputs
@@ -11,15 +14,19 @@ sorted naturally and paired positionally.
 
 from __future__ import annotations
 
+import collections
 import glob
+import itertools
 import os
 import queue
 import re
 import threading
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from mtd_gan_tpu_torch.data import native
 from mtd_gan_tpu_torch.data.dicom import get_pixels_hu
 
 
@@ -31,7 +38,8 @@ def natural_sort(paths: Sequence[str]) -> List[str]:
 
 
 class PairedDicomDataset:
-    """Positionally paired (n_20, n_100) DICOM slices."""
+    """Positionally paired (n_20, n_100) DICOM slices. ``decoded`` counts the
+    files each codec decoded (``"native"``, ``"python"``)."""
 
     def __init__(self, root: str, split: str = "train",
                  low_key: str = "n_20", high_key: str = "n_100",
@@ -50,12 +58,21 @@ class PairedDicomDataset:
             raise ValueError(
                 f"unpaired dataset: {len(self.low_paths)} low vs "
                 f"{len(self.high_paths)} high dose slices under {root}/{split}")
+        self.decoded = {"native": 0, "python": 0}
+        self._count_lock = threading.Lock()  # the loader decodes on threads
 
     def __len__(self) -> int:
         return len(self.low_paths)
 
     def load(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
-        return get_pixels_hu(self.low_paths[idx]), get_pixels_hu(self.high_paths[idx])
+        return self._decode(self.low_paths[idx]), self._decode(self.high_paths[idx])
+
+    def _decode(self, path: str) -> np.ndarray:
+        hu = native.decode_hu(path)
+        codec = "native" if hu is not None else "python"
+        with self._count_lock:
+            self.decoded[codec] += 1
+        return hu if hu is not None else get_pixels_hu(path)
 
 
 def batched_indices(n: int, batch_size: int, shuffle: bool, drop_last: bool,
@@ -143,3 +160,52 @@ def eval_loader(ds: PairedDicomDataset, batch_size: int = 1) -> Iterator:
         yield (np.stack([p[0] for p in pairs])[..., None],
                np.stack([p[1] for p in pairs])[..., None],
                [ds.low_paths[i] for i in idxs])
+
+
+class prefetch_to_device:  # named as the JAX package's function
+    """Iterates ``loader``'s items (tuples of host arrays) as tuples of
+    tensors on ``device``, ``size`` items ahead of the consumer (counterpart
+    of the JAX ``prefetch_to_device``; reference DataLoader pin_memory +
+    ``.to(device)``). On a CUDA device each array is copied into pinned
+    host memory, then to the device with ``non_blocking`` copies on a side
+    stream; the consumer's stream waits on the copy's event before the
+    batch is handed out, and the batch's memory is recorded on that stream,
+    so the allocator does not reuse it while the consumer still reads it.
+    The pinned buffer stays referenced until its copy's event has been
+    waited on, and PyTorch's pinned allocator reuses no block before the
+    copies that read it have finished. On the CPU the items pass through
+    unchanged. ``len()`` is the loader's."""
+
+    def __init__(self, loader: Iterable, device, size: int = 2):
+        self.loader, self.device, self.size = loader, torch.device(device), max(1, size)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator:
+        if self.device.type != "cuda":
+            yield from self.loader
+            return
+        stream = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+
+        def launch(item):
+            host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in item]
+            with torch.cuda.stream(stream):
+                dev = [h.to(self.device, non_blocking=True) for h in host]
+                done = torch.cuda.Event()
+                done.record(stream)
+            return dev, host, done
+
+        items = iter(self.loader)
+        pending = collections.deque(launch(it) for it in itertools.islice(items, self.size))
+        while pending:
+            dev, host, done = pending.popleft()
+            consumer.wait_event(done)
+            for t in dev:
+                t.record_stream(consumer)
+            del host
+            nxt = next(items, None)
+            if nxt is not None:
+                pending.append(launch(nxt))
+            yield tuple(dev)

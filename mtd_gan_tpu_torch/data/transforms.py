@@ -4,8 +4,12 @@
 Presets (reference create_datasets/Mayo.py, Sinogram.py):
   full*        : HU [-1024, 3072] -> [0, 1]
   window*      : HU window (abdomen for mayo, brain otherwise) -> [0, 1], clipped
+  full_patch   : (train) full, zero padding, 8 random paired 64x64 crops
+                 anywhere in the slice, then the paired augmentation
   window_patch : (train) window, foreground bbox of y > 0, zero padding,
                  8 random paired 64x64 crops, then the paired augmentation
+  full, window : (train) whole slices with the paired augmentation; window
+                 then min-max rescales each image (a reference quirk, kept)
   aug          : rot90 (k in 1..3), flip of both axes, rotation by
                  U(-15, 15) degrees (bilinear, zero fill, same size), each
                  with probability 0.1, drawn per crop
@@ -32,6 +36,14 @@ HU_MIN, HU_MAX = -1024.0, 3072.0
 def dicom_normalize(x: Tensor) -> Tensor:
     """HU -> [0,1] over the full scanner range (reference Mayo.py:45-48)."""
     return (x - HU_MIN) / (HU_MAX - HU_MIN)
+
+
+def minmax_rescale(x: Tensor) -> Tensor:
+    """Per-image min-max to [0, 1] of (N, H, W, C) (MONAI ScaleIntensityd,
+    used by the ``window`` train preset only, Mayo.py:119)."""
+    lo = x.amin(dim=(-3, -2, -1), keepdim=True)
+    hi = x.amax(dim=(-3, -2, -1), keepdim=True)
+    return torch.where(hi > lo, (x - lo) / (hi - lo + 1e-12), x)
 
 
 def scale_intensity_range(x: Tensor, a_min: float, a_max: float,
@@ -78,15 +90,21 @@ def foreground_bbox(mask: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     return full(rmin, 0), full(rmax, h), full(cmin, 0), full(cmax, w)
 
 
-def crop_windows(x: Tensor, y: Tensor, patch: int
+def crop_windows(x: Tensor, y: Tensor, patch: int, foreground: bool = True
                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Zero-pad (B, H, W, C) slices by ``patch`` and return the padded pair
     and, per slice, the range of crop origins: tops in [lo_r, hi_r], lefts in
     [lo_c, hi_c] (inclusive), confined to the foreground bbox of ``y > 0``
-    grown to at least ``patch`` (MONAI CropForegroundd + SpatialPadd)."""
+    (the whole slice without ``foreground``) grown to at least ``patch``
+    (MONAI CropForegroundd + SpatialPadd)."""
     pad = (0, 0, patch, patch, patch, patch)
     xp, yp = F.pad(x, pad), F.pad(y, pad)
-    rmin, rmax, cmin, cmax = foreground_bbox(y > 0)
+    if foreground:
+        rmin, rmax, cmin, cmax = foreground_bbox(y > 0)
+    else:
+        b, h, w = y.shape[:3]
+        full = lambda v: torch.full((b,), v, dtype=torch.long, device=y.device)
+        rmin, rmax, cmin, cmax = full(0), full(h), full(0), full(w)
 
     def expand(lo, hi):
         deficit = (patch - (hi - lo)).clamp_min(0)
@@ -155,19 +173,24 @@ def make_train_preprocess(preset: str = "window_patch", dataset: str = "mayo",
                           patch: int = 64, num_samples: int = 8,
                           aug_prob: float = 0.1):
     """Returns ``(hu_x, hu_y, generator) -> (x, y)``: HU tensors (B, H, W, 1)
-    to float32 crops ``(B * num_samples, patch, patch, 1)`` on their device
-    (MONAI list_data_collate order: slice-major). Only ``window_patch``, the
-    flagship's preset, is ported."""
-    if preset != "window_patch":
-        raise NotImplementedError(
-            f"train preset {preset!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 7); ported: window_patch")
-    norm = _window_fn(dataset)
+    to float32 on their device. The ``*_patch`` presets give crops ``(B *
+    num_samples, patch, patch, 1)`` (MONAI list_data_collate order:
+    slice-major); ``full`` and ``window`` give the whole slices ``(B, H, W,
+    1)`` (JAX ``make_train_preprocess``, data/transforms.py:201-243)."""
+    if preset not in ("full", "full_patch", "window", "window_patch"):
+        raise KeyError(f"unknown train preset {preset!r}")
+    windowed = preset.startswith("window")
+    norm = _window_fn(dataset) if windowed else dicom_normalize
 
     def preprocess(hu_x: Tensor, hu_y: Tensor,
                    generator: Optional[torch.Generator] = None):
         x, y = norm(hu_x.float()), norm(hu_y.float())
-        xp, yp, lo_r, hi_r, lo_c, hi_c = crop_windows(x, y, patch)
+        if not preset.endswith("_patch"):
+            x, y = augment_pairs(x, y, generator, aug_prob)
+            if preset == "window":  # quirk parity: rescaled after the aug
+                x, y = minmax_rescale(x), minmax_rescale(y)
+            return x, y
+        xp, yp, lo_r, hi_r, lo_c, hi_c = crop_windows(x, y, patch, foreground=windowed)
         b, dev = x.shape[0], x.device
         u = torch.rand((2, b, num_samples), generator=generator, device=dev)
         pick = lambda lo, hi, v: lo[:, None] + (v * (hi - lo + 1)[:, None]).long()

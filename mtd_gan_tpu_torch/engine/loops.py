@@ -2,9 +2,10 @@
 the test-set metric sweep ``run_test`` (counterpart of
 ``mtd_gan_tpu/engine/loops.py``).
 
-Training: per batch, the HU pair goes to the model's device, the train
-preprocess cuts and augments the crops there, and one trainer step runs;
-step metrics stay on the device and are fetched at print boundaries.
+Training: the loader is wrapped in ``prefetch_to_device``, so each HU pair
+is on the model's device before its step; the train preprocess cuts and
+augments the crops there, and one trainer step runs; step metrics stay on
+the device and are fetched at print boundaries.
 Validation: full-slice predictions, the criterion per slice, and PNGs of
 the last slice.
 
@@ -12,11 +13,14 @@ Per slice: RMSE / PSNR / SSIM for the input, gt and prediction columns, a
 PNG of the clipped prediction, and a row of ``pred_results.csv``; the means
 go to ``test_summary.json``. Predictions run on groups of ``eval_batch``
 loader items, the last group padded by repeating its last item (padded
-outputs dropped), while metrics, PNGs and rows stay per item.
+outputs dropped), while metrics, PNGs and rows stay per item. Given a
+``phases`` dict, the sweep charges its host time to named phases (decode,
+h2d, generate, metrics, png, csv), each ending in a device synchronize.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -26,9 +30,11 @@ import numpy as np
 import torch
 
 from mtd_gan_tpu_torch import losses as losses_lib
+from mtd_gan_tpu_torch.data.pipeline import prefetch_to_device
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
+from mtd_gan_tpu_torch.utils.profiling import StepTimer
 
 _METRIC_COLUMNS = ("input_rmse", "gt_rmse", "pred_rmse",
                    "input_psnr", "gt_psnr", "pred_psnr",
@@ -46,12 +52,16 @@ def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]
 
 def train_one_epoch(trainer, loader: Iterable, preprocess,
                     generator: torch.Generator, print_freq: int = 10,
-                    header: str = "Train:") -> Dict[str, float]:
+                    header: str = "Train:", device_prefetch: bool = True
+                    ) -> Dict[str, float]:
     """One epoch over ``loader`` items ``(hu_x, hu_y)``; returns the epoch
     means of the step metrics. Non-finite metrics are reported and the
-    epoch goes on (reference engine.py:208-209)."""
+    epoch goes on (reference engine.py:208-209). ``device_prefetch``: copy
+    each batch to the device ahead of its step."""
     logger = MetricLogger()
     device = trainer.model.device
+    if device_prefetch:
+        loader = prefetch_to_device(loader, device)
     pending: List[Tuple[int, Dict[str, torch.Tensor]]] = []
 
     def flush():
@@ -65,8 +75,8 @@ def train_one_epoch(trainer, loader: Iterable, preprocess,
 
     for i, (hu_x, hu_y) in enumerate(logger.log_every(loader, print_freq, header,
                                                       pre_print=flush)):
-        x, y = preprocess(torch.from_numpy(np.asarray(hu_x)).to(device),
-                          torch.from_numpy(np.asarray(hu_y)).to(device), generator)
+        x, y = preprocess(torch.as_tensor(hu_x, device=device),
+                          torch.as_tensor(hu_y, device=device), generator)
         pending.append((i, trainer.train_step(x, y)))
     flush()
     return logger.global_averages()
@@ -115,14 +125,30 @@ def _pixel_metrics(x: torch.Tensor, y: torch.Tensor,
                        + pixel_metrics.compute_ssim(x, y, p))
 
 
+def _timed(items: Iterable, timer) -> Iterator:
+    """``items``, each ``next`` charged to ``timer``."""
+    it = iter(items)
+    while True:
+        with timer:
+            item = next(it, StopIteration)
+        if item is StopIteration:
+            return
+        yield item
+
+
 @torch.no_grad()
 def run_test(model, loader: Iterable, eval_preprocess, family: str,
              save_dir: str, compute_fid_metric: bool = True,
              compute_feature_metrics: bool = True,
-             eval_batch: int = 8) -> Dict[str, float]:
+             eval_batch: int = 8,
+             phases: Optional[Dict[str, StepTimer]] = None) -> Dict[str, float]:
     """Metric sweep over ``loader`` items ``(hu_x, hu_y[, paths])`` on the
     model's device; returns the per-column means (also written to
-    ``save_dir/test_summary.json``)."""
+    ``save_dir/test_summary.json``). ``phases``: where to record the host
+    seconds of each phase (``decode`` the loader, ``h2d`` the copy and
+    window, ``generate``, ``metrics`` with their copy back, ``png`` the
+    encoders' drain, ``csv`` the CSV and summary), one synchronizing
+    :class:`StepTimer` each."""
     if compute_feature_metrics or compute_fid_metric:
         raise NotImplementedError(
             "feature metrics (PL/TML) and FID are not ported yet "
@@ -130,43 +156,55 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
             "False and compute_fid_metric=False")
     predictor = _predictor_for(model, family)
     device = model.device
+    if phases is not None:
+        sync = device.type == "cuda"
+        for name in ("decode", "h2d", "generate", "metrics", "png", "csv"):
+            phases.setdefault(name, StepTimer(sync=sync))
+        loader = _timed(loader, phases["decode"])
+    span = (lambda name: phases[name]) if phases is not None else (
+        lambda name: contextlib.nullcontext())
     os.makedirs(save_dir, exist_ok=True)
     rows: List[Dict] = []
     n_seen = 0
     with ThreadPoolExecutor(max_workers=4) as png_pool:
         png_futures = []
         for group, n_real in _grouped(loader, eval_batch):
-            hu_x = torch.from_numpy(np.concatenate([np.asarray(b[0]) for b in group]))
-            hu_y = torch.from_numpy(np.concatenate([np.asarray(b[1]) for b in group]))
-            x, y = eval_preprocess(hu_x.to(device), hu_y.to(device))
-            pred = predictor(x).clamp(0.0, 1.0)
+            with span("h2d"):
+                hu_x = torch.from_numpy(np.concatenate([np.asarray(b[0]) for b in group]))
+                hu_y = torch.from_numpy(np.concatenate([np.asarray(b[1]) for b in group]))
+                x, y = eval_preprocess(hu_x.to(device), hu_y.to(device))
+            with span("generate"):
+                pred = predictor(x).clamp(0.0, 1.0)
 
-            metrics, pngs, names = [], [], []
-            off = 0
-            for item in group[:n_real]:
-                b_i = np.asarray(item[0]).shape[0]
-                xi, yi, pi = x[off:off + b_i], y[off:off + b_i], pred[off:off + b_i]
-                off += b_i
-                metrics.append(_pixel_metrics(xi, yi, pi))
-                # same round(clip * 255) (half to even) as save_png_gray
-                pngs.append(torch.round(pi[0, ..., 0] * 255.0).to(torch.uint8))
-                paths = item[2] if len(item) > 2 else None
-                names.append((os.path.basename(paths[0]) if paths
-                              else f"slice_{n_seen:05d}") + ".png")
-                n_seen += 1
-            metrics_h = torch.stack(metrics).cpu().numpy()  # one sync per group
-            pngs_h = torch.stack(pngs).cpu().numpy()
+            with span("metrics"):
+                metrics, pngs, names = [], [], []
+                off = 0
+                for item in group[:n_real]:
+                    b_i = np.asarray(item[0]).shape[0]
+                    xi, yi, pi = x[off:off + b_i], y[off:off + b_i], pred[off:off + b_i]
+                    off += b_i
+                    metrics.append(_pixel_metrics(xi, yi, pi))
+                    # same round(clip * 255) (half to even) as save_png_gray
+                    pngs.append(torch.round(pi[0, ..., 0] * 255.0).to(torch.uint8))
+                    paths = item[2] if len(item) > 2 else None
+                    names.append((os.path.basename(paths[0]) if paths
+                                  else f"slice_{n_seen:05d}") + ".png")
+                    n_seen += 1
+                metrics_h = torch.stack(metrics).cpu().numpy()  # one sync per group
+                pngs_h = torch.stack(pngs).cpu().numpy()
             for name, m, png in zip(names, metrics_h, pngs_h):
                 png_futures.append(png_pool.submit(
                     save_png_gray, os.path.join(save_dir, "png", name), png))
                 row = {k: float(v) for k, v in zip(_METRIC_COLUMNS, m)}
                 row["filename"] = name
                 rows.append(row)
-        for fut in png_futures:
-            fut.result()  # surface encode/write errors
+        with span("png"):
+            for fut in png_futures:
+                fut.result()  # surface encode/write errors
 
-    summary = {k: float(np.mean([r[k] for r in rows])) for k in _METRIC_COLUMNS}
-    save_csv(os.path.join(save_dir, "pred_results.csv"), rows)
-    with open(os.path.join(save_dir, "test_summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    with span("csv"):
+        summary = {k: float(np.mean([r[k] for r in rows])) for k in _METRIC_COLUMNS}
+        save_csv(os.path.join(save_dir, "pred_results.csv"), rows)
+        with open(os.path.join(save_dir, "test_summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     return summary

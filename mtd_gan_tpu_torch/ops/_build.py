@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each source under ``mtd_gan_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes``. Libraries go to ``mtd_gan_tpu_torch/_build/``, named by a hash
-of the source and the flags, and are built on first use; a failed build
-raises. Nothing here runs at import time.
+Each ``.cu`` source under ``mtd_gan_tpu_torch/csrc/`` is compiled by
+``nvcc`` for ``sm_90a`` (:func:`build`), the host decoder
+``csrc/dicom_codec.cc`` by ``g++`` (:func:`build_host`), into a shared
+library with a plain C interface loaded with ``ctypes``. Libraries go to
+``mtd_gan_tpu_torch/_build/``, named by a hash of the source (and the
+headers it may include) and the flags, and are built on first use; a failed
+build raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -39,32 +42,50 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for its current source
-    (and the ``csrc/*.cuh`` headers it may include) is already built;
-    returns the library path. The compiler's log (with the ``-Xptxas -v``
-    register and shared-memory report) is kept beside it as ``.log``."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC.glob("*.cuh")):
+def _compile(name: str, src: Path, compiler: str, flags, headers=()) -> Path:
+    """``compiler flags -o lib<name>_<hash>.so src`` unless that library
+    exists; the compiler's log is kept beside it as ``.log``, starting with
+    the build seconds."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for header in headers:
         h.update(header.read_bytes())
-    digest = h.hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+    proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for {src.name}:\n"
+                           f"{proc.stderr}")
     lib.with_suffix(".log").write_text(
         f"build seconds: {time.perf_counter() - t0:.2f}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)  # atomic: concurrent builds race harmlessly
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for its current source
+    (and the ``csrc/*.cuh`` headers it may include) is already built;
+    returns the library path. The compiler's log (with the ``-Xptxas -v``
+    register and shared-memory report) is kept beside it as ``.log``."""
+    return _compile(name, CSRC / f"{name}.cu", _nvcc(), NVCC_FLAGS,
+                    sorted(CSRC.glob("*.cuh")))
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cc`` with ``g++`` (``-O3
+    -shared -fPIC``) unless built; returns the library path. Raises when
+    there is no ``g++`` or the build fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native DICOM decoder needs a "
+                           "host C++ compiler")
+    return _compile(name, CSRC / f"{name}.cc", gxx, HOST_FLAGS)
 
 
 _P = ctypes.c_void_p

@@ -1,26 +1,36 @@
 """Test CLI of the port — the MTD-GAN metric sweep over a test split
-(counterpart of the root ``test.py`` for ``--model MTD_GAN_Method``).
+(counterpart of the root ``test.py`` for ``--model MTD_GAN_Method``, with
+its flags and defaults but ``--device``).
 
-    python -m mtd_gan_tpu_torch.test --data-root DATA --resume ckpt.pth \
-        --no-feature-metrics [--device cuda|cpu]
+    python -m mtd_gan_tpu_torch.test --data-root DATA --checkpoint-dir ckpt \
+        [--epoch N] --no-feature-metrics [--device cuda|cpu]
 
-Loads the generator from a reference-layout ``.pth``, runs full-image
-inference in groups of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM per
-slice, writes a PNG per slice, ``pred_results.csv``, ``test_summary.json``
-and appends a JSON line to ``test_log.txt`` in ``--save-dir``.
+Loads the generator from a reference-layout ``.pth``: ``--resume``, else
+``<checkpoint-dir>/epoch_<n>.pth`` as the train CLI writes it (the epoch
+``--epoch`` names, the latest at -1). Runs full-image inference in groups
+of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM per slice, writes a
+PNG per slice, ``pred_results.csv``, ``test_summary.json`` and appends a
+JSON line to ``test_log.txt`` in ``--save-dir``. The flags that only
+configure training (``--loss``, ``--lr``, ``--method``, ``--optimizer``,
+``--print-freq``) and ``--test-num-workers`` are taken and unused, as at
+the root.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
+from typing import Dict, Optional
 
 from mtd_gan_tpu_torch._device import resolve_device
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, eval_loader
 from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess
 from mtd_gan_tpu_torch.engine.loops import run_test
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
+from mtd_gan_tpu_torch.utils.profiling import StepTimer
 from mtd_gan_tpu_torch.utils.torch_import import load_reference_checkpoint
 
 PORTED_MODELS = ("MTD_GAN_Method",)
@@ -33,15 +43,28 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--split", default="test", type=str)
     p.add_argument("--dataset-type-test", default="window", type=str)
     p.add_argument("--test-batch-size", default=1, type=int)
+    p.add_argument("--test-num-workers", default=4, type=int,
+                   help="taken for the root CLI's sake: the sweep decodes in "
+                        "order on the main thread, as there")
     p.add_argument("--model", default="MTD_GAN_Method", type=str)
+    p.add_argument("--loss", default="L1 Loss", type=str)
+    p.add_argument("--method", default="", type=str)
+    p.add_argument("--optimizer", default="adamw", type=str)
+    p.add_argument("--lr", default=1e-4, type=float)
+    p.add_argument("--multi-gpu-mode", default="Single", type=str)
     p.add_argument("--device", default="cuda", type=str)
+    p.add_argument("--print-freq", default=10, type=int)
+    p.add_argument("--checkpoint-dir", default="checkpoints", type=str)
     p.add_argument("--save-dir", default="predictions/test", type=str)
-    p.add_argument("--resume", required=True, type=str,
+    p.add_argument("--resume", default="", type=str,
                    help="reference-layout .pth checkpoint "
-                        "({'model_state_dict': {'Generator.…': …}})")
-    p.add_argument("--eval-batch", default=8, type=int,
+                        "({'model_state_dict': {'Generator.…': …}}); default: "
+                        "<checkpoint-dir>/epoch_<epoch>.pth")
+    p.add_argument("--epoch", default=-1, type=int,
+                   help="epoch to restore from --checkpoint-dir (-1 = latest)")
+    p.add_argument("--eval-batch", default=None, type=int,
                    help="slices per forward in the sweep (metrics/PNGs stay "
-                        "per slice)")
+                        "per slice); default 8")
     p.add_argument("--no-feature-metrics", action="store_true",
                    help="skip PL/TML/FID (required: not ported yet)")
     p.add_argument("--seed", default=42, type=int)
@@ -52,17 +75,43 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(args) -> dict:
+def checkpoint_path(checkpoint_dir: str, epoch: int = -1) -> str:
+    """``<checkpoint_dir>/epoch_<epoch>.pth``, the highest epoch at -1
+    (root test.py:36-40, :78-80, on the files the train CLI writes)."""
+    if epoch >= 0:
+        path = os.path.join(checkpoint_dir, f"epoch_{epoch}.pth")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint {path}")
+        return path
+    found = {int(m.group(1)): p for p in glob.glob(os.path.join(checkpoint_dir, "epoch_*.pth"))
+             if (m := re.fullmatch(r"epoch_(\d+)\.pth", os.path.basename(p)))}
+    if not found:
+        raise FileNotFoundError(f"no epoch_<n>.pth checkpoints under {checkpoint_dir}")
+    return found[max(found)]
+
+
+def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
+    """The sweep; ``phases`` receives the host seconds by phase (model load,
+    then :func:`~mtd_gan_tpu_torch.engine.loops.run_test`'s)."""
     if args.model not in PORTED_MODELS:
         raise NotImplementedError(
             f"model {args.model!r} is not ported yet (ROADMAP.md queue 1, "
             f"items 8-11); ported: {PORTED_MODELS}")
+    if args.multi_gpu_mode != "Single":
+        raise NotImplementedError(
+            "--multi-gpu-mode other than Single is not ported yet (ROADMAP.md "
+            "queue 1, item 14)")
     device = resolve_device(args.device)
-    kwargs = json.loads(args.model_kwargs or "{}")
-    model = MTDGANModel(**kwargs, device=device, seed=args.seed)
-    epoch, state = load_reference_checkpoint(args.resume)
-    model.generator.load_state_dict(state, strict=True)
-    print(f"restored epoch {epoch} from {args.resume}")
+    load = StepTimer(sync=device.type == "cuda")
+    with load:
+        kwargs = json.loads(args.model_kwargs or "{}")
+        model = MTDGANModel(**kwargs, device=device, seed=args.seed)
+        path = args.resume or checkpoint_path(args.checkpoint_dir, args.epoch)
+        epoch, state = load_reference_checkpoint(path)
+        model.generator.load_state_dict(state, strict=True)
+    if phases is not None:
+        phases["load"] = load
+    print(f"restored epoch {epoch} from {path}")
 
     ds = PairedDicomDataset(args.data_root, args.split)
     print(f"test slices: {len(ds)}")
@@ -72,8 +121,9 @@ def main(args) -> dict:
         save_dir=args.save_dir,
         compute_fid_metric=not args.no_feature_metrics,
         compute_feature_metrics=not args.no_feature_metrics,
-        eval_batch=args.eval_batch)
-    line = {"epoch": epoch, "model": args.model, **summary, "memo": args.memo}
+        eval_batch=8 if args.eval_batch is None else args.eval_batch, phases=phases)
+    line = {"epoch": epoch, "model": args.model, **summary, "memo": args.memo,
+            "decoded": ds.decoded}
     os.makedirs(args.save_dir, exist_ok=True)
     with open(os.path.join(args.save_dir, "test_log.txt"), "a") as f:
         f.write(json.dumps(line) + "\n")

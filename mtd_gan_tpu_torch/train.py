@@ -1,16 +1,26 @@
-"""Training CLI of the port — the MTD-GAN PCGrad recipe (counterpart of the
-root ``train.py`` for ``--model MTD_GAN_Method``; reference train.py:22-67).
+"""Training CLI of the port — the MTD-GAN recipe (counterpart of the root
+``train.py`` for ``--model MTD_GAN_Method``, with its flags and defaults
+but ``--device``; reference train.py:22-67).
 
     python -m mtd_gan_tpu_torch.train --data-root DATA --batch-size 20 \
         --method pcgrad --epochs 500 --checkpoint-dir ckpt --save-dir preds \
         [--device cuda|cpu]
 
-Per epoch: the poly learning rate, shuffled batches of slices cut into 8
-random 64x64 crops each (``window_patch``) on the device, one trainer step
-per batch, validation on the ``valid`` split every ``--valid-every``
-epochs, a JSON line in ``<checkpoint-dir>/log.txt`` and a reference-layout
-checkpoint ``<checkpoint-dir>/epoch_<n>.pth`` (which
-``python -m mtd_gan_tpu_torch.test --resume`` reads).
+``--method`` picks the discriminator's multi-task method (any of the
+eleven); without it, as at the root, the three task losses are summed.
+Per epoch: the learning rate of ``--scheduler`` (``poly_lr`` or
+``cosine_annealing_warm_restart``), shuffled batches of slices cut by the
+``--dataset-type-train`` preset (``window_patch``: 8 random 64x64 crops
+each) on the device, one trainer step per batch, validation on the
+``valid`` split every ``--valid-every`` epochs, a JSON line in
+``<checkpoint-dir>/log.txt``, TensorBoard scalars in
+``<checkpoint-dir>/runs`` (where ``tensorboardX`` is installed) and a
+reference-layout checkpoint ``<checkpoint-dir>/epoch_<n>.pth`` (which
+``python -m mtd_gan_tpu_torch.test`` reads). ``--from-pretrained`` warm
+starts the parameters from such a checkpoint, ``--resume`` goes on from
+one; ``--profile-dir`` writes a ``torch.profiler`` trace of the first
+epoch; the arguments are saved to
+``<checkpoint-dir>/args/args_<stamp>.json``.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from mtd_gan_tpu_torch.engine.loops import train_one_epoch, validate
 from mtd_gan_tpu_torch.losses import get_loss
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.optim import get_scheduler
-from mtd_gan_tpu_torch.utils.checkpoint import restore, save_checkpoint
+from mtd_gan_tpu_torch.utils.checkpoint import load_pretrained, restore, save_checkpoint
+from mtd_gan_tpu_torch.utils.logging import TensorBoardSink
+from mtd_gan_tpu_torch.utils.profiling import trace
 
 PORTED_MODELS = ("MTD_GAN_Method",)
 
@@ -45,11 +57,16 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", default=20, type=int,
                    help="slices per step; each gives 8 crops of 64x64")
     p.add_argument("--train-num-workers", default=4, type=int)
+    p.add_argument("--valid-num-workers", default=4, type=int,
+                   help="taken for the root CLI's sake: validation decodes "
+                        "in order on the main thread, as there")
     p.add_argument("--model", default="MTD_GAN_Method", type=str)
     p.add_argument("--loss", default="L1 Loss", type=str,
                    help="validation criterion")
-    p.add_argument("--method", default="pcgrad", type=str,
-                   help="MTO method for the discriminator ('' = plain sum)")
+    p.add_argument("--method", default="", type=str,
+                   help="MTO method for the discriminator (ls, scaleinvls, stl, "
+                        "uw, rlw, imtl, dwa, pcgrad, cagrad, mgda, nashmtl; "
+                        "'' = the plain sum)")
     p.add_argument("--optimizer", default="adamw", type=str)
     p.add_argument("--scheduler", default="poly_lr", type=str)
     p.add_argument("--epochs", default=500, type=int)
@@ -57,13 +74,18 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", default=1e-4, type=float)
     p.add_argument("--min-lr", default=1e-5, type=float)
     p.add_argument("--multi-gpu-mode", default="Single", type=str)
+    p.add_argument("--tp-size", default=-1, type=int)
     p.add_argument("--g-forward", default="auto", type=str)
+    p.add_argument("--g-precision", default="bf16", type=str)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--print-freq", default=10, type=int)
     p.add_argument("--save-checkpoint-every", default=1, type=int)
     p.add_argument("--checkpoint-dir", default="checkpoints", type=str)
     p.add_argument("--save-dir", default="predictions", type=str)
+    p.add_argument("--from-pretrained", default="", type=str,
+                   help="a checkpoint this CLI wrote: its parameters (and "
+                        "spectral-norm state), fresh optimizers")
     p.add_argument("--resume", default="", type=str,
                    help="a checkpoint this CLI wrote; training goes on after "
                         "its epoch")
@@ -72,6 +94,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-kwargs", default="", type=str,
                    help='JSON kwargs for the model ctor, e.g. '
                         '\'{"gen_features": 32, "disc_features": 64, "num_layers": 10}\'')
+    p.add_argument("--profile-dir", default="", type=str,
+                   help="write a torch.profiler trace of the first epoch here")
+    p.add_argument("--memo", default="", type=str)
     return p
 
 
@@ -80,14 +105,15 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"model {args.model!r} is not ported yet (ROADMAP.md queue 1, "
             f"items 8-11); ported: {PORTED_MODELS}")
-    if args.multi_gpu_mode != "Single":
+    if args.multi_gpu_mode != "Single" or args.tp_size != -1:
         raise NotImplementedError(
-            "--multi-gpu-mode other than Single is not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
-    if args.g_forward != "auto" or args.bf16:
+            "--multi-gpu-mode other than Single and --tp-size are not ported "
+            "yet (ROADMAP.md queue 1, item 14)")
+    if args.g_forward != "auto" or args.g_precision != "bf16" or args.bf16:
         raise NotImplementedError(
-            "--g-forward and --bf16 are TPU options with no port (ROADMAP.md "
-            "queue 1, item 5; bf16 boundaries are later work)")
+            "--g-forward, --g-precision and --bf16 are TPU options with no "
+            "port (the generator trains on K1 + K2 in fp32; bf16 boundaries "
+            "are later work, ROADMAP.md queue 2)")
 
 
 def main(args) -> dict:
@@ -109,11 +135,20 @@ def main(args) -> dict:
     print(f"Number of Learnable Params: {n_params}")
 
     start_epoch = 0
+    if args.from_pretrained:
+        load_pretrained(args.from_pretrained, model)
+        print(f"warm-started params from {args.from_pretrained}")
     if args.resume:
         start_epoch = restore(args.resume, model, trainer) + 1
         print(f"resumed from {args.resume}; next epoch {start_epoch}")
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     os.makedirs(args.save_dir, exist_ok=True)
+    # args snapshot (reference train.py:330-337)
+    stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+    os.makedirs(os.path.join(args.checkpoint_dir, "args"), exist_ok=True)
+    with open(os.path.join(args.checkpoint_dir, "args", f"args_{stamp}.json"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+    tb = TensorBoardSink(os.path.join(args.checkpoint_dir, "runs"))
     crops = torch.Generator(device=device).manual_seed(args.seed)
     stats = {}
     for epoch in range(start_epoch, args.epochs):
@@ -121,8 +156,9 @@ def main(args) -> dict:
         trainer.set_epoch_lr(lr)
         loader = train_loader(train_ds, args.batch_size, seed=args.seed + epoch,
                               num_threads=args.train_num_workers)
-        train_stats = train_one_epoch(trainer, loader, train_pre, crops,
-                                      args.print_freq, header=f"Train: [{epoch}]")
+        with trace(args.profile_dir if epoch == start_epoch else None):
+            train_stats = train_one_epoch(trainer, loader, train_pre, crops,
+                                          args.print_freq, header=f"Train: [{epoch}]")
         stats = {"epoch": epoch, "lr": lr,
                  **{f"train_{k}": v for k, v in train_stats.items()}}
         if epoch % args.valid_every == 0:
@@ -132,11 +168,15 @@ def main(args) -> dict:
             stats.update({f"valid_{k}": v for k, v in valid_stats.items()})
         with open(os.path.join(args.checkpoint_dir, "log.txt"), "a") as f:
             f.write(json.dumps(stats) + "\n")
+        tb.scalars(stats, epoch)
         print(json.dumps(stats), flush=True)
         if epoch % args.save_checkpoint_every == 0 or epoch == args.epochs - 1:
             save_checkpoint(os.path.join(args.checkpoint_dir, f"epoch_{epoch}.pth"),
                             model, trainer, epoch, args)
-    return stats
+    tb.close()
+    decoded = {"train": dict(train_ds.decoded), "valid": dict(valid_ds.decoded)}
+    print(f"decoded files by codec: {decoded}", flush=True)
+    return {**stats, "decoded": decoded}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Training meters and progress printing (counterpart of
-``mtd_gan_tpu/utils/logging.py:21-156``; reference utils.py:9-138)."""
+"""Training meters, progress printing and the per-epoch TensorBoard sink
+(counterpart of ``mtd_gan_tpu/utils/logging.py``; reference
+utils.py:9-138, train.py:176-262)."""
 
 from __future__ import annotations
 
@@ -52,6 +53,31 @@ class SmoothedValue:
         return self.fmt.format(median=self.median, avg=self.avg,
                                global_avg=self.global_avg, max=self.max,
                                value=self.value)
+
+
+class TensorBoardSink:
+    """Per-epoch scalars to ``log_dir`` (``<checkpoint-dir>/runs``); does
+    nothing where ``tensorboardX`` is not installed."""
+
+    def __init__(self, log_dir: str):
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self._writer = None
+        else:
+            self._writer = SummaryWriter(log_dir)
+
+    def scalars(self, stats: Dict[str, float], step: int) -> None:
+        if self._writer is None:
+            return
+        for k, v in stats.items():
+            if isinstance(v, (int, float)):
+                self._writer.add_scalar(k, v, step)
+        self._writer.flush()
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
 
 
 class MetricLogger:

@@ -24,6 +24,7 @@ from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch.models.base import param_labels
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel, MultiTaskDiscriminator
 from mtd_gan_tpu_torch.mto.methods import combine_grads, per_task_grads
+from mtd_gan_tpu_torch.mto.methods import get_method as port_get_method
 from mtd_gan_tpu_torch.ops.filters import laplacian_detail
 from mtd_gan_tpu_torch.ops.layers import advance_spectral_state
 from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
@@ -149,7 +150,8 @@ def test_d_loss_pcgrad_and_g_loss_terms_match_jax(jax_model):
     orders = torch.tensor(np.stack([np.asarray(jax.random.permutation(r, 3))
                                     for r in jax.random.split(rng_mto, 3)]))
     port_labels = [jm.d_param_label(tuple(n.split("."))) for n in names]
-    combined = dict(zip(names, combine_grads("pcgrad", task_grads, port_labels, orders)))
+    combined = dict(zip(names, combine_grads(port_get_method("pcgrad"), task_grads,
+                                             port_labels, orders)[0]))
     flat = discriminator_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, want), {})
     for k, w in flat.items():
         key = k if k in combined else k.replace(".weight", ".weight_orig")

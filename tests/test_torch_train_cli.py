@@ -105,8 +105,8 @@ def test_train_preprocess_draws_from_its_generator():
     assert a[0].shape == a[1].shape == (16, PATCH, PATCH, 1)
     assert torch.equal(a[0], b[0]) and torch.equal(a[0], a[1])
     assert float(a[0].min()) >= 0 and float(a[0].max()) <= 1
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.make_train_preprocess("full_patch")
+    c = pt.make_train_preprocess("full_patch")(hu, hu, torch.Generator().manual_seed(5))
+    assert c[0].shape == c[1].shape == (2 * 8, PATCH, PATCH, 1)
 
 
 def test_loader_order_matches_jax(tmp_path):

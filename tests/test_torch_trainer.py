@@ -1,11 +1,16 @@
 """The port's MTD-GAN trainer against the JAX package's: the Gram-space
-PCGrad against a sequential projection, two full PCGrad steps against
-``MTDGANTrainer(g_forward="einsum")`` with the JAX projection orders
-injected, the optimizer's treatment of unassigned parameters, the plain
-summed method, and the learning-rate schedule. 8 features, L = 2, 64 x 64,
-batch 4, fp32, dropout 0 on both sides. (The per-task D gradients and the
+PCGrad against a sequential projection, two full steps against
+``MTDGANTrainer(g_forward="einsum")`` under PCGrad (the JAX projection
+orders injected), CAGrad (only the shared parameters step) and UW (a
+learnable log-sigma with its own optimizer), the optimizer's treatment of
+unassigned parameters, the plain summed method, and the learning-rate
+schedule. 8 features, L = 2, 64 x 64, batch 4, fp32, dropout 0 on both
+sides. (The per-task D gradients and the
 PCGrad-combined gradient are held to the JAX package's in
 test_torch_discriminator.py, which shares their JAX compile.)"""
+
+import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +24,8 @@ from mtd_gan_tpu.models.mtd_gan import MultiTaskDiscriminator as JaxDisc
 from mtd_gan_tpu.optim import get_scheduler as jax_scheduler
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
-from mtd_gan_tpu_torch.mto.methods import check_method, combine_grads, pcgrad_coefficients
+from mtd_gan_tpu_torch.mto.methods import (METHODS, check_method, combine_grads,
+                                           pcgrad_coefficients)
 from mtd_gan_tpu_torch.optim import get_scheduler
 from mtd_gan_tpu_torch.utils.torch_import import (discriminator_state_dict_from_flax,
                                                   generator_state_dict_from_flax)
@@ -94,16 +100,16 @@ def test_pcgrad_coefficients_match_sequential_projection():
     np.testing.assert_allclose(w.numpy() @ g, want, atol=1e-12)
 
 
-@pytest.fixture(scope="module")
-def two_steps():
-    """Two PCGrad steps on each side from the JAX trainer's initial state,
-    the JAX orders injected into the port."""
+@functools.cache
+def _two_steps(method):
+    """Two steps of ``method`` on each side from the JAX trainer's initial
+    state, the JAX orders injected into the port under PCGrad."""
     jm = _jax_model()
-    tr = JaxTrainer(jm, method="pcgrad", g_forward="einsum", g_remat=False,
+    tr = JaxTrainer(jm, method=method, g_forward="einsum", g_remat=False,
                     d_remat=False)
     state = tr.create_state(jax.random.PRNGKey(3))
     m = _port_model(state.params_g, state.params_d, state.state_d)
-    port = MTDGANTrainer(m, method="pcgrad")
+    port = MTDGANTrainer(m, method=method)
     x, y = _data(1)
     jax_metrics, port_metrics = [], []
     for _ in range(2):
@@ -113,13 +119,18 @@ def two_steps():
         jax_metrics.append(host(metrics))
         port_metrics.append({k: float(v) for k, v in
                              port.train_step(torch.tensor(x), torch.tensor(y), order).items()})
-    return host(state), jax_metrics, m, port_metrics
+    return host(state), jax_metrics, m, port_metrics, port
+
+
+@pytest.fixture(scope="module", params=["pcgrad", "cagrad", "uw"])
+def two_steps(request):
+    return (request.param, *_two_steps(request.param))
 
 
 def test_two_steps_match_jax_losses(two_steps):
     """Every metric of both steps within 1e-4 relative (the second step
     runs on the parameters the first one produced)."""
-    _, jax_metrics, _, port_metrics = two_steps
+    _, _, jax_metrics, _, port_metrics, _ = two_steps
     for jm_, pm in zip(jax_metrics, port_metrics):
         assert sorted(jm_) == sorted(pm)
         for k, v in jm_.items():
@@ -132,8 +143,11 @@ def test_two_steps_match_jax_parameters(two_steps):
     per step whatever its gradient's size, so an entry whose gradient sits
     at round-off may step either way: per leaf the mean deviation within 5%
     of the mean JAX change, every entry within 4e-4 (two steps of at most
-    2 lr apart); u within 1e-5."""
-    state, _, m, _ = two_steps
+    2 lr apart); u within 1e-5. The parameters the method gives no
+    gradient stay put on both sides (PCGrad: the unassigned ``c_fc``;
+    CAGrad: every parameter but the shared ones); UW's log-sigma within
+    1e-5."""
+    method, state, _, m, _, port = two_steps
     init = _jax_model().init(jax.random.PRNGKey(3))
 
     def check(name, delta_p, delta_w):
@@ -148,21 +162,26 @@ def test_two_steps_match_jax_parameters(two_steps):
         check(k, (port_g[k].detach() - init_g[k]).numpy(), (w - init_g[k]).numpy())
     port_d = dict(m.discriminator.named_parameters())
     init_d = _flat_d(init.params_d)
+    label = dict(zip((n for n, _ in m.discriminator.named_parameters()), port.d_labels))
+    frozen = {"pcgrad": ("unassigned",), "cagrad": ("task", "unassigned")}.get(method, ())
     for k, w in _flat_d(state.params_d).items():
         delta_w = (w - init_d[k]).numpy()
         delta_p = (port_d[k].detach() - init_d[k]).numpy()
-        if k.startswith("c_fc"):  # unassigned under PCGrad: no step, no decay
+        if label[k] in frozen:  # no gradient under the method: no step, no decay
             assert not np.any(delta_w) and not np.any(delta_p), k
             continue
         check(k, delta_p, delta_w)
+    if method == "uw":
+        np.testing.assert_allclose(port.mto_state.logsigma.numpy(),
+                                   state.mto_state.logsigma, rtol=1e-5, atol=1e-7)
     u_port = {n[:-len(".weight_u")]: b.numpy() for n, b in m.discriminator.named_buffers()
               if n.endswith(".weight_u")}
     for name, u in state.state_d.items():
         np.testing.assert_allclose(u_port[name], u["u"], atol=2e-3)
 
 
-def test_unassigned_parameters_take_no_optimizer_step(two_steps):
-    _, _, m, _ = two_steps
+def test_unassigned_parameters_take_no_optimizer_step():
+    m = copy.deepcopy(_two_steps("pcgrad")[2])  # the cached model stays as it is
     port = MTDGANTrainer(m, method="pcgrad")
     x, y = (torch.tensor(a) for a in _data(2))
     before = m.discriminator.c_fc.weight_orig.detach().clone()
@@ -173,13 +192,13 @@ def test_unassigned_parameters_take_no_optimizer_step(two_steps):
 
 def test_plain_sum_without_method_and_unported_methods_raise():
     """method=None: every D parameter, c_fc included, gets the summed task
-    gradient; the ten other methods name their ROADMAP item."""
+    gradient; every method name is accepted, an unknown one raises."""
     g = [[torch.ones(2), torch.full((3,), 2.0)], [torch.ones(2), torch.zeros(3)]]
-    out = combine_grads(None, g, ["shared", "unassigned"])
+    out, state, weights = combine_grads(None, g, ["shared", "unassigned"])
     assert torch.equal(out[0], torch.full((2,), 2.0)) and torch.equal(out[1], g[0][1])
+    assert state is None and weights is None
     assert check_method("") is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_method("cagrad")
+    assert [check_method(name) for name in METHODS] == list(METHODS)
     with pytest.raises(KeyError):
         check_method("nope")
     m = MTDGANModel(gen_features=8, disc_features=8, num_layers=1, dropout_rate=0.0,
