@@ -126,14 +126,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      per train step and patches/s), torch.profiler breakdowns of one
      generate call at 512x512, 448x448, 96x96, 1024x1024 and 200x200 and of
      one train step by kernel, then the kernel JSON line, the card line and
-     the result line.
-TF32 is off for every plain PyTorch op (cuDNN convs, matmuls), so both
-sides compute in fp32.
+     the result line;
+  22. the native DICOM decoder (``csrc/dicom_codec.cc``) against the Python
+     codec, bit for bit, and both per file;
+  23. the 64-slice 512x512 ``test`` sweep, twice, its host time split by
+     phase;
+  24. ``bench.run`` at the root's batches;
+  25. one full-width train step per MTO method on K1 + K2;
+  26. the feature metrics (run right after phase 5): the ``test`` CLI at its
+     default, PL / TML / FID on, over phase 5's 16 slices, in turns with
+     ``--no-feature-metrics`` (on, off, off, on), each split by phase with
+     the ``features`` phase: exactly 0 gt_pl and gt_tml in every row, every
+     column finite, the three FIDs in the summary, K1 launched as in phase
+     5; then at 512x512, batch 2, the VGG19 slice features, PL and TML per
+     slice and the Inception pool3 features on the card against the same
+     port functions on the CPU in float64, and the FID math fed either
+     side's features; the extractors' times at the sweep's group of 8
+     slices (VGG19 per image pass beside its fp32 bound); the weights
+     status.
+Phases 1 - 25 pass ``--no-feature-metrics`` to the test CLI, so their
+series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
+convs, matmuls), so both sides compute in fp32.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import math
 import os
@@ -157,6 +176,11 @@ from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset
 from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine import gan
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
+from mtd_gan_tpu_torch.features import registry
+from mtd_gan_tpu_torch.features.inception import inception_pool3_features
+from mtd_gan_tpu_torch.features.vgg import VGG19_CFG, VGG_SLICE_ENDS
+from mtd_gan_tpu_torch.metrics import fid as fid_lib
+from mtd_gan_tpu_torch.metrics import perceptual
 from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
                                               share_parameters)
 from mtd_gan_tpu_torch.ops import _build, cuda_train
@@ -215,6 +239,14 @@ TOL_STEP_DLOSS_REL = 1e-4
 # the 2-norm, not by the weights: IMTL's and NashMTL's weights span up to
 # ten decades, and the largest would hide an error in the others)
 TOL_MTO = 1e-5
+# phase 26: the VGG19 slice features, PL and TML per slice (max |card -
+# cpu| / max |cpu|, per value for PL and TML) and the Inception pool3
+# features (relative 2-norm) on the card in fp32 (TF32 off) against the same
+# port functions on the CPU in float64; the FID math on the host fed the
+# card's features against the same math fed the float64 ones (relative, on
+# input-vs-gt and pred-vs-gt; gt-vs-gt is rounding noise on both sides)
+TOL_FEATURES_REL = 1e-4
+TOL_FID_REL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth; the C -> C
 # convs of K1 and K3 run three TF32 products (3xTF32) on the tensor cores,
@@ -1507,7 +1539,7 @@ def check_mto_methods(x, y):
 
 
 def check_train_cli_second(root: str, tmp: str, pretrained: str):
-    """Phase 26: the train CLI again, one epoch of 2 steps, with UW, the
+    """Phase 20, second run: the train CLI again, one epoch of 2 steps, with UW, the
     cosine warm-restart scheduler, the ``full_patch`` preset, a warm start
     from the first run's checkpoint and a profiler trace of the epoch; then
     ``test --checkpoint-dir --epoch 0`` without ``--resume``."""
@@ -1555,6 +1587,160 @@ def check_train_cli_second(root: str, tmp: str, pretrained: str):
           f"pred_psnr {summary['pred_psnr']:.4f}", flush=True)
 
 
+def vgg19_flops(n: int, size: int, end: int = max(VGG_SLICE_ENDS)) -> float:
+    """Multiply-adds x 2 of the VGG19 trunk through sequential index
+    ``end`` on n size x size images (3x3 convs only; ReLUs and pools are
+    a rounding error)."""
+    flops, c_in, side, idx = 0.0, 3, size, 0
+    for v in VGG19_CFG:
+        if idx > end:
+            break
+        if v == "M":
+            side //= 2
+            idx += 1
+        else:
+            flops += 2.0 * n * side * side * 9 * c_in * v
+            c_in = v
+            idx += 2
+    return flops
+
+
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def check_features(rng, size: int = 512, group: int = 8):
+    """Phase 26 (a), (c): the feature metrics on the card against the same
+    port functions on the CPU in float64, at 512x512, batch 2 per column
+    (input, gt, pred stand-ins from the phantom): the VGG19 slice features,
+    PL and TML per slice, the Inception pool3 features and the FID math fed
+    either side's features; then their times on the card (CUDA events) at
+    the sweep's group of 8 slices, VGG19 per image pass beside its bound;
+    and the weights status. Returns the times."""
+    n = 2
+    x, y, p = (torch.tensor(phantom(rng, n, size)[..., None], dtype=torch.float32)
+               for _ in range(3))
+    cat = torch.cat([x, y, p])
+    vgg64 = copy.deepcopy(registry.get_extractor("vgg19", "cuda")).cpu().double()
+    inc64 = copy.deepcopy(registry.get_extractor("inception", "cuda")).cpu().double()
+    vgg_fn = registry.get_vgg_slices_fn("cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        f_card = [f.cpu().double() for f in vgg_fn(cat.cuda())]
+        f_cpu = vgg64(registry.to_rgb_nchw(cat.double()))
+        pl, tml = (t.cpu().double() for t in perceptual.pl_tml(x.cuda(), y.cuda(), p.cuda(),
+                                                               vgg_fn))
+        # the same concatenation: the float64 features computed above
+        pl64, tml64 = perceptual.pl_tml(x.double(), y.double(), p.double(), lambda _: f_cpu)
+        g_card = inception_pool3_features(registry.get_extractor("inception", "cuda"),
+                                          cat.cuda()).cpu().double()
+        g_cpu = inception_pool3_features(inc64, cat.double())
+    cpu_s = time.perf_counter() - t0
+    slice_errs = [rel_max(a, b) for a, b in zip(f_card, f_cpu)]
+    value_errs = {}
+    for label, got, want in (("pl", pl, pl64), ("tml", tml, tml64)):
+        if got[1].abs().max().item() != 0.0 or want[1].abs().max().item() != 0.0:
+            fail(f"features: gt-vs-gt {label} {got[1].tolist()} (card), "
+                 f"{want[1].tolist()} (cpu), expected exactly 0")
+        value_errs[label] = ((got[0::2] - want[0::2]).abs() / want[0::2].abs()).max().item()
+    inc_err = (torch.linalg.vector_norm(g_card - g_cpu)
+               / torch.linalg.vector_norm(g_cpu)).item()
+    fid_card = fid_lib.compute_fid(*g_card.reshape(3, n, -1).numpy())
+    fid_cpu = fid_lib.compute_fid(*g_cpu.reshape(3, n, -1).numpy())
+    fid_errs = [abs(a - b) / abs(b) for a, b in zip(fid_card, fid_cpu)]
+    print(f"features {size}x{size} batch {n} per column, card (fp32, TF32 off) vs CPU float64: "
+          f"VGG19 slices max rel {', '.join(f'{e:.3e}' for e in slice_errs)}; PL "
+          f"{pl.tolist()} max rel {value_errs['pl']:.3e}; TML {tml.tolist()} max rel "
+          f"{value_errs['tml']:.3e}; Inception pool3 rel 2-norm {inc_err:.3e} "
+          f"(tol {TOL_FEATURES_REL}); FID (input, gt, pred) card {fid_card}, cpu "
+          f"{fid_cpu}, rel {fid_errs[0]:.3e}, {fid_errs[2]:.3e} (tol {TOL_FID_REL}); "
+          f"float64 CPU side {cpu_s:.1f} s", flush=True)
+    if max(slice_errs + list(value_errs.values()) + [inc_err]) > TOL_FEATURES_REL:
+        fail("features: the card differs from the CPU float64 reference")
+    if max(fid_errs[0], fid_errs[2]) > TOL_FID_REL:
+        fail("features: the FID fed the card's features differs from the float64 one")
+    del vgg64, inc64, f_card, f_cpu
+
+    # times at the sweep's group: 8 slices, 24 images through each extractor
+    xs, ys, ps = (torch.tensor(phantom(rng, group, size)[..., None],
+                               dtype=torch.float32).cuda() for _ in range(3))
+    trunk_in = registry.to_rgb_nchw(torch.cat([xs, ys, ps]))
+    trunk = registry.get_extractor("vgg19", "cuda")
+    inc_fn = registry.get_inception_feature_fn("cuda")
+    with torch.no_grad(), registry.fp32_precision():
+        trunk_ms = cuda_ms(lambda: trunk(trunk_in, VGG_SLICE_ENDS), 3)
+        pl_tml_ms = cuda_ms(lambda: perceptual.pl_tml(xs, ys, ps, vgg_fn), 3)
+        inc_ms = cuda_ms(lambda: fid_lib.compute_feat(xs, ys, ps, inc_fn), 3)
+    flops = vgg19_flops(1, size)
+    bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+    per_image = trunk_ms / (3 * group)
+    print(f"time features {size}x{size}, group of {group} slices: VGG19 trunk through relu5_1 "
+          f"{trunk_ms:.3f} ms per {3 * group} images = {per_image:.3f} ms per image pass "
+          f"(bound {bound_ms:.3f} ms: {flops / 1e9:.1f} GFLOP over 67 TFLOP/s fp32; "
+          f"{bound_ms / per_image:.3f} of it); PL + TML {pl_tml_ms:.3f} ms = "
+          f"{pl_tml_ms / group:.3f} ms per slice; Inception pool3 {inc_ms:.3f} ms = "
+          f"{inc_ms / group:.3f} ms per slice", flush=True)
+    print(f"feature weights: {json.dumps(registry.feature_weights_status())}", flush=True)
+    return {"trunk_ms_per_image": per_image, "bound_ms": bound_ms,
+            "pl_tml_ms_per_slice": pl_tml_ms / group, "inception_ms_per_slice": inc_ms / group}
+
+
+FEATURE_SPLIT = ("load", "decode", "h2d", "generate", "metrics", "features", "png", "csv")
+
+
+def feature_sweep(model, root: str, tmp: str, n_slices: int):
+    """Phase 26 (b): ``python -m mtd_gan_tpu_torch.test``'s ``main`` at its
+    default, feature metrics on, over phase 5's 512x512 set, in turns with
+    ``--no-feature-metrics`` (on, off, off, on), each split by phase; fails
+    unless every row has exactly 0 gt_pl and gt_tml and finite columns, the
+    summary its three FIDs, and K1 launched as in phase 5. Returns the
+    steady-state slices/s of each run (the loop's phases, decode to PNG)."""
+    ckpt = os.path.join(tmp, "feature_weights.pth")
+    sd = {f"Generator.{k}": v.detach().cpu() for k, v in model.generator.state_dict().items()}
+    torch.save({"model_state_dict": sd, "epoch": 0}, ckpt)
+    out = []
+    for run, features in enumerate((True, False, False, True)):
+        save_dir = os.path.join(tmp, f"features{run}")
+        argv = ["--data-root", root, "--resume", ckpt, "--save-dir", save_dir,
+                "--device", "cuda", "--seed", "0",
+                "--model-kwargs", json.dumps({"gen_features": model.gen_features,
+                                              "num_layers": model.num_layers})]
+        args = test_cli.get_args_parser().parse_args(
+            argv + ([] if features else ["--no-feature-metrics"]))
+        phases = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = test_cli.main(args, phases)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        label = f"feature sweep run {run} ({'on' if features else 'off'})"
+        expect_counts(label, counts, {"K1": n_slices // 8 * 21})
+        with open(os.path.join(save_dir, "pred_results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != n_slices:
+            fail(f"{label}: {len(rows)} rows, expected {n_slices}")
+        values = [float(v) for r in rows for k, v in r.items() if k != "filename"]
+        if not all(math.isfinite(v) for v in values + list(summary.values())):
+            fail(f"{label}: non-finite columns")
+        if features:
+            gt = [(float(r["gt_pl"]), float(r["gt_tml"])) for r in rows]
+            if any(v != 0.0 for pair in gt for v in pair):
+                fail(f"{label}: gt_pl / gt_tml not exactly 0: {gt}")
+            if not {"input_fid", "gt_fid", "pred_fid"} <= set(summary):
+                fail(f"{label}: the summary lacks the FIDs: {sorted(summary)}")
+        secs = {p: phases[p].summary().get("total_s", 0.0) for p in FEATURE_SPLIT}
+        loop = sum(secs[p] for p in FEATURE_SPLIT[1:-1])
+        fids = (f"; FID input {summary['input_fid']:.4f} gt {summary['gt_fid']:.3e} pred "
+                f"{summary['pred_fid']:.4f}; pred_pl {summary['pred_pl']:.6f} pred_tml "
+                f"{summary['pred_tml']:.6f}" if features else "")
+        print(f"{label}: {n_slices} slices 512x512, wall {wall:.4f} s; "
+              + ", ".join(f"{p} {secs[p]:.4f} s" for p in FEATURE_SPLIT)
+              + f"; steady state {n_slices / loop:.4f} slices/s{fids}; launches {counts}",
+              flush=True)
+        out.append((features, n_slices / loop, secs))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1599,6 +1785,12 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- 5. serving at 512x512: the main path on K1
         sweep_s, _ = run_sweep(model, rng, tmp, 512, {"K1": 2 * 21}, n_slices)
+
+        # ---- 26. the feature metrics: the test CLI at its default (PL, TML,
+        # FID) on phase 5's set, in turns without them; the extractors on
+        # the card against the CPU in float64, their times, the weights
+        feature_runs = feature_sweep(model, os.path.join(tmp, "data512"), tmp, n_slices)
+        feature_times = check_features(rng)
 
         # ---- 6. K8 against its plain version
         k8_max_abs_err = check_k8()
@@ -1920,6 +2112,14 @@ def main():
           f"{n_slices / sweep96_s:.2f} slices/s", flush=True)
     print(f"time sweep 1024x1024: {n_hires} slices in {sweep1024_s:.3f} s = "
           f"{n_hires / sweep1024_s:.2f} slices/s", flush=True)
+    rates = {on: [r for f, r, _ in feature_runs if f == on] for on in (True, False)}
+    print(f"time sweep 512x512 steady state (phase 26, on / off / off / on): feature "
+          f"metrics on {', '.join(f'{r:.2f}' for r in rates[True])}, off "
+          f"{', '.join(f'{r:.2f}' for r in rates[False])} slices/s; PL + TML "
+          f"{feature_times['pl_tml_ms_per_slice']:.3f} ms and Inception "
+          f"{feature_times['inception_ms_per_slice']:.3f} ms per slice; VGG19 "
+          f"{feature_times['trunk_ms_per_image']:.3f} ms per image pass (bound "
+          f"{feature_times['bound_ms']:.3f})", flush=True)
     up_in = torch.randn((320, 64, 32, 32), device="cuda", requires_grad=True)
     for label, up in (("shift-add (port)", upsample2x_bilinear),
                       ("F.interpolate", lambda t: torch.nn.functional.interpolate(

@@ -9,13 +9,16 @@ the device and are fetched at print boundaries.
 Validation: full-slice predictions, the criterion per slice, and PNGs of
 the last slice.
 
-Per slice: RMSE / PSNR / SSIM for the input, gt and prediction columns, a
-PNG of the clipped prediction, and a row of ``pred_results.csv``; the means
-go to ``test_summary.json``. Predictions run on groups of ``eval_batch``
-loader items, the last group padded by repeating its last item (padded
-outputs dropped), while metrics, PNGs and rows stay per item. Given a
-``phases`` dict, the sweep charges its host time to named phases (decode,
-h2d, generate, metrics, png, csv), each ending in a device synchronize.
+Per slice: RMSE / PSNR / SSIM and, unless turned off, PL and TML for the
+input, gt and prediction columns, a PNG of the clipped prediction, and a
+row of ``pred_results.csv``; the means go to ``test_summary.json``, with the
+corpus FIDs of the three columns. Predictions run on groups of
+``eval_batch`` loader items, the last group padded by repeating its last
+item (padded outputs dropped), while metrics, PNGs and rows stay per item;
+the VGG19 trunk and the Inception each take a group's real input, gt and
+prediction slices in one pass. Given a ``phases`` dict, the sweep charges
+its host time to named phases (decode, h2d, generate, metrics, features,
+png, csv), each ending in a device synchronize.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ import torch
 
 from mtd_gan_tpu_torch import losses as losses_lib
 from mtd_gan_tpu_torch.data.pipeline import prefetch_to_device
+from mtd_gan_tpu_torch.features.registry import get_inception_feature_fn, get_vgg_slices_fn
+from mtd_gan_tpu_torch.metrics import fid as fid_lib
+from mtd_gan_tpu_torch.metrics import perceptual
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
@@ -39,6 +45,7 @@ from mtd_gan_tpu_torch.utils.profiling import StepTimer
 _METRIC_COLUMNS = ("input_rmse", "gt_rmse", "pred_rmse",
                    "input_psnr", "gt_psnr", "pred_psnr",
                    "input_ssim", "gt_ssim", "pred_ssim")
+_FEATURE_COLUMNS = ("input_pl", "gt_pl", "pred_pl", "input_tml", "gt_tml", "pred_tml")
 
 
 def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -143,28 +150,30 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
              eval_batch: int = 8,
              phases: Optional[Dict[str, StepTimer]] = None) -> Dict[str, float]:
     """Metric sweep over ``loader`` items ``(hu_x, hu_y[, paths])`` on the
-    model's device; returns the per-column means (also written to
-    ``save_dir/test_summary.json``). ``phases``: where to record the host
+    model's device; returns the per-column means and, with
+    ``compute_fid_metric``, ``input_fid`` / ``gt_fid`` / ``pred_fid`` (also
+    written to ``save_dir/test_summary.json``). ``compute_feature_metrics``
+    adds the PL and TML columns. ``phases``: where to record the host
     seconds of each phase (``decode`` the loader, ``h2d`` the copy and
-    window, ``generate``, ``metrics`` with their copy back, ``png`` the
-    encoders' drain, ``csv`` the CSV and summary), one synchronizing
-    :class:`StepTimer` each."""
-    if compute_feature_metrics or compute_fid_metric:
-        raise NotImplementedError(
-            "feature metrics (PL/TML) and FID are not ported yet "
-            "(ROADMAP.md queue 1, item 13): pass compute_feature_metrics="
-            "False and compute_fid_metric=False")
+    window, ``generate``, ``metrics`` the pixel metrics with their copy
+    back, ``features`` the VGG19 trunk and the Inception with theirs,
+    ``png`` the encoders' drain, ``csv`` the FID, CSV and summary), one
+    synchronizing :class:`StepTimer` each."""
     predictor = _predictor_for(model, family)
     device = model.device
     if phases is not None:
         sync = device.type == "cuda"
-        for name in ("decode", "h2d", "generate", "metrics", "png", "csv"):
+        for name in ("decode", "h2d", "generate", "metrics", "features", "png", "csv"):
             phases.setdefault(name, StepTimer(sync=sync))
         loader = _timed(loader, phases["decode"])
     span = (lambda name: phases[name]) if phases is not None else (
         lambda name: contextlib.nullcontext())
+    vgg_fn = get_vgg_slices_fn(device) if compute_feature_metrics else None
+    inception_fn = get_inception_feature_fn(device) if compute_fid_metric else None
+    columns = _METRIC_COLUMNS + (_FEATURE_COLUMNS if compute_feature_metrics else ())
     os.makedirs(save_dir, exist_ok=True)
     rows: List[Dict] = []
+    feats: List[np.ndarray] = []  # (3, n, 2048) per group: input, gt, pred
     n_seen = 0
     with ThreadPoolExecutor(max_workers=4) as png_pool:
         png_futures = []
@@ -177,12 +186,12 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
                 pred = predictor(x).clamp(0.0, 1.0)
 
             with span("metrics"):
-                metrics, pngs, names = [], [], []
-                off = 0
+                metrics, pngs, names, offsets = [], [], [], [0]
                 for item in group[:n_real]:
+                    off = offsets[-1]
                     b_i = np.asarray(item[0]).shape[0]
+                    offsets.append(off + b_i)
                     xi, yi, pi = x[off:off + b_i], y[off:off + b_i], pred[off:off + b_i]
-                    off += b_i
                     metrics.append(_pixel_metrics(xi, yi, pi))
                     # same round(clip * 255) (half to even) as save_png_gray
                     pngs.append(torch.round(pi[0, ..., 0] * 255.0).to(torch.uint8))
@@ -192,10 +201,24 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
                     n_seen += 1
                 metrics_h = torch.stack(metrics).cpu().numpy()  # one sync per group
                 pngs_h = torch.stack(pngs).cpu().numpy()
-            for name, m, png in zip(names, metrics_h, pngs_h):
+            n_img = offsets[-1]
+            if vgg_fn is not None or inception_fn is not None:
+                with span("features"):
+                    xs, ys, ps = x[:n_img], y[:n_img], pred[:n_img]
+                    if vgg_fn is not None:
+                        # (6, n_img): PL then TML rows of input, gt, pred
+                        pl_tml_h = torch.cat(perceptual.pl_tml(xs, ys, ps, vgg_fn)).cpu().numpy()
+                    if inception_fn is not None:
+                        f = fid_lib.compute_feat(xs, ys, ps, inception_fn)
+                        feats.append(torch.stack(f).cpu().numpy())
+            for i, (name, m, png) in enumerate(zip(names, metrics_h, pngs_h)):
                 png_futures.append(png_pool.submit(
                     save_png_gray, os.path.join(save_dir, "png", name), png))
                 row = {k: float(v) for k, v in zip(_METRIC_COLUMNS, m)}
+                if vgg_fn is not None:
+                    # an item's images averaged, as the JAX package's batch mean
+                    item_means = pl_tml_h[:, offsets[i]:offsets[i + 1]].mean(axis=1)
+                    row.update({k: float(v) for k, v in zip(_FEATURE_COLUMNS, item_means)})
                 row["filename"] = name
                 rows.append(row)
         with span("png"):
@@ -203,7 +226,11 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
                 fut.result()  # surface encode/write errors
 
     with span("csv"):
-        summary = {k: float(np.mean([r[k] for r in rows])) for k in _METRIC_COLUMNS}
+        summary = {k: float(np.mean([r[k] for r in rows])) for k in columns}
+        if feats:
+            corpus = np.concatenate(feats, axis=1)
+            summary.update(zip(("input_fid", "gt_fid", "pred_fid"),
+                               fid_lib.compute_fid(*corpus)))
         save_csv(os.path.join(save_dir, "pred_results.csv"), rows)
         with open(os.path.join(save_dir, "test_summary.json"), "w") as f:
             json.dump(summary, f, indent=2)

@@ -3,14 +3,17 @@
 its flags and defaults but ``--device``).
 
     python -m mtd_gan_tpu_torch.test --data-root DATA --checkpoint-dir ckpt \
-        [--epoch N] --no-feature-metrics [--device cuda|cpu]
+        [--epoch N] [--no-feature-metrics] [--device cuda|cpu]
 
 Loads the generator from a reference-layout ``.pth``: ``--resume``, else
 ``<checkpoint-dir>/epoch_<n>.pth`` as the train CLI writes it (the epoch
 ``--epoch`` names, the latest at -1). Runs full-image inference in groups
-of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM per slice, writes a
+of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM and, unless
+``--no-feature-metrics``, PL and TML per slice and the corpus FIDs, writes a
 PNG per slice, ``pred_results.csv``, ``test_summary.json`` and appends a
-JSON line to ``test_log.txt`` in ``--save-dir``. The flags that only
+JSON line to ``test_log.txt`` in ``--save-dir``. The feature extractors
+read the torchvision weight files WEIGHTS.md names, else take seeded
+weights (``mtd_gan_tpu_torch/features/registry.py``). The flags that only
 configure training (``--loss``, ``--lr``, ``--method``, ``--optimizer``,
 ``--print-freq``) and ``--test-num-workers`` are taken and unused, as at
 the root.
@@ -29,6 +32,7 @@ from mtd_gan_tpu_torch._device import resolve_device
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, eval_loader
 from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess
 from mtd_gan_tpu_torch.engine.loops import run_test
+from mtd_gan_tpu_torch.features import feature_weights_status
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.utils.profiling import StepTimer
 from mtd_gan_tpu_torch.utils.torch_import import load_reference_checkpoint
@@ -66,7 +70,7 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="slices per forward in the sweep (metrics/PNGs stay "
                         "per slice); default 8")
     p.add_argument("--no-feature-metrics", action="store_true",
-                   help="skip PL/TML/FID (required: not ported yet)")
+                   help="skip PL/TML/FID (no pretrained weights scenario)")
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--model-kwargs", default="", type=str,
                    help='JSON kwargs for the model ctor, e.g. '
@@ -124,6 +128,8 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
         eval_batch=8 if args.eval_batch is None else args.eval_batch, phases=phases)
     line = {"epoch": epoch, "model": args.model, **summary, "memo": args.memo,
             "decoded": ds.decoded}
+    if not args.no_feature_metrics:
+        line["feature_weights"] = feature_weights_status()
     os.makedirs(args.save_dir, exist_ok=True)
     with open(os.path.join(args.save_dir, "test_log.txt"), "a") as f:
         f.write(json.dumps(line) + "\n")

@@ -7,6 +7,13 @@
   discriminator with its spectral-norm ``u`` (inverse of
   ``convert_mtd_discriminator``) and :func:`mtd_gan_state_dict_from_flax`
   for the whole model;
+* :func:`vgg19_state_dict_from_flax`, :func:`vgg16_state_dict_from_flax`,
+  :func:`resnet50_state_dict_from_flax`, :func:`inception_state_dict_from_flax`
+  and :func:`pieapp_state_dict_from_flax` turn the JAX package's feature
+  extractors' param trees (nested dicts of numpy arrays, its
+  ``features/*.py`` and ``metrics/learned.py`` layouts) into the port's
+  torchvision-named state dicts; they are the inverses of its
+  ``import_torch_*`` functions;
 * :func:`load_reference_checkpoint` reads a checkpoint in the reference
   layout (``{"model_state_dict": {"Generator.…": …}, "epoch": …}``, as
   ``tools/import_torch_checkpoint.py`` reads it) and returns the generator's
@@ -125,4 +132,75 @@ def mtd_gan_state_dict_from_flax(params_g: Mapping[str, Any],
     sd = {f"Generator.{k}": v for k, v in generator_state_dict_from_flax(params_g).items()}
     sd.update({f"Discriminator.{k}": v for k, v in
                discriminator_state_dict_from_flax(params_d, state_d).items()})
+    return sd
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def vgg19_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """VGG param tree (``conv<N>``: HWIO ``kernel``, ``bias``) ->
+    ``features.<N>.weight`` / ``.bias``; serves VGG16 as well."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        idx = int(name[len("conv"):])
+        sd[f"features.{idx}.weight"] = _oihw(p["kernel"])
+        sd[f"features.{idx}.bias"] = _t(p["bias"])
+    return sd
+
+
+vgg16_state_dict_from_flax = vgg19_state_dict_from_flax
+
+
+def _bn_entries(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+    sd[f"{name}.running_mean"] = _t(p["mean"])
+    sd[f"{name}.running_var"] = _t(p["var"])
+
+
+def resnet50_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ResNet50 param tree (``conv1``, ``bn1``, ``layer<l>_<b>`` blocks with
+    ``down_conv`` / ``down_bn`` on the first) -> torchvision names
+    (``layer<l>.<b>.conv1.weight``, ``….downsample.0`` / ``.1``)."""
+    sd = {"conv1.weight": _oihw(params["conv1"])}
+    _bn_entries(sd, "bn1", params["bn1"])
+    for name, blk in params.items():
+        if not name.startswith("layer"):
+            continue
+        li, bi = name[len("layer"):].split("_")
+        pre = f"layer{li}.{bi}"
+        for i in (1, 2, 3):
+            sd[f"{pre}.conv{i}.weight"] = _oihw(blk[f"conv{i}"])
+            _bn_entries(sd, f"{pre}.bn{i}", blk[f"bn{i}"])
+        if "down_conv" in blk:
+            sd[f"{pre}.downsample.0.weight"] = _oihw(blk["down_conv"])
+            _bn_entries(sd, f"{pre}.downsample.1", blk["down_bn"])
+    return sd
+
+
+def inception_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """FID Inception param tree (``<Module>.<branch>``: ``kernel``, ``scale``,
+    ``bias``, ``mean``, ``var``; ``fc``) -> pt_inception names
+    (``<Module>.<branch>.conv.weight``, ``… .bn.running_var``, ``fc.weight``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name == "fc":
+            sd["fc.weight"] = _t(np.asarray(p["kernel"]).T)
+            sd["fc.bias"] = _t(p["bias"])
+            continue
+        sd[f"{name}.conv.weight"] = _oihw(p["kernel"])
+        _bn_entries(sd, f"{name}.bn", p)
+    return sd
+
+
+def pieapp_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """PieAPP param tree (``conv1`` … ``conv11`` HWIO, the dense layers
+    ``(in, out)``) -> PieAPPv0.1 names (OIHW convs, ``(out, in)`` linears)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        k = np.asarray(p["kernel"])
+        sd[f"{name}.weight"] = _oihw(k) if k.ndim == 4 else _t(k.T)
+        sd[f"{name}.bias"] = _t(p["bias"])
     return sd

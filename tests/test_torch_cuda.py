@@ -674,3 +674,31 @@ def test_prefetch_to_device_gives_the_loader_batches_in_order(dev):
     for (s, y), (hx, hy) in zip(got, batches):
         assert s == float(hx.astype(np.float64).sum())
         np.testing.assert_array_equal(y, hy)
+
+
+@torch.no_grad()
+def test_feature_metrics_on_the_card_match_the_cpu(dev):
+    """PL and TML per slice and the Inception pool3 features of the registry's
+    extractors on the card (fp32, TF32 off) against the same extractors on
+    the CPU in float64, at 256x256, batch 2 per column."""
+    from mtd_gan_tpu_torch.features import registry
+    from mtd_gan_tpu_torch.features.inception import inception_pool3_features
+    from mtd_gan_tpu_torch.metrics import perceptual
+
+    rng = np.random.default_rng(0)
+    x, y, p = (torch.tensor(rng.random((2, 256, 256, 1)), dtype=torch.float32)
+               for _ in range(3))
+    vgg64 = copy.deepcopy(registry.get_extractor("vgg19", dev)).cpu().double()
+    fn64 = lambda t: vgg64(registry.to_rgb_nchw(t))
+    pl, tml = (t.cpu().double() for t in perceptual.pl_tml(
+        x.to(dev), y.to(dev), p.to(dev), registry.get_vgg_slices_fn(dev)))
+    pl64, tml64 = perceptual.pl_tml(x.double(), y.double(), p.double(), fn64)
+    for got, want in ((pl, pl64), (tml, tml64)):
+        assert torch.all(got[1] == 0) and torch.all(want[1] == 0)
+        assert ((got[0::2] - want[0::2]).abs() / want[0::2].abs()).max() < TOL_REL
+    inc = registry.get_extractor("inception", dev)
+    inc64 = copy.deepcopy(inc).cpu().double()
+    cat = torch.cat([x, y, p])
+    got = inception_pool3_features(inc, cat.to(dev)).cpu().double()
+    want = inception_pool3_features(inc64, cat.double())
+    assert torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want) < TOL_REL

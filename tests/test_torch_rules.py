@@ -86,3 +86,13 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_never_downloads():
+    """No module of the port reaches for the network: the feature weights
+    come from local files or a seeded draw."""
+    hits = [f"{path}: {needle}"
+            for path in sorted((REPO / "mtd_gan_tpu_torch").rglob("*.py"))
+            for needle in ("torch.hub", "load_state_dict_from_url", "urllib")
+            if needle in path.read_text()]
+    assert not hits, hits

@@ -28,6 +28,7 @@ from mtd_gan_tpu_torch.data import dicom
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, eval_loader
 from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess
 from mtd_gan_tpu_torch.engine.loops import run_test
+from mtd_gan_tpu_torch.features import registry
 from mtd_gan_tpu_torch.metrics import pixel
 from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
@@ -122,12 +123,38 @@ def test_csv_round_trip(tmp_path):
 
 
 def test_run_test_refuses_feature_metrics(tmp_path):
+    """``run_test`` refuses the families that are not ported; for MTD-GAN it
+    now computes the feature metrics it once refused: the PL / TML columns
+    (after the pixel columns, before ``filename``) and the FID summary, by
+    default. Three 64x64 slices in groups of 2: the VGG19 trunk runs once
+    per group, on its input, gt and prediction together (6 images, then 3).
+    TML is NaN there (relu5_1 holds no 16x16 patch), as in the JAX
+    package."""
     model = MTDGANModel(gen_features=8, num_layers=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_test(model, [], make_eval_preprocess(), "mtd", str(tmp_path))
     with pytest.raises(NotImplementedError, match="not ported"):
         run_test(model, [], make_eval_preprocess(), "cnn", str(tmp_path),
                  compute_fid_metric=False, compute_feature_metrics=False)
+    data = str(tmp_path / "data")
+    _write_dataset(data, n=3)
+    calls = []
+    hook = registry.get_extractor("vgg19", "cpu").register_forward_hook(
+        lambda m, args, out: calls.append(args[0].shape[0]))
+    try:
+        summary = run_test(model, eval_loader(PairedDicomDataset(data, "test"), 1),
+                           make_eval_preprocess(), "mtd", str(tmp_path / "out"), eval_batch=2)
+    finally:
+        hook.remove()
+    assert calls == [6, 3]
+    with open(tmp_path / "out" / "pred_results.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 3
+    assert list(rows[0])[9:] == ["input_pl", "gt_pl", "pred_pl", "input_tml", "gt_tml",
+                                 "pred_tml", "filename"]
+    assert all(float(r["gt_pl"]) == 0.0 and float(r["input_pl"]) > 0.0 for r in rows)
+    assert all(np.isnan(float(r["pred_tml"])) for r in rows)
+    assert {"input_fid", "gt_fid", "pred_fid"} <= set(summary)
+    assert summary["input_fid"] > 0.0 and abs(summary["gt_fid"]) < 1e-6 * summary["input_fid"]
+    assert json.loads((tmp_path / "out" / "test_summary.json").read_text()).keys() == summary.keys()
 
 
 def _write_dataset(root, n=3, size=64):
