@@ -144,8 +144,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      side's features; the extractors' times at the sweep's group of 8
      slices (VGG19 per image pass beside its fp32 bound); the weights
      status.
-Phases 1 - 25 pass ``--no-feature-metrics`` to the test CLI, so their
-series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
+  27. the CNN family and the ablations (run right after phase 26):
+     RED-CNN (96 channels), EDCNN (32 / 32, its compound loss on the
+     registry's ResNet50), Ablation_CLS_SEG_REC_NDS_RC (REDCNN generator,
+     all heads) and Ablation_CLS_SEG_REC_NDS_RC_ResFFT at full width, each
+     through the ``train`` CLI (one epoch of 2 steps of 20 slices,
+     ``window_patch``, validation) and ``test --resume`` on its checkpoint
+     over phase 5's 16 slices; RED-CNN one step on ``full`` (8 whole
+     512x512 slices); finite metrics; the card's forward of each trained
+     model against the CPU forward of the same weights (128x128, batch 2);
+     the ResFFT ablation's K1 and K2 launches (21 + 21 a train step, 21 K1
+     per validation slice, 42 K1 per sweep) and no launch of any kernel on
+     the other models' paths; each model's forward at 512x512, batch 8, and
+     train step on 160 patches timed; a profile of the REDCNN generator's
+     ``generate``. The kernel line's K1 and K2 launches are phase 20's
+     first train run plus the ResFFT ablation's train run (and, for K1, its
+     sweep).
+Phases 1 - 25 and 27 pass ``--no-feature-metrics`` to the test CLI, so
+their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
 """
 
@@ -176,6 +192,7 @@ from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset
 from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine import gan
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
+from mtd_gan_tpu_torch.engine.loops import build_trainer, family_of
 from mtd_gan_tpu_torch.features import registry
 from mtd_gan_tpu_torch.features.inception import inception_pool3_features
 from mtd_gan_tpu_torch.features.vgg import VGG19_CFG, VGG_SLICE_ENDS
@@ -200,7 +217,8 @@ from mtd_gan_tpu_torch.mto.methods import METHODS, MTOState
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.artifacts import save_png_gray
-from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint
+from mtd_gan_tpu_torch.models import get_model
+from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint, load_pretrained
 
 # max |kernel - plain| / max |plain| per block call: both sides are fp32
 # quality (K1's convs in 3xTF32); they differ by FFT algorithm (radix
@@ -247,6 +265,12 @@ TOL_MTO = 1e-5
 # input-vs-gt and pred-vs-gt; gt-vs-gt is rounding noise on both sides)
 TOL_FEATURES_REL = 1e-4
 TOL_FID_REL = 1e-4
+# phase 27: the card's forward of a CNN-family or REDCNN-generator model
+# against the CPU forward of the same weights, max abs on the [0, 1]-scale
+# output: both fp32 (cuDNN's TF32 off), the same convs summed in other
+# orders (the ResFFT ablation's generate is held to TOL_GENERATE_ABS, its
+# K1 route's tolerance)
+TOL_FAMILY_ABS = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth; the C -> C
 # convs of K1 and K3 run three TF32 products (3xTF32) on the tensor cores,
@@ -285,6 +309,15 @@ K3_TC = "K3tc"
 K3_PER_CALL = {"K3": 42, K3_TC: 41}
 STAGED_PER_CALL = {**K3_PER_CALL, "K4": 21, "K5": 21, "K6": 21}
 TRAIN_SLICES, CROPS = 20, 8  # reference batch: 20 slices x 8 crops = 160 patches
+# phase 27: each model at its full width, and the slices of a `full`
+# (whole 512x512 slice) RED-CNN step: 8 of the 20 a patch step takes, for
+# the activations of 96 channels at 512^2
+FULL_WIDTH = {"gen_features": C, "disc_features": 64, "num_layers": 10}
+FAMILY_MODELS = (("RED_CNN", {"out_ch": 96}), ("EDCNN", {"out_ch": 32, "sobel_ch": 32}),
+                 ("Ablation_CLS_SEG_REC_NDS_RC", FULL_WIDTH),
+                 ("Ablation_CLS_SEG_REC_NDS_RC_ResFFT", FULL_WIDTH))
+RESFFT_ABLATION = "Ablation_CLS_SEG_REC_NDS_RC_ResFFT"
+FULL_SLICES = 8
 
 
 def fail(msg: str):
@@ -1741,6 +1774,139 @@ def feature_sweep(model, root: str, tmp: str, n_slices: int):
     return out
 
 
+def family_run(name: str, kwargs, root: str, test_root: str, tmp: str,
+               preset: str = "window_patch", batch: int = TRAIN_SLICES):
+    """Phase 27: one epoch of the ``train`` CLI for ``name`` on ``root``
+    (its train split in batches of ``batch`` slices cut by ``preset``, its
+    valid split), then, for the patch presets, ``test --resume`` on the
+    checkpoint over ``test_root``'s 16 slices. The launch counts are zeroed
+    just before each run and read just after. Returns (train stats, train
+    seconds, train counts, test summary or None, sweep seconds, sweep
+    counts, checkpoint)."""
+    ckpt_dir = os.path.join(tmp, f"ckpt_{name}_{preset}")
+    common = ["--model", name, "--model-kwargs", json.dumps(kwargs), "--device", "cuda",
+              "--seed", "0"]
+    args = train_cli.get_args_parser().parse_args(common + [
+        "--data-root", root, "--batch-size", str(batch), "--epochs", "1",
+        "--dataset-type-train", preset, "--checkpoint-dir", ckpt_dir,
+        "--save-dir", os.path.join(tmp, f"train_{name}"), "--print-freq", "1"])
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    if not all(math.isfinite(v) for v in stats.values() if isinstance(v, float)):
+        fail(f"train CLI {name} ({preset}): non-finite epoch stats {stats}")
+    for split, decoded in stats["decoded"].items():
+        expect_native(f"train CLI {name} {split}", decoded)
+    ckpt = os.path.join(ckpt_dir, "epoch_0.pth")
+    if preset != "window_patch":
+        return stats, train_s, train_counts, None, None, None, ckpt
+    save_dir = os.path.join(tmp, f"test_{name}")
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = test_cli.main(test_cli.get_args_parser().parse_args(common + [
+        "--data-root", test_root, "--resume", ckpt, "--save-dir", save_dir,
+        "--no-feature-metrics"]))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = read_counts()
+    expect_native(f"test --resume {name}", read_decoded(save_dir))
+    if not all(math.isfinite(v) for v in summary.values()):
+        fail(f"test --resume {name}: non-finite metrics {summary}")
+    return stats, train_s, train_counts, summary, sweep_s, sweep_counts, ckpt
+
+
+def check_families(rng, tmp: str, test_root: str, x_gen):
+    """Phase 27: RED-CNN (96), EDCNN (32, the compound loss on the registry's
+    ResNet50) and the ablations Ablation_CLS_SEG_REC_NDS_RC (REDCNN
+    generator, all heads) and ..._ResFFT at full width, each through the
+    ``train`` CLI (2 steps of 20 slices, ``window_patch``) and ``test
+    --resume`` on phase 5's 16 slices at 512x512; RED-CNN one step on
+    ``full`` (whole slices, batch FULL_SLICES). Held: finite metrics; the
+    card's forward of each trained model against the CPU forward of the same
+    weights; the ResFFT ablation's K1 + K2 launches (21 + 21 a train step,
+    21 K1 per validation slice, 42 K1 per sweep) and none of any kernel on
+    the other three models' paths. Timed: each model's ``generate`` /
+    ``predict`` at 512x512, batch 8, and its train step on 160 patches; a
+    profile of the REDCNN generator's ``generate``. Returns the ResFFT
+    ablation's (K1, K2) launches of its train run and sweep."""
+    root = os.path.join(tmp, "family_data")
+    write_split(root, "train", rng, 2 * TRAIN_SLICES)
+    write_split(root, "valid", rng, 2)
+    full_root = os.path.join(tmp, "family_full")
+    write_split(full_root, "train", rng, FULL_SLICES)
+    write_split(full_root, "valid", rng, 1)
+    x, y = train_patches(rng, seed=27)
+    x_cmp = torch.tensor(phantom(rng, 2, 128)[..., None], dtype=torch.float32)
+    ablation_launches = (0, 0)
+    for name, kwargs in FAMILY_MODELS:
+        stats, train_s, train_counts, summary, sweep_s, sweep_counts, ckpt = family_run(
+            name, kwargs, root, test_root, tmp)
+        resfft = name == RESFFT_ABLATION
+        # 2 steps x 21 K1 + 21 K2, and 21 K1 per 512x512 validation slice
+        expect_counts(f"train CLI {name}", train_counts,
+                      {"K1": 2 * 21 + 2 * 21, "K2": 2 * 21} if resfft else {})
+        expect_counts(f"test --resume {name}", sweep_counts, {"K1": 2 * 21} if resfft else {})
+        if resfft:
+            ablation_launches = (train_counts["K1"] + sweep_counts["K1"], train_counts["K2"])
+        loss_key = "train_loss" if family_of(name) == "cnn" else "train_g_loss"
+        print(f"family {name}: train CLI 1 epoch of 2 steps x {TRAIN_SLICES} slices in "
+              f"{train_s:.3f} s (validation and checkpoint included), {loss_key} "
+              f"{stats[loss_key]:.6f}, valid_loss {stats['valid_loss']:.6f}, launches "
+              f"{train_counts}; test --resume 16 slices 512x512 in {sweep_s:.3f} s, "
+              f"pred_psnr {summary['pred_psnr']:.4f} pred_ssim {summary['pred_ssim']:.5f}, "
+              f"launches {sweep_counts}", flush=True)
+
+        # the trained weights on the card against the CPU
+        card = get_model(name, **kwargs, device="cuda", seed=1)
+        cpu = get_model(name, **kwargs, device="cpu", seed=1)
+        for m in (card, cpu):
+            load_pretrained(ckpt, m)
+        run = (lambda m, z: m.predict(z)) if family_of(name) == "cnn" else (
+            lambda m, z: m.generate(z))
+        got = run(card, x_cmp.cuda())
+        want = run(cpu, x_cmp)
+        tol = TOL_GENERATE_ABS if resfft else TOL_FAMILY_ABS
+        err = (got.cpu() - want).abs().max().item()
+        if got.shape != x_cmp.shape or not torch.isfinite(got).all() or err > tol:
+            fail(f"family {name}: card vs CPU forward {tuple(got.shape)}, max_abs {err:.3e} "
+                 f"> {tol}")
+        print(f"family {name}: card vs CPU forward 128x128 batch 2 max_abs {err:.3e} (tol "
+              f"{tol})", flush=True)
+        del cpu
+
+        # times: the forward at 512x512 batch 8, a train step on 160 patches
+        fwd_ms = cuda_ms(lambda: run(card, x_gen), 3)
+        trainer = build_trainer(name, card, train_cli.get_args_parser().parse_args([]))
+        zero_counts()
+        trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        expect_counts(f"train step {name}", read_counts(),
+                      {"K1": 21, "K2": 21} if resfft else {})
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(x, y), 3)
+        print(f"time family {name}: forward 512x512 batch 8 {fwd_ms:.2f} ms = "
+              f"{8e3 / fwd_ms:.2f} slices/s; train step 160 x 64x64 {step_ms:.2f} ms = "
+              f"{160e3 / step_ms:.2f} patches/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if name == "Ablation_CLS_SEG_REC_NDS_RC":
+            profile("generate REDCNN-generator ablation 512x512 batch 8",
+                    lambda: card.generate(x_gen))
+        del card, trainer
+
+    # RED-CNN on whole slices: one step of FULL_SLICES 512x512 slices
+    torch.cuda.reset_peak_memory_stats()
+    stats, train_s, counts, *_ = family_run("RED_CNN", {"out_ch": 96}, full_root, test_root,
+                                            tmp, preset="full", batch=FULL_SLICES)
+    expect_counts("train CLI RED_CNN full", counts, {})
+    print(f"family RED_CNN full: 1 step of {FULL_SLICES} slices 512x512 in {train_s:.3f} s "
+          f"(validation and checkpoint included), train_loss {stats['train_loss']:.6f}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return ablation_launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1791,6 +1957,10 @@ def main():
         # the card against the CPU in float64, their times, the weights
         feature_runs = feature_sweep(model, os.path.join(tmp, "data512"), tmp, n_slices)
         feature_times = check_features(rng)
+
+        # ---- 27. the CNN family and two ablations through the train and
+        # test CLIs; the ResFFT ablation on K1 + K2
+        ablation_launches = check_families(rng, tmp, os.path.join(tmp, "data512"), x_gen)
 
         # ---- 6. K8 against its plain version
         k8_max_abs_err = check_k8()
@@ -2150,14 +2320,14 @@ def main():
         "name": "block_fused", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_fused.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_pipeline.py:954",
-        "launches": train_launches[0], "max_abs_err": max_abs_err,
+        "launches": train_launches[0] + ablation_launches[0], "max_abs_err": max_abs_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None,
     }, {
         "name": "block_bwd", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_bwd.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_train.py:109",
-        "launches": train_launches[1], "max_abs_err": k2_max_abs_err,
+        "launches": train_launches[1] + ablation_launches[1], "max_abs_err": k2_max_abs_err,
         "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": bb_ms, "bound_by": bby,
         "library_ms": None,
     }, {

@@ -9,7 +9,9 @@ CLIs' flags: the headline benchmark (``python -m mtd_gan_tpu_torch.bench``),
 generator inference and the ``test`` metric sweep (``python -m
 mtd_gan_tpu_torch.test``, with PL, TML and FID by default) and training
 with any of the eleven multi-task methods (``python -m
-mtd_gan_tpu_torch.train``); the feature extractors and the feature, learned
+mtd_gan_tpu_torch.train``); the CNN family (RED-CNN, EDCNN) and the ten
+MTD-GAN ablations through the same ``train`` and ``test`` CLIs
+(``models``, ``engine``); the feature extractors and the feature, learned
 and piq-tail metrics (``features``, ``metrics``); the eight Pallas kernels
 of the JAX package as hand-written CUDA kernels (``csrc/*.cu``), and its
 native DICOM decoder (``csrc/dicom_codec.cc``).

@@ -29,6 +29,7 @@ import torch
 
 from mtd_gan_tpu_torch import optim
 from mtd_gan_tpu_torch.models.base import param_labels
+from mtd_gan_tpu_torch.models.mtd_gan import check_discriminator_input
 from mtd_gan_tpu_torch.mto.methods import (combine_grads, get_method, per_task_grads,
                                            random_order, uw_logsigma_grad)
 from mtd_gan_tpu_torch.ops.cuda_train import resfft_generator_train, train_route
@@ -129,13 +130,7 @@ class MTDGANTrainer:
         model = self.model
         gen = model.generator.train()
         _, h, w, _ = x.shape
-        if (h, w) != (64, 64):
-            raise ValueError(
-                f"the MTD-GAN discriminator takes 64x64 inputs (its CLS head "
-                f"flattens a 1x1 bottleneck after six 2x downsamplings), got "
-                f"{h}x{w}: the train presets 'full' and 'window' give whole "
-                f"slices, on which the JAX package's step fails too (ROADMAP.md "
-                f"queue 1, items 8-10)")
+        check_discriminator_input(h, w)
         if train_route(h, w, model.gen_features) == "kernels":
             fake = resfft_generator_train(gen, x)
         else:

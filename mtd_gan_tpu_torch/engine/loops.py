@@ -1,6 +1,11 @@
-"""Epoch loops of the MTD-GAN family: ``train_one_epoch``, ``validate`` and
-the test-set metric sweep ``run_test`` (counterpart of
-``mtd_gan_tpu/engine/loops.py``).
+"""Family dispatch and the epoch loops: ``build_trainer``,
+``train_one_epoch``, ``validate`` and the test-set metric sweep
+``run_test`` (counterpart of ``mtd_gan_tpu/engine/loops.py``). Ported
+families: ``cnn`` (RED_CNN, EDCNN: ``SupervisedTrainer``, predictions by
+``model.predict``) and ``mtd`` (MTD_GAN_Method: ``MTDGANTrainer``; the ten
+``Ablation_*`` recipes: ``AdversarialTrainer``; predictions by
+``model.generate``). ``tr`` (ROADMAP.md queue 1, item 10), ``wgan`` and
+``dugan`` (item 9) and ``dn`` (item 11) raise.
 
 Training: the loader is wrapped in ``prefetch_to_device``, so each HU pair
 is on the model's device before its step; the train preprocess cuts and
@@ -38,6 +43,7 @@ from mtd_gan_tpu_torch.features.registry import get_inception_feature_fn, get_vg
 from mtd_gan_tpu_torch.metrics import fid as fid_lib
 from mtd_gan_tpu_torch.metrics import perceptual
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
+from mtd_gan_tpu_torch.models import resolve_alias
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
 from mtd_gan_tpu_torch.utils.profiling import StepTimer
@@ -48,13 +54,65 @@ _METRIC_COLUMNS = ("input_rmse", "gt_rmse", "pred_rmse",
 _FEATURE_COLUMNS = ("input_pl", "gt_pl", "pred_pl", "input_tml", "gt_tml", "pred_tml")
 
 
-def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Full-image prediction function; only the MTD-GAN family is ported."""
-    if family != "mtd":
+FAMILY = {
+    "RED_CNN": "cnn", "EDCNN": "cnn",
+    "CTformer": "tr", "Restormer": "tr",
+    "WGAN_VGG": "wgan", "MAP_NN": "wgan",
+    "DU_GAN": "dugan",
+    "MTD_GAN_Method": "mtd",
+    "DDPM": "dn", "DDIM": "dn", "PNDM": "dn", "DPM": "dn",
+}
+# the ROADMAP.md queue 1 item that ports each family still missing
+UNPORTED_FAMILIES = {"wgan": 9, "dugan": 9, "tr": 10, "dn": 11}
+
+
+def family_of(model_name: str) -> str:
+    """The family of a reference-compatible name (``Ablation_*`` are
+    ``mtd``; an unknown name is ``cnn``, as in the JAX package)."""
+    model_name = resolve_alias(model_name)
+    if model_name.startswith("Ablation_"):
+        return "mtd"
+    return FAMILY.get(model_name, "cnn")
+
+
+def _refuse_family(family: str) -> None:
+    if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {family!r} is not ported yet (ROADMAP.md queue 1, "
-            f"items 8-11)")
-    return model.generate
+            f"family {family!r} is not ported yet (ROADMAP.md queue 1, item "
+            f"{UNPORTED_FAMILIES[family]})")
+    if family not in ("cnn", "mtd"):
+        raise KeyError(family)
+
+
+def build_trainer(model_name: str, model, args, seed: int = 0):
+    """The family's trainer: ``SupervisedTrainer`` for ``cnn``; for ``mtd``,
+    ``MTDGANTrainer`` with ``args.method`` for a stacked ``d_loss``
+    (MTD_GAN_Method), else ``AdversarialTrainer(n_critic=1)``, which, as in
+    the JAX package, takes no method: a given ``--method`` is noted and not
+    used."""
+    from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
+    from mtd_gan_tpu_torch.engine.supervised import SupervisedTrainer
+    from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer
+
+    family = family_of(model_name)
+    _refuse_family(family)
+    kw = dict(optimizer=args.optimizer, lr=args.lr)
+    if family == "cnn":
+        return SupervisedTrainer(model, **kw)
+    method = args.method or None
+    if model.n_d_tasks > 1:
+        return MTDGANTrainer(model, method=method, seed=seed, **kw)
+    if method:
+        print(f"note: --method {method} is not used: {model_name} has a scalar "
+              f"discriminator loss (AdversarialTrainer)", flush=True)
+    return AdversarialTrainer(model, n_critic=1, seed=seed, **kw)
+
+
+def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Full-image prediction function: ``model.predict`` for ``cnn``,
+    ``model.generate`` for ``mtd`` (the ablations included)."""
+    _refuse_family(family)
+    return model.predict if family == "cnn" else model.generate
 
 
 def train_one_epoch(trainer, loader: Iterable, preprocess,
@@ -90,17 +148,19 @@ def train_one_epoch(trainer, loader: Iterable, preprocess,
 
 
 @torch.no_grad()
-def validate(model, loader: Iterable, eval_preprocess, epoch: int,
+def validate(model, loader: Iterable, eval_preprocess, family: str, epoch: int,
              save_dir: Optional[str] = None,
              criterion: Callable = losses_lib.l1) -> Dict[str, float]:
-    """Criterion of the generator's prediction per validation slice; PNGs of
-    the last slice's input, ground truth and prediction in ``save_dir``."""
+    """Criterion of the model's full-slice prediction per validation slice;
+    PNGs of the last slice's input, ground truth and prediction in
+    ``save_dir``."""
+    predictor = _predictor_for(model, family)
     logger = MetricLogger()
     pending, last = [], None
     for batch in loader:
         x, y = eval_preprocess(torch.from_numpy(np.asarray(batch[0])).to(model.device),
                                torch.from_numpy(np.asarray(batch[1])).to(model.device))
-        pred = model.generate(x)
+        pred = predictor(x)
         pending.append(criterion(pred, y))
         last = (x, y, pred)
     for v in torch.stack(pending).cpu().tolist() if pending else []:

@@ -1,0 +1,45 @@
+"""Supervised trainer of the CNN family (counterpart of
+``mtd_gan_tpu/engine/supervised.py``; reference engine.py:192-414).
+
+One step: the model's self-contained loss, its backward, one AdamW step
+(lr 1e-4, decoupled weight decay 5e-4, ``optim.get_optimizer``) over the
+network's parameters (buffers such as EDCNN's Sobel bank take none).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from mtd_gan_tpu_torch import optim
+
+Tensor = torch.Tensor
+
+
+class SupervisedTrainer:
+    """``model`` exposes ``net``, ``loss(x, y) -> (value, details)`` and
+    ``predict``."""
+
+    def __init__(self, model, optimizer: str = "adamw", lr: float = 1e-4,
+                 weight_decay: float = 5e-4):
+        self.model = model
+        self.opt = optim.get_optimizer(optimizer, model.net.parameters(), lr, weight_decay)
+
+    def set_epoch_lr(self, lr: float) -> None:
+        optim.set_learning_rate(self.opt, lr)
+
+    def train_step(self, x: Tensor, y: Tensor) -> Dict[str, Tensor]:
+        """One step on NHWC ``x``, ``y`` on the model's device; returns the
+        loss and its details as 0-d tensors."""
+        self.model.net.train()
+        loss, details = self.model.loss(x, y)
+        loss.backward()
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        metrics = {k: v.detach() for k, v in details.items()}
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    def predict(self, x: Tensor) -> Tensor:
+        return self.model.predict(x)

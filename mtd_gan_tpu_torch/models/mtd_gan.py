@@ -53,7 +53,7 @@ class ResFFTGenerator(nn.Module):
             conv_impl = "torch" if spectral_impl == "auto" else "k3"
         check_impls(spectral_impl, conv_impl, "ResFFTGenerator")
         L, f = num_layers, features
-        self.num_layers = L
+        self.num_layers, self.features = L, f
         self.conv_impl = conv_impl
         self.encoder = nn.ModuleList(
             [nn.Conv2d(in_channels, f, 3, padding=1)]
@@ -146,8 +146,63 @@ def generate_route(h: int, w: int, c: int) -> str:
     return "plain"
 
 
+def generator_views(generator: ResFFTGenerator) -> Dict[str, nn.Module]:
+    """``generate``'s modules by route: ``"plain"`` is ``generator``;
+    ``"tiled"``, ``"fused"`` and ``"staged"`` are the JAX
+    ``GeneratorTiled``, the JAX ``ResFFTGenerator(spectral_impl=
+    "pallas_fused")`` and the JAX unfused pipeline
+    (``fft_block_nchw(fused=False)``) as generators: its parameters (shared,
+    not copied) with the Res-FFT blocks on K8, K7 or K4 -> K5 -> K6. They
+    are built on "meta", so their own placeholder weights take no memory
+    and no random draws."""
+    views = {"plain": generator}
+    for impl in ("tiled", "fused", "staged"):
+        with torch.device("meta"):
+            view = ResFFTGenerator(1, generator.features, generator.num_layers,
+                                   spectral_impl=impl)
+        views[impl] = share_parameters(view, generator).eval()
+    return views
+
+
+@torch.no_grad()
+def resfft_generate(views: Dict[str, nn.Module], x: Tensor) -> Tensor:
+    """``(N, H, W, 1)`` -> ``(N, H, W, 1)`` through the generator of
+    :func:`generator_views`. A CUDA ``x`` takes the path
+    :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
+    (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs on
+    K3, or the plain module. A CPU ``x`` runs the plain module. ``x`` must
+    be on the generator's device type."""
+    gen = views["plain"]
+    device = next(gen.parameters()).device
+    if x.device.type != device.type:
+        raise ValueError(f"generate: input on {x.device}, model on {device}")
+    if x.device.type == "cpu":
+        return gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    n, h, w, _ = x.shape
+    route = generate_route(h, w, gen.features)
+    if route == "k1":
+        return resfft_generator_nchw(gen.state_dict(), x, gen.num_layers)
+    # reshape, not permute: NCHW strides for the kernels' layout checks
+    return views[route](x.reshape(n, 1, h, w).contiguous()).reshape(n, h, w, 1)
+
+
+def check_discriminator_input(h: int, w: int) -> None:
+    """The multi-task discriminator takes 64x64 only: raise otherwise."""
+    if (h, w) != (64, 64):
+        raise ValueError(
+            f"the MTD-GAN discriminator takes 64x64 inputs (its CLS head "
+            f"flattens a 1x1 bottleneck after six 2x downsamplings), got "
+            f"{h}x{w}: the train presets 'full' and 'window' give whole "
+            f"slices, on which the JAX package's step fails too; the families "
+            f"that train on them are RED_CNN and EDCNN, and those of ROADMAP.md "
+            f"queue 1, items 9 and 10")
+
+
 def _lrelu(x: Tensor) -> Tensor:
     return nn.functional.leaky_relu(x, 0.2)
+
+
+HEADS = ("cls", "seg", "rec")
 
 
 class MultiTaskDiscriminator(nn.Module):
@@ -155,14 +210,22 @@ class MultiTaskDiscriminator(nn.Module):
     a CLS head (SN linear, dropout, linear), a SEG decoder (bilinear 2x +
     skip concat) and a REC decoder (pixel shuffle + skip concat); input
     64x64 NCHW, outputs ``(cls (N, 1), seg (N, 1, 64, 64), rec (N, 1, 64,
-    64))``. ``update_stats`` stores each spectral-norm layer's power
-    iteration; ``generator`` draws the dropout mask in training."""
+    64))``. ``heads`` selects the decoders that are built and run: the
+    reference's five partial discriminators (CLS, SEG, CLS_SEG, CLS_REC,
+    SEG_REC, arch/Ours/networks.py:507-1320) are this module with fewer
+    heads, the outputs in (cls, seg, rec) order for the enabled subset, a
+    single head's output alone. The default, all three, is the flagship's.
+    ``update_stats`` stores each spectral-norm layer's power iteration;
+    ``generator`` draws the dropout mask in training."""
 
     def __init__(self, in_channels: int = 1, features: int = 64,
-                 dropout_rate: float = 0.3):
+                 dropout_rate: float = 0.3, heads: Tuple[str, ...] = HEADS):
         super().__init__()
+        if not heads or set(heads) - set(HEADS):
+            raise ValueError(f"heads must be a non-empty subset of {HEADS}, got {heads}")
         f = features
         self.dropout_rate = dropout_rate
+        self.heads = tuple(h for h in HEADS if h in heads)
         enc_ch = [f, f * 2, f * 4, f * 8, f * 8, f * 8]
         c_prev = in_channels
         for i, ch in enumerate(enc_ch, start=1):
@@ -172,20 +235,25 @@ class MultiTaskDiscriminator(nn.Module):
             c_prev = ch
         self.bconv1 = SNConv2d(f * 8, f * 8, 1)
         self.bconv2 = SNConv2d(f * 8, f * 8, 1)
-        self.c_fc = SNLinear(f * 8, f * 8)
-        self.enc_out = nn.Linear(f * 8, 1)
+        if "cls" in heads:
+            self.c_fc = SNLinear(f * 8, f * 8)
+            self.enc_out = nn.Linear(f * 8, 1)
         dec_ch = [f * 8, f * 8, f * 4, f * 2, f, 1]
-        s_prev = r_prev = f * 8
+        prev = f * 8
         for i, ch in enumerate(dec_ch, start=1):
             skip_ch = enc_ch[6 - i]
-            setattr(self, f"s_dconv{i}1", SNConv2d(s_prev + skip_ch, ch, 3, padding=1))
-            setattr(self, f"s_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
-            setattr(self, f"r_up{i}", PixelShuffleUpsample(r_prev, 2))
-            setattr(self, f"r_dconv{i}1", SNConv2d(r_prev + skip_ch, ch, 3, padding=1))
-            setattr(self, f"r_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
-            s_prev = r_prev = ch
-        self.dec_out = nn.Conv2d(1, 1, 1)
-        self.rec_out = nn.Conv2d(1, 1, 1)
+            if "seg" in heads:
+                setattr(self, f"s_dconv{i}1", SNConv2d(prev + skip_ch, ch, 3, padding=1))
+                setattr(self, f"s_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+            if "rec" in heads:
+                setattr(self, f"r_up{i}", PixelShuffleUpsample(prev, 2))
+                setattr(self, f"r_dconv{i}1", SNConv2d(prev + skip_ch, ch, 3, padding=1))
+                setattr(self, f"r_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+            prev = ch
+        if "seg" in heads:
+            self.dec_out = nn.Conv2d(1, 1, 1)
+        if "rec" in heads:
+            self.rec_out = nn.Conv2d(1, 1, 1)
 
     def forward(self, x: Tensor, train: bool = True, update_stats: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -197,19 +265,41 @@ class MultiTaskDiscriminator(nn.Module):
             h = getattr(self, f"down{i}")(h, update_stats)
         x_bot = sn("bconv2", sn("bconv1", h))
 
-        c = _lrelu(self.c_fc(x_bot.reshape(x_bot.shape[0], -1), update_stats))
-        if train and self.dropout_rate > 0:
-            keep = torch.rand(c.shape, generator=generator, device=c.device) >= self.dropout_rate
-            c = c * keep / (1.0 - self.dropout_rate)
-        cls = self.enc_out(c)
-
+        outputs = []
+        if "cls" in self.heads:
+            c = _lrelu(self.c_fc(x_bot.reshape(x_bot.shape[0], -1), update_stats))
+            if train and self.dropout_rate > 0:
+                keep = (torch.rand(c.shape, generator=generator, device=c.device)
+                        >= self.dropout_rate)
+                c = c * keep / (1.0 - self.dropout_rate)
+            outputs.append(self.enc_out(c))
         s = r = x_bot
         for i in range(1, 7):
-            s = sn(f"s_dconv{i}1", (upsample2x_bilinear(s), skips[6 - i]))
-            s = sn(f"s_dconv{i}2", s)
-            r = sn(f"r_dconv{i}1", (getattr(self, f"r_up{i}")(r), skips[6 - i]))
-            r = sn(f"r_dconv{i}2", r)
-        return cls, self.dec_out(s), self.rec_out(r)
+            if "seg" in self.heads:
+                s = sn(f"s_dconv{i}1", (upsample2x_bilinear(s), skips[6 - i]))
+                s = sn(f"s_dconv{i}2", s)
+            if "rec" in self.heads:
+                r = sn(f"r_dconv{i}1", (getattr(self, f"r_up{i}")(r), skips[6 - i]))
+                r = sn(f"r_dconv{i}2", r)
+        if "seg" in self.heads:
+            outputs.append(self.dec_out(s))
+        if "rec" in self.heads:
+            outputs.append(self.rec_out(r))
+        return outputs[0] if len(outputs) == 1 else tuple(outputs)
+
+
+def seeded_discriminator(features: int, dropout_rate: float, heads: Tuple[str, ...],
+                         generator: torch.Generator) -> MultiTaskDiscriminator:
+    """A discriminator on the CPU with the reference init, drawn from
+    ``generator``: N(0, 0.01) weights and zero biases, then the unit ``u``
+    / ``v`` vectors."""
+    disc = MultiTaskDiscriminator(1, features, dropout_rate, heads=heads)
+    normal_init_(disc, INIT_STD, generator)
+    with torch.no_grad():
+        for _, buf in disc.named_buffers():
+            buf.copy_(nn.functional.normalize(torch.randn(buf.shape, generator=generator),
+                                              dim=0))
+    return disc
 
 
 # partition labels for MTO gradient surgery (reference :318-380)
@@ -258,48 +348,17 @@ class MTDGANModel:
         gen = ResFFTGenerator(1, gen_features, num_layers)
         normal_init_(gen, INIT_STD, init)
         self.generator = gen.to(self.device).eval()
-        # the JAX GeneratorTiled: the same parameters (shared, not copied),
-        # the Res-FFT blocks on the tiled spectral branch; built on "meta",
-        # so its own placeholder weights take no memory and no random draws
-        with torch.device("meta"):
-            tiled = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="tiled")
-        self.generator_tiled = share_parameters(tiled, self.generator).eval()
-        # the JAX ResFFTGenerator(spectral_impl="pallas_fused") in the same way
-        with torch.device("meta"):
-            fused = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="fused")
-        self.generator_fused = share_parameters(fused, self.generator).eval()
-        # the JAX unfused pipeline, fft_block_nchw(fused=False), as a generator
-        with torch.device("meta"):
-            staged = ResFFTGenerator(1, gen_features, num_layers, spectral_impl="staged")
-        self.generator_staged = share_parameters(staged, self.generator).eval()
-        disc = MultiTaskDiscriminator(1, disc_features, dropout_rate)
-        normal_init_(disc, INIT_STD, init)
-        with torch.no_grad():  # u, v: unit vectors drawn from the same seed
-            for name, buf in disc.named_buffers():
-                buf.copy_(nn.functional.normalize(
-                    torch.randn(buf.shape, generator=init), dim=0))
-        self.discriminator = disc.to(self.device)
+        self.views = generator_views(self.generator)
+        self.generator_tiled = self.views["tiled"]
+        self.generator_fused = self.views["fused"]
+        self.generator_staged = self.views["staged"]
+        self.discriminator = seeded_discriminator(disc_features, dropout_rate, HEADS,
+                                                  init).to(self.device)
 
-    @torch.no_grad()
     def generate(self, x: Tensor) -> Tensor:
-        """``(N, H, W, 1)`` -> ``(N, H, W, 1)``. A CUDA ``x`` takes the path
-        :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
-        (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs
-        on K3, or the plain module. A CPU ``x`` runs the plain module."""
-        if x.device.type != self.device.type:
-            raise ValueError(f"generate: input on {x.device}, model on "
-                             f"{self.device}")
-        if x.device.type == "cpu":
-            return self.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        n, h, w, _ = x.shape
-        route = generate_route(h, w, self.gen_features)
-        if route == "k1":
-            return resfft_generator_nchw(self.generator.state_dict(), x,
-                                         self.num_layers)
-        gen = {"tiled": self.generator_tiled, "fused": self.generator_fused,
-               "staged": self.generator_staged, "plain": self.generator}[route]
-        # reshape, not permute: NCHW strides for the kernels' layout checks
-        return gen(x.reshape(n, 1, h, w).contiguous()).reshape(n, h, w, 1)
+        """``(N, H, W, 1)`` -> ``(N, H, W, 1)`` on the route
+        :func:`generate_route` names (:func:`resfft_generate`)."""
+        return resfft_generate(self.views, x)
 
     # ---- losses (reference arch/Ours/networks.py:1957-2009) ----
     def _apply_d(self, z: Tensor, update_stats: bool,

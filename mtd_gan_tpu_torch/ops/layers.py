@@ -39,6 +39,23 @@ def normal_init_(module: nn.Module, std: float,
     return module
 
 
+def torch_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """torch's default ``Conv2d`` / ``ConvTranspose2d`` init drawn from
+    ``generator`` in ``module.modules()`` order: weight and bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in from the weight's dim 1 times
+    the kernel area (``out_channels`` for a transposed conv), as torch's
+    kaiming-uniform with a = sqrt(5) gives it; the JAX ``torch_init=True``
+    of RED-CNN and EDCNN (``mtd_gan_tpu/ops/layers.py``)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            bound = m.weight[0].numel() ** -0.5
+            with torch.no_grad():
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+    return module
+
+
 def conv_transpose_as_conv(weight: torch.Tensor) -> torch.Tensor:
     """``ConvTranspose2d`` weight ``(in, out, kh, kw)`` at stride 1 -> the
     equivalent ``conv2d`` weight ``(out, in, kh, kw)`` (spatial flip + swap),

@@ -1,11 +1,15 @@
-"""Test CLI of the port — the MTD-GAN metric sweep over a test split
-(counterpart of the root ``test.py`` for ``--model MTD_GAN_Method``, with
-its flags and defaults but ``--device``).
+"""Test CLI of the port — the metric sweep over a test split (counterpart
+of the root ``test.py``, with its flags and defaults but ``--device``).
 
     python -m mtd_gan_tpu_torch.test --data-root DATA --checkpoint-dir ckpt \
-        [--epoch N] [--no-feature-metrics] [--device cuda|cpu]
+        [--model MTD_GAN_Method] [--epoch N] [--no-feature-metrics] \
+        [--device cuda|cpu]
 
-Loads the generator from a reference-layout ``.pth``: ``--resume``, else
+``--model`` takes the train CLI's names: ``MTD_GAN_Method``, ``RED_CNN``,
+``EDCNN``, the ten ``Ablation_*`` and the aliases; ``--model-kwargs``
+reaches the model's constructor. Loads the network the sweep runs from a
+reference-layout ``.pth`` (the generator's ``Generator.*``, or the flat
+``model_state_dict`` of RED_CNN and EDCNN): ``--resume``, else
 ``<checkpoint-dir>/epoch_<n>.pth`` as the train CLI writes it (the epoch
 ``--epoch`` names, the latest at -1). Runs full-image inference in groups
 of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM and, unless
@@ -31,13 +35,13 @@ from typing import Dict, Optional
 from mtd_gan_tpu_torch._device import resolve_device
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, eval_loader
 from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess
-from mtd_gan_tpu_torch.engine.loops import run_test
+from mtd_gan_tpu_torch.engine.loops import family_of, run_test
 from mtd_gan_tpu_torch.features import feature_weights_status
-from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
+from mtd_gan_tpu_torch.models import get_model, get_model_class, ported_names
 from mtd_gan_tpu_torch.utils.profiling import StepTimer
 from mtd_gan_tpu_torch.utils.torch_import import load_reference_checkpoint
 
-PORTED_MODELS = ("MTD_GAN_Method",)
+PORTED_MODELS = ported_names()
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -50,7 +54,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--test-num-workers", default=4, type=int,
                    help="taken for the root CLI's sake: the sweep decodes in "
                         "order on the main thread, as there")
-    p.add_argument("--model", default="MTD_GAN_Method", type=str)
+    p.add_argument("--model", default="MTD_GAN_Method", type=str,
+                   help=f"one of {', '.join(PORTED_MODELS)}")
     p.add_argument("--loss", default="L1 Loss", type=str)
     p.add_argument("--method", default="", type=str)
     p.add_argument("--optimizer", default="adamw", type=str)
@@ -62,7 +67,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-dir", default="predictions/test", type=str)
     p.add_argument("--resume", default="", type=str,
                    help="reference-layout .pth checkpoint "
-                        "({'model_state_dict': {'Generator.…': …}}); default: "
+                        "({'model_state_dict': {'Generator.…': …}}, flat for "
+                        "RED_CNN and EDCNN); default: "
                         "<checkpoint-dir>/epoch_<epoch>.pth")
     p.add_argument("--epoch", default=-1, type=int,
                    help="epoch to restore from --checkpoint-dir (-1 = latest)")
@@ -97,10 +103,7 @@ def checkpoint_path(checkpoint_dir: str, epoch: int = -1) -> str:
 def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
     """The sweep; ``phases`` receives the host seconds by phase (model load,
     then :func:`~mtd_gan_tpu_torch.engine.loops.run_test`'s)."""
-    if args.model not in PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported yet (ROADMAP.md queue 1, "
-            f"items 8-11); ported: {PORTED_MODELS}")
+    get_model_class(args.model)  # an unported name raises, naming its item
     if args.multi_gpu_mode != "Single":
         raise NotImplementedError(
             "--multi-gpu-mode other than Single is not ported yet (ROADMAP.md "
@@ -109,10 +112,11 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
     load = StepTimer(sync=device.type == "cuda")
     with load:
         kwargs = json.loads(args.model_kwargs or "{}")
-        model = MTDGANModel(**kwargs, device=device, seed=args.seed)
+        model = get_model(args.model, **kwargs, device=device, seed=args.seed)
+        family = family_of(args.model)
         path = args.resume or checkpoint_path(args.checkpoint_dir, args.epoch)
-        epoch, state = load_reference_checkpoint(path)
-        model.generator.load_state_dict(state, strict=True)
+        epoch, state = load_reference_checkpoint(path, args.model)
+        (model.net if family == "cnn" else model.generator).load_state_dict(state, strict=True)
     if phases is not None:
         phases["load"] = load
     print(f"restored epoch {epoch} from {path}")
@@ -121,7 +125,7 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
     print(f"test slices: {len(ds)}")
     summary = run_test(
         model, eval_loader(ds, args.test_batch_size),
-        make_eval_preprocess(args.dataset_type_test, args.dataset), "mtd",
+        make_eval_preprocess(args.dataset_type_test, args.dataset), family,
         save_dir=args.save_dir,
         compute_fid_metric=not args.no_feature_metrics,
         compute_feature_metrics=not args.no_feature_metrics,

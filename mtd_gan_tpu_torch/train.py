@@ -1,13 +1,21 @@
-"""Training CLI of the port — the MTD-GAN recipe (counterpart of the root
-``train.py`` for ``--model MTD_GAN_Method``, with its flags and defaults
-but ``--device``; reference train.py:22-67).
+"""Training CLI of the port (counterpart of the root ``train.py``, with its
+flags and defaults but ``--device``; reference train.py:22-67).
 
     python -m mtd_gan_tpu_torch.train --data-root DATA --batch-size 20 \
-        --method pcgrad --epochs 500 --checkpoint-dir ckpt --save-dir preds \
-        [--device cuda|cpu]
+        [--model MTD_GAN_Method] --method pcgrad --epochs 500 \
+        --checkpoint-dir ckpt --save-dir preds [--device cuda|cpu]
 
+``--model``: ``MTD_GAN_Method`` (alias ``MTD_GAN``), the CNN family
+``RED_CNN`` and ``EDCNN`` (alias ``ED_CNN``), or one of the ten MTD-GAN
+ablations ``Ablation_*`` (``models/ablations.py``); ``--model-kwargs``
+reaches the model's constructor. A name of the JAX package that is not
+ported yet raises, naming its ROADMAP.md item. For MTD_GAN_Method
 ``--method`` picks the discriminator's multi-task method (any of the
-eleven); without it, as at the root, the three task losses are summed.
+eleven); without it, as at the root, the three task losses are summed. The
+ablations have a scalar discriminator loss and no method: a given
+``--method`` is noted and not used, as at the root. The whole-slice presets
+``full`` and ``window`` train the CNN family; the MTD-GAN discriminator
+takes 64x64 patches only and refuses them.
 Per epoch: the learning rate of ``--scheduler`` (``poly_lr`` or
 ``cosine_annealing_warm_restart``), shuffled batches of slices cut by the
 ``--dataset-type-train`` preset (``window_patch``: 8 random 64x64 crops
@@ -36,16 +44,16 @@ import torch
 from mtd_gan_tpu_torch._device import resolve_device
 from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset, eval_loader, train_loader
 from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess, make_train_preprocess
-from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
-from mtd_gan_tpu_torch.engine.loops import train_one_epoch, validate
+from mtd_gan_tpu_torch.engine.loops import build_trainer, family_of, train_one_epoch, validate
 from mtd_gan_tpu_torch.losses import get_loss
-from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
+from mtd_gan_tpu_torch.models import get_model, get_model_class, ported_names
 from mtd_gan_tpu_torch.optim import get_scheduler
-from mtd_gan_tpu_torch.utils.checkpoint import load_pretrained, restore, save_checkpoint
+from mtd_gan_tpu_torch.utils.checkpoint import (load_pretrained, networks, restore,
+                                                save_checkpoint)
 from mtd_gan_tpu_torch.utils.logging import TensorBoardSink
 from mtd_gan_tpu_torch.utils.profiling import trace
 
-PORTED_MODELS = ("MTD_GAN_Method",)
+PORTED_MODELS = ported_names()
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -55,18 +63,20 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset-type-train", default="window_patch", type=str)
     p.add_argument("--dataset-type-valid", default="window", type=str)
     p.add_argument("--batch-size", default=20, type=int,
-                   help="slices per step; each gives 8 crops of 64x64")
+                   help="slices per step; the patch presets cut 8 crops of "
+                        "64x64 from each")
     p.add_argument("--train-num-workers", default=4, type=int)
     p.add_argument("--valid-num-workers", default=4, type=int,
                    help="taken for the root CLI's sake: validation decodes "
                         "in order on the main thread, as there")
-    p.add_argument("--model", default="MTD_GAN_Method", type=str)
+    p.add_argument("--model", default="MTD_GAN_Method", type=str,
+                   help=f"one of {', '.join(PORTED_MODELS)}")
     p.add_argument("--loss", default="L1 Loss", type=str,
                    help="validation criterion")
     p.add_argument("--method", default="", type=str,
                    help="MTO method for the discriminator (ls, scaleinvls, stl, "
                         "uw, rlw, imtl, dwa, pcgrad, cagrad, mgda, nashmtl; "
-                        "'' = the plain sum)")
+                        "'' = the plain sum); MTD_GAN_Method only")
     p.add_argument("--optimizer", default="adamw", type=str)
     p.add_argument("--scheduler", default="poly_lr", type=str)
     p.add_argument("--epochs", default=500, type=int)
@@ -101,10 +111,7 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.model not in PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported yet (ROADMAP.md queue 1, "
-            f"items 8-11); ported: {PORTED_MODELS}")
+    get_model_class(args.model)  # an unported name raises, naming its item
     if args.multi_gpu_mode != "Single" or args.tp_size != -1:
         raise NotImplementedError(
             "--multi-gpu-mode other than Single and --tp-size are not ported "
@@ -120,9 +127,9 @@ def main(args) -> dict:
     _refuse_unported(args)
     device = resolve_device(args.device)
     kwargs = json.loads(args.model_kwargs or "{}")
-    model = MTDGANModel(**kwargs, device=device, seed=args.seed)
-    trainer = MTDGANTrainer(model, method=args.method or None,
-                            optimizer=args.optimizer, lr=args.lr, seed=args.seed)
+    model = get_model(args.model, **kwargs, device=device, seed=args.seed)
+    family = family_of(args.model)
+    trainer = build_trainer(args.model, model, args, seed=args.seed)
     sched = get_scheduler(args.scheduler, args.lr, args.epochs, args.warmup_epochs,
                           args.min_lr)
     train_pre = make_train_preprocess(args.dataset_type_train, args.dataset)
@@ -130,8 +137,7 @@ def main(args) -> dict:
     train_ds = PairedDicomDataset(args.data_root, "train")
     valid_ds = PairedDicomDataset(args.data_root, "valid")
     print(f"train slices: {len(train_ds)}, valid slices: {len(valid_ds)}")
-    n_params = sum(p.numel() for m in (model.generator, model.discriminator)
-                   for p in m.parameters())
+    n_params = sum(p.numel() for m in networks(model).values() for p in m.parameters())
     print(f"Number of Learnable Params: {n_params}")
 
     start_epoch = 0
@@ -162,7 +168,7 @@ def main(args) -> dict:
         stats = {"epoch": epoch, "lr": lr,
                  **{f"train_{k}": v for k, v in train_stats.items()}}
         if epoch % args.valid_every == 0:
-            valid_stats = validate(model, eval_loader(valid_ds), eval_pre, epoch,
+            valid_stats = validate(model, eval_loader(valid_ds), eval_pre, family, epoch,
                                    save_dir=os.path.join(args.save_dir, "valid"),
                                    criterion=get_loss(args.loss))
             stats.update({f"valid_{k}": v for k, v in valid_stats.items()})

@@ -1,17 +1,25 @@
 """Training checkpoints in the reference layout (counterpart of
 ``mtd_gan_tpu/utils/checkpoint.py``; reference train.py:146-173, 276-310).
 
-One ``torch.save`` dict per epoch: ``model_state_dict`` (``Generator.*`` and
-``Discriminator.*``, the discriminator with its spectral-norm ``weight_u`` /
-``weight_v``), ``optimizer_G``, ``optimizer_D``, ``scheduler`` (the epoch
-it was last stepped to), ``epoch``, ``args``, and the multi-task method's
-state: ``mto_method`` (its name, ``None`` for the plain sum), ``mto_state``
-(step, UW's log-sigma, DWA's cost history and weights, NashMTL's alpha)
-and ``optimizer_mto`` (UW's log-sigma optimizer), so that a resume goes on
-with the method exactly where it stopped (the reference drops it, quirk 5;
-the JAX package saves it too). Restoring needs every key: a checkpoint is
-read whole or not at all. :func:`load_pretrained` is the params-only warm
-start of ``--from-pretrained``.
+One ``torch.save`` dict per epoch: ``model_state_dict``, the optimizers,
+``scheduler`` (the epoch it was last stepped to), ``epoch`` and ``args``.
+
+* A supervised model (RED_CNN, EDCNN; ``SupervisedTrainer``): the flat
+  ``model_state_dict`` of its network and one ``optimizer``.
+* An adversarial model (MTD_GAN_Method, the ablations): ``Generator.*`` and
+  ``Discriminator.*`` (the discriminator with its spectral-norm
+  ``weight_u`` / ``weight_v``), ``optimizer_G`` and ``optimizer_D``.
+  ``MTDGANTrainer`` adds the multi-task method's state: ``mto_method`` (its
+  name, ``None`` for the plain sum), ``mto_state`` (step, UW's log-sigma,
+  DWA's cost history and weights, NashMTL's alpha) and ``optimizer_mto``
+  (UW's log-sigma optimizer), so that a resume goes on with the method
+  exactly where it stopped (the reference drops it, quirk 5; the JAX
+  package saves it too).
+
+Restoring needs every key: a checkpoint is read whole or not at all.
+:func:`load_pretrained` is the params-only warm start of
+``--from-pretrained``; it also reads a reference discriminator's names
+(``torch_import.reference_discriminator_state_dict``).
 """
 
 from __future__ import annotations
@@ -21,27 +29,43 @@ import os
 from typing import Dict
 
 import torch
+from torch import nn
 
 from mtd_gan_tpu_torch.mto.methods import MTOState
+from mtd_gan_tpu_torch.utils.torch_import import (reference_discriminator_state_dict,
+                                                  strip_module_prefixes)
+
+
+def networks(model) -> Dict[str, nn.Module]:
+    """``model_state_dict`` prefix -> module: ``{"": net}`` for a supervised
+    model, else ``Generator.`` and ``Discriminator.``."""
+    if hasattr(model, "net"):
+        return {"": model.net}
+    return {"Generator.": model.generator, "Discriminator.": model.discriminator}
+
+
+def _optimizers(trainer) -> Dict[str, torch.optim.Optimizer]:
+    if hasattr(trainer, "opt"):
+        return {"optimizer": trainer.opt}
+    return {"optimizer_G": trainer.opt_g, "optimizer_D": trainer.opt_d}
 
 
 def save_checkpoint(path: str, model, trainer, epoch: int,
                     args: argparse.Namespace) -> None:
-    sd = {f"Generator.{k}": v for k, v in model.generator.state_dict().items()}
-    sd.update({f"Discriminator.{k}": v
-               for k, v in model.discriminator.state_dict().items()})
+    sd = {prefix + k: v for prefix, module in networks(model).items()
+          for k, v in module.state_dict().items()}
+    ckpt = {"model_state_dict": sd,
+            **{k: opt.state_dict() for k, opt in _optimizers(trainer).items()},
+            "scheduler": {"last_epoch": epoch}, "epoch": epoch, "args": args}
+    if hasattr(trainer, "mto_state"):
+        state = trainer.mto_state
+        ckpt.update(mto_method=trainer.method,
+                    mto_state=state.to_dict() if state is not None else None,
+                    optimizer_mto=(trainer.opt_mto.state_dict()
+                                   if trainer.opt_mto is not None else None))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
-    state = trainer.mto_state
-    torch.save({"model_state_dict": sd,
-                "optimizer_G": trainer.opt_g.state_dict(),
-                "optimizer_D": trainer.opt_d.state_dict(),
-                "scheduler": {"last_epoch": epoch},
-                "epoch": epoch, "args": args,
-                "mto_method": trainer.method,
-                "mto_state": state.to_dict() if state is not None else None,
-                "optimizer_mto": (trainer.opt_mto.state_dict()
-                                  if trainer.opt_mto is not None else None)}, tmp)
+    torch.save(ckpt, tmp)
     os.replace(tmp, path)  # a cut run never leaves half a checkpoint
 
 
@@ -50,36 +74,45 @@ def load_checkpoint(path: str) -> Dict:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_model_state_dict(model, sd: Dict[str, torch.Tensor]) -> None:
+    """A ``model_state_dict`` (``module.`` segments stripped, a reference
+    discriminator's names mapped) into the model's networks, each
+    ``strict=True``."""
+    sd = strip_module_prefixes(sd)
+    for prefix, module in networks(model).items():
+        part = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if prefix == "Discriminator.":
+            part = reference_discriminator_state_dict(part, module.heads)
+        module.load_state_dict(part, strict=True)
+
+
 def load_pretrained(path: str, model) -> int:
-    """Params-only warm start (root train.py:160-170): the ``Generator.*``
-    and ``Discriminator.*`` tensors, spectral-norm ``u`` / ``v`` included;
+    """Params-only warm start (root train.py:160-170): the model's tensors,
+    spectral-norm ``u`` / ``v`` included (:func:`load_model_state_dict`);
     optimizers and method state stay fresh. Returns the checkpoint's
     epoch."""
     ckpt = load_checkpoint(path)
-    sd = ckpt["model_state_dict"]
-    for prefix, module in (("Generator.", model.generator),
-                           ("Discriminator.", model.discriminator)):
-        module.load_state_dict({k[len(prefix):]: v for k, v in sd.items()
-                                if k.startswith(prefix)}, strict=True)
+    load_model_state_dict(model, ckpt["model_state_dict"])
     return int(ckpt["epoch"])
 
 
 def restore(path: str, model, trainer) -> int:
-    """Loads model, both optimizers and the method's state and optimizer;
-    returns the epoch the checkpoint was written after. The checkpoint's
-    method must be the trainer's."""
+    """Loads the model, the optimizers and, for ``MTDGANTrainer``, the
+    method's state and optimizer; returns the epoch the checkpoint was
+    written after. The checkpoint's method must be the trainer's."""
     ckpt = load_checkpoint(path)
-    if "mto_method" not in ckpt:
+    has_method = hasattr(trainer, "mto_state")
+    if has_method and "mto_method" not in ckpt:
         raise ValueError(f"{path} holds no MTO method state (it was written before "
                          f"checkpoints carried one) and cannot be resumed; start "
                          f"from its parameters with --from-pretrained")
-    if ckpt["mto_method"] != trainer.method:
+    if has_method and ckpt["mto_method"] != trainer.method:
         raise ValueError(f"{path} was written with method {ckpt['mto_method']!r}, "
                          f"the trainer runs {trainer.method!r}")
     epoch = load_pretrained(path, model)
-    trainer.opt_g.load_state_dict(ckpt["optimizer_G"])
-    trainer.opt_d.load_state_dict(ckpt["optimizer_D"])
-    if trainer.mto_state is not None:
+    for key, opt in _optimizers(trainer).items():
+        opt.load_state_dict(ckpt[key])
+    if has_method and trainer.mto_state is not None:
         saved = MTOState(**ckpt["mto_state"])
         if trainer.opt_mto is not None:
             # the optimizer holds the log-sigma tensor itself: update it in place

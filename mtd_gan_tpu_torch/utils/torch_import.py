@@ -14,10 +14,19 @@
   ``features/*.py`` and ``metrics/learned.py`` layouts) into the port's
   torchvision-named state dicts; they are the inverses of its
   ``import_torch_*`` functions;
+* :func:`red_cnn_state_dict_from_flax`, :func:`edcnn_state_dict_from_flax`,
+  :func:`redcnn_generator_state_dict_from_flax` and
+  :func:`ablation_state_dict_from_flax` do the same for the CNN family, DU-GAN's
+  generator and the ten ablations (inverses of ``convert_red_cnn``,
+  ``convert_edcnn``, ``convert_dugan_generator`` and ``convert_ablation``);
 * :func:`load_reference_checkpoint` reads a checkpoint in the reference
   layout (``{"model_state_dict": {"Generator.…": …}, "epoch": …}``, as
-  ``tools/import_torch_checkpoint.py`` reads it) and returns the generator's
-  state dict.
+  ``tools/import_torch_checkpoint.py`` reads it) and returns the state dict
+  of the network the test sweep runs: the generator's, or for RED_CNN and
+  EDCNN the flat ``model_state_dict`` cut to the keys the JAX converter
+  reads; :func:`reference_discriminator_state_dict` maps a reference
+  discriminator (the pure SEG discriminator's ``dconv`` names and its dead
+  ``enc_out`` included) onto the port's.
 
 Layout conventions (flax -> torch): conv HWIO -> OIHW; transposed conv
 ``(kh, kw, in, out)`` -> ``(in, out, kh, kw)``; spectral mix ``(2C_in,
@@ -44,18 +53,33 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))  # a contiguous copy
 
 
+def _conv_entries(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
+                  transposed: bool = False) -> None:
+    """flax conv HWIO -> ``name.weight`` OIHW, or a transposed conv ``(kh,
+    kw, in, out)`` -> ``(in, out, kh, kw)``; ``name.bias``."""
+    k = np.asarray(p["kernel"])
+    sd[f"{name}.weight"] = _t(k.transpose(2, 3, 0, 1) if transposed else k.transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def redcnn_generator_state_dict_from_flax(params_g: Mapping[str, Any]
+                                          ) -> Dict[str, torch.Tensor]:
+    """flax ``enc_i`` / ``dec_i`` -> ``encoder.{i}`` / ``decoder.{i}``: DU-GAN's
+    generator (inverse of ``convert_dugan_generator``), and the conv layers
+    of the ResFFT generator."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(sum(1 for k in params_g if k.startswith("enc_"))):
+        _conv_entries(sd, f"encoder.{i}", params_g[f"enc_{i}"])
+        _conv_entries(sd, f"decoder.{i}", params_g[f"dec_{i}"], transposed=True)
+    return sd
+
+
 def generator_state_dict_from_flax(params_g: Mapping[str, Any]
                                    ) -> Dict[str, torch.Tensor]:
     """flax ``params_g`` (``enc_i``, ``dec_i``, ``fft_i``) -> state dict with
     the reference names, for ``ResFFTGenerator.load_state_dict``."""
     L = sum(1 for k in params_g if k.startswith("enc_")) - 1
-    sd: Dict[str, torch.Tensor] = {}
-    for i in range(L + 1):
-        enc, dec = params_g[f"enc_{i}"], params_g[f"dec_{i}"]
-        sd[f"encoder.{i}.weight"] = _t(np.asarray(enc["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"encoder.{i}.bias"] = _t(enc["bias"])
-        sd[f"decoder.{i}.weight"] = _t(np.asarray(dec["kernel"]).transpose(2, 3, 0, 1))
-        sd[f"decoder.{i}.bias"] = _t(dec["bias"])
+    sd = redcnn_generator_state_dict_from_flax(params_g)
     for i in range(2 * L + 1):
         p = params_g[f"fft_{i}"]
         blk = f"enforce.{i}"
@@ -66,24 +90,72 @@ def generator_state_dict_from_flax(params_g: Mapping[str, Any]
     return sd
 
 
-def load_reference_checkpoint(path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
-    """Reference-layout ``.pth`` -> ``(epoch, generator state dict)``.
+# the model_state_dict keys the JAX converters read for the single-network
+# models, whose model_state_dict has no prefix: RED-CNN's convs; EDCNN's
+# Sobel factor and bias, not its fixed bank ``conv_sobel.sobel_weight``
+# (rebuilt from its formula), and its dense blocks
+FLAT_REFERENCE_KEYS = {
+    "RED_CNN": tuple(f"{c}{i}.{p}" for c in ("conv", "tconv") for i in range(1, 6)
+                     for p in ("weight", "bias")),
+    "EDCNN": ("conv_sobel.sobel_factor", "conv_sobel.bias") + tuple(
+        f"conv_{c}{i}.{p}" for i in range(1, 9) for c in ("p", "f")
+        for p in ("weight", "bias")),
+}
+
+
+def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method"
+                              ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """Reference-layout ``.pth`` -> ``(epoch, state dict)`` of the network
+    the test sweep runs: for RED_CNN and EDCNN (aliases resolved) exactly
+    the keys the JAX converter reads from the flat ``model_state_dict``
+    (others, such as EDCNN's stored Sobel bank, are not read), for load
+    with ``strict=True``; for the MTD-GAN family the ``Generator.`` part.
 
     Loads with ``weights_only=True``; the ``argparse.Namespace`` the
     reference stores under ``args`` is allow-listed. A bare state dict (no
-    ``model_state_dict``) is taken as the model state at epoch 0."""
+    ``model_state_dict``) is taken as the model state at epoch 0;
+    DataParallel ``module.`` segments are stripped."""
+    from mtd_gan_tpu_torch.models import resolve_alias
+
     with torch.serialization.safe_globals([argparse.Namespace]):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if "model_state_dict" in ckpt:
         epoch, sd = int(ckpt.get("epoch", 0)), ckpt["model_state_dict"]
     else:
         epoch, sd = 0, ckpt
+    sd = strip_module_prefixes(sd)
+    keys = FLAT_REFERENCE_KEYS.get(resolve_alias(model_name))
+    if keys is not None:
+        missing = [k for k in keys if k not in sd]
+        if missing:
+            raise KeyError(f"{path}: {model_name} keys missing from the model state "
+                           f"dict: {missing[:4]}")
+        return epoch, {k: sd[k] for k in keys}
     prefix = "Generator."
-    gen = {k[len(prefix):]: v for k, v in strip_module_prefixes(sd).items()
-           if k.startswith(prefix)}
+    gen = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
     if not gen:
         raise KeyError(f"{path}: no '{prefix}' keys in the model state dict")
     return epoch, gen
+
+
+def reference_discriminator_state_dict(sd: Mapping[str, Any], heads: Tuple[str, ...]
+                                       ) -> Dict[str, Any]:
+    """A reference discriminator's state dict (no ``Discriminator.`` prefix)
+    -> the port's ``MultiTaskDiscriminator(heads=heads)`` names. The pure
+    SEG discriminator (arch/Ours/networks.py:611-764) names its decoder
+    convs ``dconv{i}{j}`` where every multi-head one has ``s_dconv{i}{j}``,
+    and carries an ``enc_out`` Linear its forward never uses (:695): the
+    first are renamed (detected as the JAX ``convert_mtd_discriminator``
+    does), the second dropped where there is no CLS head, so that the dead
+    layer takes no optimizer step."""
+    bare_seg = "seg" in heads and ("s_dconv11.weight_orig" not in sd
+                                   and "s_dconv11.weight" not in sd)
+    out = {}
+    for k, v in sd.items():
+        if "cls" not in heads and k.split(".")[0] == "enc_out":
+            continue
+        out["s_" + k if bare_seg and k.startswith("dconv") else k] = v
+    return out
 
 
 def _sn_entries(sd: Dict[str, torch.Tensor], name: str, w: np.ndarray,
@@ -130,6 +202,45 @@ def mtd_gan_state_dict_from_flax(params_g: Mapping[str, Any],
     """The whole model in the reference's ``model_state_dict`` layout:
     ``Generator.*`` and ``Discriminator.*``."""
     sd = {f"Generator.{k}": v for k, v in generator_state_dict_from_flax(params_g).items()}
+    sd.update({f"Discriminator.{k}": v for k, v in
+               discriminator_state_dict_from_flax(params_d, state_d).items()})
+    return sd
+
+
+def red_cnn_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax RED-CNN (``conv1..5``, ``tconv1..5``) -> the port's ``REDCNN``
+    (inverse of ``convert_red_cnn``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        _conv_entries(sd, f"conv{i}", params[f"conv{i}"])
+    for i in range(1, 6):
+        _conv_entries(sd, f"tconv{i}", params[f"tconv{i}"], transposed=True)
+    return sd
+
+
+def edcnn_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax EDCNN -> the port's ``EDCNN`` (inverse of ``convert_edcnn``): the
+    Sobel factor ``(C,)`` -> ``(C, 1, 1, 1)``, its bias, ``conv_p{i}`` /
+    ``conv_f{i}``."""
+    sob = params["conv_sobel"]
+    factor = np.asarray(sob["sobel_factor"])
+    sd = {"conv_sobel.sobel_factor": _t(factor.reshape(-1, 1, 1, 1)),
+          "conv_sobel.bias": _t(sob["bias"])}
+    for i in range(1, 9):
+        for c in ("p", "f"):
+            _conv_entries(sd, f"conv_{c}{i}", params[f"conv_{c}{i}"])
+    return sd
+
+
+def ablation_state_dict_from_flax(params_g: Mapping[str, Any], params_d: Mapping[str, Any],
+                                  state_d: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A whole ablation in the ``model_state_dict`` layout (inverse of
+    ``convert_ablation``): ``Generator.*`` (the ResFFT generator where
+    ``params_g`` has Res-FFT blocks, else DU-GAN's) and the head-subset
+    ``Discriminator.*`` with its ``u`` vectors."""
+    gen = (generator_state_dict_from_flax if "fft_0" in params_g
+           else redcnn_generator_state_dict_from_flax)(params_g)
+    sd = {f"Generator.{k}": v for k, v in gen.items()}
     sd.update({f"Discriminator.{k}": v for k, v in
                discriminator_state_dict_from_flax(params_d, state_d).items()})
     return sd
