@@ -160,7 +160,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``generate``. The kernel line's K1 and K2 launches are phase 20's
      first train run plus the ResFFT ablation's train run (and, for K1, its
      sweep).
-Phases 1 - 25 and 27 pass ``--no-feature-metrics`` to the test CLI, so
+  28. the WGAN and transformer families (run right after phase 27):
+     WGAN-VGG (its perceptual loss on the registry's VGG19), MAP-NN, DU-GAN,
+     CTformer and Restormer at their published widths, each through the
+     ``train`` CLI (one epoch of 2 steps of 20 slices, ``window_patch``,
+     validation; 4 critic updates a step for WGAN-VGG and MAP-NN;
+     Restormer 4 slices a step, 160 patches exceeding the card's memory)
+     and ``test --resume`` on its checkpoint: the WGAN family over phase
+     5's 16 slices, CTformer over 8 and Restormer over 2 slices at 512x512
+     through the sliding window at overlap 0.9 (5776 tiles a slice);
+     finite metrics; the card's forward of each trained model against the
+     CPU's on the same weights; WGAN-VGG's gradient penalty and its critic
+     gradient (cuDNN's double backward) against the CPU's on the same
+     draws; DU-GAN's step with both CutMix coins forced on, then off;
+     ``MTDGANModel.discriminate_full`` on one 512x512 slice; no launch of
+     K1 - K8 on any of these paths; each model's forward at 512x512, batch
+     8 (the transformers through the sliding window at overlap 0.3), and
+     train step on 160 patches (Restormer's on 32) timed; a profile of
+     Restormer's sliding-window forward.
+Phases 1 - 25, 27 and 28 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
 """
@@ -192,14 +210,16 @@ from mtd_gan_tpu_torch.data.pipeline import PairedDicomDataset
 from mtd_gan_tpu_torch.data.transforms import make_train_preprocess
 from mtd_gan_tpu_torch.engine import gan
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
-from mtd_gan_tpu_torch.engine.loops import build_trainer, family_of
+from mtd_gan_tpu_torch.engine.loops import TR_VALID, build_trainer, family_of
 from mtd_gan_tpu_torch.features import registry
 from mtd_gan_tpu_torch.features.inception import inception_pool3_features
 from mtd_gan_tpu_torch.features.vgg import VGG19_CFG, VGG_SLICE_ENDS
 from mtd_gan_tpu_torch.metrics import fid as fid_lib
 from mtd_gan_tpu_torch.metrics import perceptual
+from mtd_gan_tpu_torch.models.dugan import CutMix
 from mtd_gan_tpu_torch.models.mtd_gan import (MTDGANModel, ResFFTGenerator,
                                               share_parameters)
+from mtd_gan_tpu_torch.models.wgan_vgg import WGANVGGModel, wgan_gradient_penalty
 from mtd_gan_tpu_torch.ops import _build, cuda_train
 from mtd_gan_tpu_torch.ops.cuda_staged import (conv3x3, conv3x3_reference, irdft_w_add,
                                                irdft_w_add_reference, rdft_w,
@@ -215,6 +235,7 @@ from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
 from mtd_gan_tpu_torch.mto.methods import METHODS, MTOState
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
+from mtd_gan_tpu_torch.ops.sliding_window import dense_patch_positions, sliding_window_inference
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.artifacts import save_png_gray
 from mtd_gan_tpu_torch.models import get_model
@@ -318,6 +339,29 @@ FAMILY_MODELS = (("RED_CNN", {"out_ch": 96}), ("EDCNN", {"out_ch": 32, "sobel_ch
                  ("Ablation_CLS_SEG_REC_NDS_RC_ResFFT", FULL_WIDTH))
 RESFFT_ABLATION = "Ablation_CLS_SEG_REC_NDS_RC_ResFFT"
 FULL_SLICES = 8
+# phase 28: the WGAN and transformer families at their published widths
+# (the constructors' defaults; WGAN-VGG's perceptual loss on the registry's
+# VGG19), and the 512x512 slices the tr family's test sweep takes at its
+# overlap of 0.9 (5776 tiles of 64x64 a slice)
+NEW_FAMILY_MODELS = ("WGAN_VGG", "MAP_NN", "DU_GAN", "CTformer", "Restormer")
+TR_SWEEP_SLICES = {"CTformer": 8, "Restormer": 2}
+# Restormer's train step on 160 64x64 patches (20 slices) needs more than
+# the card's 80 GB in fp32 (its activations at full width, ~0.5 GB a
+# patch): its train CLI takes 4 slices a step (32 patches), its timed step
+# those 32
+RESTORMER_TRAIN_SLICES = 4
+# phase 28: the card's forward of a trained model against the CPU's on the
+# same weights, max abs on the [0, 1]-scale output (CTformer's and
+# Restormer's through the sliding window): fp32 both sides (TF32 off), the
+# same ops summed in other orders
+TOL_NEW_FAMILY_ABS = 1e-4
+# the gradient penalty on the card against the CPU on the same draws
+# (relative), and its gradient w.r.t. each critic leaf (relative 2-norm;
+# the max-norm printed beside it): cuDNN's double backward in fp32 against
+# the CPU's. The gradient's error depends on the algorithms cuDNN picks on
+# the card: 4.4e-6, 6.4e-5 and 2.4e-4 in three calls on three H100s
+TOL_GP_REL = 1e-4
+TOL_GP_GRAD_L2 = 1e-3
 
 
 def fail(msg: str):
@@ -1907,6 +1951,183 @@ def check_families(rng, tmp: str, test_root: str, x_gen):
     return ablation_launches
 
 
+def _new_family_forward(name: str, model, x):
+    """A trained model's full-image output: ``generate`` for the GAN
+    families, CTformer and Restormer through the sliding window at the
+    validation setting (overlap 0.3, 32 tiles a chunk, constant)."""
+    if family_of(name) == "tr":
+        return sliding_window_inference(x, (64, 64), model.predict, mode="constant",
+                                        **TR_VALID)
+    return model.generate(x)
+
+
+def check_gradient_penalty(x, y):
+    """Phase 28: WGAN-VGG's penalty and its gradient w.r.t. every critic
+    leaf on the card against the CPU, on the same weights and draws."""
+    models = {dev: WGANVGGModel(use_perceptual=False, device=dev, seed=3)
+              for dev in ("cuda", "cpu")}
+    xs, ys = x[:16], y[:16]
+    fake = models["cuda"].generate(xs)
+    a = torch.rand((16, 1, 1, 1), generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev, m in models.items():
+        gp = wgan_gradient_penalty(m.critic, ys.to(m.device), fake.to(m.device),
+                                   a.to(m.device))
+        params = dict(m.discriminator.named_parameters())
+        grads = torch.autograd.grad(gp, list(params.values()), allow_unused=True)
+        out[dev] = (gp.item(), {k: (torch.zeros_like(p) if g is None else g).cpu()
+                                for (k, p), g in zip(params.items(), grads)})
+    (gp_card, g_card), (gp_cpu, g_cpu) = out["cuda"], out["cpu"]
+    err = abs(gp_card - gp_cpu) / abs(gp_cpu)
+    rel_l2 = {k: (torch.linalg.vector_norm(g_card[k] - g_cpu[k])
+                  / max(torch.linalg.vector_norm(g_cpu[k]), 1e-30)).item() for k in g_cpu}
+    leaf = max(rel_l2, key=rel_l2.get)
+    worst_max = max(((g_card[k] - g_cpu[k]).abs().max()
+                     / max(g_cpu[k].abs().max(), 1e-30)).item() for k in g_cpu)
+    if not math.isfinite(gp_card) or err > TOL_GP_REL or rel_l2[leaf] > TOL_GP_GRAD_L2:
+        fail(f"gradient penalty card vs CPU: gp {gp_card} vs {gp_cpu} (rel {err:.3e}, tol "
+             f"{TOL_GP_REL}), worst leaf {leaf} gradient rel 2-norm {rel_l2[leaf]:.3e} "
+             f"(tol {TOL_GP_GRAD_L2})")
+    print(f"gradient penalty WGAN-VGG critic, 16 x 64x64: card {gp_card:.6f} CPU "
+          f"{gp_cpu:.6f} rel {err:.3e} (tol {TOL_GP_REL}); D gradient worst leaf {leaf} "
+          f"rel 2-norm {rel_l2[leaf]:.3e} (tol {TOL_GP_GRAD_L2}), worst max-norm "
+          f"{worst_max:.3e}", flush=True)
+
+
+def check_dugan_coins(model, x, y):
+    """Phase 28: a DU-GAN step with both CutMix coins forced on, then one
+    with both off: the domain totals are the LSGAN terms plus the CutMix
+    and consistency terms, or the LSGAN terms alone; every ``u`` advances in
+    both."""
+    trainer = build_trainer("DU_GAN", model, train_cli.get_args_parser().parse_args([]))
+    box = [torch.tensor(v, device="cuda") for v in (0.3, 0.5, 0.5)]
+    for coin in (1.0, 0.0):
+        draws = CutMix(*box, torch.tensor(coin, device="cuda"))
+        u0 = {k: v.clone() for k, v in model.image_discriminator.state_dict().items()
+              if k.endswith("weight_u")}
+        zero_counts()
+        m = {k: v.item() for k, v in trainer.train_step(
+            x, y, draws={"img": draws, "grad": draws}).items()}
+        expect_counts(f"DU-GAN step coin {coin}", read_counts(), {})
+        moved = sum(not torch.equal(v, model.image_discriminator.state_dict()[k])
+                    for k, v in u0.items())
+        for dom in ("Img", "Grad"):
+            total = m[f"d_{dom.lower()}_loss"]
+            want = m[f"D/{dom}_disc_loss"] + coin * (m[f"D/{dom}_cutmix_loss"]
+                                                     + m[f"D/{dom}_cr_loss"])
+            if not all(math.isfinite(v) for v in m.values()) or abs(total - want) > 1e-5 * (
+                    1.0 + abs(want)) or moved != len(u0):
+                fail(f"DU-GAN step coin {coin}: {dom} total {total} vs {want}, {moved} of "
+                     f"{len(u0)} u moved, metrics {m}")
+        print(f"DU-GAN step coin {'on' if coin else 'off'}: d_img_loss {m['d_img_loss']:.6f} "
+              f"(cutmix {m['D/Img_cutmix_loss']:.6f}, cr {m['D/Img_cr_loss']:.6f}), "
+              f"d_grad_loss {m['d_grad_loss']:.6f}, g_loss {m['g_loss']:.6f}; "
+              f"{moved} of {len(u0)} u advanced", flush=True)
+
+
+def check_new_families(rng, tmp: str, test_root: str, x_gen, model):
+    """Phase 28: WGAN-VGG, MAP-NN, DU-GAN, CTformer and Restormer at their
+    published widths (seed 0; WGAN-VGG's perceptual loss on the registry's
+    VGG19), each through the ``train`` CLI (2 steps of 20 slices,
+    ``window_patch``, validation; 4 critic updates a step for WGAN-VGG and
+    MAP-NN; Restormer RESTORMER_TRAIN_SLICES a step) and ``test --resume``
+    (the WGAN family on phase 5's 16 slices, the tr family on
+    TR_SWEEP_SLICES at overlap 0.9). Held: finite
+    metrics; the card's forward of each trained model against the CPU's on
+    the same weights; the gradient penalty and its D gradient card vs CPU;
+    DU-GAN's step with the CutMix coin forced on and off;
+    ``discriminate_full`` on one 512x512 slice; no launch of K1 - K8 on any
+    of these paths. Timed: each model's forward at 512x512, batch 8 (the tr
+    family through the sliding window at overlap 0.3), and its train step
+    on 160 patches (Restormer's on 32); a profile of Restormer's
+    sliding-window forward."""
+    root = os.path.join(tmp, "family_data")  # phase 27's train and valid splits
+    roots = {name: os.path.join(tmp, f"{name}_data") for name in TR_SWEEP_SLICES}
+    for name, n in TR_SWEEP_SLICES.items():
+        write_split(roots[name], "test", rng, n)
+    # Restormer's train and valid splits: 2 steps of RESTORMER_TRAIN_SLICES
+    restormer_root = os.path.join(tmp, "restormer_train")
+    write_split(restormer_root, "train", rng, 2 * RESTORMER_TRAIN_SLICES)
+    write_split(restormer_root, "valid", rng, 2)
+    x, y = train_patches(rng, seed=28)
+    x_cmp = torch.tensor(phantom(rng, 2, 128)[..., None], dtype=torch.float32)
+    x_window = x_cmp[:1, :64, :96].contiguous()  # two 64x64 tiles at overlap 0.5
+    check_gradient_penalty(x, y)
+    for name in NEW_FAMILY_MODELS:
+        tr = family_of(name) == "tr"
+        n_train = RESTORMER_TRAIN_SLICES if name == "Restormer" else TRAIN_SLICES
+        stats, train_s, train_counts, summary, sweep_s, sweep_counts, ckpt = family_run(
+            name, {}, restormer_root if name == "Restormer" else root,
+            roots[name] if tr else test_root, tmp, batch=n_train)
+        expect_counts(f"train CLI {name}", train_counts, {})
+        expect_counts(f"test --resume {name}", sweep_counts, {})
+        n_sweep = TR_SWEEP_SLICES[name] if tr else 16
+        loss_key = "train_loss" if tr else "train_g_loss"
+        print(f"family {name}: train CLI 1 epoch of 2 steps x {n_train} slices in "
+              f"{train_s:.3f} s (validation and checkpoint included), {loss_key} "
+              f"{stats[loss_key]:.6f}, valid_loss {stats['valid_loss']:.6f}; test --resume "
+              f"{n_sweep} slices 512x512 in {sweep_s:.3f} s = {n_sweep / sweep_s:.4f} "
+              f"slices/s, pred_psnr {summary['pred_psnr']:.4f} pred_ssim "
+              f"{summary['pred_ssim']:.5f}; launches {train_counts} / {sweep_counts}",
+              flush=True)
+
+        card = get_model(name, device="cuda", seed=1)
+        cpu = get_model(name, device="cpu", seed=1)
+        for m in (card, cpu):
+            load_pretrained(ckpt, m)
+        z = x_window if tr else x_cmp
+        if tr:
+            fwd = lambda m, v: sliding_window_inference(v, (64, 64), m.predict, mode="constant",
+                                                        overlap=0.5, sw_batch_size=2)
+        else:
+            fwd = lambda m, v: m.generate(v)
+        got, want = fwd(card, z.cuda()), fwd(cpu, z)
+        err = (got.cpu() - want).abs().max().item()
+        if got.shape != z.shape or not torch.isfinite(got).all() or err > TOL_NEW_FAMILY_ABS:
+            fail(f"family {name}: card vs CPU forward {tuple(got.shape)}, max_abs {err:.3e} "
+                 f"> {TOL_NEW_FAMILY_ABS}")
+        print(f"family {name}: card vs CPU forward {tuple(z.shape[1:3])} batch {z.shape[0]} "
+              f"max_abs {err:.3e} (tol {TOL_NEW_FAMILY_ABS})", flush=True)
+        del cpu
+
+        trainer = build_trainer(name, card, train_cli.get_args_parser().parse_args([]))
+        n_patch = n_train * CROPS
+        xs, ys = x[:n_patch], y[:n_patch]
+        zero_counts()
+        fwd_ms = cuda_ms(lambda: _new_family_forward(name, card, x_gen), 2 if tr else 3)
+        trainer.train_step(xs, ys)
+        torch.cuda.synchronize()
+        expect_counts(f"forward and train step {name}", read_counts(), {})
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(xs, ys), 3)
+        how = "sliding window overlap 0.3" if tr else "generate"
+        print(f"time family {name}: forward 512x512 batch 8 ({how}) {fwd_ms:.2f} ms = "
+              f"{8e3 / fwd_ms:.4f} slices/s; train step {n_patch} x 64x64 {step_ms:.2f} ms = "
+              f"{n_patch * 1e3 / step_ms:.2f} patches/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if name == "DU_GAN":
+            check_dugan_coins(card, x, y)
+        if name == "Restormer":
+            profile("Restormer sliding window 512x512 batch 8 overlap 0.3",
+                    lambda: _new_family_forward(name, card, x_gen))
+        del card, trainer
+
+    # the flagship's discriminator over one whole slice
+    zero_counts()
+    t0 = time.perf_counter()
+    cls, seg, rec = model.discriminate_full(x_gen[:1])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    expect_counts("discriminate_full", read_counts(), {})
+    n_tiles = len(dense_patch_positions(512, 64, 0.5)) ** 2
+    if (cls.shape != (1, n_tiles, 1) or seg.shape != x_gen[:1].shape
+            or rec.shape != x_gen[:1].shape
+            or not all(torch.isfinite(t).all() for t in (cls, seg, rec))):
+        fail(f"discriminate_full: shapes {cls.shape}, {seg.shape}, {rec.shape}")
+    print(f"discriminate_full 512x512 (overlap 0.5, gaussian, 64 tiles a chunk): "
+          f"{n_tiles} tiles in {full_s:.3f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1961,6 +2182,10 @@ def main():
         # ---- 27. the CNN family and two ablations through the train and
         # test CLIs; the ResFFT ablation on K1 + K2
         ablation_launches = check_families(rng, tmp, os.path.join(tmp, "data512"), x_gen)
+
+        # ---- 28. the WGAN and transformer families through the train and
+        # test CLIs; none of K1 - K8 on their paths
+        check_new_families(rng, tmp, os.path.join(tmp, "data512"), x_gen, model)
 
         # ---- 6. K8 against its plain version
         k8_max_abs_err = check_k8()

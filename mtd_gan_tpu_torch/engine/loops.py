@@ -1,24 +1,36 @@
 """Family dispatch and the epoch loops: ``build_trainer``,
 ``train_one_epoch``, ``validate`` and the test-set metric sweep
-``run_test`` (counterpart of ``mtd_gan_tpu/engine/loops.py``). Ported
-families: ``cnn`` (RED_CNN, EDCNN: ``SupervisedTrainer``, predictions by
-``model.predict``) and ``mtd`` (MTD_GAN_Method: ``MTDGANTrainer``; the ten
-``Ablation_*`` recipes: ``AdversarialTrainer``; predictions by
-``model.generate``). ``tr`` (ROADMAP.md queue 1, item 10), ``wgan`` and
-``dugan`` (item 9) and ``dn`` (item 11) raise.
+``run_test`` (counterpart of ``mtd_gan_tpu/engine/loops.py``). Families:
+
+  cnn    RED_CNN, EDCNN          SupervisedTrainer, ``model.predict``
+  tr     CTformer, Restormer     SupervisedTrainer, ``model.predict`` over
+                                 64x64 tiles: the sliding window at overlap
+                                 0.3, 32 tiles a chunk to validate, 0.9 and
+                                 960 to test, ``constant`` blending, one
+                                 slice per group (reference engine.py:345,
+                                 378)
+  wgan   WGAN_VGG, MAP_NN        AdversarialTrainer, 4 D updates a step
+  dugan  DU_GAN                  DUGANTrainer, three optimizers
+  mtd    MTD_GAN_Method          MTDGANTrainer; the ten ``Ablation_*``:
+                                 AdversarialTrainer, 1 D update a step
+  dn     DDPM, DDIM, PNDM, DPM   not ported yet (ROADMAP.md queue 1, item
+                                 11): raises
+
+The GAN families predict with ``model.generate``.
 
 Training: the loader is wrapped in ``prefetch_to_device``, so each HU pair
 is on the model's device before its step; the train preprocess cuts and
 augments the crops there, and one trainer step runs; step metrics stay on
 the device and are fetched at print boundaries.
-Validation: full-slice predictions, the criterion per slice, and PNGs of
-the last slice.
+Validation: full-slice predictions (``tr``: through the sliding window),
+the criterion per slice, and PNGs of the last slice.
 
 Per slice: RMSE / PSNR / SSIM and, unless turned off, PL and TML for the
 input, gt and prediction columns, a PNG of the clipped prediction, and a
 row of ``pred_results.csv``; the means go to ``test_summary.json``, with the
 corpus FIDs of the three columns. Predictions run on groups of
-``eval_batch`` loader items, the last group padded by repeating its last
+``eval_batch`` loader items (one for ``tr``, as in the JAX package: the
+sliding window batches the tiles), the last group padded by repeating its last
 item (padded outputs dropped), while metrics, PNGs and rows stay per item;
 the VGG19 trunk and the Inception each take a group's real input, gt and
 prediction slices in one pass. Given a ``phases`` dict, the sweep charges
@@ -44,6 +56,7 @@ from mtd_gan_tpu_torch.metrics import fid as fid_lib
 from mtd_gan_tpu_torch.metrics import perceptual
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.models import resolve_alias
+from mtd_gan_tpu_torch.ops.sliding_window import sliding_window_inference
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
 from mtd_gan_tpu_torch.utils.profiling import StepTimer
@@ -63,7 +76,12 @@ FAMILY = {
     "DDPM": "dn", "DDIM": "dn", "PNDM": "dn", "DPM": "dn",
 }
 # the ROADMAP.md queue 1 item that ports each family still missing
-UNPORTED_FAMILIES = {"wgan": 9, "dugan": 9, "tr": 10, "dn": 11}
+UNPORTED_FAMILIES = {"dn": 11}
+# the sliding window of the tr family: 64x64 tiles (reference engine.py:345,
+# 378)
+TR_ROI = (64, 64)
+TR_VALID = dict(overlap=0.3, sw_batch_size=32)
+TR_TEST = dict(overlap=0.9, sw_batch_size=960)
 
 
 def family_of(model_name: str) -> str:
@@ -80,39 +98,51 @@ def _refuse_family(family: str) -> None:
         raise NotImplementedError(
             f"family {family!r} is not ported yet (ROADMAP.md queue 1, item "
             f"{UNPORTED_FAMILIES[family]})")
-    if family not in ("cnn", "mtd"):
+    if family not in ("cnn", "tr", "wgan", "dugan", "mtd"):
         raise KeyError(family)
 
 
 def build_trainer(model_name: str, model, args, seed: int = 0):
-    """The family's trainer: ``SupervisedTrainer`` for ``cnn``; for ``mtd``,
+    """The family's trainer: ``SupervisedTrainer`` for ``cnn`` and ``tr``;
+    ``AdversarialTrainer`` with the model's ``d_steps_per_g`` (4) D updates
+    a step for ``wgan``; ``DUGANTrainer`` for ``dugan``; for ``mtd``,
     ``MTDGANTrainer`` with ``args.method`` for a stacked ``d_loss``
     (MTD_GAN_Method), else ``AdversarialTrainer(n_critic=1)``, which, as in
     the JAX package, takes no method: a given ``--method`` is noted and not
-    used."""
+    used (so for ``wgan`` and ``dugan``). ``seed`` seeds each trainer's
+    random draws."""
     from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
     from mtd_gan_tpu_torch.engine.supervised import SupervisedTrainer
-    from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer
+    from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer, DUGANTrainer
 
     family = family_of(model_name)
     _refuse_family(family)
-    kw = dict(optimizer=args.optimizer, lr=args.lr)
-    if family == "cnn":
+    kw = dict(optimizer=args.optimizer, lr=args.lr, seed=seed)
+    if family in ("cnn", "tr"):
         return SupervisedTrainer(model, **kw)
     method = args.method or None
-    if model.n_d_tasks > 1:
-        return MTDGANTrainer(model, method=method, seed=seed, **kw)
+    if family == "mtd" and model.n_d_tasks > 1:
+        return MTDGANTrainer(model, method=method, **kw)
     if method:
         print(f"note: --method {method} is not used: {model_name} has a scalar "
-              f"discriminator loss (AdversarialTrainer)", flush=True)
-    return AdversarialTrainer(model, n_critic=1, seed=seed, **kw)
+              f"discriminator loss", flush=True)
+    if family == "dugan":
+        return DUGANTrainer(model, **kw)
+    n_critic = model.d_steps_per_g if family == "wgan" else 1
+    return AdversarialTrainer(model, n_critic=n_critic, **kw)
 
 
 def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Full-image prediction function: ``model.predict`` for ``cnn``,
-    ``model.generate`` for ``mtd`` (the ablations included)."""
+    """Full-image prediction function: ``model.predict`` for ``cnn``; for
+    ``tr`` ``model.predict`` over 64x64 tiles (the caller's sliding
+    window); ``model.generate`` for the GAN families (the ablations
+    included)."""
     _refuse_family(family)
-    return model.predict if family == "cnn" else model.generate
+    return model.predict if family in ("cnn", "tr") else model.generate
+
+
+def _tr_predict(predictor: Callable, x: torch.Tensor, window: Dict) -> torch.Tensor:
+    return sliding_window_inference(x, TR_ROI, predictor, mode="constant", **window)
 
 
 def train_one_epoch(trainer, loader: Iterable, preprocess,
@@ -160,7 +190,7 @@ def validate(model, loader: Iterable, eval_preprocess, family: str, epoch: int,
     for batch in loader:
         x, y = eval_preprocess(torch.from_numpy(np.asarray(batch[0])).to(model.device),
                                torch.from_numpy(np.asarray(batch[1])).to(model.device))
-        pred = predictor(x)
+        pred = _tr_predict(predictor, x, TR_VALID) if family == "tr" else predictor(x)
         pending.append(criterion(pred, y))
         last = (x, y, pred)
     for v in torch.stack(pending).cpu().tolist() if pending else []:
@@ -228,6 +258,8 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
         loader = _timed(loader, phases["decode"])
     span = (lambda name: phases[name]) if phases is not None else (
         lambda name: contextlib.nullcontext())
+    if family == "tr":
+        eval_batch = 1  # the sliding window batches its tiles itself
     vgg_fn = get_vgg_slices_fn(device) if compute_feature_metrics else None
     inception_fn = get_inception_feature_fn(device) if compute_fid_metric else None
     columns = _METRIC_COLUMNS + (_FEATURE_COLUMNS if compute_feature_metrics else ())
@@ -243,7 +275,8 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
                 hu_y = torch.from_numpy(np.concatenate([np.asarray(b[1]) for b in group]))
                 x, y = eval_preprocess(hu_x.to(device), hu_y.to(device))
             with span("generate"):
-                pred = predictor(x).clamp(0.0, 1.0)
+                pred = (_tr_predict(predictor, x, TR_TEST) if family == "tr"
+                        else predictor(x)).clamp(0.0, 1.0)
 
             with span("metrics"):
                 metrics, pngs, names, offsets = [], [], [], [0]

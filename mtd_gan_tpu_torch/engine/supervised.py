@@ -1,9 +1,12 @@
-"""Supervised trainer of the CNN family (counterpart of
+"""Supervised trainer of the CNN and transformer families (counterpart of
 ``mtd_gan_tpu/engine/supervised.py``; reference engine.py:192-414).
 
-One step: the model's self-contained loss, its backward, one AdamW step
-(lr 1e-4, decoupled weight decay 5e-4, ``optim.get_optimizer``) over the
-network's parameters (buffers such as EDCNN's Sobel bank take none).
+One step: the model's self-contained loss (its random draws, such as
+CTformer's dropout, from the trainer's ``torch.Generator``, seeded from
+``seed``), its backward, one AdamW step (lr 1e-4, decoupled weight decay
+5e-4, ``optim.get_optimizer``) over the network's trainable parameters
+(buffers such as EDCNN's Sobel bank and CTformer's performer ``w`` take
+none).
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ class SupervisedTrainer:
     ``predict``."""
 
     def __init__(self, model, optimizer: str = "adamw", lr: float = 1e-4,
-                 weight_decay: float = 5e-4):
+                 weight_decay: float = 5e-4, seed: int = 0):
         self.model = model
-        self.opt = optim.get_optimizer(optimizer, model.net.parameters(), lr, weight_decay)
+        params = [p for p in model.net.parameters() if p.requires_grad]
+        self.opt = optim.get_optimizer(optimizer, params, lr, weight_decay)
+        self.rng = torch.Generator(device=model.device).manual_seed(seed)
 
     def set_epoch_lr(self, lr: float) -> None:
         optim.set_learning_rate(self.opt, lr)
@@ -33,7 +38,7 @@ class SupervisedTrainer:
         """One step on NHWC ``x``, ``y`` on the model's device; returns the
         loss and its details as 0-d tensors."""
         self.model.net.train()
-        loss, details = self.model.loss(x, y)
+        loss, details = self.model.loss(x, y, generator=self.rng)
         loss.backward()
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)

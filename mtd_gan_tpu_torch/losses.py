@@ -1,5 +1,6 @@
 """Loss functions (counterpart of ``mtd_gan_tpu/losses.py``; reference
-losses.py): those of the MTD-GAN step and EDCNN's compound loss."""
+losses.py): those of the MTD-GAN step, the spectral L1 ``msfr_loss``, the
+VGG19 perceptual loss and EDCNN's compound loss."""
 
 from __future__ import annotations
 
@@ -43,6 +44,38 @@ def edge_loss(pred: Tensor, target: Tensor) -> Tensor:
     return charbonnier_loss(laplacian_detail(pred), laplacian_detail(target))
 
 
+def msfr_loss(pred: Tensor, target: Tensor) -> Tensor:
+    """Mean of ``|rfftn(pred) - rfftn(target)|`` in float32 over ALL four
+    axes of NHWC tensors, as ``jnp.fft.rfftn`` without ``axes`` takes them:
+    a complex FFT over N, H and W and the real-to-complex half on the
+    LAST axis, the channels (one bin for a gray slice). Give NHWC: on NCHW
+    the half would fall on W and the mean would differ."""
+    pf = torch.fft.rfftn(pred.float(), dim=tuple(range(pred.dim())))
+    tf = torch.fft.rfftn(target.float(), dim=tuple(range(target.dim())))
+    return (pf - tf).abs().mean()
+
+
+VGG_LOSS_WEIGHTS = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1.0)
+
+
+def make_vgg_loss(feature_fn=None, device=None):
+    """The 5-slice VGG19 perceptual loss (reference losses.py:49-63): the
+    weights 1/32, 1/16, 1/8, 1/4 and 1 on the L1 of each slice, NHWC in.
+    The target side is detached; the gradient flows through ``x``'s
+    features. The default ``feature_fn`` is
+    ``features.get_vgg_slices_fn(device)``, taken at the first call: its
+    parameters are frozen (no ``.grad``, in no optimizer)."""
+    def loss(x: Tensor, y: Tensor) -> Tensor:
+        nonlocal feature_fn
+        if feature_fn is None:
+            from mtd_gan_tpu_torch.features import get_vgg_slices_fn
+            feature_fn = get_vgg_slices_fn(device)
+        fx, fy = feature_fn(x), feature_fn(y.detach())
+        return sum(w * l1(a, b.detach()) for w, a, b in zip(VGG_LOSS_WEIGHTS, fx, fy))
+
+    return loss
+
+
 def make_compound_loss(feature_fn=None, mse_weight: float = 1.0,
                        resnet_weight: float = 0.01, device=None):
     """EDCNN's CompoundLoss (reference losses.py:154-183): ``mse_weight *
@@ -65,7 +98,7 @@ def make_compound_loss(feature_fn=None, mse_weight: float = 1.0,
 
 
 LOSSES = {"L1 Loss": l1, "L2 Loss": l2, "Charbonnier Loss": charbonnier_loss,
-          "Edge Loss": edge_loss}
+          "Edge Loss": edge_loss, "MSFR Loss": msfr_loss}
 
 
 def get_loss(name: str):

@@ -29,12 +29,18 @@ def registry() -> Dict[str, Callable[..., Any]]:
     """Ported name -> constructor (keyword arguments, ``device`` and
     ``seed`` among them)."""
     from mtd_gan_tpu_torch.models.ablations import ABLATIONS
+    from mtd_gan_tpu_torch.models.ctformer import CTformerModel
+    from mtd_gan_tpu_torch.models.dugan import DUGANModel
     from mtd_gan_tpu_torch.models.edcnn import EDCNNModel
+    from mtd_gan_tpu_torch.models.map_nn import MAPNNModel
     from mtd_gan_tpu_torch.models.mtd_gan import MTDGANModel
     from mtd_gan_tpu_torch.models.red_cnn import REDCNNModel
+    from mtd_gan_tpu_torch.models.restormer import RestormerModel
+    from mtd_gan_tpu_torch.models.wgan_vgg import WGANVGGModel
 
-    return {"RED_CNN": REDCNNModel, "EDCNN": EDCNNModel,
-            "MTD_GAN_Method": MTDGANModel, **ABLATIONS}
+    return {"RED_CNN": REDCNNModel, "EDCNN": EDCNNModel, "CTformer": CTformerModel,
+            "Restormer": RestormerModel, "WGAN_VGG": WGANVGGModel, "MAP_NN": MAPNNModel,
+            "DU_GAN": DUGANModel, "MTD_GAN_Method": MTDGANModel, **ABLATIONS}
 
 
 def ported_names() -> tuple:

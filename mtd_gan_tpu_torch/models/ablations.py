@@ -41,8 +41,8 @@ from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
 from mtd_gan_tpu_torch.models.dugan import REDCNNGenerator
 from mtd_gan_tpu_torch.models.mtd_gan import (HEADS, INIT_STD, ResFFTGenerator,
-                                              generator_views, resfft_generate,
-                                              seeded_discriminator)
+                                              check_discriminator_input, generator_views,
+                                              resfft_generate, seeded_discriminator)
 from mtd_gan_tpu_torch.ops.cuda_train import resfft_generator_train, train_route
 from mtd_gan_tpu_torch.ops.layers import normal_init_
 
@@ -57,6 +57,7 @@ class AblationModel:
     a GPU."""
 
     n_d_tasks = 1
+    check_input = staticmethod(check_discriminator_input)
 
     def __init__(self, heads: Tuple[str, ...], use_nds: bool = False,
                  use_rc: bool = False, resfft: bool = False,

@@ -3,7 +3,7 @@ multi-task gradient surgery (counterpart of ``mtd_gan_tpu/models/base.py``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,6 +44,9 @@ class SupervisedModel:
     def predict(self, x: Tensor) -> Tensor:
         return self.apply(x)
 
-    def loss(self, x: Tensor, y: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+    def loss(self, x: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
+             ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """``generator``: the random draws of a model that takes any (e.g.
+        CTformer's dropout); unused here."""
         val = self.criterion(self.apply(x), y)
         return val, {"loss": val}

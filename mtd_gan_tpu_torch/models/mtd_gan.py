@@ -193,9 +193,9 @@ def check_discriminator_input(h: int, w: int) -> None:
             f"the MTD-GAN discriminator takes 64x64 inputs (its CLS head "
             f"flattens a 1x1 bottleneck after six 2x downsamplings), got "
             f"{h}x{w}: the train presets 'full' and 'window' give whole "
-            f"slices, on which the JAX package's step fails too; the families "
-            f"that train on them are RED_CNN and EDCNN, and those of ROADMAP.md "
-            f"queue 1, items 9 and 10")
+            f"slices, on which the JAX package's step fails too; the models "
+            f"that train on them are RED_CNN, EDCNN, DU_GAN and Restormer "
+            f"(WGAN_VGG, MAP_NN and CTformer take 64x64 patches too)")
 
 
 def _lrelu(x: Tensor) -> Tensor:
@@ -428,3 +428,21 @@ class MTDGANModel:
 
     d_param_label = staticmethod(d_param_label)
     d_last_shared_label = staticmethod(d_last_shared_label)
+
+    @torch.no_grad()
+    def discriminate_full(self, x: Tensor, overlap: float = 0.5, mode: str = "gaussian",
+                          sw_batch_size: int = 64) -> Tuple[Tensor, Tensor, Tensor]:
+        """The 64x64 discriminator over whole NHWC slices through the
+        multi-output sliding window (reference module/sliding_window.py:25-786),
+        in eval (no dropout) with no stored power iteration: ``(cls (N, T,
+        1)`` per tile, as the reference concatenates them (:126), ``seg``
+        and ``rec`` ``(N, H, W, 1)`` blended)."""
+        from mtd_gan_tpu_torch.ops.sliding_window import sliding_window_inference
+
+        def predictor(tiles: Tensor):
+            out = self.discriminator(tiles.permute(0, 3, 1, 2), train=False,
+                                     update_stats=False)
+            return tuple(t.permute(0, 2, 3, 1) if t.dim() == 4 else t for t in out)
+
+        return sliding_window_inference(x, (64, 64), predictor, sw_batch_size=sw_batch_size,
+                                        overlap=overlap, mode=mode)

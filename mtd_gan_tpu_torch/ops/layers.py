@@ -40,14 +40,14 @@ def normal_init_(module: nn.Module, std: float,
 
 
 def torch_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """torch's default ``Conv2d`` / ``ConvTranspose2d`` init drawn from
-    ``generator`` in ``module.modules()`` order: weight and bias
+    """torch's default ``Conv2d`` / ``ConvTranspose2d`` / ``Linear`` init
+    drawn from ``generator`` in ``module.modules()`` order: weight and bias
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in from the weight's dim 1 times
     the kernel area (``out_channels`` for a transposed conv), as torch's
     kaiming-uniform with a = sqrt(5) gives it; the JAX ``torch_init=True``
-    of RED-CNN and EDCNN (``mtd_gan_tpu/ops/layers.py``)."""
+    of RED-CNN, EDCNN and WGAN-VGG (``mtd_gan_tpu/ops/layers.py``)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             bound = m.weight[0].numel() ** -0.5
             with torch.no_grad():
                 m.weight.uniform_(-bound, bound, generator=generator)

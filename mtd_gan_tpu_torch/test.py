@@ -6,10 +6,13 @@ of the root ``test.py``, with its flags and defaults but ``--device``).
         [--device cuda|cpu]
 
 ``--model`` takes the train CLI's names: ``MTD_GAN_Method``, ``RED_CNN``,
-``EDCNN``, the ten ``Ablation_*`` and the aliases; ``--model-kwargs``
-reaches the model's constructor. Loads the network the sweep runs from a
+``EDCNN``, the ten ``Ablation_*``, ``WGAN_VGG``, ``MAP_NN``, ``DU_GAN``,
+``CTformer``, ``Restormer`` and the aliases; ``--model-kwargs`` reaches
+the model's constructor. Loads the network the sweep runs from a
 reference-layout ``.pth`` (the generator's ``Generator.*``, or the flat
-``model_state_dict`` of RED_CNN and EDCNN): ``--resume``, else
+``model_state_dict`` of RED_CNN, EDCNN, CTformer and Restormer; CTformer
+and Restormer through the sliding window at overlap 0.9, one slice at a
+time): ``--resume``, else
 ``<checkpoint-dir>/epoch_<n>.pth`` as the train CLI writes it (the epoch
 ``--epoch`` names, the latest at -1). Runs full-image inference in groups
 of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM and, unless
@@ -115,8 +118,9 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
         model = get_model(args.model, **kwargs, device=device, seed=args.seed)
         family = family_of(args.model)
         path = args.resume or checkpoint_path(args.checkpoint_dir, args.epoch)
-        epoch, state = load_reference_checkpoint(path, args.model)
-        (model.net if family == "cnn" else model.generator).load_state_dict(state, strict=True)
+        net = model.net if family in ("cnn", "tr") else model.generator
+        epoch, state = load_reference_checkpoint(path, args.model, keys=net.state_dict())
+        net.load_state_dict(state, strict=True)
     if phases is not None:
         phases["load"] = load
     print(f"restored epoch {epoch} from {path}")

@@ -6,16 +6,21 @@ flags and defaults but ``--device``; reference train.py:22-67).
         --checkpoint-dir ckpt --save-dir preds [--device cuda|cpu]
 
 ``--model``: ``MTD_GAN_Method`` (alias ``MTD_GAN``), the CNN family
-``RED_CNN`` and ``EDCNN`` (alias ``ED_CNN``), or one of the ten MTD-GAN
-ablations ``Ablation_*`` (``models/ablations.py``); ``--model-kwargs``
-reaches the model's constructor. A name of the JAX package that is not
-ported yet raises, naming its ROADMAP.md item. For MTD_GAN_Method
-``--method`` picks the discriminator's multi-task method (any of the
-eleven); without it, as at the root, the three task losses are summed. The
-ablations have a scalar discriminator loss and no method: a given
-``--method`` is noted and not used, as at the root. The whole-slice presets
-``full`` and ``window`` train the CNN family; the MTD-GAN discriminator
-takes 64x64 patches only and refuses them.
+``RED_CNN`` and ``EDCNN`` (alias ``ED_CNN``), one of the ten MTD-GAN
+ablations ``Ablation_*`` (``models/ablations.py``), the WGAN family
+``WGAN_VGG``, ``MAP_NN`` (alias ``MAP_NN_brain``) and ``DU_GAN`` (alias
+``DU_GAN_brain``), or the transformers ``CTformer`` and ``Restormer``;
+``--model-kwargs`` reaches the model's constructor. The diffusion names
+are not ported yet and raise, naming their ROADMAP.md item. For
+MTD_GAN_Method ``--method`` picks the discriminator's multi-task method
+(any of the eleven); without it, as at the root, the three task losses are
+summed. The other GAN models have a scalar discriminator loss and no
+method: a given ``--method`` is noted and not used, as at the root
+(WGAN-VGG and MAP-NN take 4 critic updates a step, DU-GAN three
+optimizers). The whole-slice presets ``full`` and ``window`` train
+RED_CNN, EDCNN, DU_GAN and Restormer; the 64x64 discriminators (MTD-GAN's,
+the ablations', the WGAN critic) and CTformer refuse them. The
+transformers validate through the 64x64 sliding window.
 Per epoch: the learning rate of ``--scheduler`` (``poly_lr`` or
 ``cosine_annealing_warm_restart``), shuffled batches of slices cut by the
 ``--dataset-type-train`` preset (``window_patch``: 8 random 64x64 crops

@@ -4,11 +4,16 @@
 One ``torch.save`` dict per epoch: ``model_state_dict``, the optimizers,
 ``scheduler`` (the epoch it was last stepped to), ``epoch`` and ``args``.
 
-* A supervised model (RED_CNN, EDCNN; ``SupervisedTrainer``): the flat
-  ``model_state_dict`` of its network and one ``optimizer``.
-* An adversarial model (MTD_GAN_Method, the ablations): ``Generator.*`` and
-  ``Discriminator.*`` (the discriminator with its spectral-norm
-  ``weight_u`` / ``weight_v``), ``optimizer_G`` and ``optimizer_D``.
+* A supervised model (RED_CNN, EDCNN, CTformer, Restormer;
+  ``SupervisedTrainer``): the flat ``model_state_dict`` of its network
+  (CTformer's fixed performer ``w`` included) and one ``optimizer``.
+* An adversarial model (MTD_GAN_Method, the ablations, WGAN_VGG, MAP_NN):
+  ``Generator.*`` and ``Discriminator.*`` (the discriminator with its
+  spectral-norm ``weight_u`` / ``weight_v`` where it has them),
+  ``optimizer_G`` and ``optimizer_D``.
+* DU_GAN (``DUGANTrainer``): ``Generator.*``, ``Image_Discriminator.*`` and
+  ``Grad_Discriminator.*`` (their ``u`` / ``v``), ``optimizer_G``,
+  ``optimizer_Img_D`` and ``optimizer_Grad_D``.
   ``MTDGANTrainer`` adds the multi-task method's state: ``mto_method`` (its
   name, ``None`` for the plain sum), ``mto_state`` (step, UW's log-sigma,
   DWA's cost history and weights, NashMTL's alpha) and ``optimizer_mto``
@@ -38,15 +43,24 @@ from mtd_gan_tpu_torch.utils.torch_import import (reference_discriminator_state_
 
 def networks(model) -> Dict[str, nn.Module]:
     """``model_state_dict`` prefix -> module: ``{"": net}`` for a supervised
-    model, else ``Generator.`` and ``Discriminator.``."""
+    model, ``Generator.``, ``Image_Discriminator.`` and
+    ``Grad_Discriminator.`` for DU-GAN, else ``Generator.`` and
+    ``Discriminator.``."""
     if hasattr(model, "net"):
         return {"": model.net}
+    if hasattr(model, "image_discriminator"):
+        return {"Generator.": model.generator,
+                "Image_Discriminator.": model.image_discriminator,
+                "Grad_Discriminator.": model.grad_discriminator}
     return {"Generator.": model.generator, "Discriminator.": model.discriminator}
 
 
 def _optimizers(trainer) -> Dict[str, torch.optim.Optimizer]:
     if hasattr(trainer, "opt"):
         return {"optimizer": trainer.opt}
+    if hasattr(trainer, "opt_img_d"):
+        return {"optimizer_G": trainer.opt_g, "optimizer_Img_D": trainer.opt_img_d,
+                "optimizer_Grad_D": trainer.opt_grad_d}
     return {"optimizer_G": trainer.opt_g, "optimizer_D": trainer.opt_d}
 
 
@@ -81,7 +95,7 @@ def load_model_state_dict(model, sd: Dict[str, torch.Tensor]) -> None:
     sd = strip_module_prefixes(sd)
     for prefix, module in networks(model).items():
         part = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-        if prefix == "Discriminator.":
+        if hasattr(module, "heads"):  # an MTD-GAN discriminator
             part = reference_discriminator_state_dict(part, module.heads)
         module.load_state_dict(part, strict=True)
 

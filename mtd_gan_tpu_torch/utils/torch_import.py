@@ -19,12 +19,19 @@
   :func:`ablation_state_dict_from_flax` do the same for the CNN family, DU-GAN's
   generator and the ten ablations (inverses of ``convert_red_cnn``,
   ``convert_edcnn``, ``convert_dugan_generator`` and ``convert_ablation``);
+  :func:`wgan_vgg_state_dict_from_flax`, :func:`map_nn_state_dict_from_flax`,
+  :func:`dugan_state_dict_from_flax` (both U-Nets with their ``u``,
+  :func:`unet_state_dict_from_flax`), :func:`ctformer_state_dict_from_flax`
+  (the performers' ``w`` included) and :func:`restormer_state_dict_from_flax`
+  for the WGAN family and the transformers (inverses of
+  ``convert_wgan_vgg``, ``convert_map_nn``, ``convert_dugan``,
+  ``convert_ctformer`` and ``convert_restormer``);
 * :func:`load_reference_checkpoint` reads a checkpoint in the reference
   layout (``{"model_state_dict": {"Generator.…": …}, "epoch": …}``, as
   ``tools/import_torch_checkpoint.py`` reads it) and returns the state dict
-  of the network the test sweep runs: the generator's, or for RED_CNN and
-  EDCNN the flat ``model_state_dict`` cut to the keys the JAX converter
-  reads; :func:`reference_discriminator_state_dict` maps a reference
+  of the network the test sweep runs: the generator's, or for RED_CNN,
+  EDCNN, CTformer and Restormer the flat ``model_state_dict`` cut to the
+  keys the JAX converter reads; :func:`reference_discriminator_state_dict` maps a reference
   discriminator (the pure SEG discriminator's ``dconv`` names and its dead
   ``enc_out`` included) onto the port's.
 
@@ -36,7 +43,7 @@ Layout conventions (flax -> torch): conv HWIO -> OIHW; transposed conv
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,11 +62,28 @@ def _t(a) -> torch.Tensor:
 
 def _conv_entries(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
                   transposed: bool = False) -> None:
-    """flax conv HWIO -> ``name.weight`` OIHW, or a transposed conv ``(kh,
-    kw, in, out)`` -> ``(in, out, kh, kw)``; ``name.bias``."""
+    """flax conv HWIO -> ``name.weight`` OIHW (a depthwise ``(kh, kw, 1, C)``
+    -> ``(C, 1, kh, kw)``), or a transposed conv ``(kh, kw, in, out)`` ->
+    ``(in, out, kh, kw)``; ``name.bias`` where the layer has one."""
     k = np.asarray(p["kernel"])
     sd[f"{name}.weight"] = _t(k.transpose(2, 3, 0, 1) if transposed else k.transpose(3, 2, 0, 1))
-    sd[f"{name}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _dense_entries(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    """flax dense ``(in, out)`` -> ``name.weight`` ``(out, in)``; its bias."""
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _layernorm_entries(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    """flax ``LayerNorm`` (``scale``, ``bias``) -> ``name.weight`` /
+    ``name.bias``."""
+    sd[f"{name}.weight"] = _t(p["scale"])
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def redcnn_generator_state_dict_from_flax(params_g: Mapping[str, Any]
@@ -103,13 +127,23 @@ FLAT_REFERENCE_KEYS = {
 }
 
 
-def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method"
+# the single-network models whose flat keys depend on their configuration
+CONFIGURED_FLAT_MODELS = ("CTformer", "Restormer")
+
+
+def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method",
+                              keys: Optional[Iterable[str]] = None
                               ) -> Tuple[int, Dict[str, torch.Tensor]]:
     """Reference-layout ``.pth`` -> ``(epoch, state dict)`` of the network
-    the test sweep runs: for RED_CNN and EDCNN (aliases resolved) exactly
-    the keys the JAX converter reads from the flat ``model_state_dict``
-    (others, such as EDCNN's stored Sobel bank, are not read), for load
-    with ``strict=True``; for the MTD-GAN family the ``Generator.`` part.
+    the test sweep runs: for the single-network models exactly the keys the
+    JAX converter reads from the flat ``model_state_dict`` (others, such as
+    EDCNN's stored Sobel bank or CTformer's ``cls_token``, ``head`` and
+    ``pos_embed``, are not read), for load with ``strict=True``: those of
+    ``FLAT_REFERENCE_KEYS`` for RED_CNN and EDCNN (aliases resolved), and
+    ``keys`` (the port network's own, which depend on the configuration;
+    ignored for the other models) for CTformer and Restormer; for the GAN
+    models (the MTD-GAN family,
+    WGAN_VGG, MAP_NN, DU_GAN) the ``Generator.`` part.
 
     Loads with ``weights_only=True``; the ``argparse.Namespace`` the
     reference stores under ``args`` is allow-listed. A bare state dict (no
@@ -124,7 +158,12 @@ def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method"
     else:
         epoch, sd = 0, ckpt
     sd = strip_module_prefixes(sd)
-    keys = FLAT_REFERENCE_KEYS.get(resolve_alias(model_name))
+    name = resolve_alias(model_name)
+    if name in CONFIGURED_FLAT_MODELS:
+        if keys is None:
+            raise ValueError(f"{model_name}: pass the keys of the network to load")
+    else:
+        keys = FLAT_REFERENCE_KEYS.get(name)
     if keys is not None:
         missing = [k for k in keys if k not in sd]
         if missing:
@@ -243,6 +282,171 @@ def ablation_state_dict_from_flax(params_g: Mapping[str, Any], params_d: Mapping
     sd = {f"Generator.{k}": v for k, v in gen.items()}
     sd.update({f"Discriminator.{k}": v for k, v in
                discriminator_state_dict_from_flax(params_d, state_d).items()})
+    return sd
+
+
+def _prefixed(prefix: str, sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}{k}": v for k, v in sd.items()}
+
+
+def wgan_vgg_state_dict_from_flax(params_g: Mapping[str, Any], params_d: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """WGAN-VGG in the ``model_state_dict`` layout (inverse of
+    ``convert_wgan_vgg``): ``conv{i}`` / ``conv_out`` -> ``Generator.net.{2
+    i}`` / ``Generator.net.22``, the critic's ``conv{i}`` ->
+    ``Discriminator.net.{2 i}``, ``fc1``, ``fc2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(11):
+        _conv_entries(sd, f"Generator.net.{2 * i}", params_g[f"conv{i}"])
+    _conv_entries(sd, "Generator.net.22", params_g["conv_out"])
+    for i in range(6):
+        _conv_entries(sd, f"Discriminator.net.{2 * i}", params_d[f"conv{i}"])
+    for fc in ("fc1", "fc2"):
+        _dense_entries(sd, f"Discriminator.{fc}", params_d[fc])
+    return sd
+
+
+def map_nn_state_dict_from_flax(params_g: Mapping[str, Any], params_d: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """MAP-NN in the ``model_state_dict`` layout (inverse of
+    ``convert_map_nn``): ``Generator.CPCE_2D.*`` and the critic's
+    ``Discriminator.conv{1..6}``, ``fc1``, ``fc2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    cpce = params_g["CPCE_2D"]
+    for name, p in cpce.items():
+        transposed = name.startswith("decoder") and not name.endswith("_")
+        _conv_entries(sd, f"Generator.CPCE_2D.{name}", p, transposed=transposed)
+    for i in range(6):
+        _conv_entries(sd, f"Discriminator.conv{i + 1}", params_d[f"conv{i}"])
+    for fc in ("fc1", "fc2"):
+        _dense_entries(sd, f"Discriminator.{fc}", params_d[fc])
+    return sd
+
+
+def _unet_names(n_down: int):
+    """(reference name, flax path) of every conv of DU-GAN's U-Net, in the
+    order of ``_convert_dugan_unet``."""
+    names = []
+    for i in range(n_down):
+        names += [(f"down_blocks.{i}.conv_res", (f"down{i}_res",)),
+                  (f"down_blocks.{i}.net.0", (f"down{i}_net", "conv1")),
+                  (f"down_blocks.{i}.net.2", (f"down{i}_net", "conv2"))]
+        if i != n_down - 1:
+            names.append((f"down_blocks.{i}.down", (f"down{i}_down",)))
+    names += [("conv.0", ("bottom", "conv1")), ("conv.2", ("bottom", "conv2"))]
+    for j in range(n_down - 1):
+        names += [(f"up_blocks.{j}.conv.0", (f"up{j}_net", "conv1")),
+                  (f"up_blocks.{j}.conv.2", (f"up{j}_net", "conv2")),
+                  (f"up_blocks.{j}.shortcut", (f"up{j}_sc",))]
+    return names + [("conv_out", ("conv_out",))]
+
+
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]):
+    for k in path:
+        if k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def unet_state_dict_from_flax(params: Mapping[str, Any], spectral: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """DU-GAN's flax ``UNetDiscriminator`` params and its ``spectral`` state
+    -> the port's ``UNetDiscriminator`` state dict (inverse of
+    ``_convert_dugan_unet``): a conv with a ``u`` becomes a spectral-norm
+    layer (``weight_orig``, ``weight_u``, ``weight_v``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    n_down = sum(1 for k in params if k.endswith("_res"))
+    for ref, path in _unet_names(n_down):
+        p = _get(params, path)
+        w = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+        u = _get(spectral, path)
+        if u is not None:
+            _sn_entries(sd, ref, w, u["u"])
+        else:
+            sd[f"{ref}.weight"] = _t(w)
+        sd[f"{ref}.bias"] = _t(p["bias"])
+    _dense_entries(sd, "to_logit.3", params["to_logit"])
+    return sd
+
+
+def dugan_state_dict_from_flax(params_g: Mapping[str, Any], params_img_d: Mapping[str, Any],
+                               state_img_d: Mapping[str, Any],
+                               params_grad_d: Mapping[str, Any],
+                               state_grad_d: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """DU-GAN in the ``model_state_dict`` layout (inverse of
+    ``convert_dugan``): ``Generator.*``, ``Image_Discriminator.*`` and
+    ``Grad_Discriminator.*`` with their ``u`` vectors."""
+    sd = _prefixed("Generator.", redcnn_generator_state_dict_from_flax(params_g))
+    sd.update(_prefixed("Image_Discriminator.",
+                        unet_state_dict_from_flax(params_img_d, state_img_d)))
+    sd.update(_prefixed("Grad_Discriminator.",
+                        unet_state_dict_from_flax(params_grad_d, state_grad_d)))
+    return sd
+
+
+def _performer_entries(sd: Dict[str, torch.Tensor], pre: str, p: Mapping[str, Any]) -> None:
+    _layernorm_entries(sd, f"{pre}.norm1", p["norm1"])
+    _dense_entries(sd, f"{pre}.kqv", p["kqv"])
+    _dense_entries(sd, f"{pre}.proj", p["proj"])
+    _layernorm_entries(sd, f"{pre}.norm2", p["norm2"])
+    _dense_entries(sd, f"{pre}.mlp.0", p["mlp_fc1"])
+    _dense_entries(sd, f"{pre}.mlp.2", p["mlp_fc2"])
+    sd[f"{pre}.w"] = _t(p["w"])
+
+
+def ctformer_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax CTformer -> the port's ``CTformer`` (inverse of
+    ``convert_ctformer``), the performers' fixed ``w`` included."""
+    sd: Dict[str, torch.Tensor] = {}
+    _performer_entries(sd, "tokens_to_token.attention1", params["enc_attn1"])
+    _performer_entries(sd, "tokens_to_token.attention2", params["enc_attn2"])
+    _dense_entries(sd, "tokens_to_token.project", params["project"])
+    for i in range(sum(1 for k in params if k.startswith("block"))):
+        p, pre = params[f"block{i}"], f"blocks.{i}"
+        _layernorm_entries(sd, f"{pre}.norm1", p["norm1"])
+        _dense_entries(sd, f"{pre}.attn.qkv", p["qkv"])
+        _dense_entries(sd, f"{pre}.attn.proj", p["proj"])
+        _layernorm_entries(sd, f"{pre}.norm2", p["norm2"])
+        _dense_entries(sd, f"{pre}.mlp.fc1", p["mlp_fc1"])
+        _dense_entries(sd, f"{pre}.mlp.fc2", p["mlp_fc2"])
+    _layernorm_entries(sd, "norm", params["norm"])
+    _dense_entries(sd, "dconv1.project", params["deproject"])
+    _performer_entries(sd, "dconv1.attention2", params["dec_attn2"])
+    _performer_entries(sd, "dconv1.attention1", params["dec_attn1"])
+    return sd
+
+
+RESTORMER_STAGES = (("encoder_level1", "enc1"), ("encoder_level2", "enc2"),
+                    ("encoder_level3", "enc3"), ("latent", "latent"),
+                    ("decoder_level3", "dec3"), ("decoder_level2", "dec2"),
+                    ("decoder_level1", "dec1"), ("refinement", "refine"))
+
+
+def restormer_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax Restormer -> the port's ``Restormer`` (inverse of
+    ``convert_restormer``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_entries(sd, "patch_embed.proj", params["patch_embed"])
+    for ref, ours in RESTORMER_STAGES:
+        i = 0
+        while f"{ours}_{i}" in params:
+            p, pre = params[f"{ours}_{i}"], f"{ref}.{i}"
+            for norm in ("norm1", "norm2"):
+                sd[f"{pre}.{norm}.body.weight"] = _t(p[norm]["weight"])
+                if "bias" in p[norm]:
+                    sd[f"{pre}.{norm}.body.bias"] = _t(p[norm]["bias"])
+            sd[f"{pre}.attn.temperature"] = _t(p["attn"]["temperature"])
+            for sub, layers in (("attn", ("qkv", "qkv_dwconv", "project_out")),
+                                ("ffn", ("project_in", "dwconv", "project_out"))):
+                for layer in layers:
+                    _conv_entries(sd, f"{pre}.{sub}.{layer}", p[sub][layer])
+            i += 1
+    for name in ("down1_2", "down2_3", "down3_4", "up4_3", "up3_2", "up2_1"):
+        _conv_entries(sd, f"{name}.body.0", params[name])
+    _conv_entries(sd, "reduce_chan_level3", params["reduce3"])
+    _conv_entries(sd, "reduce_chan_level2", params["reduce2"])
+    _conv_entries(sd, "output", params["output"])
     return sd
 
 

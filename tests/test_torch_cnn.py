@@ -34,7 +34,7 @@ from mtd_gan_tpu_torch import train as train_cli
 from mtd_gan_tpu_torch.engine import loops
 from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
 from mtd_gan_tpu_torch.engine.supervised import SupervisedTrainer
-from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer
+from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer, DUGANTrainer
 from mtd_gan_tpu_torch.features import resnet
 from mtd_gan_tpu_torch.features.registry import to_rgb_nchw
 from mtd_gan_tpu_torch.models import get_model, get_model_class, resolve_alias
@@ -193,14 +193,24 @@ def test_reference_flat_checkpoint_loads(tmp_path, name):
 
 def test_registry_and_family_dispatch_cover_every_jax_name():
     """Every name of the JAX registry and its aliases: the same family; a
-    ported one builds, an unported one raises naming its ROADMAP.md item;
-    ``build_trainer`` gives each ported family its trainer; a family not
-    ported raises in ``run_test``."""
+    ported one builds, an unported one (the diffusion family) raises naming
+    its ROADMAP.md item; ``build_trainer`` gives each ported family its
+    trainer (``wgan`` 4 critic updates a step, the ablations 1); a family
+    not ported raises in ``run_test``."""
     _ensure_registered()
     names = sorted(set(JAX_REGISTRY) | set(JAX_ALIASES))
     assert len(names) == 26  # 22 models and 4 aliases
-    item = {"wgan": 9, "dugan": 9, "tr": 10, "dn": 11}
+    item = {"dn": 11}
     args = argparse.Namespace(optimizer="adamw", lr=1e-4, method="pcgrad")
+    small = {"RED_CNN": {"out_ch": 8},
+             "EDCNN": {"out_ch": 8, "sobel_ch": 8, "use_feature_loss": False},
+             "WGAN_VGG": {"use_perceptual": False}, "MAP_NN": {"depth": 1},
+             "DU_GAN": {"gen_features": 8, "num_layers": 1, "conv_dim": 8},
+             "CTformer": {},
+             "Restormer": {"dim": 8, "num_blocks": (1, 1, 1, 1),
+                           "num_refinement_blocks": 1}}
+    want = {"cnn": SupervisedTrainer, "tr": SupervisedTrainer, "mtd": AdversarialTrainer,
+            "wgan": AdversarialTrainer, "dugan": DUGANTrainer}
     for name in names:
         family = loops.family_of(name)
         assert family == jax_loops.family_of(name), name
@@ -213,13 +223,13 @@ def test_registry_and_family_dispatch_cover_every_jax_name():
         assert get_model_class(name) is get_model_class(resolve_alias(name))
         if name.startswith("Ablation_") and name != "Ablation_CLS":
             continue  # one of the ten builds here; all ten in test_torch_ablations.py
-        kw = {"RED_CNN": {"out_ch": 8},
-              "EDCNN": {"out_ch": 8, "sobel_ch": 8, "use_feature_loss": False}}.get(
-                  resolve_alias(name), {"gen_features": 8, "disc_features": 8, "num_layers": 1})
+        kw = small.get(resolve_alias(name),
+                       {"gen_features": 8, "disc_features": 8, "num_layers": 1})
         trainer = loops.build_trainer(name, get_model(name, device="cpu", **kw), args)
-        want = {"cnn": SupervisedTrainer, "mtd": AdversarialTrainer}[family]
         assert isinstance(trainer, MTDGANTrainer if name in ("MTD_GAN", "MTD_GAN_Method")
-                          else want), name
+                          else want[family]), name
+        if family in ("wgan", "mtd") and not isinstance(trainer, MTDGANTrainer):
+            assert trainer.n_critic == (4 if family == "wgan" else 1), name
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("RED-CNN")
 

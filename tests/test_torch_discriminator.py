@@ -244,8 +244,9 @@ def test_losses_match_jax():
         (losses.nds_loss(tt(p), 0.0, tt(diff)), jax_losses.nds_loss(p, 0.0, diff)),
         (losses.charbonnier_loss(tt(p), tt(t)), jax_losses.charbonnier_loss(p, t)),
         (losses.edge_loss(nchw(p), nchw(t)), jax_losses.edge_loss(p, t)),
+        (losses.get_loss("MSFR Loss")(tt(p), tt(t)), jax_losses.msfr_loss(p, t)),
     ]
     for got, want in pairs:
         assert _rel(got, want) < 1e-5
     with pytest.raises(KeyError, match="unknown loss"):
-        losses.get_loss("MSFR Loss")
+        losses.get_loss("VGG Loss")

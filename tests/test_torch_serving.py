@@ -132,7 +132,7 @@ def test_run_test_refuses_feature_metrics(tmp_path):
     package."""
     model = MTDGANModel(gen_features=8, num_layers=1, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        run_test(model, [], make_eval_preprocess(), "tr", str(tmp_path),
+        run_test(model, [], make_eval_preprocess(), "dn", str(tmp_path),
                  compute_fid_metric=False, compute_feature_metrics=False)
     data = str(tmp_path / "data")
     _write_dataset(data, n=3)
