@@ -178,7 +178,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      8 (the transformers through the sliding window at overlap 0.3), and
      train step on 160 patches (Restormer's on 32) timed; a profile of
      Restormer's sliding-window forward.
-Phases 1 - 25, 27 and 28 pass ``--no-feature-metrics`` to the test CLI, so
+  29. the diffusion family (run right after phase 28; its own random
+     data, so the later phases draw what they drew before): the UNet at its
+     published width (channels (128, 256, 256), attention at levels 1 - 2,
+     one head of 256 channels), random weights from seed 0. One UNet
+     forward at 512x512, batch 1 (65,536 tokens at level 1, the plain
+     chunked attention), beside its FLOPs (counted by ``FlopCounterMode`` on
+     the meta device); a 10-step DDPM segment at 512x512 (not a whole
+     1000-step sample, >= ~245 s); whole 50-step DDIM, DPM and PNDM samples
+     at 256x256; a train step on 160 x 64x64 patches and its peak memory;
+     a validation chunk (the UNet at 64x64, batch 32 and 17, and a 50-step
+     sample of 32 tiles, with a profile of the forward); the ``train`` CLI
+     (one DDIM epoch of 2 steps of 20 256x256 slices, validation of one
+     slice through the sliding window) and ``test --resume`` on 2 slices; at 64x64 on drawn weights, the card against the CPU: one UNet
+     forward, a 3-step chain of each sampler from the same draws, one
+     loss and its gradient; no launch of K1 - K8 on any of these paths.
+Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
 """
@@ -239,6 +254,10 @@ from mtd_gan_tpu_torch.ops.sliding_window import dense_patch_positions, sliding_
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.artifacts import save_png_gray
 from mtd_gan_tpu_torch.models import get_model
+from mtd_gan_tpu_torch.models.diffusion.schedulers import DDPMScheduler
+from mtd_gan_tpu_torch.models.diffusion.unet import DiffusionUNet
+from mtd_gan_tpu_torch.models.diffusion.wrappers import (DDIMModel, DDPMModel, DPMModel,
+                                                        PNDMModel)
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint, load_pretrained
 
 # max |kernel - plain| / max |plain| per block call: both sides are fp32
@@ -362,6 +381,18 @@ TOL_NEW_FAMILY_ABS = 1e-4
 # the card: 4.4e-6, 6.4e-5 and 2.4e-4 in three calls on three H100s
 TOL_GP_REL = 1e-4
 TOL_GP_GRAD_L2 = 1e-3
+# phase 29: the diffusion family. The card against the CPU on the same
+# drawn weights and draws: one UNet forward (max-relative), a 3-step chain of
+# each sampler (max-relative on the sample: a step divides x0's error by
+# sqrt(acp_t), up to ~7x at t = 666), the loss (relative) and its gradient
+# (each leaf's relative 2-norm; ``to_k.bias``, whose gradient is zero in
+# exact arithmetic, against its weight's gradient)
+TOL_DN_FORWARD_REL = 1e-4
+TOL_DN_CHAIN_REL = 1e-3
+TOL_DN_LOSS_REL = 1e-4
+TOL_DN_GRAD_L2 = 1e-3
+DN_CLI_SIZE = 256
+DN_SEGMENT_STEPS = 10
 
 
 def fail(msg: str):
@@ -2128,6 +2159,218 @@ def check_new_families(rng, tmp: str, test_root: str, x_gen, model):
           f"{n_tiles} tiles in {full_s:.3f} s", flush=True)
 
 
+DN_MODELS = {"DDPM": DDPMModel, "DDIM": DDIMModel, "PNDM": PNDMModel, "DPM": DPMModel}
+
+
+def unet_flops(size: int, batch: int = 1) -> float:
+    """FLOPs of one full-width UNet forward: convs, linears and the
+    attention products counted by ``FlopCounterMode`` over a forward on the
+    meta device (elementwise ops, GroupNorm and softmax not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        net = DiffusionUNet()
+        x = torch.empty(batch, 2, size, size)
+        t = torch.zeros(batch, dtype=torch.long)
+    with FlopCounterMode(display=False) as counter:
+        net(x, t)
+    return float(counter.get_total_flops())
+
+
+def once_ms(fn):
+    """(fn's result, its ms by CUDA events over that one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def draw_unet_weights(net, seed: int) -> None:
+    """Every leaf drawn (on the CPU, then copied): kernels N(0, 1/fan_in),
+    biases and GroupNorm offsets N(0, 0.1^2) added to their init, so
+    ``conv2`` and ``out_conv`` are not zero."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            d = (torch.randn(p.shape, generator=g) / p[0].numel() ** 0.5 if p.dim() > 1
+                 else 0.1 * torch.randn(p.shape, generator=g))
+            p.copy_(d.to(p.device) if p.dim() > 1 else p + d.to(p.device))
+
+
+def check_diffusion_cpu(rng):
+    """Phase 29: at 64x64 on drawn weights, the card against the CPU: one
+    UNet forward (batch 2), a 3-step chain of each sampler from the same
+    draws (batch 1), one loss from the same draws and its gradient."""
+    cpu = DDIMModel(device="cpu", seed=3)
+    draw_unet_weights(cpu.net, 3)
+    card = DDIMModel(device="cuda", seed=3)
+    card.net.load_state_dict(cpu.net.state_dict())
+    g = torch.Generator().manual_seed(64)
+    cond = torch.tensor(phantom(rng, 2, 64)[..., None], dtype=torch.float32)
+    x_t = torch.randn(cond.shape, generator=g)
+    t = torch.tensor([40, 700])
+    zero_counts()
+    with torch.no_grad():
+        want = cpu.eps(x_t, cond, t)
+        got = card.eps(x_t.cuda(), cond.cuda(), t.cuda()).cpu()
+    err = rel_max(got, want)
+    if not torch.isfinite(got).all() or err > TOL_DN_FORWARD_REL:
+        fail(f"diffusion UNet forward card vs CPU: max-relative {err:.3e} > "
+             f"{TOL_DN_FORWARD_REL}")
+    print(f"diffusion UNet forward 64x64 batch 2 card vs CPU (drawn weights): max-relative "
+          f"{err:.3e} (tol {TOL_DN_FORWARD_REL})", flush=True)
+    errs = {}
+    for name, cls in DN_MODELS.items():
+        draws = {"noise": torch.randn((1, 64, 64, 1), generator=g),
+                 "z": torch.randn((3, 1, 64, 64, 1), generator=g)}
+        for m in (cpu, card):
+            m.scheduler, m.n_inference_steps = cls.scheduler_cls(), 3
+        want = cpu.sample(cond[:1], draws=draws)
+        got = card.sample(cond[:1].cuda(), draws={k: v.cuda() for k, v in draws.items()}).cpu()
+        errs[name] = rel_max(got, want)
+        if not torch.isfinite(got).all() or errs[name] > TOL_DN_CHAIN_REL:
+            fail(f"diffusion {name} 3-step chain card vs CPU: max-relative "
+                 f"{errs[name]:.3e} > {TOL_DN_CHAIN_REL}")
+    print(f"diffusion 3-step chains 64x64 card vs CPU (same draws): "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} max-relative (tol "
+          f"{TOL_DN_CHAIN_REL})", flush=True)
+    y = (cond + 0.02 * torch.randn(cond.shape, generator=g)).clamp(0, 1)
+    draws = {"noise": torch.randn(cond.shape, generator=g), "t": torch.tensor([17, 930])}
+    out = {}
+    for m in (cpu, card):
+        dev = m.device
+        m.net.zero_grad()
+        loss, _ = m.loss(cond.to(dev), y.to(dev), draws={k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in m.net.named_parameters()})
+    expect_counts("diffusion card vs CPU", read_counts(), {})
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    rel_l2 = {}
+    for k in g_cpu:
+        if k.endswith("to_k.bias"):  # zero in exact arithmetic: round-off on both sides
+            ref = torch.linalg.vector_norm(g_cpu[k.replace("bias", "weight")])
+        else:
+            ref = torch.linalg.vector_norm(g_cpu[k])
+        rel_l2[k] = (torch.linalg.vector_norm(g_card[k] - g_cpu[k]) / max(ref, 1e-30)).item()
+    leaf = max(rel_l2, key=rel_l2.get)
+    if not math.isfinite(l_card) or loss_err > TOL_DN_LOSS_REL or rel_l2[leaf] > TOL_DN_GRAD_L2:
+        fail(f"diffusion loss card vs CPU: {l_card} vs {l_cpu} (rel {loss_err:.3e}), worst "
+             f"gradient leaf {leaf} rel 2-norm {rel_l2[leaf]:.3e}")
+    print(f"diffusion eps-MSE 64x64 batch 2 card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} rel "
+          f"{loss_err:.3e} (tol {TOL_DN_LOSS_REL}); gradient worst leaf {leaf} rel 2-norm "
+          f"{rel_l2[leaf]:.3e} (tol {TOL_DN_GRAD_L2})", flush=True)
+
+
+def check_diffusion(tmp: str):
+    """Phase 29: the diffusion family at its published width. Held: finite
+    samples of the input's shape; the train and test CLIs' finite metrics;
+    the card against the CPU (``check_diffusion_cpu``); no launch of K1 -
+    K8 on any path. Timed: the 512x512 UNet forward beside its FLOPs, a
+    10-step DDPM segment at 512x512, 50-step DDIM, DPM and PNDM samples at
+    256x256, a train step on 160 patches and its peak memory, the CLIs."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(29)
+    model = DDIMModel(device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cond = torch.tensor(phantom(rng, 1, 512)[..., None], dtype=torch.float32, device="cuda")
+    x_t = torch.randn(cond.shape, generator=g, device="cuda")
+    t500 = torch.full((1,), 500, device="cuda")
+    zero_counts()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model.eps(x_t, cond, t500), 3)
+        # a 10-step segment of the 1000-step DDPM chain at 512x512
+        sched = DDPMScheduler()
+        steps = sched.timesteps(1000)[:DN_SEGMENT_STEPS]
+
+        def segment():
+            carry = sched.init_carry(torch.randn(cond.shape, generator=g, device="cuda"))
+            for k, t in enumerate(steps):
+                eps = model.eps(carry[0], cond, torch.full((1,), t, device="cuda"))
+                z = torch.randn(cond.shape, generator=g, device="cuda")
+                carry = sched.step(carry, k, t, eps, 1000, z)
+            return carry[0]
+
+        seg, seg_ms = once_ms(segment)
+        cond256 = torch.tensor(phantom(rng, 1, DN_CLI_SIZE)[..., None], dtype=torch.float32,
+                               device="cuda")
+        samples = {}
+        for name in ("DDIM", "DPM", "PNDM"):
+            model.scheduler = DN_MODELS[name].scheduler_cls()
+            model.n_inference_steps = DN_MODELS[name].n_inference_steps
+            out, ms = once_ms(lambda: model.sample(cond256, generator=g))
+            if out.shape != cond256.shape or not torch.isfinite(out).all():
+                fail(f"diffusion {name} sample 256x256: {tuple(out.shape)}, finite "
+                     f"{bool(torch.isfinite(out).all())}")
+            samples[name] = ms
+        model.scheduler = DDIMModel.scheduler_cls()
+        model.n_inference_steps = DDIMModel.n_inference_steps
+    expect_counts("diffusion forward and samples", read_counts(), {})
+    if not torch.isfinite(seg).all():
+        fail("diffusion DDPM segment 512x512: non-finite sample")
+    flops512, flops256 = unet_flops(512), unet_flops(DN_CLI_SIZE)
+    print(f"time diffusion UNet forward 512x512 batch 1 ({flops512 / 1e12:.3f} TFLOP, fp32 "
+          f"bound {flops512 / PEAK_FP32_FLOPS * 1e3:.2f} ms, plain chunked attention): {fwd_ms:.2f} "
+          f"ms, {flops512 / fwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+    print(f"time diffusion DDPM segment 512x512 batch 1: {DN_SEGMENT_STEPS} steps in "
+          f"{seg_ms:.2f} ms = {seg_ms / DN_SEGMENT_STEPS:.2f} ms/step (a 1000-step sample "
+          f"~{seg_ms / DN_SEGMENT_STEPS:.0f} s)", flush=True)
+    print(f"time diffusion samples 256x256 batch 1, 50 steps ({flops256 / 1e12:.3f} TFLOP a "
+          f"step): {', '.join(f'{k} {v:.2f} ms ({v / 50:.2f} ms/step)' for k, v in samples.items())}",
+          flush=True)
+
+    # a train step on the reference batch, fp32, TF32 off
+    x, y = train_patches(rng, seed=29)
+    trainer = build_trainer("DDIM", model, train_cli.get_args_parser().parse_args([]))
+    zero_counts()
+    m = trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    expect_counts("diffusion train step", read_counts(), {})
+    if not math.isfinite(m["loss"].item()):
+        fail(f"diffusion train step: loss {m['loss'].item()}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: trainer.train_step(x, y), 3)
+    step_flops = 3 * unet_flops(64, len(x))
+    print(f"time diffusion train step {len(x)} x 64x64 (DDIM, AdamW, fp32, TF32 off; "
+          f"~{step_flops / 1e12:.2f} TFLOP as 3x the forward's): {step_ms:.2f} ms = "
+          f"{len(x) * 1e3 / step_ms:.2f} patches/s, {step_flops / step_ms / 1e9:.2f} TFLOP/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    # a validation chunk: the sliding window's 32 and 17 tiles of a 256x256
+    # slice, each a whole 50-step DDIM chain
+    tiles = x[:32, ..., :1].contiguous()
+    with torch.no_grad():
+        chunk_ms = {n: cuda_ms(lambda: model.eps(tiles[:n], tiles[:n], t500.expand(n)), 3)
+                    for n in (32, 17)}
+        _, sample32_ms = once_ms(lambda: model.sample(tiles, generator=g))
+    print(f"time diffusion validation chunk 64x64: UNet forward batch 32 "
+          f"{chunk_ms[32]:.2f} ms, batch 17 {chunk_ms[17]:.2f} ms; 50-step DDIM sample batch "
+          f"32 {sample32_ms:.2f} ms", flush=True)
+    profile("diffusion UNet forward 64x64 batch 32",
+            lambda: model.eps(tiles, tiles, t500.expand(32)))
+    del model, trainer, x, y
+
+    # the CLIs: one DDIM epoch of 2 steps with validation, test --resume
+    root = os.path.join(tmp, "dn_data")
+    write_split(root, "train", rng, 2 * TRAIN_SLICES, DN_CLI_SIZE)
+    write_split(root, "valid", rng, 1, DN_CLI_SIZE)
+    write_split(root, "test", rng, 2, DN_CLI_SIZE)
+    stats, train_s, train_counts, summary, sweep_s, sweep_counts, _ = family_run(
+        "DDIM", {}, root, root, tmp)
+    expect_counts("train CLI DDIM", train_counts, {})
+    expect_counts("test --resume DDIM", sweep_counts, {})
+    print(f"family DDIM: train CLI 1 epoch of 2 steps x {TRAIN_SLICES} slices "
+          f"{DN_CLI_SIZE}x{DN_CLI_SIZE} in {train_s:.3f} s (validation of 1 slice through "
+          f"the window at overlap 0.5, 49 tiles, and checkpoint included), train_loss "
+          f"{stats['train_loss']:.6f}, valid_loss {stats['valid_loss']:.6f}; test --resume 2 "
+          f"slices in {sweep_s:.3f} s, pred_psnr {summary['pred_psnr']:.4f} pred_ssim "
+          f"{summary['pred_ssim']:.5f}; launches {train_counts} / {sweep_counts}", flush=True)
+
+    check_diffusion_cpu(rng)
+    print(f"phase 29 (diffusion): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2186,6 +2429,10 @@ def main():
         # ---- 28. the WGAN and transformer families through the train and
         # test CLIs; none of K1 - K8 on their paths
         check_new_families(rng, tmp, os.path.join(tmp, "data512"), x_gen, model)
+
+        # ---- 29. the diffusion family through the train and test CLIs;
+        # none of K1 - K8 on its paths
+        check_diffusion(tmp)
 
         # ---- 6. K8 against its plain version
         k8_max_abs_err = check_k8()

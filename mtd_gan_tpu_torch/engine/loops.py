@@ -13,10 +13,18 @@
   dugan  DU_GAN                  DUGANTrainer, three optimizers
   mtd    MTD_GAN_Method          MTDGANTrainer; the ten ``Ablation_*``:
                                  AdversarialTrainer, 1 D update a step
-  dn     DDPM, DDIM, PNDM, DPM   not ported yet (ROADMAP.md queue 1, item
-                                 11): raises
+  dn     DDPM, DDIM, PNDM, DPM   SupervisedTrainer (eps-MSE); the whole
+                                 reverse chain per prediction: validated
+                                 through the sliding window (64x64 tiles
+                                 at overlap 0.5, 32 a chunk, ``constant``;
+                                 JAX engine/loops.py:196-201), tested on
+                                 the full image (engine.py:866)
 
-The GAN families predict with ``model.generate``.
+The GAN families predict with ``model.generate``. A ``dn`` prediction
+samples from fresh noise: in ``validate`` each call of the predictor (a
+chunk of tiles) takes the next noise stream under ``seed``; in
+``run_test`` each slice takes the stream of its position in the sweep, so a
+grouped sweep gives every slice the noise of the batch-1 sweep.
 
 Training: the loader is wrapped in ``prefetch_to_device``, so each HU pair
 is on the model's device before its step; the train preprocess cuts and
@@ -56,6 +64,7 @@ from mtd_gan_tpu_torch.metrics import fid as fid_lib
 from mtd_gan_tpu_torch.metrics import perceptual
 from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.models import resolve_alias
+from mtd_gan_tpu_torch.models.diffusion.wrappers import slice_seed
 from mtd_gan_tpu_torch.ops.sliding_window import sliding_window_inference
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
@@ -76,12 +85,13 @@ FAMILY = {
     "DDPM": "dn", "DDIM": "dn", "PNDM": "dn", "DPM": "dn",
 }
 # the ROADMAP.md queue 1 item that ports each family still missing
-UNPORTED_FAMILIES = {"dn": 11}
+UNPORTED_FAMILIES: Dict[str, int] = {}
 # the sliding window of the tr family: 64x64 tiles (reference engine.py:345,
-# 378)
+# 378); the dn family validates through it too (engine.py:835)
 TR_ROI = (64, 64)
 TR_VALID = dict(overlap=0.3, sw_batch_size=32)
 TR_TEST = dict(overlap=0.9, sw_batch_size=960)
+DN_VALID = dict(overlap=0.5, sw_batch_size=32)
 
 
 def family_of(model_name: str) -> str:
@@ -98,12 +108,13 @@ def _refuse_family(family: str) -> None:
         raise NotImplementedError(
             f"family {family!r} is not ported yet (ROADMAP.md queue 1, item "
             f"{UNPORTED_FAMILIES[family]})")
-    if family not in ("cnn", "tr", "wgan", "dugan", "mtd"):
+    if family not in ("cnn", "tr", "wgan", "dugan", "mtd", "dn"):
         raise KeyError(family)
 
 
 def build_trainer(model_name: str, model, args, seed: int = 0):
-    """The family's trainer: ``SupervisedTrainer`` for ``cnn`` and ``tr``;
+    """The family's trainer: ``SupervisedTrainer`` for ``cnn``, ``tr`` and
+    ``dn``;
     ``AdversarialTrainer`` with the model's ``d_steps_per_g`` (4) D updates
     a step for ``wgan``; ``DUGANTrainer`` for ``dugan``; for ``mtd``,
     ``MTDGANTrainer`` with ``args.method`` for a stacked ``d_loss``
@@ -118,7 +129,7 @@ def build_trainer(model_name: str, model, args, seed: int = 0):
     family = family_of(model_name)
     _refuse_family(family)
     kw = dict(optimizer=args.optimizer, lr=args.lr, seed=seed)
-    if family in ("cnn", "tr"):
+    if family in ("cnn", "tr", "dn"):
         return SupervisedTrainer(model, **kw)
     method = args.method or None
     if family == "mtd" and model.n_d_tasks > 1:
@@ -132,16 +143,34 @@ def build_trainer(model_name: str, model, args, seed: int = 0):
     return AdversarialTrainer(model, n_critic=n_critic, **kw)
 
 
-def _predictor_for(model, family: str) -> Callable[[torch.Tensor], torch.Tensor]:
+def _predictor_for(model, family: str, seed: int = 0, per_slice: bool = False
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Full-image prediction function: ``model.predict`` for ``cnn``; for
     ``tr`` ``model.predict`` over 64x64 tiles (the caller's sliding
     window); ``model.generate`` for the GAN families (the ablations
-    included)."""
+    included); for ``dn`` the model's reverse chain, each call on the next
+    noise stream under ``seed`` (``validate``: a chunk of tiles shares
+    one), or with ``per_slice`` each slice on the stream of its position
+    among the slices of every call so far (``run_test``)."""
     _refuse_family(family)
-    return model.predict if family in ("cnn", "tr") else model.generate
+    if family != "dn":
+        return model.predict if family in ("cnn", "tr") else model.generate
+    count = [0]
+
+    def sample(x: torch.Tensor) -> torch.Tensor:
+        first = count[0]
+        if per_slice:
+            count[0] += x.shape[0]
+            return model.sample_batched(x, [slice_seed(seed, first + i)
+                                            for i in range(x.shape[0])])
+        count[0] += 1
+        return model.sample(x, torch.Generator(device=x.device).manual_seed(
+            slice_seed(seed, first)))
+
+    return sample
 
 
-def _tr_predict(predictor: Callable, x: torch.Tensor, window: Dict) -> torch.Tensor:
+def _window_predict(predictor: Callable, x: torch.Tensor, window: Dict) -> torch.Tensor:
     return sliding_window_inference(x, TR_ROI, predictor, mode="constant", **window)
 
 
@@ -180,17 +209,19 @@ def train_one_epoch(trainer, loader: Iterable, preprocess,
 @torch.no_grad()
 def validate(model, loader: Iterable, eval_preprocess, family: str, epoch: int,
              save_dir: Optional[str] = None,
-             criterion: Callable = losses_lib.l1) -> Dict[str, float]:
+             criterion: Callable = losses_lib.l1, seed: int = 0) -> Dict[str, float]:
     """Criterion of the model's full-slice prediction per validation slice;
     PNGs of the last slice's input, ground truth and prediction in
-    ``save_dir``."""
-    predictor = _predictor_for(model, family)
+    ``save_dir``. ``seed``: the ``dn`` family's noise streams, keyed by
+    ``epoch`` as well, so each epoch's validation draws fresh noise."""
+    predictor = _predictor_for(model, family, slice_seed(seed, epoch))
+    window = {"tr": TR_VALID, "dn": DN_VALID}.get(family)
     logger = MetricLogger()
     pending, last = [], None
     for batch in loader:
         x, y = eval_preprocess(torch.from_numpy(np.asarray(batch[0])).to(model.device),
                                torch.from_numpy(np.asarray(batch[1])).to(model.device))
-        pred = _tr_predict(predictor, x, TR_VALID) if family == "tr" else predictor(x)
+        pred = _window_predict(predictor, x, window) if window else predictor(x)
         pending.append(criterion(pred, y))
         last = (x, y, pred)
     for v in torch.stack(pending).cpu().tolist() if pending else []:
@@ -238,7 +269,7 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
              save_dir: str, compute_fid_metric: bool = True,
              compute_feature_metrics: bool = True,
              eval_batch: int = 8,
-             phases: Optional[Dict[str, StepTimer]] = None) -> Dict[str, float]:
+             phases: Optional[Dict[str, StepTimer]] = None, seed: int = 0) -> Dict[str, float]:
     """Metric sweep over ``loader`` items ``(hu_x, hu_y[, paths])`` on the
     model's device; returns the per-column means and, with
     ``compute_fid_metric``, ``input_fid`` / ``gt_fid`` / ``pred_fid`` (also
@@ -248,8 +279,9 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
     window, ``generate``, ``metrics`` the pixel metrics with their copy
     back, ``features`` the VGG19 trunk and the Inception with theirs,
     ``png`` the encoders' drain, ``csv`` the FID, CSV and summary), one
-    synchronizing :class:`StepTimer` each."""
-    predictor = _predictor_for(model, family)
+    synchronizing :class:`StepTimer` each. ``seed``: the ``dn`` family's
+    noise streams, one per slice."""
+    predictor = _predictor_for(model, family, seed, per_slice=True)
     device = model.device
     if phases is not None:
         sync = device.type == "cuda"
@@ -275,7 +307,7 @@ def run_test(model, loader: Iterable, eval_preprocess, family: str,
                 hu_y = torch.from_numpy(np.concatenate([np.asarray(b[1]) for b in group]))
                 x, y = eval_preprocess(hu_x.to(device), hu_y.to(device))
             with span("generate"):
-                pred = (_tr_predict(predictor, x, TR_TEST) if family == "tr"
+                pred = (_window_predict(predictor, x, TR_TEST) if family == "tr"
                         else predictor(x)).clamp(0.0, 1.0)
 
             with span("metrics"):

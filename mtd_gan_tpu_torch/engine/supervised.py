@@ -1,17 +1,18 @@
-"""Supervised trainer of the CNN and transformer families (counterpart of
-``mtd_gan_tpu/engine/supervised.py``; reference engine.py:192-414).
+"""Supervised trainer of the CNN, transformer and diffusion families
+(counterpart of ``mtd_gan_tpu/engine/supervised.py``; reference
+engine.py:192-414, 789-897).
 
 One step: the model's self-contained loss (its random draws, such as
-CTformer's dropout, from the trainer's ``torch.Generator``, seeded from
-``seed``), its backward, one AdamW step (lr 1e-4, decoupled weight decay
-5e-4, ``optim.get_optimizer``) over the network's trainable parameters
-(buffers such as EDCNN's Sobel bank and CTformer's performer ``w`` take
-none).
+CTformer's dropout or a diffusion model's noise and timesteps, from the
+trainer's ``torch.Generator``, seeded from ``seed``), its backward, one
+AdamW step (lr 1e-4, decoupled weight decay 5e-4,
+``optim.get_optimizer``) over the network's trainable parameters (buffers
+such as EDCNN's Sobel bank and CTformer's performer ``w`` take none).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,11 +35,15 @@ class SupervisedTrainer:
     def set_epoch_lr(self, lr: float) -> None:
         optim.set_learning_rate(self.opt, lr)
 
-    def train_step(self, x: Tensor, y: Tensor) -> Dict[str, Tensor]:
+    def train_step(self, x: Tensor, y: Tensor, draws: Optional[Dict] = None
+                   ) -> Dict[str, Tensor]:
         """One step on NHWC ``x``, ``y`` on the model's device; returns the
-        loss and its details as 0-d tensors."""
+        loss and its details as 0-d tensors. ``draws``: the loss's random
+        draws, given in place of the generator's (the diffusion models'
+        noise and timesteps)."""
         self.model.net.train()
-        loss, details = self.model.loss(x, y, generator=self.rng)
+        kw = {} if draws is None else {"draws": draws}
+        loss, details = self.model.loss(x, y, generator=self.rng, **kw)
         loss.backward()
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)

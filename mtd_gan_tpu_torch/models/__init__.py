@@ -2,11 +2,11 @@
 ``mtd_gan_tpu/models/__init__.py``; reference models.py:19-80).
 
 The ported names build through :func:`get_model`; the JAX package's
-aliases (``MTD_GAN``, ``ED_CNN``, ...) resolve first, as there. A name the
-JAX package knows and the port does not yet raises ``NotImplementedError``
-naming the ROADMAP.md item that ports its family
-(``engine/loops.py::UNPORTED_FAMILIES``); any other name raises
-``KeyError``.
+aliases (``MTD_GAN``, ``ED_CNN``, ...) resolve first, as there. Every name
+of the JAX registry is ported. A name of a family listed in
+``engine/loops.py::UNPORTED_FAMILIES`` (empty since the diffusion family
+was ported) raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it; any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ def registry() -> Dict[str, Callable[..., Any]]:
     ``seed`` among them)."""
     from mtd_gan_tpu_torch.models.ablations import ABLATIONS
     from mtd_gan_tpu_torch.models.ctformer import CTformerModel
+    from mtd_gan_tpu_torch.models.diffusion import DDIMModel, DDPMModel, DPMModel, PNDMModel
     from mtd_gan_tpu_torch.models.dugan import DUGANModel
     from mtd_gan_tpu_torch.models.edcnn import EDCNNModel
     from mtd_gan_tpu_torch.models.map_nn import MAPNNModel
@@ -40,7 +41,8 @@ def registry() -> Dict[str, Callable[..., Any]]:
 
     return {"RED_CNN": REDCNNModel, "EDCNN": EDCNNModel, "CTformer": CTformerModel,
             "Restormer": RestormerModel, "WGAN_VGG": WGANVGGModel, "MAP_NN": MAPNNModel,
-            "DU_GAN": DUGANModel, "MTD_GAN_Method": MTDGANModel, **ABLATIONS}
+            "DU_GAN": DUGANModel, "MTD_GAN_Method": MTDGANModel, "DDPM": DDPMModel,
+            "DDIM": DDIMModel, "PNDM": PNDMModel, "DPM": DPMModel, **ABLATIONS}
 
 
 def ported_names() -> tuple:

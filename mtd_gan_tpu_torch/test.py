@@ -7,12 +7,14 @@ of the root ``test.py``, with its flags and defaults but ``--device``).
 
 ``--model`` takes the train CLI's names: ``MTD_GAN_Method``, ``RED_CNN``,
 ``EDCNN``, the ten ``Ablation_*``, ``WGAN_VGG``, ``MAP_NN``, ``DU_GAN``,
-``CTformer``, ``Restormer`` and the aliases; ``--model-kwargs`` reaches
-the model's constructor. Loads the network the sweep runs from a
-reference-layout ``.pth`` (the generator's ``Generator.*``, or the flat
-``model_state_dict`` of RED_CNN, EDCNN, CTformer and Restormer; CTformer
-and Restormer through the sliding window at overlap 0.9, one slice at a
-time): ``--resume``, else
+``CTformer``, ``Restormer``, ``DDPM``, ``DDIM``, ``PNDM``, ``DPM`` and the
+aliases; ``--model-kwargs`` reaches the model's constructor. Loads the
+network the sweep runs from a reference-layout ``.pth`` (the generator's
+``Generator.*``, or the flat ``model_state_dict`` of RED_CNN, EDCNN,
+CTformer, Restormer and the diffusion models' UNet; CTformer and Restormer
+through the sliding window at overlap 0.9, one slice at a time; the
+diffusion models sample each whole slice from its own noise stream under
+``--seed``): ``--resume``, else
 ``<checkpoint-dir>/epoch_<n>.pth`` as the train CLI writes it (the epoch
 ``--epoch`` names, the latest at -1). Runs full-image inference in groups
 of ``--eval-batch`` slices, computes RMSE/PSNR/SSIM and, unless
@@ -77,7 +79,7 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="epoch to restore from --checkpoint-dir (-1 = latest)")
     p.add_argument("--eval-batch", default=None, type=int,
                    help="slices per forward in the sweep (metrics/PNGs stay "
-                        "per slice); default 8")
+                        "per slice); default 1 for the diffusion models, else 8")
     p.add_argument("--no-feature-metrics", action="store_true",
                    help="skip PL/TML/FID (no pretrained weights scenario)")
     p.add_argument("--seed", default=42, type=int)
@@ -86,6 +88,12 @@ def get_args_parser() -> argparse.ArgumentParser:
                         '\'{"gen_features": 32, "num_layers": 10}\'')
     p.add_argument("--memo", default="", type=str)
     return p
+
+
+def default_eval_batch(family: str) -> int:
+    """The sweep's slices per forward when ``--eval-batch`` is not given:
+    1 for ``dn`` (root test.py:86-88), else 8."""
+    return 1 if family == "dn" else 8
 
 
 def checkpoint_path(checkpoint_dir: str, epoch: int = -1) -> str:
@@ -118,7 +126,7 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
         model = get_model(args.model, **kwargs, device=device, seed=args.seed)
         family = family_of(args.model)
         path = args.resume or checkpoint_path(args.checkpoint_dir, args.epoch)
-        net = model.net if family in ("cnn", "tr") else model.generator
+        net = model.net if family in ("cnn", "tr", "dn") else model.generator
         epoch, state = load_reference_checkpoint(path, args.model, keys=net.state_dict())
         net.load_state_dict(state, strict=True)
     if phases is not None:
@@ -133,7 +141,8 @@ def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
         save_dir=args.save_dir,
         compute_fid_metric=not args.no_feature_metrics,
         compute_feature_metrics=not args.no_feature_metrics,
-        eval_batch=8 if args.eval_batch is None else args.eval_batch, phases=phases)
+        eval_batch=default_eval_batch(family) if args.eval_batch is None else args.eval_batch,
+        phases=phases, seed=args.seed)
     line = {"epoch": epoch, "model": args.model, **summary, "memo": args.memo,
             "decoded": ds.decoded}
     if not args.no_feature_metrics:

@@ -9,18 +9,21 @@ flags and defaults but ``--device``; reference train.py:22-67).
 ``RED_CNN`` and ``EDCNN`` (alias ``ED_CNN``), one of the ten MTD-GAN
 ablations ``Ablation_*`` (``models/ablations.py``), the WGAN family
 ``WGAN_VGG``, ``MAP_NN`` (alias ``MAP_NN_brain``) and ``DU_GAN`` (alias
-``DU_GAN_brain``), or the transformers ``CTformer`` and ``Restormer``;
-``--model-kwargs`` reaches the model's constructor. The diffusion names
-are not ported yet and raise, naming their ROADMAP.md item. For
+``DU_GAN_brain``), the transformers ``CTformer`` and ``Restormer``, or the
+diffusion models ``DDPM``, ``DDIM``, ``PNDM`` and ``DPM`` (the eps-MSE on
+the conditioned UNet); ``--model-kwargs`` reaches the model's
+constructor. For
 MTD_GAN_Method ``--method`` picks the discriminator's multi-task method
 (any of the eleven); without it, as at the root, the three task losses are
 summed. The other GAN models have a scalar discriminator loss and no
 method: a given ``--method`` is noted and not used, as at the root
 (WGAN-VGG and MAP-NN take 4 critic updates a step, DU-GAN three
 optimizers). The whole-slice presets ``full`` and ``window`` train
-RED_CNN, EDCNN, DU_GAN and Restormer; the 64x64 discriminators (MTD-GAN's,
-the ablations', the WGAN critic) and CTformer refuse them. The
-transformers validate through the 64x64 sliding window.
+RED_CNN, EDCNN, DU_GAN, Restormer and the diffusion models; the 64x64
+discriminators (MTD-GAN's, the ablations', the WGAN critic) and CTformer
+refuse them. The transformers validate through the 64x64 sliding window,
+the diffusion models too (overlap 0.5, the whole reverse chain per chunk
+of 32 tiles, noise streams under ``--seed``).
 Per epoch: the learning rate of ``--scheduler`` (``poly_lr`` or
 ``cosine_annealing_warm_restart``), shuffled batches of slices cut by the
 ``--dataset-type-train`` preset (``window_patch``: 8 random 64x64 crops
@@ -175,7 +178,7 @@ def main(args) -> dict:
         if epoch % args.valid_every == 0:
             valid_stats = validate(model, eval_loader(valid_ds), eval_pre, family, epoch,
                                    save_dir=os.path.join(args.save_dir, "valid"),
-                                   criterion=get_loss(args.loss))
+                                   criterion=get_loss(args.loss), seed=args.seed)
             stats.update({f"valid_{k}": v for k, v in valid_stats.items()})
         with open(os.path.join(args.checkpoint_dir, "log.txt"), "a") as f:
             f.write(json.dumps(stats) + "\n")

@@ -26,6 +26,11 @@
   for the WGAN family and the transformers (inverses of
   ``convert_wgan_vgg``, ``convert_map_nn``, ``convert_dugan``,
   ``convert_ctformer`` and ``convert_restormer``);
+* :func:`diffusion_unet_state_dict_from_flax` carries the JAX package's
+  ``DiffusionUNet`` tree into the port's UNet, whose modules bear the flax
+  names, and :func:`diffusion_unet_flax_from_state_dict` carries it back
+  (the JAX package has no converter for it, and the reference's MONAI
+  names are not in the repository);
 * :func:`load_reference_checkpoint` reads a checkpoint in the reference
   layout (``{"model_state_dict": {"Generator.…": …}, "epoch": …}``, as
   ``tools/import_torch_checkpoint.py`` reads it) and returns the state dict
@@ -128,7 +133,7 @@ FLAT_REFERENCE_KEYS = {
 
 
 # the single-network models whose flat keys depend on their configuration
-CONFIGURED_FLAT_MODELS = ("CTformer", "Restormer")
+CONFIGURED_FLAT_MODELS = ("CTformer", "Restormer", "DDPM", "DDIM", "PNDM", "DPM")
 
 
 def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method",
@@ -141,7 +146,8 @@ def load_reference_checkpoint(path: str, model_name: str = "MTD_GAN_Method",
     ``pos_embed``, are not read), for load with ``strict=True``: those of
     ``FLAT_REFERENCE_KEYS`` for RED_CNN and EDCNN (aliases resolved), and
     ``keys`` (the port network's own, which depend on the configuration;
-    ignored for the other models) for CTformer and Restormer; for the GAN
+    ignored for the other models) for CTformer, Restormer and the
+    diffusion models (DDPM, DDIM, PNDM, DPM: the UNet's); for the GAN
     models (the MTD-GAN family,
     WGAN_VGG, MAP_NN, DU_GAN) the ``Generator.`` part.
 
@@ -519,3 +525,38 @@ def pieapp_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Te
         sd[f"{name}.weight"] = _oihw(k) if k.ndim == 4 else _t(k.T)
         sd[f"{name}.bias"] = _t(p["bias"])
     return sd
+
+
+def diffusion_unet_state_dict_from_flax(params: Mapping[str, Any], prefix: str = ""
+                                        ) -> Dict[str, torch.Tensor]:
+    """flax ``DiffusionUNet`` params -> the port's ``DiffusionUNet`` state
+    dict: the module path joined by dots, conv HWIO -> OIHW, dense
+    ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` -> ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if isinstance(p, Mapping):
+            sd.update(diffusion_unet_state_dict_from_flax(p, f"{prefix}{name}."))
+            continue
+        a = np.asarray(p)
+        if name == "kernel":
+            sd[f"{prefix}weight"] = _t(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+        else:  # GroupNorm "scale", every "bias"
+            sd[f"{prefix}{'weight' if name == 'scale' else name}"] = _t(a)
+    return sd
+
+
+def diffusion_unet_flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`diffusion_unet_state_dict_from_flax`: nested
+    dicts of float32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for key, v in sd.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        a = v.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, a = ("kernel", a.transpose(2, 3, 1, 0)) if a.ndim == 4 else (
+                ("kernel", a.T) if a.ndim == 2 else ("scale", a))
+        node[leaf] = np.ascontiguousarray(a, np.float32)
+    return tree

@@ -192,34 +192,31 @@ def test_reference_flat_checkpoint_loads(tmp_path, name):
 
 
 def test_registry_and_family_dispatch_cover_every_jax_name():
-    """Every name of the JAX registry and its aliases: the same family; a
-    ported one builds, an unported one (the diffusion family) raises naming
-    its ROADMAP.md item; ``build_trainer`` gives each ported family its
-    trainer (``wgan`` 4 critic updates a step, the ablations 1); a family
-    not ported raises in ``run_test``."""
+    """Every name of the JAX registry and its aliases: the same family, and
+    it builds (no family is left unported: ``UNPORTED_FAMILIES`` is empty);
+    ``build_trainer`` gives each family its trainer (``wgan`` 4 critic
+    updates a step, the ablations 1, ``dn`` the supervised trainer); a
+    family listed as unported raises in ``run_test``, naming its ROADMAP.md
+    item."""
     _ensure_registered()
     names = sorted(set(JAX_REGISTRY) | set(JAX_ALIASES))
     assert len(names) == 26  # 22 models and 4 aliases
-    item = {"dn": 11}
+    assert loops.UNPORTED_FAMILIES == {}
     args = argparse.Namespace(optimizer="adamw", lr=1e-4, method="pcgrad")
+    diffusion = {"channels": (8, 16, 16), "num_head_channels": 16, "norm_groups": 4}
     small = {"RED_CNN": {"out_ch": 8},
              "EDCNN": {"out_ch": 8, "sobel_ch": 8, "use_feature_loss": False},
              "WGAN_VGG": {"use_perceptual": False}, "MAP_NN": {"depth": 1},
              "DU_GAN": {"gen_features": 8, "num_layers": 1, "conv_dim": 8},
              "CTformer": {},
              "Restormer": {"dim": 8, "num_blocks": (1, 1, 1, 1),
-                           "num_refinement_blocks": 1}}
+                           "num_refinement_blocks": 1},
+             "DDPM": diffusion, "DDIM": diffusion, "PNDM": diffusion, "DPM": diffusion}
     want = {"cnn": SupervisedTrainer, "tr": SupervisedTrainer, "mtd": AdversarialTrainer,
-            "wgan": AdversarialTrainer, "dugan": DUGANTrainer}
+            "wgan": AdversarialTrainer, "dugan": DUGANTrainer, "dn": SupervisedTrainer}
     for name in names:
         family = loops.family_of(name)
         assert family == jax_loops.family_of(name), name
-        if family in item:
-            with pytest.raises(NotImplementedError, match=f"queue 1, item {item[family]}"):
-                get_model_class(name)
-            with pytest.raises(NotImplementedError, match=f"item {item[family]}"):
-                loops.run_test(None, [], None, family, "unused")
-            continue
         assert get_model_class(name) is get_model_class(resolve_alias(name))
         if name.startswith("Ablation_") and name != "Ablation_CLS":
             continue  # one of the ten builds here; all ten in test_torch_ablations.py
@@ -230,6 +227,10 @@ def test_registry_and_family_dispatch_cover_every_jax_name():
                           else want[family]), name
         if family in ("wgan", "mtd") and not isinstance(trainer, MTDGANTrainer):
             assert trainer.n_critic == (4 if family == "wgan" else 1), name
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(loops.UNPORTED_FAMILIES, "dn", 11)
+        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+            loops.run_test(None, [], None, "dn", "unused")
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("RED-CNN")
 

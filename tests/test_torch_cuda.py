@@ -2,8 +2,10 @@
 K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu), K7
 (csrc/spectral_fused.cu), K3 (csrc/conv3x3.cu) and K4 - K6
 (csrc/spectral_staged.cu; K5's and K8's column pass is csrc/columns_mixed.cuh)
-against their plain PyTorch versions, and the
-routes of ``generate`` and of the train step, on the card. Every test is marked
+against their plain PyTorch versions, the
+routes of ``generate`` and of the train step, and the diffusion UNet's
+chunked attention and a DDIM chain against float64 and the CPU, on the
+card. Every test is marked
 ``cuda`` and skips without a GPU. This file imports nothing of JAX, so it
 runs where JAX is not installed:
 
@@ -702,3 +704,41 @@ def test_feature_metrics_on_the_card_match_the_cpu(dev):
     got = inception_pool3_features(inc, cat.to(dev)).cpu().double()
     want = inception_pool3_features(inc64, cat.double())
     assert torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want) < TOL_REL
+
+
+@torch.no_grad()
+def test_diffusion_chunked_attention_matches_float64_at_65536_tokens(dev):
+    """The diffusion UNet's attention (the plain version, over query chunks
+    of 2048 above 4096 tokens) on one (1, 1, 65536, 256) input, the
+    level-1 shape of a 512x512 slice, in fp32 on the card against the same
+    in float64 on the card, within TOL_REL of the largest output."""
+    from mtd_gan_tpu_torch.models.diffusion.unet import attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 1, 65536, 256), generator=g, device=dev) for _ in range(3))
+    got = attention_plain(q, k, v).double()
+    want = attention_plain(q.double(), k.double(), v.double())
+    assert ((got - want).abs().max() / want.abs().max()).item() < TOL_REL
+
+
+@torch.no_grad()
+def test_diffusion_ddim_chain_on_the_card_matches_the_cpu(dev):
+    """A 3-step DDIM chain of the full-width UNet at 64x64 on the card and on
+    the CPU from the same weights (every leaf drawn) and the same draws:
+    within 1e-3 of the largest sample value (a step divides x0's error by
+    sqrt(acp_t))."""
+    from mtd_gan_tpu_torch.models.diffusion import DDIMModel
+
+    cpu = DDIMModel(device="cpu", seed=1)
+    g = torch.Generator().manual_seed(1)
+    for p in cpu.net.parameters():
+        p.copy_(torch.randn(p.shape, generator=g) / p[0].numel() ** 0.5 if p.dim() > 1
+                else p + 0.1 * torch.randn(p.shape, generator=g))
+    card = DDIMModel(device=dev, seed=1)
+    card.net.load_state_dict(cpu.net.state_dict())
+    cpu.n_inference_steps = card.n_inference_steps = 3
+    cond = torch.rand((1, 64, 64, 1), generator=g)
+    draws = {"noise": torch.randn((1, 64, 64, 1), generator=g)}
+    want = cpu.sample(cond, draws=draws)
+    got = card.sample(cond.to(dev), draws={"noise": draws["noise"].to(dev)}).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-3

@@ -123,7 +123,7 @@ def test_csv_round_trip(tmp_path):
 
 
 def test_run_test_refuses_feature_metrics(tmp_path):
-    """``run_test`` refuses the families that are not ported; for MTD-GAN it
+    """``run_test`` refuses a family it does not know; for MTD-GAN it
     now computes the feature metrics it once refused: the PL / TML columns
     (after the pixel columns, before ``filename``) and the FID summary, by
     default. Three 64x64 slices in groups of 2: the VGG19 trunk runs once
@@ -131,8 +131,8 @@ def test_run_test_refuses_feature_metrics(tmp_path):
     TML is NaN there (relu5_1 holds no 16x16 patch), as in the JAX
     package."""
     model = MTDGANModel(gen_features=8, num_layers=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_test(model, [], make_eval_preprocess(), "dn", str(tmp_path),
+    with pytest.raises(KeyError, match="xx"):
+        run_test(model, [], make_eval_preprocess(), "xx", str(tmp_path),
                  compute_fid_metric=False, compute_feature_metrics=False)
     data = str(tmp_path / "data")
     _write_dataset(data, n=3)

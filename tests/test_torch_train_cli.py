@@ -182,5 +182,5 @@ def test_train_cli_defaults_to_cuda_and_refuses_unported(tmp_path):
         pytest.skip("checks the exit without a GPU")
     proc = _run("mtd_gan_tpu_torch.train", "--data-root", str(tmp_path))
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
-    proc = _run("mtd_gan_tpu_torch.train", "--device", "cpu", "--model", "DDPM")
-    assert proc.returncode != 0 and "not ported yet" in proc.stderr
+    proc = _run("mtd_gan_tpu_torch.train", "--device", "cpu", "--model", "DDPM_v2")
+    assert proc.returncode != 0 and "unknown model 'DDPM_v2'" in proc.stderr
