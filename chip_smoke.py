@@ -193,6 +193,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      slice through the sliding window) and ``test --resume`` on 2 slices; at 64x64 on drawn weights, the card against the CPU: one UNet
      forward, a 3-step chain of each sampler from the same draws, one
      loss and its gradient; no launch of K1 - K8 on any of these paths.
+  30. the parallel layer (run after phase 21's timings and profiles, last
+     before the kernels line; ``python3 chip_smoke.py --phase 30`` runs it
+     alone): in a one-rank NCCL group, the
+     DataParallel PCGrad step at full width on phase 18's 160 patches
+     against the Single step (losses and every parameter within 1e-6
+     relative) with its 21 K1 + 21 K2 launches (added to the kernels
+     line's), the TensorParallel step against the Single step with
+     ``g_forward="einsum"`` (losses 1e-5 relative, parameters rtol 2e-4 /
+     atol 2e-6 but AdamW sign flips of near-zero gradients, counted),
+     ``tp_generate`` at 512x512, batch 8, and ``packed_resfft_apply`` in
+     fp32 against ``generate`` (1e-3 max abs; bf16 printed), each timed
+     beside the Single step or ``generate``; where two or more cards
+     are visible, the same on min(count, 4) spawned NCCL ranks with the
+     step's ms and its share in collectives (else one line says so).
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -200,6 +214,8 @@ convs, matmuls), so both sides compute in fp32.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import csv
 import json
@@ -258,6 +274,9 @@ from mtd_gan_tpu_torch.models.diffusion.schedulers import DDPMScheduler
 from mtd_gan_tpu_torch.models.diffusion.unet import DiffusionUNet
 from mtd_gan_tpu_torch.models.diffusion.wrappers import (DDIMModel, DDPMModel, DPMModel,
                                                         PNDMModel)
+from mtd_gan_tpu_torch.models.packed import packed_resfft_apply
+from mtd_gan_tpu_torch.parallel import mesh
+from mtd_gan_tpu_torch.parallel.tensor import tp_generate
 from mtd_gan_tpu_torch.utils.checkpoint import load_checkpoint, load_pretrained
 
 # max |kernel - plain| / max |plain| per block call: both sides are fp32
@@ -2371,8 +2390,376 @@ def check_diffusion(tmp: str):
     print(f"phase 29 (diffusion): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- phase 30: the parallel layer (parallel/mesh.py, parallel/tensor.py),
+# the packed generator (models/packed.py) and --g-forward
+
+# the one-rank DataParallel step against the Single step: the same
+# arithmetic on the same rows (a one-rank all-reduce copies, the mean
+# divides by 1): the losses and each gradient leaf max |a - b| / max |b|,
+# each parameter element by element (rtol)
+TOL_DP_REL = 1e-6
+# the TensorParallel step against the Single step with g_forward="einsum"
+# (tests/test_tensor_parallel.py:66-72): the losses relative, each
+# parameter element by element; the gradient leaves in the relative
+# 2-norm at the train step's 1e-2 (a ReLU at fp32 rounding of zero may
+# take the other side in one version: TOL_STEP_GRAD_L2)
+TOL_TP_LOSS_REL = 1e-5
+TOL_TP_PARAM = dict(rtol=2e-4, atol=2e-6)
+# AdamW's first step moves each element by lr * g / (|g| + eps), that is
+# by lr * sign(g) unless |g| is near eps = 1e-8: where a gradient near zero
+# takes the other sign in one version, or two gradients near eps differ a
+# little, the two parameters differ by up to 2 lr however close the
+# gradients are. An element outside the parameter tolerance passes (counted
+# and printed) only where that map of the two held gradients explains its
+# difference, within this share of lr for the rounding of the update
+ADAM_SLACK = 1e-3
+# the multi-rank part: at most four ranks, one card each
+MAX_RANKS = 4
+
+
+def step_state(trainer):
+    """After one step: every parameter and buffer by name, each parameter's
+    gradient (AdamW's ``exp_avg`` after one step is 0.1 g; ``None`` where the
+    method gave none) and its optimizer's (lr, eps)."""
+    values, grads, hyper = {}, {}, {}
+    for tag, net, opt in (("G", trainer.model.generator, trainer.opt_g),
+                          ("D", trainer.model.discriminator, trainer.opt_d)):
+        group = opt.param_groups[0]
+        for name, p in net.named_parameters():
+            values[f"{tag}.{name}"] = p.detach().clone()
+            state = opt.state.get(p)
+            grads[f"{tag}.{name}"] = state["exp_avg"] / 0.1 if state else None
+            hyper[f"{tag}.{name}"] = (group["lr"], group["eps"])
+        for name, b in net.named_buffers():
+            values[f"{tag}.{name}"] = b.detach().clone()
+    return values, grads, hyper
+
+
+def one_step(base, x, y, grid=None, tensor_parallel=False, g_forward="auto"):
+    """One PCGrad step from a copy of ``base`` on this rank's rows of ``x``,
+    ``y``: (trainer, metrics as floats, launch counts)."""
+    trainer = MTDGANTrainer(copy.deepcopy(base), method="pcgrad", seed=0, grid=grid,
+                            tensor_parallel=tensor_parallel, g_forward=g_forward)
+    zero_counts()
+    m = trainer.train_step(mesh.shard_batch(grid, x), mesh.shard_batch(grid, y))
+    torch.cuda.synchronize()
+    return trainer, {k: v.item() for k, v in m.items()}, read_counts()
+
+
+def hold_steps(label: str, got, want, loss_rel: float, grad_rel: float, param_tol,
+               grad_norm: str = "max", hold: bool = True):
+    """``got`` and ``want``: (metrics, :func:`step_state`) after one step
+    from one state. ``d_loss`` and ``g_loss`` within ``loss_rel``; each
+    gradient leaf within ``grad_rel`` (``grad_norm`` ``"max"``: max |a - b|
+    / max |b|; ``"l2"``: the relative 2-norm); each parameter and buffer
+    element within ``param_tol`` (``torch.isclose``) but where AdamW's first
+    step from the two gradients explains the difference (``ADAM_SLACK``).
+    Without ``hold`` it only prints."""
+    (m_got, (v_got, g_got, _)), (m_want, (v_want, g_want, hyper)) = got, want
+    loss_err = max(abs(m_got[k] - m_want[k]) / abs(m_want[k]) for k in ("d_loss", "g_loss"))
+    other = max(abs(m_got[k] - m_want[k]) for k in m_want)
+    worst_g, worst_p, adam, bad = (0.0, ""), (0.0, ""), 0, []
+    worst_adam = (0.0, 0.0, "")  # the exempted elements' largest |a - b| (/ lr, name)
+    for name, b in v_want.items():
+        a = v_got[name]
+        worst_p = max(worst_p, (((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                                .item(), name))
+        out = ~torch.isclose(a, b, **param_tol)
+        ga, gb = g_got.get(name), g_want.get(name)
+        if (ga is None) != (gb is None):
+            bad.append(f"{name}: a gradient in one step only")
+            continue
+        if ga is not None:
+            diff = ga - gb
+            num, den = ((diff.abs().max(), gb.abs().max()) if grad_norm == "max" else
+                        (diff.norm(), gb.norm()))
+            err = (num / den).item() if den > 0 else num.item()
+            worst_g = max(worst_g, (err, name))
+            if err > grad_rel:
+                bad.append(f"{name}: gradient {err:.3e}")
+            if out.any():
+                lr, eps = hyper[name]
+                step = lambda g: g / (g.abs() + eps)
+                room = (param_tol["atol"] + param_tol["rtol"] * b.abs()
+                        + lr * ((step(ga) - step(gb)).abs() + ADAM_SLACK))
+                explained = out & ((a - b).abs() <= room)
+                adam += int(explained.sum())
+                if explained.any():
+                    gap = (a - b).abs()[explained].max().item()
+                    worst_adam = max(worst_adam, (gap / lr, gap, name))
+                out &= ~explained
+        if out.any():
+            bad.append(f"{name}: {int(out.sum())} elements")
+    print(f"{label}: d_loss {m_got['d_loss']:.6f} vs {m_want['d_loss']:.6f}, g_loss "
+          f"{m_got['g_loss']:.6f} vs {m_want['g_loss']:.6f}, rel {loss_err:.3e} (tol "
+          f"{loss_rel}); other metrics max abs {other:.3e}; gradient worst leaf "
+          f"{worst_g[1]} {worst_g[0]:.3e} ({grad_norm}-norm, tol {grad_rel}); parameters "
+          f"worst {worst_p[1]} {worst_p[0]:.3e} max-relative, {adam} elements outside "
+          f"rtol {param_tol['rtol']} / atol {param_tol['atol']} that AdamW's step from the "
+          f"two gradients explains (largest {worst_adam[1]:.3e} = {worst_adam[0]:.3f} lr, "
+          f"{worst_adam[2] or 'none'})"
+          + ("" if hold else f"; not held: {'; '.join(bad[:4]) or 'none outside'}"),
+          flush=True)
+    if not hold:
+        return
+    if not loss_err <= loss_rel:
+        fail(f"{label}: losses differ by {loss_err:.3e} > {loss_rel}")
+    if bad:
+        fail(f"{label}: {'; '.join(bad[:8])}")
+
+
+def step_ms(trainer, x, y, grid=None, iters: int = 3) -> float:
+    """ms per step of ``trainer`` on its rows (``iters`` steps after a warm
+    one; ``iters=0``: one step, no warm one, for a trainer that has
+    stepped)."""
+    xs, ys = mesh.shard_batch(grid, x), mesh.shard_batch(grid, y)
+    if iters:
+        return cuda_ms(lambda: trainer.train_step(xs, ys), iters)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    trainer.train_step(xs, ys)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's
+    (``use_deterministic_algorithms``, warning where an op has none) for a
+    holding that reads two steps bit for bit: without them one step's
+    cotangent of ``fake`` through the discriminator's backward varies by
+    ~1e-7 relative from call to call on an H100 (K1, K2 and the generator's
+    backward do not), which AdamW magnifies at near-zero gradients."""
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch_det = torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(torch_det)
+
+
+def parallel_one_rank(model, x_gen, x, y, dp):
+    """Phase 30's one-rank checks on the grid ``dp`` (module docstring of
+    :func:`check_parallel`). Returns the DataParallel step's (K1, K2)
+    launches, the seed-0 model the steps start from and ``generate``'s
+    output on ``x_gen``."""
+    tp = mesh.make_grid("TensorParallel", device="cuda")
+    base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10, device="cuda",
+                       seed=0)
+    with deterministic():
+        single, m_single, _ = one_step(base, x, y)
+        again, m_again, _ = one_step(base, x, y)
+        hold_steps("Single step vs Single step (witness of the steps' own spread)",
+                   (m_again, step_state(again)), (m_single, step_state(single)),
+                   TOL_DP_REL, TOL_DP_REL, dict(rtol=TOL_DP_REL, atol=0.0), hold=False)
+        del again
+        dp_tr, m_dp, counts = one_step(base, x, y, grid=dp)
+        expect_counts("DataParallel step (one rank)", counts, {"K1": 21, "K2": 21})
+        hold_steps("DataParallel step (one rank) vs Single step",
+                   (m_dp, step_state(dp_tr)), (m_single, step_state(single)),
+                   TOL_DP_REL, TOL_DP_REL, dict(rtol=TOL_DP_REL, atol=0.0))
+        dp_launches = (counts["K1"], counts["K2"])
+        einsum, m_einsum, counts = one_step(base, x, y, g_forward="einsum")
+        expect_counts("einsum step", counts, {})
+        tp_tr, m_tp, counts = one_step(base, x, y, grid=tp, tensor_parallel=True)
+        expect_counts("TensorParallel step", counts, {})
+        hold_steps("TensorParallel step (one rank) vs Single einsum step",
+                   (m_tp, step_state(tp_tr)), (m_einsum, step_state(einsum)),
+                   TOL_TP_LOSS_REL, TOL_STEP_GRAD_L2, TOL_TP_PARAM, grad_norm="l2")
+    # the steps timed with the default algorithms, one step each in turns
+    # (every trainer has stepped once: no warm step)
+    ms = [step_ms(trainer, x, y, grid, iters=0) for trainer, grid in (
+        (single, None), (dp_tr, dp), (dp_tr, dp), (single, None))]
+    print(f"time DataParallel step (one rank) {ms[1]:.2f} / {ms[2]:.2f} ms, Single step "
+          f"{ms[0]:.2f} / {ms[3]:.2f} ms (in turns: Single, DP, DP, Single)", flush=True)
+    ms = [step_ms(trainer, x, y, grid, iters=0) for trainer, grid in (
+        (einsum, None), (tp_tr, tp), (tp_tr, tp), (einsum, None))]
+    print(f"time TensorParallel step (one rank) {ms[1]:.2f} / {ms[2]:.2f} ms, Single einsum "
+          f"step {ms[0]:.2f} / {ms[3]:.2f} ms (in turns: einsum, TP, TP, einsum)", flush=True)
+    del single, dp_tr, einsum, tp_tr
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        want = model.generate(x_gen)
+        got = tp_generate(model.generator, x_gen, tp)
+        err = (got - want).abs().max().item()
+        state = model.generator.state_dict()
+        packed32 = packed_resfft_apply(state, x_gen, C, 10, dtype=torch.float32)
+        packed16 = packed_resfft_apply(state, x_gen, C, 10)
+        err32 = (packed32 - want).abs().max().item()
+        err16 = (packed16.float() - want).abs().max().item()
+        ms = {name: cuda_ms(fn, iters) for name, fn, iters in (
+            ("generate", lambda: model.generate(x_gen), 3),
+            ("tp", lambda: tp_generate(model.generator, x_gen, tp), 3),
+            ("packed32", lambda: packed_resfft_apply(state, x_gen, C, 10,
+                                                     dtype=torch.float32), 1),
+            ("packed16", lambda: packed_resfft_apply(state, x_gen, C, 10), 3))}
+    print(f"tp_generate (one rank) 512x512 batch 8: max abs vs generate {err:.3e} (tol "
+          f"{TOL_GENERATE_ABS}); {ms['tp']:.2f} ms vs generate {ms['generate']:.2f} ms",
+          flush=True)
+    print(f"packed_resfft_apply 512x512 batch 8, 4 groups: fp32 max abs vs generate "
+          f"{err32:.3e} (tol {TOL_GENERATE_ABS}), {ms['packed32']:.2f} ms; bf16 max abs "
+          f"{err16:.3e} (not held), {ms['packed16']:.2f} ms; generate {ms['generate']:.2f} ms",
+          flush=True)
+    if err > TOL_GENERATE_ABS or err32 > TOL_GENERATE_ABS:
+        fail(f"tp_generate {err:.3e} or packed fp32 {err32:.3e} > {TOL_GENERATE_ABS}")
+    return dp_launches, base, want
+
+
+def check_parallel(model, x_gen, x, y, tmp: str):
+    """Phase 30 on one card, in a one-rank NCCL group: the DataParallel
+    PCGrad step at full width (generator 32 x 10 layers, discriminator 64,
+    the 160 patches of phase 18) against the Single step (1e-6), its K1 /
+    K2 launches (21 + 21); the TensorParallel step against the Single step
+    with ``g_forward="einsum"``; ``tp_generate`` at 512x512, batch 8,
+    against ``generate`` (K1 route); ``packed_resfft_apply`` in fp32 and
+    bf16 against it; each timed beside the Single step or ``generate``. Then the same holdings
+    on min(device_count, 4) spawned ranks where there are two cards or
+    more. Returns the DataParallel step's (K1, K2) launches."""
+    t_phase = time.perf_counter()
+    dp = mesh.make_grid("DataParallel", device="cuda")
+    try:
+        dp_launches, base, want = parallel_one_rank(model, x_gen, x, y, dp)
+    finally:
+        mesh.destroy(dp)
+    torch.cuda.empty_cache()
+    check_parallel_ranks(base, x_gen, x, y, tmp, want)
+    print(f"phase 30 (parallel): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dp_launches
+
+
+def parallel_rank(rank: int, world: int, init: str, tmp: str) -> None:
+    """One spawned rank of phase 30's multi-rank part on ``cuda:rank``:
+    the DataParallel step, the TensorParallel step (the generator split over
+    all ranks) and ``tp_generate`` at 512x512 on the inputs in
+    ``tmp/inputs.pt``; rank 0 saves the results and the times, with the
+    share of the step spent in collectives (CUDA events around each)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.distributed.init_process_group("nccl", init_method=f"file://{init}", rank=rank,
+                                         world_size=world)
+    spans = []
+    for name in ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor"):
+        real = getattr(torch.distributed, name)
+
+        def timed(*args, _real=real, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = _real(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        setattr(torch.distributed, name, timed)
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+        x, y, x_gen = (inputs[k].cuda() for k in ("x", "y", "x_gen"))
+        base = MTDGANModel(gen_features=C, disc_features=64, num_layers=10, device="cuda",
+                           seed=0)
+        out = {}
+        for mode, kw in (("DataParallel", {}), ("TensorParallel", {"tensor_parallel": True})):
+            grid = mesh.make_grid(mode, device="cuda")
+            with deterministic():
+                trainer, metrics, counts = one_step(base, x, y, grid=grid, **kw)
+            state = step_state(trainer)
+            spans.clear()
+            ms = step_ms(trainer, x, y, grid)
+            torch.cuda.synchronize()
+            coll = sum(s.elapsed_time(e) for s, e in spans) / 4  # per step (warm + 3)
+            out[mode] = dict(metrics=metrics, counts=counts, ms=ms, coll_ms=coll,
+                             state=tuple({k: (v.cpu() if torch.is_tensor(v) else v)
+                                          for k, v in d.items()} for d in state))
+            del trainer, state
+            torch.cuda.empty_cache()
+        with torch.no_grad():
+            out["tp_generate"] = tp_generate(base.generator, x_gen, grid).cpu()
+            spans.clear()
+            out["tp_generate_ms"] = cuda_ms(lambda: tp_generate(base.generator, x_gen, grid), 3)
+            torch.cuda.synchronize()
+            out["tp_generate_coll_ms"] = sum(s.elapsed_time(e) for s, e in spans) / 4
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "rank0.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_parallel_ranks(base, x_gen, x, y, tmp: str, want_gen) -> None:
+    """Phase 30's multi-rank part: min(device_count, 4) NCCL ranks, one
+    card each, spawned; rank 0's DataParallel and TensorParallel steps held
+    against the Single steps on this card (the same tolerances as one rank
+    but the DataParallel step's: several ranks sum in another order, so it
+    takes the TensorParallel step's), ``tp_generate`` against ``generate``;
+    the step's ms and the share of it in collectives."""
+    world = min(torch.cuda.device_count(), MAX_RANKS)
+    if world < 2:
+        print("phase 30 multi-rank part: not run, only one GPU is visible "
+              f"(torch.cuda.device_count() = {torch.cuda.device_count()})", flush=True)
+        return
+    import torch.multiprocessing as mp
+
+    work = os.path.join(tmp, "parallel_ranks")
+    os.makedirs(work, exist_ok=True)
+    torch.save({"x": x.cpu(), "y": y.cpu(), "x_gen": x_gen.cpu()},
+               os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(world, os.path.join(work, "init"), work),
+                       nprocs=world, start_method="spawn", join=True)
+    got = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+    print(f"phase 30 multi-rank part: {world} ranks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for mode, g_forward in (("DataParallel", "auto"), ("TensorParallel", "einsum")):
+        with deterministic():
+            single, m_single, _ = one_step(base, x, y, g_forward=g_forward)
+        res = got[mode]
+        state = tuple({k: (v.cuda() if torch.is_tensor(v) else v) for k, v in d.items()}
+                      for d in res["state"])
+        want_counts = {"K1": 21, "K2": 21} if mode == "DataParallel" else {}
+        expect_counts(f"{mode} step ({world} ranks)", res["counts"], want_counts)
+        hold_steps(f"{mode} step ({world} ranks) vs Single {g_forward} step",
+                   (res["metrics"], state), (m_single, step_state(single)),
+                   TOL_TP_LOSS_REL, TOL_STEP_GRAD_L2, TOL_TP_PARAM, grad_norm="l2")
+        rows = x.shape[0] // world if mode == "DataParallel" else x.shape[0]
+        print(f"time {mode} step ({world} ranks, {rows} patches a rank): "
+              f"{res['ms']:.2f} ms, collectives {res['coll_ms']:.2f} ms a step "
+              f"({res['coll_ms'] / res['ms']:.3f} of it); Single {g_forward} step "
+              f"{step_ms(single, x, y):.2f} ms", flush=True)
+        del single, state
+        torch.cuda.empty_cache()
+    err = (got["tp_generate"].cuda() - want_gen).abs().max().item()
+    print(f"tp_generate ({world} ranks) 512x512 batch 8: max abs vs generate {err:.3e} (tol "
+          f"{TOL_GENERATE_ABS}); {got['tp_generate_ms']:.2f} ms, collectives "
+          f"{got['tp_generate_coll_ms']:.2f} ms", flush=True)
+    if err > TOL_GENERATE_ABS:
+        fail(f"tp_generate ({world} ranks) error {err:.3e} > {TOL_GENERATE_ABS}")
+
+
+def phase30_alone(card: str) -> None:
+    """``--phase 30``: phase 30 alone, after the builds of K1 and K2 (its
+    kernels), on inputs drawn as the whole run draws them; it ends with the
+    card line and no kernels or result line."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(_build.build, ("block_fused", "block_bwd")))
+    model = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    x_gen = torch.tensor(phantom(rng, 8, 512)[..., None], dtype=torch.float32,
+                         device="cuda")
+    x, y = train_patches(rng, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        check_parallel(model, x_gen, x, y, tmp)
+    print(card, flush=True)
+
+
 def main():
     t_start = time.perf_counter()
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    parser.add_argument("--phase", type=int, choices=[30],
+                        help="run this phase alone (no kernels or result line)")
+    only = parser.parse_args().phase
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -2381,6 +2768,9 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if only == 30:
+        phase30_alone(card)
+        return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
     t0 = time.perf_counter()
@@ -2784,6 +3174,14 @@ def main():
     profile("generate 200x200 batch 8", lambda: model.generate(x200))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
+    # ---- 30. the parallel layer: DataParallel and TensorParallel in a
+    # one-rank NCCL group (and on every card where there are several), the
+    # packed generator. It runs after phase 21's
+    # timings and profiles, so that they run in a process that has not yet
+    # initialized NCCL, as before this phase existed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        dp_launches = check_parallel(model, x_gen, x, y, tmp)
+
     k_ms, p_ms, b_ms, by = times["pre+skip"]
     kb_ms, pb_ms, bb_ms, bby = bwd_times["pre+skip"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here, the builds "
@@ -2792,14 +3190,16 @@ def main():
         "name": "block_fused", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_fused.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_pipeline.py:954",
-        "launches": train_launches[0] + ablation_launches[0], "max_abs_err": max_abs_err,
+        "launches": train_launches[0] + ablation_launches[0] + dp_launches[0],
+        "max_abs_err": max_abs_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None,
     }, {
         "name": "block_bwd", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_bwd.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_train.py:109",
-        "launches": train_launches[1] + ablation_launches[1], "max_abs_err": k2_max_abs_err,
+        "launches": train_launches[1] + ablation_launches[1] + dp_launches[1],
+        "max_abs_err": k2_max_abs_err,
         "ms": kb_ms, "plain_ms": pb_ms, "bound_ms": bb_ms, "bound_by": bby,
         "library_ms": None,
     }, {

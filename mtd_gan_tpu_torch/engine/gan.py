@@ -19,6 +19,19 @@ One step, on NHWC ``(N, 64, 64, 1)`` patches:
 3. the spectral-norm ``u`` advanced 4 times with the PRE-update weights;
 4. the G update: ``g_loss_terms`` on the POST-update D (storing one more
    power iteration), backpropagated through the saved G graph, AdamW.
+
+On a :class:`~mtd_gan_tpu_torch.parallel.mesh.Grid` (``--multi-gpu-mode``)
+each rank takes its rows of the global batch; the step equals the
+single-rank step on the whole batch (JAX: the same jitted step on a
+sharded mesh). The batch-shaped draws are taken at the global shape and
+sliced (``mesh.batch_draws``); each task's D gradient and the task losses
+are averaged over the data group before the method combines them (UW's
+log-sigma gradient and the method's state see the global losses), the
+generator's gradient before its AdamW step, and the metrics returned are
+the global means. With ``tensor_parallel`` the generator forward is
+``parallel/tensor.py::tp_generate`` over the model group, and its gradient
+is summed over that group (each rank holds its share) before the mean over
+the data group; the rest of the step is replicated over the model group.
 """
 
 from __future__ import annotations
@@ -32,8 +45,12 @@ from mtd_gan_tpu_torch.models.base import param_labels
 from mtd_gan_tpu_torch.models.mtd_gan import check_discriminator_input
 from mtd_gan_tpu_torch.mto.methods import (combine_grads, get_method, per_task_grads,
                                            random_order, uw_logsigma_grad)
-from mtd_gan_tpu_torch.ops.cuda_train import resfft_generator_train, train_route
+from mtd_gan_tpu_torch.ops.cuda_train import (G_FORWARDS, resfft_generator_train,
+                                              resolve_g_forward)
 from mtd_gan_tpu_torch.ops.layers import advance_spectral_state
+from mtd_gan_tpu_torch.parallel.mesh import (Grid, batch_draws, mean_metrics, mean_over_data,
+                                             sum_over_model)
+from mtd_gan_tpu_torch.parallel.tensor import tp_generate
 
 Tensor = torch.Tensor
 
@@ -46,12 +63,28 @@ class MTDGANTrainer:
     generators. ``seed`` seeds the dropout masks, PCGrad's orders and RLW's
     draws. After each step ``task_weights`` holds the method's reported
     task weights (the JAX step computes them and leaves them out of its
-    metrics, so the port does too)."""
+    metrics, so the port does too). ``grid``: the ranks of a multi-rank
+    step, ``tensor_parallel`` the generator split over its model group
+    (module docstring); ``g_forward``: the generator's route
+    (``ops/cuda_train.py::resolve_g_forward``; under tensor parallelism
+    only ``"auto"``, which is ``tp_generate``)."""
 
     def __init__(self, model, method: Optional[str] = "pcgrad",
                  optimizer: str = "adamw", lr: float = 1e-4,
-                 weight_decay: float = 5e-4, sn_iters: int = 4, seed: int = 0):
+                 weight_decay: float = 5e-4, sn_iters: int = 4, seed: int = 0,
+                 grid: Optional[Grid] = None, tensor_parallel: bool = False,
+                 g_forward: str = "auto"):
+        if g_forward not in G_FORWARDS:
+            raise ValueError(f"g_forward must be one of {G_FORWARDS}, got {g_forward!r}")
+        if tensor_parallel and grid is None:
+            raise ValueError("tensor_parallel needs a grid")
+        if tensor_parallel and g_forward != "auto":
+            raise ValueError(f"g_forward={g_forward!r}: under TensorParallel the generator "
+                             f"runs tp_generate (g_forward='auto')")
         self.model = model
+        self.grid = grid
+        self.tensor_parallel = tensor_parallel
+        self.g_forward = g_forward
         self.mto = get_method(method, n_tasks=model.n_d_tasks) if method else None
         self.method = self.mto.name if self.mto else None
         self.mto_state = self.mto.init_state() if self.mto else None
@@ -91,6 +124,11 @@ class MTDGANTrainer:
         losses, details = model.d_loss(x, y, fake, update_stats=False,
                                        generator=self.rng)
         task_grads = per_task_grads(losses, self.d_params)
+        if self.grid is not None:
+            n_p = len(self.d_params)
+            flat = mean_over_data(self.grid, [g for gs in task_grads for g in gs] + [losses])
+            task_grads = [flat[i * n_p:(i + 1) * n_p] for i in range(len(task_grads))]
+            losses = flat[-1]
         k = model.n_d_tasks
         if self.method == "pcgrad" and order is None:
             order = random_order(k, self.order_rng)
@@ -118,30 +156,39 @@ class MTDGANTrainer:
         total, details = self.model.g_loss_terms(fake, x, y, update_stats=True,
                                                  generator=self.rng)
         grads = torch.autograd.grad(total, list(self.model.generator.parameters()))
+        if self.grid is not None:
+            grads = mean_over_data(self.grid, sum_over_model(self.grid, grads))
         return total, details, grads
 
     def train_step(self, x: Tensor, y: Tensor, order: Optional[Tensor] = None,
                    draw: Optional[Tensor] = None) -> Dict[str, Tensor]:
-        """One step on ``x``, ``y`` (N, H, W, 1) on the model's device.
+        """One step on ``x``, ``y`` (N, H, W, 1) on the model's device (with a
+        grid: this rank's rows of the global batch, ``mesh.shard_batch``).
         ``order``: PCGrad projection orders, ``(3, 3)``, one permutation per
         task; ``draw``: RLW's three normals (each drawn when ``None``).
         Returns the step's metrics as 0-d tensors (``d_loss`` the sum of the
         three task losses, ``g_loss`` the total)."""
         model = self.model
         gen = model.generator.train()
-        _, h, w, _ = x.shape
+        n, h, w, _ = x.shape
         check_discriminator_input(h, w)
-        if train_route(h, w, model.gen_features) == "kernels":
+        route = ("tp" if self.tensor_parallel else
+                 resolve_g_forward(self.g_forward, h, w, model.gen_features))
+        if route == "tp":
+            fake = tp_generate(gen, x, self.grid)
+        elif route == "pallas":
             fake = resfft_generator_train(gen, x)
         else:
             fake = gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        d_losses, d_details = self.d_update(x, y, fake, order, draw)
-        g_total, g_details, grads = self.generator_grads(fake, x, y)
+        with batch_draws(self.grid, n):
+            d_losses, d_details = self.d_update(x, y, fake, order, draw)
+            g_total, g_details, grads = self.generator_grads(fake, x, y)
         for p, g in zip(gen.parameters(), grads):
             p.grad = g
         self.opt_g.step()
         self.opt_g.zero_grad(set_to_none=True)
         metrics = {k: v.detach() for k, v in {**d_details, **g_details}.items()}
-        metrics["d_loss"] = d_losses.sum()
         metrics["g_loss"] = g_total.detach()
+        metrics = mean_metrics(self.grid, metrics)
+        metrics["d_loss"] = d_losses.sum()
         return metrics

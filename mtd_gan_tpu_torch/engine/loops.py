@@ -66,6 +66,7 @@ from mtd_gan_tpu_torch.metrics import pixel as pixel_metrics
 from mtd_gan_tpu_torch.models import resolve_alias
 from mtd_gan_tpu_torch.models.diffusion.wrappers import slice_seed
 from mtd_gan_tpu_torch.ops.sliding_window import sliding_window_inference
+from mtd_gan_tpu_torch.parallel.mesh import shard_batch
 from mtd_gan_tpu_torch.utils.artifacts import save_csv, save_png_gray
 from mtd_gan_tpu_torch.utils.logging import MetricLogger
 from mtd_gan_tpu_torch.utils.profiling import StepTimer
@@ -84,8 +85,6 @@ FAMILY = {
     "MTD_GAN_Method": "mtd",
     "DDPM": "dn", "DDIM": "dn", "PNDM": "dn", "DPM": "dn",
 }
-# the ROADMAP.md queue 1 item that ports each family still missing
-UNPORTED_FAMILIES: Dict[str, int] = {}
 # the sliding window of the tr family: 64x64 tiles (reference engine.py:345,
 # 378); the dn family validates through it too (engine.py:835)
 TR_ROI = (64, 64)
@@ -104,15 +103,11 @@ def family_of(model_name: str) -> str:
 
 
 def _refuse_family(family: str) -> None:
-    if family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet (ROADMAP.md queue 1, item "
-            f"{UNPORTED_FAMILIES[family]})")
     if family not in ("cnn", "tr", "wgan", "dugan", "mtd", "dn"):
         raise KeyError(family)
 
 
-def build_trainer(model_name: str, model, args, seed: int = 0):
+def build_trainer(model_name: str, model, args, seed: int = 0, grid=None):
     """The family's trainer: ``SupervisedTrainer`` for ``cnn``, ``tr`` and
     ``dn``;
     ``AdversarialTrainer`` with the model's ``d_steps_per_g`` (4) D updates
@@ -121,19 +116,32 @@ def build_trainer(model_name: str, model, args, seed: int = 0):
     (MTD_GAN_Method), else ``AdversarialTrainer(n_critic=1)``, which, as in
     the JAX package, takes no method: a given ``--method`` is noted and not
     used (so for ``wgan`` and ``dugan``). ``seed`` seeds each trainer's
-    random draws."""
+    random draws. ``grid``: the ranks of ``args.multi_gpu_mode`` (a
+    ``parallel.mesh.Grid``), given to every trainer; ``TensorParallel``
+    splits MTD_GAN_Method's generator over its model group and raises
+    ``ValueError`` for every other model, as the JAX package
+    (``mtd_gan_tpu/engine/loops.py:66-69, 88-90``). ``args.g_forward``
+    reaches ``MTDGANTrainer``."""
     from mtd_gan_tpu_torch.engine.gan import MTDGANTrainer
     from mtd_gan_tpu_torch.engine.supervised import SupervisedTrainer
     from mtd_gan_tpu_torch.engine.wgan import AdversarialTrainer, DUGANTrainer
 
     family = family_of(model_name)
     _refuse_family(family)
-    kw = dict(optimizer=args.optimizer, lr=args.lr, seed=seed)
+    tp = getattr(args, "multi_gpu_mode", "Single") == "TensorParallel"
+    if tp and family != "mtd":
+        raise ValueError("TensorParallel is implemented for the MTD_GAN family "
+                         "(channel-sharded Res-FFT generator); use DataParallel here")
+    kw = dict(optimizer=args.optimizer, lr=args.lr, seed=seed, grid=grid)
     if family in ("cnn", "tr", "dn"):
         return SupervisedTrainer(model, **kw)
     method = args.method or None
     if family == "mtd" and model.n_d_tasks > 1:
-        return MTDGANTrainer(model, method=method, **kw)
+        return MTDGANTrainer(model, method=method, tensor_parallel=tp,
+                             g_forward=getattr(args, "g_forward", "auto"), **kw)
+    if tp:
+        raise ValueError("TensorParallel needs the full MTD_GAN_Method (the ablations "
+                         "use scalar d_loss models)")
     if method:
         print(f"note: --method {method} is not used: {model_name} has a scalar "
               f"discriminator loss", flush=True)
@@ -176,12 +184,14 @@ def _window_predict(predictor: Callable, x: torch.Tensor, window: Dict) -> torch
 
 def train_one_epoch(trainer, loader: Iterable, preprocess,
                     generator: torch.Generator, print_freq: int = 10,
-                    header: str = "Train:", device_prefetch: bool = True
-                    ) -> Dict[str, float]:
+                    header: str = "Train:", device_prefetch: bool = True,
+                    grid=None) -> Dict[str, float]:
     """One epoch over ``loader`` items ``(hu_x, hu_y)``; returns the epoch
     means of the step metrics. Non-finite metrics are reported and the
     epoch goes on (reference engine.py:208-209). ``device_prefetch``: copy
-    each batch to the device ahead of its step."""
+    each batch to the device ahead of its step. ``grid``: every rank loads
+    the global batch and cuts its crops from ``generator`` (seeded alike on
+    every rank), then keeps its rows (``parallel.mesh.shard_batch``)."""
     logger = MetricLogger()
     device = trainer.model.device
     if device_prefetch:
@@ -201,7 +211,7 @@ def train_one_epoch(trainer, loader: Iterable, preprocess,
                                                       pre_print=flush)):
         x, y = preprocess(torch.as_tensor(hu_x, device=device),
                           torch.as_tensor(hu_y, device=device), generator)
-        pending.append((i, trainer.train_step(x, y)))
+        pending.append((i, trainer.train_step(shard_batch(grid, x), shard_batch(grid, y))))
     flush()
     return logger.global_averages()
 

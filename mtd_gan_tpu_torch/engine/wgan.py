@@ -30,6 +30,13 @@ The random draws (the GP's ``a``, the CutMix box and coin) come from the
 trainer's ``torch.Generator``, seeded from ``seed``; ``train_step`` takes
 them explicitly too (``draws``), which is how the tests feed the JAX
 package's.
+
+On a :class:`~mtd_gan_tpu_torch.parallel.mesh.Grid` (``DataParallel``)
+each rank takes its rows of the global batch; the GP's ``a`` is the global
+draw's rows (``mesh.batch_draws``), the CutMix box and coin (one per
+batch) come out equal on every rank, and every update's gradients and the
+metrics are averaged over the data group: the single-rank step on the
+whole batch.
 """
 
 from __future__ import annotations
@@ -40,22 +47,27 @@ import torch
 
 from mtd_gan_tpu_torch import optim
 from mtd_gan_tpu_torch.models.dugan import CutMix
+from mtd_gan_tpu_torch.parallel.mesh import (Grid, average_grads, batch_draws, mean_metrics,
+                                             mean_over_data)
 
 Tensor = torch.Tensor
 
 
-def _step(opt: torch.optim.Optimizer, loss: Tensor) -> None:
+def _step(opt: torch.optim.Optimizer, module: torch.nn.Module, loss: Tensor,
+          grid: Optional[Grid]) -> None:
     loss.backward()
+    average_grads(grid, module.parameters())
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
 def _generator_step(opt: torch.optim.Optimizer, generator: torch.nn.Module,
-                    loss: Tensor) -> None:
+                    loss: Tensor, grid: Optional[Grid]) -> None:
     """The G update through ``fake``'s saved graph; the Ds' ``.grad`` stay
     untouched."""
     params = list(generator.parameters())
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    grads = mean_over_data(grid, torch.autograd.grad(loss, params))
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -66,8 +78,10 @@ class AdversarialTrainer:
     ``seed``). ``n_critic``: D updates per step."""
 
     def __init__(self, model, optimizer: str = "adamw", lr: float = 1e-4,
-                 weight_decay: float = 5e-4, n_critic: int = 1, seed: int = 0):
+                 weight_decay: float = 5e-4, n_critic: int = 1, seed: int = 0,
+                 grid: Optional[Grid] = None):
         self.model = model
+        self.grid = grid
         self.n_critic = n_critic
         self.opt_g = optim.get_optimizer(optimizer, model.generator.parameters(), lr,
                                          weight_decay)
@@ -92,18 +106,19 @@ class AdversarialTrainer:
         model.generator.train()
         model.discriminator.train()
         fake = model.train_forward(x)
-        for i in range(self.n_critic):
-            kw = {} if draws is None else {"draws": draws[i]}
-            d_loss, d_details = model.d_loss(x, y, fake, update_stats=True,
-                                             generator=self.rng, **kw)
-            _step(self.opt_d, d_loss)
-        g_loss, g_details = model.g_loss_terms(fake, x, y, update_stats=True,
-                                               generator=self.rng)
-        _generator_step(self.opt_g, model.generator, g_loss)
+        with batch_draws(self.grid, x.shape[0]):
+            for i in range(self.n_critic):
+                kw = {} if draws is None else {"draws": draws[i]}
+                d_loss, d_details = model.d_loss(x, y, fake, update_stats=True,
+                                                 generator=self.rng, **kw)
+                _step(self.opt_d, model.discriminator, d_loss, self.grid)
+            g_loss, g_details = model.g_loss_terms(fake, x, y, update_stats=True,
+                                                   generator=self.rng)
+        _generator_step(self.opt_g, model.generator, g_loss, self.grid)
         metrics = {k: v.detach() for k, v in {**d_details, **g_details}.items()}
         metrics["d_loss"] = d_loss.detach()
         metrics["g_loss"] = g_loss.detach()
-        return metrics
+        return mean_metrics(self.grid, metrics)
 
 
 class DUGANTrainer:
@@ -111,8 +126,9 @@ class DUGANTrainer:
     and the step's random generator (seeded from ``seed``)."""
 
     def __init__(self, model, optimizer: str = "adamw", lr: float = 1e-4,
-                 weight_decay: float = 5e-4, seed: int = 0):
+                 weight_decay: float = 5e-4, seed: int = 0, grid: Optional[Grid] = None):
         self.model = model
+        self.grid = grid
         make = lambda m: optim.get_optimizer(optimizer, m.parameters(), lr, weight_decay)
         self.opt_g = make(model.generator)
         self.opt_img_d = make(model.image_discriminator)
@@ -139,13 +155,13 @@ class DUGANTrainer:
         fake = model.train_forward(x)
         img_total, img_det = model.image_d_loss(x, y, fake, generator=self.rng,
                                                 draws=draws.get("img"))
-        _step(self.opt_img_d, img_total)
+        _step(self.opt_img_d, model.image_discriminator, img_total, self.grid)
         grad_total, grad_det = model.grad_d_loss(x, y, fake, generator=self.rng,
                                                  draws=draws.get("grad"))
-        _step(self.opt_grad_d, grad_total)
+        _step(self.opt_grad_d, model.grad_discriminator, grad_total, self.grid)
         g_total, g_det = model.g_loss_terms(fake, x, y)
-        _generator_step(self.opt_g, model.generator, g_total)
+        _generator_step(self.opt_g, model.generator, g_total, self.grid)
         metrics = {k: v.detach() for k, v in {**img_det, **grad_det, **g_det}.items()}
         metrics.update(d_img_loss=img_total.detach(), d_grad_loss=grad_total.detach(),
                        g_loss=g_total.detach())
-        return metrics
+        return mean_metrics(self.grid, metrics)

@@ -3,10 +3,7 @@
 
 The ported names build through :func:`get_model`; the JAX package's
 aliases (``MTD_GAN``, ``ED_CNN``, ...) resolve first, as there. Every name
-of the JAX registry is ported. A name of a family listed in
-``engine/loops.py::UNPORTED_FAMILIES`` (empty since the diffusion family
-was ported) raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it; any other name raises ``KeyError``.
+of the JAX registry is ported; any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -53,16 +50,10 @@ def ported_names() -> tuple:
 
 def get_model_class(name: str) -> Callable[..., Any]:
     """The constructor for a reference-compatible name."""
-    from mtd_gan_tpu_torch.engine.loops import FAMILY, UNPORTED_FAMILIES
-
     resolved = resolve_alias(name)
     table = registry()
     if resolved in table:
         return table[resolved]
-    if resolved in FAMILY:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md queue 1, item "
-            f"{UNPORTED_FAMILIES[FAMILY[resolved]]}); ported: {ported_names()}")
     raise KeyError(f"unknown model {name!r}; known: {sorted(table)}")
 
 

@@ -45,6 +45,7 @@ from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike
 from mtd_gan_tpu_torch.models.base import SupervisedModel
 from mtd_gan_tpu_torch.ops.unfold import fold, unfold
+from mtd_gan_tpu_torch.parallel.mesh import batch_draw
 
 Tensor = torch.Tensor
 LN_EPS = 1e-6
@@ -68,7 +69,8 @@ def dropout(x: Tensor, p: float, train: bool, generator: Optional[torch.Generato
     """Inverted dropout whose mask is drawn from ``generator``."""
     if not train or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = batch_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                      x.shape) >= p
     return x * keep / (1.0 - p)
 
 

@@ -35,6 +35,7 @@ from mtd_gan_tpu_torch.models.diffusion.schedulers import (BaseScheduler, DDIMSc
                                                           DPMSolverMultistepScheduler,
                                                           PNDMScheduler)
 from mtd_gan_tpu_torch.models.diffusion.unet import DiffusionUNet, unet_init_
+from mtd_gan_tpu_torch.parallel.mesh import batch_draw
 
 Tensor = torch.Tensor
 
@@ -68,9 +69,11 @@ class _DiffusionBase(SupervisedModel):
              draws: Optional[Dict[str, Tensor]] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """eps-MSE: ``x`` the condition (n_20), ``y`` the target (n_100)."""
         if draws is None:
-            noise = torch.randn(y.shape, generator=generator, device=y.device)
-            t = torch.randint(0, self.scheduler.num_train_timesteps, (y.shape[0],),
-                              generator=generator, device=y.device)
+            noise = batch_draw(lambda s: torch.randn(s, generator=generator,
+                                                     device=y.device), y.shape)
+            t = batch_draw(lambda s: torch.randint(0, self.scheduler.num_train_timesteps, s,
+                                                   generator=generator, device=y.device),
+                           (y.shape[0],))
         else:
             noise, t = draws["noise"], draws["t"]
         val = torch.mean((self.eps(self.scheduler.add_noise(y, noise, t), x, t) - noise) ** 2)

@@ -31,6 +31,7 @@ from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock, check_impls
 from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
 from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
+from mtd_gan_tpu_torch.parallel.mesh import batch_draw
 
 INIT_STD = 0.01  # reference init N(0, 0.01), zero biases
 Tensor = torch.Tensor
@@ -269,8 +270,9 @@ class MultiTaskDiscriminator(nn.Module):
         if "cls" in self.heads:
             c = _lrelu(self.c_fc(x_bot.reshape(x_bot.shape[0], -1), update_stats))
             if train and self.dropout_rate > 0:
-                keep = (torch.rand(c.shape, generator=generator, device=c.device)
-                        >= self.dropout_rate)
+                keep = batch_draw(lambda s: torch.rand(s, generator=generator,
+                                                       device=c.device),
+                                  c.shape) >= self.dropout_rate
                 c = c * keep / (1.0 - self.dropout_rate)
             outputs.append(self.enc_out(c))
         s = r = x_bot

@@ -31,6 +31,7 @@ from torch import nn
 
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
 from mtd_gan_tpu_torch.ops.layers import torch_init_
+from mtd_gan_tpu_torch.parallel.mesh import batch_draw
 
 Tensor = torch.Tensor
 
@@ -155,8 +156,8 @@ class CriticModel:
         (drawn from ``generator`` when ``None``)."""
         fake = fake.detach()
         wgan = -self.critic(y).mean() + self.critic(fake).mean()
-        a = (torch.rand((y.shape[0], 1, 1, 1), generator=generator, device=self.device)
-             if draws is None else draws)
+        a = (batch_draw(lambda s: torch.rand(s, generator=generator, device=self.device),
+                        (y.shape[0], 1, 1, 1)) if draws is None else draws)
         gp = wgan_gradient_penalty(self.critic, y, fake, a)
         return wgan + gp, {"D/d_loss": wgan, "D/gp_loss": gp}
 

@@ -266,3 +266,27 @@ def resfft_generator_train(generator, x: Tensor) -> Tensor:
     _, final = blk(a, 2 * L, pre=deconv(generator.decoder[1]), skip=skips[0],
                    post=deconv(generator.decoder[0]))
     return final.reshape(n, h, w, 1)
+
+
+# the root train CLI's --g-forward choices (JAX engine/gan.py:130-159)
+G_FORWARDS = ("auto", "einsum", "pallas", "pallas_packed")
+
+
+def resolve_g_forward(g_forward: str, h: int, w: int, c: int) -> str:
+    """The generator's route in a train step on ``(N, H, W, 1)`` patches
+    with C features for the root CLI's ``--g-forward``: ``"auto"`` is
+    :func:`train_route`'s choice (``"pallas"``, K1 + K2, where they take the
+    batch, else ``"einsum"``, the plain generator under autograd);
+    ``"pallas"`` raises where K1 + K2 do not take the batch.
+    ``"pallas_packed"`` (the TPU's K1-forward / plain-backward variant) runs
+    as ``"pallas"``: its math is the same and K2 is the faster backward."""
+    if g_forward not in G_FORWARDS:
+        raise ValueError(f"g_forward must be one of {G_FORWARDS}, got {g_forward!r}")
+    if g_forward == "auto":
+        return "pallas" if train_route(h, w, c) == "kernels" else "einsum"
+    if g_forward == "einsum":
+        return g_forward
+    if train_route(h, w, c) != "kernels":
+        raise ValueError(f"g_forward={g_forward!r}: K1 + K2 take H == W in {KERNEL_SIZES} "
+                         f"and C in {KERNEL_CHANNELS}, got {h}x{w}, C = {c}")
+    return "pallas"

@@ -42,11 +42,18 @@ def spectral_branch(x: torch.Tensor, mix: torch.Tensor,
     (cuFFT's c2r assumes Hermitian input; ``chip_smoke.py`` prints the
     difference), so the two steps are written out and those imaginary parts
     are zeroed before the c2r."""
-    h, w = x.shape[-2:]
     xf = torch.fft.rfft2(x, norm="ortho")
     spec = torch.cat([xf.real, xf.imag], dim=1)
     spec = torch.relu(F.conv2d(spec, mix[:, :, None, None], mix_bias))
     re, im = spec.chunk(2, dim=1)
+    return irfft2_real(re, im, x.shape[-1])
+
+
+def irfft2_real(re: torch.Tensor, im: torch.Tensor, w: int) -> torch.Tensor:
+    """The real inverse of the half spectrum ``re + i im`` (``(..., H, W//2
+    + 1)``, ortho) to width ``w``, as ``jnp.fft.irfft2``: a complex inverse
+    along H, then a c2r along W with the imaginary parts of the W bins 0
+    and W/2 zeroed (:func:`spectral_branch`)."""
     z = torch.fft.ifft(torch.complex(re, im), dim=-2, norm="ortho")
     edge = torch.zeros(z.shape[-1], dtype=torch.bool, device=z.device)
     edge[0] = True

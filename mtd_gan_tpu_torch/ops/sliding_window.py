@@ -15,8 +15,8 @@ predictor in chunks of ``sw_batch_size`` (the last chunk shorter; the JAX
 package pads it, which no predictor here can tell apart), and each chunk's
 weighted tiles are added into the output at their places
 (``index_add_``) before the next is predicted, so the tiles of a whole
-slice never live at once. The JAX ``mesh`` argument has no port (one
-device; ROADMAP.md queue 1, item 14).
+slice never live at once. The JAX ``mesh`` argument, which no CLI passes,
+has no port: in a multi-rank run each rank validates whole slices.
 """
 
 from __future__ import annotations

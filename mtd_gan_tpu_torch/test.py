@@ -65,7 +65,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="", type=str)
     p.add_argument("--optimizer", default="adamw", type=str)
     p.add_argument("--lr", default=1e-4, type=float)
-    p.add_argument("--multi-gpu-mode", default="Single", type=str)
+    p.add_argument("--multi-gpu-mode", default="Single", type=str,
+                   help="taken for the root CLI's sake and not used: the sweep "
+                        "runs on one device, as there")
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--print-freq", default=10, type=int)
     p.add_argument("--checkpoint-dir", default="checkpoints", type=str)
@@ -114,11 +116,7 @@ def checkpoint_path(checkpoint_dir: str, epoch: int = -1) -> str:
 def main(args, phases: Optional[Dict[str, StepTimer]] = None) -> dict:
     """The sweep; ``phases`` receives the host seconds by phase (model load,
     then :func:`~mtd_gan_tpu_torch.engine.loops.run_test`'s)."""
-    get_model_class(args.model)  # an unported name raises, naming its item
-    if args.multi_gpu_mode != "Single":
-        raise NotImplementedError(
-            "--multi-gpu-mode other than Single is not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
+    get_model_class(args.model)  # an unknown name raises
     device = resolve_device(args.device)
     load = StepTimer(sync=device.type == "cuda")
     with load:

@@ -37,6 +37,27 @@ starts the parameters from such a checkpoint, ``--resume`` goes on from
 one; ``--profile-dir`` writes a ``torch.profiler`` trace of the first
 epoch; the arguments are saved to
 ``<checkpoint-dir>/args/args_<stamp>.json``.
+
+Several ranks (``parallel/mesh.py``), one process each::
+
+    torchrun --standalone --nproc-per-node N -m mtd_gan_tpu_torch.train \
+        --multi-gpu-mode DataParallel|TensorParallel [--tp-size M] ...
+
+``DataParallel`` splits each global batch by rows over the ranks;
+``TensorParallel`` (MTD_GAN_Method only) splits the generator's channels
+over ``--tp-size`` ranks (-1: all of them) and the batch over the rest.
+Every rank validates, so that no rank waits on another's validation
+past the process group's timeout (NCCL's is 10 minutes; a diffusion
+model's sampling takes longer); rank 0 alone writes the checkpoints,
+``log.txt``, TensorBoard, the PNGs and the args snapshot while the others
+wait at a barrier. ``--resume`` and ``--from-pretrained`` load the same
+file on every rank. ``--g-forward`` picks the generator's route in
+MTD_GAN_Method's step (``ops/cuda_train.py::resolve_g_forward``: ``auto``,
+``einsum``, ``pallas``; ``pallas_packed`` is noted and runs as ``pallas``;
+under TensorParallel only ``auto``).
+``--g-precision`` (``bf16``, ``bf16x2``) names the TPU kernels' factor
+table passes: the port's kernels compute their tables in fp32 either way.
+``--bf16`` is refused.
 """
 
 from __future__ import annotations
@@ -55,7 +76,9 @@ from mtd_gan_tpu_torch.data.transforms import make_eval_preprocess, make_train_p
 from mtd_gan_tpu_torch.engine.loops import build_trainer, family_of, train_one_epoch, validate
 from mtd_gan_tpu_torch.losses import get_loss
 from mtd_gan_tpu_torch.models import get_model, get_model_class, ported_names
+from mtd_gan_tpu_torch.ops.cuda_train import G_FORWARDS
 from mtd_gan_tpu_torch.optim import get_scheduler
+from mtd_gan_tpu_torch.parallel import mesh
 from mtd_gan_tpu_torch.utils.checkpoint import (load_pretrained, networks, restore,
                                                 save_checkpoint)
 from mtd_gan_tpu_torch.utils.logging import TensorBoardSink
@@ -91,11 +114,22 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-epochs", default=10, type=int)
     p.add_argument("--lr", default=1e-4, type=float)
     p.add_argument("--min-lr", default=1e-5, type=float)
-    p.add_argument("--multi-gpu-mode", default="Single", type=str)
-    p.add_argument("--tp-size", default=-1, type=int)
-    p.add_argument("--g-forward", default="auto", type=str)
-    p.add_argument("--g-precision", default="bf16", type=str)
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--multi-gpu-mode", default="Single", type=str,
+                   choices=list(mesh.MODES),
+                   help="DataParallel: the batch split over the ranks; "
+                        "TensorParallel: MTD_GAN_Method's generator split by "
+                        "channels over --tp-size ranks (run under torchrun)")
+    p.add_argument("--tp-size", default=-1, type=int,
+                   help="ranks a TensorParallel model group (-1: all)")
+    p.add_argument("--g-forward", default="auto", type=str, choices=list(G_FORWARDS),
+                   help="MTD_GAN_Method's generator in the step: auto (K1 + K2 "
+                        "where they take the batch), einsum (plain autograd), "
+                        "pallas (K1 + K2); pallas_packed runs as pallas")
+    p.add_argument("--g-precision", default="bf16", type=str, choices=["bf16", "bf16x2"],
+                   help="the TPU kernels' factor-table passes; the port's "
+                        "kernels compute their tables in fp32 either way")
+    p.add_argument("--bf16", action="store_true",
+                   help="refused: bf16 compute is not ported yet")
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--print-freq", default=10, type=int)
     p.add_argument("--save-checkpoint-every", default=1, type=int)
@@ -119,25 +153,37 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    get_model_class(args.model)  # an unported name raises, naming its item
-    if args.multi_gpu_mode != "Single" or args.tp_size != -1:
+    get_model_class(args.model)  # an unknown name raises
+    if args.bf16:
         raise NotImplementedError(
-            "--multi-gpu-mode other than Single and --tp-size are not ported "
-            "yet (ROADMAP.md queue 1, item 14)")
-    if args.g_forward != "auto" or args.g_precision != "bf16" or args.bf16:
-        raise NotImplementedError(
-            "--g-forward, --g-precision and --bf16 are TPU options with no "
-            "port (the generator trains on K1 + K2 in fp32; bf16 boundaries "
-            "are later work, ROADMAP.md queue 2)")
+            "--bf16 (bf16 compute on the models with a dtype argument) is not "
+            "ported yet (ROADMAP.md queue 1, item 16)")
+    if args.g_precision == "bf16x2":
+        print("note: --g-precision bf16x2 is not used: the port's kernels compute "
+              "their factor tables in fp32", flush=True)
+    if args.g_forward == "pallas_packed":
+        print("note: --g-forward pallas_packed runs as pallas (K1 + K2): the TPU's "
+              "K1-forward / plain-backward variant computes the same step", flush=True)
 
 
 def main(args) -> dict:
+    """One training run; under ``torchrun`` (or in a process group the
+    caller began) this rank's part of it."""
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    grid = mesh.make_grid(args.multi_gpu_mode, args.tp_size, args.device)
+    try:
+        return _train(args, grid)
+    finally:
+        mesh.destroy(grid)
+
+
+def _train(args, grid) -> dict:
+    device = grid.device if grid is not None else resolve_device(args.device)
+    main_rank = mesh.is_main(grid)
     kwargs = json.loads(args.model_kwargs or "{}")
     model = get_model(args.model, **kwargs, device=device, seed=args.seed)
     family = family_of(args.model)
-    trainer = build_trainer(args.model, model, args, seed=args.seed)
+    trainer = build_trainer(args.model, model, args, seed=args.seed, grid=grid)
     sched = get_scheduler(args.scheduler, args.lr, args.epochs, args.warmup_epochs,
                           args.min_lr)
     train_pre = make_train_preprocess(args.dataset_type_train, args.dataset)
@@ -147,6 +193,10 @@ def main(args) -> dict:
     print(f"train slices: {len(train_ds)}, valid slices: {len(valid_ds)}")
     n_params = sum(p.numel() for m in networks(model).values() for p in m.parameters())
     print(f"Number of Learnable Params: {n_params}")
+    if grid is not None:
+        print(f"rank {grid.rank} of {grid.world}: data {grid.data_rank} of "
+              f"{grid.data_size}, model {grid.model_rank} of {grid.model_size}, "
+              f"{device}", flush=True)
 
     start_epoch = 0
     if args.from_pretrained:
@@ -155,14 +205,16 @@ def main(args) -> dict:
     if args.resume:
         start_epoch = restore(args.resume, model, trainer) + 1
         print(f"resumed from {args.resume}; next epoch {start_epoch}")
-    os.makedirs(args.checkpoint_dir, exist_ok=True)
-    os.makedirs(args.save_dir, exist_ok=True)
-    # args snapshot (reference train.py:330-337)
-    stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
-    os.makedirs(os.path.join(args.checkpoint_dir, "args"), exist_ok=True)
-    with open(os.path.join(args.checkpoint_dir, "args", f"args_{stamp}.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    tb = TensorBoardSink(os.path.join(args.checkpoint_dir, "runs"))
+    tb = None
+    if main_rank:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        os.makedirs(args.save_dir, exist_ok=True)
+        # args snapshot (reference train.py:330-337)
+        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        os.makedirs(os.path.join(args.checkpoint_dir, "args"), exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "args", f"args_{stamp}.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+        tb = TensorBoardSink(os.path.join(args.checkpoint_dir, "runs"))
     crops = torch.Generator(device=device).manual_seed(args.seed)
     stats = {}
     for epoch in range(start_epoch, args.epochs):
@@ -170,16 +222,21 @@ def main(args) -> dict:
         trainer.set_epoch_lr(lr)
         loader = train_loader(train_ds, args.batch_size, seed=args.seed + epoch,
                               num_threads=args.train_num_workers)
-        with trace(args.profile_dir if epoch == start_epoch else None):
+        with trace(args.profile_dir if epoch == start_epoch and main_rank else None):
             train_stats = train_one_epoch(trainer, loader, train_pre, crops,
-                                          args.print_freq, header=f"Train: [{epoch}]")
+                                          args.print_freq, header=f"Train: [{epoch}]",
+                                          grid=grid)
         stats = {"epoch": epoch, "lr": lr,
                  **{f"train_{k}": v for k, v in train_stats.items()}}
         if epoch % args.valid_every == 0:
             valid_stats = validate(model, eval_loader(valid_ds), eval_pre, family, epoch,
-                                   save_dir=os.path.join(args.save_dir, "valid"),
+                                   save_dir=(os.path.join(args.save_dir, "valid")
+                                             if main_rank else None),
                                    criterion=get_loss(args.loss), seed=args.seed)
             stats.update({f"valid_{k}": v for k, v in valid_stats.items()})
+        if not main_rank:
+            mesh.barrier(grid)  # rank 0 writes
+            continue
         with open(os.path.join(args.checkpoint_dir, "log.txt"), "a") as f:
             f.write(json.dumps(stats) + "\n")
         tb.scalars(stats, epoch)
@@ -187,7 +244,9 @@ def main(args) -> dict:
         if epoch % args.save_checkpoint_every == 0 or epoch == args.epochs - 1:
             save_checkpoint(os.path.join(args.checkpoint_dir, f"epoch_{epoch}.pth"),
                             model, trainer, epoch, args)
-    tb.close()
+        mesh.barrier(grid)
+    if tb is not None:
+        tb.close()
     decoded = {"train": dict(train_ds.decoded), "valid": dict(valid_ds.decoded)}
     print(f"decoded files by codec: {decoded}", flush=True)
     return {**stats, "decoded": decoded}

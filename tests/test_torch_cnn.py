@@ -193,15 +193,12 @@ def test_reference_flat_checkpoint_loads(tmp_path, name):
 
 def test_registry_and_family_dispatch_cover_every_jax_name():
     """Every name of the JAX registry and its aliases: the same family, and
-    it builds (no family is left unported: ``UNPORTED_FAMILIES`` is empty);
-    ``build_trainer`` gives each family its trainer (``wgan`` 4 critic
-    updates a step, the ablations 1, ``dn`` the supervised trainer); a
-    family listed as unported raises in ``run_test``, naming its ROADMAP.md
-    item."""
+    it builds; ``build_trainer`` gives each family its trainer (``wgan`` 4
+    critic updates a step, the ablations 1, ``dn`` the supervised trainer);
+    an unknown name raises ``KeyError``."""
     _ensure_registered()
     names = sorted(set(JAX_REGISTRY) | set(JAX_ALIASES))
     assert len(names) == 26  # 22 models and 4 aliases
-    assert loops.UNPORTED_FAMILIES == {}
     args = argparse.Namespace(optimizer="adamw", lr=1e-4, method="pcgrad")
     diffusion = {"channels": (8, 16, 16), "num_head_channels": 16, "norm_groups": 4}
     small = {"RED_CNN": {"out_ch": 8},
@@ -227,10 +224,6 @@ def test_registry_and_family_dispatch_cover_every_jax_name():
                           else want[family]), name
         if family in ("wgan", "mtd") and not isinstance(trainer, MTDGANTrainer):
             assert trainer.n_critic == (4 if family == "wgan" else 1), name
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(loops.UNPORTED_FAMILIES, "dn", 11)
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            loops.run_test(None, [], None, "dn", "unused")
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("RED-CNN")
 

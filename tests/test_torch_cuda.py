@@ -742,3 +742,40 @@ def test_diffusion_ddim_chain_on_the_card_matches_the_cpu(dev):
     want = cpu.sample(cond, draws=draws)
     got = card.sample(cond.to(dev), draws={"noise": draws["noise"].to(dev)}).cpu()
     assert ((got - want).abs().max() / want.abs().max()).item() < 1e-3
+
+
+def test_one_rank_nccl_data_parallel_step_matches_the_single_step(dev):
+    """A one-rank NCCL grid (no torchrun environment): the DataParallel
+    PCGrad step on K1 + K2 equals the Single step bit for bit (a one-rank
+    all-reduce copies, the mean divides by 1), and launches 21 K1 + 21 K2
+    at 10 layers; the grid's process group is gone after ``destroy``."""
+    from mtd_gan_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.random((8, 64, 64, 1)), dtype=torch.float32, device=dev)
+    y = (x + 0.05 * torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+         .to(dev)).clamp(0, 1)
+    base = MTDGANModel(gen_features=8, disc_features=8, num_layers=10, device="cuda", seed=0)
+    grid = mesh.make_grid("DataParallel", device="cuda")
+    try:
+        assert (grid.world, grid.data_size, grid.device.type) == (1, 1, "cuda")
+        results = []
+        for g in (None, grid):
+            trainer = MTDGANTrainer(copy.deepcopy(base), method="pcgrad", seed=0, grid=g)
+            block_fused.launches = block_bwd.launches = 0
+            m = trainer.train_step(x, y)
+            torch.cuda.synchronize()
+            assert (block_fused.launches, block_bwd.launches) == (21, 21)
+            results.append((m, trainer.model))
+    finally:
+        mesh.destroy(grid)
+        torch.backends.cudnn.deterministic = False
+    assert not torch.distributed.is_initialized()
+    (m_single, single), (m_dp, dp) = results
+    for k in m_single:
+        assert m_dp[k].item() == m_single[k].item(), k
+    for net in ("generator", "discriminator"):
+        for (name, a), (_, b) in zip(getattr(dp, net).state_dict().items(),
+                                     getattr(single, net).state_dict().items()):
+            assert torch.equal(a, b), name

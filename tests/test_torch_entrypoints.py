@@ -66,15 +66,80 @@ def test_cli_takes_every_root_flag_with_its_default(name, port):
         assert mine[dest].option_strings == action.option_strings, dest
 
 
-def test_train_cli_refuses_the_tpu_only_flags():
+def test_train_cli_refuses_the_tpu_only_flags(tmp_path):
+    """``--bf16`` is the one flag the train CLI still refuses; the test CLI
+    takes ``--multi-gpu-mode`` and does not use it, as the root's."""
     parse = train_cli.get_args_parser().parse_args
-    for flags in (["--tp-size", "4"], ["--g-precision", "bf16x2"], ["--g-forward", "pallas"],
-                  ["--bf16"], ["--multi-gpu-mode", "DataParallel"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_cli.main(parse(["--device", "cpu", *flags]))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        test_cli.main(test_cli.get_args_parser().parse_args(
-            ["--device", "cpu", "--multi-gpu-mode", "DataParallel"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_cli.main(parse(["--device", "cpu", "--bf16"]))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    _save_generator(str(ckpt / "epoch_0.pth"), 1, 0)
+    rng = np.random.default_rng(0)
+    for key in ("n_20", "n_100"):
+        write_synthetic_dicom(str(tmp_path / "data" / "test" / "c" / key / "s0.IMA"),
+                              rng.integers(900, 1200, (32, 32)).astype(np.uint16))
+    summary = test_cli.main(test_cli.get_args_parser().parse_args(
+        ["--device", "cpu", "--multi-gpu-mode", "DataParallel", "--data-root",
+         str(tmp_path / "data"), "--checkpoint-dir", str(ckpt), "--no-feature-metrics",
+         "--save-dir", str(tmp_path / "out"), "--model-kwargs",
+         json.dumps({"gen_features": 8, "num_layers": 1})]))
+    assert np.isfinite(summary["pred_psnr"])
+
+
+class _Built(Exception):
+    """Raised in place of training, once the trainer is built."""
+
+
+@pytest.mark.parametrize("flags, want", [
+    (["--multi-gpu-mode", "DataParallel"], dict(data_size=1, model_size=1, tp=False)),
+    (["--multi-gpu-mode", "TensorParallel"], dict(data_size=1, model_size=1, tp=True)),
+    (["--multi-gpu-mode", "TensorParallel", "--tp-size", "1"],
+     dict(data_size=1, model_size=1, tp=True)),
+    (["--g-forward", "einsum"], dict(g_forward="einsum")),
+    (["--g-forward", "pallas"], dict(g_forward="pallas")),
+    (["--g-forward", "pallas_packed"],
+     dict(g_forward="pallas_packed", note="--g-forward pallas_packed runs as pallas")),
+    (["--g-precision", "bf16x2"], dict(note="--g-precision bf16x2 is not used")),
+])
+def test_train_cli_takes_the_parallel_and_generator_flags(flags, want, monkeypatch, capsys):
+    """Each flag parses and reaches the trainer: ``--multi-gpu-mode`` and
+    ``--tp-size`` its grid (here one rank: a real gloo group on the CPU),
+    ``--g-forward`` its generator route; ``--g-precision bf16x2`` is noted
+    (the port's tables are fp32). The run stops once the trainer is built,
+    and the process group is gone after it."""
+    built = {}
+
+    def build_trainer(*args, **kwargs):
+        built["trainer"] = loops_build_trainer(*args, **kwargs)
+        raise _Built
+
+    loops_build_trainer = train_cli.build_trainer
+    monkeypatch.setattr(train_cli, "build_trainer", build_trainer)
+    args = train_cli.get_args_parser().parse_args(
+        ["--device", "cpu", "--method", "pcgrad", "--model-kwargs",
+         json.dumps({"gen_features": 8, "disc_features": 8, "num_layers": 1}), *flags])
+    with pytest.raises(_Built):
+        train_cli.main(args)
+    assert not torch.distributed.is_initialized()
+    trainer = built["trainer"]
+    assert isinstance(trainer, MTDGANTrainer)
+    if "data_size" in want:
+        assert (trainer.grid.data_size, trainer.grid.model_size) == (
+            want["data_size"], want["model_size"])
+        assert trainer.tensor_parallel == want["tp"]
+    else:
+        assert trainer.grid is None
+    assert trainer.g_forward == want.get("g_forward", "auto")
+    if "note" in want:
+        assert want["note"] in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # argparse: not a choice
+        train_cli.get_args_parser().parse_args(["--g-forward", "xla"])
+    if want.get("tp"):
+        with pytest.raises(ValueError, match="TensorParallel"):
+            train_cli.main(train_cli.get_args_parser().parse_args(
+                ["--device", "cpu", *flags, "--g-forward", "pallas"]))
+        assert not torch.distributed.is_initialized()
 
 
 def test_bench_run_on_the_cpu_and_main_without_a_gpu(monkeypatch, capsys):
