@@ -193,9 +193,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      slice through the sliding window) and ``test --resume`` on 2 slices; at 64x64 on drawn weights, the card against the CPU: one UNet
      forward, a 3-step chain of each sampler from the same draws, one
      loss and its gradient; no launch of K1 - K8 on any of these paths.
-  30. the parallel layer (run after phase 21's timings and profiles, last
-     before the kernels line; ``python3 chip_smoke.py --phase 30`` runs it
-     alone): in a one-rank NCCL group, the
+  30. the parallel layer (run after phase 21's timings and profiles and
+     phase 31, last before the kernels line; ``python3 chip_smoke.py
+     --phase 30`` runs it alone): in a one-rank NCCL group, the
      DataParallel PCGrad step at full width on phase 18's 160 patches
      against the Single step (losses and every parameter within 1e-6
      relative) with its 21 K1 + 21 K2 launches (added to the kernels
@@ -207,6 +207,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      beside the Single step or ``generate``; where two or more cards
      are visible, the same on min(count, 4) spawned NCCL ranks with the
      step's ms and its share in collectives (else one line says so).
+  31. bf16 (run after phase 21's timings and profiles, before phase 30;
+     ``python3 chip_smoke.py --phase 31`` runs it alone): K1-bf16 against
+     its plain version at 512x512, batch 8, and 64x64, batch 160, in the
+     four variants, its pre conv (K3's bf16 operand path) against F.conv2d
+     on the bf16-rounded operands; K2-bf16 against its plain version at
+     batch 8 and 160, in the four variants, with 1/sqrt(fan_in) weights and
+     margin biases; K2-bf16's recompute against K1-bf16, bit for bit, at
+     C = 8 and 32; a bf16 flagship's ``generate`` at 512x512, batch 8 (21
+     K1-bf16 launches) beside the fp32 one; the PCGrad step on phase 18's
+     160 patches at bf16 on K1-bf16 + K2-bf16 (21 + 21 launches) and with
+     the plain generator in bf16, each against the fp32 step from the same
+     weights and batch (losses and every generator gradient leaf), and
+     timed in turns with it; a ``--bf16`` train CLI epoch of MTD_GAN_Method
+     (2 steps of 20 slices, validation), its checkpoint fp32; RED-CNN,
+     EDCNN, WGAN-VGG, MAP-NN, DU-GAN, CTformer, Restormer and the four
+     diffusion models at their published widths, one bf16 forward (the
+     UNet's at 256x256) and one bf16 train step each against fp32, no K1 -
+     K8 launch; K1-bf16 and K2-bf16 timed in turns with fp32 K1 and K2,
+     beside their bf16 plain versions and bf16 bounds, and split by launch.
+     The kernels line lists K1-bf16 and K2-bf16 with the launches of its
+     generate, step and train CLI.
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -361,6 +382,9 @@ COUNTED = {"K1": block_fused, "K2": block_bwd, "K8": spectral_branch_tiled,
            "K5": spectral_mix_h, "K6": irdft_w_add}
 # K3's launches on its tensor-core path, counted beside COUNTED
 K3_TC = "K3tc"
+# the bf16 variants' launches, counted by their wrappers apart from the
+# fp32 ones (``launches_bf16``)
+BF16_COUNTED = {"K1-bf16": block_fused, "K2-bf16": block_bwd}
 # one generate call on the tiled, fused or staged route: 42 K3 (10 encoder,
 # 21 residual, 10 decoder convs and the exit deconv; all but the C -> 1
 # exit deconv on the tensor cores) besides its spectral kernel; the staged
@@ -412,6 +436,42 @@ TOL_DN_LOSS_REL = 1e-4
 TOL_DN_GRAD_L2 = 1e-3
 DN_CLI_SIZE = 256
 DN_SEGMENT_STEPS = 10
+# phase 31: bf16. K1-bf16 and K2-bf16 against their bf16 plain versions,
+# and K3's bf16 operand path (K1-bf16's pre conv) against F.conv2d in fp32
+# on the same bf16-rounded operands: both sides round to bf16 at the same
+# points and sum in fp32 in other orders, so an element whose sum lies
+# near the midpoint of two bf16 values rounds to the other one in one
+# version: one unit in the last place, 2^-8 = 3.9e-3 of the value (and a
+# flipped ReLU near zero). K1 per output max |kernel - plain| / max |plain|,
+# K2 on margin inputs (every ReLU far from zero) per output in the relative
+# 2-norm: 1e-2 allows two units at the largest element
+TOL_BF16_REL = 1e-2
+# K2-bf16 on 1/sqrt(fan_in) inputs, per output in the relative 2-norm: a
+# pre-activation within one bf16 unit of zero (2^-8 of its terms' size,
+# 256 times fp32's) takes the other side of its ReLU in one version, and
+# img's cotangent is gfin where post_pre > 0, so each flip moves one
+# element by all of gfin (1.2e-2 at batch 160 on an H100 80GB HBM3 at
+# 700 W); 5e-2 allows a flip in 0.25 % of the elements
+TOL_BF16_L2 = 5e-2
+# the bf16 train step against the fp32 step from one state on one batch,
+# the worst generator gradient leaf (max |bf16 - fp32| / max |fp32|): the
+# JAX package's bound for its bf16 K1 + K2 is 5e-2 (tests/
+# test_pallas_train.py:66), on 2 layers of 8 features at its init; at full
+# width and depth from the reference init no bf16 generator reaches it (the
+# plain bf16 module, the JAX einsum path's semantics, reads 0.31 on a
+# spectral bias on the CPU: its pre-activations lie near zero and bf16
+# flips their ReLUs), so it is printed, and the K1-bf16 + K2-bf16 step is
+# held to twice the plain bf16 generator's error on the same step, the
+# budget of the CPU parity tests
+JAX_BF16_STEP_BOUND = 5e-2
+BF16_STEP_FACTOR = 2.0
+# bf16 generate against fp32 generate from the same weights, max abs on the
+# [0, 1] output (a gross-error bound: the measured difference is printed)
+TOL_BF16_GENERATE_ABS = 5e-2
+# published H100 SXM dense bf16 rate of the tensor cores (NVIDIA data
+# sheet): the bound of K1-bf16's and K2-bf16's convs
+PEAK_BF16_FLOPS = 989e12
+BF16 = torch.bfloat16
 
 
 def fail(msg: str):
@@ -534,6 +594,155 @@ def check_k2():
                 print(f"K2 check 64x64 C={C} n={n} {init:9s} {variant:14s} "
                       f"(max_abs/max_rel/l2_rel): " + "; ".join(parts), flush=True)
     return worst_margin_abs
+
+
+def bf16_args(args):
+    """K1 / K2 inputs with the activations (x, skip, g) rounded to bf16."""
+    return {k: v.to(BF16) if k in ("x", "skip", "g") else v for k, v in args.items()}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want).clamp_min(1e-30)).item()
+
+
+def check_bf16_kernels():
+    """Phase 31, the kernels: K1-bf16 against its plain version at 512x512,
+    batch 8, and 64x64, batch 160, in the four variants, with its pre conv
+    (K3's bf16 operand path, read from K1's scratch) against F.conv2d on
+    the bf16-rounded operands; K2-bf16 against its plain version at 64x64,
+    batch 8 and 160, in the four variants, with 1/sqrt(fan_in) weights and
+    margin biases; K2-bf16's recompute against K1-bf16, bit for bit, at
+    C = 8 and 32. Returns the largest absolute errors {K1-bf16, K2-bf16}."""
+    worst = {"K1-bf16": 0.0, "K2-bf16": 0.0}
+    for size, n in ((512, 8), (64, 160)):
+        for vi, variant in enumerate(VARIANTS):
+            args = bf16_args(block_inputs(size, n, "fan_in", variant, seed=vi))
+            k1 = {}
+            got = as_tuple(block_fused(**args, scratch=k1))
+            want = as_tuple(block_fused_reference(**args))
+            torch.cuda.synchronize()
+            parts = []
+            checks = list(zip(("out", "final"), got, want))
+            if "pre" in args:
+                w, b = args["pre"]
+                a = torch.nn.functional.conv2d(
+                    args["x"].float().reshape(n, C, size, size), w.to(BF16).float(), b,
+                    padding=1)
+                if "skip" in args:
+                    a = a + args["skip"].float().reshape(a.shape)
+                checks.append(("pre conv", k1["hin"],
+                               torch.relu(a).to(BF16).reshape(n, C, -1)))
+            for name, g, r in checks:
+                if not torch.isfinite(g.float()).all():
+                    fail(f"K1-bf16 {size}^2 {variant}: non-finite {name}")
+                err = (g.float() - r.float()).abs().max().item()
+                rel = rel_err(g, r)
+                worst["K1-bf16"] = max(worst["K1-bf16"], err)
+                parts.append(f"{name} max_abs {err:.3e} rel {rel:.3e}")
+                if rel > TOL_BF16_REL:
+                    fail(f"K1-bf16 {size}^2 n={n} {variant} {name}: relative error "
+                         f"{rel:.3e} > {TOL_BF16_REL}")
+            print(f"K1-bf16 check {size}x{size} C={C} n={n} {variant:14s}: "
+                  + "; ".join(parts), flush=True)
+    for n in (8, 160):
+        for init in ("fan_in", "margin"):
+            for vi, variant in enumerate(VARIANTS):
+                args = bf16_args(bwd_inputs(n, init, variant, seed=vi))
+                got = block_bwd(**args)
+                want = block_bwd_reference(**args)
+                torch.cuda.synchronize()
+                parts = []
+                for name, w in want.items():
+                    g = got[name]
+                    if g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+                        fail(f"K2-bf16 n={n} {init} {variant}: {name} is {g.dtype}, "
+                             f"not {w.dtype}, or not finite")
+                    worst["K2-bf16"] = max(worst["K2-bf16"],
+                                           (g.float() - w.float()).abs().max().item())
+                    err = rel_l2(g, w)
+                    tol = TOL_BF16_REL if init == "margin" else TOL_BF16_L2
+                    parts.append(f"{name} {err:.2e}")
+                    if err > tol:
+                        fail(f"K2-bf16 n={n} {init} {variant} {name}: relative 2-norm "
+                             f"{err:.3e} > {tol}")
+                print(f"K2-bf16 check 64x64 C={C} n={n} {init:6s} {variant:14s} "
+                      f"rel 2-norm: " + ", ".join(parts), flush=True)
+    for c in (8, C):
+        for vi, variant in enumerate(VARIANTS[1:], start=1):
+            args = bf16_args(bwd_inputs(8, "fan_in", variant, seed=vi, c=c))
+            fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
+            k1, k2 = {}, {}
+            out = as_tuple(block_fused(**fwd, scratch=k1))[0]
+            block_bwd(**args, scratch=k2)
+            torch.cuda.synchronize()
+            pairs = [("hin", k2["hin"], k1["hin"])]
+            if "post" in variant:
+                pairs.append(("out", k2["out"], out))
+            for name, a, b in pairs:
+                if a.dtype != BF16 or not torch.equal(a, b):
+                    fail(f"K2-bf16 recompute C={c} {variant}: {name} is not K1-bf16's")
+            print(f"K2-bf16 recompute vs K1-bf16 64x64 C={c} n=8 {variant:14s}: "
+                  + ", ".join(f"{name} equal" for name, _, _ in pairs), flush=True)
+    return worst
+
+
+def bf16_bounds(kernel: str, n: int, size: int, variant: str):
+    """(ms, by) of K1-bf16 or K2-bf16: the convs' multiply-adds at the bf16
+    dense tensor-core rate and the rest fp32 on the CUDA cores (the larger
+    of the two engines' times), or the bytes' time, with the activations
+    (x, skip, out; K2 also g, xbar, skipbar) at bf16 width and the weights,
+    their gradients, img, final, gfin and imgbar fp32."""
+    c, hw = C, size * size
+    n_convs = 1 if variant == "plain" else 2
+    weights = n_convs * (9 * c * c + c) + 4 * c * c + 2 * c
+    post = "post" in variant
+    if kernel == "K1-bf16":
+        conv, other, _ = k1_work(n, size, variant)
+        nbytes = 4 * weights + 2 * n * c * hw * (3 if "skip" in variant else 2)
+        nbytes += 4 * (9 * c + 1 + 2 * n * hw) if post else 0
+    else:
+        conv, other, _ = k2_work(n, size, variant)
+        nbytes = 4 * 2 * weights + 2 * 3 * n * c * hw  # weights and grads; x, xbar, g
+        nbytes += 2 * 2 * n * c * hw if "skip" in variant else 0
+        nbytes += 4 * (2 * (9 * c + 1) + 3 * n * hw) if post else 0
+    t_ops = max(conv / PEAK_BF16_FLOPS, other / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_bf16_kernels():
+    """Phase 31, the times: K1 at 512x512, batch 8, and K2 at 64x64, batch
+    160, both pre+skip (the main paths' commonest call), fp32 and bf16 in
+    turns (fp32, bf16, bf16, fp32), beside the bf16 plain version and the
+    bf16 bound. Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    out = {}
+    for name, n, size, fp32_fn, bf16_fn, plain_fn in (
+            ("K1-bf16", 8, 512, block_fused, block_fused, block_fused_reference),
+            ("K2-bf16", 160, 64, block_bwd, block_bwd, block_bwd_reference)):
+        args = (block_inputs(size, n, "fan_in", "pre+skip", seed=31) if name == "K1-bf16"
+                else bwd_inputs(n, "fan_in", "pre+skip", seed=31))
+        bargs = bf16_args(args)
+        turns = [cuda_ms(lambda: fp32_fn(**args), 20), cuda_ms(lambda: bf16_fn(**bargs), 20),
+                 cuda_ms(lambda: bf16_fn(**bargs), 20), cuda_ms(lambda: fp32_fn(**args), 20)]
+        plain_ms = cuda_ms(lambda: plain_fn(**bargs), 5)
+        b_ms, by = bf16_bounds(name, n, size, "pre+skip")
+        ms = (turns[1] + turns[2]) / 2
+        print(f"time {name} {size}x{size} batch {n} pre+skip: fp32 {turns[0]:.3f}, bf16 "
+              f"{turns[1]:.3f}, bf16 {turns[2]:.3f}, fp32 {turns[3]:.3f} ms (in turns); "
+              f"bf16 plain {plain_ms:.3f} ms; bf16 bound {b_ms:.3f} ms ({by})", flush=True)
+        launch_split(f"{name} split {size}x{size} batch {n} pre+skip",
+                     lambda: bf16_fn(**bargs),
+                     K1_LAUNCHES if name == "K1-bf16" else K2_LAUNCHES)
+        out[name] = (ms, plain_ms, b_ms, by)
+    return out
 
 
 def as_float64(args):
@@ -905,18 +1114,21 @@ def check_train_width64(x, y):
 def zero_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    for fn in BF16_COUNTED.values():
+        fn.launches_bf16 = 0
     conv3x3.launches_tc = 0
 
 
 def read_counts():
     return {**{name: fn.launches for name, fn in COUNTED.items()},
+            **{name: fn.launches_bf16 for name, fn in BF16_COUNTED.items()},
             K3_TC: conv3x3.launches_tc}
 
 
 def expect_counts(label: str, got, want):
     """Fail unless the launch counts ``got`` equal ``want`` (every kernel
     not named in ``want`` must not have launched)."""
-    want = {name: want.get(name, 0) for name in list(COUNTED) + [K3_TC]}
+    want = {name: want.get(name, 0) for name in list(COUNTED) + list(BF16_COUNTED) + [K3_TC]}
     if got != want:
         fail(f"{label}: launches {got}, expected {want}")
 
@@ -2738,6 +2950,201 @@ def check_parallel_ranks(base, x_gen, x, y, tmp: str, want_gen) -> None:
         fail(f"tp_generate ({world} ranks) error {err:.3e} > {TOL_GENERATE_ABS}")
 
 
+def check_bf16_generate(x_gen):
+    """Phase 31: ``generate`` of a bf16 flagship at 512x512, batch 8 (the
+    K1-bf16 route, 21 launches) beside the fp32 one from the same weights:
+    the max-abs difference, each one's ms. Returns the bf16 launches."""
+    m32 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
+    m16 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0, dtype=BF16)
+    zero_counts()
+    pred = m16.generate(x_gen)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("bf16 generate 512x512", counts, {"K1-bf16": 21})
+    want = m32.generate(x_gen)
+    if pred.dtype != torch.float32 or pred.shape != x_gen.shape or not torch.isfinite(pred).all():
+        fail(f"bf16 generate: {pred.dtype} {tuple(pred.shape)} or not finite")
+    err = (pred - want).abs().max().item()
+    ms16 = cuda_ms(lambda: m16.generate(x_gen), 5)
+    ms32 = cuda_ms(lambda: m32.generate(x_gen), 5)
+    print(f"bf16 generate 512x512 batch 8 (K1-bf16 route): max_abs vs fp32 generate "
+          f"{err:.3e}; bf16 {ms16:.3f} ms = {8e3 / ms16:.2f} slices/s, fp32 {ms32:.3f} ms "
+          f"= {8e3 / ms32:.2f} slices/s; launches {counts}", flush=True)
+    if err > TOL_BF16_GENERATE_ABS:
+        fail(f"bf16 generate: {err:.3e} from fp32 > {TOL_BF16_GENERATE_ABS}")
+    return counts["K1-bf16"]
+
+
+def check_bf16_step(x, y):
+    """Phase 31: the flagship's PCGrad step at full width on the 160
+    patches from one state and batch, three ways: fp32 (K1 + K2), bf16 on
+    K1-bf16 + K2-bf16, and bf16 with the plain generator under autograd
+    (``g_forward="einsum"``): the D losses, g_loss and every generator
+    gradient leaf of each bf16 step against the fp32 one, the kernels' worst
+    leaf held to BF16_STEP_FACTOR times the plain one's; then a whole
+    train_step of fp32 and of bf16 timed in turns. Returns the bf16 kernel
+    step's (K1-bf16, K2-bf16) launches."""
+    order = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]])
+    runs = {}
+    for name, dtype, g_forward in (("fp32", None, "pallas"), ("bf16", BF16, "pallas"),
+                                   ("bf16 plain", BF16, "einsum")):
+        model = MTDGANModel(gen_features=C, disc_features=64, num_layers=10, device="cuda",
+                            seed=0, dtype=dtype)
+        trainer = MTDGANTrainer(model, method="pcgrad", seed=0, g_forward=g_forward)
+        gen = model.generator.train()
+        zero_counts()
+        fake = (resfft_generator_train(gen, x) if g_forward == "pallas"
+                else plain_forward(gen, x))
+        d_losses, _ = trainer.d_update(x, y, fake, order)
+        total, _ = model.g_loss_terms(fake, x, y, update_stats=True, generator=trainer.rng)
+        grads = torch.autograd.grad(total, list(gen.parameters()))
+        torch.cuda.synchronize()
+        runs[name] = (d_losses, total.detach(), grads, read_counts(), model, trainer)
+    d32, g32, gr32, c32, _, t32 = runs["fp32"]
+    expect_counts("fp32 train step", c32, {"K1": 21, "K2": 21})
+    expect_counts("bf16 train step", runs["bf16"][3], {"K1-bf16": 21, "K2-bf16": 21})
+    expect_counts("bf16 plain train step", runs["bf16 plain"][3], {})
+    worst = {}
+    for name in ("bf16", "bf16 plain"):
+        d16, g16, gr16, c16, m16, _ = runs[name]
+        w = (0.0, 0.0, "")
+        for (pname, p), a, b in zip(m16.generator.named_parameters(), gr16, gr32):
+            if p.dtype != torch.float32 or a.dtype != torch.float32 or not torch.isfinite(a).all():
+                fail(f"{name} train step: {pname} or its gradient is not finite fp32")
+            mx = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            w = max(w, (mx, rel_l2(a, b), pname))
+        worst[name] = w
+        d_rel = ((d16 - d32).abs() / d32.abs()).tolist()
+        print(f"{name} train step (160 x 64x64, 32/64 features, 10 layers, PCGrad) against "
+              f"fp32: D losses {d16.tolist()} vs {d32.tolist()} rel {d_rel}; g_loss "
+              f"{g16.item():.6f} vs {g32.item():.6f}; generator gradient worst leaf {w[2]} "
+              f"{w[0]:.3e} (max-norm; the JAX package's toy bound {JAX_BF16_STEP_BOUND}) "
+              f"{w[1]:.3e} (2-norm) over {len(gr16)} leaves; launches {c16}", flush=True)
+    t16 = runs["bf16"][5]
+    turns = [cuda_ms(lambda: t32.train_step(x, y), 3), cuda_ms(lambda: t16.train_step(x, y), 3),
+             cuda_ms(lambda: t16.train_step(x, y), 3), cuda_ms(lambda: t32.train_step(x, y), 3)]
+    print(f"time train step 160 x 64x64 PCGrad: fp32 {turns[0]:.2f}, bf16 {turns[1]:.2f}, "
+          f"bf16 {turns[2]:.2f}, fp32 {turns[3]:.2f} ms (in turns)", flush=True)
+    if worst["bf16"][0] > BF16_STEP_FACTOR * worst["bf16 plain"][0]:
+        fail(f"bf16 train step: generator gradient {worst['bf16'][2]} {worst['bf16'][0]:.3e} "
+             f"from fp32 > {BF16_STEP_FACTOR} x the plain bf16 generator's "
+             f"{worst['bf16 plain'][0]:.3e}")
+    c16 = runs["bf16"][3]
+    return c16["K1-bf16"], c16["K2-bf16"]
+
+
+def check_bf16_train_cli(tmp: str):
+    """Phase 31: one ``--bf16`` epoch of the train CLI for MTD_GAN_Method
+    (2 steps of 20 slices, validation) at full width; its checkpoint holds
+    fp32 parameters. Returns its (K1-bf16, K2-bf16) launches."""
+    rng = np.random.default_rng(31)
+    root = os.path.join(tmp, "bf16_data")
+    write_split(root, "train", rng, 2 * TRAIN_SLICES)
+    write_split(root, "valid", rng, 2)
+    ckpt_dir = os.path.join(tmp, "ckpt_bf16")
+    args = train_cli.get_args_parser().parse_args([
+        "--data-root", root, "--batch-size", str(TRAIN_SLICES), "--epochs", "1",
+        "--device", "cuda", "--seed", "0", "--model-kwargs", json.dumps(FULL_WIDTH),
+        "--method", "pcgrad", "--bf16", "--checkpoint-dir", ckpt_dir,
+        "--save-dir", os.path.join(tmp, "bf16_out"), "--print-freq", "1"])
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    if not all(math.isfinite(v) for v in stats.values() if isinstance(v, float)):
+        fail(f"--bf16 train CLI: non-finite epoch stats {stats}")
+    # 2 steps of 21 + 21, and 21 K1-bf16 a validation slice
+    expect_counts("--bf16 train CLI", counts, {"K1-bf16": 2 * 21 + 2 * 21, "K2-bf16": 2 * 21})
+    state = load_checkpoint(os.path.join(ckpt_dir, "epoch_0.pth"))["model_state_dict"]
+    wide = [k for k, v in state.items() if torch.is_floating_point(v) and v.dtype != torch.float32]
+    if wide:
+        fail(f"--bf16 train CLI: checkpoint tensors not fp32: {wide[:4]}")
+    print(f"--bf16 train CLI: 1 epoch of 2 steps x {TRAIN_SLICES} slices in {train_s:.3f} s, "
+          f"train_d_loss {stats['train_d_loss']:.6f} train_g_loss {stats['train_g_loss']:.6f} "
+          f"valid_loss {stats['valid_loss']:.6f}; launches {counts}; checkpoint "
+          f"{len(state)} tensors, all fp32", flush=True)
+    return counts["K1-bf16"], counts["K2-bf16"]
+
+
+# phase 31: the other eleven models with a dtype, each at its published width
+BF16_MODELS = ("RED_CNN", "EDCNN", "WGAN_VGG", "MAP_NN", "DU_GAN", "CTformer", "Restormer",
+               "DDPM", "DDIM", "PNDM", "DPM")
+
+
+def check_bf16_models(x, y):
+    """Phase 31: each of BF16_MODELS built twice from one seed, fp32 and
+    bf16: one forward on the same input (64x64 patches, batch 8; the
+    diffusion UNet's noise prediction at 256x256, batch 1) and one train
+    step of each on the same 16 patches, the bf16 one against the fp32
+    one; no K1 - K8 launch. The diffusion UNets' weights are drawn
+    (``draw_unet_weights``), since at their init ``conv2`` and ``out_conv``
+    are zero and the UNet outputs 0 in either type."""
+    xs, ys = x[:16], y[:16]
+    big = torch.nn.functional.interpolate(x[:1].permute(0, 3, 1, 2), size=256).permute(0, 2, 3, 1)
+    for name in BF16_MODELS:
+        models = {d: get_model(name, device="cuda", seed=1, dtype=d) for d in (None, BF16)}
+        if family_of(name) == "dn":
+            draw_unet_weights(models[None].net, 31)
+            models[BF16].net.load_state_dict(models[None].net.state_dict())
+        zero_counts()
+        with torch.no_grad():
+            if family_of(name) == "dn":
+                t = torch.full((1,), 500, device="cuda")
+                outs = {d: m.eps(big, big, t) for d, m in models.items()}
+            else:
+                outs = {d: (m.generate(x[:8]) if hasattr(m, "generate") else m.predict(x[:8]))
+                        for d, m in models.items()}
+        steps = {}
+        for d, m in models.items():
+            trainer = build_trainer(name, m, train_cli.get_args_parser().parse_args([]))
+            steps[d] = {k: v.item() for k, v in trainer.train_step(xs, ys).items()}
+        torch.cuda.synchronize()
+        expect_counts(f"bf16 forward and step {name}", read_counts(), {})
+        o32, o16 = outs[None].float(), outs[BF16].float()
+        f_rel = (o16 - o32).abs().max().item() / max(o32.abs().max().item(), 1e-30)
+        loss_rel = {k: abs(steps[BF16][k] - v) / max(abs(v), 1e-30) for k, v in steps[None].items()}
+        bad = [k for k, v in steps[BF16].items() if not math.isfinite(v)]
+        if not torch.isfinite(o16).all() or bad:
+            fail(f"bf16 {name}: non-finite forward or step metrics {bad}")
+        print(f"bf16 {name}: forward {tuple(o16.shape)} max-rel vs fp32 {f_rel:.3e}; step "
+              f"metrics rel vs fp32 " + ", ".join(f"{k} {v:.2e}" for k, v in loss_rel.items()),
+              flush=True)
+        del models, outs
+
+
+def check_bf16(x_gen, x, y, tmp: str):
+    """Phase 31 (module docstring). Returns {K1-bf16, K2-bf16: launches on
+    the main paths (generate, the step, the train CLI)} and {name: max abs
+    error against the plain version}."""
+    worst = check_bf16_kernels()
+    k1_gen = check_bf16_generate(x_gen)
+    k1_step, k2_step = check_bf16_step(x, y)
+    k1_cli, k2_cli = check_bf16_train_cli(tmp)
+    check_bf16_models(x, y)
+    return {"K1-bf16": k1_gen + k1_step + k1_cli, "K2-bf16": k2_step + k2_cli}, worst
+
+
+def phase31_alone(card: str) -> None:
+    """``--phase 31``: phase 31 alone, after the builds of K1 and K2, on
+    inputs drawn as the whole run draws them; it ends with the card line
+    and no kernels or result line."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(_build.build, ("block_fused", "block_bwd")))
+    rng = np.random.default_rng(0)
+    x_gen = torch.tensor(phantom(rng, 8, 512)[..., None], dtype=torch.float32,
+                         device="cuda")
+    x, y = train_patches(rng, seed=0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        launches, _ = check_bf16(x_gen, x, y, tmp)
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s; main-path launches {launches}",
+          flush=True)
+    time_bf16_kernels()
+    print(card, flush=True)
+
+
 def phase30_alone(card: str) -> None:
     """``--phase 30``: phase 30 alone, after the builds of K1 and K2 (its
     kernels), on inputs drawn as the whole run draws them; it ends with the
@@ -2757,7 +3164,7 @@ def phase30_alone(card: str) -> None:
 def main():
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    parser.add_argument("--phase", type=int, choices=[30],
+    parser.add_argument("--phase", type=int, choices=[30, 31],
                         help="run this phase alone (no kernels or result line)")
     only = parser.parse_args().phase
     if not torch.cuda.is_available():
@@ -2770,6 +3177,9 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     if only == 30:
         phase30_alone(card)
+        return
+    if only == 31:
+        phase31_alone(card)
         return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
@@ -3174,6 +3584,15 @@ def main():
     profile("generate 200x200 batch 8", lambda: model.generate(x200))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
+    # ---- 31. bf16: K1-bf16 and K2-bf16 against their plain versions,
+    # generate, the PCGrad step and a --bf16 train CLI epoch on them, the
+    # other eleven models with a dtype, the bf16 kernels' times
+    t31 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        bf16_launches, bf16_err = check_bf16(x_gen, x, y, tmp)
+    bf16_times = time_bf16_kernels()
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s", flush=True)
+
     # ---- 30. the parallel layer: DataParallel and TensorParallel in a
     # one-rank NCCL group (and on every card where there are several), the
     # packed generator. It runs after phase 21's
@@ -3232,7 +3651,15 @@ def main():
         ("K3", "conv3x3", "conv3x3.cu", 439),
         ("K4", "staged_rdft_w", "spectral_staged.cu", 588),
         ("K5", "staged_mix_h", "spectral_staged.cu", 844),
-        ("K6", "staged_irdft_w_add", "spectral_staged.cu", 908))]}), flush=True)
+        ("K6", "staged_irdft_w_add", "spectral_staged.cu", 908))] + [{
+        "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
+        "replaces": replaces, "launches": bf16_launches[name],
+        "max_abs_err": bf16_err[name], "ms": bf16_times[name][0],
+        "plain_ms": bf16_times[name][1], "bound_ms": bf16_times[name][2],
+        "bound_by": bf16_times[name][3], "library_ms": None,
+    } for name, src, replaces in (
+        ("K1-bf16", "block_fused.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:954"),
+        ("K2-bf16", "block_bwd.cu", "mtd_gan_tpu/ops/pallas_train.py:109"))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

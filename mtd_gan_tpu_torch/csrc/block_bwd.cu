@@ -61,6 +61,22 @@
 // Weight gradients are per-block partials reduced by a second kernel in a
 // fixed order: no float atomics, so a gradient repeats bit for bit from run
 // to run.
+//
+// The bf16 variant (block_bwd_bf16, the JAX kernel at act_dtype=bfloat16,
+// mtd_gan_tpu/ops/pallas_train.py:339-348, :452) keeps the launches: x,
+// skip, the cotangent g and the recomputed hin and out are bf16, and the
+// recompute runs K1's bf16 launchers (K1's bf16 bits, masks included);
+// the convs and their adjoints run K3's bf16 operand path, with the ReLU
+// cotangents gres and dpre stored in bf16 as their operands; the weight
+// gradients of two bf16 operands run mma.sync m16n8k16 bf16 (one product,
+// fp32 sums) and stay fp32; the column pass is the fp32 one; hbar is
+// summed in fp32 and xbar and skipbar are rounded once to bf16. On the
+// last block the exit conv's cotangent dpost stays fp32 (its weight
+// gradient runs 3xTF32 on the widened out) and g + adj_post(dpost) is
+// rounded to bf16, as the incoming cotangent is. Bound: the six
+// contractions' 72.5 GFLOP at the bf16 dense rate (0.073 ms) and the
+// ~10.6 GFLOP of the spectral passes on the CUDA cores (0.16 ms): bound by
+// the CUDA cores' operations.
 
 #include <cstdint>
 
@@ -73,13 +89,15 @@ constexpr int kBwdThreads = 256;
 constexpr int kWgRows = 4;       // image rows per unit of the weight-gradient GEMM
 constexpr int kWgThreads = 288;  // 9 warps, one per tap
 
-// out[i] = mask[i] > 0 ? a[i] : 0   (a ReLU's cotangent from its output)
+// out[i] = mask[i] > 0 ? a[i] : 0   (a ReLU's cotangent from its output),
+// rounded to TO; a null mask passes a through (the bf16 variant's xbar)
+template <typename TM, typename TO>
 __global__ void __launch_bounds__(kBwdThreads)
-relu_grad_kernel(const float* __restrict__ a, const float* __restrict__ mask,
-                 float* __restrict__ out, size_t count) {
+relu_grad_kernel(const float* __restrict__ a, const TM* __restrict__ mask,
+                 TO* __restrict__ out, size_t count) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += (size_t)gridDim.x * blockDim.x)
-    out[i] = mask[i] > 0.f ? a[i] : 0.f;
+    st1(out + i, mask == nullptr || ld1(mask + i) > 0.f ? a[i] : 0.f);
 }
 
 // out = sum_p part[p, :] in a fixed order (32 outputs x 8 partial lanes per
@@ -114,6 +132,19 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d (16 x 8) += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 sums. A
+// thread holds a at rows q, q + 8 by columns 2t, 2t + 1 (registers 0, 1)
+// and 2t + 8, 2t + 9 (2, 3); b at rows 2t, 2t + 1 and 2t + 8, 2t + 9 of
+// column q; d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 sums. A
@@ -167,11 +198,16 @@ size_t wgrad_smem_bytes(int co, int cin, int w) {
 // zero and are added to the block's partial row in memory on the CUDA
 // cores, in unit order: staged through the shared tiles in the row's
 // order, so that the row (37 KB at C = 32, in L2) is read and written
-// coalesced; a thread's own fragments lie 288 floats apart in it.
-template <int CI8, int MT>
+// coalesced; a thread's own fragments lie 288 floats apart in it. TG, TI:
+// the types of g and in. Both bf16 (the bf16 variant's gres, dpre, hin,
+// x): one mma.sync m16n8k16 bf16 product per 16 pixels; else 3xTF32 on
+// the tiles, which hold either type widened to fp32 (bf16 rows are loaded
+// by the threads, 8 bytes at a time, below cp.async's 16 of fp32).
+template <typename TG, typename TI, int CI8, int MT>
 __global__ void __launch_bounds__(kWgThreads, 2)
-wgrad_tc_kernel(const float* __restrict__ g, const float* __restrict__ in,
+wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
                 float* __restrict__ part, int c_out, int H, int W, int units) {
+  constexpr bool BF = kIsBf16<TG> && kIsBf16<TI>;
   constexpr int CIN = 8 * CI8, CO = 16 * MT;
   extern __shared__ __align__(16) float wg_smem[];
   const int P = kWgRows * W, gstride = wgrad_gstride(W), hs = W + 8;
@@ -208,20 +244,56 @@ wgrad_tc_kernel(const float* __restrict__ g, const float* __restrict__ in,
     const int q4 = P / 4, w4 = W / 4;
     for (int i = tid; i < c_out * q4; i += blockDim.x) {
       const int co = i / q4, j = (i - co * q4) * 4;
-      cp_async16(gsm + co * gstride + j,
-                 g + ((size_t)n * c_out + co) * hw + (size_t)y0 * W + j, true);
+      const TG* src = g + ((size_t)n * c_out + co) * hw + (size_t)y0 * W + j;
+      if constexpr (kIsBf16<TG>) {
+        *reinterpret_cast<float4*>(gsm + co * gstride + j) = ld4(src);
+      } else {
+        cp_async16(gsm + co * gstride + j, src, true);
+      }
     }
     for (int i = tid; i < CIN * (kWgRows + 2) * w4; i += blockDim.x) {
       const int r = i / w4, j = (i - r * w4) * 4;
       const int ci = r / (kWgRows + 2), yy = r - ci * (kWgRows + 2);
       const int gy = y0 - 1 + yy;
       const bool ok = gy >= 0 && gy < H;
-      cp_async16(ism + ci * istride + yy * hs + 4 + j,
-                 in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + j, ok);
+      const TI* src = in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + j;
+      float* dst = ism + ci * istride + yy * hs + 4 + j;
+      if constexpr (kIsBf16<TI>) {
+        *reinterpret_cast<float4*>(dst) = ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        cp_async16(dst, src, ok);
+      }
     }
     cp_async_wait_all();
     __syncthreads();
 
+    if constexpr (BF) {
+      for (int yl = 0; yl < kWgRows; ++yl) {
+        for (int x0 = 0; x0 < W; x0 += 16) {
+          const int p0 = yl * W + x0;
+          // A: g at rows co = 16 mt + q (+ 8), pixels p0 + 2t, 2t + 1 (+ 8)
+          uint32_t a16[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const float* ga = gsm + (16 * mt + q) * gstride + p0 + 2 * t;
+            a16[mt][0] = pack_bf16(ga[0], ga[1]);
+            a16[mt][1] = pack_bf16(ga[8 * gstride], ga[8 * gstride + 1]);
+            a16[mt][2] = pack_bf16(ga[8], ga[9]);
+            a16[mt][3] = pack_bf16(ga[8 * gstride + 8], ga[8 * gstride + 9]);
+          }
+          // B: the input at channel ci = 8 j + q, pixels p0 + 2t, 2t + 1 (+ 8)
+          // shifted by the tap
+          const float* ib = ism + q * istride + (yl + dy) * hs + x0 + 2 * t + dx + 3;
+#pragma unroll
+          for (int j = 0; j < CI8; ++j) {
+            const float* b = ib + 8 * j * istride;
+            const uint32_t b0 = pack_bf16(b[0], b[1]), b1 = pack_bf16(b[8], b[9]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a16[mt], b0, b1);
+          }
+        }
+      }
+    } else {
     for (int yl = 0; yl < kWgRows; ++yl) {
       for (int x0 = 0; x0 < W; x0 += 8) {
         const int p0 = yl * W + x0;
@@ -250,6 +322,7 @@ wgrad_tc_kernel(const float* __restrict__ g, const float* __restrict__ in,
           }
         }
       }
+    }
     }
     if (tid < c_out * 8) {
       const float* gr = gsm + (tid >> 3) * gstride;
@@ -454,10 +527,11 @@ column_bwd_kernel(const float2* __restrict__ spec_in, float2* __restrict__ spec_
   if (tid < C2) out[C2 * C2 + tid] = bacc * scale;
 }
 
-cudaError_t launch_relu_grad(const float* a, const float* mask, float* out,
+template <typename TM, typename TO>
+cudaError_t launch_relu_grad(const float* a, const TM* mask, TO* out,
                              size_t count, cudaStream_t stream) {
   const int blocks = (int)((count + kBwdThreads - 1) / kBwdThreads);
-  relu_grad_kernel<<<blocks < 65535 * 16 ? blocks : 65535 * 16, kBwdThreads, 0,
+  relu_grad_kernel<TM, TO><<<blocks < 65535 * 16 ? blocks : 65535 * 16, kBwdThreads, 0,
                      stream>>>(a, mask, out, count);
   return cudaGetLastError();
 }
@@ -469,39 +543,41 @@ cudaError_t launch_sum(const float* part, float* out_a, int m_a, float* out_b, i
   return cudaGetLastError();
 }
 
-template <int CI8, int MT>
-cudaError_t launch_wgrad_tc(const float* g, const float* in, float* part, int n, int c_out,
+template <typename TG, typename TI, int CI8, int MT>
+cudaError_t launch_wgrad_tc(const TG* g, const TI* in, float* part, int n, int c_out,
                             int h, int w, int blocks, cudaStream_t stream) {
   const size_t smem = wgrad_smem_bytes(16 * MT, 8 * CI8, w);
-  CUDA_TRY(allow_two_blocks(wgrad_tc_kernel<CI8, MT>, smem));
-  wgrad_tc_kernel<CI8, MT><<<blocks, kWgThreads, smem, stream>>>(g, in, part, c_out, h, w,
-                                                                 n * (h / kWgRows));
+  CUDA_TRY(allow_two_blocks(wgrad_tc_kernel<TG, TI, CI8, MT>, smem));
+  wgrad_tc_kernel<TG, TI, CI8, MT><<<blocks, kWgThreads, smem, stream>>>(
+      g, in, part, c_out, h, w, n * (h / kWgRows));
   return cudaGetLastError();
 }
 
 // Weight and bias gradients of a 3x3 conv from C_in in {8, 16, 32} to
 // C_out in {1, 8, 16, 32}: `blocks` partials on the tensor cores, then
 // their fixed-order sums into dw (c_out, c_in, 3, 3) and db (c_out).
-cudaError_t launch_wgrad(const float* g, const float* in, float* part, float* dw, float* db,
+template <typename TG, typename TI>
+cudaError_t launch_wgrad(const TG* g, const TI* in, float* part, float* dw, float* db,
                          int n, int c_out, int c_in, int h, int w, int blocks,
                          cudaStream_t stream) {
-  if (h % kWgRows != 0 || w % 8 != 0 || blocks < 1 || blocks > n * (h / kWgRows) ||
+  constexpr int kStep = kIsBf16<TG> && kIsBf16<TI> ? 16 : 8;  // pixels per k-step
+  if (h % kWgRows != 0 || w % kStep != 0 || blocks < 1 || blocks > n * (h / kWgRows) ||
       (c_out != 1 && c_out != 8 && c_out != 16 && c_out != 32))
     return cudaErrorInvalidValue;
   const bool two = c_out > 16;
   cudaError_t err;
   switch (c_in) {
     case 8:
-      err = two ? launch_wgrad_tc<1, 2>(g, in, part, n, c_out, h, w, blocks, stream)
-                : launch_wgrad_tc<1, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      err = two ? launch_wgrad_tc<TG, TI, 1, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<TG, TI, 1, 1>(g, in, part, n, c_out, h, w, blocks, stream);
       break;
     case 16:
-      err = two ? launch_wgrad_tc<2, 2>(g, in, part, n, c_out, h, w, blocks, stream)
-                : launch_wgrad_tc<2, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      err = two ? launch_wgrad_tc<TG, TI, 2, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<TG, TI, 2, 1>(g, in, part, n, c_out, h, w, blocks, stream);
       break;
     case 32:
-      err = two ? launch_wgrad_tc<4, 2>(g, in, part, n, c_out, h, w, blocks, stream)
-                : launch_wgrad_tc<4, 1>(g, in, part, n, c_out, h, w, blocks, stream);
+      err = two ? launch_wgrad_tc<TG, TI, 4, 2>(g, in, part, n, c_out, h, w, blocks, stream)
+                : launch_wgrad_tc<TG, TI, 4, 1>(g, in, part, n, c_out, h, w, blocks, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -549,6 +625,92 @@ cudaError_t launch_column_bwd(const float2* spec_in, float2* spec_g, const float
   return launch_sum(part, dmix, 4 * c * c, dmb, blocks, 4 * c * c + 2 * c, stream);
 }
 
+// One K2 call on activations of type T (block_bwd's arguments): x, g,
+// skip, hbuf, rbuf, obuf, gbuf, xbar and skipbar are T; res (n, c, h*w)
+// fp32 takes the recomputed residual conv's part of out on the last block
+// (obuf itself for fp32); hbar is summed in fp32: in abuf with pre or for
+// bf16, else in xbar itself.
+template <typename T>
+int block_bwd_impl(const T* x, const T* g, int n, int c, int h, int w, const float* pre_w,
+                   const float* pre_b, const T* skip, const float* km, const float* kb,
+                   const float* mix, const float* mb, const float* post_w,
+                   const float* post_b, const float* img, const float* gfin,
+                   const void* twiddles, T* hbuf, T* rbuf, T* obuf, float* res, T* gbuf,
+                   float* abuf, void* spec_a, void* spec_b, float* w_part, float* mix_part,
+                   int wgrad_blocks, int col_blocks, T* xbar, float* dkm, float* dkb,
+                   float* dmix, float* dmb, T* skipbar, float* dpre_w, float* dpre_b,
+                   float* imgbar, float* dpost_w, float* dpost_b, cudaStream_t stream) {
+  if (h != w || log2_exact(h) < 3 || h > 128 || n < 1 || n > 65535 ||
+      (c != 8 && c != 16 && c != 32))
+    return (int)cudaErrorInvalidValue;
+  if ((skip != nullptr && pre_w == nullptr) || (post_w != nullptr && gfin == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float2* sa = reinterpret_cast<float2*>(spec_a);
+  float2* sb = reinterpret_cast<float2*>(spec_b);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+
+  // forward recompute with K1's launches: hin = relu(pre_conv(x) + pre_b [+ skip])
+  const T* hin = x;
+  if (pre_w != nullptr) {
+    RETURN_IF_ERROR(launch_conv3x3(x, pre_w, pre_b, skip, hbuf, n, c, c, h, w, 1, 0, 0,
+                                   stream));
+    hin = hbuf;
+  }
+  RETURN_IF_ERROR(launch_rdft_w(hin, sa, tw, n, c, h, w, stream));
+
+  const T* gt = g;
+  if (post_w != nullptr) {
+    // out = hin + relu(res_pre) + spectral(hin), K1's sequence
+    RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, res, n, c, c, h, w, 1, 1, 0,
+                                   stream));
+    RETURN_IF_ERROR(launch_rdft_w(hin, sb, tw, n, c, h, w, stream));
+    RETURN_IF_ERROR(launch_column_rows_any(sb, mix, mb, tw, n, c, h, w, stream));
+    RETURN_IF_ERROR(launch_irdft_w(sb, res, obuf, tw, n, c, h, w, stream));
+    // dpost = gfin * [post_conv(out) + post_b + img > 0] = imgbar
+    RETURN_IF_ERROR(launch_conv(obuf, post_w, post_b, img, gfin, imgbar, n, c, 1, h, w,
+                                0, 0, 0, stream));
+    RETURN_IF_ERROR(launch_wgrad(static_cast<const float*>(imgbar), obuf, w_part, dpost_w,
+                                 dpost_b, n, 1, c, h, w, wgrad_blocks, stream));
+    // g_total = g + adj_post(dpost)
+    RETURN_IF_ERROR(launch_conv(static_cast<const float*>(imgbar), post_w, nullptr, g,
+                                nullptr, gbuf, n, 1, c, h, w, 0, 0, 1, stream));
+    gt = gbuf;
+  }
+
+  // residual conv: gres = g * [conv(hin) + kb > 0]; dkm, dkb; hbar = g + adj(gres)
+  RETURN_IF_ERROR(launch_conv3x3_gate(hin, km, kb, gt, rbuf, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_wgrad(static_cast<const T*>(rbuf), hin, w_part, dkm, dkb, n, c, c,
+                               h, w, wgrad_blocks, stream));
+  float* hbar;
+  if constexpr (kIsBf16<T>) {
+    hbar = abuf;
+  } else {
+    hbar = pre_w != nullptr ? abuf : xbar;
+  }
+  RETURN_IF_ERROR(launch_conv3x3(static_cast<const T*>(rbuf), km, nullptr, gt, hbar, n, c, c,
+                                 h, w, 0, 0, 1, stream));
+
+  // spectral path: adjoint c2r (K4 of g), columns, adjoint rFFT (K6 onto hbar)
+  RETURN_IF_ERROR(launch_rdft_w(gt, sb, tw, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_column_bwd(sa, sb, mix, mb, tw, mix_part, dmix, dmb, n, c, h, w,
+                                    col_blocks, stream));
+  RETURN_IF_ERROR(launch_irdft_w(sb, hbar, hbar, tw, n, c, h, w, stream));
+
+  if (pre_w != nullptr) {
+    // dpre = hbar * [pre_act > 0] (= skipbar); dpre_w, dpre_b; xbar = adj_pre(dpre)
+    T* dpre = skip != nullptr ? skipbar : rbuf;
+    RETURN_IF_ERROR(launch_relu_grad(hbar, hin, dpre, (size_t)n * c * h * w, stream));
+    RETURN_IF_ERROR(launch_wgrad(static_cast<const T*>(dpre), x, w_part, dpre_w, dpre_b, n,
+                                 c, c, h, w, wgrad_blocks, stream));
+    RETURN_IF_ERROR(launch_conv3x3(static_cast<const T*>(dpre), pre_w, nullptr, nullptr,
+                                   xbar, n, c, c, h, w, 0, 0, 1, stream));
+  } else if constexpr (kIsBf16<T>) {
+    RETURN_IF_ERROR(launch_relu_grad(hbar, static_cast<const T*>(nullptr), xbar,
+                                     (size_t)n * c * h * w, stream));
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -582,68 +744,32 @@ int block_bwd(const float* x, const float* g, int n, int c, int h, int w,
               float* xbar, float* dkm, float* dkb, float* dmix, float* dmb,
               float* skipbar, float* dpre_w, float* dpre_b, float* imgbar,
               float* dpost_w, float* dpost_b, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (h != w || log2_exact(h) < 3 || h > 128 || n < 1 || n > 65535 ||
-      (c != 8 && c != 16 && c != 32))
-    return (int)cudaErrorInvalidValue;
-  if ((skip != nullptr && pre_w == nullptr) || (post_w != nullptr && gfin == nullptr))
-    return (int)cudaErrorInvalidValue;
-  float2* sa = reinterpret_cast<float2*>(spec_a);
-  float2* sb = reinterpret_cast<float2*>(spec_b);
-  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+  return block_bwd_impl(x, g, n, c, h, w, pre_w, pre_b, skip, km, kb, mix, mb, post_w, post_b,
+                        img, gfin, twiddles, hbuf, rbuf, obuf, obuf, gbuf, abuf, spec_a,
+                        spec_b, w_part, mix_part, wgrad_blocks, col_blocks, xbar, dkm, dkb,
+                        dmix, dmb, skipbar, dpre_w, dpre_b, imgbar, dpost_w, dpost_b,
+                        reinterpret_cast<cudaStream_t>(stream_ptr));
+}
 
-  // forward recompute with K1's launches: hin = relu(pre_conv(x) + pre_b [+ skip])
-  const float* hin = x;
-  if (pre_w != nullptr) {
-    RETURN_IF_ERROR(launch_conv3x3(x, pre_w, pre_b, skip, hbuf, n, c, c, h, w, 1, 0, 0,
-                                   stream));
-    hin = hbuf;
-  }
-  RETURN_IF_ERROR(launch_rdft_w(hin, sa, tw, n, c, h, w, stream));
-
-  const float* gt = g;
-  if (post_w != nullptr) {
-    // out = hin + relu(res_pre) + spectral(hin), K1's sequence
-    RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, obuf, n, c, c, h, w, 1, 1, 0,
-                                   stream));
-    RETURN_IF_ERROR(launch_rdft_w(hin, sb, tw, n, c, h, w, stream));
-    RETURN_IF_ERROR(launch_column_rows_any(sb, mix, mb, tw, n, c, h, w, stream));
-    RETURN_IF_ERROR(launch_irdft_w(sb, obuf, obuf, tw, n, c, h, w, stream));
-    // dpost = gfin * [post_conv(out) + post_b + img > 0] = imgbar
-    RETURN_IF_ERROR(launch_conv(obuf, post_w, post_b, img, gfin, imgbar, n, c, 1, h, w,
-                                0, 0, 0, stream));
-    RETURN_IF_ERROR(launch_wgrad(imgbar, obuf, w_part, dpost_w, dpost_b, n, 1, c, h, w,
-                                 wgrad_blocks, stream));
-    // g_total = g + adj_post(dpost)
-    RETURN_IF_ERROR(launch_conv(imgbar, post_w, nullptr, g, nullptr, gbuf, n, 1, c, h,
-                                w, 0, 0, 1, stream));
-    gt = gbuf;
-  }
-
-  // residual conv: gres = g * [conv(hin) + kb > 0]; dkm, dkb; hbar = g + adj(gres)
-  RETURN_IF_ERROR(launch_conv3x3_gate(hin, km, kb, gt, rbuf, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_wgrad(rbuf, hin, w_part, dkm, dkb, n, c, c, h, w, wgrad_blocks,
-                               stream));
-  float* hbar = pre_w != nullptr ? abuf : xbar;
-  RETURN_IF_ERROR(launch_conv3x3(rbuf, km, nullptr, gt, hbar, n, c, c, h, w, 0, 0, 1,
-                                 stream));
-
-  // spectral path: adjoint c2r (K4 of g), columns, adjoint rFFT (K6 onto hbar)
-  RETURN_IF_ERROR(launch_rdft_w(gt, sb, tw, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_column_bwd(sa, sb, mix, mb, tw, mix_part, dmix, dmb, n, c, h, w,
-                                    col_blocks, stream));
-  RETURN_IF_ERROR(launch_irdft_w(sb, hbar, hbar, tw, n, c, h, w, stream));
-
-  if (pre_w != nullptr) {
-    // dpre = hbar * [pre_act > 0] (= skipbar); dpre_w, dpre_b; xbar = adj_pre(dpre)
-    float* dpre = skip != nullptr ? skipbar : rbuf;
-    RETURN_IF_ERROR(launch_relu_grad(hbar, hin, dpre, (size_t)n * c * h * w, stream));
-    RETURN_IF_ERROR(launch_wgrad(dpre, x, w_part, dpre_w, dpre_b, n, c, c, h, w,
-                                 wgrad_blocks, stream));
-    RETURN_IF_ERROR(launch_conv3x3(dpre, pre_w, nullptr, nullptr, xbar, n, c, c, h, w, 0,
-                                   0, 1, stream));
-  }
-  return 0;
+// K2's bf16 variant: block_bwd's arguments, with x, g, skip, hbuf, rbuf,
+// obuf, gbuf, xbar and skipbar bf16 (img, gfin, imgbar, the weights and
+// their gradients fp32), one more scratch, res (n, c, h*w) fp32 with post,
+// and abuf (n, c, h*w) fp32 always: hbar.
+int block_bwd_bf16(const bf16* x, const bf16* g, int n, int c, int h, int w,
+                   const float* pre_w, const float* pre_b, const bf16* skip,
+                   const float* km, const float* kb, const float* mix, const float* mb,
+                   const float* post_w, const float* post_b, const float* img,
+                   const float* gfin, const void* twiddles, bf16* hbuf, bf16* rbuf,
+                   bf16* obuf, float* res, bf16* gbuf, float* abuf, void* spec_a,
+                   void* spec_b, float* w_part, float* mix_part, int wgrad_blocks,
+                   int col_blocks, bf16* xbar, float* dkm, float* dkb, float* dmix,
+                   float* dmb, bf16* skipbar, float* dpre_w, float* dpre_b, float* imgbar,
+                   float* dpost_w, float* dpost_b, void* stream_ptr) {
+  return block_bwd_impl(x, g, n, c, h, w, pre_w, pre_b, skip, km, kb, mix, mb, post_w, post_b,
+                        img, gfin, twiddles, hbuf, rbuf, obuf, res, gbuf, abuf, spec_a,
+                        spec_b, w_part, mix_part, wgrad_blocks, col_blocks, xbar, dkm, dkb,
+                        dmix, dmb, skipbar, dpre_w, dpre_b, imgbar, dpost_w, dpost_b,
+                        reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* block_bwd_error_string(int err) {

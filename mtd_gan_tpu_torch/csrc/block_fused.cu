@@ -47,9 +47,58 @@
 // 226 KB tile and K4's three blocks per SM need not co-reside. Every FFT
 // reads its twiddles from one host table (H == W); no sine or cosine is
 // computed on the card. Fusing the passes is later work.
+//
+// The bf16 variant (block_fused_forward_bf16, the JAX kernel at
+// act_dtype=bfloat16) keeps the same six launches: x, skip, the pre conv's
+// output h and the block output out are bf16; both convs run K3's bf16
+// operand path (one wgmma k16 product per step, fp32 sums); the rows load
+// bf16 and the spectra stay fp32; the residual conv writes its part of the
+// block's sum to an fp32 buffer, onto which the inverse rows add the
+// spectral part and round once to bf16. The exit conv reads the bf16 out
+// and keeps its fp32 weight, image residual and result. Bound: the same
+// ~92 GFLOP at 512^2, C = 32, batch 8, now 77 G of them at the bf16 dense
+// rate (989 TFLOP/s, 0.08 ms) and ~15 G on the CUDA cores (0.22 ms), so it
+// is still bound by operations, those of the spectral passes.
 
 #include "block_columns.cuh"
 #include "conv3x3_tc.cuh"
+
+namespace {
+
+// One K1 call on activations of type T (block_fused_forward's arguments);
+// res (n, c, h*w) fp32 receives the residual conv's part of the block's
+// sum before the spectral part is added: out itself for fp32.
+template <typename T>
+int block_fused_impl(const T* x, int n, int c_in, int c, int h, int w, const float* pre_w,
+                     const float* pre_b, const T* skip, const float* km, const float* kb,
+                     const float* mix, const float* mb, const float* post_w,
+                     const float* post_b, const float* img, const void* twiddles, T* hbuf,
+                     void* spec, float* res, T* out, float* final_out, cudaStream_t stream) {
+  if (h != w || log2_exact(h) < 1 || h > 1024 || n < 1 || n > 65535 ||
+      (c != 8 && c != 16 && c != 32))
+    return (int)cudaErrorInvalidValue;
+  if (pre_w == nullptr && c_in != c) return (int)cudaErrorInvalidValue;
+  float2* spec2 = reinterpret_cast<float2*>(spec);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+
+  const T* hin = x;
+  if (pre_w != nullptr) {
+    RETURN_IF_ERROR(launch_conv3x3(x, pre_w, pre_b, skip, hbuf, n, c_in, c, h, w, 1, 0, 0,
+                                   stream));
+    hin = hbuf;
+  }
+  RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, res, n, c, c, h, w, 1, 1, 0, stream));
+  RETURN_IF_ERROR(launch_rdft_w(hin, spec2, tw, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_column_rows_any(spec2, mix, mb, tw, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_irdft_w(spec2, res, out, tw, n, c, h, w, stream));
+  if (post_w != nullptr) {
+    RETURN_IF_ERROR(launch_conv(out, post_w, post_b, img, nullptr, final_out, n, c, 1,
+                                h, w, 1, 0, 0, stream));
+  }
+  return 0;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -70,29 +119,24 @@ int block_fused_forward(const float* x, int n, int c_in, int c, int h, int w,
                         const float* mb, const float* post_w, const float* post_b,
                         const float* img, const void* twiddles, float* hbuf, void* spec,
                         float* out, float* final_out, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (h != w || log2_exact(h) < 1 || h > 1024 || n < 1 || n > 65535 ||
-      (c != 8 && c != 16 && c != 32))
-    return (int)cudaErrorInvalidValue;
-  if (pre_w == nullptr && c_in != c) return (int)cudaErrorInvalidValue;
-  float2* spec2 = reinterpret_cast<float2*>(spec);
-  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+  return block_fused_impl(x, n, c_in, c, h, w, pre_w, pre_b, skip, km, kb, mix, mb, post_w,
+                          post_b, img, twiddles, hbuf, spec, out, out, final_out,
+                          reinterpret_cast<cudaStream_t>(stream_ptr));
+}
 
-  const float* hin = x;
-  if (pre_w != nullptr) {
-    RETURN_IF_ERROR(launch_conv3x3(x, pre_w, pre_b, skip, hbuf, n, c_in, c, h, w, 1, 0, 0,
-                                   stream));
-    hin = hbuf;
-  }
-  RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, out, n, c, c, h, w, 1, 1, 0, stream));
-  RETURN_IF_ERROR(launch_rdft_w(hin, spec2, tw, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_column_rows_any(spec2, mix, mb, tw, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_irdft_w(spec2, out, out, tw, n, c, h, w, stream));
-  if (post_w != nullptr) {
-    RETURN_IF_ERROR(launch_conv(out, post_w, post_b, img, nullptr, final_out, n, c, 1,
-                                h, w, 1, 0, 0, stream));
-  }
-  return 0;
+// K1's bf16 variant: block_fused_forward's arguments, with x, skip, hbuf
+// and out bf16 (img, the weights and final_out fp32) and one more scratch,
+// res (n, c, h*w) fp32; c_in == c (the pre conv on K3's bf16 path).
+int block_fused_forward_bf16(const bf16* x, int n, int c_in, int c, int h, int w,
+                             const float* pre_w, const float* pre_b, const bf16* skip,
+                             const float* km, const float* kb, const float* mix,
+                             const float* mb, const float* post_w, const float* post_b,
+                             const float* img, const void* twiddles, bf16* hbuf, void* spec,
+                             float* res, bf16* out, float* final_out, void* stream_ptr) {
+  if (c_in != c) return (int)cudaErrorInvalidValue;
+  return block_fused_impl(x, n, c_in, c, h, w, pre_w, pre_b, skip, km, kb, mix, mb, post_w,
+                          post_b, img, twiddles, hbuf, spec, res, out, final_out,
+                          reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* block_fused_error_string(int err) {

@@ -4,6 +4,17 @@
 // counts. The design is described in conv3x3.cu, K3's own source; this
 // header holds its device code so that K1 (block_fused.cu) runs its two
 // C -> C convs on the same kernel.
+//
+// The bf16 operand path (TI = bf16: the convs of K1's and K2's bf16
+// variants, the JAX conv_precision="bf16"): the input is bf16, the weight
+// is rounded to bf16 as B is staged, and each k-step is ONE
+// wgmma.m64nNk16.f32.bf16.bf16 over 16 k (two of the fp32 path's 8-k
+// groups, tap-major) with fp32 accumulation, in place of three TF32
+// products over 8. 9 C_in is odd for C_in = 8: the last step's second
+// group is zeros in both operands. The input tile holds the bf16 values
+// widened to fp32 (exact), so that both paths share its layout and the
+// residual epilogue; A's registers pack pairs of them back to bf16. The
+// epilogues run in fp32 on the accumulator and round once to TO.
 
 #pragma once
 
@@ -21,9 +32,15 @@ constexpr int kTcHaloW = kTcTileW + 2;   // 34
 constexpr int kTcPlane = 616;            // 18 x 34 = 612 floats, padded to 8 mod 32
 constexpr int kTcMaxCin = 32;
 
-size_t tc_smem_bytes(int c_in, int co) {
-  // B split into big and small TF32 matrices, then two input tiles
-  return (size_t)2 * 9 * c_in * co * sizeof(float) + (size_t)2 * kTcPlane * c_in * sizeof(float);
+// the bf16 path's k16 steps: 9 CI8 groups of 8 k, in pairs
+__host__ __device__ constexpr int tc_bf16_steps(int ci8) { return (9 * ci8 + 1) / 2; }
+
+size_t tc_smem_bytes(int c_in, int co, bool bf16_ops) {
+  const size_t tiles = (size_t)2 * kTcPlane * c_in * sizeof(float);  // two input tiles
+  // B in bf16, padded to whole k16 steps
+  if (bf16_ops) return (size_t)32 * tc_bf16_steps(c_in / 8) * co + tiles;
+  // B split into big and small TF32 matrices
+  return (size_t)2 * 9 * c_in * co * sizeof(float) + tiles;
 }
 
 // Output channels per block on the tensor-core path: 32, 16 or 8.
@@ -45,6 +62,13 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
   big = to_tf32(v);
   small = to_tf32(v - __uint_as_float(big));
+}
+
+// two values rounded to bf16 in one register, lo in the low half (the
+// lower k index of a fragment's pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Shared-memory matrix descriptor of wgmma for a K-major operand without
@@ -118,6 +142,51 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x N) += a (64 x 16, bf16, registers: a thread holds rows g, g + 8
+// of its warp's 16 by columns 2t, 2t + 1 in registers 0 and 1, by 2t + 8,
+// 2t + 9 in registers 2 and 3) * b (16 x N, bf16, shared memory,
+// K-major); fp32 sums
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // 4 bytes global -> shared, asynchronous; zeros when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -136,21 +205,27 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Stage the halo'd input tile of output tile (y0, x0): rows y0 - 1 ..
 // y0 + 16, columns x0 - 1 .. x0 + 32 of all CIN channels, zeros outside
-// the image; one warp per (channel, row).
-template <int CIN>
-__device__ __forceinline__ void stage_tile(float* dst, const float* x_n, int H, int W,
+// the image; one warp per (channel, row). fp32 rows are copied with
+// cp.async; bf16 rows (2-byte elements, below cp.async's 4) are loaded and
+// widened by the threads.
+template <int CIN, typename TI>
+__device__ __forceinline__ void stage_tile(float* dst, const TI* x_n, int H, int W,
                                            int y0, int x0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < CIN * (kTcTileH + 2); r += kTcThreads / 32) {
     const int ci = r / (kTcTileH + 2), yy = r - ci * (kTcTileH + 2);
     const int gy = y0 - 1 + yy;
     const bool row_ok = gy >= 0 && gy < H;
-    const float* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
+    const TI* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
     float* d = dst + ci * kTcPlane + yy * kTcHaloW;
     for (int xx = lane; xx < kTcHaloW; xx += 32) {
       const int gx = x0 - 1 + xx;
       const bool ok = row_ok && gx >= 0 && gx < W;
-      cp_async4(d + xx, ok ? src + gx : x_n, ok);
+      if constexpr (kIsBf16<TI>) {
+        d[xx] = ok ? ld1(src + gx) : 0.f;
+      } else {
+        cp_async4(d + xx, ok ? src + gx : x_n, ok);
+      }
     }
   }
 }
@@ -163,20 +238,25 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* x_n, int H, 
 // 16w + 15 of it (output row 2m + w / 2, columns 16 (w % 2) ..). GATE:
 // the epilogue out = v > 0 ? gate : 0 (a ReLU's cotangent, K2's residual
 // conv) in place of relu / residual; a template parameter, so that K3's
-// and K1's instances compile without it.
-template <int CI8, int NT, bool GATE = false>
+// and K1's instances compile without it. TI: the type of x, skip and gate
+// (float: 3xTF32; bf16: the bf16 operand path), TO: the type of out.
+template <typename TI, typename TO, int CI8, int NT, bool GATE = false>
 __global__ void __launch_bounds__(kTcThreads, 1)
-conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
-                  const float* __restrict__ bias, const float* __restrict__ skip,
-                  const float* __restrict__ gate, float* __restrict__ out, int c_out,
+conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
+                  const float* __restrict__ bias, const TI* __restrict__ skip,
+                  const TI* __restrict__ gate, TO* __restrict__ out, int c_out,
                   int H, int W, int tiles_x,
                   int tiles_y, int n_tiles, int relu, int residual, int adjoint) {
+  constexpr bool BF = kIsBf16<TI>;
   constexpr int CIN = 8 * CI8, CO = 8 * NT, K = 9 * CIN;
+  constexpr int S16 = tc_bf16_steps(CI8), KB = 16 * S16;  // bf16: k16 steps, B's rows
   extern __shared__ __align__(128) float smem[];
-  // B as core matrices of 8 output channels x 4 k (K-major): big, small
-  float* b_big = smem;          // [K / 4][NT][8][4]
+  // B as core matrices of 8 output channels x 16 bytes of k (K-major):
+  // fp32, big and small, [K / 4][NT][8][4] each; bf16, [KB / 8][NT][8][8]
+  float* b_big = smem;
   float* b_small = smem + K * CO;
-  float* tiles = smem + 2 * K * CO;  // [2][CIN][kTcPlane]
+  bf16* b16 = reinterpret_cast<bf16*>(smem);
+  float* tiles = BF ? smem + KB * CO / 2 : smem + 2 * K * CO;  // [2][CIN][kTcPlane]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
   const int wg = warp >> 2, ww = warp & 3;
@@ -199,15 +279,26 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
     stage_tile<CIN>(tiles, x + (size_t)n * CIN * hw, H, W, y0, x0);
   }
   cp_async_commit();
-  for (int i = tid; i < K * CO; i += kTcThreads) {
-    const int co = i % CO, k = i / CO, tap = k / CIN, ci = k - tap * CIN;
-    const float v = adjoint ? weight[((size_t)ci * c_out + co0 + co) * 9 + (8 - tap)]
-                            : weight[((size_t)(co0 + co) * CIN + ci) * 9 + tap];
-    uint32_t big, small;
-    split_tf32(v, big, small);
-    const int at = (((k >> 2) * NT + (co >> 3)) * 8 + (co & 7)) * 4 + (k & 3);
-    b_big[at] = __uint_as_float(big);
-    b_small[at] = __uint_as_float(small);
+  const auto weight_at = [&](int k, int co) {
+    const int tap = k / CIN, ci = k - tap * CIN;
+    return adjoint ? weight[((size_t)ci * c_out + co0 + co) * 9 + (8 - tap)]
+                   : weight[((size_t)(co0 + co) * CIN + ci) * 9 + tap];
+  };
+  if constexpr (BF) {
+    for (int i = tid; i < KB * CO; i += kTcThreads) {
+      const int co = i % CO, k = i / CO;
+      b16[(((k >> 3) * NT + (co >> 3)) * 8 + (co & 7)) * 8 + (k & 7)] =
+          __float2bfloat16_rn(k < K ? weight_at(k, co) : 0.f);
+    }
+  } else {
+    for (int i = tid; i < K * CO; i += kTcThreads) {
+      const int co = i % CO, k = i / CO;
+      uint32_t big, small;
+      split_tf32(weight_at(k, co), big, small);
+      const int at = (((k >> 2) * NT + (co >> 3)) * 8 + (co & 7)) * 4 + (k & 3);
+      b_big[at] = __uint_as_float(big);
+      b_small[at] = __uint_as_float(small);
+    }
   }
   // the products read B through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -240,6 +331,38 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
 #pragma unroll
       for (int e = 0; e < CO / 2; ++e) acc[i][e] = 0.f;
 
+    if constexpr (BF) {
+#pragma unroll
+      for (int s = 0; s < S16; ++s) {
+        // A: pixel rows g, g + 8 of the warp's 16 by channels 2t, 2t + 1 of
+        // the step's 8-k groups 2s (registers 0, 1) and 2s + 1 (2, 3)
+        uint32_t a16[2][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int kg = 2 * s + hh;
+          const int tap = kg / CI8, kc = kg - tap * CI8, dy = tap / 3, dx = tap % 3;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (kg < 9 * CI8) {
+              const float* p = cur + (kc * 8 + 2 * t) * kTcPlane +
+                               (2 * (2 * wg + i) + (ww >> 1) + dy) * kTcHaloW + col0 + g + dx;
+              a16[i][2 * hh] = pack_bf16(p[0], p[kTcPlane]);
+              a16[i][2 * hh + 1] = pack_bf16(p[8], p[kTcPlane + 8]);
+            } else {
+              a16[i][2 * hh] = a16[i][2 * hh + 1] = 0u;
+            }
+          }
+        }
+        const uint64_t db = smem_desc(b16 + 2 * s * NT * 64, kLbo, kSbo);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wgmma_bf16<CO>(acc[i], a16[i], db);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) fence_regs(acc[i]);
+      }
+    } else {
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
@@ -272,6 +395,7 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
         for (int i = 0; i < 2; ++i) fence_regs(acc[i]);
       }
     }
+    }
 
     int n, y0, x0;
     origin(tile, n, y0, x0);
@@ -290,13 +414,13 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
             const int co = co0 + nt * 8 + 2 * t + e;
             const size_t o = ((size_t)n * c_out + co) * hw + (size_t)y * W + xg;
             float v = acc[i][4 * nt + 2 * h8 + e] + bv[nt][e];
-            if (skip != nullptr) v += skip[o];
+            if (skip != nullptr) v += ld1(skip + o);
             if constexpr (GATE) {
-              out[o] = v > 0.f ? gate[o] : 0.f;
+              st1(out + o, v > 0.f ? ld1(gate + o) : 0.f);
             } else {
               if (relu) v = fmaxf(v, 0.f);
               if (residual) v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
-              out[o] = v;
+              st1(out + o, v);
             }
           }
       }
@@ -305,87 +429,96 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ weight,
   }
 }
 
-template <int CI8, int NT, bool GATE = false>
-cudaError_t launch_tc(const float* x, const float* weight, const float* bias,
-                      const float* skip, float* out, int n, int c_out, int h, int w,
+template <typename TI, typename TO, int CI8, int NT, bool GATE = false>
+cudaError_t launch_tc(const TI* x, const float* weight, const float* bias,
+                      const TI* skip, TO* out, int n, int c_out, int h, int w,
                       int relu, int residual, int adjoint, cudaStream_t stream,
-                      const float* gate = nullptr) {
-  const size_t smem = tc_smem_bytes(8 * CI8, 8 * NT);
-  CUDA_TRY(allow_smem(conv3x3_tc_kernel<CI8, NT, GATE>, smem));
+                      const TI* gate = nullptr) {
+  const size_t smem = tc_smem_bytes(8 * CI8, 8 * NT, kIsBf16<TI>);
+  CUDA_TRY(allow_smem(conv3x3_tc_kernel<TI, TO, CI8, NT, GATE>, smem));
   int dev, sms, per_sm;
   CUDA_TRY(cudaGetDevice(&dev));
   CUDA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   CUDA_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv3x3_tc_kernel<CI8, NT, GATE>, kTcThreads, smem));
+      &per_sm, conv3x3_tc_kernel<TI, TO, CI8, NT, GATE>, kTcThreads, smem));
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_x = (w + kTcTileW - 1) / kTcTileW, tiles_y = (h + kTcTileH - 1) / kTcTileH;
   const long long n_tiles = (long long)n * tiles_x * tiles_y;
   if (n_tiles > (1LL << 30)) return cudaErrorInvalidValue;
   const int groups = c_out / (8 * NT);
   const int blocks = (int)std::min<long long>(n_tiles, std::max(1, sms * per_sm / groups));
-  conv3x3_tc_kernel<CI8, NT, GATE><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
+  conv3x3_tc_kernel<TI, TO, CI8, NT, GATE><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
       x, weight, bias, skip, gate, out, c_out, h, w, tiles_x, tiles_y, (int)n_tiles, relu,
       residual, adjoint);
   return cudaGetLastError();
 }
 
-template <int CI8, bool GATE>
-cudaError_t launch_tc_co(const float* x, const float* weight, const float* bias,
-                         const float* skip, const float* gate, float* out, int n,
+template <typename TI, typename TO, int CI8, bool GATE>
+cudaError_t launch_tc_co(const TI* x, const float* weight, const float* bias,
+                         const TI* skip, const TI* gate, TO* out, int n,
                          int c_out, int h, int w, int relu, int residual, int adjoint,
                          cudaStream_t stream) {
   switch (tc_co_tile(c_out)) {
-    case 32: return launch_tc<CI8, 4, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
-                                            relu, residual, adjoint, stream, gate);
-    case 16: return launch_tc<CI8, 2, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
-                                            relu, residual, adjoint, stream, gate);
-    default: return launch_tc<CI8, 1, GATE>(x, weight, bias, skip, out, n, c_out, h, w,
-                                            relu, residual, adjoint, stream, gate);
+    case 32: return launch_tc<TI, TO, CI8, 4, GATE>(x, weight, bias, skip, out, n, c_out, h,
+                                                    w, relu, residual, adjoint, stream, gate);
+    case 16: return launch_tc<TI, TO, CI8, 2, GATE>(x, weight, bias, skip, out, n, c_out, h,
+                                                    w, relu, residual, adjoint, stream, gate);
+    default: return launch_tc<TI, TO, CI8, 1, GATE>(x, weight, bias, skip, out, n, c_out, h,
+                                                    w, relu, residual, adjoint, stream, gate);
   }
 }
 
 // The tensor-core dispatch by C_in, then by C_out: one for K3's epilogues
 // and for K2's gate, so that the gate conv runs the tile shape K1's
 // residual conv ran and its mask is that ReLU's, bit for bit.
-template <bool GATE>
-cudaError_t launch_tc_any(const float* x, const float* weight, const float* bias,
-                          const float* skip, const float* gate, float* out, int n,
+template <typename TI, typename TO, bool GATE>
+cudaError_t launch_tc_any(const TI* x, const float* weight, const float* bias,
+                          const TI* skip, const TI* gate, TO* out, int n,
                           int c_in, int c_out, int h, int w, int relu, int residual,
                           int adjoint, cudaStream_t stream) {
   switch (c_in / 8) {
-    case 1: return launch_tc_co<1, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
-                                         relu, residual, adjoint, stream);
-    case 2: return launch_tc_co<2, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
-                                         relu, residual, adjoint, stream);
-    case 3: return launch_tc_co<3, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
-                                         relu, residual, adjoint, stream);
-    default: return launch_tc_co<4, GATE>(x, weight, bias, skip, gate, out, n, c_out, h, w,
-                                          relu, residual, adjoint, stream);
+    case 1: return launch_tc_co<TI, TO, 1, GATE>(x, weight, bias, skip, gate, out, n, c_out,
+                                                 h, w, relu, residual, adjoint, stream);
+    case 2: return launch_tc_co<TI, TO, 2, GATE>(x, weight, bias, skip, gate, out, n, c_out,
+                                                 h, w, relu, residual, adjoint, stream);
+    case 3: return launch_tc_co<TI, TO, 3, GATE>(x, weight, bias, skip, gate, out, n, c_out,
+                                                 h, w, relu, residual, adjoint, stream);
+    default: return launch_tc_co<TI, TO, 4, GATE>(x, weight, bias, skip, gate, out, n, c_out,
+                                                  h, w, relu, residual, adjoint, stream);
   }
 }
 
 // One 3x3 conv with K3's epilogues (arguments as conv3x3_forward in
 // conv3x3.cu): on the tensor cores when tensor_core_path(c_in, c_out),
 // else on the direct fp32 conv. The launch is asynchronous on `stream`.
-cudaError_t launch_conv3x3(const float* x, const float* weight, const float* bias,
-                           const float* skip, float* out, int n, int c_in, int c_out,
-                           int h, int w, int relu, int residual, int adjoint,
+// A bf16 x (the bf16 operand path, out of type TO) takes the tensor cores
+// only: cudaErrorInvalidValue outside their channel counts.
+template <typename TI, typename TO>
+cudaError_t launch_conv3x3(const TI* x, const float* weight, const float* bias,
+                           const typename NoDeduce<TI>::type* skip, TO* out, int n, int c_in,
+                           int c_out, int h, int w, int relu, int residual, int adjoint,
                            cudaStream_t stream) {
-  if (!tensor_core_path(c_in, c_out))
-    return launch_conv(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w, relu,
-                       residual, adjoint, stream);
-  return launch_tc_any<false>(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w,
-                              relu, residual, adjoint, stream);
+  if (!tensor_core_path(c_in, c_out)) {
+    if constexpr (kIsBf16<TI>) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_conv(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h, w, relu,
+                         residual, adjoint, stream);
+    }
+  }
+  return launch_tc_any<TI, TO, false>(x, weight, bias, skip, nullptr, out, n, c_in, c_out, h,
+                                      w, relu, residual, adjoint, stream);
 }
 
 // K2's gate conv, C -> C on the tensor cores: out = (conv(x) + bias > 0) ?
 // gate : 0, through launch_conv3x3's dispatch.
-cudaError_t launch_conv3x3_gate(const float* x, const float* weight, const float* bias,
-                                const float* gate, float* out, int n, int c, int h, int w,
+template <typename T>
+cudaError_t launch_conv3x3_gate(const T* x, const float* weight, const float* bias,
+                                const T* gate, T* out, int n, int c, int h, int w,
                                 cudaStream_t stream) {
   if (!tensor_core_path(c, c)) return cudaErrorInvalidValue;
-  return launch_tc_any<true>(x, weight, bias, nullptr, gate, out, n, c, c, h, w, 0, 0, 0,
-                             stream);
+  return launch_tc_any<T, T, true>(x, weight, bias, nullptr, gate, out, n, c, c, h, w, 0, 0,
+                                   0, stream);
 }
 
 }  // namespace

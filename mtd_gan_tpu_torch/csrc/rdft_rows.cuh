@@ -30,6 +30,11 @@
 // as Re and row 2j + 1 as -Im of the result, four columns per 16-byte
 // store with the residual added on the way out. For Q > 1 its odd step
 // reads a copy of the table staged in shared memory.
+//
+// K1's and K2's bf16 variants run the same schedules on bf16 activations:
+// the rows are read as bf16 and widened (K4's row pass, T = bf16), the
+// inverse rounds its fp32 result once at the store (TO = bf16); the
+// spectra stay fp32.
 
 #pragma once
 
@@ -268,19 +273,19 @@ __device__ __forceinline__ float2 rdft_value(const float2* row, int m, int W,
 
 // Stages rows 2j and 2j + 1 of xs (W apart), j < pairs, into buf (pitch
 // apart) as a + i b in decimated order: column m = Q p + q at q P + p; a
-// row 2j + 1 >= rows is zero. VEC: four columns per 16-byte load (W % 4 ==
-// 0, xs 16-byte aligned). The caller synchronises.
+// row 2j + 1 >= rows is zero. VEC: four columns per load (W % 4 == 0, xs
+// aligned to four values). The caller synchronises.
+template <typename T>
 __device__ __forceinline__ void load_row_pairs(float2* buf, int pitch,
-                                               const float* __restrict__ xs, int W, int pairs,
+                                               const T* __restrict__ xs, int W, int pairs,
                                                int rows, int P, int Q, bool vec) {
   if (vec) {
     const int quads = W >> 2;
     for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
       const int j = u / quads, col = (u - j * quads) * 4;
-      const float* ra = xs + (size_t)(2 * j) * W + col;
-      const float4 a = __ldg(reinterpret_cast<const float4*>(ra));
-      const float4 b = 2 * j + 1 < rows ? __ldg(reinterpret_cast<const float4*>(ra + W))
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      const T* ra = xs + (size_t)(2 * j) * W + col;
+      const float4 a = ld4(ra);
+      const float4 b = 2 * j + 1 < rows ? ld4(ra + W) : make_float4(0.f, 0.f, 0.f, 0.f);
       float2* row = buf + j * pitch;
       row[rdft_pad(decimated(col, P, Q))] = make_float2(a.x, b.x);
       row[rdft_pad(decimated(col + 1, P, Q))] = make_float2(a.y, b.y);
@@ -290,8 +295,8 @@ __device__ __forceinline__ void load_row_pairs(float2* buf, int pitch,
   } else {
     for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
       const int j = u / W, col = u - j * W;
-      const float* ra = xs + (size_t)(2 * j) * W + col;
-      const float a = __ldg(ra), b = 2 * j + 1 < rows ? __ldg(ra + W) : 0.f;
+      const T* ra = xs + (size_t)(2 * j) * W + col;
+      const float a = ld1(ra), b = 2 * j + 1 < rows ? ld1(ra + W) : 0.f;
       buf[j * pitch + rdft_pad(decimated(col, P, Q))] = make_float2(a, b);
     }
   }
@@ -331,15 +336,16 @@ __device__ __forceinline__ void stage_conj_bins(float2* row, int k, float2 a, fl
 // The inverse's store from `buf` after rdft_steps on conj Z: y = FFT(conj
 // Z) of pair j, row 2j of out (at base, rows W apart) gets Re y * scale and
 // row 2j + 1, where < rows, -Im y * scale, each with the residual's element
-// added where `residual` is not null. VEC: four columns per 16-byte store
-// (W % 4 == 0, out and residual aligned). BY_PAIR: neighbouring threads take
+// added where `residual` is not null, rounded once to TO. VEC: four columns
+// per store (W % 4 == 0, out and residual aligned to four values). BY_PAIR: neighbouring threads take
 // the pairs of one output, so that a warp's odd steps (Q > 1) read few
 // distinct twiddles; else neighbouring columns of a pair, so that a warp's
 // stores and residual loads are whole lines. stw: the table in shared
 // memory. `residual` may be `out`: each element of it is read by the thread
 // that then writes the same element of `out`, so a thread loads both rows'
 // residuals before it stores either.
-__device__ __forceinline__ void store_row_pairs(float* out, const float* residual, size_t base,
+template <typename TO>
+__device__ __forceinline__ void store_row_pairs(TO* out, const float* residual, size_t base,
                                                 int W, const float2* buf, int pitch, int pairs,
                                                 int rows, const RdftPlan& pl,
                                                 const float2* stw, float scale, bool vec,
@@ -364,8 +370,8 @@ __device__ __forceinline__ void store_row_pairs(float* out, const float* residua
         v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
         v2 = make_float4(v2.x + r2.x, v2.y + r2.y, v2.z + r2.z, v2.w + r2.w);
       }
-      *reinterpret_cast<float4*>(out + o) = v;
-      if (has_b) *reinterpret_cast<float4*>(out + o + W) = v2;
+      st4(out + o, v);
+      if (has_b) st4(out + o + W, v2);
     }
   } else {
     for (int u = threadIdx.x; u < pairs * W; u += blockDim.x) {
@@ -376,8 +382,8 @@ __device__ __forceinline__ void store_row_pairs(float* out, const float* residua
       const bool has_b = 2 * j + 1 < rows;
       const float ra = residual != nullptr ? residual[o] : 0.f;
       const float rb = residual != nullptr && has_b ? residual[o + W] : 0.f;
-      out[o] = y.x * scale + ra;
-      if (has_b) out[o + W] = -y.y * scale + rb;
+      st1(out + o, y.x * scale + ra);
+      if (has_b) st1(out + o + W, -y.y * scale + rb);
     }
   }
 }
@@ -386,9 +392,11 @@ __device__ __forceinline__ void store_row_pairs(float* out, const float* residua
 // k <= W/2, for the 16 rows r0 .. r0 + 15 of (n, c) = (blockIdx.z,
 // blockIdx.y). tw[t] = e^{-2 pi i t / W}, t < W. The last block of an H
 // that is not a multiple of 16 has fewer rows; an odd last row is paired
-// with zeros.
+// with zeros. T: the type of x (float, or bf16 for K1's and K2's bf16
+// variants).
+template <typename T>
 __global__ void __launch_bounds__(kRdftMaxThreads, 3)
-rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
+rdft_w_kernel(const T* __restrict__ x, float2* __restrict__ spec,
               const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
               float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -397,7 +405,7 @@ rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
   const int r0 = blockIdx.x * kRdftRows, c = blockIdx.y, n = blockIdx.z;
   const int rows = min(kRdftRows, H - r0), pairs = (rows + 1) >> 1;
   const int P = pl.P, Q = pl.Q;
-  const float* xs = x + (((size_t)n * C + c) * H + r0) * W;
+  const T* xs = x + (((size_t)n * C + c) * H + r0) * W;
   int first = 0;
 
   if (pl.direct) {
@@ -406,13 +414,13 @@ rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
     const int half = P >> 1, quads = half >> 2;
     for (int u = threadIdx.x; u < pairs * quads; u += blockDim.x) {
       const int j = u / quads, col = (u - j * quads) * 4;
-      const float* ra = xs + (size_t)(2 * j) * W + col;
+      const T* ra = xs + (size_t)(2 * j) * W + col;
       const bool has_b = 2 * j + 1 < rows;
-      const float4 a0 = __ldg(reinterpret_cast<const float4*>(ra));
-      const float4 a1 = __ldg(reinterpret_cast<const float4*>(ra + half));
+      const float4 a0 = ld4(ra);
+      const float4 a1 = ld4(ra + half);
       const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 b0 = has_b ? __ldg(reinterpret_cast<const float4*>(ra + W)) : z4;
-      const float4 b1 = has_b ? __ldg(reinterpret_cast<const float4*>(ra + W + half)) : z4;
+      const float4 b0 = has_b ? ld4(ra + W) : z4;
+      const float4 b1 = has_b ? ld4(ra + W + half) : z4;
       const float lo_a[4] = {a0.x, a0.y, a0.z, a0.w}, hi_a[4] = {a1.x, a1.y, a1.z, a1.w};
       const float lo_b[4] = {b0.x, b0.y, b0.z, b0.w}, hi_b[4] = {b1.x, b1.y, b1.z, b1.w};
       float2* row = buf + j * pitch;
@@ -454,19 +462,20 @@ rdft_w_kernel(const float* __restrict__ x, float2* __restrict__ spec,
   }
 }
 
-cudaError_t launch_rdft_w(const float* x, float2* spec, const float2* tw, int n, int c,
+template <typename T>
+cudaError_t launch_rdft_w(const T* x, float2* spec, const float2* tw, int n, int c,
                           int h, int w, cudaStream_t stream) {
-  const bool x_aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x_aligned = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   RdftPlan pl = rdft_plan(w, x_aligned);
   pl.vec_load = w % 4 == 0 && x_aligned;
   pl.vec_store = h % 2 == 0 && reinterpret_cast<uintptr_t>(spec) % 16 == 0;
   const size_t smem = (size_t)kRdftPairs * rdft_row_pitch(w) * sizeof(float2);
-  CUDA_TRY(allow_smem(rdft_w_kernel, smem));
-  CUDA_TRY(cudaFuncSetAttribute(rdft_w_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  CUDA_TRY(allow_smem(rdft_w_kernel<T>, smem));
+  CUDA_TRY(cudaFuncSetAttribute(rdft_w_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared));
   // one thread per 8 points of the block's 8 row pairs
   const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  rdft_w_kernel<<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
+  rdft_w_kernel<T><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
       x, spec, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }
@@ -479,9 +488,11 @@ cudaError_t launch_rdft_w(const float* x, float2* spec, const float2* tw, int n,
 // of 16 has fewer rows; an odd last row is paired with zeros. `residual`
 // may be `out` itself (in place): each element of it is read by the thread
 // that then writes the same element of `out`, and by no other thread, so
-// the two carry no __restrict__.
+// the two carry no __restrict__. TO: the type of out (float, or bf16 for
+// K1's and K2's bf16 variants, whose residual is an fp32 buffer of its own).
+template <typename TO>
 __global__ void __launch_bounds__(kRdftMaxThreads, 3)
-irdft_w_kernel(const float2* __restrict__ spec, const float* residual, float* out,
+irdft_w_kernel(const float2* __restrict__ spec, const float* residual, TO* out,
                const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
                float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -561,20 +572,24 @@ irdft_w_kernel(const float2* __restrict__ spec, const float* residual, float* ou
 
 // out (n, c, h, w) = [residual +] the ortho c2r along W of spec (n, c,
 // w/2+1, h); residual may be out. tw as launch_rdft_w's.
-cudaError_t launch_irdft_w(const float2* spec, const float* residual, float* out,
+template <typename TO>
+cudaError_t launch_irdft_w(const float2* spec, const float* residual, TO* out,
                            const float2* tw, int n, int c, int h, int w,
                            cudaStream_t stream) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const auto aligned = [](const void* p, size_t b = 16) {
+    return reinterpret_cast<uintptr_t>(p) % b == 0;
+  };
   RdftPlan pl = rdft_plan(w, true);
   pl.vec_load = h % 2 == 0 && aligned(spec);
-  pl.vec_store = w % 4 == 0 && aligned(out) && (residual == nullptr || aligned(residual));
+  pl.vec_store = w % 4 == 0 && aligned(out, 4 * sizeof(TO)) &&
+                 (residual == nullptr || aligned(residual));
   const size_t smem =
       ((size_t)kRdftPairs * rdft_row_pitch(w) + (pl.Q > 1 ? w : 0)) * sizeof(float2);
-  CUDA_TRY(allow_smem(irdft_w_kernel, smem));
-  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  CUDA_TRY(allow_smem(irdft_w_kernel<TO>, smem));
+  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel<TO>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared));
   const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  irdft_w_kernel<<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
+  irdft_w_kernel<TO><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
       spec, residual, out, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }

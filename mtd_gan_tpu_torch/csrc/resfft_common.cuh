@@ -7,11 +7,17 @@
 // rdft_rows.cuh, K1's and K2's column passes on block_columns.cuh, K5's,
 // K8's and K7's on columns_mixed.cuh (K7, spectral_fused.cu, its rows on
 // rdft_rows.cuh too). K1's and K2's C -> C convs run on K3's tensor-core
-// kernel (conv3x3_tc.cuh). fp32 throughout.
+// kernel (conv3x3_tc.cuh). fp32 throughout, apart from the bf16
+// activations of K1's and K2's bf16 variants: loaded and stored through
+// the helpers below, computed in fp32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 // Return the first CUDA error from a function returning cudaError_t.
 #define CUDA_TRY(expr)                           \
@@ -21,6 +27,48 @@
   } while (0)
 
 namespace {
+
+// ------------------------------------------------------- activation types
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+
+// the type of an argument that takes no part in template deduction
+template <typename T>
+struct NoDeduce {
+  using type = T;
+};
+
+// Loads widen an activation to fp32 (exact for bf16), stores round once to
+// the nearest (even) value of the type.
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+// four consecutive values: 16 bytes of fp32 or 8 of bf16, aligned to that
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // ---------------------------------------------------------------- conv3x3
 
@@ -39,12 +87,14 @@ constexpr int kConvThreads = kConvTileW * kConvThreadsY;        // 256
 // adjoint != 0 reads the weight of the adjoint convolution from the forward
 // one, w[co, ci, ky, kx] = w_fwd[ci, co, 2 - ky, 2 - kx] with w_fwd of shape
 // (c_in, c_out, 3, 3). CO output channels per block and per thread; c_out
-// must be a multiple of CO.
-template <int CO>
+// must be a multiple of CO. TI, TS, TO: the types of in, of skip and gate,
+// and of out (float, or bf16 for the exit conv of K1's and K2's bf16
+// variants); the sums are fp32 and out is rounded once.
+template <int CO, typename TI = float, typename TS = float, typename TO = float>
 __global__ void __launch_bounds__(kConvThreads)
-conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ weight,
-               const float* __restrict__ bias, const float* __restrict__ skip,
-               const float* __restrict__ gate, float* __restrict__ out,
+conv3x3_kernel(const TI* __restrict__ in, const float* __restrict__ weight,
+               const float* __restrict__ bias, const TS* __restrict__ skip,
+               const TS* __restrict__ gate, TO* __restrict__ out,
                int c_in, int c_out, int H, int W, int relu, int residual,
                int adjoint) {
   __shared__ float tile[kConvCiChunk][kConvTileH + 2][kConvTileW + 2];
@@ -57,7 +107,7 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ weight,
   const int co0 = (blockIdx.z % groups) * CO;
   const int x0 = blockIdx.x * kConvTileW, y0 = blockIdx.y * kConvTileH;
   const size_t hw = (size_t)H * W;
-  const float* in_n = in + (size_t)n * c_in * hw;
+  const TI* in_n = in + (size_t)n * c_in * hw;
 
   float acc[kConvRowsPerThread][CO];
 #pragma unroll
@@ -75,7 +125,7 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ weight,
       const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
       float v = 0.f;
       if (ci0 + ci < c_in && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = in_n[(size_t)(ci0 + ci) * hw + (size_t)gy * W + gx];
+        v = ld1(in_n + (size_t)(ci0 + ci) * hw + (size_t)gy * W + gx);
       tile[ci][yy][xx] = v;
     }
     for (int idx = tid; idx < kConvCiChunk * 9 * CO; idx += kConvThreads) {
@@ -136,14 +186,14 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ weight,
       const size_t o = ((size_t)n * c_out + co0 + co) * hw + pix;
       float v = acc[r][co];
       if (bias != nullptr) v += bias[co0 + co];
-      if (skip != nullptr) v += skip[o];
+      if (skip != nullptr) v += ld1(skip + o);
       if (gate != nullptr) {
-        v = v > 0.f ? gate[o] : 0.f;
+        v = v > 0.f ? ld1(gate + o) : 0.f;
       } else {
         if (relu) v = fmaxf(v, 0.f);
-        if (residual) v += in_n[(size_t)(co0 + co) * hw + pix];
+        if (residual) v += ld1(in_n + (size_t)(co0 + co) * hw + pix);
       }
-      out[o] = v;
+      st1(out + o, v);
     }
   }
 }
@@ -193,23 +243,24 @@ int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-cudaError_t launch_conv(const float* in, const float* weight, const float* bias,
-                        const float* skip, const float* gate, float* out, int n,
-                        int c_in, int c_out, int H, int W, int relu, int residual,
+// The direct conv with its epilogue (conv3x3_kernel); the types follow the
+// pointers, skip's and gate's both from skip.
+template <typename TI, typename TS, typename TO>
+cudaError_t launch_conv(const TI* in, const float* weight, const float* bias,
+                        const TS* skip, const typename NoDeduce<TS>::type* gate, TO* out,
+                        int n, int c_in, int c_out, int H, int W, int relu, int residual,
                         int adjoint, cudaStream_t stream) {
   const dim3 block(kConvTileW, kConvThreadsY);
   if (c_out % 8 == 0) {
     const dim3 grid((W + kConvTileW - 1) / kConvTileW,
                     (H + kConvTileH - 1) / kConvTileH, n * (c_out / 8));
-    conv3x3_kernel<8><<<grid, block, 0, stream>>>(in, weight, bias, skip, gate, out,
-                                                 c_in, c_out, H, W, relu, residual,
-                                                 adjoint);
+    conv3x3_kernel<8, TI, TS, TO><<<grid, block, 0, stream>>>(
+        in, weight, bias, skip, gate, out, c_in, c_out, H, W, relu, residual, adjoint);
   } else if (c_out == 1) {
     const dim3 grid((W + kConvTileW - 1) / kConvTileW,
                     (H + kConvTileH - 1) / kConvTileH, n);
-    conv3x3_kernel<1><<<grid, block, 0, stream>>>(in, weight, bias, skip, gate, out,
-                                                 c_in, c_out, H, W, relu, residual,
-                                                 adjoint);
+    conv3x3_kernel<1, TI, TS, TO><<<grid, block, 0, stream>>>(
+        in, weight, bias, skip, gate, out, c_in, c_out, H, W, relu, residual, adjoint);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -249,13 +249,19 @@ class CTformerModel(SupervisedModel):
     """CTformer at the published configuration; the loss is ``100 * MSE +
     1e-4`` (reference engine.py:319; details ``loss`` and ``mse``), with
     dropout 0.1 drawn from the caller's generator. ``predict`` runs in
-    eval (no dropout)."""
+    eval (no dropout). ``dtype`` is taken and kept as the JAX model's is,
+    and, as there, changes nothing: the JAX module's layers are flax's
+    ``Dense`` and ``LayerNorm`` with no dtype of their own, which on its
+    fp32 input compute in fp32, so a ``--bf16`` CTformer computes in
+    fp32 in both packages."""
 
     def __init__(self, img_size: int = 64, embed_dim: int = 64, depth: int = 1,
                  num_heads: int = 8, mlp_ratio: float = 2.0, token_dim: int = 64,
-                 dropout_rate: float = 0.1, device: DeviceLike = None, seed: int = 0):
+                 dropout_rate: float = 0.1, device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(CTformer(img_size, embed_dim, token_dim, depth, num_heads,
                                   mlp_ratio, dropout_rate), device, seed, ctformer_init_)
+        self.dtype = dtype
 
     def apply(self, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None) -> Tensor:

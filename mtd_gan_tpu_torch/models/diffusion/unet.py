@@ -29,16 +29,26 @@ kernel): dense softmax attention up to 4096 tokens, exact attention over
 query chunks of 2048 above (a 512x512 input puts 65,536 tokens at level
 1, whose dense score matrix would take 17 GB). The block computes the same
 on every device (:func:`attention_plain`), cuBLAS products on the card.
+
+``dtype`` (``--bf16``) follows the JAX module (``unet.py:52-177``), whose
+layers are flax's: the convs take ``dtype`` and compute in it; the
+GroupNorms and the linears have none, and flax's promotion of a bf16 input
+with fp32 parameters runs them in fp32, so they run on the widened input
+here (the statistics, the attention and the timestep embedding fp32); the
+time projection is cast to the conv output's type before the add; the
+sums follow their operands' promotion, as ``jnp``'s do.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mtd_gan_tpu_torch.ops.layers import Conv2d, widen
 
 Tensor = torch.Tensor
 GN_EPS = 1e-6
@@ -56,25 +66,33 @@ def timestep_embedding(t: Tensor, dim: int, max_period: float = 10000.0) -> Tens
     return F.pad(emb, (0, 1)) if dim % 2 == 1 else emb
 
 
+class _GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` on the input widened to fp32 (flax's GroupNorm with
+    no dtype on a bf16 input), fp32 out (float64 stays float64)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return super().forward(widen(x))
+
+
 def _group_norm(groups: int, channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(groups, channels, eps=GN_EPS)
+    return _GroupNorm(groups, channels, eps=GN_EPS)
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm1 = _group_norm(norm_groups, in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels)
         self.norm2 = _group_norm(norm_groups, out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.skip_connection = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.skip_connection = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                                 if in_channels != out_channels else None)
 
     def forward(self, x: Tensor, temb: Tensor) -> Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None].to(h.dtype)
         h = self.conv2(F.silu(self.norm2(h)))
         if self.skip_connection is not None:
             x = self.skip_connection(x)
@@ -124,7 +142,7 @@ class DiffusionUNet(nn.Module):
                  channels: Sequence[int] = (128, 256, 256),
                  attention_levels: Sequence[bool] = (False, True, True),
                  num_res_blocks: int = 1, num_head_channels: int = 256,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, dtype: Optional[torch.dtype] = None):
         super().__init__()
         ch = tuple(channels)
         self.channels, self.attention_levels = ch, tuple(attention_levels)
@@ -132,8 +150,8 @@ class DiffusionUNet(nn.Module):
         temb_dim = ch[0] * 4
         self.time_fc1 = nn.Linear(ch[0], temb_dim)
         self.time_fc2 = nn.Linear(temb_dim, temb_dim)
-        self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
-        res = lambda c_in, c_out: ResnetBlock(c_in, c_out, temb_dim, norm_groups)
+        self.conv_in = Conv2d(in_channels, ch[0], 3, padding=1, dtype=dtype)
+        res = lambda c_in, c_out: ResnetBlock(c_in, c_out, temb_dim, norm_groups, dtype)
         attn = lambda c: AttentionBlock(c, num_head_channels, norm_groups)
         cur, skips = ch[0], [ch[0]]
         for li, c in enumerate(ch):
@@ -144,7 +162,8 @@ class DiffusionUNet(nn.Module):
                     setattr(self, f"down{li}_attn{ri}", attn(c))
                 skips.append(c)
             if li != len(ch) - 1:
-                setattr(self, f"down{li}_downsample", nn.Conv2d(c, c, 3, stride=2, padding=1))
+                setattr(self, f"down{li}_downsample",
+                        Conv2d(c, c, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(c)
         self.mid_res1 = res(cur, ch[-1])
         self.mid_attn = attn(ch[-1])
@@ -158,9 +177,9 @@ class DiffusionUNet(nn.Module):
                 if self.attention_levels[li]:
                     setattr(self, f"up{ui}_attn{ri}", attn(c))
             if li != 0:
-                setattr(self, f"up{ui}_upsample", nn.Conv2d(c, c, 3, padding=1))
+                setattr(self, f"up{ui}_upsample", Conv2d(c, c, 3, padding=1, dtype=dtype))
         self.out_norm = _group_norm(norm_groups, cur)
-        self.out_conv = nn.Conv2d(cur, out_channels, 3, padding=1)
+        self.out_conv = Conv2d(cur, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: Tensor, t: Tensor) -> Tensor:
         ch, n_res = self.channels, self.num_res_blocks

@@ -52,11 +52,14 @@ class _DiffusionBase(SupervisedModel):
     n_inference_steps = 50
 
     def __init__(self, channels: Sequence[int] = (128, 256, 256), num_head_channels: int = 256,
-                 norm_groups: int = 32, device: DeviceLike = None, seed: int = 0):
+                 norm_groups: int = 32, device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         net = DiffusionUNet(in_channels=2, out_channels=1, channels=channels,
                             attention_levels=(False, True, True), num_res_blocks=1,
-                            num_head_channels=num_head_channels, norm_groups=norm_groups)
+                            num_head_channels=num_head_channels, norm_groups=norm_groups,
+                            dtype=dtype)
         super().__init__(net, device, seed, unet_init_)
+        self.dtype = dtype
         self.scheduler = self.scheduler_cls()
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
 

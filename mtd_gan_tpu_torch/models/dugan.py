@@ -40,7 +40,8 @@ from torch import nn
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
 from mtd_gan_tpu_torch.ops.filters import sobel_magnitude
-from mtd_gan_tpu_torch.ops.layers import SNConv2d, _SpectralNorm, normal_init_
+from mtd_gan_tpu_torch.ops.layers import (Conv2d, ConvTranspose2d, Linear, SNConv2d,
+                                          _SpectralNorm, normal_init_)
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 
 Tensor = torch.Tensor
@@ -49,14 +50,18 @@ SOBEL_EPS = 1e-4
 
 
 class REDCNNGenerator(nn.Module):
-    def __init__(self, in_channels: int = 1, features: int = 32, num_layers: int = 10):
+    """``dtype``: the convs' compute type; the output, the last deconv plus
+    the fp32 input, is fp32, as the JAX module's."""
+
+    def __init__(self, in_channels: int = 1, features: int = 32, num_layers: int = 10,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = features
         self.encoder = nn.ModuleList(
-            [nn.Conv2d(in_channels if i == 0 else f, f, 3, padding=1)
+            [Conv2d(in_channels if i == 0 else f, f, 3, padding=1, dtype=dtype)
              for i in range(num_layers + 1)])
         self.decoder = nn.ModuleList(
-            [nn.ConvTranspose2d(f, in_channels if i == 0 else f, 3, padding=1)
+            [ConvTranspose2d(f, in_channels if i == 0 else f, 3, padding=1, dtype=dtype)
              for i in range(num_layers + 1)])
 
     def forward(self, x: Tensor) -> Tensor:
@@ -70,11 +75,13 @@ class REDCNNGenerator(nn.Module):
         return h
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.Module:
-    """A conv, spectral-normed by the turn_on_spectral_norm rule."""
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+          dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """A conv computing in ``dtype``, spectral-normed by the
+    turn_on_spectral_norm rule."""
     if cout != 1 and cin > 4:
-        return SNConv2d(cin, cout, k, stride, padding)
-    return nn.Conv2d(cin, cout, k, stride, padding)
+        return SNConv2d(cin, cout, k, stride, padding, dtype=dtype)
+    return Conv2d(cin, cout, k, stride, padding, dtype=dtype)
 
 
 def _run(layer: nn.Module, x: Tensor, update_stats: bool) -> Tensor:
@@ -85,10 +92,10 @@ def _lrelu(x: Tensor) -> Tensor:
     return nn.functional.leaky_relu(x, 0.2)
 
 
-def _double_conv(cin: int, cout: int) -> nn.Sequential:
+def _double_conv(cin: int, cout: int, dtype: Optional[torch.dtype]) -> nn.Sequential:
     """The reference's ``Sequential(conv, LeakyReLU, conv, LeakyReLU)``."""
-    return nn.Sequential(_conv(cin, cout, 3, padding=1), nn.LeakyReLU(0.2),
-                         _conv(cout, cout, 3, padding=1), nn.LeakyReLU(0.2))
+    return nn.Sequential(_conv(cin, cout, 3, padding=1, dtype=dtype), nn.LeakyReLU(0.2),
+                         _conv(cout, cout, 3, padding=1, dtype=dtype), nn.LeakyReLU(0.2))
 
 
 def _run_double(seq: nn.Sequential, x: Tensor, update_stats: bool) -> Tensor:
@@ -96,43 +103,47 @@ def _run_double(seq: nn.Sequential, x: Tensor, update_stats: bool) -> Tensor:
 
 
 class _DownBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, downsample: bool):
+    def __init__(self, cin: int, cout: int, downsample: bool, dtype: Optional[torch.dtype]):
         super().__init__()
-        self.conv_res = _conv(cin, cout, 1, 2 if downsample else 1)
-        self.net = _double_conv(cin, cout)
-        self.down = _conv(cout, cout, 4, 2, 1) if downsample else None
+        self.conv_res = _conv(cin, cout, 1, 2 if downsample else 1, dtype=dtype)
+        self.net = _double_conv(cin, cout, dtype)
+        self.down = _conv(cout, cout, 4, 2, 1, dtype=dtype) if downsample else None
 
 
 class _UpBlock(nn.Module):
-    def __init__(self, cin: int, cskip: int, cout: int):
+    def __init__(self, cin: int, cskip: int, cout: int, dtype: Optional[torch.dtype]):
         super().__init__()
-        self.conv = _double_conv(cin + cskip, cout)
-        self.shortcut = _conv(cin, cout, 1)
+        self.conv = _double_conv(cin + cskip, cout, dtype)
+        self.shortcut = _conv(cin, cout, 1, dtype=dtype)
 
 
 class UNetDiscriminator(nn.Module):
     """NCHW ``(N, C, H, W)``, H and W multiples of ``2^repeat_num`` ->
-    ``(enc (N,), dec (N, 1, H, W))``."""
+    ``(enc (N,), dec (N, 1, H, W))``. ``dtype``: the convs' compute type,
+    as the JAX module's; ``to_logit``'s linear, which has none there,
+    follows its input."""
 
-    def __init__(self, conv_dim: int = 64, repeat_num: int = 6, in_channels: int = 1):
+    def __init__(self, conv_dim: int = 64, repeat_num: int = 6, in_channels: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         filters = [in_channels] + [min(conv_dim * 2 ** i, 512) for i in range(repeat_num + 1)]
         filters[-1] = filters[-2]
         pairs = list(zip(filters[:-1], filters[1:]))
         self.down_blocks = nn.ModuleList(
-            [_DownBlock(cin, cout, i != len(pairs) - 1) for i, (cin, cout) in enumerate(pairs)])
-        self.conv = _double_conv(filters[-1], filters[-1])
+            [_DownBlock(cin, cout, i != len(pairs) - 1, dtype)
+             for i, (cin, cout) in enumerate(pairs)])
+        self.conv = _double_conv(filters[-1], filters[-1], dtype)
         # AdaptiveAvgPool2d(1) and Flatten hold no parameters: the linear
         # keeps the reference's index 3
         self.to_logit = nn.Sequential(nn.LeakyReLU(0.2), nn.Identity(), nn.Identity(),
-                                      nn.Linear(filters[-1], 1))
+                                      Linear(filters[-1], 1))
         ups, u_ch = [], filters[-1]
         skips = [cout for _, cout in pairs[:-1]][::-1]
         for (cout, _), skip in zip(pairs[:-1][::-1], skips):
-            ups.append(_UpBlock(u_ch, skip, cout))
+            ups.append(_UpBlock(u_ch, skip, cout, dtype))
             u_ch = cout
         self.up_blocks = nn.ModuleList(ups)
-        self.conv_out = nn.Conv2d(u_ch, 1, 1)
+        self.conv_out = Conv2d(u_ch, 1, 1, dtype=dtype)
 
     def forward(self, x: Tensor, update_stats: bool = True) -> Tuple[Tensor, Tensor]:
         # NCHW strides: an (N, 1, H, W) view of NHWC memory also reads as
@@ -156,12 +167,13 @@ class UNetDiscriminator(nn.Module):
         return enc, self.conv_out(u)
 
 
-def seeded_unet(conv_dim: int, repeat_num: int, generator: torch.Generator
-                ) -> UNetDiscriminator:
+def seeded_unet(conv_dim: int, repeat_num: int, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> UNetDiscriminator:
     """A U-Net discriminator on the CPU with the reference init drawn from
     ``generator``: N(0, 0.01) weights and zero biases, then unit ``u`` /
     ``v`` vectors."""
-    disc = normal_init_(UNetDiscriminator(conv_dim, repeat_num), INIT_STD, generator)
+    disc = normal_init_(UNetDiscriminator(conv_dim, repeat_num, dtype=dtype), INIT_STD,
+                        generator)
     with torch.no_grad():
         for _, buf in disc.named_buffers():
             buf.copy_(nn.functional.normalize(torch.randn(buf.shape, generator=generator),
@@ -210,20 +222,24 @@ def draw_cutmix(generator: Optional[torch.Generator], device: torch.device) -> C
 class DUGANModel:
     """Three networks: ``generator`` (REDCNN), ``image_discriminator`` and
     ``grad_discriminator`` (U-Nets), seeded from one generator in that
-    order. ``device`` defaults to ``cuda`` and raises without a GPU."""
+    order. ``device`` defaults to ``cuda`` and raises without a GPU.
+    ``dtype``: the three networks' compute type (the losses take the types
+    the JAX model computes them in: it casts none of them)."""
 
     name = "DU_GAN"
     n_d_tasks = 1
 
     def __init__(self, gen_features: int = 32, num_layers: int = 10, conv_dim: int = 64,
-                 repeat_num: int = 6, device: DeviceLike = None, seed: int = 0):
+                 repeat_num: int = 6, device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.repeat_num = repeat_num
+        self.dtype = dtype
         init = torch.Generator().manual_seed(seed)
-        gen = normal_init_(REDCNNGenerator(1, gen_features, num_layers), INIT_STD, init)
+        gen = normal_init_(REDCNNGenerator(1, gen_features, num_layers, dtype), INIT_STD, init)
         self.generator = gen.to(self.device).eval()
-        self.image_discriminator = seeded_unet(conv_dim, repeat_num, init).to(self.device)
-        self.grad_discriminator = seeded_unet(conv_dim, repeat_num, init).to(self.device)
+        self.image_discriminator = seeded_unet(conv_dim, repeat_num, init, dtype).to(self.device)
+        self.grad_discriminator = seeded_unet(conv_dim, repeat_num, init, dtype).to(self.device)
 
     def check_input(self, h: int, w: int) -> None:
         """The U-Nets halve a side ``repeat_num`` times: raise unless both

@@ -20,6 +20,8 @@ It reaches no Pallas kernel in the JAX package and runs on cuDNN here.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,7 +30,7 @@ from torch import nn
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike
 from mtd_gan_tpu_torch.models.base import SupervisedModel
-from mtd_gan_tpu_torch.ops.layers import torch_init_
+from mtd_gan_tpu_torch.ops.layers import Conv2d, torch_init_
 
 Tensor = torch.Tensor
 
@@ -79,17 +81,21 @@ class SobelConv(nn.Module):
 
 
 class EDCNN(nn.Module):
-    """NCHW in and out."""
+    """NCHW in and out. ``dtype``: the 1x1 and 3x3 convs' compute type, as
+    the JAX module's (``edcnn.py:90-101``); the Sobel conv follows its
+    fp32 input, the dense concatenations of fp32 and bf16 parts promote to
+    fp32, and the output, the last conv plus the input, is fp32."""
 
-    def __init__(self, out_ch: int = 32, sobel_ch: int = 32):
+    def __init__(self, out_ch: int = 32, sobel_ch: int = 32,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv_sobel = SobelConv(1, sobel_ch)
         dense_in = 1 + sobel_ch
         for i in range(1, 9):
-            setattr(self, f"conv_p{i}", nn.Conv2d(dense_in if i == 1 else dense_in + out_ch,
-                                                  out_ch, 1))
-            setattr(self, f"conv_f{i}", nn.Conv2d(out_ch, 1 if i == 8 else out_ch, 3,
-                                                  padding=1))
+            setattr(self, f"conv_p{i}", Conv2d(dense_in if i == 1 else dense_in + out_ch,
+                                               out_ch, 1, dtype=dtype))
+            setattr(self, f"conv_f{i}", Conv2d(out_ch, 1 if i == 8 else out_ch, 3,
+                                               padding=1, dtype=dtype))
 
     def forward(self, x: Tensor) -> Tensor:
         lrelu = lambda z: F.leaky_relu(z, 0.01)  # torch LeakyReLU default
@@ -108,7 +114,9 @@ class EDCNNModel(SupervisedModel):
     """EDCNN with torch's default init (the Sobel factor 1, its bias 0)."""
 
     def __init__(self, out_ch: int = 32, sobel_ch: int = 32, feature_fn=None,
-                 use_feature_loss: bool = True, device: DeviceLike = None, seed: int = 0):
-        super().__init__(EDCNN(out_ch, sobel_ch), device, seed, torch_init_)
+                 use_feature_loss: bool = True, device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(EDCNN(out_ch, sobel_ch, dtype), device, seed, torch_init_)
+        self.dtype = dtype
         self.criterion = (losses.make_compound_loss(feature_fn, device=self.device)
                           if use_feature_loss else losses.l2)

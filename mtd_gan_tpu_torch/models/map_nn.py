@@ -29,24 +29,27 @@ from mtd_gan_tpu_torch._device import DeviceLike
 from mtd_gan_tpu_torch.models.wgan_vgg import (CriticModel, WGANVGGDiscriminator,
                                                _critic_convs, _nchw)
 from mtd_gan_tpu_torch.ops.filters import sobel_magnitude
-from mtd_gan_tpu_torch.ops.layers import torch_init_
+from mtd_gan_tpu_torch.ops.layers import Conv2d, ConvTranspose2d, torch_init_
 
 Tensor = torch.Tensor
 
 
 class CPCE2D(nn.Module):
     """NCHW in and out; a 3x3 VALID conv takes 2 pixels per encoder and the
-    transposed ones give them back."""
+    transposed ones give them back. ``dtype``: the convs' compute type; the
+    output, the input plus the last deconv, takes the input's type (fp32),
+    as the JAX module's."""
 
-    def __init__(self, features: int = 32):
+    def __init__(self, features: int = 32, dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = features
         for i in range(1, 5):
-            setattr(self, f"encoder{i}", nn.Conv2d(1 if i == 1 else f, f, 3, bias=False))
+            setattr(self, f"encoder{i}",
+                    Conv2d(1 if i == 1 else f, f, 3, bias=False, dtype=dtype))
         for i in range(5, 8):
-            setattr(self, f"decoder{i}", nn.ConvTranspose2d(f, f, 3, bias=False))
-            setattr(self, f"decoder{i}_", nn.Conv2d(2 * f, f, 1, bias=False))
-        self.decoder8 = nn.ConvTranspose2d(f, 1, 3, bias=False)
+            setattr(self, f"decoder{i}", ConvTranspose2d(f, f, 3, bias=False, dtype=dtype))
+            setattr(self, f"decoder{i}_", Conv2d(2 * f, f, 1, bias=False, dtype=dtype))
+        self.decoder8 = ConvTranspose2d(f, 1, 3, bias=False, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         relu = torch.relu
@@ -66,10 +69,10 @@ class CPCE2D(nn.Module):
 class MAPNNGenerator(nn.Module):
     """One ``CPCE_2D`` module applied ``depth`` times (weight-tied)."""
 
-    def __init__(self, depth: int = 5):
+    def __init__(self, depth: int = 5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depth = depth
-        self.CPCE_2D = CPCE2D()
+        self.CPCE_2D = CPCE2D(dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         for _ in range(self.depth):
@@ -82,9 +85,9 @@ class MAPNNDiscriminator(WGANVGGDiscriminator):
 
     model = "MAP_NN"
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         nn.Module.__init__(self)
-        for i, conv in enumerate(_critic_convs(), start=1):
+        for i, conv in enumerate(_critic_convs(dtype), start=1):
             setattr(self, f"conv{i}", conv)
         self._head()
 
@@ -109,10 +112,12 @@ class MAPNNModel(CriticModel):
 
     name = "MAP_NN"
 
-    def __init__(self, depth: int = 5, device: DeviceLike = None, seed: int = 0):
+    def __init__(self, depth: int = 5, device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         init = torch.Generator().manual_seed(seed)
-        super().__init__(xavier_init_(MAPNNGenerator(depth), init),
-                         torch_init_(MAPNNDiscriminator(), init), device)
+        super().__init__(xavier_init_(MAPNNGenerator(depth, dtype), init),
+                         torch_init_(MAPNNDiscriminator(dtype), init), device)
+        self.dtype = dtype
 
     def g_loss_terms(self, fake: Tensor, x: Tensor, y: Tensor, update_stats: bool = True,
                      generator: Optional[torch.Generator] = None

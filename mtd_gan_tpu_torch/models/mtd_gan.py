@@ -12,6 +12,12 @@ reads; ``conv{i}{j}``, ``down{i}``, ``bconv{1,2}``, ``c_fc``, ``enc_out``,
 ``weight_v`` for the discriminator, the layout ``convert_mtd_discriminator``
 reads. Activations are NCHW inside; the public functions take the JAX
 package's NHWC ``(N, H, W, 1)`` (the same memory for one channel).
+
+``dtype`` (``--bf16``): the generator's and the discriminator's layers
+compute in it, as the JAX modules' ``dtype`` (``ops/layers.py``); the
+parameters stay fp32. The model keeps it as ``self.dtype``, which the
+trainer and the routes read; the losses run in fp32, where the JAX model
+casts (``_f32``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import (KERNEL_CHANNELS, KERNEL_SIZES,
                                                  resfft_generator_nchw)
 from mtd_gan_tpu_torch.ops.cuda_staged import conv3x3, in_staged_domain
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock, check_impls
-from mtd_gan_tpu_torch.ops.layers import SNConv2d, SNLinear, normal_init_
+from mtd_gan_tpu_torch.ops.layers import (Conv2d, ConvTranspose2d, Linear, SNConv2d, SNLinear,
+                                          normal_init_, widen)
 from mtd_gan_tpu_torch.ops.pixel_shuffle import PixelShuffleUpsample
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.parallel.mesh import batch_draw
@@ -44,11 +51,15 @@ class ResFFTGenerator(nn.Module):
     the C_in = 1 entry conv (``ops/fft_conv.py``): ``"torch"`` (cuDNN and
     elementwise ops) or ``"k3"`` (the hand-written K3 with its fused
     epilogue; ``None``: K3 with a kernel spectral path, else ``"torch"``).
-    The parameters and their names are the same for every choice."""
+    The parameters and their names are the same for every choice.
+    ``dtype``: the convs' compute type (the plain module; the kernel views
+    take fp32), the Res-FFT blocks following their input; the output, the
+    exit deconv plus the fp32 image, is fp32, as the JAX module's."""
 
     def __init__(self, in_channels: int = 1, features: int = 32,
                  num_layers: int = 10, spectral_impl: str = "auto",
-                 conv_impl: Optional[str] = None):
+                 conv_impl: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if conv_impl is None:
             conv_impl = "torch" if spectral_impl == "auto" else "k3"
@@ -56,12 +67,13 @@ class ResFFTGenerator(nn.Module):
         L, f = num_layers, features
         self.num_layers, self.features = L, f
         self.conv_impl = conv_impl
+        self.dtype = dtype
         self.encoder = nn.ModuleList(
-            [nn.Conv2d(in_channels, f, 3, padding=1)]
-            + [nn.Conv2d(f, f, 3, padding=1) for _ in range(L)])
+            [Conv2d(in_channels, f, 3, padding=1, dtype=dtype)]
+            + [Conv2d(f, f, 3, padding=1, dtype=dtype) for _ in range(L)])
         self.decoder = nn.ModuleList(
-            [nn.ConvTranspose2d(f, in_channels, 3, padding=1)]
-            + [nn.ConvTranspose2d(f, f, 3, padding=1) for _ in range(L)])
+            [ConvTranspose2d(f, in_channels, 3, padding=1, dtype=dtype)]
+            + [ConvTranspose2d(f, f, 3, padding=1, dtype=dtype) for _ in range(L)])
         self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl, conv_impl)
                                       for _ in range(2 * L + 1)])
 
@@ -103,10 +115,14 @@ def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
     return view
 
 
-def generate_route(h: int, w: int, c: int) -> str:
+def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) -> str:
     """The path ``MTDGANModel.generate`` takes for a CUDA input of H x W
-    with a generator of C features, chosen by shape and width before any
-    launch, the first that takes it of:
+    with a generator of C features computing in ``dtype`` (``None``:
+    fp32), chosen by shape, width and type before any launch. A bf16
+    generator takes ``"k1"``, K1's bf16 variant, at K1's sizes and
+    ``"plain"``, the plain module in bf16 on the card, at every other size:
+    K3 - K8 have no bf16 variant yet (ROADMAP.md, queue 2). An fp32
+    generator takes the first of:
 
     - ``"k1"``: the fused-block pipeline (``ops/cuda_pipeline.py``), H == W
       in {64, 128, 256, 512};
@@ -135,6 +151,8 @@ def generate_route(h: int, w: int, c: int) -> str:
     to 1024 a side (1024^2, 800^2, 200^2, 130x64, 448x449, ...) runs the
     JAX package's unfused kernels K3 - K6. Only the rest runs the plain
     module, the port of the XLA path."""
+    if dtype == torch.bfloat16:
+        return "k1" if c in KERNEL_CHANNELS and h == w and h in KERNEL_SIZES else "plain"
     if c in KERNEL_CHANNELS:
         if h == w and h in KERNEL_SIZES:
             return "k1"
@@ -171,8 +189,9 @@ def resfft_generate(views: Dict[str, nn.Module], x: Tensor) -> Tensor:
     :func:`generator_views`. A CUDA ``x`` takes the path
     :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
     (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs on
-    K3, or the plain module. A CPU ``x`` runs the plain module. ``x`` must
-    be on the generator's device type."""
+    K3, or the plain module; a bf16 generator the K1 pipeline on K1's bf16
+    variant or the plain module in bf16. A CPU ``x`` runs the plain module.
+    ``x`` must be on the generator's device type."""
     gen = views["plain"]
     device = next(gen.parameters()).device
     if x.device.type != device.type:
@@ -180,9 +199,10 @@ def resfft_generate(views: Dict[str, nn.Module], x: Tensor) -> Tensor:
     if x.device.type == "cpu":
         return gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     n, h, w, _ = x.shape
-    route = generate_route(h, w, gen.features)
+    route = generate_route(h, w, gen.features, gen.dtype)
     if route == "k1":
-        return resfft_generator_nchw(gen.state_dict(), x, gen.num_layers)
+        return resfft_generator_nchw(gen.state_dict(), x, gen.num_layers,
+                                     act_dtype=gen.dtype or torch.float32)
     # reshape, not permute: NCHW strides for the kernels' layout checks
     return views[route](x.reshape(n, 1, h, w).contiguous()).reshape(n, h, w, 1)
 
@@ -217,10 +237,13 @@ class MultiTaskDiscriminator(nn.Module):
     heads, the outputs in (cls, seg, rec) order for the enabled subset, a
     single head's output alone. The default, all three, is the flagship's.
     ``update_stats`` stores each spectral-norm layer's power iteration;
-    ``generator`` draws the dropout mask in training."""
+    ``generator`` draws the dropout mask in training. ``dtype``: the convs'
+    compute type, as the JAX module's (the CLS head's linears and the
+    pixel-shuffle convs, which have none there, follow their input)."""
 
     def __init__(self, in_channels: int = 1, features: int = 64,
-                 dropout_rate: float = 0.3, heads: Tuple[str, ...] = HEADS):
+                 dropout_rate: float = 0.3, heads: Tuple[str, ...] = HEADS,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if not heads or set(heads) - set(HEADS):
             raise ValueError(f"heads must be a non-empty subset of {HEADS}, got {heads}")
@@ -230,31 +253,33 @@ class MultiTaskDiscriminator(nn.Module):
         enc_ch = [f, f * 2, f * 4, f * 8, f * 8, f * 8]
         c_prev = in_channels
         for i, ch in enumerate(enc_ch, start=1):
-            setattr(self, f"conv{i}1", SNConv2d(c_prev, ch, 3, padding=1))
-            setattr(self, f"conv{i}2", SNConv2d(ch, ch, 3, padding=1))
-            setattr(self, f"down{i}", SNConv2d(ch, ch, 4, stride=2, padding=1))
+            setattr(self, f"conv{i}1", SNConv2d(c_prev, ch, 3, padding=1, dtype=dtype))
+            setattr(self, f"conv{i}2", SNConv2d(ch, ch, 3, padding=1, dtype=dtype))
+            setattr(self, f"down{i}", SNConv2d(ch, ch, 4, stride=2, padding=1, dtype=dtype))
             c_prev = ch
-        self.bconv1 = SNConv2d(f * 8, f * 8, 1)
-        self.bconv2 = SNConv2d(f * 8, f * 8, 1)
+        self.bconv1 = SNConv2d(f * 8, f * 8, 1, dtype=dtype)
+        self.bconv2 = SNConv2d(f * 8, f * 8, 1, dtype=dtype)
         if "cls" in heads:
             self.c_fc = SNLinear(f * 8, f * 8)
-            self.enc_out = nn.Linear(f * 8, 1)
+            self.enc_out = Linear(f * 8, 1)
         dec_ch = [f * 8, f * 8, f * 4, f * 2, f, 1]
         prev = f * 8
         for i, ch in enumerate(dec_ch, start=1):
             skip_ch = enc_ch[6 - i]
             if "seg" in heads:
-                setattr(self, f"s_dconv{i}1", SNConv2d(prev + skip_ch, ch, 3, padding=1))
-                setattr(self, f"s_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+                setattr(self, f"s_dconv{i}1",
+                        SNConv2d(prev + skip_ch, ch, 3, padding=1, dtype=dtype))
+                setattr(self, f"s_dconv{i}2", SNConv2d(ch, ch, 3, padding=1, dtype=dtype))
             if "rec" in heads:
                 setattr(self, f"r_up{i}", PixelShuffleUpsample(prev, 2))
-                setattr(self, f"r_dconv{i}1", SNConv2d(prev + skip_ch, ch, 3, padding=1))
-                setattr(self, f"r_dconv{i}2", SNConv2d(ch, ch, 3, padding=1))
+                setattr(self, f"r_dconv{i}1",
+                        SNConv2d(prev + skip_ch, ch, 3, padding=1, dtype=dtype))
+                setattr(self, f"r_dconv{i}2", SNConv2d(ch, ch, 3, padding=1, dtype=dtype))
             prev = ch
         if "seg" in heads:
-            self.dec_out = nn.Conv2d(1, 1, 1)
+            self.dec_out = Conv2d(1, 1, 1, dtype=dtype)
         if "rec" in heads:
-            self.rec_out = nn.Conv2d(1, 1, 1)
+            self.rec_out = Conv2d(1, 1, 1, dtype=dtype)
 
     def forward(self, x: Tensor, train: bool = True, update_stats: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -291,11 +316,12 @@ class MultiTaskDiscriminator(nn.Module):
 
 
 def seeded_discriminator(features: int, dropout_rate: float, heads: Tuple[str, ...],
-                         generator: torch.Generator) -> MultiTaskDiscriminator:
+                         generator: torch.Generator,
+                         dtype: Optional[torch.dtype] = None) -> MultiTaskDiscriminator:
     """A discriminator on the CPU with the reference init, drawn from
     ``generator``: N(0, 0.01) weights and zero biases, then the unit ``u``
     / ``v`` vectors."""
-    disc = MultiTaskDiscriminator(1, features, dropout_rate, heads=heads)
+    disc = MultiTaskDiscriminator(1, features, dropout_rate, heads=heads, dtype=dtype)
     normal_init_(disc, INIT_STD, generator)
     with torch.no_grad():
         for _, buf in disc.named_buffers():
@@ -335,19 +361,23 @@ class MTDGANModel:
     layer consumes; ``g_loss_terms`` is a scalar.
 
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    ``device="cpu"`` for the plain PyTorch path. ``dtype``: the compute
+    type (``None``: fp32; ``torch.bfloat16`` for ``--bf16``), the
+    parameters fp32 either way."""
 
     name = "MTD_GAN"
     n_d_tasks = 3
 
     def __init__(self, gen_features: int = 32, disc_features: int = 64,
                  num_layers: int = 10, dropout_rate: float = 0.3,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.gen_features = gen_features
         self.num_layers = num_layers
+        self.dtype = dtype  # compute dtype (None = fp32); the trainer reads it
         init = torch.Generator().manual_seed(seed)
-        gen = ResFFTGenerator(1, gen_features, num_layers)
+        gen = ResFFTGenerator(1, gen_features, num_layers, dtype=dtype)
         normal_init_(gen, INIT_STD, init)
         self.generator = gen.to(self.device).eval()
         self.views = generator_views(self.generator)
@@ -355,7 +385,7 @@ class MTDGANModel:
         self.generator_fused = self.views["fused"]
         self.generator_staged = self.views["staged"]
         self.discriminator = seeded_discriminator(disc_features, dropout_rate, HEADS,
-                                                  init).to(self.device)
+                                                  init, dtype).to(self.device)
 
     def generate(self, x: Tensor) -> Tensor:
         """``(N, H, W, 1)`` -> ``(N, H, W, 1)`` on the route
@@ -374,10 +404,12 @@ class MTDGANModel:
         """Stacked ``[disc, rec, consist]`` on NHWC ``x``, ``y`` and the
         generator output ``fake`` (detached here). D runs twice, each time on
         a concatenated pair: ``[y; fake]``, then the clipped restorations
-        ``[clip(real_rec); clip(fake_rec)]`` (restoration consistency)."""
-        fake = fake.detach()
+        ``[clip(real_rec); clip(fake_rec)]`` (restoration consistency). The
+        heads' outputs and ``fake`` are cast to fp32 before the losses, as
+        the JAX ``_f32`` does."""
+        fake = widen(fake.detach())
         b = y.shape[0]
-        as_nhwc = lambda t: t.permute(0, 2, 3, 1) if t.dim() == 4 else t
+        as_nhwc = lambda t: widen(t.permute(0, 2, 3, 1) if t.dim() == 4 else t)
         pair1 = [as_nhwc(t) for t in self._apply_d(torch.cat([y, fake]), update_stats,
                                                    generator)]
         (real_enc, real_dec, real_rec) = [t[:b] for t in pair1]
@@ -416,9 +448,11 @@ class MTDGANModel:
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
         """The generator's loss given ``fake = G(x)`` (NHWC): LSGAN on the CLS
-        head, NDS on the SEG head, 50 x Charbonnier and 50 x EdgeLoss."""
+        head, NDS on the SEG head, 50 x Charbonnier and 50 x EdgeLoss, in
+        fp32 (the JAX ``_f32``)."""
         gen_enc, gen_dec, _ = self._apply_d(fake, update_stats, generator)
-        gen_dec = gen_dec.permute(0, 2, 3, 1)
+        gen_enc, gen_dec = widen(gen_enc), widen(gen_dec.permute(0, 2, 3, 1))
+        fake = widen(fake)
         adv_enc = losses.ls_gan(gen_enc, 1.0)
         adv_dec = losses.nds_loss(gen_dec, 1.0, x - y)
         pix_loss = 50.0 * losses.charbonnier_loss(fake, y)

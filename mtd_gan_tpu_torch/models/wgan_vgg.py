@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
-from mtd_gan_tpu_torch.ops.layers import torch_init_
+from mtd_gan_tpu_torch.ops.layers import Conv2d, Linear, torch_init_
 from mtd_gan_tpu_torch.parallel.mesh import batch_draw
 
 Tensor = torch.Tensor
@@ -60,39 +60,44 @@ def check_critic_input(h: int, w: int, model: str) -> None:
 
 
 class WGANVGGGenerator(nn.Module):
-    """NCHW in and out."""
+    """NCHW in and out. ``dtype``: the convs' compute type; the output, the
+    last conv plus the fp32 input, is fp32, as the JAX module's."""
 
-    def __init__(self, features: int = 32):
+    def __init__(self, features: int = 32, dtype: Optional[torch.dtype] = None):
         super().__init__()
         layers = []
         for i in range(11):
-            layers += [nn.Conv2d(1 if i == 0 else features, features, 3, padding=1,
-                                 bias=False), nn.ReLU()]
-        layers.append(nn.Conv2d(features, 1, 1, bias=False))
+            layers += [Conv2d(1 if i == 0 else features, features, 3, padding=1,
+                              bias=False, dtype=dtype), nn.ReLU()]
+        layers.append(Conv2d(features, 1, 1, bias=False, dtype=dtype))
         self.net = nn.Sequential(*layers)
 
     def forward(self, x: Tensor) -> Tensor:
         return torch.relu(self.net(x) + x)
 
 
-def _critic_convs():
-    return [nn.Conv2d(cin, cout, 3, stride, 1) for cin, cout, stride in CRITIC_STAGES]
+def _critic_convs(dtype: Optional[torch.dtype] = None):
+    return [Conv2d(cin, cout, 3, stride, 1, dtype=dtype) for cin, cout, stride in CRITIC_STAGES]
 
 
 class WGANVGGDiscriminator(nn.Module):
-    """NCHW ``(N, 1, 64, 64)`` -> ``(N, 1)``."""
+    """NCHW ``(N, 1, 64, 64)`` -> ``(N, 1)``. ``dtype``: the convs' compute
+    type; the linear head, which has none in the JAX module, follows its
+    input, so a bf16 critic scores in bf16 there too (the WGAN loss, its
+    gradient penalty's double backward included, runs in the types the
+    JAX model computes it in)."""
 
     model = "WGAN_VGG"
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.net = nn.Sequential(*[m for conv in _critic_convs()
+        self.net = nn.Sequential(*[m for conv in _critic_convs(dtype)
                                    for m in (conv, nn.LeakyReLU(0.2))])
         self._head()
 
     def _head(self) -> None:
-        self.fc1 = nn.Linear(256 * 8 * 8, 1024)
-        self.fc2 = nn.Linear(1024, 1)
+        self.fc1 = Linear(256 * 8 * 8, 1024)
+        self.fc2 = Linear(1024, 1)
 
     def features(self, x: Tensor) -> Tensor:
         return self.net(x)
@@ -171,10 +176,12 @@ class WGANVGGModel(CriticModel):
     name = "WGAN_VGG"
 
     def __init__(self, use_perceptual: bool = True, feature_fn=None,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         init = torch.Generator().manual_seed(seed)
-        super().__init__(torch_init_(WGANVGGGenerator(), init),
-                         torch_init_(WGANVGGDiscriminator(), init), device)
+        super().__init__(torch_init_(WGANVGGGenerator(dtype=dtype), init),
+                         torch_init_(WGANVGGDiscriminator(dtype), init), device)
+        self.dtype = dtype
         self.use_perceptual = use_perceptual
         self.feature_fn = feature_fn
 

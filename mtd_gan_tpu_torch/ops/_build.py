@@ -104,6 +104,14 @@ def block_fused_library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P,          # hbuf, spec, out, final_out, stream
     ]
     lib.block_fused_forward.restype = ctypes.c_int
+    lib.block_fused_forward_bf16.argtypes = [
+        _P, _I, _I, _I, _I, _I,      # x, n, c_in, c, h, w
+        _P, _P, _P,                  # pre_w, pre_b, skip
+        _P, _P, _P, _P,              # km, kb, mix, mb
+        _P, _P, _P, _P,              # post_w, post_b, img, twiddles
+        _P, _P, _P, _P, _P, _P,      # hbuf, spec, res, out, final_out, stream
+    ]
+    lib.block_fused_forward_bf16.restype = ctypes.c_int
     lib.block_fused_error_string.argtypes = [ctypes.c_int]
     lib.block_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,6 +133,18 @@ def block_bwd_library() -> ctypes.CDLL:
         _P, _P, _P, _P,              # imgbar, dpost_w, dpost_b, stream
     ]
     lib.block_bwd.restype = ctypes.c_int
+    lib.block_bwd_bf16.argtypes = [
+        _P, _P, _I, _I, _I, _I,      # x, g, n, c, h, w
+        _P, _P, _P,                  # pre_w, pre_b, skip
+        _P, _P, _P, _P,              # km, kb, mix, mb
+        _P, _P, _P, _P, _P,          # post_w, post_b, img, gfin, twiddles
+        _P, _P, _P, _P, _P, _P,      # hbuf, rbuf, obuf, res, gbuf, abuf
+        _P, _P, _P, _P, _I, _I,      # spec_a, spec_b, w_part, mix_part, wgrad/column blocks
+        _P, _P, _P, _P, _P,          # xbar, dkm, dkb, dmix, dmb
+        _P, _P, _P,                  # skipbar, dpre_w, dpre_b
+        _P, _P, _P, _P,              # imgbar, dpost_w, dpost_b, stream
+    ]
+    lib.block_bwd_bf16.restype = ctypes.c_int
     lib.block_bwd_error_string.argtypes = [ctypes.c_int]
     lib.block_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,13 +1,20 @@
 """Channel-major generator pipeline on the hand-written K1 kernel
 (counterpart of the fused path of ``mtd_gan_tpu/ops/pallas_pipeline.py``).
 
-Activations are ``(N, C, H*W)`` fp32. One :func:`block_fused` call computes a
-whole Res-FFT block together with the layer conv that feeds it and, on the
-last block, the exit deconv + image residual: the counterpart of
-``fft_block_nchw(fused=True)`` / ``_block_fused_call``. On a CUDA tensor it
-launches ``csrc/block_fused.cu``; on a CPU tensor it runs
+Activations are ``(N, C, H*W)``, fp32 or bf16. One :func:`block_fused` call
+computes a whole Res-FFT block together with the layer conv that feeds it
+and, on the last block, the exit deconv + image residual: the counterpart
+of ``fft_block_nchw(fused=True)`` / ``_block_fused_call``. On a CUDA tensor
+it launches ``csrc/block_fused.cu``; on a CPU tensor it runs
 :func:`block_fused_reference`, the plain PyTorch version of the same
 function. There is no fallback from one to the other.
+
+bf16 activations (the JAX kernel's ``act_dtype=bfloat16``) select K1's bf16
+variant, with the JAX kernel's rounding points: the block input, skip, the
+pre conv's output and the block output are bf16; the convs multiply bf16
+operands (the fp32 weights rounded) and sum in fp32; the spectral branch
+and the block's sums run in fp32 and the output is rounded once; the exit
+deconv and the image residual stay fp32. The weights stay fp32.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
+from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block, spectral_branch
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
 Tensor = torch.Tensor
@@ -31,6 +38,16 @@ ConvParams = Tuple[Tensor, Tensor]  # (weight (C_out, C_in, 3, 3), bias (C_out,)
 KERNEL_SIZES = (64, 128, 256, 512)
 # channel counts the kernel is instantiated for
 KERNEL_CHANNELS = (8, 16, 32)
+# activation types: fp32, and bf16 for the bf16 variant
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+BF16 = torch.bfloat16
+
+
+def round_bf16(t: Tensor) -> Tensor:
+    """``t`` rounded to bf16 and widened back, with the gradient passed
+    through unchanged: a kernel's bf16 operand of an fp32 weight, whose
+    gradient the kernel keeps in fp32."""
+    return t + (t.to(BF16).float() - t).detach()
 
 
 def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
@@ -45,7 +62,11 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         out   = a + relu(conv(a, km) + kb) + irfft2(relu(mix [Re; Im] rfft2(a) + mb))
         final = relu(conv(out, post) + img)    if post
 
-    Returns ``out``, or ``(out, final)`` with ``post``."""
+    Returns ``out``, or ``(out, final)`` with ``post``. A bf16 ``x`` takes
+    K1's bf16 variant (module docstring): ``skip`` bf16, ``out`` bf16,
+    ``final`` fp32."""
+    if x.dtype == BF16:
+        return _block_fused_reference_bf16(x, h, w, km, kb, mix, mb, pre, skip, post, img)
     n = x.shape[0]
     a = x.reshape(n, -1, h, w)
     if pre is not None:
@@ -58,6 +79,30 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
     if post is None:
         return flat
     final = torch.relu(F.conv2d(out, post[0], post[1], padding=1)
+                       + img.reshape(n, 1, h, w))
+    return flat, final.reshape(n, 1, h * w)
+
+
+def _block_fused_reference_bf16(x, h, w, km, kb, mix, mb, pre, skip, post, img):
+    """Plain K1-bf16 with the kernel's rounding points: fp32 convs on
+    bf16-valued operands (products exact, fp32 sums), ``a`` rounded to bf16
+    after the pre conv, ``out`` rounded once after the block's fp32 sum.
+    Under autograd the weights' gradients stay fp32 (:func:`round_bf16`)
+    and each bf16 activation's cotangent is rounded to bf16, as K2-bf16's
+    are."""
+    n = x.shape[0]
+    a = x.float().reshape(n, -1, h, w)
+    if pre is not None:
+        a = F.conv2d(a, round_bf16(pre[0]), pre[1], padding=1)
+        if skip is not None:
+            a = a + skip.float().reshape(a.shape)
+        a = torch.relu(a).to(BF16).float()
+    res = a + torch.relu(F.conv2d(a, round_bf16(km), kb, padding=1))
+    out = (res + spectral_branch(a, mix, mb)).to(BF16)
+    flat = out.reshape(n, -1, h * w)
+    if post is None:
+        return flat
+    final = torch.relu(F.conv2d(out.float(), post[0], post[1], padding=1)
                        + img.reshape(n, 1, h, w))
     return flat, final.reshape(n, 1, h * w)
 
@@ -78,11 +123,11 @@ def _device_twiddles(w: int, dev: torch.device) -> Tensor:
 
 
 def _check(t: Optional[Tensor], shape, device, name: str,
-           who: str = "block_fused") -> None:
+           who: str = "block_fused", dtype: torch.dtype = torch.float32) -> None:
     if t is None:
         return
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{who}: {name} must be a contiguous float32 "
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
                          f"tensor on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
@@ -98,8 +143,10 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
     """K1: same arguments and result as :func:`block_fused_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
-    (one C entry call per block, counted in ``block_fused.launches``) or
-    raises: on an unsupported shape or layout, or on a CUDA error. The
+    (one C entry call per block, counted in ``block_fused.launches``; a bf16
+    ``x`` launches the bf16 variant, counted in
+    ``block_fused.launches_bf16``) or raises: on an unsupported shape, type
+    or layout, or on a CUDA error. The
     kernel's FFTs, along W and along H (H == W), read K4's twiddle table
     (:func:`rdft_twiddles`, cached per device and W). A dict passed as
     ``scratch`` receives the pre conv's output ``hin`` (with ``pre``), on
@@ -111,9 +158,16 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         raise ValueError(f"block_fused: unsupported device {x.device}")
     n, c_in, hw = x.shape
     c = km.shape[0]
+    act = x.dtype
+    if act not in ACT_DTYPES:
+        raise ValueError(f"block_fused: the kernel takes activations of {ACT_DTYPES}, "
+                         f"got {act}")
+    bf = act == BF16
     if h != w or h not in KERNEL_SIZES or hw != h * w:
         raise ValueError(f"block_fused: the kernel takes H == W in "
                          f"{KERNEL_SIZES}, got x {tuple(x.shape)} at {h}x{w}")
+    if bf and c_in != c:
+        raise ValueError(f"block_fused: the bf16 variant takes C_in == C, got {c_in} -> {c}")
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"block_fused: the kernel takes C in "
                          f"{KERNEL_CHANNELS}, got {c}")
@@ -132,33 +186,44 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
             (pre_w, (c, c_in, 3, 3), "pre weight"), (pre_b, (c,), "pre bias"),
             (skip, (n, c, hw), "skip"), (post_w, (1, c, 3, 3), "post weight"),
             (post_b, (1,), "post bias"), (img, (n, 1, hw), "img")):
-        _check(t, shape, dev, name)
+        _check(t, shape, dev, name, dtype=act if name in ("x", "skip") else torch.float32)
 
     lib = _build.block_fused_library()
     tw = _device_twiddles(w, dev)
-    out = torch.empty((n, c, hw), device=dev, dtype=torch.float32)
+    f32 = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    out = torch.empty((n, c, hw), device=dev, dtype=act)
     hbuf = torch.empty_like(out) if pre is not None else None
-    spec = torch.empty((n, c, w // 2 + 1, h, 2), device=dev,
-                       dtype=torch.float32)
-    final = (torch.empty((n, 1, hw), device=dev, dtype=torch.float32)
-             if post is not None else None)
+    spec = f32(n, c, w // 2 + 1, h, 2)
+    final = f32(n, 1, hw) if post is not None else None
+    res = f32(n, c, hw) if bf else None  # the residual conv's part of the block's sum
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.block_fused_forward(
-            ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
-            ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-            ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(out), ptr(final), stream)
+        if bf:
+            err = lib.block_fused_forward_bf16(
+                ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
+                ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
+                ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(res), ptr(out),
+                ptr(final), stream)
+        else:
+            err = lib.block_fused_forward(
+                ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
+                ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
+                ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(out), ptr(final), stream)
     if err != 0:
         msg = lib.block_fused_error_string(err).decode()
         raise RuntimeError(f"block_fused: CUDA error {err} ({msg})")
-    block_fused.launches += 1
+    if bf:
+        block_fused.launches_bf16 += 1
+    else:
+        block_fused.launches += 1
     if scratch is not None and hbuf is not None:
         scratch["hin"] = hbuf
     return out if post is None else (out, final)
 
 
 block_fused.launches = 0
+block_fused.launches_bf16 = 0
 
 
 def prep_generator_params(state: Mapping[str, Tensor],
@@ -187,21 +252,36 @@ def prep_generator_params(state: Mapping[str, Tensor],
     }
 
 
+def entry_conv(x: Tensor, weight: Tensor, bias: Tensor,
+               act_dtype: torch.dtype) -> Tensor:
+    """The generator's entry conv (C_in = 1) on ``(N, H, W, 1)`` ``x`` as
+    ``F.conv2d``, channel-major ``(N, C, H*W)`` out in ``act_dtype``: for
+    bf16 on bf16 operands, as the JAX pipeline's entry conv
+    (``x.astype(act)``, ``k0.astype(act)``, ``b0.astype(act)``)."""
+    n, h, w, _ = x.shape
+    if act_dtype == BF16:
+        x, weight, bias = x.to(BF16), weight.to(BF16), bias.to(BF16)
+    a = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1))
+    return a.reshape(n, -1, h * w).contiguous()
+
+
 def resfft_generator_nchw(state: Mapping[str, Tensor], x: Tensor,
-                          num_layers: int = 10) -> Tensor:
+                          num_layers: int = 10,
+                          act_dtype: torch.dtype = torch.float32) -> Tensor:
     """Full ResFFT generator forward through :func:`block_fused`.
 
     ``state``: the generator's state dict; ``x``: ``(N, H, W, 1)``. Returns
-    ``(N, H, W, 1)``. The entry conv (C_in = 1) runs as ``F.conv2d``, then
-    2L+1 block calls, each fusing the layer conv that feeds it (wiring of
-    ``resfft_generator_nchw`` in the JAX pipeline)."""
+    ``(N, H, W, 1)`` fp32. The entry conv (C_in = 1) runs as ``F.conv2d``,
+    then 2L+1 block calls, each fusing the layer conv that feeds it (wiring
+    of ``resfft_generator_nchw`` in the JAX pipeline). ``act_dtype``: the
+    activations' type, fp32 or bf16 (K1's bf16 variant: the entry conv's
+    output, every block boundary and every skip in bf16, the image residual
+    of the exit in fp32, as the JAX pipeline's ``img32``)."""
     n, h, w, _ = x.shape
     L = num_layers
     pp = prep_generator_params(state, L)
     x = x.float().contiguous()
-    w0, b0 = pp["enc0"]
-    a = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), w0, b0, padding=1))
-    a = a.reshape(n, -1, h * w).contiguous()
+    a = entry_conv(x, *pp["enc0"], act_dtype)
     img = x.reshape(n, 1, h * w)
 
     def blk(a_, i, pre=None, skip=None, post=None):

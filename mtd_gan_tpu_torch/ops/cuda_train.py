@@ -9,6 +9,13 @@ the block" policy of the JAX ``custom_vjp``. On a CUDA tensor
 :func:`block_bwd` launches ``csrc/block_bwd.cu``; on a CPU tensor it runs
 :func:`block_bwd_reference`, autograd through K1's plain version. There is
 no fallback from one to the other.
+
+A bf16 generator (``ResFFTGenerator(dtype=torch.bfloat16)``) trains on K1's
+and K2's bf16 variants, as the JAX ``resfft_generator_train(act_dtype=
+bfloat16)``: its block boundaries are bf16, the incoming cotangent is
+rounded to bf16 and the input and skip cotangents leave in bf16
+(``mtd_gan_tpu/ops/pallas_train.py:339-348, :452``), and the weight
+gradients stay fp32 on the fp32 parameters.
 """
 
 from __future__ import annotations
@@ -16,12 +23,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import (ConvParams, KERNEL_CHANNELS, _check,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (ACT_DTYPES, BF16, ConvParams,
+                                                 KERNEL_CHANNELS, _check,
                                                  _device_twiddles, block_fused,
-                                                 block_fused_reference)
+                                                 block_fused_reference, entry_conv)
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
 Tensor = torch.Tensor
@@ -54,7 +61,9 @@ def block_bwd_reference(x: Tensor, g: Optional[Tensor], h: int, w: int,
     ``gfin`` that of ``final`` when ``post`` is given. Returns a dict with
     ``xbar`` and the batch-summed ``km``, ``kb``, ``mix``, ``mb``; with
     ``skip`` also ``skip``; with ``pre`` ``pre_w``, ``pre_b``; with ``post``
-    ``img``, ``post_w``, ``post_b``."""
+    ``img``, ``post_w``, ``post_b``. A bf16 ``x`` (K2's bf16 variant; ``g``
+    and ``skip`` bf16) differentiates K1-bf16's plain version: ``xbar`` and
+    ``skip`` come back bf16, the rest fp32."""
     named = {"xbar": x, "km": km, "kb": kb, "mix": mix, "mb": mb}
     if pre is not None:
         named.update(pre_w=pre[0], pre_b=pre[1])
@@ -99,8 +108,10 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
     """K2: same arguments and result as :func:`block_bwd_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
-    (one C entry call per block backward, counted in ``block_bwd.launches``)
-    or raises: on an unsupported shape or layout, or on a CUDA error. The
+    (one C entry call per block backward, counted in ``block_bwd.launches``;
+    a bf16 ``x`` launches the bf16 variant, counted in
+    ``block_bwd.launches_bf16``) or raises: on an unsupported shape, type or
+    layout, or on a CUDA error. The
     kernel recomputes the forward it differentiates with K1's launches; a
     dict passed as ``scratch`` receives what it recomputed, ``hin`` (with
     ``pre``) and ``out`` (with ``post``), on the card only."""
@@ -111,6 +122,11 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
         raise ValueError(f"block_bwd: unsupported device {x.device}")
     n, c_in, hw = x.shape
     c = km.shape[0]
+    act = x.dtype
+    if act not in ACT_DTYPES:
+        raise ValueError(f"block_bwd: the kernel takes activations of {ACT_DTYPES}, "
+                         f"got {act}")
+    bf = act == BF16
     if h != w or h not in KERNEL_SIZES or hw != h * w:
         raise ValueError(f"block_bwd: the kernel takes H == W in {KERNEL_SIZES}, "
                          f"got x {tuple(x.shape)} at {h}x{w}")
@@ -134,46 +150,54 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
             (skip, (n, c, hw), "skip"), (post_w, (1, c, 3, 3), "post weight"),
             (post_b, (1,), "post bias"), (img, (n, 1, hw), "img"),
             (gfin if post is not None else None, (n, 1, hw), "gfin")):
-        _check(t, shape, dev, name)
+        _check(t, shape, dev, name,
+               dtype=act if name in ("x", "g", "skip") else torch.float32)
 
     lib = _build.block_bwd_library()
     tw = _device_twiddles(w, dev)
     k = w // 2 + 1
     wgrad_blocks, col_blocks = _launch_geometry(n, h, k)
     empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    act = lambda: empty(n, c, hw)
-    hbuf = act() if pre is not None else None  # hin
-    rbuf = act()
-    obuf = act() if post is not None else None  # out
-    gbuf = act() if post is not None else None
-    abuf = act() if pre is not None else None  # hbar
+    actv = lambda: torch.empty((n, c, hw), device=dev, dtype=act)
+    hbuf = actv() if pre is not None else None  # hin
+    rbuf = actv()
+    obuf = actv() if post is not None else None  # out
+    res = empty(n, c, hw) if bf and post is not None else None  # out's residual-conv part
+    gbuf = actv() if post is not None else None
+    abuf = empty(n, c, hw) if pre is not None or bf else None  # hbar
     spec_a, spec_b = empty(n, c, k, h, 2), empty(n, c, k, h, 2)
     w_part = empty(wgrad_blocks, c * 9 * c + c)
     mix_part = empty(col_blocks, 4 * c * c + 2 * c)
-    out = {"xbar": act(), "km": empty(c, c, 3, 3), "kb": empty(c),
+    out = {"xbar": actv(), "km": empty(c, c, 3, 3), "kb": empty(c),
            "mix": empty(2 * c, 2 * c), "mb": empty(2 * c)}
     if pre is not None:
         out.update(pre_w=empty(c, c, 3, 3), pre_b=empty(c))
     if skip is not None:
-        out["skip"] = act()
+        out["skip"] = actv()
     if post is not None:
         out.update(img=empty(n, 1, hw), post_w=empty(1, c, 3, 3), post_b=empty(1))
     ptr = lambda t: None if t is None else t.data_ptr()
     o = lambda name: ptr(out.get(name))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.block_bwd(
-            ptr(x), ptr(g), n, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
+    head = (ptr(x), ptr(g), n, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
             ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-            ptr(img), ptr(gfin), ptr(tw), ptr(hbuf), ptr(rbuf), ptr(obuf),
-            ptr(gbuf), ptr(abuf), ptr(spec_a), ptr(spec_b), ptr(w_part),
+            ptr(img), ptr(gfin), ptr(tw), ptr(hbuf), ptr(rbuf), ptr(obuf))
+    tail = (ptr(gbuf), ptr(abuf), ptr(spec_a), ptr(spec_b), ptr(w_part),
             ptr(mix_part), wgrad_blocks, col_blocks, o("xbar"), o("km"), o("kb"),
             o("mix"), o("mb"), o("skip"), o("pre_w"), o("pre_b"), o("img"),
-            o("post_w"), o("post_b"), stream)
+            o("post_w"), o("post_b"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bf:
+            err = lib.block_bwd_bf16(*head, ptr(res), *tail, stream)
+        else:
+            err = lib.block_bwd(*head, *tail, stream)
     if err != 0:
         msg = lib.block_bwd_error_string(err).decode()
         raise RuntimeError(f"block_bwd: CUDA error {err} ({msg})")
-    block_bwd.launches += 1
+    if bf:
+        block_bwd.launches_bf16 += 1
+    else:
+        block_bwd.launches += 1
     if scratch is not None:
         scratch.update({name: t for name, t in (("hin", hbuf), ("out", obuf))
                         if t is not None})
@@ -181,13 +205,17 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
 
 
 block_bwd.launches = 0
+block_bwd.launches_bf16 = 0
 
 
 class BlockTrain(torch.autograd.Function):
     """One Res-FFT block with K1 forward and K2 backward. Inputs are the
     block's activations and weights (``None`` where absent), in the order
     ``x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b``;
-    ``post_w`` is the exit deconv already written as a conv."""
+    ``post_w`` is the exit deconv already written as a conv. Activations of
+    bf16 run both kernels' bf16 variants: the cotangent of the block output
+    is rounded to bf16 on its way in, those of ``x`` and ``skip`` leave in
+    bf16."""
 
     @staticmethod
     def forward(ctx, x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b,
@@ -206,7 +234,7 @@ class BlockTrain(torch.autograd.Function):
         h, w = ctx.hw
         pre = (pre_w, pre_b) if pre_w is not None else None
         post = (post_w, post_b) if post_w is not None else None
-        d = block_bwd(x, grad_out, h, w, km, kb, mix, mb, pre=pre, skip=skip,
+        d = block_bwd(x, grad_out.to(x.dtype), h, w, km, kb, mix, mb, pre=pre, skip=skip,
                       post=post, img=img, gfin=grad_final)
         return (d["xbar"], d.get("skip"), d.get("img"), d["km"], d["kb"], d["mix"],
                 d["mb"], d.get("pre_w"), d.get("pre_b"), d.get("post_w"),
@@ -219,7 +247,10 @@ def train_route(h: int, w: int, c: int) -> str:
     K2 on the card) where both kernels take the batch, H == W in
     ``KERNEL_SIZES`` and C in ``KERNEL_CHANNELS``; else ``"autograd"``, the
     plain generator under autograd (the JAX trainer's ``g_forward="auto"``
-    fallback, ``mtd_gan_tpu/engine/gan.py``)."""
+    fallback, ``mtd_gan_tpu/engine/gan.py``). A bf16 generator takes the
+    same route: :class:`BlockTrain` runs K1's and K2's bf16 variants, which
+    take the same batches, on its bf16 activations, and the autograd route
+    runs the plain generator in bf16."""
     if h == w and h in KERNEL_SIZES and c in KERNEL_CHANNELS:
         return "kernels"
     return "autograd"
@@ -235,13 +266,14 @@ def resfft_generator_train(generator, x: Tensor) -> Tensor:
     :class:`BlockTrain` calls with the wiring of
     ``cuda_pipeline.resfft_generator_nchw``. The block weights are built
     from the parameters with differentiable ops (the deconv flip, the 1x1
-    mix view), so autograd carries their gradients back to the modules."""
+    mix view), so autograd carries their gradients back to the modules.
+    The activations take the generator's ``dtype`` (fp32 or bf16, the JAX
+    ``act_dtype``); the output and the image residual are fp32."""
     n, h, w, _ = x.shape
     L = generator.num_layers
     x = x.float().contiguous()
     enc0 = generator.encoder[0]
-    a = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), enc0.weight, enc0.bias, padding=1))
-    a = a.reshape(n, -1, h * w).contiguous()
+    a = entry_conv(x, enc0.weight, enc0.bias, generator.dtype or torch.float32)
     img = x.reshape(n, 1, h * w)
     conv = lambda m: (m.weight, m.bias)
     deconv = lambda m: (conv_transpose_as_conv(m.weight), m.bias)

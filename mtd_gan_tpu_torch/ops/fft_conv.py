@@ -17,6 +17,13 @@ the JAX unfused pipeline
 ``fft_block_nchw(fused=False)``: K4, K5 and K6 of ``ops/cuda_staged.py`` on
 one spectrum buffer, the residual added in K6.
 
+The plain block (``impl="auto"``, ``conv_impl="torch"``) computes in its
+input's type, as the JAX block does (``mtd_gan_tpu/ops/fft_conv.py:91,
+:150-180``): for a bf16 input the conv and the residual sums run in bf16
+(the weights cast), the spectral branch in fp32 on the widened input, cast
+back; cuFFT's zeroing of the W bins 0 and W/2 stays. The kernel paths take
+fp32.
+
 ``conv_impl`` selects the 3x3 conv branch with its residual,
 ``x + relu(conv3x3(x) + b)``: ``"torch"`` is ``F.conv2d`` plus the
 elementwise ops (the JAX package leaves that conv to XLA except in its
@@ -29,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mtd_gan_tpu_torch.ops.layers import widen
 
 
 def spectral_branch(x: torch.Tensor, mix: torch.Tensor,
@@ -90,7 +99,8 @@ def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
 
         res = conv3x3(x, img_weight, img_bias, relu=True, residual=True)
     else:
-        res = x + torch.relu(F.conv2d(x, img_weight, img_bias, padding=1))
+        d = x.dtype
+        res = x + torch.relu(F.conv2d(x, img_weight.to(d), img_bias.to(d), padding=1))
     if impl == "staged":
         from mtd_gan_tpu_torch.ops.cuda_staged import irdft_w_add, rdft_w, spectral_mix_h
 
@@ -104,7 +114,7 @@ def fft_conv_block(x: torch.Tensor, img_weight: torch.Tensor,
         from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_fused
 
         return spectral_branch_fused(x, mix, mix_bias, residual=res)
-    return res + spectral_branch(x, mix, mix_bias)
+    return res + spectral_branch(widen(x), mix, mix_bias).to(x.dtype)
 
 
 class FFTConvBlock(nn.Module):

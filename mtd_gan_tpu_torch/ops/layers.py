@@ -1,9 +1,19 @@
 """Weight init, the transposed-conv layout shared by the generator and the
-kernel pipeline, and the spectral-norm layers of the discriminator
-(counterpart of ``mtd_gan_tpu/ops/layers.py``).
+kernel pipeline, the layers with the JAX layers' compute dtype, and the
+spectral-norm layers of the discriminator (counterpart of
+``mtd_gan_tpu/ops/layers.py``).
 
-The generator uses plain ``nn.Conv2d`` / ``nn.ConvTranspose2d`` (no spectral
-norm). Two things need care when carrying weights between the frameworks:
+Compute dtype (``--bf16``): :class:`Conv2d`, :class:`ConvTranspose2d`,
+:class:`Linear`, :class:`SNConv2d` and :class:`SNLinear` take ``dtype``
+(``None``: the input's type, fp32 for an fp32 input), cast their input and
+their weight and bias to it and return that type, as the JAX ``Conv``,
+``ConvTranspose`` and ``Dense`` do (``mtd_gan_tpu/ops/layers.py:135-157,
+:205-218, :249-253``). The parameters stay fp32: the master copy the
+optimizer updates and the checkpoint stores. The spectral norm's power
+iteration and its sigma stay fp32; the normalised weight is cast.
+
+The generator's layers have no spectral norm. Two things need care when
+carrying weights between the frameworks:
 
 * flax keeps a transposed-conv kernel as ``(kh, kw, in, out)`` and applies it
   as a conv with the spatial flip; torch's ``ConvTranspose2d`` weight is
@@ -16,11 +26,68 @@ norm). Two things need care when carrying weights between the frameworks:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 SN_EPS = 1e-12
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least fp32: bf16 widened, fp32 and float64 as they are
+    (the JAX package's casts to fp32 of a bf16 value, which leave a float64
+    reference computation in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
+    """A layer's compute type: its ``dtype``, else its input's."""
+    return dtype or x.dtype
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (module docstring); the same
+    parameters and state-dict names."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = compute_dtype(self.dtype, x)
+        return self._conv_forward(x.to(d), self.weight.to(d), _cast(self.bias, d))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``dtype`` (module docstring)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = compute_dtype(self.dtype, x)
+        return F.conv_transpose2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (module docstring)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = compute_dtype(self.dtype, x)
+        return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
 
 
 def normal_init_(module: nn.Module, std: float,
@@ -123,31 +190,38 @@ class _SpectralNorm(nn.Module):
 
 
 class SNConv2d(_SpectralNorm):
-    """Spectral-norm ``Conv2d``; a tuple input is concatenated on channels in
-    order (the JAX layer's sum of per-part convs)."""
+    """Spectral-norm ``Conv2d`` computing in ``dtype`` (module docstring; a
+    tuple input takes the first part's type); a tuple input is concatenated
+    on channels in order (the JAX layer's sum of per-part convs)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True):
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dtype = stride, padding, dtype
         self._init_sn((out_channels, in_channels, kernel_size, kernel_size), bias)
 
     def forward(self, x, update_stats: bool = True) -> torch.Tensor:
-        if isinstance(x, (tuple, list)):
-            x = torch.cat(list(x), dim=1)
-        return F.conv2d(x, self.normalized_weight(update_stats), self.bias,
+        parts = list(x) if isinstance(x, (tuple, list)) else [x]
+        d = compute_dtype(self.dtype, parts[0])
+        x = torch.cat([p.to(d) for p in parts], dim=1) if len(parts) > 1 else x.to(d)
+        return F.conv2d(x, self.normalized_weight(update_stats).to(d), _cast(self.bias, d),
                         stride=self.stride, padding=self.padding)
 
 
 class SNLinear(_SpectralNorm):
-    """Spectral-norm ``Linear``."""
+    """Spectral-norm ``Linear`` computing in ``dtype`` (module docstring)."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self._init_sn((out_features, in_features), bias)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
-        return F.linear(x, self.normalized_weight(update_stats), self.bias)
+        d = compute_dtype(self.dtype, x)
+        return F.linear(x.to(d), self.normalized_weight(update_stats).to(d),
+                        _cast(self.bias, d))
 
 
 def advance_spectral_state(module: nn.Module, n_iters: int = 1) -> None:

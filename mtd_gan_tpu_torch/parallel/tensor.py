@@ -36,7 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops.fft_conv import irfft2_real
-from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
+from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv, widen
 from mtd_gan_tpu_torch.parallel.mesh import Grid
 
 Tensor = torch.Tensor
@@ -101,10 +101,14 @@ def _row_parallel(h: Tensor, weight: Tensor, bias: Tensor, grid: Grid) -> Tensor
 
 def _fft_block_tp(h: Tensor, block, grid: Grid) -> Tensor:
     """``h + relu(conv3x3(h)) + irfft2(relu(mix([Re; Im] rfft2(h))))`` on
-    the channel shard ``h`` (``ops/fft_conv.py::fft_conv_block``)."""
+    the channel shard ``h`` (``ops/fft_conv.py::fft_conv_block``); the
+    spectral part in fp32, cast to ``h``'s type as the JAX block casts it
+    (``mtd_gan_tpu/parallel/tensor.py:89``). The JAX ``tp_generate`` reads
+    no model dtype: its activations, and so these, take the input's type,
+    fp32."""
     c = block.img_conv.weight.shape[0]
     img = torch.relu(_row_parallel(h, block.img_conv.weight, block.img_conv.bias, grid))
-    xf = torch.fft.rfft2(h, norm="ortho")
+    xf = torch.fft.rfft2(widen(h), norm="ortho")
     mix = block.fft_conv.weight[:, :, 0, 0]  # (out 2C, in 2C)
     cols = torch.cat([_chunk(mix[:, :c], 1, grid), _chunk(mix[:, c:], 1, grid)], dim=1)
     part = F.conv2d(torch.cat([xf.real, xf.imag], dim=1), cols[:, :, None, None])
@@ -114,7 +118,7 @@ def _fft_block_tp(h: Tensor, block, grid: Grid) -> Tensor:
     spec = _reduce_scatter(part.reshape(n, 2, c, hh, k), 2, grid)
     bias = _chunk(block.fft_conv.bias.reshape(2, c), 1, grid)
     spec = torch.relu(spec + bias[None, :, :, None, None])
-    return h + img + irfft2_real(spec[:, 0], spec[:, 1], h.shape[-1])
+    return h + img + irfft2_real(spec[:, 0], spec[:, 1], h.shape[-1]).to(h.dtype)
 
 
 def tp_generate(generator, x: Tensor, grid: Grid) -> Tensor:

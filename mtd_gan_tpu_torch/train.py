@@ -57,13 +57,18 @@ MTD_GAN_Method's step (``ops/cuda_train.py::resolve_g_forward``: ``auto``,
 under TensorParallel only ``auto``).
 ``--g-precision`` (``bf16``, ``bf16x2``) names the TPU kernels' factor
 table passes: the port's kernels compute their tables in fp32 either way.
-``--bf16`` is refused.
+``--bf16`` does what the root's does: every model whose constructor takes
+``dtype`` gets ``torch.bfloat16`` (its layers compute in bf16, its
+parameters, optimizer state and checkpoints stay fp32, so ``test
+--resume`` loads the run as it is); the others print a note and train in
+fp32.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import inspect
 import json
 import os
 import time
@@ -129,7 +134,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="the TPU kernels' factor-table passes; the port's "
                         "kernels compute their tables in fp32 either way")
     p.add_argument("--bf16", action="store_true",
-                   help="refused: bf16 compute is not ported yet")
+                   help="bf16 compute on the models whose constructor takes a dtype "
+                        "(the parameters stay fp32)")
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--print-freq", default=10, type=int)
     p.add_argument("--save-checkpoint-every", default=1, type=int)
@@ -152,15 +158,16 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
+def _check_flags(args) -> None:
+    """Raise for an unknown model name; note the TPU flags the port takes
+    and does not use as the TPU does."""
     get_model_class(args.model)  # an unknown name raises
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 (bf16 compute on the models with a dtype argument) is not "
-            "ported yet (ROADMAP.md queue 1, item 16)")
     if args.g_precision == "bf16x2":
         print("note: --g-precision bf16x2 is not used: the port's kernels compute "
-              "their factor tables in fp32", flush=True)
+              "their factor tables in fp32 on the CUDA cores, where bf16 tables buy "
+              "nothing; under --bf16 the bf16 block boundaries set the error anyway "
+              "(the JAX sweep: 2.8e-2 for bf16 tables against 3.0e-2, "
+              "mtd_gan_tpu/engine/gan.py:149-156)", flush=True)
     if args.g_forward == "pallas_packed":
         print("note: --g-forward pallas_packed runs as pallas (K1 + K2): the TPU's "
               "K1-forward / plain-backward variant computes the same step", flush=True)
@@ -169,7 +176,7 @@ def _refuse_unported(args) -> None:
 def main(args) -> dict:
     """One training run; under ``torchrun`` (or in a process group the
     caller began) this rank's part of it."""
-    _refuse_unported(args)
+    _check_flags(args)
     grid = mesh.make_grid(args.multi_gpu_mode, args.tp_size, args.device)
     try:
         return _train(args, grid)
@@ -177,11 +184,23 @@ def main(args) -> dict:
         mesh.destroy(grid)
 
 
+def model_kwargs(args) -> dict:
+    """``--model-kwargs``, with ``dtype=torch.bfloat16`` under ``--bf16``
+    where the constructor takes a ``dtype`` (the root ``train.py:121-132``);
+    for the others a note, and fp32."""
+    kwargs = json.loads(args.model_kwargs or "{}")
+    if args.bf16 and "dtype" not in kwargs:
+        if "dtype" in inspect.signature(get_model_class(args.model)).parameters:
+            kwargs["dtype"] = torch.bfloat16
+        else:
+            print(f"note: {args.model} does not support --bf16; using fp32", flush=True)
+    return kwargs
+
+
 def _train(args, grid) -> dict:
     device = grid.device if grid is not None else resolve_device(args.device)
     main_rank = mesh.is_main(grid)
-    kwargs = json.loads(args.model_kwargs or "{}")
-    model = get_model(args.model, **kwargs, device=device, seed=args.seed)
+    model = get_model(args.model, **model_kwargs(args), device=device, seed=args.seed)
     family = family_of(args.model)
     trainer = build_trainer(args.model, model, args, seed=args.seed, grid=grid)
     sched = get_scheduler(args.scheduler, args.lr, args.epochs, args.warmup_epochs,

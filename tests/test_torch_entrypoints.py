@@ -33,6 +33,7 @@ from mtd_gan_tpu_torch.optim import CosineWarmRestarts, get_scheduler
 from mtd_gan_tpu_torch.utils.checkpoint import load_pretrained, restore, save_checkpoint
 from mtd_gan_tpu_torch.utils.logging import TensorBoardSink
 from mtd_gan_tpu_torch.utils.profiling import StepTimer, trace
+from test_torch_train_helpers import write_dataset
 
 # the tests share the machine with other test workers: one intra-op
 # thread each keeps PyTorch from oversubscribing the cores
@@ -66,12 +67,45 @@ def test_cli_takes_every_root_flag_with_its_default(name, port):
         assert mine[dest].option_strings == action.option_strings, dest
 
 
-def test_train_cli_refuses_the_tpu_only_flags(tmp_path):
-    """``--bf16`` is the one flag the train CLI still refuses; the test CLI
-    takes ``--multi-gpu-mode`` and does not use it, as the root's."""
+def test_train_cli_refuses_the_tpu_only_flags(tmp_path, monkeypatch, capsys):
+    """The train CLI refuses no TPU flag now: ``--bf16`` trains a one-step
+    CPU epoch of MTD_GAN_Method in bf16 (the model's dtype bf16, its
+    parameters, the gradients' optimizer state and the checkpoint fp32) and,
+    for a model whose constructor takes no dtype (an ablation), prints the
+    root's note and builds it in fp32. The test CLI takes
+    ``--multi-gpu-mode`` and does not use it, as the root's."""
     parse = train_cli.get_args_parser().parse_args
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(parse(["--device", "cpu", "--bf16"]))
+    write_dataset(str(tmp_path / "bf16_data"), {"train": 1, "valid": 1})
+    built = {}
+    loops_build_trainer = train_cli.build_trainer
+
+    def build_trainer(name, model, *args, **kwargs):
+        built[name] = loops_build_trainer(name, model, *args, **kwargs)
+        if name != "MTD_GAN_Method":
+            raise _Built
+        return built[name]
+
+    monkeypatch.setattr(train_cli, "build_trainer", build_trainer)
+    common = ["--device", "cpu", "--bf16", "--epochs", "1", "--batch-size", "1",
+              "--data-root", str(tmp_path / "bf16_data"), "--model-kwargs",
+              json.dumps({"gen_features": 8, "disc_features": 8, "num_layers": 1})]
+    stats = train_cli.main(parse(common + [
+        "--checkpoint-dir", str(tmp_path / "bf16_ckpt"), "--save-dir",
+        str(tmp_path / "bf16_out")]))
+    assert np.isfinite(stats["train_g_loss"]) and np.isfinite(stats["valid_loss"])
+    trainer = built["MTD_GAN_Method"]
+    assert trainer.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.generator.parameters())
+    assert all(v.dtype == torch.float32 for st in trainer.opt_g.state.values()
+               for v in st.values() if torch.is_floating_point(v))
+    state = torch.load(tmp_path / "bf16_ckpt" / "epoch_0.pth", weights_only=False)
+    assert all(v.dtype == torch.float32 for v in state["model_state_dict"].values()
+               if torch.is_floating_point(v))
+    capsys.readouterr()
+    with pytest.raises(_Built):
+        train_cli.main(parse(common + ["--model", "Ablation_CLS_REC"]))
+    assert "note: Ablation_CLS_REC does not support --bf16; using fp32" in capsys.readouterr().out
+    assert getattr(built["Ablation_CLS_REC"].model, "dtype", None) is None
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     _save_generator(str(ckpt / "epoch_0.pth"), 1, 0)
