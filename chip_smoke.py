@@ -228,6 +228,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      beside their bf16 plain versions and bf16 bounds, and split by launch.
      The kernels line lists K1-bf16 and K2-bf16 with the launches of its
      generate, step and train CLI.
+  32. bf16 on the tiled and staged routes (run right after phase 31, on its
+     own random data; ``python3 chip_smoke.py --phase 32`` runs it alone
+     after building its kernels and K1 and K2): K3-bf16 (relu + residual,
+     skip + relu, the deconv with a bf16 skip on the tensor cores, the
+     C -> 1 exit deconv with the fp32 image on the direct path) at 448x448,
+     1024x1024 and 449x130, K4-bf16 and K6-bf16 (also in place) at
+     1024x1024 and 448x449, K8-bf16 at 448x448, batch 8, and 512x320, each
+     against its bf16 plain version on 1/sqrt(fan_in) weights (1e-2
+     max-relative; K4-bf16's fp32 spectrum 1e-4); a bf16 flagship's
+     ``generate`` at 448x448, batch 8 (tiled: 21 K8-bf16, 42 K3-bf16, 41 of
+     them on the tensor cores) and at 1024x1024, batch 2, and 200x200, batch
+     8 (staged: 21 each of K4-bf16, K5 and K6-bf16, 42 K3-bf16), no fp32
+     K3 / K4 / K6 / K8 launch and no call of the plain module, each within
+     5e-2 max abs of fp32 ``generate`` and within twice the plain bf16
+     module's error against fp32 (and it within twice the route's), timed
+     in turns with both; a ``--bf16`` train CLI epoch of one step on 448x448
+     slices whose validation of 4 slices takes the tiled route (84 K8-bf16);
+     the four kernels in turns with their fp32 kernels beside their bf16
+     plain versions, library calls and bf16 bounds; the bf16 tiled and
+     staged blocks split by launch. The kernels line lists the four with the
+     launches of phase 32's generate calls and train CLI.
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -383,8 +404,11 @@ COUNTED = {"K1": block_fused, "K2": block_bwd, "K8": spectral_branch_tiled,
 # K3's launches on its tensor-core path, counted beside COUNTED
 K3_TC = "K3tc"
 # the bf16 variants' launches, counted by their wrappers apart from the
-# fp32 ones (``launches_bf16``)
-BF16_COUNTED = {"K1-bf16": block_fused, "K2-bf16": block_bwd}
+# fp32 ones (``launches_bf16``); K3-bf16's on its tensor-core path beside
+# them (``conv3x3.launches_bf16_tc``)
+BF16_COUNTED = {"K1-bf16": block_fused, "K2-bf16": block_bwd, "K3-bf16": conv3x3,
+                "K4-bf16": rdft_w, "K6-bf16": irdft_w_add, "K8-bf16": spectral_branch_tiled}
+K3_TC_BF16 = "K3tc-bf16"
 # one generate call on the tiled, fused or staged route: 42 K3 (10 encoder,
 # 21 residual, 10 decoder convs and the exit deconv; all but the C -> 1
 # exit deconv on the tensor cores) besides its spectral kernel; the staged
@@ -597,8 +621,10 @@ def check_k2():
 
 
 def bf16_args(args):
-    """K1 / K2 inputs with the activations (x, skip, g) rounded to bf16."""
-    return {k: v.to(BF16) if k in ("x", "skip", "g") else v for k, v in args.items()}
+    """K1 - K8 inputs with the activations (x, skip, g, residual) rounded to
+    bf16."""
+    return {k: v.to(BF16) if k in ("x", "skip", "g", "residual") else v
+            for k, v in args.items()}
 
 
 def rel_err(got, want) -> float:
@@ -996,11 +1022,13 @@ def count_tensor_core_instructions(label: str, lib_path) -> None:
 
 def k6_in_place(lib, z, inout):
     """K6 as K1 calls it: the C entry with the residual as its output, the
-    sum written over the residual (no wrapper, so no launch is counted)."""
+    sum written over the residual (no wrapper, so no launch is counted);
+    K6-bf16's entry for a bf16 ``inout``."""
     n, c, h, w = inout.shape
-    err = lib.staged_irdft_w_add(z.data_ptr(), inout.data_ptr(), n, c, h, w,
-                                 _device_twiddles(w, inout.device).data_ptr(),
-                                 inout.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    entry = lib.staged_irdft_w_add_bf16 if inout.dtype == BF16 else lib.staged_irdft_w_add
+    err = entry(z.data_ptr(), inout.data_ptr(), n, c, h, w,
+                _device_twiddles(w, inout.device).data_ptr(), inout.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         fail(f"K6 in place {h}x{w}: CUDA error {err}")
     return inout
@@ -1117,18 +1145,20 @@ def zero_counts():
     for fn in BF16_COUNTED.values():
         fn.launches_bf16 = 0
     conv3x3.launches_tc = 0
+    conv3x3.launches_bf16_tc = 0
 
 
 def read_counts():
     return {**{name: fn.launches for name, fn in COUNTED.items()},
             **{name: fn.launches_bf16 for name, fn in BF16_COUNTED.items()},
-            K3_TC: conv3x3.launches_tc}
+            K3_TC: conv3x3.launches_tc, K3_TC_BF16: conv3x3.launches_bf16_tc}
 
 
 def expect_counts(label: str, got, want):
     """Fail unless the launch counts ``got`` equal ``want`` (every kernel
     not named in ``want`` must not have launched)."""
-    want = {name: want.get(name, 0) for name in list(COUNTED) + list(BF16_COUNTED) + [K3_TC]}
+    want = {name: want.get(name, 0)
+            for name in list(COUNTED) + list(BF16_COUNTED) + [K3_TC, K3_TC_BF16]}
     if got != want:
         fail(f"{label}: launches {got}, expected {want}")
 
@@ -1286,17 +1316,17 @@ def k2_bounds(n: int, size: int, variant: str):
     return bound((conv + other, nbytes)), tc
 
 
-def k8_work(n: int, h: int, w: int):
+def k8_work(n: int, h: int, w: int, act: int = 4):
     """(FLOPs, bytes) one K8 call with the residual needs. FLOPs: a real 2-D
     FFT forward and one inverse, 2.5*HW*log2(HW) each per channel; the
     spectral mix 2*(2C)^2 per (h, k) bin plus bias and ReLU; the residual
-    add. Bytes: x, residual and out once each, the mix and its bias, fp32."""
+    add. Bytes: x, residual and out once each at ``act`` bytes a value (4;
+    2 for K8-bf16), the mix and its bias in fp32."""
     hw = h * w
     k = w // 2 + 1
     flops = n * (2 * 2.5 * C * hw * math.log2(hw)
                  + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k + C * hw)
-    words = 3 * n * C * hw + 4 * C * C + 2 * C
-    return flops, 4 * words
+    return flops, act * 3 * n * C * hw + 4 * (4 * C * C + 2 * C)
 
 
 def k7_work(n: int, h: int, w: int, residual: bool):
@@ -1312,25 +1342,25 @@ def k7_work(n: int, h: int, w: int, residual: bool):
 
 
 def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C,
-            passes: int = 1):
+            passes: int = 1, act: int = 4):
     """(FLOPs, bytes) one K3 call needs: 2*9*C_in multiply-adds per output
     value (``passes`` times: 3 on the 3xTF32 tensor-core path) plus one op
     each for the bias, the skip, the ReLU and the residual it applies; x,
-    the weights, the bias and the skip read once, out written once, fp32."""
+    the weights, the bias and the skip read once, out written once, the
+    activations at ``act`` bytes a value (4; 2 for K3-bf16), the weights
+    fp32."""
     ops = 1 + ("skip" in variant) + ("relu" in variant) + ("residual" in variant)
     flops = n * h * w * c_out * (passes * 2 * 9 * c_in + ops)
-    words = n * h * w * (c_in + c_out) + 9 * c_in * c_out + c_out
-    if "skip" in variant:
-        words += n * h * w * c_out
-    return flops, 4 * words
+    acts = n * h * w * (c_in + c_out + (c_out if "skip" in variant else 0))
+    return flops, act * acts + 4 * (9 * c_in * c_out + c_out)
 
 
-def k4_work(n: int, h: int, w: int, c: int = C):
+def k4_work(n: int, h: int, w: int, c: int = C, act: int = 4):
     """(FLOPs, bytes) one K4 call needs: a real W-point FFT per row,
-    2.5*W*log2(W); x read once (fp32), the half spectrum written once
-    (complex64)."""
+    2.5*W*log2(W); x read once (``act`` bytes a value: 4, 2 for K4-bf16),
+    the half spectrum written once (complex64)."""
     k = w // 2 + 1
-    return n * c * h * 2.5 * w * math.log2(w), 4 * n * c * h * w + 8 * n * c * k * h
+    return n * c * h * 2.5 * w * math.log2(w), act * n * c * h * w + 8 * n * c * k * h
 
 
 def k5_work(n: int, h: int, w: int, c: int = C):
@@ -1343,13 +1373,14 @@ def k5_work(n: int, h: int, w: int, c: int = C):
     return flops, 2 * 8 * n * c * k * h + 4 * (4 * c * c + 2 * c)
 
 
-def k6_work(n: int, h: int, w: int, c: int = C):
+def k6_work(n: int, h: int, w: int, c: int = C, act: int = 4):
     """(FLOPs, bytes) one K6 call needs: a Hermitian W-point c2r per row,
     2.5*W*log2(W), and the residual add; the spectrum (complex64) and the
-    residual read once, out written once."""
+    residual read once, out written once (``act`` bytes a value: 4, 2 for
+    K6-bf16)."""
     k = w // 2 + 1
     flops = n * c * h * (2.5 * w * math.log2(w) + w)
-    return flops, 8 * n * c * k * h + 2 * 4 * n * c * h * w
+    return flops, 8 * n * c * k * h + 2 * act * n * c * h * w
 
 
 def bound(work, peak_flops: float = PEAK_FP32_FLOPS):
@@ -3145,6 +3176,284 @@ def phase31_alone(card: str) -> None:
     print(card, flush=True)
 
 
+# ---- phase 32: bf16 on the tiled and staged routes. K3-bf16, K4-bf16,
+# K6-bf16 and K8-bf16 against their bf16 plain versions, a bf16 flagship's
+# generate on both routes, a --bf16 train CLI whose validation takes the
+# tiled route, the four kernels' times
+
+# one bf16 generate call on the tiled or staged route: K3-bf16 in place of
+# K3 (41 on the tensor cores, the C -> 1 exit deconv on the direct path),
+# and K8-bf16, or K4-bf16 -> K5 -> K6-bf16, in place of their fp32 kernels
+K3_BF16_PER_CALL = {"K3-bf16": 42, K3_TC_BF16: 41}
+TILED_BF16_PER_CALL = {**K3_BF16_PER_CALL, "K8-bf16": 21}
+STAGED_BF16_PER_CALL = {**K3_BF16_PER_CALL, "K4-bf16": 21, "K5": 21, "K6-bf16": 21}
+BF16_ROUTE_SHAPES = (((8, 448), "tiled"), ((2, 1024), "staged"), ((8, 200), "staged"))
+# the --bf16 train CLI: one step of 20 448x448 slices, then generate on 4
+# validation slices (the tiled route)
+BF16_CLI_VALID = 4
+BF16_ROUTE_KERNELS = ("K3-bf16", "K4-bf16", "K6-bf16", "K8-bf16")
+
+
+def check_bf16_route_kernels(lib):
+    """Phase 32, the kernels, each against its bf16 plain version on
+    1/sqrt(fan_in) weights: K3-bf16 (relu + residual, skip + relu, the
+    deconv with a bf16 skip, the C -> 1 exit deconv with the fp32 image)
+    at 448x448 and 1024x1024, batch 2, and 449x130; K4-bf16 and K6-bf16
+    (also in place, the output the residual) at 1024x1024 and 448x449,
+    batch 2; K8-bf16 with the residual at 448x448, batch 8, and 512x320,
+    batch 2. K4-bf16's fp32 spectrum at TOL_SPECTRAL_REL (nothing rounds),
+    the rest at TOL_BF16_REL; one bf16 launch per wrapper call. Returns
+    {name: max abs error}."""
+    worst = dict.fromkeys(BF16_ROUTE_KERNELS, 0.0)
+
+    def hold(name, label, got, want, dtype, tol=TOL_BF16_REL):
+        if got.dtype != dtype or not torch.isfinite(got.float()).all():
+            fail(f"{name} {label}: output {got.dtype}, not {dtype}, or not finite")
+        err = (got.float() - want.float()).abs().max().item()
+        rel = rel_err(got, want)
+        worst[name] = max(worst[name], err)
+        print(f"{name} check {label}: max_abs {err:.3e} rel {rel:.3e}", flush=True)
+        if rel > tol:
+            fail(f"{name} {label}: relative error {rel:.3e} > {tol}")
+
+    def launched(label, fns):
+        torch.cuda.synchronize()
+        for fn, before, want in fns:
+            if fn.launches_bf16 - before != want:
+                fail(f"{label}: {fn.launches_bf16 - before} bf16 launches, expected {want}")
+
+    for si, (n, h, w) in enumerate(((2, 448, 448), (2, 1024, 1024), (2, 449, 130))):
+        for label, (args, kw) in k3_calls(n, h, w, "fan_in", seed=si).items():
+            if label in ("plain", "relu"):
+                continue
+            exit_ = label.startswith("exit")
+            args = (args[0].to(BF16),) + args[1:]
+            if "skip" in kw and not exit_:
+                kw = {**kw, "skip": kw["skip"].to(BF16)}
+            before, tc_before = conv3x3.launches_bf16, conv3x3.launches_bf16_tc
+            got = conv3x3(*args, **kw)
+            launched(f"K3-bf16 {h}x{w} {label}", [(conv3x3, before, 1)])
+            if conv3x3.launches_bf16_tc - tc_before != (0 if exit_ else 1):
+                fail(f"K3-bf16 {h}x{w} {label}: took the other path")
+            hold("K3-bf16", f"{h}x{w} C={C} n={n} {label:16s} "
+                 f"({'direct' if exit_ else 'tensor cores'})", got,
+                 conv3x3_reference(*args, **kw), torch.float32 if exit_ else BF16)
+    for si, (n, h, w) in enumerate(((2, 1024, 1024), (2, 448, 449))):
+        a = bf16_args(tiled_inputs(n, h, w, "fan_in", seed=si))
+        zr = rdft_w_reference(a["x"])
+        tr = spectral_mix_h_reference(zr, a["mix"], a["bias"])
+        want = irdft_w_add_reference(tr, a["residual"])
+        before = (rdft_w.launches_bf16, irdft_w_add.launches_bf16)
+        z = rdft_w(a["x"])
+        out = irdft_w_add(tr, a["residual"])
+        inout = k6_in_place(lib, tr, a["residual"].clone())
+        launched(f"K4-bf16 / K6-bf16 {h}x{w}",
+                 [(rdft_w, before[0], 1), (irdft_w_add, before[1], 1)])
+        hold("K4-bf16", f"{h}x{w} C={C} n={n}", torch.view_as_real(z),
+             torch.view_as_real(zr), torch.float32, TOL_SPECTRAL_REL)
+        hold("K6-bf16", f"{h}x{w} C={C} n={n}", out, want, BF16)
+        hold("K6-bf16", f"{h}x{w} C={C} n={n} in place", inout, want, BF16)
+    for si, (n, h, w) in enumerate(((8, 448, 448), (2, 512, 320))):
+        a = bf16_args(tiled_inputs(n, h, w, "fan_in", seed=si))
+        before = spectral_branch_tiled.launches_bf16
+        got = spectral_branch_tiled(**a)
+        launched(f"K8-bf16 {h}x{w}", [(spectral_branch_tiled, before, 1)])
+        hold("K8-bf16", f"{h}x{w} C={C} n={n} with residual", got,
+             spectral_branch_tiled_reference(**a), BF16)
+    return worst
+
+
+def check_bf16_routes_generate(rng):
+    """Phase 32: a bf16 flagship's ``generate`` on the tiled route (448x448,
+    batch 8) and the staged route (1024x1024, batch 2; 200x200, batch 8),
+    the launch counts zeroed just before each call and read just after, no
+    call of the plain module; against fp32 ``generate`` from the same
+    weights within TOL_BF16_GENERATE_ABS, and beside the plain module in
+    bf16 (cuDNN, cuFFT), each within twice the other's error against fp32
+    (+ 1e-6); the three timed in turns. Returns the launches, summed."""
+    m32 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
+    m16 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0, dtype=BF16)
+    plain_calls = []
+    hook = m16.generator.register_forward_pre_hook(lambda *_: plain_calls.append(1))
+    total = {}
+    for (n, size), route in BF16_ROUTE_SHAPES:
+        x = torch.tensor(phantom(rng, n, size)[..., None], dtype=torch.float32, device="cuda")
+        label = f"bf16 generate {size}x{size} batch {n}"
+        zero_counts()
+        plain_calls.clear()
+        pred = m16.generate(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(label, counts,
+                      TILED_BF16_PER_CALL if route == "tiled" else STAGED_BF16_PER_CALL)
+        if plain_calls:
+            fail(f"{label}: the {route} route called the plain module")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        with torch.no_grad():
+            run_plain = lambda: plain_forward(m16.generator, x)
+            fp32, plain = m32.generate(x), run_plain()
+            if pred.dtype != torch.float32 or pred.shape != x.shape or not torch.isfinite(pred).all():
+                fail(f"{label}: {pred.dtype} {tuple(pred.shape)} or not finite")
+            e_route = (pred - fp32).abs().max().item()
+            e_plain = (plain - fp32).abs().max().item()
+            turns = [cuda_ms(f, 3) for f in (lambda: m16.generate(x), run_plain,
+                                              lambda: m32.generate(x), lambda: m32.generate(x),
+                                              run_plain, lambda: m16.generate(x))]
+        print(f"{label} ({route} route, K3-bf16): max_abs vs fp32 generate {e_route:.3e} "
+              f"(tol {TOL_BF16_GENERATE_ABS}), plain bf16 module {e_plain:.3e}; ms in turns "
+              f"(route, plain bf16, fp32, fp32, plain bf16, route) "
+              + ", ".join(f"{t:.2f}" for t in turns)
+              + f"; route {2 * n * 1e3 / (turns[0] + turns[5]):.2f} slices/s; launches {counts}",
+              flush=True)
+        if e_route > TOL_BF16_GENERATE_ABS:
+            fail(f"{label}: {e_route:.3e} from fp32 > {TOL_BF16_GENERATE_ABS}")
+        if e_route > 2 * e_plain + 1e-6 or e_plain > 2 * e_route + 1e-6:
+            fail(f"{label}: the route's error {e_route:.3e} and the plain bf16 module's "
+                 f"{e_plain:.3e} are not within twice each other")
+        del x, pred, fp32, plain
+    hook.remove()
+    return total
+
+
+def check_bf16_routes_cli(rng, tmp: str):
+    """Phase 32: one --bf16 epoch of the train CLI (MTD_GAN_Method, full
+    width) of one step on 20 448x448 slices, whose validation runs
+    ``generate`` on 4 448x448 slices: the tiled route, K8-bf16 and K3-bf16
+    counted. Returns its launches."""
+    root = os.path.join(tmp, "bf16_route_data")
+    write_split(root, "train", rng, TRAIN_SLICES, size=448)
+    write_split(root, "valid", rng, BF16_CLI_VALID, size=448)
+    args = train_cli.get_args_parser().parse_args([
+        "--data-root", root, "--batch-size", str(TRAIN_SLICES), "--epochs", "1",
+        "--device", "cuda", "--seed", "0", "--model-kwargs", json.dumps(FULL_WIDTH),
+        "--method", "pcgrad", "--bf16", "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+        "--save-dir", os.path.join(tmp, "out"), "--print-freq", "1"])
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    if not all(math.isfinite(v) for v in stats.values() if isinstance(v, float)):
+        fail(f"--bf16 train CLI at 448x448: non-finite epoch stats {stats}")
+    expect_counts("--bf16 train CLI at 448x448", counts, {
+        "K1-bf16": 21, "K2-bf16": 21,
+        **{k: BF16_CLI_VALID * v for k, v in TILED_BF16_PER_CALL.items()}})
+    print(f"--bf16 train CLI at 448x448: 1 step of {TRAIN_SLICES} slices and validation of "
+          f"{BF16_CLI_VALID} slices in {train_s:.3f} s, valid_loss "
+          f"{stats['valid_loss']:.6f}; launches {counts}", flush=True)
+    return counts
+
+
+def bf16_turns(label: str, fp32_fn, bf16_fn, plain_fn, library_fn, work, peak):
+    """One bf16 kernel in turns with its fp32 kernel (fp32, bf16, bf16,
+    fp32), beside its bf16 plain version, one library call of the same
+    function and its bound; returns (ms, plain_ms, bound_ms, bound_by,
+    library_ms)."""
+    turns = [cuda_ms(f, 10) for f in (fp32_fn, bf16_fn, bf16_fn, fp32_fn)]
+    plain_ms = cuda_ms(plain_fn, 10)
+    library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
+    b_ms, by = bound(work, peak)
+    lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    print(f"time {label}: fp32 {turns[0]:.3f}, bf16 {turns[1]:.3f}, bf16 {turns[2]:.3f}, fp32 "
+          f"{turns[3]:.3f} ms (in turns); bf16 plain {plain_ms:.3f} ms; library {lib_txt}; "
+          f"bf16 bound {b_ms:.3f} ms ({by})", flush=True)
+    return (turns[1] + turns[2]) / 2, plain_ms, b_ms, by, library_ms
+
+
+def time_bf16_route_kernels():
+    """Phase 32, the times: K3-bf16 (relu + residual), K4-bf16 and K6-bf16
+    at 1024x1024, batch 2 (the staged route's main-path shape, as the fp32
+    rows), K8-bf16 with the residual at 448x448, batch 8; each beside its
+    fp32 kernel, its bf16 plain version, its library call (K3: F.conv2d on
+    the bf16 operands and its epilogue in bf16; K4: torch.fft.rfft of the
+    widened x; K6: the residual widened plus torch.fft.irfft, rounded to
+    bf16; K8: none) and its bound (convs at the dense bf16 rate, the rest
+    fp32 on the CUDA cores; activations at 2 bytes, spectra at 4 a
+    float). Then the bf16 tiled block (448x448, batch 8) and staged block
+    (1024x1024, batch 2) split by launch: K3-bf16's residual conv, then
+    K8-bf16's three launches or K4-bf16, K5, K6-bf16. Returns {name: (ms,
+    plain_ms, bound_ms, bound_by, library_ms)}."""
+    out = {}
+    with torch.no_grad():
+        args, kw = k3_calls(2, 1024, 1024, "fan_in", seed=5)["relu+residual"]
+        x, wt, b = args
+        x16, w16, b16 = x.to(BF16), wt.to(BF16), b.to(BF16)
+        out["K3-bf16"] = bf16_turns(
+            "K3-bf16 1024x1024 batch 2 C=32 relu+residual", lambda: conv3x3(x, wt, b, **kw),
+            lambda: conv3x3(x16, wt, b, **kw), lambda: conv3x3_reference(x16, wt, b, **kw),
+            lambda: x16 + torch.relu(torch.nn.functional.conv2d(x16, w16, b16, padding=1)),
+            k3_work(2, 1024, 1024, "relu+residual", act=2), PEAK_BF16_FLOPS)
+        a = tiled_inputs(2, 1024, 1024, "fan_in", seed=6)
+        a16 = bf16_args(a)
+        z = rdft_w_reference(a["x"])
+        zz = z.clone()  # the library's c2r, the bins 0 and W/2 zeroed
+        zz[:, :, 0].imag.zero_()
+        zz[:, :, -1].imag.zero_()
+        out["K4-bf16"] = bf16_turns(
+            "K4-bf16 1024x1024 batch 2 C=32", lambda: rdft_w(a["x"]), lambda: rdft_w(a16["x"]),
+            lambda: rdft_w_reference(a16["x"]),
+            lambda: torch.fft.rfft(a16["x"].float(), dim=-1, norm="ortho"),
+            k4_work(2, 1024, 1024, act=2), PEAK_FP32_FLOPS)
+        out["K6-bf16"] = bf16_turns(
+            "K6-bf16 1024x1024 batch 2 C=32", lambda: irdft_w_add(z, a["residual"]),
+            lambda: irdft_w_add(z, a16["residual"]),
+            lambda: irdft_w_add_reference(z, a16["residual"]),
+            lambda: (a16["residual"].float() + torch.fft.irfft(
+                zz.transpose(-1, -2), n=1024, dim=-1, norm="ortho")).to(BF16),
+            k6_work(2, 1024, 1024, act=2), PEAK_FP32_FLOPS)
+        staged = (x16, wt, b, a16["mix"], a16["bias"])
+        launch_split("bf16 staged block split 1024x1024 batch 2",
+                     lambda: fft_conv_block(*staged, impl="staged", conv_impl="k3"),
+                     (("K3-bf16 residual conv", "conv3x3_tc_kernel"),
+                      ("rows (K4-bf16)", "rdft_w_kernel"), ("column pass (K5)", "columns_mixed_kernel"),
+                      ("inverse rows (K6-bf16)", "irdft_w_kernel")))
+        del args, kw, x, wt, b, x16, w16, b16, a, a16, z, zz, staged
+        a = tiled_inputs(8, 448, 448, "fan_in", seed=3)
+        a16 = bf16_args(a)
+        out["K8-bf16"] = bf16_turns(
+            "K8-bf16 448x448 batch 8 C=32 with residual", lambda: spectral_branch_tiled(**a),
+            lambda: spectral_branch_tiled(**a16), lambda: spectral_branch_tiled_reference(**a16),
+            None, k8_work(8, 448, 448, act=2), PEAK_FP32_FLOPS)
+        launch_split("K8-bf16 split 448x448 batch 8 with residual",
+                     lambda: spectral_branch_tiled(**a16), K8_LAUNCHES)
+        (x, wt, b), _ = k3_calls(8, 448, 448, "fan_in", seed=3)["relu+residual"]
+        tiled = (x.to(BF16), wt, b, a16["mix"], a16["bias"])
+        launch_split("bf16 tiled block split 448x448 batch 8",
+                     lambda: fft_conv_block(*tiled, impl="tiled", conv_impl="k3"),
+                     (("K3-bf16 residual conv", "conv3x3_tc_kernel"),) + K8_LAUNCHES)
+    return out
+
+
+def check_bf16_routes(tmp: str):
+    """Phase 32 (module docstring), on its own random data. Returns
+    ({name: launches on the main paths: generate and the train CLI},
+    {name: max abs error against the plain version}, {name: times})."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(32)
+    worst = check_bf16_route_kernels(_build.spectral_staged_library())
+    gen = check_bf16_routes_generate(rng)
+    cli = check_bf16_routes_cli(rng, tmp)
+    times = time_bf16_route_kernels()
+    launches = {k: gen[k] + cli[k] for k in BF16_ROUTE_KERNELS}
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s; main-path launches {launches}",
+          flush=True)
+    return launches, worst, times
+
+
+def phase32_alone(card: str) -> None:
+    """``--phase 32``: phase 32 alone, after the builds of its kernels (K3,
+    K4 - K6, K8) and of K1 and K2 (its train CLI's step); it ends with the
+    card line and no kernels or result line."""
+    names = ("conv3x3", "spectral_staged", "spectral_tiled", "block_fused", "block_bwd")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build.build, names))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_routes_") as tmp:
+        check_bf16_routes(tmp)
+    print(card, flush=True)
+
+
 def phase30_alone(card: str) -> None:
     """``--phase 30``: phase 30 alone, after the builds of K1 and K2 (its
     kernels), on inputs drawn as the whole run draws them; it ends with the
@@ -3164,7 +3473,7 @@ def phase30_alone(card: str) -> None:
 def main():
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    parser.add_argument("--phase", type=int, choices=[30, 31],
+    parser.add_argument("--phase", type=int, choices=[30, 31, 32],
                         help="run this phase alone (no kernels or result line)")
     only = parser.parse_args().phase
     if not torch.cuda.is_available():
@@ -3180,6 +3489,9 @@ def main():
         return
     if only == 31:
         phase31_alone(card)
+        return
+    if only == 32:
+        phase32_alone(card)
         return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
@@ -3593,6 +3905,12 @@ def main():
     bf16_times = time_bf16_kernels()
     print(f"phase 31: {time.perf_counter() - t31:.1f} s", flush=True)
 
+    # ---- 32. bf16 on the tiled and staged routes: K3-bf16, K4-bf16,
+    # K6-bf16 and K8-bf16 against their plain versions, generate and a
+    # --bf16 train CLI's validation on them, their times
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_routes_") as tmp:
+        route_launches, route_err, route_times = check_bf16_routes(tmp)
+
     # ---- 30. the parallel layer: DataParallel and TensorParallel in a
     # one-rank NCCL group (and on every card where there are several), the
     # packed generator. It runs after phase 21's
@@ -3659,7 +3977,18 @@ def main():
         "bound_by": bf16_times[name][3], "library_ms": None,
     } for name, src, replaces in (
         ("K1-bf16", "block_fused.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:954"),
-        ("K2-bf16", "block_bwd.cu", "mtd_gan_tpu/ops/pallas_train.py:109"))]}), flush=True)
+        ("K2-bf16", "block_bwd.cu", "mtd_gan_tpu/ops/pallas_train.py:109"))] + [{
+        "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
+        "replaces": replaces, "launches": route_launches[name],
+        "max_abs_err": route_err[name], "ms": route_times[name][0],
+        "plain_ms": route_times[name][1], "bound_ms": route_times[name][2],
+        "bound_by": route_times[name][3], "library_ms": route_times[name][4],
+    } for name, src, replaces in (
+        ("K3-bf16", "conv3x3.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:439"),
+        ("K4-bf16", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:588"),
+        ("K6-bf16", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:908"),
+        ("K8-bf16", "spectral_tiled.cu", "mtd_gan_tpu/ops/pallas_fftconv.py:351"))]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// The 3x3 convolution with its fused epilogues on Hopper (sm_90a), fp32.
+// The 3x3 convolution with its fused epilogues on Hopper (sm_90a), fp32 and
+// bf16.
 //
 // Replaces the TPU kernel K3, mtd_gan_tpu/ops/pallas_pipeline.py
 // _conv3x3_call (:439; its pallas_call at :543; wrapper conv3x3 :562).
@@ -62,6 +63,21 @@
 // 16, 24, 32}): the fp32 CUDA-core convolution K1 and K2 run
 // (resfft_common.cuh conv3x3_kernel): a 32 x 32 output tile per block, 8
 // input channels staged per step, 4 rows x 8 output channels per thread.
+//
+// The bf16 variant (conv3x3_forward_bf16, the JAX conv3x3 on a bf16 x with
+// out_dtype = x.dtype; the convs of a bf16 generator's tiled and staged
+// routes): x is bf16 and the weight and bias fp32; both paths compute the
+// conv of bf16 operands (the weight rounded to bf16 as it is staged, as
+// the flax layers cast it) with fp32 sums, apply the epilogue in fp32 and
+// round once at the store. The tensor-core path is K1-bf16's (one wgmma
+// m64nNk16 bf16 product per 16 k), its skip bf16 and its output bf16; the
+// direct path reads bf16 rows and takes a bf16 skip with a bf16 output or
+// an fp32 skip with an fp32 output: the C -> 1 exit deconv, whose
+// relu(deconv(h) + b + img) is the generator's fp32 output. The bf16 tiles
+// are staged with plain loads (cp.async moves 4 bytes or more). Bound at
+// 1024x1024, C = 32, batch 2, relu + residual: the same 38.7 GFLOP at the
+// dense bf16 rate (989 TFLOP/s, 0.04 ms) against 268 MB of bf16 x and out
+// (0.08 ms): bound by its bytes.
 
 #include "conv3x3_tc.cuh"
 
@@ -91,6 +107,39 @@ int conv3x3_forward(const float* x, int n, int c_in, int c_out, int h, int w,
     return (int)cudaErrorInvalidValue;
   return (int)launch_conv3x3(x, weight, bias, skip, out, n, c_in, c_out, h, w, relu,
                              residual, adjoint, reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K3's bf16 variant: conv3x3_forward's arguments with x (n, c_in, h, w)
+// bf16; skip (n, c_out, h, w) bf16 (skip_bf16 = 1) or fp32 (skip_bf16 = 0)
+// or null; out bf16 (out_bf16 = 1) or fp32. The output's type is the wider
+// of x's and skip's: out_bf16 == (skip == null || skip_bf16). An fp32 skip
+// takes the direct path only (C_out = 1 or C_in outside {8, 16, 24, 32}).
+// Returns as conv3x3_forward.
+int conv3x3_forward_bf16(const bf16* x, int n, int c_in, int c_out, int h, int w,
+                         const float* weight, const float* bias, const void* skip,
+                         int skip_bf16, void* out, int out_bf16, int relu, int residual,
+                         int adjoint, void* stream_ptr) {
+  if (n < 1 || c_in < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  if (c_out != 1 && c_out % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (residual && c_in != c_out) return (int)cudaErrorInvalidValue;
+  if ((out_bf16 != 0) != (skip == nullptr || skip_bf16 != 0)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (tensor_core_path(c_in, c_out)) {
+    if (!out_bf16) return (int)cudaErrorInvalidValue;
+    return (int)launch_tc_any<bf16, bf16, false>(
+        x, weight, bias, static_cast<const bf16*>(skip), nullptr, static_cast<bf16*>(out), n,
+        c_in, c_out, h, w, relu, residual, adjoint, stream);
+  }
+  if ((long long)n * (c_out == 1 ? 1 : c_out / 8) > 65535 ||
+      (h + kConvTileH - 1) / kConvTileH > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (out_bf16)
+    return (int)launch_conv<true>(x, weight, bias, static_cast<const bf16*>(skip), nullptr,
+                                  static_cast<bf16*>(out), n, c_in, c_out, h, w, relu,
+                                  residual, adjoint, stream);
+  return (int)launch_conv<true>(x, weight, bias, static_cast<const float*>(skip), nullptr,
+                                static_cast<float*>(out), n, c_in, c_out, h, w, relu, residual,
+                                adjoint, stream);
 }
 
 const char* conv3x3_error_string(int err) {

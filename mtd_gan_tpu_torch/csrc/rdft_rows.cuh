@@ -31,10 +31,14 @@
 // store with the residual added on the way out. For Q > 1 its odd step
 // reads a copy of the table staged in shared memory.
 //
-// K1's and K2's bf16 variants run the same schedules on bf16 activations:
-// the rows are read as bf16 and widened (K4's row pass, T = bf16), the
-// inverse rounds its fp32 result once at the store (TO = bf16); the
-// spectra stay fp32.
+// The bf16 variants (K1's, K2's, K4-bf16, K6-bf16, K8-bf16) run the same
+// schedules on bf16 activations: the rows are read as bf16 and widened
+// (K4's row pass, T = bf16), the inverse reads its residual in its own
+// type (TR: fp32 for K1's and K2's scratch, bf16 for K6-bf16 and
+// K8-bf16), adds in fp32 and rounds once at the store (TO = bf16); the
+// spectra stay fp32. Every vector path is chosen by the alignment of its
+// pointer in elements of its own type: four values are 16 bytes of fp32
+// and 8 of bf16.
 
 #pragma once
 
@@ -337,15 +341,16 @@ __device__ __forceinline__ void stage_conj_bins(float2* row, int k, float2 a, fl
 // Z) of pair j, row 2j of out (at base, rows W apart) gets Re y * scale and
 // row 2j + 1, where < rows, -Im y * scale, each with the residual's element
 // added where `residual` is not null, rounded once to TO. VEC: four columns
-// per store (W % 4 == 0, out and residual aligned to four values). BY_PAIR: neighbouring threads take
+// per store (W % 4 == 0, out and residual aligned to four values of their
+// types). BY_PAIR: neighbouring threads take
 // the pairs of one output, so that a warp's odd steps (Q > 1) read few
 // distinct twiddles; else neighbouring columns of a pair, so that a warp's
 // stores and residual loads are whole lines. stw: the table in shared
-// memory. `residual` may be `out`: each element of it is read by the thread
-// that then writes the same element of `out`, so a thread loads both rows'
-// residuals before it stores either.
-template <typename TO>
-__device__ __forceinline__ void store_row_pairs(TO* out, const float* residual, size_t base,
+// memory. `residual` may be `out` (TR == TO): each element of it is read,
+// with a coherent load, by the thread that then writes the same element of
+// `out`, so a thread loads both rows' residuals before it stores either.
+template <typename TR, typename TO>
+__device__ __forceinline__ void store_row_pairs(TO* out, const TR* residual, size_t base,
                                                 int W, const float2* buf, int pitch, int pairs,
                                                 int rows, const RdftPlan& pl,
                                                 const float2* stw, float scale, bool vec,
@@ -364,9 +369,8 @@ __device__ __forceinline__ void store_row_pairs(TO* out, const float* residual, 
       float4 v = make_float4(y[0].x * scale, y[1].x * scale, y[2].x * scale, y[3].x * scale);
       float4 v2 = make_float4(-y[0].y * scale, -y[1].y * scale, -y[2].y * scale, -y[3].y * scale);
       if (residual != nullptr) {
-        const float4 r = *reinterpret_cast<const float4*>(residual + o);
-        const float4 r2 = has_b ? *reinterpret_cast<const float4*>(residual + o + W)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 r = ldc4(residual + o);
+        const float4 r2 = has_b ? ldc4(residual + o + W) : make_float4(0.f, 0.f, 0.f, 0.f);
         v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
         v2 = make_float4(v2.x + r2.x, v2.y + r2.y, v2.z + r2.z, v2.w + r2.w);
       }
@@ -380,8 +384,8 @@ __device__ __forceinline__ void store_row_pairs(TO* out, const float* residual, 
       const float2 y = rdft_value<true>(buf + j * pitch, m, W, pl, stw);
       const size_t o = base + (size_t)(2 * j) * W + m;
       const bool has_b = 2 * j + 1 < rows;
-      const float ra = residual != nullptr ? residual[o] : 0.f;
-      const float rb = residual != nullptr && has_b ? residual[o + W] : 0.f;
+      const float ra = residual != nullptr ? ldc1(residual + o) : 0.f;
+      const float rb = residual != nullptr && has_b ? ldc1(residual + o + W) : 0.f;
       st1(out + o, y.x * scale + ra);
       if (has_b) st1(out + o + W, -y.y * scale + rb);
     }
@@ -488,11 +492,12 @@ cudaError_t launch_rdft_w(const T* x, float2* spec, const float2* tw, int n, int
 // of 16 has fewer rows; an odd last row is paired with zeros. `residual`
 // may be `out` itself (in place): each element of it is read by the thread
 // that then writes the same element of `out`, and by no other thread, so
-// the two carry no __restrict__. TO: the type of out (float, or bf16 for
-// K1's and K2's bf16 variants, whose residual is an fp32 buffer of its own).
-template <typename TO>
+// the two carry no __restrict__. TR, TO: the types of residual and out
+// (float; bf16 out for K1's and K2's bf16 variants, whose residual is an
+// fp32 buffer of their own; bf16 both for K6-bf16 and K8-bf16).
+template <typename TR, typename TO>
 __global__ void __launch_bounds__(kRdftMaxThreads, 3)
-irdft_w_kernel(const float2* __restrict__ spec, const float* residual, TO* out,
+irdft_w_kernel(const float2* __restrict__ spec, const TR* residual, TO* out,
                const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
                float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -572,8 +577,8 @@ irdft_w_kernel(const float2* __restrict__ spec, const float* residual, TO* out,
 
 // out (n, c, h, w) = [residual +] the ortho c2r along W of spec (n, c,
 // w/2+1, h); residual may be out. tw as launch_rdft_w's.
-template <typename TO>
-cudaError_t launch_irdft_w(const float2* spec, const float* residual, TO* out,
+template <typename TR, typename TO>
+cudaError_t launch_irdft_w(const float2* spec, const TR* residual, TO* out,
                            const float2* tw, int n, int c, int h, int w,
                            cudaStream_t stream) {
   const auto aligned = [](const void* p, size_t b = 16) {
@@ -582,14 +587,14 @@ cudaError_t launch_irdft_w(const float2* spec, const float* residual, TO* out,
   RdftPlan pl = rdft_plan(w, true);
   pl.vec_load = h % 2 == 0 && aligned(spec);
   pl.vec_store = w % 4 == 0 && aligned(out, 4 * sizeof(TO)) &&
-                 (residual == nullptr || aligned(residual));
+                 (residual == nullptr || aligned(residual, 4 * sizeof(TR)));
   const size_t smem =
       ((size_t)kRdftPairs * rdft_row_pitch(w) + (pl.Q > 1 ? w : 0)) * sizeof(float2);
-  CUDA_TRY(allow_smem(irdft_w_kernel<TO>, smem));
-  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel<TO>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  CUDA_TRY(allow_smem(irdft_w_kernel<TR, TO>, smem));
+  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel<TR, TO>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared));
   const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  irdft_w_kernel<TO><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
+  irdft_w_kernel<TR, TO><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
       spec, residual, out, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }

@@ -8,8 +8,8 @@
 // K8's and K7's on columns_mixed.cuh (K7, spectral_fused.cu, its rows on
 // rdft_rows.cuh too). K1's and K2's C -> C convs run on K3's tensor-core
 // kernel (conv3x3_tc.cuh). fp32 throughout, apart from the bf16
-// activations of K1's and K2's bf16 variants: loaded and stored through
-// the helpers below, computed in fp32.
+// activations of the bf16 variants (K1, K2, K3, K4, K6, K8): loaded and
+// stored through the helpers below, computed in fp32.
 
 #pragma once
 
@@ -51,11 +51,25 @@ __device__ __forceinline__ float ld1(const bf16* p) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+// four bf16 values (8 bytes) widened
+__device__ __forceinline__ float4 widen4(uint2 u) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+// coherent loads (not through the read-only cache), for a buffer the same
+// kernel may also write: the in-place inverse rows read their residual
+// where they then store
+__device__ __forceinline__ float ldc1(const float* p) { return *p; }
+__device__ __forceinline__ float ldc1(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float4 ldc4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ldc4(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 __device__ __forceinline__ void st1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -89,8 +103,12 @@ constexpr int kConvThreads = kConvTileW * kConvThreadsY;        // 256
 // (c_in, c_out, 3, 3). CO output channels per block and per thread; c_out
 // must be a multiple of CO. TI, TS, TO: the types of in, of skip and gate,
 // and of out (float, or bf16 for the exit conv of K1's and K2's bf16
-// variants); the sums are fp32 and out is rounded once.
-template <int CO, typename TI = float, typename TS = float, typename TO = float>
+// variants and for K3's bf16 variant); the sums are fp32 and out is
+// rounded once. RW: the weights are rounded to bf16 as they are staged
+// (K3's bf16 variant: the conv of bf16 operands, as its tensor-core path
+// computes it); K1's and K2's exit convs keep them fp32.
+template <int CO, typename TI = float, typename TS = float, typename TO = float,
+          bool RW = false>
 __global__ void __launch_bounds__(kConvThreads)
 conv3x3_kernel(const TI* __restrict__ in, const float* __restrict__ weight,
                const float* __restrict__ bias, const TS* __restrict__ skip,
@@ -137,6 +155,7 @@ conv3x3_kernel(const TI* __restrict__ in, const float* __restrict__ weight,
       if (ci0 + ci < c_in)
         v = adjoint ? weight[((size_t)(ci0 + ci) * c_out + co0 + co) * 9 + (8 - tap)]
                     : weight[((size_t)(co0 + co) * c_in + ci0 + ci) * 9 + tap];
+      if constexpr (RW) v = __bfloat162float(__float2bfloat16_rn(v));
       wsm[ci][tap][co] = v;
     }
     __syncthreads();
@@ -244,8 +263,8 @@ int log2_exact(int v) {
 }
 
 // The direct conv with its epilogue (conv3x3_kernel); the types follow the
-// pointers, skip's and gate's both from skip.
-template <typename TI, typename TS, typename TO>
+// pointers, skip's and gate's both from skip; RW as conv3x3_kernel's.
+template <bool RW = false, typename TI, typename TS, typename TO>
 cudaError_t launch_conv(const TI* in, const float* weight, const float* bias,
                         const TS* skip, const typename NoDeduce<TS>::type* gate, TO* out,
                         int n, int c_in, int c_out, int H, int W, int relu, int residual,
@@ -254,12 +273,12 @@ cudaError_t launch_conv(const TI* in, const float* weight, const float* bias,
   if (c_out % 8 == 0) {
     const dim3 grid((W + kConvTileW - 1) / kConvTileW,
                     (H + kConvTileH - 1) / kConvTileH, n * (c_out / 8));
-    conv3x3_kernel<8, TI, TS, TO><<<grid, block, 0, stream>>>(
+    conv3x3_kernel<8, TI, TS, TO, RW><<<grid, block, 0, stream>>>(
         in, weight, bias, skip, gate, out, c_in, c_out, H, W, relu, residual, adjoint);
   } else if (c_out == 1) {
     const dim3 grid((W + kConvTileW - 1) / kConvTileW,
                     (H + kConvTileH - 1) / kConvTileH, n);
-    conv3x3_kernel<1, TI, TS, TO><<<grid, block, 0, stream>>>(
+    conv3x3_kernel<1, TI, TS, TO, RW><<<grid, block, 0, stream>>>(
         in, weight, bias, skip, gate, out, c_in, c_out, H, W, relu, residual, adjoint);
   } else {
     return cudaErrorInvalidValue;

@@ -1,4 +1,5 @@
-// The tiled spectral branch of the Res-FFT block on Hopper (sm_90a), fp32.
+// The tiled spectral branch of the Res-FFT block on Hopper (sm_90a), fp32
+// and bf16.
 //
 // Replaces the TPU kernel K8, mtd_gan_tpu/ops/pallas_fftconv.py
 // spectral_branch_tiled (:351; its three pallas_calls at :389, :420, :454).
@@ -42,9 +43,16 @@
 //                    `out`.
 // Every FFT runs K4's in-place radix-2/4/8 register steps, one sync per
 // step, on host twiddle tables of W and H points (cuda_pipeline
-// rdft_twiddles): no sine or cosine is computed on the card. fp32
-// throughout; tensor cores and fusing A and C into the neighbouring
-// convolutions are later work.
+// rdft_twiddles): no sine or cosine is computed on the card. Tensor
+// cores and fusing A and C into the neighbouring convolutions are later
+// work.
+//
+// bf16 (spectral_tiled_forward_bf16, the JAX K8 on a bf16 x and residual):
+// pass A reads bf16 rows, the spectrum between the passes stays fp32 (the
+// JAX kernel's fp32 z_shape), pass C reads the bf16 residual, adds in fp32
+// and writes residual + branch rounded once to bf16. Bound at 448x448,
+// C = 32, batch 8: the same 11.3 GFLOP (0.17 ms) against 308 MB of bf16
+// x, residual and out (0.09 ms): bound by its operations.
 
 #include "columns_mixed.cuh"
 
@@ -52,6 +60,26 @@ namespace {
 
 constexpr int kMaxH = 768;
 constexpr int kMaxW = 1024;
+
+// One K8 call on activations of type T (spectral_tiled_forward's
+// arguments).
+template <typename T>
+int spectral_tiled_impl(const T* x, int n, int c, int h, int w, const float* mix,
+                        const float* mix_bias, const T* residual, const void* tw_w,
+                        const void* tw_h, void* spec, T* out, cudaStream_t stream) {
+  if (n < 1 || n > 65535 || h < 64 || h > kMaxH || h % 64 != 0 || w < 2 || w > kMaxW ||
+      w % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (c != 8 && c != 16 && c != 32) return (int)cudaErrorInvalidValue;
+  float2* spec2 = reinterpret_cast<float2*>(spec);
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
+  RETURN_IF_ERROR(launch_rdft_w(x, spec2, tww, n, c, h, w, stream));
+  RETURN_IF_ERROR(launch_columns_mixed(spec2, mix, mix_bias,
+                                       reinterpret_cast<const float2*>(tw_h), n, c, h,
+                                       w / 2 + 1, stream));
+  RETURN_IF_ERROR(launch_irdft_w(spec2, residual, out, tww, n, c, h, w, stream));
+  return 0;
+}
 
 }  // namespace
 
@@ -67,19 +95,18 @@ extern "C" {
 int spectral_tiled_forward(const float* x, int n, int c, int h, int w, const float* mix,
                            const float* mix_bias, const float* residual, const void* tw_w,
                            const void* tw_h, void* spec, float* out, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (n < 1 || n > 65535 || h < 64 || h > kMaxH || h % 64 != 0 || w < 2 || w > kMaxW ||
-      w % 2 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (c != 8 && c != 16 && c != 32) return (int)cudaErrorInvalidValue;
-  float2* spec2 = reinterpret_cast<float2*>(spec);
-  const float2* tww = reinterpret_cast<const float2*>(tw_w);
-  RETURN_IF_ERROR(launch_rdft_w(x, spec2, tww, n, c, h, w, stream));
-  RETURN_IF_ERROR(launch_columns_mixed(spec2, mix, mix_bias,
-                                       reinterpret_cast<const float2*>(tw_h), n, c, h,
-                                       w / 2 + 1, stream));
-  RETURN_IF_ERROR(launch_irdft_w(spec2, residual, out, tww, n, c, h, w, stream));
-  return 0;
+  return spectral_tiled_impl(x, n, c, h, w, mix, mix_bias, residual, tw_w, tw_h, spec, out,
+                             reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K8's bf16 variant: x, residual (or null) and out bf16 (n, c, h, w); the
+// mix, its bias and the spectrum fp32; the rest as spectral_tiled_forward.
+int spectral_tiled_forward_bf16(const bf16* x, int n, int c, int h, int w, const float* mix,
+                                const float* mix_bias, const bf16* residual,
+                                const void* tw_w, const void* tw_h, void* spec, bf16* out,
+                                void* stream_ptr) {
+  return spectral_tiled_impl(x, n, c, h, w, mix, mix_bias, residual, tw_w, tw_h, spec, out,
+                             reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* spectral_tiled_error_string(int err) {

@@ -52,9 +52,11 @@ class ResFFTGenerator(nn.Module):
     elementwise ops) or ``"k3"`` (the hand-written K3 with its fused
     epilogue; ``None``: K3 with a kernel spectral path, else ``"torch"``).
     The parameters and their names are the same for every choice.
-    ``dtype``: the convs' compute type (the plain module; the kernel views
-    take fp32), the Res-FFT blocks following their input; the output, the
-    exit deconv plus the fp32 image, is fp32, as the JAX module's."""
+    ``dtype``: the convs' compute type (the entry conv's on every path, the
+    others' on the plain module; K3 computes in its input's type, so the
+    kernel views run K3-bf16), the Res-FFT blocks following their input;
+    the output, the exit deconv plus the fp32 image, is fp32, as the JAX
+    module's."""
 
     def __init__(self, in_channels: int = 1, features: int = 32,
                  num_layers: int = 10, spectral_impl: str = "auto",
@@ -118,11 +120,12 @@ def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
 def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) -> str:
     """The path ``MTDGANModel.generate`` takes for a CUDA input of H x W
     with a generator of C features computing in ``dtype`` (``None``:
-    fp32), chosen by shape, width and type before any launch. A bf16
-    generator takes ``"k1"``, K1's bf16 variant, at K1's sizes and
-    ``"plain"``, the plain module in bf16 on the card, at every other size:
-    K3 - K8 have no bf16 variant yet (ROADMAP.md, queue 2). An fp32
-    generator takes the first of:
+    fp32), chosen by shape, width and type before any launch. A generator
+    takes the first of the routes below that it fits; a bf16 generator runs
+    each on the kernels' bf16 variants (K1-bf16; K8-bf16; K4-bf16 -> K5 ->
+    K6-bf16; every 3x3 conv but the entry conv on K3-bf16) and skips
+    ``"fused"``, since K7 has no bf16 variant yet (ROADMAP.md, queue 2): a
+    bf16 96^2 or 100x72 input takes ``"staged"``. The routes:
 
     - ``"k1"``: the fused-block pipeline (``ops/cuda_pipeline.py``), H == W
       in {64, 128, 256, 512};
@@ -151,14 +154,12 @@ def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) 
     to 1024 a side (1024^2, 800^2, 200^2, 130x64, 448x449, ...) runs the
     JAX package's unfused kernels K3 - K6. Only the rest runs the plain
     module, the port of the XLA path."""
-    if dtype == torch.bfloat16:
-        return "k1" if c in KERNEL_CHANNELS and h == w and h in KERNEL_SIZES else "plain"
     if c in KERNEL_CHANNELS:
         if h == w and h in KERNEL_SIZES:
             return "k1"
         if in_tiled_domain(h, w):
             return "tiled"
-        if in_fused_domain(h, w):
+        if in_fused_domain(h, w) and dtype != torch.bfloat16:
             return "fused"
         if in_staged_domain(h, w):
             return "staged"
@@ -173,12 +174,14 @@ def generator_views(generator: ResFFTGenerator) -> Dict[str, nn.Module]:
     (``fft_block_nchw(fused=False)``) as generators: its parameters (shared,
     not copied) with the Res-FFT blocks on K8, K7 or K4 -> K5 -> K6. They
     are built on "meta", so their own placeholder weights take no memory
-    and no random draws."""
+    and no random draws, with the generator's ``dtype``: a bf16 view's
+    kernels read the shared fp32 weights and round them as they stage
+    them, so no view holds a bf16 copy."""
     views = {"plain": generator}
     for impl in ("tiled", "fused", "staged"):
         with torch.device("meta"):
             view = ResFFTGenerator(1, generator.features, generator.num_layers,
-                                   spectral_impl=impl)
+                                   spectral_impl=impl, dtype=generator.dtype)
         views[impl] = share_parameters(view, generator).eval()
     return views
 
@@ -189,8 +192,9 @@ def resfft_generate(views: Dict[str, nn.Module], x: Tensor) -> Tensor:
     :func:`generator_views`. A CUDA ``x`` takes the path
     :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
     (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs on
-    K3, or the plain module; a bf16 generator the K1 pipeline on K1's bf16
-    variant or the plain module in bf16. A CPU ``x`` runs the plain module.
+    K3, or the plain module; a bf16 generator the same routes but the
+    fused one on the kernels' bf16 variants, or the plain module in bf16.
+    A CPU ``x`` runs the plain module.
     ``x`` must be on the generator's device type."""
     gen = views["plain"]
     device = next(gen.parameters()).device

@@ -161,6 +161,8 @@ def spectral_tiled_library() -> ctypes.CDLL:
         _P, _P, _P,                  # spec, out, stream
     ]
     lib.spectral_tiled_forward.restype = ctypes.c_int
+    lib.spectral_tiled_forward_bf16.argtypes = lib.spectral_tiled_forward.argtypes
+    lib.spectral_tiled_forward_bf16.restype = ctypes.c_int
     lib.spectral_tiled_error_string.argtypes = [ctypes.c_int]
     lib.spectral_tiled_error_string.restype = ctypes.c_char_p
     return lib
@@ -194,6 +196,12 @@ def conv3x3_library() -> ctypes.CDLL:
         _I, _I, _I, _P,              # relu, residual, adjoint, stream
     ]
     lib.conv3x3_forward.restype = ctypes.c_int
+    lib.conv3x3_forward_bf16.argtypes = [
+        _P, _I, _I, _I, _I, _I,      # x, n, c_in, c_out, h, w
+        _P, _P, _P, _I, _P, _I,      # weight, bias, skip, skip_bf16, out, out_bf16
+        _I, _I, _I, _P,              # relu, residual, adjoint, stream
+    ]
+    lib.conv3x3_forward_bf16.restype = ctypes.c_int
     lib.conv3x3_tensor_cores.argtypes = [_I, _I]  # c_in, c_out
     lib.conv3x3_tensor_cores.restype = ctypes.c_int
     lib.conv3x3_error_string.argtypes = [ctypes.c_int]
@@ -218,9 +226,12 @@ def spectral_staged_library() -> ctypes.CDLL:
         _P, _P, _I, _I, _I, _I,      # spec, residual, n, c, h, w
         _P, _P, _P,                  # twiddles, out, stream
     ]
+    lib.staged_rdft_w_bf16.argtypes = lib.staged_rdft_w.argtypes
+    lib.staged_irdft_w_add_bf16.argtypes = lib.staged_irdft_w_add.argtypes
     lib.staged_mix_cluster_size.argtypes = [_I, _I]  # c, h
     lib.staged_mix_odd_branch.argtypes = [_I]  # h
     for fn in (lib.staged_rdft_w, lib.staged_mix_h, lib.staged_irdft_w_add,
+               lib.staged_rdft_w_bf16, lib.staged_irdft_w_add_bf16,
                lib.staged_mix_cluster_size, lib.staged_mix_odd_branch):
         fn.restype = ctypes.c_int
     lib.spectral_staged_error_string.argtypes = [ctypes.c_int]

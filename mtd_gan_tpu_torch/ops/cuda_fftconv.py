@@ -26,6 +26,13 @@ device).
 "H, W <= 128", one sample per thread-block cluster, in one launch that
 runs K4's row steps, the column pass of K5 and K6's inverse rows (with the
 residual in its store) on the twiddle tables of W and H.
+
+bf16 activations: K8 takes a bf16 ``x`` and residual (the JAX K8 on a bf16
+block's ``x`` and ``res``) and launches its bf16 variant, counted in
+``spectral_branch_tiled.launches_bf16``: the spectrum between its passes
+stays fp32, ``residual + branch`` is summed in fp32 and rounded once to
+bf16; its plain version rounds at the same point. K7 has no bf16 variant
+yet (ROADMAP.md, queue 2) and raises on a bf16 ``x`` on the card.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from typing import Optional
 import torch
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import _check, _device_twiddles
+from mtd_gan_tpu_torch.ops.cuda_pipeline import BF16, _check, _device_twiddles, act_dtype
 from mtd_gan_tpu_torch.ops.fft_conv import spectral_branch
+from mtd_gan_tpu_torch.ops.layers import widen
 
 Tensor = torch.Tensor
 
@@ -55,9 +63,11 @@ def in_tiled_domain(h: int, w: int) -> bool:
 
 def spectral_branch_tiled_reference(x: Tensor, mix: Tensor, bias: Tensor,
                                     residual: Optional[Tensor] = None) -> Tensor:
-    """Plain PyTorch K8: ``fft_conv.spectral_branch`` plus the residual."""
-    out = spectral_branch(x, mix, bias)
-    return out if residual is None else residual + out
+    """Plain PyTorch K8: ``fft_conv.spectral_branch`` plus the residual,
+    in fp32 on a widened bf16 ``x`` and residual, the result rounded once
+    to ``x``'s type."""
+    out = spectral_branch(widen(x), mix, bias)
+    return (out if residual is None else widen(residual) + out).to(x.dtype)
 
 
 def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
@@ -68,7 +78,9 @@ def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one C entry call, counted in ``spectral_branch_tiled.launches``) or
     raises: outside the kernel's domain, on a wrong layout, when a gradient
-    is asked for (the kernel has no backward), or on a CUDA error."""
+    is asked for (the kernel has no backward), or on a CUDA error. A bf16
+    ``x`` (and residual) launches K8-bf16 (``spectral_tiled_forward_bf16``,
+    counted in ``spectral_branch_tiled.launches_bf16``)."""
     if x.device.type == "cpu":
         return spectral_branch_tiled_reference(x, mix, bias, residual)
     if x.device.type != "cuda":
@@ -89,30 +101,36 @@ def spectral_branch_tiled(x: Tensor, mix: Tensor, bias: Tensor,
             t is not None and t.requires_grad for t in (x, mix, bias, residual)):
         raise ValueError("spectral_branch_tiled: the kernel is inference only "
                          "(no backward); call it under torch.no_grad()")
+    act = act_dtype(x, "spectral_branch_tiled")
     dev = x.device
-    for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
-                           (bias, (2 * c,), "bias"),
-                           (residual, (n, c, h, w), "residual")):
-        _check(t, shape, dev, name, "spectral_branch_tiled")
+    for t, shape, name, dtype in ((x, (n, c, h, w), "x", act),
+                                  (mix, (2 * c, 2 * c), "mix", torch.float32),
+                                  (bias, (2 * c,), "bias", torch.float32),
+                                  (residual, (n, c, h, w), "residual", act)):
+        _check(t, shape, dev, name, "spectral_branch_tiled", dtype)
 
     lib = _build.spectral_tiled_library()
     tw_w, tw_h = _device_twiddles(w, dev), _device_twiddles(h, dev)
     spec = torch.empty((n, c, w // 2 + 1, h, 2), device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
+    entry = lib.spectral_tiled_forward_bf16 if act == BF16 else lib.spectral_tiled_forward
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.spectral_tiled_forward(
-            x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), tw_w.data_ptr(),
-            tw_h.data_ptr(), spec.data_ptr(), out.data_ptr(), stream)
+        err = entry(x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
+                    None if residual is None else residual.data_ptr(), tw_w.data_ptr(),
+                    tw_h.data_ptr(), spec.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         msg = lib.spectral_tiled_error_string(err).decode()
         raise RuntimeError(f"spectral_branch_tiled: CUDA error {err} ({msg})")
-    spectral_branch_tiled.launches += 1
+    if act == BF16:
+        spectral_branch_tiled.launches_bf16 += 1
+    else:
+        spectral_branch_tiled.launches += 1
     return out
 
 
 spectral_branch_tiled.launches = 0
+spectral_branch_tiled.launches_bf16 = 0
 
 
 FUSED_CHANNELS = (8, 16, 32)
@@ -158,6 +176,9 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
             t is not None and t.requires_grad for t in (x, mix, bias, residual)):
         raise ValueError("spectral_branch_fused: the kernel is inference only "
                          "(no backward); call it under torch.no_grad()")
+    if x.dtype == BF16:
+        raise ValueError("spectral_branch_fused: K7 has no bf16 variant yet (ROADMAP.md, "
+                         "queue 2); a bf16 generator takes the staged route at these sizes")
     dev = x.device
     for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
                            (bias, (2 * c,), "bias"), (residual, (n, c, h, w), "residual")):

@@ -127,11 +127,21 @@ def _check(t: Optional[Tensor], shape, device, name: str,
     if t is None:
         return
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{who}: {name} must be a contiguous {dtype} "
-                         f"tensor on {device}, got {t.dtype} on {t.device}")
+        raise ValueError(f"{who}: {name} must be a contiguous "
+                         f"{str(dtype).removeprefix('torch.')} tensor on {device}, "
+                         f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def act_dtype(t: Tensor, who: str) -> torch.dtype:
+    """``t``'s type if the kernels take it as activations (fp32, or bf16
+    for their bf16 variants); raises otherwise."""
+    if t.dtype not in ACT_DTYPES:
+        raise ValueError(f"{who}: the kernel takes activations of {ACT_DTYPES}, "
+                         f"got {t.dtype}")
+    return t.dtype
 
 
 def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
@@ -158,10 +168,7 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
         raise ValueError(f"block_fused: unsupported device {x.device}")
     n, c_in, hw = x.shape
     c = km.shape[0]
-    act = x.dtype
-    if act not in ACT_DTYPES:
-        raise ValueError(f"block_fused: the kernel takes activations of {ACT_DTYPES}, "
-                         f"got {act}")
+    act = act_dtype(x, "block_fused")
     bf = act == BF16
     if h != w or h not in KERNEL_SIZES or hw != h * w:
         raise ValueError(f"block_fused: the kernel takes H == W in "

@@ -23,12 +23,25 @@ rows by chunk (layout, not semantics).
 On a CUDA tensor each wrapper launches its kernel (one launch per call,
 counted in ``<wrapper>.launches``) or raises; on a CPU tensor it runs the
 plain version. There is no fallback from one to the other. Domains: K3
-takes fp32 contiguous input without a gradient request, C_out a multiple
+takes contiguous input without a gradient request, C_out a multiple
 of 8 or 1, any C_in and any H, W (C_in == C_out with the residual),
 and runs on the tensor cores in 3xTF32 for C_in in {8, 16, 24, 32} and
 C_out a multiple of 8 (those launches also counted in
 ``conv3x3.launches_tc``), on its direct fp32 path otherwise; K4, K5 and
 K6 take C in {8, 16, 32} and 2 <= H, W <= 1024 of any parity.
+
+bf16 activations (a bf16 generator's staged and tiled routes; the JAX
+``conv3x3`` on a bf16 ``x`` and the unfused pipeline at bf16 activations
+with ``bound_dtype=float32``): K3, K4 and K6 take a bf16 ``x`` (K6 a bf16
+``res``) and launch their bf16 variants, counted apart in
+``<wrapper>.launches_bf16`` (K3's tensor-core ones also in
+``conv3x3.launches_bf16_tc``). K3-bf16 convolves bf16 operands (the fp32
+weight rounded to bf16, as the flax layers cast it) with fp32 sums, applies
+its epilogue in fp32 and rounds once to the wider of ``x``'s and
+``skip``'s types: bf16, or fp32 for the exit deconv's fp32 image. K4-bf16
+writes the fp32 spectrum, K5 runs unchanged on it, K6-bf16 adds the bf16
+residual in fp32 and rounds once to bf16. The plain versions round at the
+same points with casts. Any other activation type raises.
 """
 
 from __future__ import annotations
@@ -39,7 +52,9 @@ import torch
 import torch.nn.functional as F
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import _check, _device_twiddles
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, _check, _device_twiddles, act_dtype,
+                                                 round_bf16)
+from mtd_gan_tpu_torch.ops.layers import widen
 
 Tensor = torch.Tensor
 
@@ -78,7 +93,17 @@ def conv3x3_reference(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
     """Plain K3: ``[x +] [relu](conv(x) + bias [+ skip])`` with padding 1;
     ``conv`` is ``F.conv2d`` of a ``(C_out, C_in, 3, 3)`` weight or, with
     ``transpose``, ``F.conv_transpose2d`` of a ``ConvTranspose2d`` weight
-    ``(C_in, C_out, 3, 3)`` (the flipped-kernel conv)."""
+    ``(C_in, C_out, 3, 3)`` (the flipped-kernel conv).
+
+    A bf16 ``x`` takes K3-bf16's rounding points: the conv of ``x`` and the
+    weight rounded to bf16 in fp32 (exact products, fp32 sums), the fp32
+    bias, ``skip`` and epilogue, one rounding to the wider of ``x``'s and
+    ``skip``'s types."""
+    if x.dtype == BF16:
+        out = conv3x3_reference(x.float(), round_bf16(weight), bias,
+                                skip=None if skip is None else skip.float(), relu=relu,
+                                residual=residual, transpose=transpose)
+        return out.to(BF16 if skip is None else torch.promote_types(BF16, skip.dtype))
     conv = F.conv_transpose2d if transpose else F.conv2d
     out = conv(x, weight, bias, padding=1)
     if skip is not None:
@@ -114,7 +139,13 @@ def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
     backward), or on a CUDA error. The kernel picks its path by the
     channel counts before the launch: the tensor cores in 3xTF32 for C_in
     in {8, 16, 24, 32} and C_out a multiple of 8 (those launches are also
-    counted in ``conv3x3.launches_tc``), the direct fp32 conv otherwise."""
+    counted in ``conv3x3.launches_tc``), the direct fp32 conv otherwise.
+
+    A bf16 ``x`` launches K3-bf16 (``conv3x3_forward_bf16``, counted in
+    ``conv3x3.launches_bf16`` and, on the tensor cores, where one wgmma
+    bf16 product takes 16 k, ``conv3x3.launches_bf16_tc``): ``skip`` bf16
+    or fp32, the output of the wider type; an fp32 ``skip`` only on the
+    direct path (C_out = 1: the exit deconv's image)."""
     if x.device.type == "cpu":
         return conv3x3_reference(x, weight, bias, skip=skip, relu=relu,
                                  residual=residual, transpose=transpose)
@@ -137,29 +168,51 @@ def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor], *,
     if _wants_grad(x, weight, bias, skip):
         raise ValueError(f"{who}: the kernel is inference only (no backward); "
                          f"call it under torch.no_grad()")
-    w_shape = (c_in, c_out, 3, 3) if transpose else (c_out, c_in, 3, 3)
-    for t, shape, name in ((x, (n, c_in, h, w), "x"), (weight, w_shape, "weight"),
-                           (bias, (c_out,), "bias"), (skip, (n, c_out, h, w), "skip")):
-        _check(t, shape, dev, name, who)
-
+    act = act_dtype(x, who)
+    bf = act == BF16
     lib = _build.conv3x3_library()
-    out = torch.empty((n, c_out, h, w), device=dev, dtype=torch.float32)
+    tc = lib.conv3x3_tensor_cores(c_in, c_out)
+    skip_dtype = act_dtype(skip, who) if bf and skip is not None else act
+    if bf and skip_dtype == torch.float32 and tc:
+        raise ValueError(f"{who}: the bf16 kernel takes an fp32 skip on its direct "
+                         f"path only (C_out = 1), got C_in {c_in} -> C_out {c_out}")
+    w_shape = (c_in, c_out, 3, 3) if transpose else (c_out, c_in, 3, 3)
+    for t, shape, name, dtype in (
+            (x, (n, c_in, h, w), "x", act), (weight, w_shape, "weight", torch.float32),
+            (bias, (c_out,), "bias", torch.float32),
+            (skip, (n, c_out, h, w), "skip", skip_dtype)):
+        _check(t, shape, dev, name, who, dtype)
+
+    out = torch.empty((n, c_out, h, w), device=dev,
+                      dtype=torch.promote_types(act, skip_dtype))
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        err = lib.conv3x3_forward(
-            x.data_ptr(), n, c_in, c_out, h, w, weight.data_ptr(), ptr(bias),
-            ptr(skip), out.data_ptr(), int(relu), int(residual), int(transpose),
-            _stream(dev))
+        if bf:
+            err = lib.conv3x3_forward_bf16(
+                x.data_ptr(), n, c_in, c_out, h, w, weight.data_ptr(), ptr(bias),
+                ptr(skip), int(skip_dtype == BF16), out.data_ptr(), int(out.dtype == BF16),
+                int(relu), int(residual), int(transpose), _stream(dev))
+        else:
+            err = lib.conv3x3_forward(
+                x.data_ptr(), n, c_in, c_out, h, w, weight.data_ptr(), ptr(bias),
+                ptr(skip), out.data_ptr(), int(relu), int(residual), int(transpose),
+                _stream(dev))
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err} "
                            f"({lib.conv3x3_error_string(err).decode()})")
-    conv3x3.launches += 1
-    conv3x3.launches_tc += lib.conv3x3_tensor_cores(c_in, c_out)
+    if bf:
+        conv3x3.launches_bf16 += 1
+        conv3x3.launches_bf16_tc += tc
+    else:
+        conv3x3.launches += 1
+        conv3x3.launches_tc += tc
     return out
 
 
 conv3x3.launches = 0
 conv3x3.launches_tc = 0
+conv3x3.launches_bf16 = 0
+conv3x3.launches_bf16_tc = 0
 
 
 # ------------------------------------------------------------ K4 - K6
@@ -192,8 +245,9 @@ def _raise_on(lib, err: int, who: str) -> None:
 
 def rdft_w_reference(x: Tensor) -> Tensor:
     """Plain K4: the orthonormal real DFT of each row of NCHW ``x``, as
-    ``(N, C, W/2+1, H)`` complex64, H contiguous."""
-    return torch.fft.rfft(x, dim=-1, norm="ortho").transpose(-1, -2).contiguous()
+    ``(N, C, W/2+1, H)`` complex64, H contiguous; a bf16 ``x`` is widened
+    to fp32 first (K4-bf16's spectrum is fp32)."""
+    return torch.fft.rfft(widen(x), dim=-1, norm="ortho").transpose(-1, -2).contiguous()
 
 
 def rdft_w(x: Tensor) -> Tensor:
@@ -204,7 +258,8 @@ def rdft_w(x: Tensor) -> Tensor:
     ``rdft_w.launches``) or raises: outside its domain, on a wrong layout,
     when a gradient is asked for, or on a CUDA error. The kernel reads its
     twiddles from ``cuda_pipeline.rdft_twiddles``, cached per device and
-    W."""
+    W. A bf16 ``x`` launches K4-bf16 (``staged_rdft_w_bf16``, counted in
+    ``rdft_w.launches_bf16``)."""
     if x.device.type == "cpu":
         return rdft_w_reference(x)
     who = "rdft_w"
@@ -215,20 +270,25 @@ def rdft_w(x: Tensor) -> Tensor:
     _check_staged(who, n, c, h, w)
     if _wants_grad(x):
         raise ValueError(f"{who}: the kernel is inference only (no backward)")
-    _check(x, (n, c, h, w), dev, "x", who)
+    bf = act_dtype(x, who) == BF16
+    _check(x, (n, c, h, w), dev, "x", who, x.dtype)
 
     lib = _build.spectral_staged_library()
     tw = _device_twiddles(w, dev)
     z = torch.empty((n, c, w // 2 + 1, h), device=dev, dtype=torch.complex64)
+    entry = lib.staged_rdft_w_bf16 if bf else lib.staged_rdft_w
     with torch.cuda.device(dev):
-        err = lib.staged_rdft_w(x.data_ptr(), n, c, h, w, tw.data_ptr(), z.data_ptr(),
-                                _stream(dev))
+        err = entry(x.data_ptr(), n, c, h, w, tw.data_ptr(), z.data_ptr(), _stream(dev))
     _raise_on(lib, err, who)
-    rdft_w.launches += 1
+    if bf:
+        rdft_w.launches_bf16 += 1
+    else:
+        rdft_w.launches += 1
     return z
 
 
 rdft_w.launches = 0
+rdft_w.launches_bf16 = 0
 
 
 def spectral_mix_h_reference(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
@@ -292,7 +352,8 @@ def irdft_w_add_reference(z: Tensor, res: Tensor) -> Tensor:
     W/2+1, H)`` and ``res`` ``(N, C, H, W)``: the orthonormal Hermitian
     inverse along W, the imaginary parts of the bins 0 and, for even W,
     W/2 dropped (as ``fft_conv.spectral_branch`` does: cuFFT's c2r does
-    not drop them at every size)."""
+    not drop them at every size). A bf16 ``res`` is added in fp32 and the
+    sum rounded once to bf16, as K6-bf16 does."""
     w = res.shape[-1]
     zt = z.transpose(-1, -2)
     edge = torch.zeros(zt.shape[-1], dtype=torch.bool, device=z.device)
@@ -300,7 +361,7 @@ def irdft_w_add_reference(z: Tensor, res: Tensor) -> Tensor:
     if w % 2 == 0:
         edge[w // 2] = True
     zt = torch.where(edge, zt.real.to(zt.dtype), zt)
-    return res + torch.fft.irfft(zt, n=w, dim=-1, norm="ortho")
+    return (widen(res) + torch.fft.irfft(zt, n=w, dim=-1, norm="ortho")).to(res.dtype)
 
 
 def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
@@ -312,7 +373,9 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     layout, when a gradient is asked for, or on a CUDA error. The kernel
     reads K4's twiddle table (``cuda_pipeline.rdft_twiddles``, cached per
     device and W) and runs K4's forward steps on the conjugate spectrum.
-    Its C entry also runs in place (``residual == out``), as K1 calls it."""
+    Its C entry also runs in place (``residual == out``), as K1 calls it.
+    A bf16 ``res`` launches K6-bf16 (``staged_irdft_w_add_bf16``, counted in
+    ``irdft_w_add.launches_bf16``; its output bf16)."""
     if res.device.type == "cpu":
         return irdft_w_add_reference(z, res)
     who = "irdft_w_add"
@@ -323,19 +386,25 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     _check_staged(who, n, c, h, w)
     if _wants_grad(z, res):
         raise ValueError(f"{who}: the kernel is inference only (no backward)")
+    bf = act_dtype(res, who) == BF16
     _check_spec(z, (n, c, w // 2 + 1, h), dev, who)
-    _check(res, (n, c, h, w), dev, "res", who)
+    _check(res, (n, c, h, w), dev, "res", who, res.dtype)
 
     lib = _build.spectral_staged_library()
     tw = _device_twiddles(w, dev)
     out = torch.empty_like(res)
+    entry = lib.staged_irdft_w_add_bf16 if bf else lib.staged_irdft_w_add
     with torch.cuda.device(dev):
-        err = lib.staged_irdft_w_add(z.data_ptr(), res.data_ptr(), n, c, h, w,
-                                     tw.data_ptr(), out.data_ptr(), _stream(dev))
+        err = entry(z.data_ptr(), res.data_ptr(), n, c, h, w, tw.data_ptr(), out.data_ptr(),
+                    _stream(dev))
     _raise_on(lib, err, who)
-    irdft_w_add.launches += 1
+    if bf:
+        irdft_w_add.launches_bf16 += 1
+    else:
+        irdft_w_add.launches += 1
     return out
 
 
 irdft_w_add.launches = 0
+irdft_w_add.launches_bf16 = 0
 

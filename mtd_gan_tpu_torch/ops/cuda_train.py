@@ -25,8 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import (ACT_DTYPES, BF16, ConvParams,
-                                                 KERNEL_CHANNELS, _check,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, ConvParams,
+                                                 KERNEL_CHANNELS, _check, act_dtype,
                                                  _device_twiddles, block_fused,
                                                  block_fused_reference, entry_conv)
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
@@ -122,10 +122,7 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
         raise ValueError(f"block_bwd: unsupported device {x.device}")
     n, c_in, hw = x.shape
     c = km.shape[0]
-    act = x.dtype
-    if act not in ACT_DTYPES:
-        raise ValueError(f"block_bwd: the kernel takes activations of {ACT_DTYPES}, "
-                         f"got {act}")
+    act = act_dtype(x, "block_bwd")
     bf = act == BF16
     if h != w or h not in KERNEL_SIZES or hw != h * w:
         raise ValueError(f"block_bwd: the kernel takes H == W in {KERNEL_SIZES}, "

@@ -21,8 +21,12 @@ The plain block (``impl="auto"``, ``conv_impl="torch"``) computes in its
 input's type, as the JAX block does (``mtd_gan_tpu/ops/fft_conv.py:91,
 :150-180``): for a bf16 input the conv and the residual sums run in bf16
 (the weights cast), the spectral branch in fp32 on the widened input, cast
-back; cuFFT's zeroing of the W bins 0 and W/2 stays. The kernel paths take
-fp32.
+back; cuFFT's zeroing of the W bins 0 and W/2 stays. The ``"tiled"`` and
+``"staged"`` paths and ``conv_impl="k3"`` run at their input's type too,
+fp32 or bf16, on the kernels' bf16 variants for a bf16 input (K3-bf16, K8-bf16,
+K4-bf16 -> K5 -> K6-bf16: ``ops/cuda_staged.py``, ``ops/cuda_fftconv.py``),
+whose spectra stay fp32 and whose residual sums round once to bf16;
+``"fused"`` takes fp32 on the card (K7 has no bf16 variant yet).
 
 ``conv_impl`` selects the 3x3 conv branch with its residual,
 ``x + relu(conv3x3(x) + b)``: ``"torch"`` is ``F.conv2d`` plus the

@@ -2,7 +2,8 @@
 K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu), K7
 (csrc/spectral_fused.cu), K3 (csrc/conv3x3.cu) and K4 - K6
 (csrc/spectral_staged.cu; K5's and K8's column pass is csrc/columns_mixed.cuh)
-against their plain PyTorch versions, the
+and the bf16 variants of K3, K4, K6 and K8 against their plain PyTorch
+versions, the
 routes of ``generate`` and of the train step, and the diffusion UNet's
 chunked attention and a DDIM chain against float64 and the CPU, on the
 card. Every test is marked
@@ -133,8 +134,11 @@ def test_kernel_rejects_unsupported_shapes(dev):
     with pytest.raises(ValueError, match="C in"):
         a24 = _inputs(dev, "plain", 24, 64)
         block_fused(**a24)
-    with pytest.raises(ValueError, match="contiguous float32"):
+    # the activation type is checked first (fp32 or bf16), then the layout
+    with pytest.raises(ValueError, match="activations of"):
         block_fused(**{**args, "x": args["x"].double()})
+    with pytest.raises(ValueError, match="contiguous float32"):
+        block_fused(**{**args, "x": args["x"].transpose(1, 2).contiguous().transpose(1, 2)})
 
 
 def test_generate_runs_the_kernel_21_times_and_matches_plain(dev):
@@ -587,6 +591,103 @@ def test_k6_matches_plain_version(dev, c, h, w, mode):
     assert rel < TOL_REL, rel
 
 
+# the bf16 variants against their bf16 plain versions: both sides round
+# the same fp32 sums once at the same points, so an element whose sum lies
+# near a midpoint rounds to the other bf16 value in one summation order:
+# one unit, 2^-8 - 2^-7 of the value; 1e-2 max-relative allows two at the
+# largest element (chip_smoke.py TOL_BF16_REL)
+TOL_BF16_REL = 1e-2
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (2, 8, 192, 70), (1, 8, 449, 130),
+                                     (2, 16, 200, 200)])
+def test_bf16_kernels_match_plain_versions(dev, n, c, h, w):
+    """K3-bf16 (relu + residual, skip + relu, the deconv with a bf16 skip on
+    the tensor cores; the C -> 1 exit deconv with the fp32 image on the
+    direct path, fp32 out), K4-bf16, K6-bf16 (with the residual, and in
+    place through the C entry) and, where H % 64 == 0 and W is even,
+    K8-bf16 with the residual, each against its bf16 plain version on
+    1/sqrt(fan_in) weights: one launch per wrapper call, counted in
+    ``launches_bf16`` (K3's tensor-core ones in ``launches_bf16_tc``), no
+    fp32 launch. W = 70 and 130 are no multiple of 4 (the scalar paths),
+    449 is prime."""
+    from mtd_gan_tpu_torch.ops import _build
+
+    bf16 = lambda d: {k: v.to(BF16) if k in ("x", "residual", "skip") else v
+                      for k, v in d.items()}
+    conv, a = bf16(_k3_inputs(dev, n, c, h, w)), bf16(_tiled_inputs(dev, n, c, h, w))
+    rel = lambda g, r: ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+    fp32_before = _counts()
+    k3 = [((conv["x"], conv["weight"], conv["bias"]), kw, 1) for kw in (
+        dict(residual=True), dict(skip=conv["skip"]), dict(skip=conv["skip"], transpose=True))]
+    k3.append(((conv["x"], conv["w1"], conv["b1"]), dict(skip=conv["img"], transpose=True), 0))
+    for args, kw, tc in k3:
+        before = (cs.conv3x3.launches_bf16, cs.conv3x3.launches_bf16_tc)
+        got = cs.conv3x3(*args, **kw)
+        torch.cuda.synchronize()
+        assert (cs.conv3x3.launches_bf16 - before[0],
+                cs.conv3x3.launches_bf16_tc - before[1]) == (1, tc)
+        assert got.dtype == (BF16 if tc else torch.float32)
+        assert rel(got, cs.conv3x3_reference(*args, **kw)) < TOL_BF16_REL, sorted(kw)
+    before = (cs.rdft_w.launches_bf16, cs.irdft_w_add.launches_bf16)
+    z = cs.rdft_w(a["x"])
+    zr = cs.rdft_w_reference(a["x"])
+    tr = cs.spectral_mix_h_reference(zr, a["mix"], a["bias"])
+    out = cs.irdft_w_add(tr, a["residual"])
+    inout = a["residual"].clone()
+    lib = _build.spectral_staged_library()
+    assert lib.staged_irdft_w_add_bf16(tr.data_ptr(), inout.data_ptr(), n, c, h, w,
+                                       cs._device_twiddles(w, dev).data_ptr(),
+                                       inout.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert (cs.rdft_w.launches_bf16 - before[0], cs.irdft_w_add.launches_bf16 - before[1]) == (1, 1)
+    assert z.dtype == torch.complex64 and out.dtype == inout.dtype == BF16
+    want = cs.irdft_w_add_reference(tr, a["residual"])
+    assert rel(torch.view_as_real(z), torch.view_as_real(zr)) < TOL_REL
+    assert rel(out, want) < TOL_BF16_REL and rel(inout, want) < TOL_BF16_REL
+    if h % 64 == 0 and w % 2 == 0:
+        before = spectral_branch_tiled.launches_bf16
+        got = spectral_branch_tiled(a["x"], a["mix"], a["bias"], a["residual"])
+        torch.cuda.synchronize()
+        assert spectral_branch_tiled.launches_bf16 == before + 1 and got.dtype == BF16
+        want = spectral_branch_tiled_reference(a["x"], a["mix"], a["bias"], a["residual"])
+        assert rel(got, want) < TOL_BF16_REL
+    assert _counts() == fp32_before
+
+
+@pytest.mark.parametrize("offset", [1, 4], ids=["2 bytes", "8 bytes"])
+def test_bf16_rows_read_and_write_unaligned_tensors(dev, offset):
+    """K4-bf16's x and K6-bf16's residual and output starting ``offset``
+    bf16 values into an allocation (W = 64, a multiple of 4): at 2 bytes
+    the row passes take their scalar loads and stores, at 8 bytes their
+    vector ones (four bf16 values are 8 bytes), each against its plain
+    version."""
+    n, c, h, w = 2, 8, 64, 64
+    size = n * c * h * w
+    a = _tiled_inputs(dev, 1, c, 2 * h, w + 1)
+    view = lambda t: t.to(BF16).reshape(-1)[offset:offset + size].view(n, c, h, w)
+    x, res = view(a["x"]), view(a["residual"])
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0 and res.data_ptr() % 16 != 0
+    z = cs.rdft_w(x)
+    want = torch.view_as_real(cs.rdft_w_reference(x))
+    assert ((torch.view_as_real(z) - want).abs().max() / want.abs().max()).item() < TOL_REL
+    zr = cs.rdft_w_reference(x)
+    inout = torch.empty(size + offset, device=dev, dtype=BF16)[offset:].view(n, c, h, w)
+    inout.copy_(res)
+    from mtd_gan_tpu_torch.ops import _build
+
+    lib = _build.spectral_staged_library()
+    assert lib.staged_irdft_w_add_bf16(zr.data_ptr(), inout.data_ptr(), n, c, h, w,
+                                       cs._device_twiddles(w, dev).data_ptr(),
+                                       inout.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream) == 0
+    want = cs.irdft_w_add_reference(zr, res).float()
+    for got in (cs.irdft_w_add(zr, res), inout):
+        assert ((got.float() - want).abs().max() / want.abs().max()).item() < TOL_BF16_REL
+
+
 def test_k4_reads_an_unaligned_input(dev):
     """x whose data does not start on 16 bytes: K4 takes its scalar loads
     (same result)."""
@@ -748,10 +849,15 @@ def test_one_rank_nccl_data_parallel_step_matches_the_single_step(dev):
     """A one-rank NCCL grid (no torchrun environment): the DataParallel
     PCGrad step on K1 + K2 equals the Single step bit for bit (a one-rank
     all-reduce copies, the mean divides by 1), and launches 21 K1 + 21 K2
-    at 10 layers; the grid's process group is gone after ``destroy``."""
+    at 10 layers; the grid's process group is gone after ``destroy``. Both
+    steps run under cuDNN's and PyTorch's deterministic algorithms, as
+    chip_smoke.py's phase 30 runs them: without PyTorch's the
+    discriminator's backward varies ~1e-7 from call to call, which AdamW's
+    first step turns into a parameter difference at a near-zero gradient."""
     from mtd_gan_tpu_torch.parallel import mesh
 
     torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.random((8, 64, 64, 1)), dtype=torch.float32, device=dev)
     y = (x + 0.05 * torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
@@ -771,6 +877,7 @@ def test_one_rank_nccl_data_parallel_step_matches_the_single_step(dev):
     finally:
         mesh.destroy(grid)
         torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
     assert not torch.distributed.is_initialized()
     (m_single, single), (m_dp, dp) = results
     for k in m_single:
