@@ -249,6 +249,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
      plain versions, library calls and bf16 bounds; the bf16 tiled and
      staged blocks split by launch. The kernels line lists the four with the
      launches of phase 32's generate calls and train CLI.
+  33. K7-bf16 and bf16 spectra (run right after phase 32, on its own random
+     data; ``python3 chip_smoke.py --phase 33`` runs it alone after
+     building its kernels and K1 and K8): the templating guard, K1, K4 -
+     K8, K1-bf16, K4-bf16, K6-bf16 and K8-bf16 on the seeded inputs of
+     ``tools/torch_fp32_digests.py``, every output's SHA-256 digest equal
+     to the parent's (``PARENT_DIGESTS``); K7-bf16 at 96x96, batch 64,
+     100x72, 127x127 (the scratch) and, at C = 8, 33x27, with and without
+     the residual, and K4-bf16s, K5-bf16s, K6-bf16s (``bound_dtype`` bf16:
+     the spectrum in bf16 pairs; K6 also in place) at 1024x1024, batch 2,
+     and 200x200, batch 8, on fp32 and bf16 activations, each against its
+     plain version (1e-2 max-relative where the output rounds to bf16, K6's
+     fp32 sum 1e-4), K7-bf16 and K5-bf16s also against a second call, bit
+     for bit; a bf16 flagship's ``generate`` at 96x96, batch 64, and
+     100x72, batch 4 (the fused route: 21 K7-bf16 and 42 K3-bf16 launches,
+     no fp32 launch and no call of the plain module), 5e-2 from fp32
+     ``generate`` and within twice the plain bf16 module's error, timed in
+     turns with fp32 ``generate``, the plain bf16 module and the bf16
+     staged view; the fp32 and the bf16 flagship as staged generators on
+     bf16 spectra at 1024x1024, batch 2, and 200x200, batch 8 (21 each of
+     K4-bf16s, K5-bf16s, K6-bf16s a call), 5e-2 from fp32 ``generate``,
+     timed in turns with the same generator on fp32 spectra; K7-bf16 with
+     and without the residual in turns with fp32 K7, the three bf16-spectrum
+     kernels in turns with their fp32-spectrum counterparts, beside their
+     plain versions, library calls and bounds, and the chains in turns. The
+     kernels line lists the four with the launches of phase 33's generate
+     calls.
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -407,8 +433,12 @@ K3_TC = "K3tc"
 # fp32 ones (``launches_bf16``); K3-bf16's on its tensor-core path beside
 # them (``conv3x3.launches_bf16_tc``)
 BF16_COUNTED = {"K1-bf16": block_fused, "K2-bf16": block_bwd, "K3-bf16": conv3x3,
-                "K4-bf16": rdft_w, "K6-bf16": irdft_w_add, "K8-bf16": spectral_branch_tiled}
+                "K4-bf16": rdft_w, "K6-bf16": irdft_w_add, "K7-bf16": spectral_branch_fused,
+                "K8-bf16": spectral_branch_tiled}
 K3_TC_BF16 = "K3tc-bf16"
+# the bf16-spectrum launches of K4, K5 and K6 (``bound_dtype`` bf16, for
+# fp32 or bf16 activations), counted apart (``launches_bf16s``)
+BF16S_COUNTED = {"K4-bf16s": rdft_w, "K5-bf16s": spectral_mix_h, "K6-bf16s": irdft_w_add}
 # one generate call on the tiled, fused or staged route: 42 K3 (10 encoder,
 # 21 residual, 10 decoder convs and the exit deconv; all but the C -> 1
 # exit deconv on the tensor cores) besides its spectral kernel; the staged
@@ -1144,6 +1174,8 @@ def zero_counts():
         fn.launches = 0
     for fn in BF16_COUNTED.values():
         fn.launches_bf16 = 0
+    for fn in BF16S_COUNTED.values():
+        fn.launches_bf16s = 0
     conv3x3.launches_tc = 0
     conv3x3.launches_bf16_tc = 0
 
@@ -1151,14 +1183,15 @@ def zero_counts():
 def read_counts():
     return {**{name: fn.launches for name, fn in COUNTED.items()},
             **{name: fn.launches_bf16 for name, fn in BF16_COUNTED.items()},
+            **{name: fn.launches_bf16s for name, fn in BF16S_COUNTED.items()},
             K3_TC: conv3x3.launches_tc, K3_TC_BF16: conv3x3.launches_bf16_tc}
 
 
 def expect_counts(label: str, got, want):
     """Fail unless the launch counts ``got`` equal ``want`` (every kernel
     not named in ``want`` must not have launched)."""
-    want = {name: want.get(name, 0)
-            for name in list(COUNTED) + list(BF16_COUNTED) + [K3_TC, K3_TC_BF16]}
+    want = {name: want.get(name, 0) for name in list(COUNTED) + list(BF16_COUNTED)
+            + list(BF16S_COUNTED) + [K3_TC, K3_TC_BF16]}
     if got != want:
         fail(f"{label}: launches {got}, expected {want}")
 
@@ -1329,16 +1362,16 @@ def k8_work(n: int, h: int, w: int, act: int = 4):
     return flops, act * 3 * n * C * hw + 4 * (4 * C * C + 2 * C)
 
 
-def k7_work(n: int, h: int, w: int, residual: bool):
+def k7_work(n: int, h: int, w: int, residual: bool, act: int = 4):
     """(FLOPs, bytes) one K7 call needs: ``k8_work``, without the residual
-    (its add and its bytes) where the call passes none."""
+    (its add and its bytes) where the call passes none; activations at
+    ``act`` bytes a value (4; 2 for K7-bf16)."""
     if residual:
-        return k8_work(n, h, w)
+        return k8_work(n, h, w, act)
     hw = h * w
     k = w // 2 + 1
     flops = n * (2 * 2.5 * C * hw * math.log2(hw) + (2 * (2 * C) ** 2 + 2 * 2 * C) * h * k)
-    words = 2 * n * C * hw + 4 * C * C + 2 * C
-    return flops, 4 * words
+    return flops, act * 2 * n * C * hw + 4 * (4 * C * C + 2 * C)
 
 
 def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C,
@@ -1355,32 +1388,34 @@ def k3_work(n: int, h: int, w: int, variant: str, c_in: int = C, c_out: int = C,
     return flops, act * acts + 4 * (9 * c_in * c_out + c_out)
 
 
-def k4_work(n: int, h: int, w: int, c: int = C, act: int = 4):
+def k4_work(n: int, h: int, w: int, c: int = C, act: int = 4, spec: int = 8):
     """(FLOPs, bytes) one K4 call needs: a real W-point FFT per row,
     2.5*W*log2(W); x read once (``act`` bytes a value: 4, 2 for K4-bf16),
-    the half spectrum written once (complex64)."""
+    the half spectrum written once (``spec`` bytes a bin: 8 complex64, 4
+    bf16 pairs)."""
     k = w // 2 + 1
-    return n * c * h * 2.5 * w * math.log2(w), act * n * c * h * w + 8 * n * c * k * h
+    return n * c * h * 2.5 * w * math.log2(w), act * n * c * h * w + spec * n * c * k * h
 
 
-def k5_work(n: int, h: int, w: int, c: int = C):
+def k5_work(n: int, h: int, w: int, c: int = C, spec: int = 8):
     """(FLOPs, bytes) one K5 call needs: per (n, k) bin a complex H-point
     FFT and its inverse per channel, 5*H*log2(H) each, and at every h the
     2C x 2C mix, 2*(2C)^2, plus bias and ReLU; the spectrum read and
-    written once (complex64), the mix and its bias read once."""
+    written once (``spec`` bytes a bin: 8 complex64, 4 bf16 pairs), the
+    mix and its bias read once."""
     k = w // 2 + 1
     flops = n * k * (2 * c * 5 * h * math.log2(h) + (2 * (2 * c) ** 2 + 2 * 2 * c) * h)
-    return flops, 2 * 8 * n * c * k * h + 4 * (4 * c * c + 2 * c)
+    return flops, 2 * spec * n * c * k * h + 4 * (4 * c * c + 2 * c)
 
 
-def k6_work(n: int, h: int, w: int, c: int = C, act: int = 4):
+def k6_work(n: int, h: int, w: int, c: int = C, act: int = 4, spec: int = 8):
     """(FLOPs, bytes) one K6 call needs: a Hermitian W-point c2r per row,
-    2.5*W*log2(W), and the residual add; the spectrum (complex64) and the
-    residual read once, out written once (``act`` bytes a value: 4, 2 for
-    K6-bf16)."""
+    2.5*W*log2(W), and the residual add; the spectrum (``spec`` bytes a
+    bin: 8 complex64, 4 bf16 pairs) and the residual read once, out
+    written once (``act`` bytes a value: 4, 2 for K6-bf16)."""
     k = w // 2 + 1
     flops = n * c * h * (2.5 * w * math.log2(w) + w)
-    return flops, 8 * n * c * k * h + 2 * act * n * c * h * w
+    return flops, spec * n * c * k * h + 2 * act * n * c * h * w
 
 
 def bound(work, peak_flops: float = PEAK_FP32_FLOPS):
@@ -3346,19 +3381,21 @@ def check_bf16_routes_cli(rng, tmp: str):
     return counts
 
 
-def bf16_turns(label: str, fp32_fn, bf16_fn, plain_fn, library_fn, work, peak):
+def bf16_turns(label: str, fp32_fn, bf16_fn, plain_fn, library_fn, work, peak,
+               names=("fp32", "bf16")):
     """One bf16 kernel in turns with its fp32 kernel (fp32, bf16, bf16,
     fp32), beside its bf16 plain version, one library call of the same
     function and its bound; returns (ms, plain_ms, bound_ms, bound_by,
-    library_ms)."""
+    library_ms). ``names``: the two kernels' names in the line."""
     turns = [cuda_ms(f, 10) for f in (fp32_fn, bf16_fn, bf16_fn, fp32_fn)]
     plain_ms = cuda_ms(plain_fn, 10)
     library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
     b_ms, by = bound(work, peak)
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"time {label}: fp32 {turns[0]:.3f}, bf16 {turns[1]:.3f}, bf16 {turns[2]:.3f}, fp32 "
-          f"{turns[3]:.3f} ms (in turns); bf16 plain {plain_ms:.3f} ms; library {lib_txt}; "
-          f"bf16 bound {b_ms:.3f} ms ({by})", flush=True)
+    a, b = names
+    print(f"time {label}: {a} {turns[0]:.3f}, {b} {turns[1]:.3f}, {b} {turns[2]:.3f}, {a} "
+          f"{turns[3]:.3f} ms (in turns); {b} plain {plain_ms:.3f} ms; library {lib_txt}; "
+          f"{b} bound {b_ms:.3f} ms ({by})", flush=True)
     return (turns[1] + turns[2]) / 2, plain_ms, b_ms, by, library_ms
 
 
@@ -3454,6 +3491,386 @@ def phase32_alone(card: str) -> None:
     print(card, flush=True)
 
 
+# ---- phase 33: K7-bf16 on the bf16 fused route and the staged chain on
+# bf16 spectra (K4-bf16s -> K5-bf16s -> K6-bf16s). The kernels against their
+# plain versions, the templated fp32 and bf16 instances against the parent's
+# outputs, bf16 generate on the fused route, staged generators on bf16
+# spectra, the times
+
+# K7-bf16 at the fused route's shapes (96^2 at the route's batch, 100x72),
+# with the spectrum in the device-memory scratch (127^2 at C = 32), and at
+# C = 8 with odd sides
+K7_BF16_SHAPES = ((64, 32, 96, 96), (4, 32, 100, 72), (2, 32, 127, 127), (2, 8, 33, 27))
+# the bf16-spectrum chain at the staged route's main-path shapes
+BF16S_SHAPES = ((2, 1024), (8, 200))
+BF16S_KERNELS = ("K4-bf16s", "K5-bf16s", "K6-bf16s")
+# one bf16 generate call on the fused route: K3-bf16 as on the other bf16
+# routes, K7-bf16 in place of K7
+FUSED_BF16_PER_CALL = {**K3_BF16_PER_CALL, "K7-bf16": 21}
+FUSED_BF16_SHAPES = ((64, 96, 96), (4, 100, 72))
+# one call of a staged generator on bf16 spectra: its convs on K3 (an fp32
+# generator) or K3-bf16, and 21 each of K4-bf16s, K5-bf16s and K6-bf16s
+BF16S_SPECTRAL = {name: 21 for name in BF16S_KERNELS}
+# the digests tools/torch_fp32_digests.py printed for ef5aa49, the parent of
+# the change that templated rdft_rows.cuh and columns_mixed.cuh on the
+# spectrum type and spectral_fused.cu on the activation type (an NVIDIA
+# H100 80GB HBM3, 700.00 W; the templated tree read the same): the existing
+# instances must compute the same bits
+PARENT_DIGESTS = {
+    "K4 2x32x1024x1024": "36c80361e637718e",
+    "K5 2x32x1024x1024": "c84cff6ffc3c752f",
+    "K6 2x32x1024x1024": "ea2d6db8dbf4ee56",
+    "K4-bf16 2x32x1024x1024": "9fb989b63733a65b",
+    "K6-bf16 2x32x1024x1024": "527155e7502e8abd",
+    "K4 2x32x200x200": "aec1f38f419c9123",
+    "K5 2x32x200x200": "7378bfa2d7a577ad",
+    "K6 2x32x200x200": "0cce476c13180b40",
+    "K4-bf16 2x32x200x200": "35ac2308059a3e84",
+    "K6-bf16 2x32x200x200": "ea36654c06cfbf3b",
+    "K4 2x32x1000x64": "2e2c66227a3fba26",
+    "K5 2x32x1000x64": "3769698f00b49d9c",
+    "K6 2x32x1000x64": "fc868e5714f698cf",
+    "K4-bf16 2x32x1000x64": "711e0ed4bb0dad1b",
+    "K6-bf16 2x32x1000x64": "f502cb8f0f40dea5",
+    "K4 2x8x449x130": "4799226a262c39b5",
+    "K5 2x8x449x130": "2c86c014442bb36a",
+    "K6 2x8x449x130": "812d46f9d05a8666",
+    "K4-bf16 2x8x449x130": "1df82b1c8842b73e",
+    "K6-bf16 2x8x449x130": "1c5b6edfbb975df1",
+    "K4 2x16x33x27": "fd9d29fc29ac573a",
+    "K5 2x16x33x27": "f1f7891354e2acfd",
+    "K6 2x16x33x27": "4fc410b373eb3346",
+    "K4-bf16 2x16x33x27": "729674e95a233635",
+    "K6-bf16 2x16x33x27": "4e7a819ba80c3768",
+    "K8 2x32x448x448": "1f62600cbbecf4da",
+    "K8 2x32x448x448 no residual": "fb01841b2b3dad95",
+    "K8-bf16 2x32x448x448": "0e89c9ad10768287",
+    "K8 2x32x768x768": "6d2f0e7637a93c59",
+    "K8 2x32x768x768 no residual": "e4c19d40750a6357",
+    "K8-bf16 2x32x768x768": "23107bf8a3c58b78",
+    "K8 2x8x512x320": "712156f95c1ede0b",
+    "K8 2x8x512x320 no residual": "218b530870395277",
+    "K8-bf16 2x8x512x320": "b26744825141e8fc",
+    "K7 4x32x96x96": "8cda46bb4a32a759",
+    "K7 4x32x96x96 no residual": "2dc74b2c536351e6",
+    "K7 2x32x100x72": "a434a4661b1dbdf4",
+    "K7 2x32x100x72 no residual": "45d181478c7fd8a7",
+    "K7 2x32x127x127": "7b5be24e28a4c607",
+    "K7 2x32x127x127 no residual": "b7d7602affab71ad",
+    "K7 2x8x33x27": "23287f9538c3cfa2",
+    "K7 2x8x33x27 no residual": "02e483218ee8a675",
+    "K1 2x32x512x512 pre+skip+post output 0": "673a0df3596e392c",
+    "K1 2x32x512x512 pre+skip+post output 1": "f70ca2665913eaff",
+    "K1-bf16 2x32x512x512 pre+skip+post output 0": "a5409be7b4580e5d",
+    "K1-bf16 2x32x512x512 pre+skip+post output 1": "ed1135fe26f3af7a",
+    "K1 4x8x64x64 plain output 0": "56acdc19f881b930",
+    "K1-bf16 4x8x64x64 plain output 0": "6640c0829ad7fb14",
+}
+
+
+def check_parent_digests():
+    """Phase 33, the templating guard: K1, K4 - K8 and K1-bf16, K4-bf16,
+    K6-bf16, K8-bf16 on the seeded inputs of tools/torch_fp32_digests.py,
+    every output's digest equal to the parent's (PARENT_DIGESTS)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_fp32_digests.py")
+    spec = importlib.util.spec_from_file_location("torch_fp32_digests", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    got = tool.digests()
+    differ = sorted(k for k in set(got) | set(PARENT_DIGESTS)
+                    if got.get(k) != PARENT_DIGESTS.get(k))
+    print(f"templating guard: {len(got)} outputs of the existing instances, digests against "
+          f"the parent's: differ {differ or 'none'}", flush=True)
+    if differ:
+        fail(f"the existing kernel instances no longer compute the parent's bits: {differ}")
+
+
+def check_fused_bf16_kernels(lib):
+    """Phase 33, the kernels, each against its plain version on
+    1/sqrt(fan_in) weights: K7-bf16 at K7_BF16_SHAPES with and without the
+    residual (and against a second call of itself, bit for bit); K4-bf16s,
+    K5-bf16s (and a second call, bit for bit) and K6-bf16s (also in place,
+    the output the residual) at 1024x1024, batch 2, and 200x200, batch 8,
+    for fp32 and bf16 activations, each fed the plain input. Where the
+    output rounds to bf16, TOL_BF16_REL; K6-bf16s' fp32 sum
+    TOL_SPECTRAL_REL. One bf16 launch per wrapper call. Returns {name: max
+    abs error}."""
+    worst = dict.fromkeys(("K7-bf16",) + BF16S_KERNELS, 0.0)
+
+    def hold(name, label, got, want, dtype, tol=TOL_BF16_REL):
+        if got.dtype != dtype or not torch.isfinite(got.float()).all():
+            fail(f"{name} {label}: output {got.dtype}, not {dtype}, or not finite")
+        err = (got.float() - want.float()).abs().max().item()
+        rel = rel_err(got, want)
+        worst[name] = max(worst[name], err)
+        print(f"{name} check {label}: max_abs {err:.3e} rel {rel:.3e}", flush=True)
+        if rel > tol:
+            fail(f"{name} {label}: relative error {rel:.3e} > {tol}")
+
+    for si, (n, c, h, w) in enumerate(K7_BF16_SHAPES):
+        a = bf16_args(tiled_inputs(n, h, w, "fan_in", seed=si, c=c))
+        for with_res in (False, True):
+            call = dict(a) if with_res else {**a, "residual": None}
+            before = spectral_branch_fused.launches_bf16
+            got = spectral_branch_fused(**call)
+            again = spectral_branch_fused(**call)
+            torch.cuda.synchronize()
+            label = f"{h}x{w} C={c} n={n} residual={with_res}"
+            if spectral_branch_fused.launches_bf16 - before != 2:
+                fail(f"K7-bf16 {label}: {spectral_branch_fused.launches_bf16 - before} "
+                     f"bf16 launches for 2 calls")
+            if not torch.equal(got, again):
+                fail(f"K7-bf16 {label}: two calls differ")
+            hold("K7-bf16", label, got, spectral_branch_fused_reference(**call), BF16)
+    for si, (n, size) in enumerate(BF16S_SHAPES):
+        for act in ("fp32", "bf16"):
+            a = tiled_inputs(n, size, size, "fan_in", seed=si)
+            if act == "bf16":
+                a = bf16_args(a)
+            label = f"{size}x{size} C={C} n={n} {act} x"
+            zr = rdft_w_reference(a["x"], BF16)
+            tr = spectral_mix_h_reference(zr, a["mix"], a["bias"])
+            want = irdft_w_add_reference(tr, a["residual"])
+            before = [fn.launches_bf16s for fn in BF16S_COUNTED.values()]
+            z = rdft_w(a["x"], BF16)
+            t1, t2 = zr.clone(), zr.clone()
+            spectral_mix_h(t1, a["mix"], a["bias"])
+            spectral_mix_h(t2, a["mix"], a["bias"])
+            out = irdft_w_add(tr, a["residual"])
+            inout = a["residual"].clone()
+            err = lib.staged_irdft_w_add_bf16s(
+                tr.data_ptr(), inout.data_ptr(), int(act == "bf16"), n, C, size, size,
+                _device_twiddles(size, inout.device).data_ptr(), inout.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err != 0:
+                fail(f"K6-bf16s {label} in place: CUDA error {err}")
+            got = [fn.launches_bf16s - b for fn, b in zip(BF16S_COUNTED.values(), before)]
+            if got != [1, 2, 1]:
+                fail(f"bf16 spectra {label}: launches {got}, expected [1, 2, 1]")
+            if not torch.equal(t1, t2):
+                fail(f"K5-bf16s {label}: two calls differ")
+            hold("K4-bf16s", label, z, zr, BF16)
+            hold("K5-bf16s", label, t1, tr, BF16)
+            tol = TOL_BF16_REL if act == "bf16" else TOL_SPECTRAL_REL
+            hold("K6-bf16s", label, out, want, a["residual"].dtype, tol)
+            hold("K6-bf16s", label + " in place", inout, want, a["residual"].dtype, tol)
+            del a, zr, tr, want, z, t1, t2, out, inout
+    return worst
+
+
+def bf16s_view(model) -> torch.nn.Module:
+    """``model``'s generator as a staged generator on bf16 spectra
+    (``ResFFTGenerator(spectral_impl="staged", bound_dtype=bfloat16)``, the
+    generator's dtype), sharing its parameters: built on "meta", as the
+    model's own views are."""
+    gen = model.generator
+    with torch.device("meta"):
+        view = ResFFTGenerator(1, gen.features, gen.num_layers, spectral_impl="staged",
+                               dtype=gen.dtype, bound_dtype=BF16)
+    return share_parameters(view, gen).eval()
+
+
+def check_fused_bf16_generate(rng):
+    """Phase 33, the main paths. A bf16 flagship's ``generate`` at 96x96,
+    batch 64, and 100x72, batch 4: the fused route (21 K7-bf16, 42 K3-bf16)
+    with the counts zeroed just before the call and read just after, no call
+    of the plain module; within TOL_BF16_GENERATE_ABS of fp32 ``generate``
+    and within twice the plain bf16 module's error against fp32 (and it
+    within twice the route's); timed in turns with fp32 ``generate``, the
+    plain bf16 module and the bf16 staged view (fp32 spectra, the route
+    PR 19 gave these sizes). Then the fp32 and the bf16 flagship as staged
+    generators on bf16 spectra (``bf16s_view``) at 1024x1024, batch 2, and
+    200x200, batch 8: 21 each of K4-bf16s, K5-bf16s and K6-bf16s and their
+    convs on K3 or K3-bf16, within TOL_BF16_GENERATE_ABS of fp32
+    ``generate``, timed in turns with the same generator on fp32 spectra.
+    Returns the launches, summed."""
+    m32 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
+    m16 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0, dtype=BF16)
+    plain_calls = []
+    hook = m16.generator.register_forward_pre_hook(lambda *_: plain_calls.append(1))
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for n, h, w in FUSED_BF16_SHAPES:
+        size = max(h, w)
+        x = torch.tensor(phantom(rng, n, size)[:, :h, :w, None], dtype=torch.float32,
+                         device="cuda").contiguous()
+        label = f"bf16 generate {h}x{w} batch {n}"
+        zero_counts()
+        plain_calls.clear()
+        pred = m16.generate(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(label, counts, FUSED_BF16_PER_CALL)
+        if plain_calls:
+            fail(f"{label}: the fused route called the plain module")
+        add(counts)
+        with torch.no_grad():
+            x_nchw = x.reshape(n, 1, h, w)
+            run_plain = lambda: plain_forward(m16.generator, x)
+            run_staged = lambda: m16.views["staged"](x_nchw)
+            fp32, plain = m32.generate(x), run_plain()
+            staged = run_staged().reshape(x.shape)
+            if pred.dtype != torch.float32 or pred.shape != x.shape or not torch.isfinite(pred).all():
+                fail(f"{label}: {pred.dtype} {tuple(pred.shape)} or not finite")
+            e_route = (pred - fp32).abs().max().item()
+            e_plain = (plain - fp32).abs().max().item()
+            e_staged = (staged - fp32).abs().max().item()
+            route = lambda: m16.generate(x)
+            fp32_call = lambda: m32.generate(x)
+            turns = [cuda_ms(f, 3) for f in (route, run_staged, run_plain, fp32_call, fp32_call,
+                                              run_plain, run_staged, route)]
+        plain_calls.clear()
+        print(f"{label} (fused route, K7-bf16 + K3-bf16): max_abs vs fp32 generate "
+              f"{e_route:.3e} (tol {TOL_BF16_GENERATE_ABS}), plain bf16 module {e_plain:.3e}, "
+              f"bf16 staged view {e_staged:.3e}; ms in turns (route, staged, plain bf16, fp32, "
+              f"fp32, plain bf16, staged, route) " + ", ".join(f"{t:.2f}" for t in turns)
+              + f"; route {2 * n * 1e3 / (turns[0] + turns[7]):.2f} slices/s; launches "
+              f"{counts}", flush=True)
+        if e_route > TOL_BF16_GENERATE_ABS:
+            fail(f"{label}: {e_route:.3e} from fp32 > {TOL_BF16_GENERATE_ABS}")
+        if e_route > 2 * e_plain + 1e-6 or e_plain > 2 * e_route + 1e-6:
+            fail(f"{label}: the route's error {e_route:.3e} and the plain bf16 module's "
+                 f"{e_plain:.3e} are not within twice each other")
+        del x, x_nchw, pred, fp32, plain, staged
+    hook.remove()
+    for model, kind in ((m32, "fp32"), (m16, "bf16")):
+        view = bf16s_view(model)
+        convs = K3_PER_CALL if kind == "fp32" else K3_BF16_PER_CALL
+        for n, size in BF16S_SHAPES:
+            x = torch.tensor(phantom(rng, n, size)[..., None], dtype=torch.float32,
+                             device="cuda")
+            x_nchw = x.reshape(n, 1, size, size)
+            label = f"{kind} staged generator on bf16 spectra {size}x{size} batch {n}"
+            with torch.no_grad():
+                zero_counts()
+                pred = view(x_nchw)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                expect_counts(label, counts, {**convs, **BF16S_SPECTRAL})
+                add(counts)
+                pred = pred.reshape(x.shape)
+                fp32 = m32.generate(x)
+                run_f = lambda: model.views["staged"](x_nchw)
+                run_s = lambda: view(x_nchw)
+                e_s = (pred - fp32).abs().max().item()
+                e_f = (run_f().reshape(x.shape) - fp32).abs().max().item()
+                turns = [cuda_ms(f, 3) for f in (run_f, run_s, run_s, run_f)]
+            if pred.dtype != torch.float32 or not torch.isfinite(pred).all():
+                fail(f"{label}: {pred.dtype} or not finite")
+            print(f"{label}: max_abs vs fp32 generate {e_s:.3e} (tol {TOL_BF16_GENERATE_ABS}), "
+                  f"the same generator on fp32 spectra {e_f:.3e}; ms in turns (fp32 spectra, "
+                  f"bf16 spectra, bf16 spectra, fp32 spectra) "
+                  + ", ".join(f"{t:.2f}" for t in turns) + f"; launches {counts}", flush=True)
+            if e_s > TOL_BF16_GENERATE_ABS:
+                fail(f"{label}: {e_s:.3e} from fp32 > {TOL_BF16_GENERATE_ABS}")
+            del x, x_nchw, pred, fp32
+    return total
+
+
+def time_fused_bf16_kernels():
+    """Phase 33, the times (CUDA events, in turns): K7-bf16 at 96x96, batch
+    64, C = 32, with the residual (as the fused route calls it) and
+    without, each in turns with fp32 K7 beside its bf16 plain version and
+    its bound; K4-bf16s, K5-bf16s and K6-bf16s at 1024x1024, batch 2, on
+    bf16 activations, each in turns with the kernel the bf16 staged route
+    runs on fp32 spectra (K4-bf16, K5, K6-bf16), beside its plain version,
+    a library call (K4: torch.fft.rfft of the widened x, rounded to bf16
+    pairs; K6: the widened spectrum's torch.fft.irfft plus the widened
+    residual, rounded to bf16; K5: none) and its bound (spectra at 4 bytes
+    a bin); then the whole chains in turns, fp32 spectra against bf16
+    spectra, for fp32 and bf16 x at 1024x1024, batch 2, and 200x200, batch
+    8. Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)} and
+    K7-bf16's times without the residual."""
+    out = {}
+    with torch.no_grad():
+        a = tiled_inputs(64, 96, 96, "fan_in", seed=4)
+        a16 = bf16_args(a)
+        out["K7-bf16"] = bf16_turns(
+            "K7-bf16 96x96 batch 64 C=32 with residual", lambda: spectral_branch_fused(**a),
+            lambda: spectral_branch_fused(**a16),
+            lambda: spectral_branch_fused_reference(**a16), None,
+            k7_work(64, 96, 96, residual=True, act=2), PEAK_FP32_FLOPS)
+        b, b16 = {**a, "residual": None}, {**a16, "residual": None}
+        no_res = bf16_turns(
+            "K7-bf16 96x96 batch 64 C=32 without residual", lambda: spectral_branch_fused(**b),
+            lambda: spectral_branch_fused(**b16), lambda: spectral_branch_fused_reference(**b16),
+            None, k7_work(64, 96, 96, residual=False, act=2), PEAK_FP32_FLOPS)
+        del a, a16, b, b16
+        a16 = bf16_args(tiled_inputs(2, 1024, 1024, "fan_in", seed=6))
+        x, res, mix, bias = a16["x"], a16["residual"], a16["mix"], a16["bias"]
+        z, zs = rdft_w_reference(x), rdft_w_reference(x, BF16)
+        z5, zs5 = z.clone(), zs.clone()  # K5 works in place: time it on copies
+        names = ("fp32 spectra", "bf16 spectra")
+        out["K4-bf16s"] = bf16_turns(
+            "K4-bf16s 1024x1024 batch 2 C=32 bf16 x", lambda: rdft_w(x), lambda: rdft_w(x, BF16),
+            lambda: rdft_w_reference(x, BF16),
+            lambda: torch.view_as_real(torch.fft.rfft(x.float(), dim=-1, norm="ortho")).to(BF16),
+            k4_work(2, 1024, 1024, act=2, spec=4), PEAK_FP32_FLOPS, names)
+        out["K5-bf16s"] = bf16_turns(
+            "K5-bf16s 1024x1024 batch 2 C=32", lambda: spectral_mix_h(z5, mix, bias),
+            lambda: spectral_mix_h(zs5, mix, bias),
+            lambda: spectral_mix_h_reference(zs, mix, bias), None,
+            k5_work(2, 1024, 1024, spec=4), PEAK_FP32_FLOPS, names)
+        zw = torch.view_as_complex(zs.float())  # the library's c2r, bins 0 and W/2 zeroed
+        zw[:, :, 0].imag.zero_()
+        zw[:, :, -1].imag.zero_()
+        out["K6-bf16s"] = bf16_turns(
+            "K6-bf16s 1024x1024 batch 2 C=32 bf16 residual", lambda: irdft_w_add(z, res),
+            lambda: irdft_w_add(zs, res), lambda: irdft_w_add_reference(zs, res),
+            lambda: (res.float() + torch.fft.irfft(zw.transpose(-1, -2), n=1024, dim=-1,
+                                                    norm="ortho")).to(BF16),
+            k6_work(2, 1024, 1024, act=2, spec=4), PEAK_FP32_FLOPS, names)
+        del a16, x, res, z, zs, z5, zs5, zw
+        for n, size in BF16S_SHAPES:
+            for act in ("fp32", "bf16"):
+                a = tiled_inputs(n, size, size, "fan_in", seed=7)
+                if act == "bf16":
+                    a = bf16_args(a)
+                chain = lambda bd: irdft_w_add(spectral_mix_h(rdft_w(a["x"], bd), a["mix"],
+                                                              a["bias"]), a["residual"])
+                turns = [cuda_ms(lambda: chain(bd), 10)
+                         for bd in (torch.float32, BF16, BF16, torch.float32)]
+                print(f"time staged chain K4 -> K5 -> K6 {size}x{size} batch {n} C={C} {act} x: "
+                      f"fp32 spectra {turns[0]:.3f}, bf16 spectra {turns[1]:.3f}, bf16 spectra "
+                      f"{turns[2]:.3f}, fp32 spectra {turns[3]:.3f} ms (in turns)", flush=True)
+                del a
+    return out, no_res
+
+
+def check_fused_bf16():
+    """Phase 33 (module docstring), on its own random data. Returns
+    ({name: launches on the main paths}, {name: max abs error},
+    {name: times}, K7-bf16's times without the residual)."""
+    t0 = time.perf_counter()
+    check_parent_digests()
+    worst = check_fused_bf16_kernels(_build.spectral_staged_library())
+    launches = check_fused_bf16_generate(np.random.default_rng(33))
+    times, no_res = time_fused_bf16_kernels()
+    launches = {k: launches.get(k, 0) for k in ("K7-bf16",) + BF16S_KERNELS}
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s; main-path launches {launches}",
+          flush=True)
+    return launches, worst, times, no_res
+
+
+def phase33_alone(card: str) -> None:
+    """``--phase 33``: phase 33 alone, after the builds of its kernels (K7,
+    K3, K4 - K6; the guard builds K1 and K8 too); it ends with the card line
+    and no kernels or result line."""
+    names = ("spectral_fused", "conv3x3", "spectral_staged", "block_fused", "spectral_tiled")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build.build, names))
+    check_fused_bf16()
+    print(card, flush=True)
+
+
 def phase30_alone(card: str) -> None:
     """``--phase 30``: phase 30 alone, after the builds of K1 and K2 (its
     kernels), on inputs drawn as the whole run draws them; it ends with the
@@ -3473,7 +3890,7 @@ def phase30_alone(card: str) -> None:
 def main():
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    parser.add_argument("--phase", type=int, choices=[30, 31, 32],
+    parser.add_argument("--phase", type=int, choices=[30, 31, 32, 33],
                         help="run this phase alone (no kernels or result line)")
     only = parser.parse_args().phase
     if not torch.cuda.is_available():
@@ -3492,6 +3909,9 @@ def main():
         return
     if only == 32:
         phase32_alone(card)
+        return
+    if only == 33:
+        phase33_alone(card)
         return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
@@ -3911,6 +4331,11 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_routes_") as tmp:
         route_launches, route_err, route_times = check_bf16_routes(tmp)
 
+    # ---- 33. K7-bf16 on the bf16 fused route and the staged chain on bf16
+    # spectra: the kernels against their plain versions, the existing
+    # instances against the parent's bits, generate on them, their times
+    fused_launches, fused_err, fused_times, k7_bf16_no_res = check_fused_bf16()
+
     # ---- 30. the parallel layer: DataParallel and TensorParallel in a
     # one-rank NCCL group (and on every card where there are several), the
     # packed generator. It runs after phase 21's
@@ -3987,7 +4412,21 @@ def main():
         ("K3-bf16", "conv3x3.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:439"),
         ("K4-bf16", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:588"),
         ("K6-bf16", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:908"),
-        ("K8-bf16", "spectral_tiled.cu", "mtd_gan_tpu/ops/pallas_fftconv.py:351"))]}),
+        ("K8-bf16", "spectral_tiled.cu", "mtd_gan_tpu/ops/pallas_fftconv.py:351"))] + [{
+        "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
+        "replaces": replaces, "launches": fused_launches[name],
+        "max_abs_err": fused_err[name], "ms": fused_times[name][0],
+        "plain_ms": fused_times[name][1], "bound_ms": fused_times[name][2],
+        "bound_by": fused_times[name][3], "library_ms": fused_times[name][4],
+        # K7-bf16's ms, plain_ms and bound_ms are with the block's residual,
+        # as the fused route calls it; these without it
+        **({"no_residual_ms": k7_bf16_no_res[0], "no_residual_plain_ms": k7_bf16_no_res[1],
+            "no_residual_bound_ms": k7_bf16_no_res[2]} if name == "K7-bf16" else {}),
+    } for name, src, replaces in (
+        ("K7-bf16", "spectral_fused.cu", "mtd_gan_tpu/ops/pallas_fftconv.py:267"),
+        ("K4-bf16s", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:588"),
+        ("K5-bf16s", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:844"),
+        ("K6-bf16s", "spectral_staged.cu", "mtd_gan_tpu/ops/pallas_pipeline.py:908"))]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

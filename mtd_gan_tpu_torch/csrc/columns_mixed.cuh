@@ -4,7 +4,11 @@
 // the half spectrum (N, C, K, H) complex, one bin (n, k) per CTA or per
 // thread-block cluster of S CTAs: the H-point FFT of each channel's column,
 // at every position relu(mix [Re; Im] + bias) over the stacked 2C channels,
-// the inverse H-point FFT, both scaled 1/sqrt(H).
+// the inverse H-point FFT, both scaled 1/sqrt(H). The spectrum in device
+// memory is complex fp32, or bf16 pairs for K5-bf16s (the JAX stage B at
+// bound_dtype = bfloat16): widened as the bin is staged, rounded once as
+// it is written back; the FFTs and the mix are fp32 in shared memory
+// either way.
 //
 // Design. It runs K1's column schedule (block_columns.cuh) on a mixed
 // radix. H = P * Q, P a power of two and Q odd: the bin's columns are
@@ -437,10 +441,12 @@ __device__ __forceinline__ void mix_positions(RowOf row_of, int npos, int span, 
 // The column pass, one cluster of S CTAs per (k, n) = (blockIdx.y,
 // blockIdx.z); CTA `rank` holds the channels [rank * CL, (rank + 1) * CL).
 // mix is (2C_out, 2C_in) row-major over the stacked [Re; Im] channels;
-// tw[t] = e^{-2 pi i t / H}, t < H.
-template <int C, int S, bool TWO>
+// tw[t] = e^{-2 pi i t / H}, t < H. TS: the spectrum's element in device
+// memory (float2; Bf16Pair for K5-bf16s: widened into the fp32 buffers as
+// it is loaded, the result rounded once as it is stored).
+template <int C, int S, bool TWO, typename TS>
 __global__ void __launch_bounds__(kColThreads)
-columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
+columns_mixed_kernel(TS* spec, const float* __restrict__ mix,
                      const float* __restrict__ mix_bias, const float2* __restrict__ tw,
                      int H, int K, RdftPlan pl, float scale) {
   constexpr int CL = C / S;
@@ -455,7 +461,7 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
   if constexpr (S > 1) rank = (int)cg::this_cluster().block_rank();
   const int k = blockIdx.y, n = blockIdx.z;
   const int P = pl.P, Q = pl.Q;
-  float2* col = spec + ((size_t)n * C + rank * CL) * K * H + (size_t)k * H;
+  TS* col = spec + ((size_t)n * C + rank * CL) * K * H + (size_t)k * H;
   const size_t cstride = (size_t)K * H;
   const auto dec = [&](int h) { return Q == 1 ? h : decimated(h, P, Q); };
 
@@ -467,7 +473,7 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
     const int halves = H >> 1;  // two complex (16 bytes) per load
     for (int i = threadIdx.x; i < CL * halves; i += blockDim.x) {
       const int c = i / halves, h = (i - c * halves) * 2;
-      const float4 v = *reinterpret_cast<const float4*>(col + c * cstride + h);
+      const float4 v = ldc_spec2(col + c * cstride + h);
       float2* row = data + c * pitch;
       row[rdft_pad(dec(h))] = make_float2(v.x, v.y);
       row[rdft_pad(dec(h + 1))] = make_float2(v.z, v.w);
@@ -526,8 +532,8 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
       const int c = i / halves, h = (i - c * halves) * 2;
       const float2* row = data + c * pitch;
       const float2 a = row[rdft_pad(dec(h))], b = row[rdft_pad(dec(h + 1))];
-      *reinterpret_cast<float4*>(col + c * cstride + h) =
-          make_float4(a.x * scale, -a.y * scale, b.x * scale, -b.y * scale);
+      st_spec2(col + c * cstride + h,
+               make_float4(a.x * scale, -a.y * scale, b.x * scale, -b.y * scale));
     }
   } else {
     for (int i = threadIdx.x; i < CL * H; i += blockDim.x) {
@@ -538,16 +544,16 @@ columns_mixed_kernel(float2* spec, const float* __restrict__ mix,
   }
 }
 
-template <int C, int S, bool TWO>
-cudaError_t launch_columns(float2* spec, const float* mix, const float* mix_bias,
+template <int C, int S, bool TWO, typename TS>
+cudaError_t launch_columns(TS* spec, const float* mix, const float* mix_bias,
                            const float2* tw, int n, int h, int k, cudaStream_t stream) {
-  return launch_clusters(columns_mixed_kernel<C, S, TWO>, dim3(S, k, n), kColThreads,
+  return launch_clusters(columns_mixed_kernel<C, S, TWO, TS>, dim3(S, k, n), kColThreads,
                          columns_smem(C, S, h), S, stream, spec, mix, mix_bias, tw, h, k,
                          rdft_plan(h, false), 1.0f / sqrtf((float)h));
 }
 
-template <int C, bool TWO>
-cudaError_t launch_columns_s(int s, float2* spec, const float* mix, const float* mix_bias,
+template <int C, bool TWO, typename TS>
+cudaError_t launch_columns_s(int s, TS* spec, const float* mix, const float* mix_bias,
                              const float2* tw, int n, int h, int k, cudaStream_t stream) {
   switch (s) {
     case 1: return launch_columns<C, 1, TWO>(spec, mix, mix_bias, tw, n, h, k, stream);
@@ -560,8 +566,8 @@ cudaError_t launch_columns_s(int s, float2* spec, const float* mix, const float*
   }
 }
 
-template <int C>
-cudaError_t launch_columns_c(float2* spec, const float* mix, const float* mix_bias,
+template <int C, typename TS>
+cudaError_t launch_columns_c(TS* spec, const float* mix, const float* mix_bias,
                              const float2* tw, int n, int h, int k, cudaStream_t stream) {
   const int s = columns_cluster_size(C, h);
   return odd_branch(h) == kOddTwoBuffers
@@ -569,10 +575,12 @@ cudaError_t launch_columns_c(float2* spec, const float* mix, const float* mix_bi
              : launch_columns_s<C, false>(s, spec, mix, mix_bias, tw, n, h, k, stream);
 }
 
-// The column pass in place on spec (n, c, k, h) complex, c in {8, 16,
-// 32}, 2 <= h <= 1024; tw the host table of H points. The cluster size
-// and the odd step's branch follow from (c, h) before the launch.
-cudaError_t launch_columns_mixed(float2* spec, const float* mix, const float* mix_bias,
+// The column pass in place on spec (n, c, k, h) complex (TS: float2, or
+// Bf16Pair for a bf16 spectrum), c in {8, 16, 32}, 2 <= h <= 1024; tw the
+// host table of H points. The cluster size and the odd step's branch
+// follow from (c, h) before the launch.
+template <typename TS>
+cudaError_t launch_columns_mixed(TS* spec, const float* mix, const float* mix_bias,
                                  const float2* tw, int n, int c, int h, int k,
                                  cudaStream_t stream) {
   switch (c) {

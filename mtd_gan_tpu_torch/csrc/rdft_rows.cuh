@@ -31,14 +31,18 @@
 // store with the residual added on the way out. For Q > 1 its odd step
 // reads a copy of the table staged in shared memory.
 //
-// The bf16 variants (K1's, K2's, K4-bf16, K6-bf16, K8-bf16) run the same
-// schedules on bf16 activations: the rows are read as bf16 and widened
-// (K4's row pass, T = bf16), the inverse reads its residual in its own
-// type (TR: fp32 for K1's and K2's scratch, bf16 for K6-bf16 and
-// K8-bf16), adds in fp32 and rounds once at the store (TO = bf16); the
-// spectra stay fp32. Every vector path is chosen by the alignment of its
-// pointer in elements of its own type: four values are 16 bytes of fp32
-// and 8 of bf16.
+// The bf16 variants (K1's, K2's, K4-bf16, K6-bf16, K7-bf16, K8-bf16) run
+// the same schedules on bf16 activations: the rows are read as bf16 and
+// widened (K4's row pass, T = bf16), the inverse reads its residual in its
+// own type (TR: fp32 for K1's and K2's scratch, bf16 for K6-bf16 and
+// K8-bf16), adds in fp32 and rounds once at the store (TO = bf16; K7-bf16
+// rounds its branch first, TWICE). The spectrum in device memory is fp32
+// (TS = float2) but for the JAX pipeline's bound_dtype = bfloat16
+// (K4-bf16s, K6-bf16s: TS = Bf16Pair, rounded as K4 stores it, widened as
+// K6 loads it); the FFTs compute in fp32 either way. Every vector path is
+// chosen by the alignment of its pointer in elements of its own type: four
+// values are 16 bytes of fp32 and 8 of bf16, two spectrum bins 16 bytes of
+// float2 and 8 of Bf16Pair.
 
 #pragma once
 
@@ -349,7 +353,10 @@ __device__ __forceinline__ void stage_conj_bins(float2* row, int k, float2 a, fl
 // memory. `residual` may be `out` (TR == TO): each element of it is read,
 // with a coherent load, by the thread that then writes the same element of
 // `out`, so a thread loads both rows' residuals before it stores either.
-template <typename TR, typename TO>
+// TWICE: the branch is rounded to TO before the residual is added, and the
+// sum rounded again (K7-bf16: the JAX fused block's res + branch of two
+// bf16 values); else the sum is rounded once.
+template <typename TR, typename TO, bool TWICE = false>
 __device__ __forceinline__ void store_row_pairs(TO* out, const TR* residual, size_t base,
                                                 int W, const float2* buf, int pitch, int pairs,
                                                 int rows, const RdftPlan& pl,
@@ -371,6 +378,12 @@ __device__ __forceinline__ void store_row_pairs(TO* out, const TR* residual, siz
       if (residual != nullptr) {
         const float4 r = ldc4(residual + o);
         const float4 r2 = has_b ? ldc4(residual + o + W) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (TWICE) {
+          v = make_float4(round_to<TO>(v.x), round_to<TO>(v.y), round_to<TO>(v.z),
+                          round_to<TO>(v.w));
+          v2 = make_float4(round_to<TO>(v2.x), round_to<TO>(v2.y), round_to<TO>(v2.z),
+                           round_to<TO>(v2.w));
+        }
         v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
         v2 = make_float4(v2.x + r2.x, v2.y + r2.y, v2.z + r2.z, v2.w + r2.w);
       }
@@ -386,8 +399,13 @@ __device__ __forceinline__ void store_row_pairs(TO* out, const TR* residual, siz
       const bool has_b = 2 * j + 1 < rows;
       const float ra = residual != nullptr ? ldc1(residual + o) : 0.f;
       const float rb = residual != nullptr && has_b ? ldc1(residual + o + W) : 0.f;
-      st1(out + o, y.x * scale + ra);
-      if (has_b) st1(out + o + W, -y.y * scale + rb);
+      if constexpr (TWICE) {
+        st1(out + o, round_to<TO>(y.x * scale) + ra);
+        if (has_b) st1(out + o + W, round_to<TO>(-y.y * scale) + rb);
+      } else {
+        st1(out + o, y.x * scale + ra);
+        if (has_b) st1(out + o + W, -y.y * scale + rb);
+      }
     }
   }
 }
@@ -396,11 +414,12 @@ __device__ __forceinline__ void store_row_pairs(TO* out, const TR* residual, siz
 // k <= W/2, for the 16 rows r0 .. r0 + 15 of (n, c) = (blockIdx.z,
 // blockIdx.y). tw[t] = e^{-2 pi i t / W}, t < W. The last block of an H
 // that is not a multiple of 16 has fewer rows; an odd last row is paired
-// with zeros. T: the type of x (float, or bf16 for K1's and K2's bf16
-// variants).
-template <typename T>
+// with zeros. T: the type of x (float, or bf16 for the bf16 variants); TS:
+// the spectrum's element (float2, or Bf16Pair for a bf16 spectrum, each
+// bin rounded once as it is stored).
+template <typename T, typename TS>
 __global__ void __launch_bounds__(kRdftMaxThreads, 3)
-rdft_w_kernel(const T* __restrict__ x, float2* __restrict__ spec,
+rdft_w_kernel(const T* __restrict__ x, TS* __restrict__ spec,
               const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
               float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -447,15 +466,15 @@ rdft_w_kernel(const T* __restrict__ x, float2* __restrict__ spec,
   // Z_{W-k}) / 2 and B_k = (Z_k - conj Z_{W-k}) / 2i for rows 2j, 2j + 1
   const int K = W / 2 + 1;
   const float sc = 0.5f * scale;
-  float2* dst = spec + ((size_t)n * C + c) * K * H + r0;
+  TS* dst = spec + ((size_t)n * C + c) * K * H + r0;
   for (int u = threadIdx.x; u < K * pairs; u += blockDim.x) {
     const int k = u / pairs, j = u - k * pairs;
     float2 a, b;
     rdft_pair_bins(buf + j * pitch, k, W, pl, tw, sc, a, b);
-    float2* o = dst + (size_t)k * H + 2 * j;
+    TS* o = dst + (size_t)k * H + 2 * j;
     if (2 * j + 1 < rows) {
       if (pl.vec_store) {
-        *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
+        st_spec2(o, make_float4(a.x, a.y, b.x, b.y));
       } else {
         o[0] = a;
         o[1] = b;
@@ -466,20 +485,21 @@ rdft_w_kernel(const T* __restrict__ x, float2* __restrict__ spec,
   }
 }
 
-template <typename T>
-cudaError_t launch_rdft_w(const T* x, float2* spec, const float2* tw, int n, int c,
+template <typename T, typename TS>
+cudaError_t launch_rdft_w(const T* x, TS* spec, const float2* tw, int n, int c,
                           int h, int w, cudaStream_t stream) {
   const bool x_aligned = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   RdftPlan pl = rdft_plan(w, x_aligned);
   pl.vec_load = w % 4 == 0 && x_aligned;
-  pl.vec_store = h % 2 == 0 && reinterpret_cast<uintptr_t>(spec) % 16 == 0;
+  pl.vec_store = h % 2 == 0 && reinterpret_cast<uintptr_t>(spec) % (2 * sizeof(TS)) == 0;
   const size_t smem = (size_t)kRdftPairs * rdft_row_pitch(w) * sizeof(float2);
-  CUDA_TRY(allow_smem(rdft_w_kernel<T>, smem));
-  CUDA_TRY(cudaFuncSetAttribute(rdft_w_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  CUDA_TRY(allow_smem(rdft_w_kernel<T, TS>, smem));
+  CUDA_TRY(cudaFuncSetAttribute(rdft_w_kernel<T, TS>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared));
   // one thread per 8 points of the block's 8 row pairs
   const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  rdft_w_kernel<T><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
+  rdft_w_kernel<T, TS><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
       x, spec, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }
@@ -494,10 +514,11 @@ cudaError_t launch_rdft_w(const T* x, float2* spec, const float2* tw, int n, int
 // that then writes the same element of `out`, and by no other thread, so
 // the two carry no __restrict__. TR, TO: the types of residual and out
 // (float; bf16 out for K1's and K2's bf16 variants, whose residual is an
-// fp32 buffer of their own; bf16 both for K6-bf16 and K8-bf16).
-template <typename TR, typename TO>
+// fp32 buffer of their own; bf16 both for K6-bf16 and K8-bf16). TS: the
+// spectrum's element (float2, or Bf16Pair, widened as it is loaded).
+template <typename TR, typename TO, typename TS>
 __global__ void __launch_bounds__(kRdftMaxThreads, 3)
-irdft_w_kernel(const float2* __restrict__ spec, const TR* residual, TO* out,
+irdft_w_kernel(const TS* __restrict__ spec, const TR* residual, TO* out,
                const float2* __restrict__ tw, int C, int H, int W, RdftPlan pl,
                float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -506,7 +527,7 @@ irdft_w_kernel(const float2* __restrict__ spec, const TR* residual, TO* out,
   const int r0 = blockIdx.x * kRdftRows, c = blockIdx.y, n = blockIdx.z;
   const int rows = min(kRdftRows, H - r0), pairs = (rows + 1) >> 1;
   const int P = pl.P, Q = pl.Q, K = W / 2 + 1;
-  const float2* src = spec + ((size_t)n * C + c) * K * H + r0;
+  const TS* src = spec + ((size_t)n * C + c) * K * H + r0;
   // for Q > 1 the odd step's twiddles, staged once per block: a warp's
   // read-out reads a few scattered entries per q, from shared memory
   float2* stw = buf + kRdftPairs * pitch;
@@ -514,18 +535,18 @@ irdft_w_kernel(const float2* __restrict__ spec, const TR* residual, TO* out,
 
   // (A_k, B_k) of pair j, the imaginary parts of the edge bins dropped
   auto load = [&](int k, int j, float2& a, float2& b) {
-    const float2* p = src + (size_t)k * H + 2 * j;
+    const TS* p = src + (size_t)k * H + 2 * j;
     if (2 * j + 1 < rows) {
       if (pl.vec_load) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+        const float4 v = ld_spec2(p);
         a = make_float2(v.x, v.y);
         b = make_float2(v.z, v.w);
       } else {
-        a = __ldg(p);
-        b = __ldg(p + 1);
+        a = ld_spec(p);
+        b = ld_spec(p + 1);
       }
     } else {
-      a = __ldg(p);
+      a = ld_spec(p);
       b = make_float2(0.f, 0.f);
     }
     if (k == 0 || 2 * k == W) a.y = b.y = 0.f;
@@ -577,24 +598,25 @@ irdft_w_kernel(const float2* __restrict__ spec, const TR* residual, TO* out,
 
 // out (n, c, h, w) = [residual +] the ortho c2r along W of spec (n, c,
 // w/2+1, h); residual may be out. tw as launch_rdft_w's.
-template <typename TR, typename TO>
-cudaError_t launch_irdft_w(const float2* spec, const TR* residual, TO* out,
+template <typename TR, typename TO, typename TS>
+cudaError_t launch_irdft_w(const TS* spec, const TR* residual, TO* out,
                            const float2* tw, int n, int c, int h, int w,
                            cudaStream_t stream) {
   const auto aligned = [](const void* p, size_t b = 16) {
     return reinterpret_cast<uintptr_t>(p) % b == 0;
   };
   RdftPlan pl = rdft_plan(w, true);
-  pl.vec_load = h % 2 == 0 && aligned(spec);
+  pl.vec_load = h % 2 == 0 && aligned(spec, 2 * sizeof(TS));
   pl.vec_store = w % 4 == 0 && aligned(out, 4 * sizeof(TO)) &&
                  (residual == nullptr || aligned(residual, 4 * sizeof(TR)));
   const size_t smem =
       ((size_t)kRdftPairs * rdft_row_pitch(w) + (pl.Q > 1 ? w : 0)) * sizeof(float2);
-  CUDA_TRY(allow_smem(irdft_w_kernel<TR, TO>, smem));
-  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel<TR, TO>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  CUDA_TRY(allow_smem(irdft_w_kernel<TR, TO, TS>, smem));
+  CUDA_TRY(cudaFuncSetAttribute(irdft_w_kernel<TR, TO, TS>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared));
   const int threads = min(kRdftMaxThreads, max(64, (w + 31) / 32 * 32));
-  irdft_w_kernel<TR, TO><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
+  irdft_w_kernel<TR, TO, TS><<<dim3((h + kRdftRows - 1) / kRdftRows, c, n), threads, smem, stream>>>(
       spec, residual, out, tw, c, h, w, pl, 1.0f / sqrtf((float)w));
   return cudaGetLastError();
 }

@@ -8,8 +8,9 @@
 // K8's and K7's on columns_mixed.cuh (K7, spectral_fused.cu, its rows on
 // rdft_rows.cuh too). K1's and K2's C -> C convs run on K3's tensor-core
 // kernel (conv3x3_tc.cuh). fp32 throughout, apart from the bf16
-// activations of the bf16 variants (K1, K2, K3, K4, K6, K8): loaded and
-// stored through the helpers below, computed in fp32.
+// activations of the bf16 variants (K1, K2, K3, K4, K6, K7, K8) and the
+// bf16 spectra of K4-bf16s, K5-bf16s and K6-bf16s: loaded and stored
+// through the helpers below, computed in fp32.
 
 #pragma once
 
@@ -82,6 +83,62 @@ __device__ __forceinline__ void st4(bf16* p, float4 v) {
   u.x = *reinterpret_cast<const uint32_t*>(&a);
   u.y = *reinterpret_cast<const uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p) = u;
+}
+// v rounded to the nearest (even) value of T, in fp32
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (kIsBf16<T>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+// ------------------------------------------------- half-spectrum elements
+
+// The half spectrum between passes in device memory is complex fp32
+// (float2, complex64) or bf16 pairs (Bf16Pair: the JAX pipeline's
+// bound_dtype = bfloat16), widened to fp32 on load and rounded to the
+// nearest (even) on store; the passes compute in fp32 either way.
+
+// One bin of a bf16 half spectrum, (re, im) as two bf16 (the layout of a
+// bf16 tensor (..., 2)): assigning a float2 rounds each part, reading one
+// widens it, so a pass reads and writes it as it does a float2.
+struct Bf16Pair {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ Bf16Pair& operator=(float2 f) {
+    v = __float22bfloat162_rn(f);
+    return *this;
+  }
+  __device__ __forceinline__ operator float2() const { return __bfloat1622float2(v); }
+};
+
+// A bin through the read-only cache; two neighbouring bins (16 bytes of
+// float2, 8 of Bf16Pair, aligned to that) through it (ld_spec2), with a
+// coherent load for a pass that writes where it read (ldc_spec2), and
+// stored (st_spec2)
+__device__ __forceinline__ float2 ld_spec(const float2* p) { return __ldg(p); }
+__device__ __forceinline__ float2 ld_spec(const Bf16Pair* p) {
+  const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ float4 ld_spec2(const float2* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld_spec2(const Bf16Pair* p) {
+  return ld4(reinterpret_cast<const bf16*>(p));
+}
+__device__ __forceinline__ float4 ldc_spec2(const float2* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ldc_spec2(const Bf16Pair* p) {
+  return ldc4(reinterpret_cast<const bf16*>(p));
+}
+__device__ __forceinline__ void st_spec2(float2* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st_spec2(Bf16Pair* p, float4 v) {
+  st4(reinterpret_cast<bf16*>(p), v);
 }
 
 // ---------------------------------------------------------------- conv3x3

@@ -1,5 +1,5 @@
 // The per-sample fused spectral branch of the Res-FFT block on Hopper
-// (sm_90a), fp32.
+// (sm_90a), fp32 and bf16.
 //
 // Replaces the TPU kernel K7, mtd_gan_tpu/ops/pallas_fftconv.py
 // spectral_branch_fused (:267; its pallas_call at :338). For NCHW
@@ -50,6 +50,16 @@
 // table of W in phases 1 and 3, the mix (and, for the odd step in two
 // buffers, its second buffer and the table of H) in phase 2. No sine or
 // cosine is computed on the card; fp32 throughout.
+//
+// bf16 (spectral_fused_forward_bf16, K7-bf16: the JAX K7 on a bf16 x,
+// whose output is x.dtype, inside the JAX fused block's res + branch):
+// phase 1 reads bf16 rows and widens them; the spectrum stays fp32 on chip
+// (or in the fp32 scratch) and the mix weight fp32; phase 3 rounds the
+// branch to bf16, adds the bf16 residual in fp32 and rounds the sum again,
+// two roundings where K8-bf16 and K6-bf16 round once (the JAX tiled K8
+// adds its residual inside the kernel). Bound at 96x96, C = 32, batch 64,
+// with the residual: the same 3.7 GFLOP (0.056 ms) against 113 MB of bf16
+// x, residual and out (0.034 ms): bound by its operations.
 
 #include <algorithm>
 
@@ -203,13 +213,16 @@ __device__ void columns_group(float2* buf, int nbin, size_t bin_elems, int H, in
 // `scratch` is null when the bin blocks are resident in shared memory,
 // else (N, 8, owned, C, pitch_h) complex in device memory, CTA r's bins
 // k = r + 8 b at [n, r, b] (owned = ceil((W/2+1) / 8)). tw_w and tw_h:
-// e^{-2 pi i t / L}, t < L, for L = W and H. `residual` may be null.
-template <int C, bool TWO>
+// e^{-2 pi i t / L}, t < L, for L = W and H. `residual` may be null. T:
+// the type of x, residual and out (float; bf16 for K7-bf16, whose
+// spectrum stays fp32 and whose store rounds the branch to bf16 before it
+// adds the residual, then the sum: the JAX fused block's res + branch).
+template <int C, bool TWO, typename T>
 __global__ void __launch_bounds__(kFusedThreads, 1)
-spectral_fused_kernel(const float* __restrict__ x, const float* __restrict__ mix,
-                      const float* __restrict__ mix_bias, const float* residual,
+spectral_fused_kernel(const T* __restrict__ x, const float* __restrict__ mix,
+                      const float* __restrict__ mix_bias, const T* residual,
                       const float2* __restrict__ tw_w, const float2* __restrict__ tw_h,
-                      float2* scratch, float* out, int H, int W, FusedPlan fp,
+                      float2* scratch, T* out, int H, int W, FusedPlan fp,
                       float scale_h, float scale_w) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -252,7 +265,7 @@ spectral_fused_kernel(const float* __restrict__ x, const float* __restrict__ mix
   const int per_rank = (n_pairs + kCluster - 1) / kCluster;
   const int p_begin = min(n_pairs, rank * per_rank);
   const int p_end = min(n_pairs, p_begin + per_rank);
-  const float* xs = x + (size_t)n * CH * W;
+  const T* xs = x + (size_t)n * CH * W;
 
   // beside the batch of rows in phases 1 and 3, for Q > 1: the odd step's
   // twiddles (a warp of the read-out reads many distinct entries)
@@ -338,23 +351,53 @@ spectral_fused_kernel(const float* __restrict__ x, const float* __restrict__ mix
     rdft_steps(rows, pw, nb, rp, 0, tw_w);
     // a warp's outputs are neighbouring columns of a row pair: its stores
     // and residual loads are whole lines
-    store_row_pairs(out, residual, ((size_t)n * CH + 2 * p0) * W, W, rows, pw, nb, 2 * nb, rp,
-                    stw_w, s, fp.vec_out, false);
+    store_row_pairs<T, T, kIsBf16<T>>(out, residual, ((size_t)n * CH + 2 * p0) * W, W, rows,
+                                      pw, nb, 2 * nb, rp, stw_w, s, fp.vec_out, false);
     __syncthreads();
   }
   // no CTA leaves while another may still read its shared memory
   cluster.sync();
 }
 
-using FusedKernel = void (*)(const float*, const float*, const float*, const float*,
-                            const float2*, const float2*, float2*, float*, int, int, FusedPlan,
-                            float, float);
+template <typename T>
+using FusedKernel = void (*)(const T*, const float*, const float*, const T*, const float2*,
+                             const float2*, float2*, T*, int, int, FusedPlan, float, float);
 
-// The instance for C and the odd step's branch of H.
-template <int C>
-FusedKernel fused_kernel(int h) {
-  if (odd_branch(h) == kOddTwoBuffers) return spectral_fused_kernel<C, true>;
-  return spectral_fused_kernel<C, false>;
+// The instance for C, the odd step's branch of H and the activation type.
+template <int C, typename T>
+FusedKernel<T> fused_kernel(int h) {
+  if (odd_branch(h) == kOddTwoBuffers) return spectral_fused_kernel<C, true, T>;
+  return spectral_fused_kernel<C, false, T>;
+}
+
+// One K7 call on activations of type T (spectral_fused_forward's
+// arguments); the vector paths where x, residual and out are aligned to
+// four values of T (16 bytes of fp32, 8 of bf16).
+template <typename T>
+int spectral_fused_impl(const T* x, int n, int c, int h, int w, const float* mix,
+                        const float* mix_bias, const T* residual, const void* tw_w,
+                        const void* tw_h, void* scratch, T* out, cudaStream_t stream) {
+  if (!in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
+  FusedPlan fp;
+  bool resident;
+  size_t smem;
+  if (!plan_fused(c, h, w, shared_optin(), &fp, &resident, &smem))
+    return (int)cudaErrorInvalidValue;
+  float2* scratch2 = resident ? nullptr : reinterpret_cast<float2*>(scratch);
+  if (!resident && scratch2 == nullptr) return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+  };
+  fp.vec_in = w % 4 == 0 && aligned(x);
+  fp.vec_out = w % 4 == 0 && aligned(out) && (residual == nullptr || aligned(residual));
+  const FusedKernel<T> kernel = c == 8    ? fused_kernel<8, T>(h)
+                                : c == 16 ? fused_kernel<16, T>(h)
+                                          : fused_kernel<32, T>(h);
+  return (int)launch_clusters(kernel, dim3(kCluster, n, 1), kFusedThreads, smem, kCluster,
+                              stream, x, mix, mix_bias, residual,
+                              reinterpret_cast<const float2*>(tw_w),
+                              reinterpret_cast<const float2*>(tw_h), scratch2, out, h, w, fp,
+                              1.0f / sqrtf((float)h), 1.0f / sqrtf((float)w));
 }
 
 }  // namespace
@@ -384,25 +427,18 @@ long long spectral_fused_scratch_floats(int c, int h, int w) {
 int spectral_fused_forward(const float* x, int n, int c, int h, int w, const float* mix,
                            const float* mix_bias, const float* residual, const void* tw_w,
                            const void* tw_h, void* scratch, float* out, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (!in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
-  FusedPlan fp;
-  bool resident;
-  size_t smem;
-  if (!plan_fused(c, h, w, shared_optin(), &fp, &resident, &smem))
-    return (int)cudaErrorInvalidValue;
-  float2* scratch2 = resident ? nullptr : reinterpret_cast<float2*>(scratch);
-  if (!resident && scratch2 == nullptr) return (int)cudaErrorInvalidValue;
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  fp.vec_in = w % 4 == 0 && aligned(x);
-  fp.vec_out = w % 4 == 0 && aligned(out) && (residual == nullptr || aligned(residual));
-  const FusedKernel kernel =
-      c == 8 ? fused_kernel<8>(h) : c == 16 ? fused_kernel<16>(h) : fused_kernel<32>(h);
-  return (int)launch_clusters(kernel, dim3(kCluster, n, 1), kFusedThreads, smem, kCluster,
-                              stream, x, mix, mix_bias, residual,
-                              reinterpret_cast<const float2*>(tw_w),
-                              reinterpret_cast<const float2*>(tw_h), scratch2, out, h, w, fp,
-                              1.0f / sqrtf((float)h), 1.0f / sqrtf((float)w));
+  return spectral_fused_impl(x, n, c, h, w, mix, mix_bias, residual, tw_w, tw_h, scratch, out,
+                             reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K7-bf16: x, residual (or null) and out bf16 (n, c, h, w); the mix, its
+// bias, the tables and the scratch as spectral_fused_forward's. out =
+// bf16(residual + bf16(branch)), or bf16(branch) without a residual.
+int spectral_fused_forward_bf16(const bf16* x, int n, int c, int h, int w, const float* mix,
+                                const float* mix_bias, const bf16* residual, const void* tw_w,
+                                const void* tw_h, void* scratch, bf16* out, void* stream_ptr) {
+  return spectral_fused_impl(x, n, c, h, w, mix, mix_bias, residual, tw_w, tw_h, scratch, out,
+                             reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 const char* spectral_fused_error_string(int err) {

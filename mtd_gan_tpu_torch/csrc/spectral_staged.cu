@@ -1,5 +1,5 @@
 // The staged spectral branch of the Res-FFT block on Hopper (sm_90a), fp32
-// (and bf16 activations, below):
+// (and bf16 activations and spectra, below):
 // three kernels, each its own C entry point and one launch per call.
 //
 // Replaces the TPU kernels of the unfused block pipeline in
@@ -54,6 +54,18 @@
 // (W % 4 == 0). Bounds at 1024x1024, C = 32, batch 2: K4 134 MB in and
 // 269 MB out, 0.12 ms; K6 269 MB of spectrum and 2 x 134 MB of residual
 // and out, 0.16 ms.
+//
+// bf16 spectra (staged_rdft_w_bf16s, staged_mix_h_bf16s,
+// staged_irdft_w_add_bf16s: the JAX stages at bound_dtype = bfloat16, for
+// fp32 or bf16 activations): the spectrum between the passes is stored as
+// bf16 (re, im) pairs, (N, C, K, H, 2). K4-bf16s rounds each bin once as
+// it stores it (stage A's astype); K5-bf16s widens its bin into the fp32
+// buffers, runs the same FFTs and mix in fp32 and rounds its result once
+// (stage B's output); K6-bf16s widens the bins it loads, adds the residual
+// in fp32 and rounds once to the residual's type. Half the spectrum's
+// bytes: at 1024x1024, C = 32, batch 2 with bf16 x the bounds are K4 268
+// MB, 0.08 ms; K5 269 MB against 12 GFLOP, 0.18 ms (operations); K6 403
+// MB, 0.12 ms.
 
 #include "columns_mixed.cuh"
 
@@ -138,6 +150,50 @@ int staged_irdft_w_add_bf16(const void* spec, const bf16* residual, int n, int c
   return (int)launch_irdft_w(reinterpret_cast<const float2*>(spec), residual, out,
                              reinterpret_cast<const float2*>(twiddles), n, c, h, w,
                              reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K4-bf16s: x (n, c, h, w) fp32 (x_bf16 == 0) or bf16 -> spec (n, c,
+// w/2+1, h) as bf16 (re, im) pairs, each rounded once; the rest as
+// staged_rdft_w.
+int staged_rdft_w_bf16s(const void* x, int x_bf16, int n, int c, int h, int w,
+                        const void* twiddles, void* spec, void* stream_ptr) {
+  if (!rows_in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
+  Bf16Pair* s = reinterpret_cast<Bf16Pair*>(spec);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  return x_bf16 ? (int)launch_rdft_w(reinterpret_cast<const bf16*>(x), s, tw, n, c, h, w, stream)
+                : (int)launch_rdft_w(reinterpret_cast<const float*>(x), s, tw, n, c, h, w,
+                                     stream);
+}
+
+// K5-bf16s: in place on spec (n, c, k, h) bf16 (re, im) pairs, aligned to
+// two of them (8 bytes); the rest as staged_mix_h.
+int staged_mix_h_bf16s(void* spec, int n, int c, int h, int k, const float* mix,
+                       const float* mix_bias, const void* twiddles, void* stream_ptr) {
+  if (n < 1 || n > 65535 || k < 2 || k > kMaxLen / 2 + 1 ||
+      staged_mix_cluster_size(c, h) == 0 || reinterpret_cast<uintptr_t>(spec) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_columns_mixed(reinterpret_cast<Bf16Pair*>(spec), mix, mix_bias,
+                                   reinterpret_cast<const float2*>(twiddles), n, c, h, k,
+                                   reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// K6-bf16s: spec (n, c, w/2+1, h) bf16 (re, im) pairs; residual (or null)
+// and out (n, c, h, w) fp32 (res_bf16 == 0) or bf16, the sum taken in fp32
+// and rounded once to their type; residual may be out. The rest as
+// staged_irdft_w_add.
+int staged_irdft_w_add_bf16s(const void* spec, const void* residual, int res_bf16, int n,
+                             int c, int h, int w, const void* twiddles, void* out,
+                             void* stream_ptr) {
+  if (!rows_in_domain(n, c, h, w)) return (int)cudaErrorInvalidValue;
+  const Bf16Pair* s = reinterpret_cast<const Bf16Pair*>(spec);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (res_bf16)
+    return (int)launch_irdft_w(s, reinterpret_cast<const bf16*>(residual),
+                               reinterpret_cast<bf16*>(out), tw, n, c, h, w, stream);
+  return (int)launch_irdft_w(s, reinterpret_cast<const float*>(residual),
+                             reinterpret_cast<float*>(out), tw, n, c, h, w, stream);
 }
 
 const char* spectral_staged_error_string(int err) {

@@ -56,12 +56,15 @@ class ResFFTGenerator(nn.Module):
     others' on the plain module; K3 computes in its input's type, so the
     kernel views run K3-bf16), the Res-FFT blocks following their input;
     the output, the exit deconv plus the fp32 image, is fp32, as the JAX
-    module's."""
+    module's. ``bound_dtype`` (``spectral_impl="staged"`` only): the type
+    of the blocks' half spectrum between K4, K5 and K6 (``FFTConvBlock``;
+    the JAX ``fft_block_nchw(bound_dtype=)``), fp32 by default."""
 
     def __init__(self, in_channels: int = 1, features: int = 32,
                  num_layers: int = 10, spectral_impl: str = "auto",
                  conv_impl: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 bound_dtype: torch.dtype = torch.float32):
         super().__init__()
         if conv_impl is None:
             conv_impl = "torch" if spectral_impl == "auto" else "k3"
@@ -76,7 +79,7 @@ class ResFFTGenerator(nn.Module):
         self.decoder = nn.ModuleList(
             [ConvTranspose2d(f, in_channels, 3, padding=1, dtype=dtype)]
             + [ConvTranspose2d(f, f, 3, padding=1, dtype=dtype) for _ in range(L)])
-        self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl, conv_impl)
+        self.enforce = nn.ModuleList([FFTConvBlock(f, spectral_impl, conv_impl, bound_dtype)
                                       for _ in range(2 * L + 1)])
 
     def _layer(self, conv: nn.Module, h: Tensor,
@@ -120,12 +123,11 @@ def share_parameters(view: nn.Module, source: nn.Module) -> nn.Module:
 def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) -> str:
     """The path ``MTDGANModel.generate`` takes for a CUDA input of H x W
     with a generator of C features computing in ``dtype`` (``None``:
-    fp32), chosen by shape, width and type before any launch. A generator
-    takes the first of the routes below that it fits; a bf16 generator runs
-    each on the kernels' bf16 variants (K1-bf16; K8-bf16; K4-bf16 -> K5 ->
-    K6-bf16; every 3x3 conv but the entry conv on K3-bf16) and skips
-    ``"fused"``, since K7 has no bf16 variant yet (ROADMAP.md, queue 2): a
-    bf16 96^2 or 100x72 input takes ``"staged"``. The routes:
+    fp32), chosen by shape and width before any launch. A generator takes
+    the first of the routes below that it fits, in the same order for both
+    types; a bf16 generator runs each on the kernels' bf16 variants
+    (K1-bf16; K8-bf16; K7-bf16; K4-bf16 -> K5 -> K6-bf16, the spectrum fp32;
+    every 3x3 conv but the entry conv on K3-bf16). The routes:
 
     - ``"k1"``: the fused-block pipeline (``ops/cuda_pipeline.py``), H == W
       in {64, 128, 256, 512};
@@ -153,13 +155,18 @@ def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) 
     JAX package's small-input kernel, K7; and what none of those takes up
     to 1024 a side (1024^2, 800^2, 200^2, 130x64, 448x449, ...) runs the
     JAX package's unfused kernels K3 - K6. Only the rest runs the plain
-    module, the port of the XLA path."""
+    module, the port of the XLA path. The JAX routing does not look at the
+    type either; its K1 pipeline always computes with bf16 boundaries,
+    where here a bf16 generator takes the bf16 variants and an fp32 one
+    the fp32 kernels. The staged route keeps its spectrum fp32
+    (``bound_dtype`` of ``ResFFTGenerator``), where the JAX unfused
+    pipeline's default rounds it to bf16 (ROADMAP.md, queue 2)."""
     if c in KERNEL_CHANNELS:
         if h == w and h in KERNEL_SIZES:
             return "k1"
         if in_tiled_domain(h, w):
             return "tiled"
-        if in_fused_domain(h, w) and dtype != torch.bfloat16:
+        if in_fused_domain(h, w):
             return "fused"
         if in_staged_domain(h, w):
             return "staged"
@@ -192,8 +199,8 @@ def resfft_generate(views: Dict[str, nn.Module], x: Tensor) -> Tensor:
     :func:`generator_views`. A CUDA ``x`` takes the path
     :func:`generate_route` names: the K1 pipeline, the tiled (K8), fused
     (K7) or staged (K4 -> K5 -> K6) generator, each with its 3x3 convs on
-    K3, or the plain module; a bf16 generator the same routes but the
-    fused one on the kernels' bf16 variants, or the plain module in bf16.
+    K3, or the plain module; a bf16 generator the same routes on the
+    kernels' bf16 variants, or the plain module in bf16.
     A CPU ``x`` runs the plain module.
     ``x`` must be on the generator's device type."""
     gen = views["plain"]

@@ -181,6 +181,8 @@ def spectral_fused_library() -> ctypes.CDLL:
         _P, _P, _P,                  # scratch, out, stream
     ]
     lib.spectral_fused_forward.restype = ctypes.c_int
+    lib.spectral_fused_forward_bf16.argtypes = lib.spectral_fused_forward.argtypes
+    lib.spectral_fused_forward_bf16.restype = ctypes.c_int
     lib.spectral_fused_error_string.argtypes = [ctypes.c_int]
     lib.spectral_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -228,10 +230,21 @@ def spectral_staged_library() -> ctypes.CDLL:
     ]
     lib.staged_rdft_w_bf16.argtypes = lib.staged_rdft_w.argtypes
     lib.staged_irdft_w_add_bf16.argtypes = lib.staged_irdft_w_add.argtypes
+    # the bf16-spectrum variants; an int says whether x / the residual is bf16
+    lib.staged_rdft_w_bf16s.argtypes = [
+        _P, _I, _I, _I, _I, _I,      # x, x_bf16, n, c, h, w
+        _P, _P, _P,                  # twiddles, spec, stream
+    ]
+    lib.staged_mix_h_bf16s.argtypes = lib.staged_mix_h.argtypes
+    lib.staged_irdft_w_add_bf16s.argtypes = [
+        _P, _P, _I, _I, _I, _I, _I,  # spec, residual, res_bf16, n, c, h, w
+        _P, _P, _P,                  # twiddles, out, stream
+    ]
     lib.staged_mix_cluster_size.argtypes = [_I, _I]  # c, h
     lib.staged_mix_odd_branch.argtypes = [_I]  # h
     for fn in (lib.staged_rdft_w, lib.staged_mix_h, lib.staged_irdft_w_add,
                lib.staged_rdft_w_bf16, lib.staged_irdft_w_add_bf16,
+               lib.staged_rdft_w_bf16s, lib.staged_mix_h_bf16s, lib.staged_irdft_w_add_bf16s,
                lib.staged_mix_cluster_size, lib.staged_mix_odd_branch):
         fn.restype = ctypes.c_int
     lib.spectral_staged_error_string.argtypes = [ctypes.c_int]

@@ -27,12 +27,15 @@ device).
 runs K4's row steps, the column pass of K5 and K6's inverse rows (with the
 residual in its store) on the twiddle tables of W and H.
 
-bf16 activations: K8 takes a bf16 ``x`` and residual (the JAX K8 on a bf16
-block's ``x`` and ``res``) and launches its bf16 variant, counted in
-``spectral_branch_tiled.launches_bf16``: the spectrum between its passes
-stays fp32, ``residual + branch`` is summed in fp32 and rounded once to
-bf16; its plain version rounds at the same point. K7 has no bf16 variant
-yet (ROADMAP.md, queue 2) and raises on a bf16 ``x`` on the card.
+bf16 activations: each takes a bf16 ``x`` and residual and launches its
+bf16 variant, counted in ``<wrapper>.launches_bf16``; the spectrum stays
+fp32 and the mix weight fp32. They round where their JAX counterparts do.
+K8-bf16 (the JAX K8 on a bf16 block's ``x`` and ``res``, which adds the
+residual inside the kernel) sums ``residual + branch`` in fp32 and rounds
+once to bf16. K7-bf16 (the JAX fused block's ``res + spectral_branch_fused(
+x)``, whose K7 writes ``x.dtype``) rounds the branch to bf16, then adds the
+residual and rounds the sum again. Each plain version rounds at its
+kernel's points.
 """
 
 from __future__ import annotations
@@ -136,8 +139,16 @@ spectral_branch_tiled.launches_bf16 = 0
 FUSED_CHANNELS = (8, 16, 32)
 FUSED_MAX_HW = 128
 
-# the plain K7 is the plain K8: the spectral branch plus the residual
-spectral_branch_fused_reference = spectral_branch_tiled_reference
+def spectral_branch_fused_reference(x: Tensor, mix: Tensor, bias: Tensor,
+                                    residual: Optional[Tensor] = None) -> Tensor:
+    """Plain K7: the plain K8 (:func:`spectral_branch_tiled_reference`)
+    for an fp32 ``x``; for a bf16 ``x`` the branch computed in fp32 on the
+    widened ``x`` and rounded to bf16, then the bf16 residual added in fp32
+    and the sum rounded to bf16 again, as the JAX fused block does."""
+    if x.dtype != BF16:
+        return spectral_branch_tiled_reference(x, mix, bias, residual)
+    out = spectral_branch(widen(x), mix, bias).to(BF16)
+    return out if residual is None else (widen(residual) + widen(out)).to(BF16)
 
 
 def in_fused_domain(h: int, w: int) -> bool:
@@ -149,7 +160,7 @@ def in_fused_domain(h: int, w: int) -> bool:
 def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
                           residual: Optional[Tensor] = None) -> Tensor:
     """K7: ``[residual +] irfft2(relu(mix([Re; Im] rfft2(x)) + bias))`` on
-    NCHW fp32 ``x`` ``(N, C, H, W)``, the same arguments and result as
+    NCHW ``x`` ``(N, C, H, W)``, the same arguments and result as
     :func:`spectral_branch_fused_reference`; ``mix`` is ``(2C_out,
     2C_in)``, ``bias`` ``(2C,)``. Domain: C in {8, 16, 32} and
     2 <= H, W <= 128, odd or even.
@@ -157,7 +168,9 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one launch per call, counted in ``spectral_branch_fused.launches``) or
     raises: outside the kernel's domain, on a wrong layout, when a gradient
-    is asked for (the kernel has no backward), or on a CUDA error."""
+    is asked for (the kernel has no backward), or on a CUDA error. A bf16
+    ``x`` (and residual) launches K7-bf16 (``spectral_fused_forward_bf16``,
+    counted in ``spectral_branch_fused.launches_bf16``)."""
     if x.device.type == "cpu":
         return spectral_branch_fused_reference(x, mix, bias, residual)
     if x.device.type != "cuda":
@@ -176,13 +189,13 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
             t is not None and t.requires_grad for t in (x, mix, bias, residual)):
         raise ValueError("spectral_branch_fused: the kernel is inference only "
                          "(no backward); call it under torch.no_grad()")
-    if x.dtype == BF16:
-        raise ValueError("spectral_branch_fused: K7 has no bf16 variant yet (ROADMAP.md, "
-                         "queue 2); a bf16 generator takes the staged route at these sizes")
+    act = act_dtype(x, "spectral_branch_fused")
     dev = x.device
-    for t, shape, name in ((x, (n, c, h, w), "x"), (mix, (2 * c, 2 * c), "mix"),
-                           (bias, (2 * c,), "bias"), (residual, (n, c, h, w), "residual")):
-        _check(t, shape, dev, name, "spectral_branch_fused")
+    for t, shape, name, dtype in ((x, (n, c, h, w), "x", act),
+                                  (mix, (2 * c, 2 * c), "mix", torch.float32),
+                                  (bias, (2 * c,), "bias", torch.float32),
+                                  (residual, (n, c, h, w), "residual", act)):
+        _check(t, shape, dev, name, "spectral_branch_fused", dtype)
 
     lib = _build.spectral_fused_library()
     tw_w, tw_h = _device_twiddles(w, dev), _device_twiddles(h, dev)
@@ -194,7 +207,8 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
         scratch = (torch.empty(n * floats, device=dev, dtype=torch.float32)
                    if floats > 0 else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.spectral_fused_forward(
+        entry = lib.spectral_fused_forward_bf16 if act == BF16 else lib.spectral_fused_forward
+        err = entry(
             x.data_ptr(), n, c, h, w, mix.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), tw_w.data_ptr(),
             tw_h.data_ptr(), None if scratch is None else scratch.data_ptr(),
@@ -202,8 +216,12 @@ def spectral_branch_fused(x: Tensor, mix: Tensor, bias: Tensor,
     if err != 0:
         msg = lib.spectral_fused_error_string(err).decode()
         raise RuntimeError(f"spectral_branch_fused: CUDA error {err} ({msg})")
-    spectral_branch_fused.launches += 1
+    if act == BF16:
+        spectral_branch_fused.launches_bf16 += 1
+    else:
+        spectral_branch_fused.launches += 1
     return out
 
 
 spectral_branch_fused.launches = 0
+spectral_branch_fused.launches_bf16 = 0

@@ -42,6 +42,17 @@ its epilogue in fp32 and rounds once to the wider of ``x``'s and
 writes the fp32 spectrum, K5 runs unchanged on it, K6-bf16 adds the bf16
 residual in fp32 and rounds once to bf16. The plain versions round at the
 same points with casts. Any other activation type raises.
+
+bf16 spectra (the JAX pipeline at ``bound_dtype=bfloat16``, its default,
+for fp32 or bf16 activations): ``rdft_w(x, bound_dtype=torch.bfloat16)``
+writes the half spectrum as a bf16 tensor ``(N, C, W/2+1, H, 2)`` of (Re,
+Im) pairs (PyTorch has no bf16 complex type), each rounded once from fp32
+as the JAX stage A's ``astype``; ``spectral_mix_h`` and ``irdft_w_add``
+take that tensor wherever they take a complex64 one. K5 widens it, computes
+in fp32 and rounds its result once (the JAX stage B's output); K6 widens
+it and adds the residual in fp32, rounding once to the residual's type.
+These launches are counted apart, in ``<wrapper>.launches_bf16s``, for
+either activation type. The plain versions round at the same points.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch.nn.functional as F
 from mtd_gan_tpu_torch.ops import _build
 from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, _check, _device_twiddles, act_dtype,
                                                  round_bf16)
+from mtd_gan_tpu_torch.ops.fft_conv import check_bound
 from mtd_gan_tpu_torch.ops.layers import widen
 
 Tensor = torch.Tensor
@@ -228,12 +240,26 @@ def _check_staged(who: str, n: int, c: int, h: int, w: int) -> None:
         raise ValueError(f"{who}: the kernel takes N <= {_MAX_GRID}, got {n}")
 
 
+def spectrum_shape(z: Tensor):
+    """``(N, C, K, H)`` of a half spectrum: complex64 ``(N, C, K, H)``, or
+    bf16 pairs ``(N, C, K, H, 2)``."""
+    return tuple(z.shape[:4]) if z.dtype == BF16 else tuple(z.shape)
+
+
+def widen_spectrum(z: Tensor) -> Tensor:
+    """A bf16 spectrum of (Re, Im) pairs as complex64; any other
+    spectrum as it is."""
+    return torch.view_as_complex(z.float()) if z.dtype == BF16 else z
+
+
 def _check_spec(z: Tensor, shape, dev: torch.device, who: str) -> None:
-    if z.device != dev or z.dtype != torch.complex64 or not z.is_contiguous():
-        raise ValueError(f"{who}: the spectrum must be a contiguous complex64 "
-                         f"tensor on {dev}, got {z.dtype} on {z.device}")
-    if tuple(z.shape) != tuple(shape):
-        raise ValueError(f"{who}: the spectrum has shape {tuple(z.shape)}, "
+    if (z.device != dev or z.dtype not in (torch.complex64, BF16) or not z.is_contiguous()
+            or (z.dtype == BF16 and (z.dim() != 5 or z.shape[-1] != 2))):
+        raise ValueError(f"{who}: the spectrum must be a contiguous complex64 tensor or "
+                         f"bf16 (Re, Im) pairs on {dev}, got {z.dtype} {tuple(z.shape)} "
+                         f"on {z.device}")
+    if spectrum_shape(z) != tuple(shape):
+        raise ValueError(f"{who}: the spectrum has shape {spectrum_shape(z)}, "
                          f"expected {tuple(shape)}")
 
 
@@ -243,15 +269,18 @@ def _raise_on(lib, err: int, who: str) -> None:
                            f"({lib.spectral_staged_error_string(err).decode()})")
 
 
-def rdft_w_reference(x: Tensor) -> Tensor:
+def rdft_w_reference(x: Tensor, bound_dtype: torch.dtype = torch.float32) -> Tensor:
     """Plain K4: the orthonormal real DFT of each row of NCHW ``x``, as
     ``(N, C, W/2+1, H)`` complex64, H contiguous; a bf16 ``x`` is widened
-    to fp32 first (K4-bf16's spectrum is fp32)."""
-    return torch.fft.rfft(widen(x), dim=-1, norm="ortho").transpose(-1, -2).contiguous()
+    to fp32 first (K4-bf16's spectrum is fp32). With ``bound_dtype`` bf16
+    the spectrum is rounded to bf16 (Re, Im) pairs, ``(N, C, W/2+1, H,
+    2)``."""
+    z = torch.fft.rfft(widen(x), dim=-1, norm="ortho").transpose(-1, -2).contiguous()
+    return torch.view_as_real(z).to(BF16) if bound_dtype == BF16 else z
 
 
-def rdft_w(x: Tensor) -> Tensor:
-    """K4: same argument and result as :func:`rdft_w_reference`.
+def rdft_w(x: Tensor, bound_dtype: torch.dtype = torch.float32) -> Tensor:
+    """K4: same arguments and result as :func:`rdft_w_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (``csrc/spectral_staged.cu`` ``staged_rdft_w``, counted in
@@ -259,10 +288,13 @@ def rdft_w(x: Tensor) -> Tensor:
     when a gradient is asked for, or on a CUDA error. The kernel reads its
     twiddles from ``cuda_pipeline.rdft_twiddles``, cached per device and
     W. A bf16 ``x`` launches K4-bf16 (``staged_rdft_w_bf16``, counted in
-    ``rdft_w.launches_bf16``)."""
-    if x.device.type == "cpu":
-        return rdft_w_reference(x)
+    ``rdft_w.launches_bf16``). ``bound_dtype`` bf16 launches K4-bf16s
+    (``staged_rdft_w_bf16s``, for an fp32 or bf16 ``x``, counted in
+    ``rdft_w.launches_bf16s``)."""
     who = "rdft_w"
+    check_bound("staged", bound_dtype, who)
+    if x.device.type == "cpu":
+        return rdft_w_reference(x, bound_dtype)
     dev = _device_of(x, who)
     if x.dim() != 4:
         raise ValueError(f"{who}: x must be (N, C, H, W), got {tuple(x.shape)}")
@@ -275,12 +307,19 @@ def rdft_w(x: Tensor) -> Tensor:
 
     lib = _build.spectral_staged_library()
     tw = _device_twiddles(w, dev)
-    z = torch.empty((n, c, w // 2 + 1, h), device=dev, dtype=torch.complex64)
-    entry = lib.staged_rdft_w_bf16 if bf else lib.staged_rdft_w
     with torch.cuda.device(dev):
-        err = entry(x.data_ptr(), n, c, h, w, tw.data_ptr(), z.data_ptr(), _stream(dev))
+        if bound_dtype == BF16:
+            z = torch.empty((n, c, w // 2 + 1, h, 2), device=dev, dtype=BF16)
+            err = lib.staged_rdft_w_bf16s(x.data_ptr(), int(bf), n, c, h, w, tw.data_ptr(),
+                                          z.data_ptr(), _stream(dev))
+        else:
+            z = torch.empty((n, c, w // 2 + 1, h), device=dev, dtype=torch.complex64)
+            entry = lib.staged_rdft_w_bf16 if bf else lib.staged_rdft_w
+            err = entry(x.data_ptr(), n, c, h, w, tw.data_ptr(), z.data_ptr(), _stream(dev))
     _raise_on(lib, err, who)
-    if bf:
+    if bound_dtype == BF16:
+        rdft_w.launches_bf16s += 1
+    elif bf:
         rdft_w.launches_bf16 += 1
     else:
         rdft_w.launches += 1
@@ -289,18 +328,21 @@ def rdft_w(x: Tensor) -> Tensor:
 
 rdft_w.launches = 0
 rdft_w.launches_bf16 = 0
+rdft_w.launches_bf16s = 0
 
 
 def spectral_mix_h_reference(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     """Plain K5 on a half spectrum ``z`` ``(N, C, K, H)``: the orthonormal
     FFT along H, ``relu(mix [Re; Im] + bias)`` over the stacked 2C channels
     (``mix`` ``(2C_out, 2C_in)``), the orthonormal inverse FFT along H.
-    Returns a new tensor."""
-    zf = torch.fft.fft(z, dim=-1, norm="ortho")
+    Returns a new tensor of ``z``'s kind: a bf16 spectrum ``(N, C, K, H,
+    2)`` is widened, and the result rounded once to bf16 pairs."""
+    zf = torch.fft.fft(widen_spectrum(z), dim=-1, norm="ortho")
     spec = torch.cat([zf.real, zf.imag], dim=1)
     spec = torch.relu(F.conv2d(spec, mix[:, :, None, None], bias))
     re, im = spec.chunk(2, dim=1)
-    return torch.fft.ifft(torch.complex(re, im), dim=-1, norm="ortho")
+    out = torch.fft.ifft(torch.complex(re, im), dim=-1, norm="ortho")
+    return torch.view_as_real(out).to(BF16) if z.dtype == BF16 else out
 
 
 def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
@@ -315,14 +357,20 @@ def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     reads the twiddle table of H points (``cuda_pipeline.rdft_twiddles``,
     cached per device and H); its cluster size and the branch of its odd
     step follow from (C, H) before the launch (``staged_mix_cluster_size``,
-    ``staged_mix_odd_branch`` in the library)."""
+    ``staged_mix_odd_branch`` in the library). A bf16 spectrum ``(N, C,
+    K, H, 2)`` launches K5-bf16s (``staged_mix_h_bf16s``, counted in
+    ``spectral_mix_h.launches_bf16s``). Both read two bins a load where H
+    is even, so ``z`` must lie at a multiple of two bins (16 bytes of
+    complex64, 8 of bf16 pairs)."""
     if z.device.type == "cpu":
         return z.copy_(spectral_mix_h_reference(z, mix, bias))
     who = "spectral_mix_h"
     dev = _device_of(z, who)
-    if z.dim() != 4:
-        raise ValueError(f"{who}: z must be (N, C, K, H), got {tuple(z.shape)}")
-    n, c, k, h = z.shape
+    bf = z.dtype == BF16
+    if z.dim() != (5 if bf else 4):
+        raise ValueError(f"{who}: z must be (N, C, K, H) complex or (N, C, K, H, 2) bf16, "
+                         f"got {tuple(z.shape)}")
+    n, c, k, h = spectrum_shape(z)
     # K = W/2 + 1 for 2 <= W <= 1024
     if not 2 <= k <= STAGED_MAX_HW // 2 + 1:
         raise ValueError(f"{who}: the kernel takes 2 <= K <= "
@@ -331,20 +379,27 @@ def spectral_mix_h(z: Tensor, mix: Tensor, bias: Tensor) -> Tensor:
     if _wants_grad(z, mix, bias):
         raise ValueError(f"{who}: the kernel is inference only (no backward)")
     _check_spec(z, (n, c, k, h), dev, who)
+    if z.data_ptr() % (8 if bf else 16) != 0:
+        raise ValueError(f"{who}: the spectrum must lie at a multiple of two bins")
     _check(mix, (2 * c, 2 * c), dev, "mix", who)
     _check(bias, (2 * c,), dev, "bias", who)
 
     lib = _build.spectral_staged_library()
     tw = _device_twiddles(h, dev)
+    entry = lib.staged_mix_h_bf16s if bf else lib.staged_mix_h
     with torch.cuda.device(dev):
-        err = lib.staged_mix_h(z.data_ptr(), n, c, h, k, mix.data_ptr(),
-                               bias.data_ptr(), tw.data_ptr(), _stream(dev))
+        err = entry(z.data_ptr(), n, c, h, k, mix.data_ptr(), bias.data_ptr(), tw.data_ptr(),
+                    _stream(dev))
     _raise_on(lib, err, who)
-    spectral_mix_h.launches += 1
+    if bf:
+        spectral_mix_h.launches_bf16s += 1
+    else:
+        spectral_mix_h.launches += 1
     return z
 
 
 spectral_mix_h.launches = 0
+spectral_mix_h.launches_bf16s = 0
 
 
 def irdft_w_add_reference(z: Tensor, res: Tensor) -> Tensor:
@@ -353,9 +408,10 @@ def irdft_w_add_reference(z: Tensor, res: Tensor) -> Tensor:
     inverse along W, the imaginary parts of the bins 0 and, for even W,
     W/2 dropped (as ``fft_conv.spectral_branch`` does: cuFFT's c2r does
     not drop them at every size). A bf16 ``res`` is added in fp32 and the
-    sum rounded once to bf16, as K6-bf16 does."""
+    sum rounded once to bf16, as K6-bf16 does; a bf16 spectrum ``(N, C,
+    W/2+1, H, 2)`` is widened first."""
     w = res.shape[-1]
-    zt = z.transpose(-1, -2)
+    zt = widen_spectrum(z).transpose(-1, -2)
     edge = torch.zeros(zt.shape[-1], dtype=torch.bool, device=z.device)
     edge[0] = True
     if w % 2 == 0:
@@ -375,7 +431,9 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     device and W) and runs K4's forward steps on the conjugate spectrum.
     Its C entry also runs in place (``residual == out``), as K1 calls it.
     A bf16 ``res`` launches K6-bf16 (``staged_irdft_w_add_bf16``, counted in
-    ``irdft_w_add.launches_bf16``; its output bf16)."""
+    ``irdft_w_add.launches_bf16``; its output bf16). A bf16 spectrum
+    ``(N, C, W/2+1, H, 2)`` launches K6-bf16s (``staged_irdft_w_add_bf16s``,
+    for an fp32 or bf16 ``res``, counted in ``irdft_w_add.launches_bf16s``)."""
     if res.device.type == "cpu":
         return irdft_w_add_reference(z, res)
     who = "irdft_w_add"
@@ -393,12 +451,19 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
     lib = _build.spectral_staged_library()
     tw = _device_twiddles(w, dev)
     out = torch.empty_like(res)
-    entry = lib.staged_irdft_w_add_bf16 if bf else lib.staged_irdft_w_add
+    bf_spec = z.dtype == BF16
     with torch.cuda.device(dev):
-        err = entry(z.data_ptr(), res.data_ptr(), n, c, h, w, tw.data_ptr(), out.data_ptr(),
-                    _stream(dev))
+        if bf_spec:
+            err = lib.staged_irdft_w_add_bf16s(z.data_ptr(), res.data_ptr(), int(bf), n, c, h,
+                                               w, tw.data_ptr(), out.data_ptr(), _stream(dev))
+        else:
+            entry = lib.staged_irdft_w_add_bf16 if bf else lib.staged_irdft_w_add
+            err = entry(z.data_ptr(), res.data_ptr(), n, c, h, w, tw.data_ptr(),
+                        out.data_ptr(), _stream(dev))
     _raise_on(lib, err, who)
-    if bf:
+    if bf_spec:
+        irdft_w_add.launches_bf16s += 1
+    elif bf:
         irdft_w_add.launches_bf16 += 1
     else:
         irdft_w_add.launches += 1
@@ -407,4 +472,5 @@ def irdft_w_add(z: Tensor, res: Tensor) -> Tensor:
 
 irdft_w_add.launches = 0
 irdft_w_add.launches_bf16 = 0
+irdft_w_add.launches_bf16s = 0
 

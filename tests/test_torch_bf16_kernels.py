@@ -211,17 +211,17 @@ def test_bf16_weight_gradient_matches_float64():
 
 def test_bf16_routes():
     """A bf16 generator: ``generate`` takes K1-bf16 at K1's sizes, the tiled
-    route (K8-bf16) and the staged route (K4-bf16 -> K5 -> K6-bf16) where
-    they take the shape, both with K3-bf16, and never the fused route (K7
-    has no bf16 variant): a bf16 96^2 goes to the staged route, where the
-    fp32 generator takes the fused one; the plain module in bf16 at a width
+    route (K8-bf16), the fused route (K7-bf16) and the staged route
+    (K4-bf16 -> K5 -> K6-bf16) where they take the shape, each with
+    K3-bf16, in the fp32 generator's order: a bf16 96^2 goes to the fused
+    route, as the fp32 generator does; the plain module in bf16 at a width
     no kernel takes. The train step K1 + K2 where they take the batch, as
     fp32. On the CPU the K1 pipeline's bf16 plain version and the plain
     bf16 module are two bf16 functions, each within twice the other's error
     against fp32 (+ 1e-6)."""
     assert generate_route(512, 512, 32, BF16) == "k1"
     assert generate_route(64, 64, 8, BF16) == "k1"
-    for h, w, c, route in ((448, 448, 32, "tiled"), (96, 96, 32, "staged"),
+    for h, w, c, route in ((448, 448, 32, "tiled"), (96, 96, 32, "fused"),
                            (1024, 1024, 32, "staged"), (200, 200, 32, "staged"),
                            (512, 512, 64, "plain")):
         assert generate_route(h, w, c, BF16) == route, (h, w, c)

@@ -2,8 +2,8 @@
 K2 (csrc/block_bwd.cu), K8 (csrc/spectral_tiled.cu), K7
 (csrc/spectral_fused.cu), K3 (csrc/conv3x3.cu) and K4 - K6
 (csrc/spectral_staged.cu; K5's and K8's column pass is csrc/columns_mixed.cuh)
-and the bf16 variants of K3, K4, K6 and K8 against their plain PyTorch
-versions, the
+and the bf16 variants of K3, K4, K6, K7 and K8 and the bf16-spectrum K4, K5
+and K6 against their plain PyTorch versions, the
 routes of ``generate`` and of the train step, and the diffusion UNet's
 chunked attention and a DDIM chain against float64 and the CPU, on the
 card. Every test is marked
@@ -686,6 +686,113 @@ def test_bf16_rows_read_and_write_unaligned_tensors(dev, offset):
     want = cs.irdft_w_add_reference(zr, res).float()
     for got in (cs.irdft_w_add(zr, res), inout):
         assert ((got.float() - want).abs().max() / want.abs().max()).item() < TOL_BF16_REL
+
+
+@pytest.mark.parametrize("with_res", [False, True], ids=["branch", "residual"])
+@pytest.mark.parametrize("n,c,h,w", [(4, 32, 96, 96), (2, 32, 100, 72), (2, 32, 127, 127),
+                                     (2, 8, 33, 27)])
+def test_k7_bf16_matches_plain_version(dev, n, c, h, w, with_res):
+    """K7-bf16 (``spectral_branch_fused`` on a bf16 x and residual) against
+    its bf16 plain version on 1/sqrt(fan_in) weights: one launch a call,
+    counted in ``launches_bf16`` and no fp32 launch, two calls bit for bit,
+    the branch rounded to bf16 before the residual is added. 127^2 at C =
+    32 keeps its spectrum in the device-memory scratch; W = 27 and 127 are
+    no multiple of 4 (the scalar row paths)."""
+    a = {k: v.to(BF16) if k in ("x", "residual") else v
+         for k, v in _tiled_inputs(dev, n, c, h, w).items()}
+    args = (a["x"], a["mix"], a["bias"], a["residual"] if with_res else None)
+    fp32_before = _counts()
+    before = spectral_branch_fused.launches_bf16
+    got = spectral_branch_fused(*args)
+    again = spectral_branch_fused(*args)
+    torch.cuda.synchronize()
+    assert spectral_branch_fused.launches_bf16 == before + 2 and _counts() == fp32_before
+    assert got.dtype == BF16 and torch.equal(got, again)
+    want = spectral_branch_fused_reference(*args)
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err < TOL_BF16_REL
+
+
+@pytest.mark.parametrize("offset", [1, 4], ids=["2 bytes", "8 bytes"])
+def test_k7_bf16_reads_and_writes_unaligned_tensors(dev, offset):
+    """K7-bf16's x, residual and output starting ``offset`` bf16 values
+    into an allocation (W = 64): at 2 bytes the rows take their scalar
+    loads and stores, at 8 bytes their vector ones."""
+    n, c, h, w = 2, 8, 32, 64
+    size = n * c * h * w
+    a = _tiled_inputs(dev, 1, c, 2 * h, w + 1)
+    view = lambda t: t.to(BF16).reshape(-1)[offset:offset + size].view(n, c, h, w)
+    x, res = view(a["x"]), view(a["residual"])
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0 and res.data_ptr() % 16 != 0
+    got = spectral_branch_fused(x, a["mix"], a["bias"], res)
+    want = spectral_branch_fused_reference(x, a["mix"], a["bias"], res).float()
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() < TOL_BF16_REL
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,c,h,w", [(2, 32, 1024, 1024), (2, 8, 449, 130), (2, 16, 200, 200),
+                                     (1, 8, 33, 27)])
+def test_bf16_spectra_match_plain_versions(dev, n, c, h, w, act):
+    """K4-bf16s, K5-bf16s and K6-bf16s (``bound_dtype`` bf16: the spectrum
+    in bf16 (Re, Im) pairs) on fp32 or bf16 activations, each fed the plain
+    input and held against its plain version: one launch a call, counted in
+    ``launches_bf16s`` and nowhere else; K5-bf16s two calls bit for bit;
+    K6-bf16s also in place through the C entry. Where the output rounds to
+    bf16 (the spectra; K6's bf16 sum) one bf16 unit (TOL_BF16_REL), K6's
+    fp32 sum TOL_REL. H = 449 and 33 take K5's odd step in two buffers,
+    W = 130 and 27 the rows' scalar paths."""
+    from mtd_gan_tpu_torch.ops import _build
+
+    a = _tiled_inputs(dev, n, c, h, w)
+    if act == "bf16":
+        a = {k: v.to(BF16) if k in ("x", "residual") else v for k, v in a.items()}
+    rel = lambda g, r: ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+    before = _counts() + [cs.rdft_w.launches_bf16, cs.irdft_w_add.launches_bf16]
+    counted = (cs.rdft_w, cs.spectral_mix_h, cs.irdft_w_add)
+    bf16s = [f.launches_bf16s for f in counted]
+    z = cs.rdft_w(a["x"], BF16)
+    zr = cs.rdft_w_reference(a["x"], BF16)
+    t1, t2 = zr.clone(), zr.clone()
+    cs.spectral_mix_h(t1, a["mix"], a["bias"])
+    cs.spectral_mix_h(t2, a["mix"], a["bias"])
+    tr = cs.spectral_mix_h_reference(zr, a["mix"], a["bias"])
+    out = cs.irdft_w_add(tr, a["residual"])
+    inout = a["residual"].clone()
+    lib = _build.spectral_staged_library()
+    assert lib.staged_irdft_w_add_bf16s(tr.data_ptr(), inout.data_ptr(), int(act == "bf16"),
+                                        n, c, h, w, cs._device_twiddles(w, dev).data_ptr(),
+                                        inout.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert [f.launches_bf16s - b for f, b in zip(counted, bf16s)] == [1, 2, 1]
+    assert _counts() + [cs.rdft_w.launches_bf16, cs.irdft_w_add.launches_bf16] == before
+    assert z.dtype == t1.dtype == BF16 and tuple(z.shape) == (n, c, w // 2 + 1, h, 2)
+    assert rel(z, zr) < TOL_BF16_REL
+    assert torch.equal(t1, t2) and rel(t1, tr) < TOL_BF16_REL
+    want = cs.irdft_w_add_reference(tr, a["residual"])
+    tol = TOL_BF16_REL if act == "bf16" else TOL_REL
+    assert out.dtype == inout.dtype == a["residual"].dtype
+    assert rel(out, want) < tol and rel(inout, want) < tol
+
+
+def test_generate_bf16_at_96_runs_the_fused_route(dev):
+    """A bf16 full-width generator at 96x96 takes the fused route: 21
+    K7-bf16 and 42 K3-bf16 launches a call and no fp32 kernel launch;
+    the output fp32, finite, within 5e-2 of the fp32 generator's (a gross
+    bound, chip_smoke.py TOL_BF16_GENERATE_ABS)."""
+    m16 = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1, dtype=BF16)
+    m32 = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1)
+    x = torch.rand((2, 96, 96, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    fp32_before = _counts()
+    before = (spectral_branch_fused.launches_bf16, cs.conv3x3.launches_bf16)
+    got = m16.generate(x)
+    torch.cuda.synchronize()
+    assert (spectral_branch_fused.launches_bf16 - before[0],
+            cs.conv3x3.launches_bf16 - before[1]) == (21, 42)
+    assert _counts() == fp32_before
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - m32.generate(x)).abs().max().item() < 5e-2
 
 
 def test_k4_reads_an_unaligned_input(dev):
