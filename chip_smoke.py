@@ -233,7 +233,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      after building its kernels and K1 and K2): K3-bf16 (relu + residual,
      skip + relu, the deconv with a bf16 skip on the tensor cores, the
      C -> 1 exit deconv with the fp32 image on the direct path) at 448x448,
-     1024x1024 and 449x130, K4-bf16 and K6-bf16 (also in place) at
+     1024x1024 and 449x130, and on the tensor cores on both staging tiers
+     of its bf16 tile (``K3_BF16_TIER_CASES``: every C_in in {8, 16, 24,
+     32} with every C_out in {8, 16, 32, 64}; the 16-byte tier's W = 1024,
+     448, 96, 72, 64, the general tier's 449, 130, 100, 99, 70, 27, 1 and
+     x 2 and 8 bytes off 16), K4-bf16 and K6-bf16 (also in place) at
      1024x1024 and 448x449, K8-bf16 at 448x448, batch 8, and 512x320, each
      against its bf16 plain version on 1/sqrt(fan_in) weights (1e-2
      max-relative; K4-bf16's fp32 spectrum 1e-4); a bf16 flagship's
@@ -246,14 +250,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      in turns with both; a ``--bf16`` train CLI epoch of one step on 448x448
      slices whose validation of 4 slices takes the tiled route (84 K8-bf16);
      the four kernels in turns with their fp32 kernels beside their bf16
-     plain versions, library calls and bf16 bounds; the bf16 tiled and
-     staged blocks split by launch. The kernels line lists the four with the
-     launches of phase 32's generate calls and train CLI.
+     plain versions, library calls and bf16 bounds (K3-bf16 at the five
+     route shapes, in turns with fp32 K3 and cuDNN's bf16 call); the bf16
+     tiled and staged blocks split by launch. The kernels line lists the
+     four with the launches of phase 32's generate calls and train CLI.
   33. K7-bf16 and bf16 spectra (run right after phase 32, on its own random
      data; ``python3 chip_smoke.py --phase 33`` runs it alone after
-     building its kernels and K1 and K8): the templating guard, K1, K4 -
-     K8, K1-bf16, K4-bf16, K6-bf16 and K8-bf16 on the seeded inputs of
-     ``tools/torch_fp32_digests.py``, every output's SHA-256 digest equal
+     building its kernels and K1, K2 and K8): the templating guard, K1 -
+     K8, K1-bf16, K2-bf16, K3-bf16, K4-bf16, K6-bf16 and K8-bf16 on the
+     seeded inputs of ``tools/torch_fp32_digests.py``, every output's
+     SHA-256 digest equal
      to the parent's (``PARENT_DIGESTS``); K7-bf16 at 96x96, batch 64,
      100x72, 127x127 (the scratch) and, at C = 8, 33x27, with and without
      the residual, and K4-bf16s, K5-bf16s, K6-bf16s (``bound_dtype`` bf16:
@@ -3227,6 +3233,27 @@ BF16_ROUTE_SHAPES = (((8, 448), "tiled"), ((2, 1024), "staged"), ((8, 200), "sta
 # validation slices (the tiled route)
 BF16_CLI_VALID = 4
 BF16_ROUTE_KERNELS = ("K3-bf16", "K4-bf16", "K6-bf16", "K8-bf16")
+# K3-bf16 on the tensor cores, (C_in, C_out, N, H, W, offset of x in bf16
+# values): every channel pair at 40x72; C = 32 at the 16-byte staging
+# tier's widths (W % 8 == 0, x on 16 bytes) and the general tier's; C_in =
+# 8, 16, 24 on the general tier and C = 16 at 200x200; x 2 and 8 bytes
+# past an aligned address (the general tier at W = 64). Equal to
+# tests/test_torch_cuda.py's K3_BF16_CASES (held by
+# tests/test_torch_tc_bf16_tile.py).
+K3_BF16_TIER_CASES = (
+    [(ci, co, 1, 40, 72, 0) for ci in (8, 16, 24, 32) for co in (8, 16, 32, 64)]
+    + [(C, C, n, h, w, 0) for n, h, w in ((1, 1024, 1024), (2, 448, 448), (2, 96, 96),
+                                          (2, 100, 72), (2, 64, 64), (1, 130, 449),
+                                          (1, 449, 130), (2, 100, 100), (2, 27, 27),
+                                          (2, 5, 1))]
+    + [(8, 8, 2, 192, 70, 0), (8, 8, 1, 449, 130, 0), (16, 16, 2, 200, 200, 0),
+       (16, 16, 2, 27, 27, 0), (24, 24, 2, 27, 27, 0), (24, 64, 1, 33, 99, 0)]
+    + [(c, c, 2, 64, 64, off) for c in (8, 24, C) for off in (1, 4)])
+# K3-bf16's timed shapes (relu + residual, C = 32): the staged route's
+# 1024^2 batch 2 first (the kernels line's), the tiled route's 448^2 batch
+# 8, the staged 200^2 batch 8, the fused route's 96^2 batch 64 and 100x72
+# batch 4
+K3_BF16_TIMED = ((2, 1024, 1024), (8, 448, 448), (8, 200, 200), (64, 96, 96), (4, 100, 72))
 
 
 def check_bf16_route_kernels(lib):
@@ -3295,6 +3322,50 @@ def check_bf16_route_kernels(lib):
         launched(f"K8-bf16 {h}x{w}", [(spectral_branch_tiled, before, 1)])
         hold("K8-bf16", f"{h}x{w} C={C} n={n} with residual", got,
              spectral_branch_tiled_reference(**a), BF16)
+    return worst
+
+
+def check_k3_bf16_tiers():
+    """Phase 32: K3-bf16 on the tensor cores at K3_BF16_TIER_CASES (relu;
+    skip + relu; the flipped deconv with a bf16 skip; relu + residual where
+    C_in == C_out), both staging tiers of its bf16 tile, against its bf16
+    plain version on 1/sqrt(fan_in) weights within TOL_BF16_REL, one bf16
+    tensor-core launch a call. Returns the largest absolute error."""
+    worst = 0.0
+    rng = np.random.default_rng(321)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    for c_in, c_out, n, h, w, offset in K3_BF16_TIER_CASES:
+        x = t(rng.random((n, c_in, h, w)) - 0.5).to(BF16)
+        if offset:
+            x = torch.empty(x.numel() + offset, device="cuda", dtype=BF16)[offset:].view(
+                x.shape).copy_(x)
+        weight = t(rng.standard_normal((c_out, c_in, 3, 3)) / math.sqrt(9 * c_in))
+        wt_t = t(rng.standard_normal((c_in, c_out, 3, 3)) / math.sqrt(9 * c_in))
+        bias = t(rng.standard_normal(c_out) * 0.1)
+        skip = t(rng.standard_normal((n, c_out, h, w)) * 0.5).to(BF16)
+        tier = "16-byte" if w % 8 == 0 and x.data_ptr() % 16 == 0 else "general"
+        calls = [("relu", weight, {}), ("skip+relu", weight, dict(skip=skip)),
+                 ("deconv+skip", wt_t, dict(skip=skip, transpose=True, relu=False))]
+        if c_in == c_out:
+            calls.append(("relu+residual", weight, dict(residual=True)))
+        parts = []
+        for label, wt, kw in calls:
+            before = (conv3x3.launches_bf16, conv3x3.launches_bf16_tc)
+            got = conv3x3(x, wt, bias, **kw)
+            torch.cuda.synchronize()
+            if (conv3x3.launches_bf16 - before[0], conv3x3.launches_bf16_tc - before[1]) != (1, 1):
+                fail(f"K3-bf16 {c_in}->{c_out} {h}x{w}: not one tensor-core launch")
+            want = conv3x3_reference(x, wt, bias, **kw)
+            if got.dtype != BF16 or not torch.isfinite(got.float()).all():
+                fail(f"K3-bf16 {c_in}->{c_out} {h}x{w} {label}: {got.dtype} or not finite")
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            rel = rel_err(got, want)
+            parts.append(f"{label} {rel:.2e}")
+            if rel > TOL_BF16_REL:
+                fail(f"K3-bf16 {c_in}->{c_out} {h}x{w} offset {offset} {label}: relative "
+                     f"error {rel:.3e} > {TOL_BF16_REL}")
+        print(f"K3-bf16 tier check {c_in}->{c_out} n={n} {h}x{w} offset {offset} ({tier} "
+              f"tier) max-relative: " + ", ".join(parts), flush=True)
     return worst
 
 
@@ -3382,46 +3453,62 @@ def check_bf16_routes_cli(rng, tmp: str):
 
 
 def bf16_turns(label: str, fp32_fn, bf16_fn, plain_fn, library_fn, work, peak,
-               names=("fp32", "bf16")):
+               names=("fp32", "bf16"), library_in_turns=False):
     """One bf16 kernel in turns with its fp32 kernel (fp32, bf16, bf16,
-    fp32), beside its bf16 plain version, one library call of the same
-    function and its bound; returns (ms, plain_ms, bound_ms, bound_by,
-    library_ms). ``names``: the two kernels' names in the line."""
-    turns = [cuda_ms(f, 10) for f in (fp32_fn, bf16_fn, bf16_fn, fp32_fn)]
+    fp32; with ``library_in_turns`` the library call between the two bf16
+    turns: fp32, bf16, library, library, bf16, fp32), beside its bf16 plain
+    version, one library call of the same function and its bound; returns
+    (ms, plain_ms, bound_ms, bound_by, library_ms). ``names``: the two
+    kernels' names in the line."""
+    a, b = names
+    order = ((a, fp32_fn), (b, bf16_fn)) + (
+        (("library", library_fn),) * 2 if library_in_turns else ())
+    order += order[1::-1]
+    turns = [cuda_ms(f, 10) for _, f in order]
     plain_ms = cuda_ms(plain_fn, 10)
-    library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
+    if library_in_turns:
+        library_ms = (turns[2] + turns[3]) / 2
+    else:
+        library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
     b_ms, by = bound(work, peak)
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
-    a, b = names
-    print(f"time {label}: {a} {turns[0]:.3f}, {b} {turns[1]:.3f}, {b} {turns[2]:.3f}, {a} "
-          f"{turns[3]:.3f} ms (in turns); {b} plain {plain_ms:.3f} ms; library {lib_txt}; "
-          f"{b} bound {b_ms:.3f} ms ({by})", flush=True)
-    return (turns[1] + turns[2]) / 2, plain_ms, b_ms, by, library_ms
+    shown = ", ".join(f"{name} {ms:.3f}" for (name, _), ms in zip(order, turns))
+    print(f"time {label}: {shown} ms (in turns); {b} plain {plain_ms:.3f} ms; library "
+          f"{lib_txt}; {b} bound {b_ms:.3f} ms ({by})", flush=True)
+    return (turns[1] + turns[-2]) / 2, plain_ms, b_ms, by, library_ms
 
 
 def time_bf16_route_kernels():
-    """Phase 32, the times: K3-bf16 (relu + residual), K4-bf16 and K6-bf16
-    at 1024x1024, batch 2 (the staged route's main-path shape, as the fp32
+    """Phase 32, the times: K3-bf16 (relu + residual) at K3_BF16_TIMED in
+    turns with fp32 K3 and its library call (F.conv2d on the bf16 operands
+    and its epilogue in bf16, in the turns); K4-bf16 and K6-bf16 at
+    1024x1024, batch 2 (the staged route's main-path shape, as the fp32
     rows), K8-bf16 with the residual at 448x448, batch 8; each beside its
-    fp32 kernel, its bf16 plain version, its library call (K3: F.conv2d on
-    the bf16 operands and its epilogue in bf16; K4: torch.fft.rfft of the
-    widened x; K6: the residual widened plus torch.fft.irfft, rounded to
-    bf16; K8: none) and its bound (convs at the dense bf16 rate, the rest
-    fp32 on the CUDA cores; activations at 2 bytes, spectra at 4 a
-    float). Then the bf16 tiled block (448x448, batch 8) and staged block
-    (1024x1024, batch 2) split by launch: K3-bf16's residual conv, then
-    K8-bf16's three launches or K4-bf16, K5, K6-bf16. Returns {name: (ms,
-    plain_ms, bound_ms, bound_by, library_ms)}."""
+    fp32 kernel, its bf16 plain version, its library call (K4:
+    torch.fft.rfft of the widened x; K6: the residual widened plus
+    torch.fft.irfft, rounded to bf16; K8: none) and its bound (convs at the
+    dense bf16 rate, the rest fp32 on the CUDA cores; activations at 2
+    bytes, spectra at 4 a float). Then the bf16 tiled block (448x448, batch
+    8) and staged block (1024x1024, batch 2) split by launch: K3-bf16's
+    residual conv, then K8-bf16's three launches or K4-bf16, K5, K6-bf16.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}, K3-bf16
+    at 1024x1024, batch 2."""
     out = {}
     with torch.no_grad():
+        k3 = []
+        for n, h, w in K3_BF16_TIMED:
+            (x, wt, b), kw = k3_calls(n, h, w, "fan_in", seed=5)["relu+residual"]
+            x16, w16, b16 = x.to(BF16), wt.to(BF16), b.to(BF16)
+            k3.append(bf16_turns(
+                f"K3-bf16 {h}x{w} batch {n} C={C} relu+residual",
+                lambda: conv3x3(x, wt, b, **kw), lambda: conv3x3(x16, wt, b, **kw),
+                lambda: conv3x3_reference(x16, wt, b, **kw),
+                lambda: x16 + torch.relu(torch.nn.functional.conv2d(x16, w16, b16, padding=1)),
+                k3_work(n, h, w, "relu+residual", act=2), PEAK_BF16_FLOPS, library_in_turns=True))
+        out["K3-bf16"] = k3[0]
         args, kw = k3_calls(2, 1024, 1024, "fan_in", seed=5)["relu+residual"]
         x, wt, b = args
-        x16, w16, b16 = x.to(BF16), wt.to(BF16), b.to(BF16)
-        out["K3-bf16"] = bf16_turns(
-            "K3-bf16 1024x1024 batch 2 C=32 relu+residual", lambda: conv3x3(x, wt, b, **kw),
-            lambda: conv3x3(x16, wt, b, **kw), lambda: conv3x3_reference(x16, wt, b, **kw),
-            lambda: x16 + torch.relu(torch.nn.functional.conv2d(x16, w16, b16, padding=1)),
-            k3_work(2, 1024, 1024, "relu+residual", act=2), PEAK_BF16_FLOPS)
+        x16 = x.to(BF16)
         a = tiled_inputs(2, 1024, 1024, "fan_in", seed=6)
         a16 = bf16_args(a)
         z = rdft_w_reference(a["x"])
@@ -3446,7 +3533,7 @@ def time_bf16_route_kernels():
                      (("K3-bf16 residual conv", "conv3x3_tc_kernel"),
                       ("rows (K4-bf16)", "rdft_w_kernel"), ("column pass (K5)", "columns_mixed_kernel"),
                       ("inverse rows (K6-bf16)", "irdft_w_kernel")))
-        del args, kw, x, wt, b, x16, w16, b16, a, a16, z, zz, staged
+        del args, kw, x, wt, b, x16, a, a16, z, zz, staged
         a = tiled_inputs(8, 448, 448, "fan_in", seed=3)
         a16 = bf16_args(a)
         out["K8-bf16"] = bf16_turns(
@@ -3470,6 +3557,7 @@ def check_bf16_routes(tmp: str):
     t0 = time.perf_counter()
     rng = np.random.default_rng(32)
     worst = check_bf16_route_kernels(_build.spectral_staged_library())
+    worst["K3-bf16"] = max(worst["K3-bf16"], check_k3_bf16_tiers())
     gen = check_bf16_routes_generate(rng)
     cli = check_bf16_routes_cli(rng, tmp)
     times = time_bf16_route_kernels()
@@ -3513,9 +3601,11 @@ FUSED_BF16_SHAPES = ((64, 96, 96), (4, 100, 72))
 BF16S_SPECTRAL = {name: 21 for name in BF16S_KERNELS}
 # the digests tools/torch_fp32_digests.py printed for ef5aa49, the parent of
 # the change that templated rdft_rows.cuh and columns_mixed.cuh on the
-# spectrum type and spectral_fused.cu on the activation type (an NVIDIA
-# H100 80GB HBM3, 700.00 W; the templated tree read the same): the existing
-# instances must compute the same bits
+# spectrum type and spectral_fused.cu on the activation type, and (the K2,
+# K3, K2-bf16 and K3-bf16 entries) for e3ff6cb, the parent of the change
+# that kept K3-bf16's input tile bf16 in shared memory (an NVIDIA H100 80GB
+# HBM3, 700.00 W; each changed tree read the same): the existing instances
+# must compute the same bits
 PARENT_DIGESTS = {
     "K4 2x32x1024x1024": "36c80361e637718e",
     "K5 2x32x1024x1024": "c84cff6ffc3c752f",
@@ -3565,13 +3655,64 @@ PARENT_DIGESTS = {
     "K1-bf16 2x32x512x512 pre+skip+post output 1": "ed1135fe26f3af7a",
     "K1 4x8x64x64 plain output 0": "56acdc19f881b930",
     "K1-bf16 4x8x64x64 plain output 0": "6640c0829ad7fb14",
+    "K3 2x32x1024x1024 relu+residual": "d072a574c6cb1bb1",
+    "K3 2x32x1024x1024 skip": "a250142a31889f82",
+    "K3 2x32x1024x1024 deconv+skip": "67ac66988c68d22c",
+    "K3-bf16 2x32x1024x1024 relu+residual": "5aaaad1b975fee6e",
+    "K3-bf16 2x32x1024x1024 skip": "a802340e5145e8d0",
+    "K3-bf16 2x32x1024x1024 deconv+skip": "fe39d2c26c6334c3",
+    "K3 2x32x448x448 relu+residual": "9572d906846f8db1",
+    "K3 2x32x448x448 skip": "9e5828e903ce18ee",
+    "K3 2x32x448x448 deconv+skip": "9c1f5b844519e0a8",
+    "K3-bf16 2x32x448x448 relu+residual": "12897bf024bc405c",
+    "K3-bf16 2x32x448x448 skip": "5c11104942a556c7",
+    "K3-bf16 2x32x448x448 deconv+skip": "f61bb175240bf3f9",
+    "K3 2x32x449x130 relu+residual": "5c3fe1b7e109c78c",
+    "K3 2x32x449x130 skip": "308e8fb934b536f1",
+    "K3 2x32x449x130 deconv+skip": "6b2684de594de646",
+    "K3-bf16 2x32x449x130 relu+residual": "a35b647803dc86f5",
+    "K3-bf16 2x32x449x130 skip": "3d501505ee074815",
+    "K3-bf16 2x32x449x130 deconv+skip": "82eac6e1683e6f0e",
+    "K3 2x8x33x27 relu+residual": "51c0d1d446678b29",
+    "K3 2x8x33x27 skip": "e9062f3054119bee",
+    "K3 2x8x33x27 deconv+skip": "ee8a0c431d0a4add",
+    "K3-bf16 2x8x33x27 relu+residual": "66d4208787444aa1",
+    "K3-bf16 2x8x33x27 skip": "ac2cc3743ef0e5c8",
+    "K3-bf16 2x8x33x27 deconv+skip": "a99700c398d4e7f4",
+    "K2 160x32x64x64 pre+skip kb": "82a312ca655040e4",
+    "K2 160x32x64x64 pre+skip km": "04dc39ed8032aac3",
+    "K2 160x32x64x64 pre+skip mb": "5617c9fadee4e11e",
+    "K2 160x32x64x64 pre+skip mix": "3a851a0f54ec12fb",
+    "K2 160x32x64x64 pre+skip pre_b": "8984a62420308c45",
+    "K2 160x32x64x64 pre+skip pre_w": "e05999029763483b",
+    "K2 160x32x64x64 pre+skip skip": "4b5508c106e9231c",
+    "K2 160x32x64x64 pre+skip xbar": "1a5ee072e7d98396",
+    "K2-bf16 160x32x64x64 pre+skip kb": "bbe4bb4216080a4d",
+    "K2-bf16 160x32x64x64 pre+skip km": "474f281866bbed4a",
+    "K2-bf16 160x32x64x64 pre+skip mb": "211c0d3326b322b4",
+    "K2-bf16 160x32x64x64 pre+skip mix": "4a99b959a4c6eda2",
+    "K2-bf16 160x32x64x64 pre+skip pre_b": "d83dcc1621825d92",
+    "K2-bf16 160x32x64x64 pre+skip pre_w": "de496c0d3658de00",
+    "K2-bf16 160x32x64x64 pre+skip skip": "713727c6afb083de",
+    "K2-bf16 160x32x64x64 pre+skip xbar": "22dc32ffba86db5c",
+    "K2 8x8x64x64 plain kb": "1b8331660827e0ae",
+    "K2 8x8x64x64 plain km": "68b11dfccd7c5ff8",
+    "K2 8x8x64x64 plain mb": "6479d038bae9dbb7",
+    "K2 8x8x64x64 plain mix": "ad5072e5699e3ee7",
+    "K2 8x8x64x64 plain xbar": "1d793b61e3dd7d19",
+    "K2-bf16 8x8x64x64 plain kb": "ba79ecfae8800d8b",
+    "K2-bf16 8x8x64x64 plain km": "e9317d5e9a488ad3",
+    "K2-bf16 8x8x64x64 plain mb": "a5123949c1b0ff6a",
+    "K2-bf16 8x8x64x64 plain mix": "72df987f39a8e397",
+    "K2-bf16 8x8x64x64 plain xbar": "801a1b8dfcb0a08b",
 }
 
 
 def check_parent_digests():
-    """Phase 33, the templating guard: K1, K4 - K8 and K1-bf16, K4-bf16,
-    K6-bf16, K8-bf16 on the seeded inputs of tools/torch_fp32_digests.py,
-    every output's digest equal to the parent's (PARENT_DIGESTS)."""
+    """Phase 33, the templating guard: K1 - K8 and K1-bf16, K2-bf16,
+    K3-bf16, K4-bf16, K6-bf16, K8-bf16 on the seeded inputs of
+    tools/torch_fp32_digests.py, every output's digest equal to the
+    parent's (PARENT_DIGESTS)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
@@ -3862,9 +4003,10 @@ def check_fused_bf16():
 
 def phase33_alone(card: str) -> None:
     """``--phase 33``: phase 33 alone, after the builds of its kernels (K7,
-    K3, K4 - K6; the guard builds K1 and K8 too); it ends with the card line
-    and no kernels or result line."""
-    names = ("spectral_fused", "conv3x3", "spectral_staged", "block_fused", "spectral_tiled")
+    K3, K4 - K6; the guard builds K1, K2 and K8 too); it ends with the card
+    line and no kernels or result line."""
+    names = ("spectral_fused", "conv3x3", "spectral_staged", "block_fused", "block_bwd",
+             "spectral_tiled")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.build, names))
     check_fused_bf16()

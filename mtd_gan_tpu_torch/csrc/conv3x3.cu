@@ -69,15 +69,45 @@
 // routes): x is bf16 and the weight and bias fp32; both paths compute the
 // conv of bf16 operands (the weight rounded to bf16 as it is staged, as
 // the flax layers cast it) with fp32 sums, apply the epilogue in fp32 and
-// round once at the store. The tensor-core path is K1-bf16's (one wgmma
-// m64nNk16 bf16 product per 16 k), its skip bf16 and its output bf16; the
-// direct path reads bf16 rows and takes a bf16 skip with a bf16 output or
-// an fp32 skip with an fp32 output: the C -> 1 exit deconv, whose
-// relu(deconv(h) + b + img) is the generator's fp32 output. The bf16 tiles
-// are staged with plain loads (cp.async moves 4 bytes or more). Bound at
-// 1024x1024, C = 32, batch 2, relu + residual: the same 38.7 GFLOP at the
-// dense bf16 rate (989 TFLOP/s, 0.04 ms) against 268 MB of bf16 x and out
-// (0.08 ms): bound by its bytes.
+// round once at the store. The direct path reads bf16 rows and takes a
+// bf16 skip with a bf16 output or an fp32 skip with an fp32 output: the
+// C -> 1 exit deconv, whose relu(deconv(h) + b + img) is the generator's
+// fp32 output. Bound at 1024x1024, C = 32, batch 2, relu + residual: the
+// same 38.7 GFLOP at the dense bf16 rate (989 TFLOP/s, 0.04 ms) against
+// 268 MB of bf16 x and out (0.08 ms): bound by its bytes.
+//
+// The tensor-core path (also K1-bf16's and K2-bf16's C -> C convs) keeps
+// the fp32 path's tiles, blocks, warpgroups and B layout and runs ONE
+// wgmma m64nNk16 bf16 product per 16 k. At the bound it moves 16 bytes of
+// x a pixel and does 9 x 32 multiply-adds a pixel and output channel, so
+// what limits it is getting x into shared memory and into the A registers,
+// not the products. So:
+//   - the input tile stays bf16 in shared memory: rows of 40 values (80
+//     bytes), the two left halo columns rotated to the row's end so that
+//     the 32 interior columns start on 16 bytes; 18 rows a plane, padded to
+//     1456 bytes so that channels two apart are 24 banks apart (the four
+//     channel pairs of a warp's A load in four separate octets of banks);
+//     46.6 KB a buffer at C_in = 32, half the fp32 layout's;
+//   - staging is asynchronous (stage_tile_bf16), with the fp32 path's
+//     double buffer: the next tile's copies are issued before this tile's
+//     products and waited for at the next tile. Where W % 8 == 0 and x
+//     starts on 16 bytes (every route shape: 1024, 512, 448, 200, 96, 72,
+//     64) a row is four 16-byte cp.async chunks and two 4-byte pairs; for
+//     every other W, and a base 2 or 8 bytes off, 18 pairs a row, 4-byte
+//     cp.async where the row starts on 4 bytes, else loaded by the threads
+//     (a batch of loads issued before the first store). cp.async's
+//     zero-fill is the padding: a chunk or pair lies wholly inside or
+//     outside the image;
+//   - an A register (channels 2t, 2t + 1 of one pixel) is two 16-bit
+//     shared loads joined by one prmt: no conversion; the residual
+//     epilogue widens x from the tile.
+// The products and their order are those of the earlier design (the tile
+// widened to fp32 in shared memory with plain loads, each A register
+// rounded back from two fp32 values), so every output keeps its bits. A
+// third tile buffer, two resident blocks an SM (64 registers a thread:
+// spills) and two A sets in flight were each timed against this design on
+// an H100, and none was faster (PERF.md, Findings).
+// Shared memory at C = 32: 18 KB of bf16 B and two 46.6 KB tiles, 112 KB.
 
 #include "conv3x3_tc.cuh"
 

@@ -5,16 +5,20 @@
 // header holds its device code so that K1 (block_fused.cu) runs its two
 // C -> C convs on the same kernel.
 //
-// The bf16 operand path (TI = bf16: the convs of K1's and K2's bf16
-// variants, the JAX conv_precision="bf16"): the input is bf16, the weight
-// is rounded to bf16 as B is staged, and each k-step is ONE
+// The bf16 operand path (TI = bf16: K3-bf16 and the convs of K1's and K2's
+// bf16 variants, the JAX conv_precision="bf16"): the input is bf16, the
+// weight is rounded to bf16 as B is staged, and each k-step is ONE
 // wgmma.m64nNk16.f32.bf16.bf16 over 16 k (two of the fp32 path's 8-k
 // groups, tap-major) with fp32 accumulation, in place of three TF32
 // products over 8. 9 C_in is odd for C_in = 8: the last step's second
-// group is zeros in both operands. The input tile holds the bf16 values
-// widened to fp32 (exact), so that both paths share its layout and the
-// residual epilogue; A's registers pack pairs of them back to bf16. The
-// epilogues run in fp32 on the accumulator and round once to TO.
+// group is zeros in both operands. The input tile stays bf16 in shared
+// memory (stage_tile_bf16: rows of kTcPitch16 = 40 values, the halo
+// rotated to the row's end so that the 32 interior columns start on 16
+// bytes), copied asynchronously with cp.async into the fp32 path's two
+// buffers, so that the next tile's loads overlap this tile's products. A register
+// (channels 2t, 2t + 1 of one pixel) is two 16-bit shared loads joined by
+// one byte permute: no conversion. The epilogues run in fp32 on the
+// accumulator (the residual widens x from the tile) and round once to TO.
 
 #pragma once
 
@@ -31,14 +35,23 @@ constexpr int kTcThreads = 512;          // 4 warpgroups x 4 output rows
 constexpr int kTcHaloW = kTcTileW + 2;   // 34
 constexpr int kTcPlane = 616;            // 18 x 34 = 612 floats, padded to 8 mod 32
 constexpr int kTcMaxCin = 32;
+// the bf16 tile: rows of 40 values (80 bytes, whole 16-byte chunks), halo
+// column xx (input column x0 - 1 + xx) at (xx + 39) % 40; 18 rows a plane,
+// padded to 728 values (1456 bytes) so that channels 2 apart are 24 banks
+// apart: the channels 2t of a warp's A load fall in four separate octets of
+// banks
+constexpr int kTcPitch16 = 40;
+constexpr int kTcPlane16 = (kTcTileH + 2) * kTcPitch16 + 8;
 
 // the bf16 path's k16 steps: 9 CI8 groups of 8 k, in pairs
 __host__ __device__ constexpr int tc_bf16_steps(int ci8) { return (9 * ci8 + 1) / 2; }
 
 size_t tc_smem_bytes(int c_in, int co, bool bf16_ops) {
+  // B in bf16, padded to whole k16 steps, and two bf16 tiles
+  if (bf16_ops)
+    return (size_t)32 * tc_bf16_steps(c_in / 8) * co +
+           (size_t)2 * kTcPlane16 * c_in * sizeof(bf16);
   const size_t tiles = (size_t)2 * kTcPlane * c_in * sizeof(float);  // two input tiles
-  // B in bf16, padded to whole k16 steps
-  if (bf16_ops) return (size_t)32 * tc_bf16_steps(c_in / 8) * co + tiles;
   // B split into big and small TF32 matrices
   return (size_t)2 * 9 * c_in * co * sizeof(float) + tiles;
 }
@@ -65,10 +78,16 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
 }
 
 // two values rounded to bf16 in one register, lo in the low half (the
-// lower k index of a fragment's pair)
+// lower k index of a fragment's pair; K2's weight-gradient operands)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two bf16 values from shared memory in one register, lo in the low half
+// (the lower k index of a fragment's pair): prmt, no conversion
+__device__ __forceinline__ uint32_t pair_bf16(const uint16_t* lo, const uint16_t* hi) {
+  return __byte_perm((uint32_t)*lo, (uint32_t)*hi, 0x5410);
 }
 
 // Shared-memory matrix descriptor of wgmma for a K-major operand without
@@ -203,28 +222,116 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// BYTES (4 or 16) global -> shared, asynchronous; zeros when !valid. Both
+// addresses aligned to BYTES (src too when !valid: nothing is read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0));
+  } else {
+    static_assert(BYTES == 4, "cp.async of 4 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0));
+  }
+}
+
 // Stage the halo'd input tile of output tile (y0, x0): rows y0 - 1 ..
 // y0 + 16, columns x0 - 1 .. x0 + 32 of all CIN channels, zeros outside
-// the image; one warp per (channel, row). fp32 rows are copied with
-// cp.async; bf16 rows (2-byte elements, below cp.async's 4) are loaded and
-// widened by the threads.
-template <int CIN, typename TI>
-__device__ __forceinline__ void stage_tile(float* dst, const TI* x_n, int H, int W,
+// the image; one warp per (channel, row), each value copied with a 4-byte
+// cp.async.
+template <int CIN>
+__device__ __forceinline__ void stage_tile(float* dst, const float* x_n, int H, int W,
                                            int y0, int x0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < CIN * (kTcTileH + 2); r += kTcThreads / 32) {
     const int ci = r / (kTcTileH + 2), yy = r - ci * (kTcTileH + 2);
     const int gy = y0 - 1 + yy;
     const bool row_ok = gy >= 0 && gy < H;
-    const TI* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
+    const float* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
     float* d = dst + ci * kTcPlane + yy * kTcHaloW;
     for (int xx = lane; xx < kTcHaloW; xx += 32) {
       const int gx = x0 - 1 + xx;
       const bool ok = row_ok && gx >= 0 && gx < W;
-      if constexpr (kIsBf16<TI>) {
-        d[xx] = ok ? ld1(src + gx) : 0.f;
+      cp_async4(d + xx, ok ? src + gx : x_n, ok);
+    }
+  }
+}
+
+// The bf16 tile of output tile (y0, x0), the same rows and columns in
+// bf16, input column gx at row position (gx - x0) mod kTcPitch16 (the two
+// left halo columns x0 - 2, x0 - 1 at 38, 39; x0 .. x0 + 33 at 0 .. 33).
+// Two tiers, by `aligned` (W % 8 == 0 and x 16-byte aligned, so every row
+// starts on 16 bytes):
+//   aligned  six cp.async a row: x0 .. x0 + 31 as four 16-byte chunks, the
+//            pairs (x0 - 2, x0 - 1) and (x0 + 32, x0 + 33) as 4 bytes each;
+//            a chunk or pair lies wholly inside or outside the image
+//            (zero-filled);
+//   general  18 pairs (x0 - 2 + 2p, x0 - 1 + 2p) a row: a 4-byte cp.async
+//            where the row starts on 4 bytes and the pair lies wholly inside
+//            the image; else (odd row offsets, the pair across the right
+//            edge, pairs outside) two 2-byte loads or zeros, a batch of
+//            pairs loaded before any is stored so that their latencies
+//            overlap.
+// Every value lands by the next cp.async wait and __syncthreads.
+template <int CIN>
+__device__ __forceinline__ void stage_tile_bf16(bf16* dst, const bf16* x_n, int H, int W,
+                                                int y0, int x0, bool aligned) {
+  constexpr int kRows = CIN * (kTcTileH + 2);
+  uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+  if (aligned) {
+    for (int u = threadIdx.x; u < kRows * 6; u += kTcThreads) {
+      const int r = u / 6, part = u - r * 6;
+      const int ci = r / (kTcTileH + 2), yy = r - ci * (kTcTileH + 2);
+      const int gy = y0 - 1 + yy;
+      const bool row_ok = gy >= 0 && gy < H;
+      const bf16* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
+      bf16* d = dst + ci * kTcPlane16 + yy * kTcPitch16;
+      if (part < 4) {
+        const int gx = x0 + 8 * part;
+        const bool ok = row_ok && gx < W;
+        cp_async_zfill<16>(d + 8 * part, ok ? src + gx : x_n, ok);
       } else {
-        cp_async4(d + xx, ok ? src + gx : x_n, ok);
+        const int gx = part == 4 ? x0 - 2 : x0 + 32;
+        const bool ok = row_ok && gx >= 0 && gx < W;
+        cp_async_zfill<4>(d + (part == 4 ? kTcPitch16 - 2 : 32), ok ? src + gx : x_n, ok);
+      }
+    }
+    return;
+  }
+  constexpr int kBatch = 4;
+  for (int u0 = threadIdx.x; u0 < kRows * 18; u0 += kBatch * kTcThreads) {
+    uint16_t v[kBatch][2];
+    int at[kBatch];
+    bool plain[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int u = u0 + j * kTcThreads;
+      plain[j] = false;
+      if (u >= kRows * 18) continue;
+      const int r = u / 18, p = u - r * 18;
+      const int ci = r / (kTcTileH + 2), yy = r - ci * (kTcTileH + 2);
+      const int gy = y0 - 1 + yy, gx = x0 - 2 + 2 * p;
+      const bool row_ok = gy >= 0 && gy < H;
+      const bf16* src = x_n + ((size_t)ci * H + (row_ok ? gy : 0)) * W;
+      const bool in0 = row_ok && gx >= 0 && gx < W;
+      const bool in1 = row_ok && gx + 1 >= 0 && gx + 1 < W;
+      at[j] = ci * kTcPlane16 + yy * kTcPitch16 + (p == 0 ? kTcPitch16 - 2 : 2 * p - 2);
+      if (in0 && in1 && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+        cp_async_zfill<4>(d16 + at[j], src + gx, true);
+      } else {
+        plain[j] = true;
+        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src + gx);
+        v[j][0] = in0 ? __ldg(s16) : (uint16_t)0;
+        v[j][1] = in1 ? __ldg(s16 + 1) : (uint16_t)0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (plain[j]) {
+        d16[at[j]] = v[j][0];
+        d16[at[j] + 1] = v[j][1];
       }
     }
   }
@@ -240,13 +347,15 @@ __device__ __forceinline__ void stage_tile(float* dst, const TI* x_n, int H, int
 // conv) in place of relu / residual; a template parameter, so that K3's
 // and K1's instances compile without it. TI: the type of x, skip and gate
 // (float: 3xTF32; bf16: the bf16 operand path), TO: the type of out.
+// aligned: the bf16 tile's staging tier (stage_tile_bf16); fp32 ignores it.
 template <typename TI, typename TO, int CI8, int NT, bool GATE = false>
 __global__ void __launch_bounds__(kTcThreads, 1)
 conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
                   const float* __restrict__ bias, const TI* __restrict__ skip,
                   const TI* __restrict__ gate, TO* __restrict__ out, int c_out,
                   int H, int W, int tiles_x,
-                  int tiles_y, int n_tiles, int relu, int residual, int adjoint) {
+                  int tiles_y, int n_tiles, int relu, int residual, int adjoint,
+                  int aligned) {
   constexpr bool BF = kIsBf16<TI>;
   constexpr int CIN = 8 * CI8, CO = 8 * NT, K = 9 * CIN;
   constexpr int S16 = tc_bf16_steps(CI8), KB = 16 * S16;  // bf16: k16 steps, B's rows
@@ -256,7 +365,9 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
   float* b_big = smem;
   float* b_small = smem + K * CO;
   bf16* b16 = reinterpret_cast<bf16*>(smem);
-  float* tiles = BF ? smem + KB * CO / 2 : smem + 2 * K * CO;  // [2][CIN][kTcPlane]
+  float* tiles = smem + 2 * K * CO;  // fp32: [2][CIN][kTcPlane]
+  // bf16: [2][CIN][kTcPlane16]
+  bf16* tiles16 = reinterpret_cast<bf16*>(smem + KB * CO / 2);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
   const int wg = warp >> 2, ww = warp & 3;
@@ -272,12 +383,19 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
     x0 = (r - (r / tiles_x) * tiles_x) * kTcTileW;
   };
 
-  int tile = blockIdx.x;
-  {
+  // stage input tile `id` into buffer `buf` (asynchronous)
+  const auto stage = [&](int id, int buf) {
     int n, y0, x0;
-    origin(tile, n, y0, x0);
-    stage_tile<CIN>(tiles, x + (size_t)n * CIN * hw, H, W, y0, x0);
-  }
+    origin(id, n, y0, x0);
+    if constexpr (BF) {
+      stage_tile_bf16<CIN>(tiles16 + buf * CIN * kTcPlane16, x + (size_t)n * CIN * hw, H, W,
+                           y0, x0, aligned);
+    } else {
+      stage_tile<CIN>(tiles + buf * CIN * kTcPlane, x + (size_t)n * CIN * hw, H, W, y0, x0);
+    }
+  };
+  int tile = blockIdx.x;
+  stage(tile, 0);
   cp_async_commit();
   const auto weight_at = [&](int k, int co) {
     const int tap = k / CIN, ci = k - tap * CIN;
@@ -310,15 +428,21 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
       bv[nt][e] = bias != nullptr ? bias[co0 + nt * 8 + 2 * t + e] : 0.f;
 
   constexpr uint32_t kLbo = NT * 128, kSbo = 128;  // bytes between core matrices: K, N
+  // bf16: each thread's A columns in the rotated tile rows, pixels g and
+  // g + 8 at tap column dx (halo column col0 + g + dx, and + 8)
+  int a_col[3][2];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int xx = col0 + g + dx;
+    a_col[dx][0] = xx == 0 ? kTcPitch16 - 1 : xx - 1;
+    a_col[dx][1] = xx + 7;
+  }
   for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
     const float* cur = tiles + (it & 1) * CIN * kTcPlane;
+    const uint16_t* cur16 =
+        reinterpret_cast<const uint16_t*>(tiles16 + (it & 1) * CIN * kTcPlane16);
     const int next = tile + gridDim.x;
-    if (next < n_tiles) {
-      int n, y0, x0;
-      origin(next, n, y0, x0);
-      stage_tile<CIN>(tiles + ((it + 1) & 1) * CIN * kTcPlane, x + (size_t)n * CIN * hw, H,
-                      W, y0, x0);
-    }
+    if (next < n_tiles) stage(next, (it + 1) & 1);
     cp_async_commit();
     cp_async_wait_one();  // this tile's group has landed
     __syncthreads();
@@ -336,7 +460,7 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
       for (int s = 0; s < S16; ++s) {
         // A: pixel rows g, g + 8 of the warp's 16 by channels 2t, 2t + 1 of
         // the step's 8-k groups 2s (registers 0, 1) and 2s + 1 (2, 3)
-        uint32_t a16[2][4];
+        uint32_t a[2][4];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int kg = 2 * s + hh;
@@ -344,19 +468,19 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             if (kg < 9 * CI8) {
-              const float* p = cur + (kc * 8 + 2 * t) * kTcPlane +
-                               (2 * (2 * wg + i) + (ww >> 1) + dy) * kTcHaloW + col0 + g + dx;
-              a16[i][2 * hh] = pack_bf16(p[0], p[kTcPlane]);
-              a16[i][2 * hh + 1] = pack_bf16(p[8], p[kTcPlane + 8]);
+              const uint16_t* p = cur16 + (kc * 8 + 2 * t) * kTcPlane16 +
+                                  (2 * (2 * wg + i) + (ww >> 1) + dy) * kTcPitch16;
+              a[i][2 * hh] = pair_bf16(p + a_col[dx][0], p + kTcPlane16 + a_col[dx][0]);
+              a[i][2 * hh + 1] = pair_bf16(p + a_col[dx][1], p + kTcPlane16 + a_col[dx][1]);
             } else {
-              a16[i][2 * hh] = a16[i][2 * hh + 1] = 0u;
+              a[i][2 * hh] = a[i][2 * hh + 1] = 0u;
             }
           }
         }
         const uint64_t db = smem_desc(b16 + 2 * s * NT * 64, kLbo, kSbo);
         wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 2; ++i) wgmma_bf16<CO>(acc[i], a16[i], db);
+        for (int i = 0; i < 2; ++i) wgmma_bf16<CO>(acc[i], a[i], db);
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
@@ -419,7 +543,15 @@ conv3x3_tc_kernel(const TI* __restrict__ x, const float* __restrict__ weight,
               st1(out + o, v > 0.f ? ld1(gate + o) : 0.f);
             } else {
               if (relu) v = fmaxf(v, 0.f);
-              if (residual) v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
+              if (residual) {
+                if constexpr (BF) {
+                  // halo column xl + 1 sits at row position xl
+                  v += __bfloat162float(__ushort_as_bfloat16(
+                      cur16[co * kTcPlane16 + (yl + 1) * kTcPitch16 + xl]));
+                } else {
+                  v += cur[co * kTcPlane + (yl + 1) * kTcHaloW + xl + 1];
+                }
+              }
               st1(out + o, v);
             }
           }
@@ -435,6 +567,8 @@ cudaError_t launch_tc(const TI* x, const float* weight, const float* bias,
                       int relu, int residual, int adjoint, cudaStream_t stream,
                       const TI* gate = nullptr) {
   const size_t smem = tc_smem_bytes(8 * CI8, 8 * NT, kIsBf16<TI>);
+  // the bf16 tile's fast tier: every row of x starts on 16 bytes
+  const int aligned = w % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   CUDA_TRY(allow_smem(conv3x3_tc_kernel<TI, TO, CI8, NT, GATE>, smem));
   int dev, sms, per_sm;
   CUDA_TRY(cudaGetDevice(&dev));
@@ -449,7 +583,7 @@ cudaError_t launch_tc(const TI* x, const float* weight, const float* bias,
   const int blocks = (int)std::min<long long>(n_tiles, std::max(1, sms * per_sm / groups));
   conv3x3_tc_kernel<TI, TO, CI8, NT, GATE><<<dim3(blocks, groups), kTcThreads, smem, stream>>>(
       x, weight, bias, skip, gate, out, c_out, h, w, tiles_x, tiles_y, (int)n_tiles, relu,
-      residual, adjoint);
+      residual, adjoint, aligned);
   return cudaGetLastError();
 }
 

@@ -24,6 +24,7 @@ from mtd_gan_tpu_torch.ops.cuda_pipeline import resfft_generator_nchw
 from mtd_gan_tpu_torch.ops.cuda_train import (resfft_generator_train, resolve_g_forward,
                                               train_route)
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
+from test_torch_tc_helpers import _bf16, _bf16_tc_conv
 
 # the tests share the machine with other test workers: one intra-op
 # thread each keeps PyTorch from oversubscribing the cores
@@ -82,64 +83,6 @@ def test_bf16_train_path_grads_match_jax_k2_path():
         assert got[k].dtype == torch.float32
         bound = max(5e-2, 2 * rel(w, fp32[k]))
         assert rel(got[k], w) < bound, (k, rel(got[k], w), bound)
-
-
-def _bf16(a: torch.Tensor) -> torch.Tensor:
-    """``a`` rounded to bf16 to nearest even (``__float2bfloat16_rn``),
-    widened back to float32."""
-    return a.to(BF16).float()
-
-
-def _staged_b(weight: torch.Tensor, c_in: int, adjoint: bool) -> torch.Tensor:
-    """B as conv3x3_tc_kernel stages it on its bf16 path: B[k, co] (k = tap
-    * C_in + ci), rounded to bf16, at (((k >> 3) * NT + (co >> 3)) * 8 +
-    (co & 7)) * 8 + (k & 7), KB = 16 * S16 rows, the rows past 9 C_in zero.
-    ``weight``: (C_out, C_in, 3, 3), or with ``adjoint`` the transposed
-    conv's (C_in, C_out, 3, 3)."""
-    co = weight.shape[1] if adjoint else weight.shape[0]
-    nt, k_real = co // 8, 9 * c_in
-    kb = 16 * ((9 * (c_in // 8) + 1) // 2)
-    k = torch.arange(kb)[:, None]
-    c = torch.arange(co)[None, :]
-    tap, ci = (k % k_real) // c_in, (k % k_real) % c_in
-    w = (weight[ci, c, 2 - tap // 3, 2 - tap % 3] if adjoint
-         else weight[c, ci, tap // 3, tap % 3])
-    w = torch.where(k < k_real, _bf16(w), torch.zeros(()))
-    flat = torch.zeros(kb * co)
-    flat[((((k >> 3) * nt + (c >> 3)) * 8 + (c & 7)) * 8 + (k & 7)).reshape(-1)] = w.reshape(-1)
-    return flat
-
-
-def _bf16_tc_conv(x: torch.Tensor, weight: torch.Tensor, adjoint: bool) -> torch.Tensor:
-    """The bf16 operand path in float32: for each k16 step s, B's 16 rows
-    read through the step's descriptor (start 2 s NT 64 elements, 8-k
-    groups NT * 64 apart, 8-channel groups 64 apart), A's columns the input
-    at the (tap, channel) of the step's groups 2 s and 2 s + 1 (a zero
-    group past 9 C_in), bf16 operands, one product a step and the steps
-    summed in float32."""
-    n, c_in, h, w = x.shape
-    ci8 = c_in // 8
-    co = weight.shape[1] if adjoint else weight.shape[0]
-    nt = co // 8
-    b16 = _staged_b(weight, c_in, adjoint)
-    xp = F.pad(_bf16(x), (1, 1, 1, 1))
-    col = torch.arange(co)
-    acc = torch.zeros(n, h, w, co)
-    for s in range((9 * ci8 + 1) // 2):
-        a_cols, b_rows = [], []
-        for hh in range(2):
-            kg = 2 * s + hh
-            kk = torch.arange(8)
-            at = 2 * s * nt * 64 + hh * nt * 64 + (col[None] >> 3) * 64 + (col[None] & 7) * 8
-            b_rows.append(b16[at + kk[:, None]])
-            if kg < 9 * ci8:
-                tap, kc = divmod(kg, ci8)
-                dy, dx = divmod(tap, 3)
-                a_cols.append(xp[:, kc * 8:kc * 8 + 8, dy:dy + h, dx:dx + w].permute(0, 2, 3, 1))
-            else:
-                a_cols.append(torch.zeros(n, h, w, 8))
-        acc = acc + torch.cat(a_cols, -1) @ torch.cat(b_rows, 0)
-    return acc.permute(0, 3, 1, 2)
 
 
 # K3's bf16 operand path against the float64 conv of the same

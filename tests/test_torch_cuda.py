@@ -603,15 +603,13 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (2, 8, 192, 70), (1, 8, 449, 130),
                                      (2, 16, 200, 200)])
 def test_bf16_kernels_match_plain_versions(dev, n, c, h, w):
-    """K3-bf16 (relu + residual, skip + relu, the deconv with a bf16 skip on
-    the tensor cores; the C -> 1 exit deconv with the fp32 image on the
-    direct path, fp32 out), K4-bf16, K6-bf16 (with the residual, and in
-    place through the C entry) and, where H % 64 == 0 and W is even,
-    K8-bf16 with the residual, each against its bf16 plain version on
-    1/sqrt(fan_in) weights: one launch per wrapper call, counted in
-    ``launches_bf16`` (K3's tensor-core ones in ``launches_bf16_tc``), no
-    fp32 launch. W = 70 and 130 are no multiple of 4 (the scalar paths),
-    449 is prime."""
+    """K3-bf16's C -> 1 exit deconv with the fp32 image on the direct path
+    (fp32 out; its tensor-core path: test_k3_bf16_matches_plain_version),
+    K4-bf16, K6-bf16 (with the residual, and in place through the C entry)
+    and, where H % 64 == 0 and W is even, K8-bf16 with the residual, each
+    against its bf16 plain version on 1/sqrt(fan_in) weights: one launch
+    per wrapper call, counted in ``launches_bf16``, no fp32 launch. W = 70
+    and 130 are no multiple of 4 (the scalar paths), 449 is prime."""
     from mtd_gan_tpu_torch.ops import _build
 
     bf16 = lambda d: {k: v.to(BF16) if k in ("x", "residual", "skip") else v
@@ -619,17 +617,14 @@ def test_bf16_kernels_match_plain_versions(dev, n, c, h, w):
     conv, a = bf16(_k3_inputs(dev, n, c, h, w)), bf16(_tiled_inputs(dev, n, c, h, w))
     rel = lambda g, r: ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
     fp32_before = _counts()
-    k3 = [((conv["x"], conv["weight"], conv["bias"]), kw, 1) for kw in (
-        dict(residual=True), dict(skip=conv["skip"]), dict(skip=conv["skip"], transpose=True))]
-    k3.append(((conv["x"], conv["w1"], conv["b1"]), dict(skip=conv["img"], transpose=True), 0))
-    for args, kw, tc in k3:
-        before = (cs.conv3x3.launches_bf16, cs.conv3x3.launches_bf16_tc)
-        got = cs.conv3x3(*args, **kw)
-        torch.cuda.synchronize()
-        assert (cs.conv3x3.launches_bf16 - before[0],
-                cs.conv3x3.launches_bf16_tc - before[1]) == (1, tc)
-        assert got.dtype == (BF16 if tc else torch.float32)
-        assert rel(got, cs.conv3x3_reference(*args, **kw)) < TOL_BF16_REL, sorted(kw)
+    args, kw = (conv["x"], conv["w1"], conv["b1"]), dict(skip=conv["img"], transpose=True)
+    before = (cs.conv3x3.launches_bf16, cs.conv3x3.launches_bf16_tc)
+    got = cs.conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert (cs.conv3x3.launches_bf16 - before[0],
+            cs.conv3x3.launches_bf16_tc - before[1]) == (1, 0)
+    assert got.dtype == torch.float32
+    assert rel(got, cs.conv3x3_reference(*args, **kw)) < TOL_BF16_REL
     before = (cs.rdft_w.launches_bf16, cs.irdft_w_add.launches_bf16)
     z = cs.rdft_w(a["x"])
     zr = cs.rdft_w_reference(a["x"])
@@ -654,6 +649,61 @@ def test_bf16_kernels_match_plain_versions(dev, n, c, h, w):
         assert spectral_branch_tiled.launches_bf16 == before + 1 and got.dtype == BF16
         want = spectral_branch_tiled_reference(a["x"], a["mix"], a["bias"], a["residual"])
         assert rel(got, want) < TOL_BF16_REL
+    assert _counts() == fp32_before
+
+
+# K3-bf16 on the tensor cores, (C_in, C_out, N, H, W, offset of x in bf16
+# values): every channel pair at 40 x 72; C = 32 at the 16-byte staging
+# tier's widths (W % 8 == 0, x on 16 bytes: 1024, 448, 96, 72, 64) and the
+# general tier's (449, 130, 100, 27, 1); C_in = 8, 16, 24 on the general
+# tier (W = 70, 130, 27, 99) and C = 16 at 200 x 200; x starting 2 and 8
+# bytes past an aligned address (the general tier at W = 64). Equal to
+# chip_smoke.py's K3_BF16_TIER_CASES (held by
+# tests/test_torch_tc_bf16_tile.py).
+K3_BF16_CASES = (
+    [(ci, co, 1, 40, 72, 0) for ci in (8, 16, 24, 32) for co in (8, 16, 32, 64)]
+    + [(32, 32, n, h, w, 0) for n, h, w in ((1, 1024, 1024), (2, 448, 448), (2, 96, 96),
+                                            (2, 100, 72), (2, 64, 64), (1, 130, 449),
+                                            (1, 449, 130), (2, 100, 100), (2, 27, 27),
+                                            (2, 5, 1))]
+    + [(8, 8, 2, 192, 70, 0), (8, 8, 1, 449, 130, 0), (16, 16, 2, 200, 200, 0),
+       (16, 16, 2, 27, 27, 0), (24, 24, 2, 27, 27, 0), (24, 64, 1, 33, 99, 0)]
+    + [(c, c, 2, 64, 64, off) for c in (8, 24, 32) for off in (1, 4)])
+
+
+@pytest.mark.parametrize("c_in,c_out,n,h,w,offset", K3_BF16_CASES)
+def test_k3_bf16_matches_plain_version(dev, c_in, c_out, n, h, w, offset):
+    """K3-bf16 on the tensor cores (relu; skip + relu; the flipped deconv
+    with a bf16 skip; relu + residual where C_in == C_out), on both staging
+    tiers of its bf16 tile, against its bf16 plain version on
+    1/sqrt(fan_in) weights within TOL_BF16_REL: one bf16 tensor-core launch
+    per call (``launches_bf16`` and ``launches_bf16_tc``), no fp32 launch,
+    a bf16 output."""
+    rng = np.random.default_rng(c_in * c_out + w + offset)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    x = t(rng.random((n, c_in, h, w)) - 0.5).to(BF16)
+    if offset:
+        x = torch.empty(x.numel() + offset, device=dev, dtype=BF16)[offset:].view(
+            x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    weight = t(rng.standard_normal((c_out, c_in, 3, 3)) / np.sqrt(9 * c_in))
+    wt_t = t(rng.standard_normal((c_in, c_out, 3, 3)) / np.sqrt(9 * c_in))
+    bias = t(rng.standard_normal(c_out) * 0.1)
+    skip = t(rng.standard_normal((n, c_out, h, w)) * 0.5).to(BF16)
+    calls = [(weight, {}), (weight, dict(skip=skip)),
+             (wt_t, dict(skip=skip, transpose=True, relu=False))]
+    if c_in == c_out:
+        calls.append((weight, dict(residual=True)))
+    rel = lambda g, r: ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+    fp32_before = _counts()
+    for wt, kw in calls:
+        before = (cs.conv3x3.launches_bf16, cs.conv3x3.launches_bf16_tc)
+        got = cs.conv3x3(x, wt, bias, **kw)
+        torch.cuda.synchronize()
+        assert (cs.conv3x3.launches_bf16 - before[0],
+                cs.conv3x3.launches_bf16_tc - before[1]) == (1, 1)
+        assert got.dtype == BF16
+        assert rel(got, cs.conv3x3_reference(x, wt, bias, **kw)) < TOL_BF16_REL, sorted(kw)
     assert _counts() == fp32_before
 
 

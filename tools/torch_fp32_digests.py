@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""Digests of the spectral kernels' outputs on seeded inputs, per checkout
-of the port: the guard that templating their device code on a new type
-(an activation type, a spectrum type) left every existing instance
-computing what it did, bit for bit.
+"""Digests of the kernels' outputs on seeded inputs, per checkout of the
+port: the guard that templating their device code on a new type (an
+activation type, a spectrum type), or redesigning where a kernel's
+operands come from, left every existing instance computing what it did,
+bit for bit.
 
     python3 tools/torch_fp32_digests.py [CHECKOUT ...]    (on an NVIDIA GPU)
 
 For each checkout (default: this one), in its own process with that
 checkout first on ``sys.path``, :func:`digests` builds the kernels of K1
-(``csrc/block_fused.cu``), K8, K7 and K4 - K6 from its sources, runs the
-fp32 kernels K1, K4, K5, K6, K7 and K8 and the bf16 variants K1-bf16,
-K4-bf16, K6-bf16 and K8-bf16 on inputs drawn with numpy from fixed seeds,
+(``csrc/block_fused.cu``), K2, K3, K8, K7 and K4 - K6 from its sources,
+runs the fp32 kernels K1 - K8 and the bf16 variants K1-bf16, K2-bf16,
+K3-bf16, K4-bf16, K6-bf16 and K8-bf16 on inputs drawn with numpy from
+fixed seeds,
 through the wrappers every checkout since the bf16 variants share, and
 takes the SHA-256 of each output's bytes (its first 16 hex digits).
 Prints one JSON line per checkout, then which digests differ; exits 1 if
 any does. A kernel whose digests agree computed the same bits from the
 same inputs. ``chip_smoke.py`` phase 33 runs :func:`digests` on its own
 checkout and holds it against the digests this tool printed for the
-parent of the change that templated the code.
+parent of the change that last redesigned the code.
 
 Unpack an older checkout with ``git archive`` into the git-ignored
 ``archive_check/`` and pass its path.
@@ -44,6 +46,11 @@ TILED = ((2, 32, 448, 448), (2, 32, 768, 768), (2, 8, 512, 320))
 FUSED = ((4, 32, 96, 96), (2, 32, 100, 72), (2, 32, 127, 127), (2, 8, 33, 27))
 # K1 at C = 32 with every option, and plain at C = 8
 BLOCKS = ((2, 32, 512, "pre+skip+post"), (4, 8, 64, "plain"))
+# K3 at the staged route's 1024^2 and the tiled route's 448^2 (the bf16
+# tile's 16-byte tier), 449x130 and 33x27 at C = 8 (its general tier)
+CONVS = ((2, 32, 1024, 1024), (2, 32, 448, 448), (2, 32, 449, 130), (2, 8, 33, 27))
+# K2 at the train step's shape, pre + skip, and plain at C = 8
+BWDS = ((160, 32, "pre+skip"), (8, 8, "plain"))
 
 
 def _digest(t) -> str:
@@ -88,23 +95,38 @@ def _block_inputs(seed: int, n: int, c: int, size: int, variant: str):
     return args
 
 
+def _conv_inputs(seed: int, n: int, c: int, h: int, w: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+    return dict(x=t(rng.random((n, c, h, w)) - 0.5),
+                weight=t(rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c)),
+                bias=t(rng.standard_normal(c) * 0.1),
+                skip=t(rng.standard_normal((n, c, h, w)) * 0.5))
+
+
 def _bf16(args):
     import torch
 
-    return {k: v.to(torch.bfloat16) if k in ("x", "skip", "residual") else v
+    return {k: v.to(torch.bfloat16) if k in ("x", "skip", "residual", "g") else v
             for k, v in args.items()}
 
 
 def digests() -> dict:
     """{label: digest} of every case above, on the current CUDA device."""
+    import numpy as np
     import torch
 
     from mtd_gan_tpu_torch.ops import _build
     from mtd_gan_tpu_torch.ops.cuda_fftconv import spectral_branch_fused, spectral_branch_tiled
     from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused
-    from mtd_gan_tpu_torch.ops.cuda_staged import irdft_w_add, rdft_w, spectral_mix_h
+    from mtd_gan_tpu_torch.ops.cuda_staged import conv3x3, irdft_w_add, rdft_w, spectral_mix_h
+    from mtd_gan_tpu_torch.ops.cuda_train import block_bwd
 
-    names = ("block_fused", "spectral_tiled", "spectral_fused", "spectral_staged")
+    names = ("block_fused", "block_bwd", "conv3x3", "spectral_tiled", "spectral_fused",
+             "spectral_staged")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.build, names))
     out = {}
@@ -139,6 +161,25 @@ def digests() -> dict:
                 got = block_fused(**args)
                 for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
                     out[f"{dtype} {label} output {i}"] = _digest(t)
+        for seed, (n, c, h, w) in enumerate(CONVS):
+            a = _conv_inputs(40 + seed, n, c, h, w)
+            shape = f"{n}x{c}x{h}x{w}"
+            for dtype, b in (("K3", a), ("K3-bf16", _bf16(a))):
+                args = (b["x"], b["weight"], b["bias"])
+                out[f"{dtype} {shape} relu+residual"] = _digest(conv3x3(*args, residual=True))
+                out[f"{dtype} {shape} skip"] = _digest(conv3x3(*args, skip=b["skip"]))
+                out[f"{dtype} {shape} deconv+skip"] = _digest(
+                    conv3x3(*args, skip=b["skip"], relu=False, transpose=True))
+        for seed, (n, c, variant) in enumerate(BWDS):
+            a = _block_inputs(50 + seed, n, c, 64, variant)
+            a.pop("post", None)
+            a.pop("img", None)
+            a["g"] = torch.tensor(np.random.default_rng(60 + seed).standard_normal(
+                (n, c, 64 * 64)), dtype=torch.float32, device="cuda")
+            label = f"{n}x{c}x64x64 {variant}"
+            for dtype, args in (("K2", a), ("K2-bf16", _bf16(a))):
+                for name, t in sorted(block_bwd(**args).items()):
+                    out[f"{dtype} {label} {name}"] = _digest(t)
     torch.cuda.synchronize()
     return out
 
