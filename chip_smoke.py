@@ -82,7 +82,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and at batch 160 (the train step's) in pre+skip and pre+skip+post
      with the last two; and the forward K2 recomputes against K1's, bit
      for bit: hin (every variant with pre) and out (pre+skip+post), at
-     C = 8 and 32;
+     C = 8 and 32; at the whole-slice sizes 128x128, 256x256 and 512x512
+     (batch 2; at 512x512 the column pass on a cluster of two CTAs) the
+     same in fp32 (against float64 too, on margin inputs), and K2-bf16
+     against its bf16 plain version (phase 31's limits) and K1-bf16's
+     recompute; there, on 1/sqrt(fan_in) inputs with post, final's ReLU
+     mask may flip at no more than one pixel in POST_FLIP_PIXELS, and the
+     exit bias's gradient is held over the pixels where it agrees;
   18. the PCGrad train step at full width (generator 32 features x 10
      layers, discriminator 64 features, 160 patches of 64x64 cut by
      ``make_train_preprocess`` from 20 synthetic 512x512 slices): from one
@@ -281,6 +287,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      plain versions, library calls and bounds, and the chains in turns. The
      kernels line lists the four with the launches of phase 33's generate
      calls.
+  34. K1 + K2 on whole slices (run right after phase 33;
+     ``python3 chip_smoke.py --phase 34`` runs it alone after building K1
+     and K2). No trainer takes whole slices (the 64x64 discriminators, in
+     the JAX package too), so the train routes stay at 64x64: the routes
+     at 64x64 - 512x512; ``g_forward="pallas"`` raising at 512x512,
+     200x200, 1024x1024 and 512x320; a synthetic generator-only step on
+     whole 512x512 slices at full width, through
+     ``resfft_generator_train`` as a caller's own loop would call it (the
+     train CLI's ``window`` preset on synthetic HU slices): its forward on
+     K1 + K2 or the plain generator under autograd, the pixel terms of
+     MTD-GAN's generator loss (50 x Charbonnier + 50 x EdgeLoss; no
+     discriminator, no PCGrad), their gradient and AdamW, fp32 and bf16:
+     21 K1 + 21 K2 launches a kernel step (the bf16 variants' in bf16) and
+     none on autograd, the step's losses (1e-4)
+     and worst gradient leaf (1e-2, 2-norm) against the autograd step at
+     batch 4, the bf16 kernel step within twice the plain bf16 generator's
+     error against fp32; the step in turns with autograd at batch 4 and
+     alone at the root's batch of 20, with peak memory; K2 and K2-bf16 at
+     512x512, batch 20, pre+skip, beside their plain versions and bounds,
+     split by launch; the train CLI with ``--dataset-type-train full
+     --g-forward pallas`` on 512x512 slices refused at the discriminator
+     with no kernel launched. Its launches stay out of the kernels line.
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -305,7 +333,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mtd_gan_tpu_torch import bench
+from mtd_gan_tpu_torch import bench, losses, optim
 from mtd_gan_tpu_torch import test as test_cli
 from mtd_gan_tpu_torch import train as train_cli
 from mtd_gan_tpu_torch.bench import block_work as k1_work
@@ -414,6 +442,22 @@ PEAK_HBM_BYTES = 3.35e12
 
 C = 32
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
+# K2 at the whole-slice sizes K1 serves besides the 64x64 train patches;
+# at 512x512 and C = 32 its column pass runs on a cluster of two CTAs
+K2_SLICE_SIZES = (128, 256, 512)
+# K2 with post at those sizes on 1/sqrt(fan_in) inputs: at most one pixel
+# in POST_FLIP_PIXELS[dtype] (rounded up) may have final's ReLU mask
+# flipped between K2 and its plain version (post_flips; PERF.md section 2).
+# fp32: a flip needs a pre-activation within the two versions' difference
+# of zero, at most 1.3e-5 of its terms' size (the plain version against
+# float64, k2_accuracy), which for a pre-activation spread like a normal
+# of that size is at most 2 x 0.4 x 1.3e-5 = 1.0e-5 of the pixels; the
+# limit, 1.5e-5, is above that (seen on an H100: 1 in 524,288 at 512x512,
+# batch 2). bf16: out is rounded to bf16 in both versions, which then
+# differ by a unit (2^-8) at a few of its elements; the limit, 1.2e-4, is
+# three times the worst rate seen on an H100 (27 in 655,360 at 64x64,
+# batch 160; 11 in 524,288 at 512x512, batch 2)
+POST_FLIP_PIXELS = {torch.float32: 65536, torch.bfloat16: 8192}
 TILED_SHAPES = ((192, 192), (320, 320), (384, 384), (448, 448), (512, 320), (768, 768))
 # K7 at C = 32, then one C = 8 shape; 97 and 127 are prime
 FUSED_SHAPES = tuple((32, hw) for hw in ((32, 32), (64, 64), (96, 96), (100, 72),
@@ -567,11 +611,12 @@ def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int =
     return args
 
 
-def bwd_inputs(n: int, init: str, variant: str, seed: int, c: int = C):
-    """K1's inputs at 64x64 plus seeded cotangents g (of out) and gfin (of
-    final). ``init`` "margin": 1/sqrt(fan_in) weights (the res and post convs
-    x0.05) and every bias +-5, so each ReLU keeps its sign far from zero."""
-    args = block_inputs(64, n, "reference" if init == "reference" else "fan_in",
+def bwd_inputs(n: int, init: str, variant: str, seed: int, c: int = C, size: int = 64):
+    """K1's inputs at ``size`` x ``size`` (the 64x64 train patches by
+    default) plus seeded cotangents g (of out) and gfin (of final). ``init``
+    "margin": 1/sqrt(fan_in) weights (the res and post convs x0.05) and
+    every bias +-5, so each ReLU keeps its sign far from zero."""
+    args = block_inputs(size, n, "reference" if init == "reference" else "fan_in",
                         variant, seed, c)
     rng = np.random.default_rng(seed + 100)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
@@ -585,28 +630,38 @@ def bwd_inputs(n: int, init: str, variant: str, seed: int, c: int = C):
             args["pre"] = (args["pre"][0], signed(args["pre"][1]))
         if "post" in args:
             args["post"] = (args["post"][0] * 0.05, signed(args["post"][1]))
-    args["g"] = t(rng.standard_normal((n, c, 64 * 64)))
+    args["g"] = t(rng.standard_normal((n, c, size * size)))
     if "post" in variant:
-        args["gfin"] = t(rng.standard_normal((n, 1, 64 * 64)))
+        args["gfin"] = t(rng.standard_normal((n, 1, size * size)))
     return args
+
+
+def recompute_pairs(args):
+    """K1 on ``args`` (K2's inputs without the cotangents) and K2 on all of
+    them, each with a scratch dict: [(name, K2's recompute, K1's)] for hin
+    (with pre) and out (with post)."""
+    fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
+    k1, k2 = {}, {}
+    out = as_tuple(block_fused(**fwd, scratch=k1))[0]
+    block_bwd(**args, scratch=k2)
+    torch.cuda.synchronize()
+    pairs = [("hin", k2["hin"], k1["hin"])]
+    if "post" in args:
+        pairs.append(("out", k2["out"], out))
+    return pairs
 
 
 def check_k2_recompute():
     """Phase 17: the forward K2 recomputes is K1's, bit for bit: its hin
     against K1's pre conv output (every variant with pre), its out against
-    K1's out (pre+skip+post), at C = 8 and 32, batch 2 and 8."""
+    K1's out (pre+skip+post), at C = 8 and 32, at 64x64, batch 2 and 8, and
+    at the whole-slice sizes (K2_SLICE_SIZES), batch 2, in fp32 and bf16
+    (K2-bf16 against K1-bf16)."""
     for c in (8, C):
         for n in (2, 8):
             for vi, variant in enumerate(VARIANTS[1:], start=1):
                 args = bwd_inputs(n, "fan_in", variant, seed=vi, c=c)
-                fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
-                k1, k2 = {}, {}
-                out = as_tuple(block_fused(**fwd, scratch=k1))[0]
-                block_bwd(**args, scratch=k2)
-                torch.cuda.synchronize()
-                pairs = [("hin", k2["hin"], k1["hin"])]
-                if "post" in variant:
-                    pairs.append(("out", k2["out"], out))
+                pairs = recompute_pairs(args)
                 parts = []
                 for name, a, b in pairs:
                     same = torch.equal(a, b)
@@ -616,44 +671,137 @@ def check_k2_recompute():
                         fail(f"K2 recompute C={c} n={n} {variant}: {name} is not K1's")
                 print(f"K2 recompute vs K1 64x64 C={c} n={n} {variant:14s}: "
                       + "; ".join(parts), flush=True)
+    for size in K2_SLICE_SIZES:
+        for dtype in (torch.float32, BF16):
+            for c in (8, C):
+                for vi, variant in enumerate(VARIANTS[1:], start=1):
+                    args = bwd_inputs(2, "fan_in", variant, seed=vi, c=c, size=size)
+                    if dtype == BF16:
+                        args = bf16_args(args)
+                    for name, a, b in recompute_pairs(args):
+                        if a.dtype != dtype or not torch.equal(a, b):
+                            fail(f"K2 recompute {size}x{size} {dtype} C={c} {variant}: "
+                                 f"{name} is not K1's")
+                    print(f"K2 recompute vs K1 {size}x{size} {str(dtype)[6:]} C={c} n=2 "
+                          f"{variant:14s}: equal", flush=True)
+
+
+def post_flips(label: str, got, want, masked: bool) -> int:
+    """With post: the pixels where final's ReLU mask differs between K2 and
+    its plain version (img's cotangent is gfin where the mask is on, 0
+    elsewhere). The exit bias's gradient is the sum of img's cotangent, so
+    a flip moves it by all of gfin at that pixel (one flip in 524,288
+    pixels moved a sum of 17.6 by 0.62 on an H100 at 512x512, batch 2),
+    while img's own 2-norm check holds the flipped pixels. ``masked`` (the
+    whole-slice sizes): fails above POST_FLIP_PIXELS's limit and replaces
+    both versions' exit-bias gradient by its sum over the pixels where the
+    masks agree; else (64x64) that gradient stays held over every pixel.
+    Returns the flips."""
+    flips = (got["img"] != 0) != (want["img"] != 0)
+    count = int(flips.sum())
+    if masked:
+        limit = -(-flips.numel() // POST_FLIP_PIXELS[got["xbar"].dtype])
+        if count > limit:
+            fail(f"{label}: final's mask flipped at {count} of {flips.numel()} pixels "
+                 f"> {limit}")
+        for d in (got, want):
+            d["post_b"] = d["post_b"] - d["img"][flips].sum()
+    return count
+
+
+def hold_k2(label: str, args, init: str, masked: bool = False) -> float:
+    """K2 against its plain version on ``args``, held to phase 17's
+    tolerances (margin inputs max-relative, the others in the relative
+    2-norm; ``masked``: the exit bias's over the pixels where final's mask
+    agrees, ``post_flips``); returns the largest absolute error of a margin
+    check, else 0."""
+    got = block_bwd(**args)
+    want = block_bwd_reference(**args)
+    torch.cuda.synchronize()
+    parts, worst_margin_abs = [], 0.0
+    flips = 0
+    if init != "margin" and "img" in want:
+        flips = post_flips(label, got, want, masked)
+    for name, w in want.items():
+        g = got[name]
+        if not torch.isfinite(g).all():
+            fail(f"{label}: non-finite {name}")
+        d = g - w
+        err = d.abs().max().item()
+        rel = err / max(w.abs().max().item(), 1e-30)
+        l2 = (d.norm() / w.norm().clamp_min(1e-30)).item()
+        parts.append(f"{name} {err:.2e}/{rel:.2e}/{l2:.2e}")
+        if init == "margin":
+            worst_margin_abs = max(worst_margin_abs, err)
+            if rel > TOL_BWD_MARGIN_REL:
+                fail(f"{label} {name}: relative error {rel:.3e} > {TOL_BWD_MARGIN_REL}")
+        elif l2 > TOL_BWD_L2:
+            fail(f"{label} {name}: relative 2-norm error {l2:.3e} > {TOL_BWD_L2}")
+    print(f"{label} (max_abs/max_rel/l2_rel): " + "; ".join(parts)
+          + (f"; final's mask flipped at {flips} pixels" if flips else ""), flush=True)
+    return worst_margin_abs
+
+
+def hold_k2_bf16(label: str, args, init: str, masked: bool = False) -> float:
+    """K2-bf16 against its bf16 plain version on bf16 ``args``, per output in
+    the relative 2-norm (phase 31's limits: TOL_BF16_REL on margin inputs,
+    TOL_BF16_L2 otherwise; ``masked``: the exit bias's over the pixels
+    where final's mask agrees, ``post_flips``); returns the largest
+    absolute error."""
+    got = block_bwd(**args)
+    want = block_bwd_reference(**args)
+    torch.cuda.synchronize()
+    parts, worst_abs = [], 0.0
+    flips = 0
+    if init != "margin" and "img" in want:
+        flips = post_flips(label, got, want, masked)
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+            fail(f"{label}: {name} is {g.dtype}, not {w.dtype}, or not finite")
+        worst_abs = max(worst_abs, (g.float() - w.float()).abs().max().item())
+        err = rel_l2(g, w)
+        tol = TOL_BF16_REL if init == "margin" else TOL_BF16_L2
+        parts.append(f"{name} {err:.2e}")
+        if err > tol:
+            fail(f"{label} {name}: relative 2-norm {err:.3e} > {tol}")
+    print(f"{label} rel 2-norm: " + ", ".join(parts)
+          + (f"; final's mask flipped at {flips} pixels" if flips else ""), flush=True)
+    return worst_abs
 
 
 def check_k2():
-    """Phase 17; returns the largest absolute error of the margin checks
-    (the ones no mask flip can disturb). Batch 2 and 8 give each block of
-    the weight-gradient and column launches one band or one bin; batch 160,
-    the train step's, gives each about 10 bands and 20 bins."""
+    """Phase 17; returns the largest absolute errors of K2's margin checks
+    (the ones no mask flip can disturb) and of K2-bf16's whole-slice
+    checks. Batch 2 and 8 give each block of the weight-gradient and column
+    launches one band or one bin; batch 160, the train step's, gives each
+    about 10 bands and 20 bins. At the whole-slice sizes (K2_SLICE_SIZES),
+    batch 2, K2 in every init and variant and K2-bf16 on fan_in and margin
+    inputs (``masked``: final's mask flips within POST_FLIP_PIXELS's
+    limit); at 512x512 the column pass runs on a cluster of two CTAs."""
     worst_margin_abs = 0.0
     for n in (2, 8, 160):
         for init in ("reference", "fan_in", "margin"):
             for vi, variant in enumerate(VARIANTS):
                 if n == 160 and (init == "reference" or variant not in VARIANTS[2:]):
                     continue
-                args = bwd_inputs(n, init, variant, seed=vi)
-                got = block_bwd(**args)
-                want = block_bwd_reference(**args)
-                torch.cuda.synchronize()
-                parts = []
-                for name, w in want.items():
-                    g = got[name]
-                    if not torch.isfinite(g).all():
-                        fail(f"K2 n={n} {init} {variant}: non-finite {name}")
-                    d = g - w
-                    err = d.abs().max().item()
-                    rel = err / max(w.abs().max().item(), 1e-30)
-                    l2 = (d.norm() / w.norm().clamp_min(1e-30)).item()
-                    parts.append(f"{name} {err:.2e}/{rel:.2e}/{l2:.2e}")
-                    if init == "margin":
-                        worst_margin_abs = max(worst_margin_abs, err)
-                        if rel > TOL_BWD_MARGIN_REL:
-                            fail(f"K2 n={n} margin {variant} {name}: relative error "
-                                 f"{rel:.3e} > {TOL_BWD_MARGIN_REL}")
-                    elif l2 > TOL_BWD_L2:
-                        fail(f"K2 n={n} {init} {variant} {name}: relative 2-norm "
-                             f"error {l2:.3e} > {TOL_BWD_L2}")
-                print(f"K2 check 64x64 C={C} n={n} {init:9s} {variant:14s} "
-                      f"(max_abs/max_rel/l2_rel): " + "; ".join(parts), flush=True)
-    return worst_margin_abs
+                worst_margin_abs = max(worst_margin_abs, hold_k2(
+                    f"K2 check 64x64 C={C} n={n} {init:9s} {variant:14s}",
+                    bwd_inputs(n, init, variant, seed=vi), init))
+    worst_bf16_abs = 0.0
+    for size in K2_SLICE_SIZES:
+        for init in ("reference", "fan_in", "margin"):
+            for vi, variant in enumerate(VARIANTS):
+                args = bwd_inputs(2, init, variant, seed=vi, size=size)
+                worst_margin_abs = max(worst_margin_abs, hold_k2(
+                    f"K2 check {size}x{size} C={C} n=2 {init:9s} {variant:14s}", args, init,
+                    masked=True))
+                if init != "reference":
+                    worst_bf16_abs = max(worst_bf16_abs, hold_k2_bf16(
+                        f"K2-bf16 check {size}x{size} C={C} n=2 {init:6s} {variant:14s}",
+                        bf16_args(args), init, masked=True))
+                del args
+    return worst_margin_abs, worst_bf16_abs
 
 
 def bf16_args(args):
@@ -717,37 +865,12 @@ def check_bf16_kernels():
     for n in (8, 160):
         for init in ("fan_in", "margin"):
             for vi, variant in enumerate(VARIANTS):
-                args = bf16_args(bwd_inputs(n, init, variant, seed=vi))
-                got = block_bwd(**args)
-                want = block_bwd_reference(**args)
-                torch.cuda.synchronize()
-                parts = []
-                for name, w in want.items():
-                    g = got[name]
-                    if g.dtype != w.dtype or not torch.isfinite(g.float()).all():
-                        fail(f"K2-bf16 n={n} {init} {variant}: {name} is {g.dtype}, "
-                             f"not {w.dtype}, or not finite")
-                    worst["K2-bf16"] = max(worst["K2-bf16"],
-                                           (g.float() - w.float()).abs().max().item())
-                    err = rel_l2(g, w)
-                    tol = TOL_BF16_REL if init == "margin" else TOL_BF16_L2
-                    parts.append(f"{name} {err:.2e}")
-                    if err > tol:
-                        fail(f"K2-bf16 n={n} {init} {variant} {name}: relative 2-norm "
-                             f"{err:.3e} > {tol}")
-                print(f"K2-bf16 check 64x64 C={C} n={n} {init:6s} {variant:14s} "
-                      f"rel 2-norm: " + ", ".join(parts), flush=True)
+                worst["K2-bf16"] = max(worst["K2-bf16"], hold_k2_bf16(
+                    f"K2-bf16 check 64x64 C={C} n={n} {init:6s} {variant:14s}",
+                    bf16_args(bwd_inputs(n, init, variant, seed=vi)), init))
     for c in (8, C):
         for vi, variant in enumerate(VARIANTS[1:], start=1):
-            args = bf16_args(bwd_inputs(8, "fan_in", variant, seed=vi, c=c))
-            fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
-            k1, k2 = {}, {}
-            out = as_tuple(block_fused(**fwd, scratch=k1))[0]
-            block_bwd(**args, scratch=k2)
-            torch.cuda.synchronize()
-            pairs = [("hin", k2["hin"], k1["hin"])]
-            if "post" in variant:
-                pairs.append(("out", k2["out"], out))
+            pairs = recompute_pairs(bf16_args(bwd_inputs(8, "fan_in", variant, seed=vi, c=c)))
             for name, a, b in pairs:
                 if a.dtype != BF16 or not torch.equal(a, b):
                     fail(f"K2-bf16 recompute C={c} {variant}: {name} is not K1-bf16's")
@@ -816,13 +939,16 @@ def as_float64(args):
 
 def k2_accuracy():
     """Phase 17: K2 and the fp32 plain version against the plain version in
-    float64 on margin inputs (pre+skip), at batch 8 and 160; K2 with the
-    wrapper's persistent launches and with one block per band and per bin
-    (so that no accumulator runs over more than one band or bin). Per
-    output max |err| / max |float64|; K2's held to TOL_BWD_MARGIN_REL."""
-    per_unit = lambda n, h, k: (n * (h // cuda_train._WGRAD_ROWS), n * k)
-    for n in (8, 160):
-        args = bwd_inputs(n, "margin", "pre+skip", seed=2)
+    float64 on margin inputs (pre+skip), at 64x64, batch 8 and 160, and at
+    the whole-slice sizes, batch 2; K2 with the wrapper's persistent
+    launches and with one block per unit of work and per bin (a cluster per
+    bin at 512x512; so that no accumulator runs over more than one unit or
+    bin). Per output max |err| / max |float64|; K2's held to
+    TOL_BWD_MARGIN_REL."""
+    per_unit = lambda n, h, k: (cuda_train._wgrad_units(n, h), n * k)
+    for n, size in [(8, 64), (160, 64)] + [(2, s) for s in K2_SLICE_SIZES]:
+        k = size // 2 + 1
+        args = bwd_inputs(n, "margin", "pre+skip", seed=2, size=size)
         want = block_bwd_reference(**as_float64(args))
         runs = {"K2": block_bwd(**args)}
         geometry = cuda_train._launch_geometry
@@ -833,19 +959,19 @@ def k2_accuracy():
             cuda_train._launch_geometry = geometry
         runs["plain fp32"] = block_bwd_reference(**args)
         torch.cuda.synchronize()
-        blocks = geometry(n, 64, 33)
+        blocks = geometry(n, size, k)
         for label, got in runs.items():
             errs = {name: ((got[name].double() - w).abs().max()
                            / w.abs().max().clamp_min(1e-300)).item()
                     for name, w in want.items()}
-            print(f"K2 accuracy 64x64 C={C} n={n} margin pre+skip {label} (blocks "
-                  f"{per_unit(n, 64, 33) if 'unit' in label else blocks}) against "
+            print(f"K2 accuracy {size}x{size} C={C} n={n} margin pre+skip {label} (blocks "
+                  f"{per_unit(n, size, k) if 'unit' in label else blocks}) against "
                   f"float64, max_rel: " + "; ".join(f"{k} {v:.2e}" for k, v in errs.items()),
                   flush=True)
             worst = max(errs.values())
             if label == "K2" and worst > TOL_BWD_MARGIN_REL:
-                fail(f"K2 n={n} margin pre+skip: relative error {worst:.3e} against "
-                     f"float64 > {TOL_BWD_MARGIN_REL}")
+                fail(f"K2 {size}x{size} n={n} margin pre+skip: relative error {worst:.3e} "
+                     f"against float64 > {TOL_BWD_MARGIN_REL}")
         del args, want, runs
 
 
@@ -1493,6 +1619,12 @@ K2_LAUNCHES = (("pre conv", "conv3x3_tc_kernel"), ("rows of hin (K4)", "rdft_w_k
                ("ReLU mask", "relu_grad_kernel"), ("pre wgrad", "wgrad_tc_kernel"),
                ("pre wgrad sum", "sum_partials_kernel"),
                ("pre adjoint conv", "conv3x3_tc_kernel"))
+
+
+# the same at 512x512, C = 32: the column pass on a cluster of two CTAs
+K2_CLUSTER_LAUNCHES = tuple(("column pass", "column_bwd_cluster_kernel")
+                            if launch == "column pass" else (launch, kernel)
+                            for launch, kernel in K2_LAUNCHES)
 
 
 def cudnn_k2_parts(args):
@@ -4029,10 +4161,203 @@ def phase30_alone(card: str) -> None:
     print(card, flush=True)
 
 
+# ---- phase 34: K1 + K2 on whole slices. No trainer takes them: the 64x64
+# multi-task discriminator's CLS head flattens a 1x1 bottleneck (the JAX
+# package's too), so the train CLI on a whole-slice preset stops at the
+# discriminator and the train routes stay at 64x64. The phase drives a
+# synthetic generator-only step on whole 512x512 slices at full width, as
+# a caller's own loop would: the forward on K1 + K2
+# (resfft_generator_train) or the plain generator under autograd, the
+# pixel terms of MTD-GAN's generator loss (50 x Charbonnier + 50 x
+# EdgeLoss), their gradient and AdamW; no discriminator, no PCGrad
+SLICE = 512
+# the batch both routes hold, and the slices of the CLI run
+SLICE_COMPARE_BATCH = 4
+SLICE_CLI_SLICES = 2
+SLICE_STEP = "synthetic generator-only step"
+
+
+def slice_batch(rng, n: int):
+    """n pairs of whole 512x512 slices (x the noisier), HU on the card,
+    through the train CLI's ``window`` preset: (N, 512, 512, 1) in [0, 1]."""
+    lo = phantom(rng, n, SLICE) * 400.0 - 160.0
+    hi = np.clip(lo + 20.0 * rng.standard_normal(lo.shape), -1024, 3071)
+    hu = lambda a: torch.tensor(np.round(a)[..., None], dtype=torch.int16, device="cuda")
+    pre = make_train_preprocess("window", "mayo")
+    return pre(hu(hi), hu(lo), torch.Generator(device="cuda").manual_seed(34))
+
+
+def slice_step(gen, opt, x, y, forward):
+    """One whole-slice generator step (the phase's comment); returns the two
+    loss terms (2,) and the generator's gradient."""
+    fake = forward(gen, x).float()
+    pix = 50.0 * losses.charbonnier_loss(fake, y)
+    edge = 50.0 * losses.edge_loss(fake.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2))
+    grads = torch.autograd.grad(pix + edge, list(gen.parameters()))
+    for prm, g in zip(gen.parameters(), grads):
+        prm.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return torch.stack([pix.detach(), edge.detach()]), grads
+
+
+def slice_k2_args(n: int, dtype, seed: int):
+    """K2's pre+skip inputs at 512x512, C = 32, batch n, drawn on the card
+    (1/sqrt(fan_in) weights, 0.1 biases; activations of ``dtype``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    act = lambda t: t.to(dtype).contiguous()
+    hw = SLICE * SLICE
+    return dict(x=act(torch.rand((n, C, hw), generator=gen, device="cuda")),
+                g=act(r(n, C, hw)), h=SLICE, w=SLICE,
+                km=r(C, C, 3, 3) / math.sqrt(9 * C), kb=r(C) * 0.1,
+                mix=r(2 * C, 2 * C) / math.sqrt(2 * C), mb=r(2 * C) * 0.1,
+                pre=(r(C, C, 3, 3) / math.sqrt(9 * C), r(C) * 0.1),
+                skip=act(r(n, C, hw) * 0.5))
+
+
+def check_slice_cli(tmp: str):
+    """The train CLI with ``--dataset-type-train full --g-forward pallas``
+    on whole 512x512 slices: its refusal at the 64x64 discriminator, with
+    no kernel launched."""
+    root = os.path.join(tmp, "slice_data")
+    rng = np.random.default_rng(341)
+    write_split(root, "train", rng, SLICE_CLI_SLICES)
+    write_split(root, "valid", rng, 1)
+    args = train_cli.get_args_parser().parse_args([
+        "--data-root", root, "--batch-size", str(SLICE_CLI_SLICES), "--epochs", "1",
+        "--device", "cuda", "--seed", "0", "--dataset-type-train", "full",
+        "--g-forward", "pallas", "--model-kwargs",
+        json.dumps({"gen_features": C, "disc_features": 64, "num_layers": 10}),
+        "--checkpoint-dir", os.path.join(tmp, "slice_ckpt"),
+        "--save-dir", os.path.join(tmp, "slice_out")])
+    zero_counts()
+    expect_raise("train CLI --dataset-type-train full (MTD_GAN_Method)",
+                 lambda: train_cli.main(args))
+    expect_counts("train CLI --dataset-type-train full", read_counts(), {})
+
+
+def check_whole_slices(tmp: str):
+    """Phase 34 (module docstring). Returns the launches of its kernel
+    steps {K1, K2, K1-bf16, K2-bf16} (the synthetic step's, kept out of the
+    kernels line) and K2's and K2-bf16's times at 512x512 {name: (ms,
+    plain_ms, bound_ms, bound_by)}."""
+    t0 = time.perf_counter()
+    for size in (64,) + K2_SLICE_SIZES:
+        print(f"routes {size}x{size} C={C}: train_route "
+              f"{cuda_train.train_route(size, size, C)}, g_forward auto -> "
+              f"{cuda_train.resolve_g_forward('auto', size, size, C)}", flush=True)
+    for h, w in ((SLICE, SLICE), (200, 200), (1024, 1024), (512, 320)):
+        expect_raise(f"g_forward pallas at {h}x{w}",
+                     lambda: cuda_train.resolve_g_forward("pallas", h, w, C))
+    x, y = slice_batch(np.random.default_rng(34), TRAIN_SLICES)
+    xs, ys = x[:SLICE_COMPARE_BATCH], y[:SLICE_COMPARE_BATCH]
+    want = {"kernels": {"K1": 21, "K2": 21}, "kernels bf16": {"K1-bf16": 21, "K2-bf16": 21}}
+    runs, gens, launches = {}, {}, {}
+    for name, dtype, forward in (("kernels", None, resfft_generator_train),
+                                 ("autograd", None, plain_forward),
+                                 ("kernels bf16", BF16, resfft_generator_train),
+                                 ("autograd bf16", BF16, plain_forward)):
+        gen = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0,
+                          dtype=dtype).generator.train()
+        opt = optim.get_optimizer("adamw", gen.parameters())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        terms, grads = slice_step(gen, opt, xs, ys, forward)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - resident
+        expect_counts(f"{SLICE_STEP} {name}", counts, want.get(name, {}))
+        launches.update({k: launches.get(k, 0) + counts[k] for k in want.get(name, {})})
+        if not (torch.isfinite(terms).all() and all(torch.isfinite(g).all() for g in grads)):
+            fail(f"{SLICE_STEP} {name}: non-finite losses or gradients")
+        runs[name] = (terms, grads, peak)
+        gens[name] = (gen, opt, forward)
+        print(f"{SLICE_STEP} {name} ({SLICE_COMPARE_BATCH} x {SLICE}x{SLICE}, 32 features, 10 "
+              f"layers, AdamW): charbonnier x50 {terms[0].item():.6f}, edge "
+              f"x50 {terms[1].item():.6f}; peak memory above the resident "
+              f"{peak / 2**30:.3f} GiB; launches {counts}", flush=True)
+    names = [n for n, _ in gens["kernels"][0].named_parameters()]
+    ref_terms, ref_grads, _ = runs["autograd"]
+    worst = {}
+    for name in ("kernels", "kernels bf16", "autograd bf16"):
+        terms, grads, _ = runs[name]
+        loss_rel = ((terms - ref_terms).abs() / ref_terms.abs()).max().item()
+        l2 = [rel_l2(a, b) for a, b in zip(grads, ref_grads)]
+        mx = [rel_err(a, b) for a, b in zip(grads, ref_grads)]
+        i, j = int(np.argmax(l2)), int(np.argmax(mx))
+        worst[name] = (loss_rel, l2[i], mx[j])
+        print(f"{SLICE_STEP} {name} against autograd fp32: losses rel {loss_rel:.3e}; "
+              f"generator gradient worst leaf {names[i]} {l2[i]:.3e} (2-norm), worst "
+              f"max-norm {names[j]} {mx[j]:.3e} over {len(grads)} leaves", flush=True)
+    if worst["kernels"][0] > TOL_STEP_DLOSS_REL or worst["kernels"][1] > TOL_STEP_GRAD_L2:
+        fail(f"{SLICE_STEP} on K1 + K2: losses {worst['kernels'][0]:.3e} (limit "
+             f"{TOL_STEP_DLOSS_REL}), worst leaf {worst['kernels'][1]:.3e} (limit "
+             f"{TOL_STEP_GRAD_L2}) from the autograd step")
+    if worst["kernels bf16"][2] > BF16_STEP_FACTOR * worst["autograd bf16"][2]:
+        fail(f"synthetic generator-only bf16 step on K1-bf16 + K2-bf16: worst leaf "
+             f"{worst['kernels bf16'][2]:.3e} from fp32 > {BF16_STEP_FACTOR} x the plain "
+             f"bf16 generator's {worst['autograd bf16'][2]:.3e}")
+    del runs
+    # the step at the comparison batch in turns (kernels, autograd,
+    # autograd, kernels), each type; then the kernel route alone at the
+    # root's batch of 20 with its peak memory
+    for kind in ("", " bf16"):
+        step = {name: (lambda g=gens[name + kind]: slice_step(g[0], g[1], xs, ys, g[2]))
+                for name in ("kernels", "autograd")}
+        turns = [cuda_ms(step[name], 3) for name in ("kernels", "autograd", "autograd",
+                                                      "kernels")]
+        print(f"time {SLICE_STEP}{kind} {SLICE_COMPARE_BATCH} x {SLICE}x{SLICE}: K1 + K2 "
+              f"{turns[0]:.2f}, autograd {turns[1]:.2f}, autograd {turns[2]:.2f}, K1 + K2 "
+              f"{turns[3]:.2f} ms (in turns)", flush=True)
+    for kind in ("", " bf16"):
+        gen, opt, forward = gens["kernels" + kind]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: slice_step(gen, opt, x, y, forward), 3)
+        peak = torch.cuda.max_memory_allocated() - resident
+        print(f"time {SLICE_STEP}{kind} {TRAIN_SLICES} x {SLICE}x{SLICE} on K1 + K2: "
+              f"{ms:.2f} ms/step = {TRAIN_SLICES * 1e3 / ms:.2f} slices/s; peak memory "
+              f"above the resident {peak / 2**30:.3f} GiB", flush=True)
+    del gens
+    # K2 per launch at 512x512, batch 20, pre+skip (the step's commonest
+    # call), fp32 and bf16, beside its plain version and its bound
+    times = {}
+    for name, dtype in (("K2", torch.float32), ("K2-bf16", BF16)):
+        args = slice_k2_args(TRAIN_SLICES, dtype, seed=34)
+        k_ms = cuda_ms(lambda: block_bwd(**args), 10)
+        p_ms = cuda_ms(lambda: block_bwd_reference(**args), 3)
+        b_ms, by = (k2_bounds(TRAIN_SLICES, SLICE, "pre+skip")[1] if name == "K2"
+                    else bf16_bounds(name, TRAIN_SLICES, SLICE, "pre+skip"))
+        times[name] = (k_ms, p_ms, b_ms, by)
+        print(f"time {name} {SLICE}x{SLICE} batch {TRAIN_SLICES} pre+skip: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({by})", flush=True)
+        launch_split(f"{name} split {SLICE}x{SLICE} batch {TRAIN_SLICES} pre+skip",
+                     lambda: block_bwd(**args), K2_CLUSTER_LAUNCHES)
+        del args
+    check_slice_cli(tmp)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, times
+
+
+def phase34_alone(card: str) -> None:
+    """``--phase 34``: phase 34 alone, after the builds of K1 and K2; it
+    ends with the card line and no kernels or result line."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(_build.build, ("block_fused", "block_bwd")))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slices_") as tmp:
+        launches, _ = check_whole_slices(tmp)
+    print(f"phase 34: synthetic-step launches {launches}", flush=True)
+    print(card, flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    parser.add_argument("--phase", type=int, choices=[30, 31, 32, 33],
+    parser.add_argument("--phase", type=int, choices=[30, 31, 32, 33, 34],
                         help="run this phase alone (no kernels or result line)")
     only = parser.parse_args().phase
     if not torch.cuda.is_available():
@@ -4054,6 +4379,9 @@ def main():
         return
     if only == 33:
         phase33_alone(card)
+        return
+    if only == 34:
+        phase34_alone(card)
         return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
@@ -4182,7 +4510,7 @@ def main():
 
     # ---- 17. K2 against its plain version
     k2_accuracy()
-    k2_max_abs_err = check_k2()
+    k2_max_abs_err, k2_bf16_slice_err = check_k2()
     check_k2_recompute()
 
     # ---- 18. the train step at full width
@@ -4478,6 +4806,15 @@ def main():
     # instances against the parent's bits, generate on them, their times
     fused_launches, fused_err, fused_times, k7_bf16_no_res = check_fused_bf16()
 
+    # ---- 34. K1 + K2 on whole slices: a synthetic generator-only step on
+    # 512x512 slices against autograd, its times and memory, K2 at 512x512,
+    # the train CLI on a whole-slice preset. No trainer takes whole slices,
+    # so its launches stay out of the kernels line
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slices_") as tmp:
+        slice_launches, _ = check_whole_slices(tmp)
+    print(f"phase 34: synthetic-step launches {slice_launches} (not in the kernels line)",
+          flush=True)
+
     # ---- 30. the parallel layer: DataParallel and TensorParallel in a
     # one-rank NCCL group (and on every card where there are several), the
     # packed generator. It runs after phase 21's
@@ -4539,7 +4876,8 @@ def main():
         ("K6", "staged_irdft_w_add", "spectral_staged.cu", 908))] + [{
         "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": bf16_launches[name],
-        "max_abs_err": bf16_err[name], "ms": bf16_times[name][0],
+        "max_abs_err": (max(bf16_err[name], k2_bf16_slice_err) if name == "K2-bf16"
+                        else bf16_err[name]), "ms": bf16_times[name][0],
         "plain_ms": bf16_times[name][1], "bound_ms": bf16_times[name][2],
         "bound_by": bf16_times[name][3], "library_ms": None,
     } for name, src, replaces in (

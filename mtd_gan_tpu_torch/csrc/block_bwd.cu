@@ -57,10 +57,31 @@
 //   column pass  column_bwd_kernel, persistent blocks over the (n, k) bins: K4's
 //                DIF steps on both spectra, the mask from K1's mix
 //                function, dmix and dmb summed in registers across the
-//                block's bins and positions, mix^T, K4's DIT steps back.
+//                block's bins and positions, mix^T, K4's DIT steps back;
+//                where a bin's two spectra outgrow one CTA (512^2 at C =
+//                32: 321 KB against the 227 KB a CTA may hold),
+//                column_bwd_cluster_kernel, the same pass on a cluster of
+//                two CTAs per bin over distributed shared memory (the
+//                scheme of columns_mixed.cuh: channels split for the FFTs,
+//                positions split for the mask, dmix and mix^T).
 // Weight gradients are per-block partials reduced by a second kernel in a
 // fixed order: no float atomics, so a gradient repeats bit for bit from run
 // to run.
+//
+// Sizes. H == W, a power of two from 8 to 512: the training patches (64^2)
+// and the whole slices K1 serves (128^2 - 512^2). A weight-gradient unit is
+// a band of kWgRows rows, cut into segments of kWgCols = 64 columns above
+// 64 (whole bands at W = 512 would take 649 KB of tiles), so that two
+// blocks fit an SM at every width; at W <= 64 the unit and its sums are
+// the band's as before. The column pass holds both spectra of a bin, 2 C
+// rdft_row_pitch(H) complex beside the 2C x 2C mix, its transpose and its
+// bias: at C = 32, 105 KB at 128^2 (two blocks an SM), 177 KB at 256^2
+// (one), 321 KB at 512^2 (a cluster of two CTAs of 210 KB); C <= 16 fits
+// one CTA at every size. Bound at 512^2, C = 32, batch 20, pre + skip:
+// 6 x 2 x 9 C^2 FLOP a pixel, 579.8 GFLOP, three TF32 products each (3.51
+// ms at 495 TFLOP/s); ~90 GFLOP of FFTs, mix and its gradient on the CUDA
+// cores (1.35 ms); ~3.4 GB of compulsory traffic (1.0 ms): the tensor
+// cores' operations (chip_smoke.py::k2_bounds).
 //
 // The bf16 variant (block_bwd_bf16, the JAX kernel at act_dtype=bfloat16,
 // mtd_gan_tpu/ops/pallas_train.py:339-348, :452) keeps the launches: x,
@@ -80,13 +101,14 @@
 
 #include <cstdint>
 
-#include "block_columns.cuh"
+#include "columns_mixed.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
 
 constexpr int kBwdThreads = 256;
 constexpr int kWgRows = 4;       // image rows per unit of the weight-gradient GEMM
+constexpr int kWgCols = 64;      // and at most this many columns (a band's segment)
 constexpr int kWgThreads = 288;  // 9 warps, one per tap
 
 // out[i] = mask[i] > 0 ? a[i] : 0   (a ReLU's cotangent from its output),
@@ -160,10 +182,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared-memory strides of the weight-gradient tile: g's rows (a band's
-// pixels + 4) and the input's channels ((kWgRows + 2) rows of W + 8, the
-// column x at x + 4 so that the 16-byte copies land aligned), both 4 mod
-// 32 so that a fragment's 8 x 4 reads hit 32 banks.
+// The columns of a unit of the weight-gradient GEMM: the whole row up to
+// kWgCols, else segments of kWgCols (W a multiple of it), so that the tiles
+// of two blocks fit one SM at every width (at W = 512 a whole band's tiles
+// would take 649 KB).
+__host__ __device__ inline int wgrad_cols(int w) { return w < kWgCols ? w : kWgCols; }
+
+// Shared-memory strides of the weight-gradient tile for a unit of w
+// columns: g's rows (the unit's pixels + 4) and the input's channels
+// ((kWgRows + 2) rows of w + 8, the column x at x + 4 so that the 16-byte
+// copies land aligned), both 4 mod 32 so that a fragment's 8 x 4 reads hit
+// 32 banks.
 __host__ __device__ inline int wgrad_gstride(int w) { return kWgRows * w + 4; }
 __host__ __device__ inline int wgrad_istride(int w) {
   return ((kWgRows + 2) * (w + 8) + 27) / 32 * 32 + 4;
@@ -187,8 +216,9 @@ size_t wgrad_smem_bytes(int co, int cin, int w) {
 // summed in fp32, as K3):
 //   part[blk, co, ci, tap] = sum_{p in blk's units} g[n, co, p] * in[n, ci, p + off(tap)]
 //   part[blk, c_out * 9 CIN + co] = sum g[n, co, p]   (on the CUDA cores)
-// A unit is a band of kWgRows rows of one sample; block blk takes the
-// units blk, blk + gridDim.x, ... Warp w computes tap w = 3 dy + dx: its
+// A unit is a band of kWgRows rows of one sample, or a segment of
+// wgrad_cols(W) columns of one (the segments of a band in order); block blk
+// takes the units blk, blk + gridDim.x, ... Warp w computes tap w = 3 dy + dx: its
 // (CO x CIN) slice, MT x CI8 m16n8 tiles in registers, over the band's
 // pixels 8 at a time (one k-step). Rows of g from c_out to CO stay zero
 // (C_out = 1 for the exit conv). The error of the tensor cores' fp32
@@ -210,8 +240,9 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
   constexpr bool BF = kIsBf16<TG> && kIsBf16<TI>;
   constexpr int CIN = 8 * CI8, CO = 16 * MT;
   extern __shared__ __align__(16) float wg_smem[];
-  const int P = kWgRows * W, gstride = wgrad_gstride(W), hs = W + 8;
-  const int istride = wgrad_istride(W);
+  const int SW = wgrad_cols(W), segs = W / SW;
+  const int P = kWgRows * SW, gstride = wgrad_gstride(SW), hs = SW + 8;
+  const int istride = wgrad_istride(SW);
   float* gsm = wg_smem;                 // [CO][gstride]
   float* ism = wg_smem + CO * gstride;  // [CIN][istride]: rows y0 - 1 .. y0 + kWgRows
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -225,13 +256,19 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
   float bacc = 0.f;
 
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    // zeros that no copy writes (the previous unit's staged sums may lie
-    // there): g's rows past c_out, the input's columns x = -1 and x = W
+    const int n = u / (bands * segs), v = u - n * bands * segs;
+    const int y0 = v / segs * kWgRows, xs = v % segs * SW;
+    // what no copy writes (the previous unit's staged sums may lie there):
+    // zeros in g's rows past c_out; the input's columns x = xs - 1 and
+    // x = xs + SW, zeros outside the image
     for (int i = tid; i < (CO - c_out) * gstride; i += blockDim.x) gsm[c_out * gstride + i] = 0.f;
     for (int i = tid; i < CIN * (kWgRows + 2); i += blockDim.x) {
-      float* row = ism + (i / (kWgRows + 2)) * istride + (i % (kWgRows + 2)) * hs;
-      row[3] = 0.f;
-      row[W + 4] = 0.f;
+      const int ci = i / (kWgRows + 2), yy = i - ci * (kWgRows + 2), gy = y0 - 1 + yy;
+      const bool ok = gy >= 0 && gy < H;
+      const TI* src = in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + xs;
+      float* row = ism + ci * istride + yy * hs;
+      row[3] = ok && xs > 0 ? ld1(src - 1) : 0.f;
+      row[SW + 4] = ok && xs + SW < W ? ld1(src + SW) : 0.f;
     }
     float acc[MT][CI8][4];
 #pragma unroll
@@ -240,15 +277,15 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
       for (int j = 0; j < CI8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-    const int n = u / bands, y0 = (u - n * bands) * kWgRows;
-    const int q4 = P / 4, w4 = W / 4;
+    const int w4 = SW / 4, q4 = kWgRows * w4;
     for (int i = tid; i < c_out * q4; i += blockDim.x) {
-      const int co = i / q4, j = (i - co * q4) * 4;
-      const TG* src = g + ((size_t)n * c_out + co) * hw + (size_t)y0 * W + j;
+      const int co = i / q4, yl = (i - co * q4) / w4, j = (i - co * q4 - yl * w4) * 4;
+      const TG* src = g + ((size_t)n * c_out + co) * hw + (size_t)(y0 + yl) * W + xs + j;
+      float* dst = gsm + co * gstride + yl * SW + j;
       if constexpr (kIsBf16<TG>) {
-        *reinterpret_cast<float4*>(gsm + co * gstride + j) = ld4(src);
+        *reinterpret_cast<float4*>(dst) = ld4(src);
       } else {
-        cp_async16(gsm + co * gstride + j, src, true);
+        cp_async16(dst, src, true);
       }
     }
     for (int i = tid; i < CIN * (kWgRows + 2) * w4; i += blockDim.x) {
@@ -256,7 +293,7 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
       const int ci = r / (kWgRows + 2), yy = r - ci * (kWgRows + 2);
       const int gy = y0 - 1 + yy;
       const bool ok = gy >= 0 && gy < H;
-      const TI* src = in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + j;
+      const TI* src = in + ((size_t)n * CIN + ci) * hw + (size_t)(ok ? gy : 0) * W + xs + j;
       float* dst = ism + ci * istride + yy * hs + 4 + j;
       if constexpr (kIsBf16<TI>) {
         *reinterpret_cast<float4*>(dst) = ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -269,8 +306,8 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
 
     if constexpr (BF) {
       for (int yl = 0; yl < kWgRows; ++yl) {
-        for (int x0 = 0; x0 < W; x0 += 16) {
-          const int p0 = yl * W + x0;
+        for (int x0 = 0; x0 < SW; x0 += 16) {
+          const int p0 = yl * SW + x0;
           // A: g at rows co = 16 mt + q (+ 8), pixels p0 + 2t, 2t + 1 (+ 8)
           uint32_t a16[MT][4];
 #pragma unroll
@@ -295,8 +332,8 @@ wgrad_tc_kernel(const TG* __restrict__ g, const TI* __restrict__ in,
       }
     } else {
     for (int yl = 0; yl < kWgRows; ++yl) {
-      for (int x0 = 0; x0 < W; x0 += 8) {
-        const int p0 = yl * W + x0;
+      for (int x0 = 0; x0 < SW; x0 += 8) {
+        const int p0 = yl * SW + x0;
         // A: g at rows co = 16 mt + q (+ 8), pixels p0 + t (+ 4)
         uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
@@ -527,6 +564,226 @@ column_bwd_kernel(const float2* __restrict__ spec_in, float2* __restrict__ spec_
   if (tid < C2) out[C2 * C2 + tid] = bacc * scale;
 }
 
+// Positions of the bin per staged chunk of the split column pass, and the
+// stride of a staged position (the 2C stacked channels + 4, so that the
+// float4 reads of eight neighbouring positions hit 32 banks).
+constexpr int kBwdChunk = 64;
+template <int C>
+constexpr int kBwdStage = 2 * C + 4;
+
+// Shared memory of the backward column pass of one bin of C channels at H
+// points on S CTAs: both spectra of C / S channels, the mix, its transpose
+// and its bias; on a cluster also the staged chunk of both spectra.
+size_t column_bwd_smem(int c, int s, int h) {
+  const size_t bytes = (size_t)2 * (c / s) * rdft_row_pitch(h) * sizeof(float2) +
+                       (size_t)(8 * c * c + 2 * c) * sizeof(float);
+  return s == 1 ? bytes : bytes + (size_t)2 * kBwdChunk * (2 * c + 4) * sizeof(float);
+}
+
+// The CTAs of one bin: 1 where both spectra fit one CTA (every C up to
+// 256^2, and C <= 16 at 512^2), else 2 (C = 32 at 512^2: 321 KB in one
+// CTA, 210 KB in each of two); 0 if neither fits.
+int column_bwd_cluster_size(int c, int h) { return smallest_cluster(column_bwd_smem, c, h, 2); }
+
+// column_bwd_kernel's pass on a cluster of S CTAs per bin, where both
+// spectra of a bin outgrow one CTA (the scheme of columns_mixed_kernel).
+// Persistent clusters: cluster q = blockIdx.x / S takes the bins
+// u = q, q + gridDim.x / S, ...; CTA `rank` holds the channels
+// [rank * CL, (rank + 1) * CL) of both spectra and runs their DIF steps;
+// after a cluster.sync it takes the positions [rank H / S, (rank + 1) H / S)
+// for all 2C channels, kBwdChunk at a time: it stages them from every
+// partner (cluster.map_shared_rank) as floats ([position][Re 0..C-1,
+// Im 0..C-1]), masks b by K1's mix function on the staged a, adds its share
+// to dmix = b a^T and dmb, and writes conj(mix^T b) back into the owners'
+// a at those positions; after a second cluster.sync each CTA runs its
+// channels' DIT steps and stores them. Each value of the bin crosses the
+// cluster at most once each way, and each position is read and written by
+// one CTA between the two syncs. The partials are per CTA, as the
+// one-CTA pass's are per block.
+template <int C, int S>
+__global__ void __launch_bounds__(kColThreads, 1)
+column_bwd_cluster_kernel(const float2* __restrict__ spec_in, float2* __restrict__ spec_g,
+                          const float* __restrict__ mix, const float* __restrict__ mix_bias,
+                          const float2* __restrict__ tw, float* __restrict__ part, int H,
+                          int K, int bins, RdftPlan pl, float scale) {
+  constexpr int C2 = 2 * C, CL = C / S, VS = kBwdStage<C>;
+  constexpr int kPer = C2 * C2 / kColThreads;  // dmix entries per thread: 8 at C = 32
+  constexpr int CB = kPer >= 2 ? 2 : 1;
+  constexpr int RB = kPer / CB;
+  constexpr int G = kColThreads / kBwdChunk;   // threads per staged position
+  static_assert(RB * CB * kColThreads == C2 * C2 && C2 % (4 * G) == 0, "channel count");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pitch = rdft_row_pitch(H);
+  float2* a = reinterpret_cast<float2*>(smem_raw);       // [CL][pitch]
+  float2* b = a + CL * pitch;                            // [CL][pitch], right after a
+  float* msm = reinterpret_cast<float*>(b + CL * pitch);  // mix [2C][2C]
+  float* mtsm = msm + C2 * C2;                           // mix^T
+  float* bsm = mtsm + C2 * C2;                           // [2C]
+  float* va = bsm + C2;                                  // [kBwdChunk][VS]: a, staged
+  float* vb = va + kBwdChunk * VS;                       // [kBwdChunk][VS]: b, staged
+  const int tid = threadIdx.x;
+  const size_t cstride = (size_t)K * H;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float2* peer_a[S];
+  float2* peer_b[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    peer_a[r] = cluster.map_shared_rank(a, r);
+    peer_b[r] = cluster.map_shared_rank(b, r);
+  }
+
+  for (int idx = tid; idx < C2 * C2; idx += kColThreads) {
+    msm[idx] = mix[idx];
+    mtsm[(idx % C2) * C2 + idx / C2] = mix[idx];
+  }
+  for (int idx = tid; idx < C2; idx += kColThreads) bsm[idx] = mix_bias[idx];
+
+  const int r0 = (tid / (C2 / CB)) * RB, c0 = (tid % (C2 / CB)) * CB;
+  float acc[RB][CB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[r][c] = 0.f;
+  float bacc = 0.f;
+  const int halves = H >> 1;
+  const int lo = rank * (H / S), hi = lo + H / S;
+  // thread (gi, j): staged position j, the outputs [gi, gi + 1) * C2 / G
+  const int j = tid % kBwdChunk, gi = tid / kBwdChunk, per = C2 / G;
+
+  for (int u = blockIdx.x / S; u < bins; u += gridDim.x / S) {
+    const int n = u / K, k = u - n * K;
+    const bool edge = k == 0 || k == K - 1;
+    const float wk = edge ? 1.f : 2.f;
+    const size_t off = ((size_t)n * C + rank * CL) * cstride + (size_t)k * H;
+    for (int idx = tid; idx < CL * halves; idx += kColThreads) {
+      const int c = idx / halves, h = (idx - c * halves) * 2;
+      const float4 x = *reinterpret_cast<const float4*>(spec_in + off + c * cstride + h);
+      const float4 z = *reinterpret_cast<const float4*>(spec_g + off + c * cstride + h);
+      float2* ra = a + c * pitch;
+      float2* rb = b + c * pitch;
+      ra[rdft_pad(h)] = make_float2(x.x, x.y);
+      ra[rdft_pad(h + 1)] = make_float2(x.z, x.w);
+      rb[rdft_pad(h)] = make_float2(z.x * wk, edge ? 0.f : z.y * wk);
+      rb[rdft_pad(h + 1)] = make_float2(z.z * wk, edge ? 0.f : z.w * wk);
+    }
+    __syncthreads();
+    rdft_steps(a, pitch, 2 * CL, pl, 0, tw);  // this CTA's rows of both spectra
+    cluster.sync();                           // every partner's steps are done
+
+    for (int p0 = lo; p0 < hi; p0 += kBwdChunk) {
+      // stage every channel of both spectra at the chunk's positions
+      for (int idx = tid; idx < C * kBwdChunk; idx += kColThreads) {
+        const int c = idx / kBwdChunk, jj = idx - c * kBwdChunk;
+        const float2* ra = peer_a[0];
+        const float2* rb = peer_b[0];
+#pragma unroll
+        for (int r = 1; r < S; ++r)
+          if (c / CL == r) {
+            ra = peer_a[r];
+            rb = peer_b[r];
+          }
+        const int p = (c % CL) * pitch + rdft_pad(p0 + jj);
+        const float2 x = ra[p], z = rb[p];
+        va[jj * VS + c] = x.x;
+        va[jj * VS + C + c] = x.y;
+        vb[jj * VS + c] = z.x;
+        vb[jj * VS + C + c] = z.y;
+      }
+      __syncthreads();
+
+      // sbar = b * [s_pre > 0]: s_pre from the staged a as K1's column pass
+      // computes it (mix_inputs' scaled values, mix_output's order)
+      {
+        float v[C2];
+        const float4* row = reinterpret_cast<const float4*>(va + j * VS);
+#pragma unroll
+        for (int q = 0; q < C2 / 4; ++q) {
+          const float4 t = row[q];
+          v[4 * q] = t.x * scale;
+          v[4 * q + 1] = t.y * scale;
+          v[4 * q + 2] = t.z * scale;
+          v[4 * q + 3] = t.w * scale;
+        }
+#pragma unroll 2
+        for (int o = gi * per; o < (gi + 1) * per; ++o)
+          if (!(mix_output<C>(msm, bsm, o, v) > 0.f)) vb[j * VS + o] = 0.f;
+      }
+      __syncthreads();
+
+      for (int jj = 0; jj < kBwdChunk; ++jj) {
+        float bv[RB], av[CB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) bv[r] = vb[jj * VS + r0 + r];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) av[c] = va[jj * VS + c0 + c];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int c = 0; c < CB; ++c) acc[r][c] = fmaf(bv[r], av[c], acc[r][c]);
+      }
+      if (tid < C2)
+        for (int jj = 0; jj < kBwdChunk; ++jj) bacc += vb[jj * VS + tid];
+
+      // s_in's cotangent mix^T sbar, conjugated, into the owners' a
+      {
+        float v[C2];
+        const float4* row = reinterpret_cast<const float4*>(vb + j * VS);
+#pragma unroll
+        for (int q = 0; q < C2 / 4; ++q) {
+          const float4 t = row[q];
+          v[4 * q] = t.x;
+          v[4 * q + 1] = t.y;
+          v[4 * q + 2] = t.z;
+          v[4 * q + 3] = t.w;
+        }
+        const int p = rdft_pad(p0 + j);
+#pragma unroll 2
+        for (int o = gi * per; o < (gi + 1) * per; ++o) {
+          const float4* mrow = reinterpret_cast<const float4*>(mtsm + o * C2);
+          float s = 0.f;
+#pragma unroll
+          for (int q = 0; q < C / 2; ++q) {
+            const float4 m = mrow[q];
+            s = fmaf(m.x, v[4 * q], s);
+            s = fmaf(m.y, v[4 * q + 1], s);
+            s = fmaf(m.z, v[4 * q + 2], s);
+            s = fmaf(m.w, v[4 * q + 3], s);
+          }
+          const int ch = o < C ? o : o - C;
+          float2* ra = peer_a[0];
+#pragma unroll
+          for (int r = 1; r < S; ++r)
+            if (ch / CL == r) ra = peer_a[r];
+          if (o < C) ra[(ch % CL) * pitch + p].x = s;
+          else ra[(ch % CL) * pitch + p].y = -s;
+        }
+      }
+      __syncthreads();  // the next chunk stages into va and vb
+    }
+    cluster.sync();  // every partner's outputs are in this CTA's a
+    rdft_steps<true>(a, pitch, CL, pl, 0, tw);
+
+    const float so = scale * scale / wk;
+    for (int idx = tid; idx < CL * halves; idx += kColThreads) {
+      const int c = idx / halves, h = (idx - c * halves) * 2;
+      const float2* row = a + c * pitch;
+      const float2 x = row[rdft_pad(h)], y = row[rdft_pad(h + 1)];
+      *reinterpret_cast<float4*>(spec_g + off + c * cstride + h) =
+          make_float4(x.x * so, -x.y * so, y.x * so, -y.y * so);
+    }
+    __syncthreads();  // the next bin loads into a and b
+  }
+
+  float* out = part + (size_t)blockIdx.x * (C2 * C2 + C2);
+  const float s2 = scale * scale;
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) out[(r0 + r) * C2 + c0 + c] = acc[r][c] * s2;
+  if (tid < C2) out[C2 * C2 + tid] = bacc * scale;
+}
+
 template <typename TM, typename TO>
 cudaError_t launch_relu_grad(const float* a, const TM* mask, TO* out,
                              size_t count, cudaStream_t stream) {
@@ -546,10 +803,10 @@ cudaError_t launch_sum(const float* part, float* out_a, int m_a, float* out_b, i
 template <typename TG, typename TI, int CI8, int MT>
 cudaError_t launch_wgrad_tc(const TG* g, const TI* in, float* part, int n, int c_out,
                             int h, int w, int blocks, cudaStream_t stream) {
-  const size_t smem = wgrad_smem_bytes(16 * MT, 8 * CI8, w);
+  const size_t smem = wgrad_smem_bytes(16 * MT, 8 * CI8, wgrad_cols(w));
   CUDA_TRY(allow_two_blocks(wgrad_tc_kernel<TG, TI, CI8, MT>, smem));
   wgrad_tc_kernel<TG, TI, CI8, MT><<<blocks, kWgThreads, smem, stream>>>(
-      g, in, part, c_out, h, w, n * (h / kWgRows));
+      g, in, part, c_out, h, w, n * (h / kWgRows) * (w / wgrad_cols(w)));
   return cudaGetLastError();
 }
 
@@ -561,7 +818,9 @@ cudaError_t launch_wgrad(const TG* g, const TI* in, float* part, float* dw, floa
                          int n, int c_out, int c_in, int h, int w, int blocks,
                          cudaStream_t stream) {
   constexpr int kStep = kIsBf16<TG> && kIsBf16<TI> ? 16 : 8;  // pixels per k-step
-  if (h % kWgRows != 0 || w % kStep != 0 || blocks < 1 || blocks > n * (h / kWgRows) ||
+  const int sw = wgrad_cols(w);
+  if (h % kWgRows != 0 || w % sw != 0 || sw % kStep != 0 || blocks < 1 ||
+      blocks > n * (h / kWgRows) * (w / sw) ||
       (c_out != 1 && c_out != 8 && c_out != 16 && c_out != 32))
     return cudaErrorInvalidValue;
   const bool two = c_out > 16;
@@ -590,15 +849,30 @@ cudaError_t launch_wgrad(const TG* g, const TI* in, float* part, float* dw, floa
 template <int C>
 cudaError_t launch_column_bwd_c(const float2* spec_in, float2* spec_g, const float* mix,
                                 const float* mb, const float2* tw, float* part, int n,
-                                int h, int w, int blocks, cudaStream_t stream) {
+                                int h, int w, int blocks, int* parts, cudaStream_t stream) {
   const int K = w / 2 + 1;
-  const size_t smem = (size_t)2 * C * rdft_row_pitch(h) * sizeof(float2) +
-                      (size_t)(8 * C * C + 2 * C) * sizeof(float);
-  CUDA_TRY(allow_two_blocks(column_bwd_kernel<C>, smem));
-  column_bwd_kernel<C><<<blocks, kBwdThreads, smem, stream>>>(
-      spec_in, spec_g, mix, mb, tw, part, h, K, n * K, rdft_plan(h, false),
-      1.0f / sqrtf((float)h));
-  return cudaGetLastError();
+  const int s = column_bwd_cluster_size(C, h);
+  if (s == 1) {
+    const size_t smem = column_bwd_smem(C, 1, h);
+    CUDA_TRY(allow_two_blocks(column_bwd_kernel<C>, smem));
+    column_bwd_kernel<C><<<blocks, kBwdThreads, smem, stream>>>(
+        spec_in, spec_g, mix, mb, tw, part, h, K, n * K, rdft_plan(h, false),
+        1.0f / sqrtf((float)h));
+    *parts = blocks;
+    return cudaGetLastError();
+  }
+  if constexpr (C == 32) {
+    // a cluster of 2 per bin: `blocks` partial rows hold blocks / 2 clusters
+    const int clusters = blocks / 2 < n * K ? blocks / 2 : n * K;
+    if (s == 2 && clusters >= 1 && (h / 2) % kBwdChunk == 0) {
+      *parts = 2 * clusters;
+      return launch_clusters(column_bwd_cluster_kernel<C, 2>, dim3(2 * clusters), kColThreads,
+                             column_bwd_smem(C, 2, h), 2, stream, spec_in, spec_g, mix, mb,
+                             tw, part, h, K, n * K, rdft_plan(h, false),
+                             1.0f / sqrtf((float)h));
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_column_bwd(const float2* spec_in, float2* spec_g, const float* mix,
@@ -606,23 +880,24 @@ cudaError_t launch_column_bwd(const float2* spec_in, float2* spec_g, const float
                               float* dmb, int n, int c, int h, int w, int blocks,
                               cudaStream_t stream) {
   if (blocks < 1 || blocks > n * (w / 2 + 1)) return cudaErrorInvalidValue;
+  int parts = 0;
   switch (c) {
     case 8:
       CUDA_TRY(launch_column_bwd_c<8>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
-                                      blocks, stream));
+                                      blocks, &parts, stream));
       break;
     case 16:
       CUDA_TRY(launch_column_bwd_c<16>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
-                                       blocks, stream));
+                                       blocks, &parts, stream));
       break;
     case 32:
       CUDA_TRY(launch_column_bwd_c<32>(spec_in, spec_g, mix, mb, tw, part, n, h, w,
-                                       blocks, stream));
+                                       blocks, &parts, stream));
       break;
     default:
       return cudaErrorInvalidValue;
   }
-  return launch_sum(part, dmix, 4 * c * c, dmb, blocks, 4 * c * c + 2 * c, stream);
+  return launch_sum(part, dmix, 4 * c * c, dmb, parts, 4 * c * c + 2 * c, stream);
 }
 
 // One K2 call on activations of type T (block_bwd's arguments): x, g,
@@ -640,7 +915,7 @@ int block_bwd_impl(const T* x, const T* g, int n, int c, int h, int w, const flo
                    int wgrad_blocks, int col_blocks, T* xbar, float* dkm, float* dkb,
                    float* dmix, float* dmb, T* skipbar, float* dpre_w, float* dpre_b,
                    float* imgbar, float* dpost_w, float* dpost_b, cudaStream_t stream) {
-  if (h != w || log2_exact(h) < 3 || h > 128 || n < 1 || n > 65535 ||
+  if (h != w || log2_exact(h) < 3 || h > 512 || n < 1 || n > 65535 ||
       (c != 8 && c != 16 && c != 32))
     return (int)cudaErrorInvalidValue;
   if ((skip != nullptr && pre_w == nullptr) || (post_w != nullptr && gfin == nullptr))
@@ -722,12 +997,13 @@ extern "C" {
 //   (1), img (n, 1, h*w), gfin (n, 1, h*w); twiddles (w) complex, K4's
 //   table e^{-2 pi i t / w}. pre_w, skip and post_w may be null (pre_b
 //   with pre_w, img / gfin / post_b with post_w). h == w, a power of two
-//   from 8 to 128; c in {8, 16, 32}.
+//   from 8 to 512; c in {8, 16, 32}.
 // Scratch: hbuf (n, c, h*w) with pre: the recomputed hin; rbuf (n, c, h*w);
 //   obuf (n, c, h*w) with post: the recomputed out; gbuf (n, c, h*w) with
 //   post; abuf (n, c, h*w) with pre: hbar; spec_a, spec_b (n, c, w/2+1, h)
 //   complex; w_part (wgrad_blocks, c * 9c + c); mix_part (col_blocks,
-//   4c^2 + 2c): one row per block of the weight-gradient and column launches.
+//   4c^2 + 2c): one row per block of the weight-gradient and column launches
+//   (where a bin runs on a cluster of two CTAs, col_blocks / 2 clusters).
 // Outputs: xbar (n, c, h*w), dkm (c, c, 3, 3), dkb (c), dmix (2c, 2c), dmb
 //   (2c); with skip skipbar (n, c, h*w); with pre dpre_w (c, c, 3, 3),
 //   dpre_b (c); with post imgbar (n, 1, h*w), dpost_w (1, c, 3, 3),

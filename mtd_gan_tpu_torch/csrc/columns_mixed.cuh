@@ -93,13 +93,19 @@ int shared_optin() {
   return optin;
 }
 
-// The cluster size of a bin of C channels and H points: the smallest S
-// whose share fits one CTA; 0 if none does.
-int columns_cluster_size(int c, int h) {
+// The smallest cluster size S (a power of two up to max_s) whose share of
+// a bin of C channels and H points, smem(c, S, h) bytes, fits one CTA; 0
+// if none does.
+int smallest_cluster(size_t (*smem)(int, int, int), int c, int h, int max_s) {
   const int optin = shared_optin();
-  for (int s = 1; s <= max_cluster(c); s *= 2)
-    if (columns_smem(c, s, h) <= (size_t)optin) return s;
+  for (int s = 1; s <= max_s; s *= 2)
+    if (smem(c, s, h) <= (size_t)optin) return s;
   return 0;
+}
+
+// The cluster size of a bin of the mixed-radix column pass.
+int columns_cluster_size(int c, int h) {
+  return smallest_cluster(columns_smem, c, h, max_cluster(c));
 }
 
 // Launches `kernel` on `grid` in clusters of `cluster` CTAs along x.

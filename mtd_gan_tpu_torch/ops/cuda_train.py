@@ -25,8 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, ConvParams,
-                                                 KERNEL_CHANNELS, _check, act_dtype,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, ConvParams, KERNEL_CHANNELS,
+                                                 KERNEL_SIZES, _check, act_dtype,
                                                  _device_twiddles, block_fused,
                                                  block_fused_reference, entry_conv)
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
@@ -34,13 +34,19 @@ from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 Tensor = torch.Tensor
 Grads = Dict[str, Tensor]
 
-# the image size K2 takes (H == W): the 64x64 training patches
-KERNEL_SIZES = (64,)
-# launch geometry: aim for about two blocks per SM of an H100 (132 SMs)
+# K2 takes K1's sizes (KERNEL_SIZES, H == W): the 64x64 training patches
+# and whole slices up to 512x512. A train step takes the kernels at
+# TRAIN_SIZES only: every discriminator a trainer pairs with a ResFFT
+# generator takes 64x64 patches (models/mtd_gan.py
+# check_discriminator_input), so no trainer sends whole slices; they reach
+# K2 through resfft_generator_train or BlockTrain in a caller's own loop.
+TRAIN_SIZES = (64,)
+# Launch geometry: aim for about two blocks per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 264
-# image rows per unit of work of the weight-gradient GEMM (kWgRows in
-# csrc/block_bwd.cu)
+# image rows, and at most this many columns, per unit of work of the
+# weight-gradient GEMM (kWgRows, kWgCols in csrc/block_bwd.cu)
 _WGRAD_ROWS = 4
+_WGRAD_COLS = 64
 
 
 def _zeros_if_none(g: Optional[Tensor], like: Tensor) -> Tensor:
@@ -90,13 +96,21 @@ def block_bwd_reference(x: Tensor, g: Optional[Tensor], h: int, w: int,
             for (k, v), d in zip(leaves.items(), grads)}
 
 
+def _wgrad_units(n: int, h: int) -> int:
+    """Units of work of K2's weight-gradient GEMM on n (H, W = H) images: a
+    band of rows, cut into segments of ``_WGRAD_COLS`` columns above that
+    width."""
+    return n * (h // _WGRAD_ROWS) * (h // min(h, _WGRAD_COLS))
+
+
 def _launch_geometry(n: int, h: int, k: int) -> Tuple[int, int]:
-    """(blocks of the weight-gradient launches, blocks of the spectral
-    column launch): both persistent, a block per unit of work (a band of
-    rows; an (n, k) bin) up to about two blocks per SM, one wave; each
-    block writes one partial, so few partials at large batches."""
-    return (min(n * (h // _WGRAD_ROWS), _TARGET_BLOCKS),
-            min(n * k, _TARGET_BLOCKS))
+    """(blocks of the weight-gradient launches, partial rows of the spectral
+    column launch): both persistent, a block per unit of work (a band or a
+    band's segment; an (n, k) bin) up to about two blocks per SM, one wave;
+    each block writes one partial, so few partials at large batches. Where
+    a bin runs on a cluster of two CTAs (512x512 at C = 32) the column
+    launch takes half as many clusters, a partial row each CTA."""
+    return (min(_wgrad_units(n, h), _TARGET_BLOCKS), min(n * k, _TARGET_BLOCKS))
 
 
 def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
@@ -241,14 +255,16 @@ class BlockTrain(torch.autograd.Function):
 def train_route(h: int, w: int, c: int) -> str:
     """The generator forward of a train step on ``(N, H, W, 1)`` patches
     with C features: ``"kernels"`` (:func:`resfft_generator_train`, K1 +
-    K2 on the card) where both kernels take the batch, H == W in
-    ``KERNEL_SIZES`` and C in ``KERNEL_CHANNELS``; else ``"autograd"``, the
-    plain generator under autograd (the JAX trainer's ``g_forward="auto"``
-    fallback, ``mtd_gan_tpu/engine/gan.py``). A bf16 generator takes the
-    same route: :class:`BlockTrain` runs K1's and K2's bf16 variants, which
-    take the same batches, on its bf16 activations, and the autograd route
-    runs the plain generator in bf16."""
-    if h == w and h in KERNEL_SIZES and c in KERNEL_CHANNELS:
+    K2 on the card) where a trainer and both kernels take the batch, H == W
+    in ``TRAIN_SIZES`` and C in ``KERNEL_CHANNELS``; else ``"autograd"``,
+    the plain generator under autograd (the JAX trainer's
+    ``g_forward="auto"`` fallback, ``mtd_gan_tpu/engine/gan.py``). The
+    kernels take whole slices too (``KERNEL_SIZES``), but no trainer does
+    (``TRAIN_SIZES``). A bf16 generator takes the same route:
+    :class:`BlockTrain` runs K1's and K2's bf16 variants, which take the
+    same batches, on its bf16 activations, and the autograd route runs the
+    plain generator in bf16."""
+    if h == w and h in TRAIN_SIZES and c in KERNEL_CHANNELS:
         return "kernels"
     return "autograd"
 
@@ -316,6 +332,7 @@ def resolve_g_forward(g_forward: str, h: int, w: int, c: int) -> str:
     if g_forward == "einsum":
         return g_forward
     if train_route(h, w, c) != "kernels":
-        raise ValueError(f"g_forward={g_forward!r}: K1 + K2 take H == W in {KERNEL_SIZES} "
-                         f"and C in {KERNEL_CHANNELS}, got {h}x{w}, C = {c}")
+        raise ValueError(f"g_forward={g_forward!r}: K1 + K2 take H == W in {TRAIN_SIZES} "
+                         f"(the trainers' patches) and C in {KERNEL_CHANNELS}, got "
+                         f"{h}x{w}, C = {c}")
     return "pallas"

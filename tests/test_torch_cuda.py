@@ -35,6 +35,7 @@ from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
 torch.set_num_threads(1)
 
 VARIANTS = ("plain", "pre", "pre+skip", "pre+skip+post")
+BF16 = torch.bfloat16
 # fp32 on both sides, TF32 off; the kernels' FFTs and 3xTF32 convs sum in
 # another order than cuFFT and cuDNN (measured ~1e-7 - 3e-6 relative)
 TOL_REL = 1e-4
@@ -156,12 +157,12 @@ def test_generate_runs_the_kernel_21_times_and_matches_plain(dev):
     assert (got - want).abs().max().item() < 1e-5
 
 
-def _bwd_inputs(dev, variant, c, n, seed, margin=False):
-    """K1's inputs plus seeded cotangents g (of out) and gfin (of final).
-    ``margin``: every bias +-5 (and the res and post conv weights x0.05), so
-    each ReLU's pre-activation keeps its sign far from zero and no mask
-    depends on summation order."""
-    args = _inputs(dev, variant, c, 64, n=n, seed=seed)
+def _bwd_inputs(dev, variant, c, n, seed, margin=False, size=64):
+    """K1's inputs at ``size`` x ``size`` plus seeded cotangents g (of out)
+    and gfin (of final). ``margin``: every bias +-5 (and the res and post
+    conv weights x0.05), so each ReLU's pre-activation keeps its sign far
+    from zero and no mask depends on summation order."""
+    args = _inputs(dev, variant, c, size, n=n, seed=seed)
     rng = np.random.default_rng(seed + 100)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     if margin:
@@ -174,9 +175,9 @@ def _bwd_inputs(dev, variant, c, n, seed, margin=False):
             args["pre"] = (args["pre"][0], signed(args["pre"][1]))
         if "post" in args:
             args["post"] = (args["post"][0] * 0.05, signed(args["post"][1]))
-    args["g"] = t(rng.standard_normal((n, c, 64 * 64)))
+    args["g"] = t(rng.standard_normal((n, c, size * size)))
     if "post" in variant:
-        args["gfin"] = t(rng.standard_normal((n, 1, 64 * 64)))
+        args["gfin"] = t(rng.standard_normal((n, 1, size * size)))
     return args
 
 
@@ -191,31 +192,72 @@ def _bwd_inputs(dev, variant, c, n, seed, margin=False):
 TOL_BWD_L2 = 1e-2
 
 
+# K2-bf16 against its bf16 plain version, per output in the relative
+# 2-norm: margin inputs 1e-2, 1/sqrt(fan_in) inputs 5e-2, where a
+# pre-activation within a bf16 unit of zero flips its ReLU in one version
+# (chip_smoke.py TOL_BF16_REL, TOL_BF16_L2)
+TOL_BF16_BWD = {True: 1e-2, False: 5e-2}
+# at the whole-slice sizes, with post on 1/sqrt(fan_in) inputs: at most
+# one pixel in this many (rounded up) may have final's ReLU mask flipped
+# between K2 and its plain version (chip_smoke.py POST_FLIP_PIXELS)
+POST_FLIP_PIXELS = {torch.float32: 65536, BF16: 8192}
+# (C, batch, size, activations): 64x64 in fp32, then C = 32, batch 2 at the
+# whole-slice sizes in fp32 and bf16; from 128x128 the weight gradients run
+# in 64-column segments of each band, and at 512x512 the column pass on a
+# cluster of two CTAs a bin
+K2_CASES = ([(8, 2, 64, torch.float32), (32, 2, 64, torch.float32),
+             (32, 8, 64, torch.float32), (32, 20, 64, torch.float32)]
+            + [(32, 2, size, dtype) for size in (128, 256, 512)
+               for dtype in (torch.float32, BF16)])
+
+
+def _bf16_acts(args):
+    return {k: v.to(BF16) if k in ("x", "g", "skip") else v for k, v in args.items()}
+
+
 @pytest.mark.parametrize("margin", [True, False])
-@pytest.mark.parametrize("c,n", [(8, 2), (32, 2), (32, 8), (32, 20)])
+@pytest.mark.parametrize("c,n,size,dtype", K2_CASES)
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_k2_matches_plain_version(dev, variant, c, n, margin):
-    """Every output of K2 against block_bwd_reference, and the kernel
-    repeats bit for bit (no float atomics). At batch 20 the persistent
-    weight-gradient and column launches give some blocks more than one
-    band or bin (320 bands, 660 bins over 264 blocks)."""
-    args = _bwd_inputs(dev, variant, c, n, seed=VARIANTS.index(variant), margin=margin)
-    before = block_bwd.launches
+def test_k2_matches_plain_version(dev, variant, c, n, size, dtype, margin):
+    """Every output of K2 (K2-bf16 on bf16 activations) against
+    block_bwd_reference, and the kernel repeats bit for bit (no float
+    atomics). At batch 20 the persistent weight-gradient and column
+    launches give some blocks more than one band or bin (320 bands, 660
+    bins over 264 blocks). At 64x64 every output is held over every pixel;
+    at the whole-slice sizes the exit bias's gradient, the sum of img's
+    cotangent, over the pixels where final's ReLU mask agrees (a flip moves
+    it by all of gfin there; img itself is held below), with the flips
+    within POST_FLIP_PIXELS's limit."""
+    args = _bwd_inputs(dev, variant, c, n, seed=VARIANTS.index(variant), margin=margin,
+                       size=size)
+    if dtype == BF16:
+        args = _bf16_acts(args)
+    counter = "launches_bf16" if dtype == BF16 else "launches"
+    before = getattr(block_bwd, counter)
     got = block_bwd(**args)
     again = block_bwd(**args)
     torch.cuda.synchronize()
-    assert block_bwd.launches == before + 2
+    assert getattr(block_bwd, counter) == before + 2
     want = block_bwd_reference(**args)
     assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[name], again[name]) for name in want)
+    if size > 64 and not margin and "img" in want:
+        flips = (got["img"] != 0) != (want["img"] != 0)
+        assert int(flips.sum()) <= -(-flips.numel() // POST_FLIP_PIXELS[dtype])
+        for d in (got, want):
+            d["post_b"] = d["post_b"] - d["img"][flips].sum()
     for name, w in want.items():
-        d = got[name] - w
-        if margin:
+        assert got[name].dtype == w.dtype, name
+        d = got[name].float() - w.float()
+        if dtype == BF16:
+            rel = (d.norm() / w.float().norm().clamp_min(1e-30)).item()
+            assert rel < TOL_BF16_BWD[margin], (variant, size, name, rel)
+        elif margin:
             rel = (d.abs().max() / w.abs().max().clamp_min(1e-30)).item()
-            assert rel < TOL_REL, (variant, c, n, name, rel)
+            assert rel < TOL_REL, (variant, c, n, size, name, rel)
         else:
             rel = (d.norm() / w.norm().clamp_min(1e-30)).item()
-            assert rel < TOL_BWD_L2, (variant, c, n, name, rel)
-        assert torch.equal(got[name], again[name]), name
+            assert rel < TOL_BWD_L2, (variant, c, n, size, name, rel)
 
 
 def test_k2_rejects_unsupported_shapes(dev):
@@ -227,14 +269,19 @@ def test_k2_rejects_unsupported_shapes(dev):
         block_bwd(**{**args, "g": args["g"].double()})
 
 
+@pytest.mark.parametrize("size,dtype", [(64, torch.float32), (512, torch.float32),
+                                        (512, BF16)])
 @pytest.mark.parametrize("c", [8, 32])
 @pytest.mark.parametrize("variant", VARIANTS[1:])
-def test_k2_recomputes_k1_forward_bit_for_bit(dev, variant, c):
+def test_k2_recomputes_k1_forward_bit_for_bit(dev, variant, c, size, dtype):
     """K2 recomputes the forward it differentiates with K1's own launches:
     its hin equals K1's pre conv output bit for bit (every variant with
     pre), and on the last block its out equals K1's out, so the ReLU masks
-    K2 applies are the ones K1's forward took."""
-    args = _bwd_inputs(dev, variant, c, 2, seed=VARIANTS.index(variant))
+    K2 applies are the ones K1's forward took; at 512x512 too (the column
+    pass on a cluster at C = 32), fp32 and bf16."""
+    args = _bwd_inputs(dev, variant, c, 2, seed=VARIANTS.index(variant), size=size)
+    if dtype == BF16:
+        args = _bf16_acts(args)
     fwd = {k: v for k, v in args.items() if k not in ("g", "gfin")}
     k1, k2 = {}, {}
     got = _as_tuple(block_fused(**fwd, scratch=k1))
@@ -597,7 +644,6 @@ def test_k6_matches_plain_version(dev, c, h, w, mode):
 # one unit, 2^-8 - 2^-7 of the value; 1e-2 max-relative allows two at the
 # largest element (chip_smoke.py TOL_BF16_REL)
 TOL_BF16_REL = 1e-2
-BF16 = torch.bfloat16
 
 
 @pytest.mark.parametrize("n,c,h,w", [(2, 32, 448, 448), (2, 8, 192, 70), (1, 8, 449, 130),

@@ -290,11 +290,12 @@ def _k2_column_model(a, b, edge, mix, mb, tw):
     return np.conj(back) * scale ** 2 / wk, dmix, dmb
 
 
-def _k2_spectral_model(hin, g, mix, mb, tw):
+def _k2_spectral_model(hin, g, mix, mb, tw, column=_k2_column_model):
     """K2's spectral path on one sample (C, H, W), H == W: K4's rows of hin
-    and of g, the backward column pass bin by bin, K6's rows of the result
-    (the adjoint of the forward rFFT). Returns (hbar's spectral part,
-    dmix, dmb)."""
+    and of g, the backward column pass bin by bin (``column``: one CTA a
+    bin, or _k2_column_split_model's cluster), K6's rows of the result (the
+    adjoint of the forward rFFT). Returns (hbar's spectral part, dmix,
+    dmb)."""
     c, h, w = hin.shape
     k = w // 2 + 1
     rows = lambda x: np.stack(_k4_model(x.reshape(-1, w), tw), 1)  # (C H / 2, 2, K)
@@ -303,8 +304,7 @@ def _k2_spectral_model(hin, g, mix, mb, tw):
     back = np.empty_like(sg)
     dmix, dmb = 0.0, 0.0
     for kk in range(k):
-        back[:, kk], dm, db = _k2_column_model(sa[:, kk], sg[:, kk], kk in (0, k - 1),
-                                               mix, mb, tw)
+        back[:, kk], dm, db = column(sa[:, kk], sg[:, kk], kk in (0, k - 1), mix, mb, tw)
         dmix, dmb = dmix + dm, dmb + db
     pairs = back.transpose(0, 2, 1).reshape(c * h // 2, 2, k)
     return _k6_model(pairs[:, 0], pairs[:, 1], tw).reshape(c, h, w), dmix, dmb
@@ -326,6 +326,80 @@ def test_k2_column_schedule_matches_autograd(h, c):
     got = _k2_spectral_model(hin, g, mix, mb, tw)
     for a, b in zip(got, (want[0][0], want[1], want[2])):
         assert np.abs(a - b.numpy()).max() <= TOL
+
+
+# positions a CTA of column_bwd_cluster_kernel stages at a time (kBwdChunk
+# in csrc/block_bwd.cu)
+K2_CHUNK = 64
+
+
+def _k2_column_split_model(a, b, edge, mix, mb, tw, s=2):
+    """column_bwd_cluster_kernel on one bin, on a cluster of S CTAs: CTA r
+    holds the channels [r C/S, (r + 1) C/S) of a and b (weighted as in
+    _k2_column_model) and runs their DIF steps; between the two cluster
+    syncs it takes the digit-reversed positions [r H/S, (r + 1) H/S),
+    K2_CHUNK at a time: it stages all 2C channels of both spectra there
+    from every CTA, masks b by K1's mix of the staged a, adds its partials
+    of dmix and dmb, and writes conj(mix^T b) into the owners' a; after the
+    second sync each CTA runs its channels' DIT steps and its store. The
+    per-CTA partials are summed. Returns (the new b, dmix, dmb)."""
+    c, h = a.shape
+    cl = c // s
+    _, _, _, steps = _plan(h, direct=False)
+    wk = 1.0 if edge else 2.0
+    scale = 1 / np.sqrt(h)
+    ctas = []
+    for r in range(s):
+        own = slice(r * cl, (r + 1) * cl)
+        gb = (b[own].real + 1j * (0.0 if edge else 1.0) * b[own].imag) * wk
+        buf = np.concatenate([a[own], gb])  # this CTA's a rows, then its b rows
+        for lr, lm in steps:
+            _dft_step(buf, h, h, 1, lr, lm, tw)
+        ctas.append(buf)
+    parts = []
+    for r in range(s):
+        dmix, dmb = np.zeros((2 * c, 2 * c)), np.zeros(2 * c)
+        for p0 in range(r * h // s, (r + 1) * h // s, K2_CHUNK):
+            pos = np.arange(p0, p0 + K2_CHUNK)
+            za = np.concatenate([cta[:cl, pos] for cta in ctas])
+            zb = np.concatenate([cta[cl:, pos] for cta in ctas])
+            va, vb = np.concatenate([za.real, za.imag]), np.concatenate([zb.real, zb.imag])
+            vb = vb * (mix @ (va * scale) + mb[:, None] > 0)
+            dmix += vb @ va.T
+            dmb += vb.sum(1)
+            t = mix.T @ vb
+            for q, cta in enumerate(ctas):
+                cta[:cl, pos] = t[q * cl:(q + 1) * cl] - 1j * t[c + q * cl:c + (q + 1) * cl]
+        parts.append((dmix * scale ** 2, dmb * scale))
+    back = []
+    for cta in ctas:
+        own = cta[:cl].copy()
+        for lr, lm in reversed(steps):
+            _dit_step(own, h, lr, lm, tw)
+        back.append(np.conj(own) * scale ** 2 / wk)
+    return np.concatenate(back), sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+@pytest.mark.parametrize("h,s", [(256, 2), (512, 2), (512, 4)])
+def test_k2_column_split_schedule_matches_autograd(h, s):
+    """K2's spectral adjoint with the column pass on a cluster of S CTAs per
+    bin (column_bwd_cluster_kernel's split: channels for the FFTs, position
+    shares staged K2_CHUNK at a time for the mask, dmix and mix^T), in
+    float64 on one sample, equals autograd through the plain spectral
+    branch to 1e-12 of each gradient's largest element (sums over 128 x
+    257 positions at 512^2)."""
+    c = 4
+    rng = np.random.default_rng(h + s)
+    hin, g = rng.standard_normal((2, c, h, h))
+    mix = rng.standard_normal((2 * c, 2 * c)) / np.sqrt(2 * c)
+    mb = rng.standard_normal(2 * c) * 0.1
+    tw = np.exp(-2j * np.pi * np.arange(h) / h)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (hin[None], mix, mb)]
+    want = torch.autograd.grad(spectral_branch(*leaves), leaves, torch.tensor(g[None]))
+    split = lambda *args: _k2_column_split_model(*args, s=s)
+    got = _k2_spectral_model(hin, g, mix, mb, tw, column=split)
+    for a, b in zip(got, (want[0][0], want[1], want[2])):
+        assert np.abs(a - b.numpy()).max() <= TOL * np.abs(b.numpy()).max()
 
 
 # columns_mixed.cuh odd_branch: the odd step runs in place in registers as a
