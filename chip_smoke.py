@@ -65,11 +65,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      inits, printing the branch of K5's odd step and its cluster size at
      each;
      C = 24, a side of 1025 and a gradient request must raise;
-  14. ``generate`` at 1024x1024, batch 2, and 200x200, batch 8, full width,
+  14. ``generate`` at 800x800, batch 3, and 200x200, batch 8, full width,
      against the plain module: 42 K3 (41 on the tensor cores), 21 each of
-     K4, K5 and K6 and 0 K1 / K7 / K8 launches per call;
+     K4, K5 and K6 and 0 K1 / K7 / K8 launches per call (the kernels
+     line's K3 - K6 launches);
   15. serving at 1024x1024: the ``test`` sweep over 8 synthetic 1024x1024
-     DICOM pairs — the staged serving path, its K3 - K6 launches counted;
+     DICOM pairs — the K1 route at a shape beyond K1's squares, 21 K1
+     launches (added to the kernels line's);
   16. F1: ``generate`` at gen_features=64 (200x200, batch 2) and on a 1x64
      input (32 features) runs the plain module on the card with no kernel
      launch, within 1e-3 of the same module on the CPU;
@@ -125,12 +127,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      its 14 launches the same way, its convs and weight gradients beside
      cuDNN's (``F.conv2d``, ``aten.convolution_backward``) on the same
      tensors; K3 at 448x448 and 96x96 too;
-     generate and sweep slices/s at 512x512, 448x448, 96x96, 1024x1024 and
-     200x200; generate at 512x512 on the K1 route and on the staged
+     generate and sweep slices/s at 512x512, 448x448, 96x96, 1024x1024 (K1)
+     and 200x200, generate at 800x800 (staged); generate at 512x512 on the
+     K1 route and on the staged
      generator, in turns (a measurement only: the route stays K1); generate
      at 448x448 and 96x96 with the convs on K3 and on cuDNN, in turns; ms
      per train step and patches/s), torch.profiler breakdowns of one
-     generate call at 512x512, 448x448, 96x96, 1024x1024 and 200x200 and of
+     generate call at 512x512, 448x448, 96x96, 800x800 and 200x200 and of
      one train step by kernel, then the kernel JSON line, the card line and
      the result line;
   22. the native DICOM decoder (``csrc/dicom_codec.cc``) against the Python
@@ -248,7 +251,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      against its bf16 plain version on 1/sqrt(fan_in) weights (1e-2
      max-relative; K4-bf16's fp32 spectrum 1e-4); a bf16 flagship's
      ``generate`` at 448x448, batch 8 (tiled: 21 K8-bf16, 42 K3-bf16, 41 of
-     them on the tensor cores) and at 1024x1024, batch 2, and 200x200, batch
+     them on the tensor cores) and at 800x800, batch 3, and 200x200, batch
      8 (staged: 21 each of K4-bf16, K5 and K6-bf16, 42 K3-bf16), no fp32
      K3 / K4 / K6 / K8 launch and no call of the plain module, each within
      5e-2 max abs of fp32 ``generate`` and within twice the plain bf16
@@ -309,6 +312,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      split by launch; the train CLI with ``--dataset-type-train full
      --g-forward pallas`` on 512x512 slices refused at the discriminator
      with no kernel launched. Its launches stay out of the kernels line.
+  35. K1 at the shapes the JAX ``generate`` sends to its fused-block
+     kernel beyond the four squares (H >= 256, H and W multiples of 128,
+     up to 1024 a side; run right after phase 34; ``python3 chip_smoke.py
+     --phase 35`` runs it alone after building K1, K3, K4 - K6 and K8): K1
+     and K1-bf16 (pre+skip+post) against their plain versions at
+     1024x1024, batch 2, 384x384, batch 4, 640x384, 256x1024 and 896x512,
+     batch 2, with both inits (fp32 TOL_BLOCK_REL per output, bf16
+     TOL_BF16_REL), each shape's column pass (K5's mixed-radix pass with
+     its odd step and cluster size) printed; a decoder block's call with
+     its deconv weights read flipped in place equal bit for bit to the
+     call on flipped copies; both timed in turns
+     (pre+skip) beside their plain versions and bounds, and split by launch
+     at 1024x1024; an fp32 and a bf16 flagship's ``generate`` at 1024x1024,
+     batch 2, and 384x384, batch 8, on the k1 route (21 K1 or K1-bf16
+     launches a call, none of K3 - K8), fp32 within TOL_GENERATE_ABS of the
+     plain module, bf16 within TOL_BF16_GENERATE_ABS of fp32 and within
+     twice the plain bf16 module's error; ``generate`` and K1 in turns with
+     the routes these shapes took before (the staged view at 1024x1024,
+     batch 2; the tiled view at 384x384, batch 8, and 768x384, batch 4),
+     fp32 and bf16, and at 768x384 both fp32 routes' device time by kernel.
+     Its generate launches join the kernels line's K1 and K1-bf16.
 Phases 1 - 25, 27 - 29 pass ``--no-feature-metrics`` to the test CLI, so
 their series stay comparable. TF32 is off for every plain PyTorch op (cuDNN
 convs, matmuls), so both sides compute in fp32.
@@ -368,6 +392,7 @@ from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
 from mtd_gan_tpu_torch.mto.methods import METHODS, MTOState
 from mtd_gan_tpu_torch.ops.fft_conv import fft_conv_block
+from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 from mtd_gan_tpu_torch.ops.sliding_window import dense_patch_positions, sliding_window_inference
 from mtd_gan_tpu_torch.ops.upsample import upsample2x_bilinear
 from mtd_gan_tpu_torch.utils.artifacts import save_png_gray
@@ -582,12 +607,14 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int = C):
-    """Seeded K1 inputs on the GPU at C = ``c``. ``init``: "reference"
-    (N(0, 0.01) weights, zero biases) or "fan_in" (std 1/sqrt(fan_in),
-    biases 0.1)."""
+def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int = C,
+                 w: int = 0):
+    """Seeded K1 inputs on the GPU at C = ``c``, size x ``w`` (0: square).
+    ``init``: "reference" (N(0, 0.01) weights, zero biases) or "fan_in"
+    (std 1/sqrt(fan_in), biases 0.1)."""
     rng = np.random.default_rng(seed)
-    hw = size * size
+    w = w or size
+    hw = size * w
 
     def weight(*shape):
         fan_in = int(np.prod(shape[1:]))
@@ -598,7 +625,7 @@ def block_inputs(size: int, n: int, init: str, variant: str, seed: int, c: int =
         return np.zeros(k) if init == "reference" else rng.standard_normal(k) * 0.1
 
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
-    args = dict(x=t(rng.random((n, c, hw))), h=size, w=size,
+    args = dict(x=t(rng.random((n, c, hw))), h=size, w=w,
                 km=t(weight(c, c, 3, 3)), kb=t(bias(c)),
                 mix=t(weight(2 * c, 2 * c)), mb=t(bias(2 * c)))
     if variant != "plain":
@@ -879,18 +906,20 @@ def check_bf16_kernels():
     return worst
 
 
-def bf16_bounds(kernel: str, n: int, size: int, variant: str):
+def bf16_bounds(kernel: str, n: int, size: int, variant: str, w: int = 0):
     """(ms, by) of K1-bf16 or K2-bf16: the convs' multiply-adds at the bf16
     dense tensor-core rate and the rest fp32 on the CUDA cores (the larger
     of the two engines' times), or the bytes' time, with the activations
     (x, skip, out; K2 also g, xbar, skipbar) at bf16 width and the weights,
-    their gradients, img, final, gfin and imgbar fp32."""
-    c, hw = C, size * size
+    their gradients, img, final, gfin and imgbar fp32. ``w``: K1-bf16's
+    width (0: square)."""
+    w = w or size
+    c, hw = C, size * w
     n_convs = 1 if variant == "plain" else 2
     weights = n_convs * (9 * c * c + c) + 4 * c * c + 2 * c
     post = "post" in variant
     if kernel == "K1-bf16":
-        conv, other, _ = k1_work(n, size, variant)
+        conv, other, _ = k1_work(n, size, variant, w=w)
         nbytes = 4 * weights + 2 * n * c * hw * (3 if "skip" in variant else 2)
         nbytes += 4 * (9 * c + 1 + 2 * n * hw) if post else 0
     else:
@@ -1330,7 +1359,8 @@ def expect_counts(label: str, got, want):
 
 def check_generate(model, x, route: str, want):
     """``generate`` on ``x`` against the plain module; the launch counts
-    zeroed just before the call and read just after must equal ``want``."""
+    zeroed just before the call and read just after must equal ``want``.
+    Returns them."""
     n, h, w, _ = x.shape
     zero_counts()
     pred = model.generate(x)
@@ -1346,6 +1376,7 @@ def check_generate(model, x, route: str, want):
     expect_counts(f"generate {h}x{w}", counts, want)
     if err > TOL_GENERATE_ABS:
         fail(f"generate {h}x{w} error {err:.3e} > {TOL_GENERATE_ABS}")
+    return counts
 
 
 def run_sweep(model, rng, tmp: str, size: int, want, n_slices: int = 16):
@@ -1424,12 +1455,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_bounds(n: int, size: int, variant: str):
-    """K1's bounds ((ms, by), (ms, by)): every operation fp32 on the CUDA
-    cores; and, as K1 runs, the convs' multiply-adds as three TF32 products
-    on the tensor cores and the rest fp32 on the CUDA cores, the larger of
-    the two engines' times (they can run at once), of the bytes' time."""
-    conv, other, nbytes = k1_work(n, size, variant)
+def k1_bounds(n: int, h: int, variant: str, w: int = 0):
+    """K1's bounds at H x W (``w`` 0: square) ((ms, by), (ms, by)): every
+    operation fp32 on the CUDA cores; and, as K1 runs, the convs'
+    multiply-adds as three TF32 products on the tensor cores and the rest
+    fp32 on the CUDA cores, the larger of the two engines' times (they can
+    run at once), of the bytes' time."""
+    conv, other, nbytes = k1_work(n, h, variant, w=w)
     t_bytes = nbytes / PEAK_HBM_BYTES
     t_ops = max(3 * conv / PEAK_TF32_FLOPS, other / PEAK_FP32_FLOPS)
     tc = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -1602,7 +1634,7 @@ def launch_split(label: str, fn, launches, calls: int = 5, beside=None):
 # K1's launches in the order one call with "pre" makes them, and the
 # kernel each must be: its convs K3's tensor-core kernel
 K1_LAUNCHES = (("pre conv", "conv3x3_tc_kernel"), ("residual conv", "conv3x3_tc_kernel"),
-               ("rows (K4)", "rdft_w_kernel"), ("column pass", "column_mix_rows_kernel"),
+               ("rows (K4)", "rdft_w_kernel"), ("column pass", "columns_mixed_kernel"),
                ("inverse rows (K6)", "irdft_w_kernel"))
 # K8's launches: K4's row rDFT, the mixed-radix column pass K5 runs, K6's
 # inverse rows with the residual
@@ -3360,7 +3392,7 @@ def phase31_alone(card: str) -> None:
 K3_BF16_PER_CALL = {"K3-bf16": 42, K3_TC_BF16: 41}
 TILED_BF16_PER_CALL = {**K3_BF16_PER_CALL, "K8-bf16": 21}
 STAGED_BF16_PER_CALL = {**K3_BF16_PER_CALL, "K4-bf16": 21, "K5": 21, "K6-bf16": 21}
-BF16_ROUTE_SHAPES = (((8, 448), "tiled"), ((2, 1024), "staged"), ((8, 200), "staged"))
+BF16_ROUTE_SHAPES = (((8, 448), "tiled"), ((3, 800), "staged"), ((8, 200), "staged"))
 # the --bf16 train CLI: one step of 20 448x448 slices, then generate on 4
 # validation slices (the tiled route)
 BF16_CLI_VALID = 4
@@ -3503,7 +3535,7 @@ def check_k3_bf16_tiers():
 
 def check_bf16_routes_generate(rng):
     """Phase 32: a bf16 flagship's ``generate`` on the tiled route (448x448,
-    batch 8) and the staged route (1024x1024, batch 2; 200x200, batch 8),
+    batch 8) and the staged route (800x800, batch 3; 200x200, batch 8),
     the launch counts zeroed just before each call and read just after, no
     call of the plain module; against fp32 ``generate`` from the same
     weights within TOL_BF16_GENERATE_ABS, and beside the plain module in
@@ -3614,8 +3646,8 @@ def time_bf16_route_kernels():
     """Phase 32, the times: K3-bf16 (relu + residual) at K3_BF16_TIMED in
     turns with fp32 K3 and its library call (F.conv2d on the bf16 operands
     and its epilogue in bf16, in the turns); K4-bf16 and K6-bf16 at
-    1024x1024, batch 2 (the staged route's main-path shape, as the fp32
-    rows), K8-bf16 with the residual at 448x448, batch 8; each beside its
+    1024x1024, batch 2 (the shape of the fp32 rows), K8-bf16 with the
+    residual at 448x448, batch 8; each beside its
     fp32 kernel, its bf16 plain version, its library call (K4:
     torch.fft.rfft of the widened x; K6: the residual widened plus
     torch.fft.irfft, rounded to bf16; K8: none) and its bound (convs at the
@@ -3721,7 +3753,7 @@ def phase32_alone(card: str) -> None:
 # with the spectrum in the device-memory scratch (127^2 at C = 32), and at
 # C = 8 with odd sides
 K7_BF16_SHAPES = ((64, 32, 96, 96), (4, 32, 100, 72), (2, 32, 127, 127), (2, 8, 33, 27))
-# the bf16-spectrum chain at the staged route's main-path shapes
+# the bf16-spectrum chain at 1024x1024, batch 2, and 200x200, batch 8
 BF16S_SHAPES = ((2, 1024), (8, 200))
 BF16S_KERNELS = ("K4-bf16s", "K5-bf16s", "K6-bf16s")
 # one bf16 generate call on the fused route: K3-bf16 as on the other bf16
@@ -3735,9 +3767,11 @@ BF16S_SPECTRAL = {name: 21 for name in BF16S_KERNELS}
 # the change that templated rdft_rows.cuh and columns_mixed.cuh on the
 # spectrum type and spectral_fused.cu on the activation type, and (the K2,
 # K3, K2-bf16 and K3-bf16 entries) for e3ff6cb, the parent of the change
-# that kept K3-bf16's input tile bf16 in shared memory (an NVIDIA H100 80GB
-# HBM3, 700.00 W; each changed tree read the same): the existing instances
-# must compute the same bits
+# that kept K3-bf16's input tile bf16 in shared memory, and (K1 and
+# K1-bf16 at 128^2 and 256^2) for 4a666d2, the parent of the change that
+# took K1 beyond its four squares, whose own digests follow at the shapes
+# it added (an NVIDIA H100 80GB HBM3, 700.00 W; each changed tree read the
+# same): the existing instances must compute the same bits
 PARENT_DIGESTS = {
     "K4 2x32x1024x1024": "36c80361e637718e",
     "K5 2x32x1024x1024": "c84cff6ffc3c752f",
@@ -3787,6 +3821,30 @@ PARENT_DIGESTS = {
     "K1-bf16 2x32x512x512 pre+skip+post output 1": "ed1135fe26f3af7a",
     "K1 4x8x64x64 plain output 0": "56acdc19f881b930",
     "K1-bf16 4x8x64x64 plain output 0": "6640c0829ad7fb14",
+    "K1 2x16x128x128 pre+skip+post output 0": "559f84f5ab1965fc",
+    "K1 2x16x128x128 pre+skip+post output 1": "5fb17518d6b325ba",
+    "K1-bf16 2x16x128x128 pre+skip+post output 0": "bf2f3de4b3665535",
+    "K1-bf16 2x16x128x128 pre+skip+post output 1": "bdeec0abb56f4b30",
+    "K1 2x32x256x256 plain output 0": "129a47df725e7a56",
+    "K1-bf16 2x32x256x256 plain output 0": "1c7ca5f611bca014",
+    "K1 2x32x1024x1024 pre+skip+post output 0": "ae4b907c20452a6c",
+    "K1 2x32x1024x1024 pre+skip+post output 1": "d59277ab9992ee90",
+    "K1-bf16 2x32x1024x1024 pre+skip+post output 0": "659ded74cd0faeb7",
+    "K1-bf16 2x32x1024x1024 pre+skip+post output 1": "86e979e22579418a",
+    "K1 2x16x384x384 pre+skip+post output 0": "b89be7630a595bd3",
+    "K1 2x16x384x384 pre+skip+post output 1": "84ba470e5941b0db",
+    "K1-bf16 2x16x384x384 pre+skip+post output 0": "329b39da8abf901a",
+    "K1-bf16 2x16x384x384 pre+skip+post output 1": "9582a898d182d7e9",
+    "K1 2x32x640x384 plain output 0": "0848c655c4725538",
+    "K1-bf16 2x32x640x384 plain output 0": "5de4fed21c4d737b",
+    "K1 2x8x256x1024 pre+skip+post output 0": "8a90229ca88875a9",
+    "K1 2x8x256x1024 pre+skip+post output 1": "7ebd8eb05e8cdfcc",
+    "K1-bf16 2x8x256x1024 pre+skip+post output 0": "49aae786583c9090",
+    "K1-bf16 2x8x256x1024 pre+skip+post output 1": "cca14ba5b140d649",
+    "K1 2x32x896x512 pre+skip+post output 0": "4d66aa4bd3405651",
+    "K1 2x32x896x512 pre+skip+post output 1": "3de1c16e9316cd27",
+    "K1-bf16 2x32x896x512 pre+skip+post output 0": "b6600ceb62f8269b",
+    "K1-bf16 2x32x896x512 pre+skip+post output 1": "323e725e5f01c1ff",
     "K3 2x32x1024x1024 relu+residual": "d072a574c6cb1bb1",
     "K3 2x32x1024x1024 skip": "a250142a31889f82",
     "K3 2x32x1024x1024 deconv+skip": "67ac66988c68d22c",
@@ -3844,7 +3902,8 @@ def check_parent_digests():
     """Phase 33, the templating guard: K1 - K8 and K1-bf16, K2-bf16,
     K3-bf16, K4-bf16, K6-bf16, K8-bf16 on the seeded inputs of
     tools/torch_fp32_digests.py, every output's digest equal to the
-    parent's (PARENT_DIGESTS)."""
+    parent's (PARENT_DIGESTS; K1's shapes beyond its squares to the change
+    that added them)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
@@ -4354,10 +4413,226 @@ def phase34_alone(card: str) -> None:
     print(card, flush=True)
 
 
+# ---- phase 35: K1 at the shapes the JAX generate sends to its fused-block
+# kernel beyond the four squares (H >= 256, H and W multiples of 128, up to
+# 1024 a side): K1 and K1-bf16 against their plain versions, generate on
+# the k1 route, the times in turns with the routes these shapes took before
+
+# (batch, H, W): 1024^2 (K5's column pass on a 2-CTA cluster at C = 32),
+# the odd factors 3 (384) and 5 (640) in registers on one CTA a bin and 7
+# (896) on a 2-CTA cluster, H != W, and 256 x 1024 at a power-of-two H
+# (no odd step); equal to tests/test_torch_cuda.py's K1_GATE_SHAPES
+K1_GATE_SHAPES = ((2, 1024, 1024), (4, 384, 384), (2, 640, 384), (2, 256, 1024),
+                  (2, 896, 512))
+K1_GATE_GENERATE = ((2, 1024, 1024), (8, 384, 384))
+# the routes these shapes took before K1 took them, timed in turns with it
+K1_GATE_TURNS = ((2, 1024, 1024, "staged"), (8, 384, 384, "tiled"), (4, 768, 384, "tiled"))
+
+
+def k1_column_pass(h: int) -> str:
+    """The column pass K1 runs at H: K5's mixed-radix pass
+    (``launch_columns_mixed``), its odd step and cluster size at C."""
+    lib = _build.spectral_staged_library()
+    return (f"K5's mixed-radix (columns_mixed_kernel), odd step "
+            f"{K5_BRANCHES[lib.staged_mix_odd_branch(h)]}, cluster of "
+            f"{lib.staged_mix_cluster_size(C, h)}")
+
+
+def gate_image(rng, n: int, h: int, w: int):
+    return torch.tensor(phantom(rng, n, max(h, w))[:, :h, :w, None], dtype=torch.float32,
+                        device="cuda").contiguous()
+
+
+def left_route_block(args, route: str):
+    """K1's pre+skip call (``args``) as the ``route`` generator computes it:
+    K3's layer conv with the skip and ReLU, then the Res-FFT block on K3
+    and the route's spectral kernels."""
+    n, h, w = args["x"].shape[0], args["h"], args["w"]
+    nchw = lambda t: t.reshape(n, -1, h, w)
+    hin = conv3x3(nchw(args["x"]), *args["pre"], skip=nchw(args["skip"]), relu=True)
+    out = fft_conv_block(hin, args["km"], args["kb"], args["mix"], args["mb"], impl=route,
+                         conv_impl="k3")
+    return out.reshape(n, -1, h * w)
+
+
+def check_k1_gate_kernels():
+    """Phase 35, the kernels: K1 and K1-bf16 (pre+skip+post) against their
+    plain versions at K1_GATE_SHAPES, with both inits, each output at
+    TOL_BLOCK_REL (fp32) or TOL_BF16_REL (bf16) max-relative, each shape's
+    column pass printed; then on the fan_in inputs without post (pre+skip,
+    the main path's commonest call) fp32 and bf16 timed in turns (fp32,
+    bf16, bf16, fp32) beside their plain versions and bounds, and at
+    1024^2 split by launch. Returns {name: max abs error}."""
+    worst = {"K1": 0.0, "K1-bf16": 0.0}
+    for i, (n, h, w) in enumerate(K1_GATE_SHAPES):
+        print(f"K1 {h}x{w}: column pass {k1_column_pass(h)}", flush=True)
+        for init in ("reference", "fan_in"):
+            args = block_inputs(h, n, init, "pre+skip+post", seed=350 + i, w=w)
+            for name, a, tol in (("K1", args, TOL_BLOCK_REL),
+                                 ("K1-bf16", bf16_args(args), TOL_BF16_REL)):
+                got, want = block_fused(**a), block_fused_reference(**a)
+                torch.cuda.synchronize()
+                parts = []
+                for out, g, r in zip(("out", "final"), got, want):
+                    if (g.dtype != r.dtype or g.shape != r.shape
+                            or not torch.isfinite(g.float()).all()):
+                        fail(f"{name} {h}x{w} {init}: {out} {g.dtype} {tuple(g.shape)} not "
+                             f"finite or not the plain version's {r.dtype} {tuple(r.shape)}")
+                    err = (g.float() - r.float()).abs().max().item()
+                    rel = rel_err(g, r)
+                    worst[name] = max(worst[name], err)
+                    parts.append(f"{out} max_abs {err:.3e} rel {rel:.3e}")
+                    if rel > tol:
+                        fail(f"{name} {h}x{w} n={n} {init} {out}: relative error {rel:.3e} "
+                             f"> {tol}")
+                print(f"{name} check {h}x{w} C={C} n={n} {init:9s} pre+skip+post: "
+                      + "; ".join(parts), flush=True)
+            if init != "fan_in":
+                continue
+            a32 = {k: v for k, v in args.items() if k not in ("post", "img")}
+            a16 = bf16_args(a32)
+            with torch.no_grad():
+                turns = [cuda_ms(lambda: block_fused(**a), 10) for a in (a32, a16, a16, a32)]
+                plain = [cuda_ms(lambda: block_fused_reference(**a), 5) for a in (a32, a16)]
+            (cc_ms, _), (b_ms, by) = k1_bounds(n, h, "pre+skip", w)
+            b16_ms, by16 = bf16_bounds("K1-bf16", n, h, "pre+skip", w)
+            print(f"time K1 {h}x{w} batch {n} pre+skip: fp32 {turns[0]:.3f}, bf16 "
+                  f"{turns[1]:.3f}, bf16 {turns[2]:.3f}, fp32 {turns[3]:.3f} ms (in turns); "
+                  f"plain {plain[0]:.3f} ms, bf16 plain {plain[1]:.3f} ms; bound {b_ms:.3f} "
+                  f"ms ({by}, convs on the tensor cores in 3xTF32; fp32 CUDA-core bound "
+                  f"{cc_ms:.3f} ms), bf16 bound {b16_ms:.3f} ms ({by16})", flush=True)
+            if (h, w) == (1024, 1024):
+                launch_split(f"K1 split {h}x{w} batch {n} pre+skip",
+                             lambda: block_fused(**a32), K1_LAUNCHES)
+            del args, a32, a16
+    return worst
+
+
+def check_k1_deconv_in_place():
+    """Phase 35: a decoder block's K1 call, its pre and exit weights given
+    as ``ConvTranspose2d`` weights (``transpose``, as the k1 route of
+    ``generate`` passes them) and read flipped in place,
+    against the same call on their flipped copies: equal bit for bit, fp32
+    and bf16, at 384x384 batch 4 (K1_GATE_SHAPES[1])."""
+    n, h, w = K1_GATE_SHAPES[1]
+    args = block_inputs(h, n, "fan_in", "pre+skip+post", seed=355, w=w)
+    (pw, pb), (qw, qb) = args["pre"], args["post"]
+    t_args = dict(args, pre=(conv_transpose_as_conv(pw), pb),
+                  post=(conv_transpose_as_conv(qw), qb))
+    for name, a, t in (("K1", args, t_args), ("K1-bf16", bf16_args(args), bf16_args(t_args))):
+        flipped = block_fused(**a)
+        in_place = block_fused(**t, transpose=True)
+        torch.cuda.synchronize()
+        differ = [o for o, f, i in zip(("out", "final"), flipped, in_place)
+                  if not torch.equal(f, i)]
+        print(f"{name} {h}x{w} batch {n}: deconv weights read in place against flipped "
+              f"copies: outputs differ {differ or 'none'}", flush=True)
+        if differ:
+            fail(f"{name} {h}x{w}: the in-place deconv read changed {differ}")
+
+
+def check_k1_gate_generate():
+    """Phase 35, the main path: an fp32 and a bf16 flagship (seed 0)
+    ``generate`` at K1_GATE_GENERATE, the launch counts zeroed just before
+    each call and read just after (21 K1 or 21 K1-bf16 launches and no
+    other); fp32 within TOL_GENERATE_ABS of the plain module, bf16 within
+    TOL_BF16_GENERATE_ABS of fp32 ``generate`` and within twice the plain
+    bf16 module's error against it (+ 1e-6). Then, at K1_GATE_TURNS, each
+    type's ``generate`` and K1 in turns with the route the shape took
+    before (its view of ``generator_views``; the K1 call against the same
+    block on K3 and that route's spectral kernels); at 768x384 each fp32
+    route's device time by kernel over one call. Returns the launches."""
+    m32 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0)
+    m16 = MTDGANModel(gen_features=C, num_layers=10, device="cuda", seed=0, dtype=BF16)
+    rng = np.random.default_rng(35)
+    launches = {"K1": 0, "K1-bf16": 0}
+    for n, h, w in K1_GATE_GENERATE:
+        x = gate_image(rng, n, h, w)
+        launches["K1"] += check_generate(m32, x, "k1", {"K1": 21})["K1"]
+        label = f"bf16 generate {h}x{w} batch {n}"
+        zero_counts()
+        pred = m16.generate(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(label, counts, {"K1-bf16": 21})
+        launches["K1-bf16"] += counts["K1-bf16"]
+        with torch.no_grad():
+            fp32, plain = m32.generate(x), plain_forward(m16.generator, x)
+        if pred.dtype != torch.float32 or pred.shape != x.shape or not torch.isfinite(pred).all():
+            fail(f"{label}: {pred.dtype} {tuple(pred.shape)} or not finite")
+        e_route = (pred - fp32).abs().max().item()
+        e_plain = (plain - fp32).abs().max().item()
+        print(f"{label} (k1 route, K1-bf16): max_abs vs fp32 generate {e_route:.3e} (tol "
+              f"{TOL_BF16_GENERATE_ABS}), plain bf16 module {e_plain:.3e}; launches {counts}",
+              flush=True)
+        if e_route > TOL_BF16_GENERATE_ABS:
+            fail(f"{label}: {e_route:.3e} from fp32 > {TOL_BF16_GENERATE_ABS}")
+        if e_route > 2 * e_plain + 1e-6:
+            fail(f"{label}: the route's error {e_route:.3e} is above twice the plain bf16 "
+                 f"module's {e_plain:.3e}")
+        del x, pred, fp32, plain
+    for i, (n, h, w, left) in enumerate(K1_GATE_TURNS):
+        x = gate_image(rng, n, h, w)
+        x_nchw = x.reshape(n, 1, h, w)
+        for m, kind in ((m32, "fp32"), (m16, "bf16")):
+            with torch.no_grad():
+                k1_fn, left_fn = (lambda: m.generate(x)), (lambda: m.views[left](x_nchw))
+                diff = (k1_fn() - left_fn().reshape(x.shape)).abs().max().item()
+                turns = [cuda_ms(f, 3) for f in (k1_fn, left_fn, left_fn, k1_fn)]
+            print(f"time {kind} generate {h}x{w} batch {n}: k1 route {turns[0]:.2f} / "
+                  f"{turns[3]:.2f} ms, {left} view {turns[1]:.2f} / {turns[2]:.2f} ms (k1, "
+                  f"{left}, {left}, k1); {n * 2e3 / (turns[0] + turns[3]):.2f} against "
+                  f"{n * 2e3 / (turns[1] + turns[2]):.2f} slices/s; outputs differ by "
+                  f"{diff:.3e} max abs", flush=True)
+            if (h, w, kind) == (768, 384, "fp32"):
+                # where the k1 route's extra time goes: each route's device
+                # time by kernel and busy share over one call
+                with torch.no_grad():
+                    profile(f"generate {h}x{w} batch {n} k1 route", k1_fn)
+                    profile(f"generate {h}x{w} batch {n} {left} view", left_fn)
+        args = block_inputs(h, n, "fan_in", "pre+skip", seed=360 + i, w=w)
+        for kind, a in (("fp32", args), ("bf16", bf16_args(args))):
+            with torch.no_grad():
+                k1_fn, left_fn = (lambda: block_fused(**a)), (lambda: left_route_block(a, left))
+                rel = rel_err(left_fn(), k1_fn())
+                turns = [cuda_ms(f, 10) for f in (k1_fn, left_fn, left_fn, k1_fn)]
+            print(f"time {kind} K1 {h}x{w} batch {n} pre+skip: {turns[0]:.3f} / {turns[3]:.3f} "
+                  f"ms, the {left} route's layer conv + block {turns[1]:.3f} / {turns[2]:.3f} "
+                  f"ms (K1, {left}, {left}, K1); outputs differ by {rel:.3e} max-relative",
+                  flush=True)
+        del x, x_nchw, args
+    return launches
+
+
+def check_k1_gate():
+    """Phase 35 (module docstring). Returns ({"K1", "K1-bf16": launches of
+    its generate calls}, {"K1", "K1-bf16": max abs error})."""
+    t0 = time.perf_counter()
+    worst = check_k1_gate_kernels()
+    check_k1_deconv_in_place()
+    launches = check_k1_gate_generate()
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s; main-path launches {launches}",
+          flush=True)
+    return launches, worst
+
+
+def phase35_alone(card: str) -> None:
+    """``--phase 35``: phase 35 alone, after the builds of K1 and of K3, K4 -
+    K6 and K8 (the staged and tiled views); it ends with the card line and
+    no kernels or result line."""
+    names = ("block_fused", "spectral_staged", "conv3x3", "spectral_tiled")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build.build, names))
+    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    check_k1_gate()
+    print(card, flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    parser.add_argument("--phase", type=int, choices=[30, 31, 32, 33, 34],
+    parser.add_argument("--phase", type=int, choices=[30, 31, 32, 33, 34, 35],
                         help="run this phase alone (no kernels or result line)")
     only = parser.parse_args().phase
     if not torch.cuda.is_available():
@@ -4382,6 +4657,9 @@ def main():
         return
     if only == 34:
         phase34_alone(card)
+        return
+    if only == 35:
+        phase35_alone(card)
         return
 
     # ---- 2. build the six sources in parallel (one nvcc each)
@@ -4487,18 +4765,24 @@ def main():
         # ---- 13. K4, K5 and K6 against their plain versions
         staged_max_abs_err = check_staged(staged_lib)
 
-        # ---- 14. generate at 1024x1024 and 200x200 on the staged path
-        x1024 = torch.tensor(phantom(rng, 2, 1024)[..., None], dtype=torch.float32,
-                             device="cuda")
+        # ---- 14. generate at 800x800 and 200x200 on the staged path; its
+        # launches are the kernels line's K3 - K6
+        x800 = torch.tensor(phantom(rng, 3, 800)[..., None], dtype=torch.float32,
+                            device="cuda")
         x200 = torch.tensor(phantom(rng, 8, 200)[..., None], dtype=torch.float32,
                             device="cuda")
-        for x in (x1024, x200):
-            check_generate(model, x, "staged", STAGED_PER_CALL)
+        staged_launches = {}
+        for x in (x800, x200):
+            for k, v in check_generate(model, x, "staged", STAGED_PER_CALL).items():
+                staged_launches[k] = staged_launches.get(k, 0) + v
 
-        # ---- 15. serving at 1024x1024: the main path on K3 - K6
+        # ---- 15. serving at 1024x1024: the main path on K1 (21 launches a
+        # group of 8 slices)
         n_hires = 8
-        sweep1024_s, staged_sweep = run_sweep(
-            model, rng, tmp, 1024, dict(STAGED_PER_CALL), n_hires)
+        x1024 = torch.tensor(phantom(rng, 2, 1024)[..., None], dtype=torch.float32,
+                             device="cuda")
+        sweep1024_s, counts = run_sweep(model, rng, tmp, 1024, {"K1": 21}, n_hires)
+        k1_sweep1024 = counts["K1"]
 
     # ---- 16. F1: generate on the plain route, no kernel launch
     check_plain_route("generate 200x200 batch 2 at gen_features=64", 64, 10,
@@ -4619,7 +4903,8 @@ def main():
           f"staged K4 -> K5 -> K6 with residual {turns[1]:.3f} / {turns[2]:.3f} ms "
           f"(K7, staged, staged, K7)", flush=True)
     del k7_args, k7_alone
-    # K3 - K6 at the staged route's main-path shape, 1024x1024 batch 2
+    # K3 - K6 at 1024x1024 batch 2, the shape of their earlier readings (the
+    # staged route serves 800x800 batch 3 in phase 14)
     staged_times = {}
     # K3 on its tensor-core path (3xTF32): the bound of that path, and
     # beside it the fp32 CUDA-core bound of the same convolution
@@ -4728,8 +5013,11 @@ def main():
     print(f"time generate 96x96 batch 64: {gen96_ms:.2f} ms/call = "
           f"{64e3 / gen96_ms:.2f} slices/s", flush=True)
     gen1024_ms = cuda_ms(lambda: model.generate(x1024), 3)
-    print(f"time generate 1024x1024 batch 2: {gen1024_ms:.2f} ms/call = "
+    print(f"time generate 1024x1024 batch 2 (k1): {gen1024_ms:.2f} ms/call = "
           f"{2e3 / gen1024_ms:.2f} slices/s", flush=True)
+    gen800_ms = cuda_ms(lambda: model.generate(x800), 3)
+    print(f"time generate 800x800 batch 3 (staged): {gen800_ms:.2f} ms/call = "
+          f"{3e3 / gen800_ms:.2f} slices/s", flush=True)
     gen200_ms = cuda_ms(lambda: model.generate(x200), 3)
     print(f"time generate 200x200 batch 8: {gen200_ms:.2f} ms/call = "
           f"{8e3 / gen200_ms:.2f} slices/s", flush=True)
@@ -4782,7 +5070,7 @@ def main():
     profile("generate 512x512 batch 8", lambda: model.generate(x_gen))
     profile("generate 448x448 batch 8", lambda: model.generate(x448))
     profile("generate 96x96 batch 64", lambda: model.generate(x96))
-    profile("generate 1024x1024 batch 2", lambda: model.generate(x1024))
+    profile("generate 800x800 batch 3", lambda: model.generate(x800))
     profile("generate 200x200 batch 8", lambda: model.generate(x200))
     profile("train step 160 x 64x64", lambda: trainer.train_step(x, y))
 
@@ -4815,6 +5103,11 @@ def main():
     print(f"phase 34: synthetic-step launches {slice_launches} (not in the kernels line)",
           flush=True)
 
+    # ---- 35. K1 at the JAX gate's shapes beyond its squares: K1 and
+    # K1-bf16 against their plain versions, generate on the k1 route, the
+    # times in turns with the routes these shapes took before
+    gate_launches, gate_err = check_k1_gate()
+
     # ---- 30. the parallel layer: DataParallel and TensorParallel in a
     # one-rank NCCL group (and on every card where there are several), the
     # packed generator. It runs after phase 21's
@@ -4831,8 +5124,9 @@ def main():
         "name": "block_fused", "route": "cuda",
         "source": "mtd_gan_tpu_torch/csrc/block_fused.cu",
         "replaces": "mtd_gan_tpu/ops/pallas_pipeline.py:954",
-        "launches": train_launches[0] + ablation_launches[0] + dp_launches[0],
-        "max_abs_err": max_abs_err,
+        "launches": (train_launches[0] + ablation_launches[0] + dp_launches[0]
+                     + k1_sweep1024 + gate_launches["K1"]),
+        "max_abs_err": max(max_abs_err, gate_err["K1"]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None,
     }, {
@@ -4864,7 +5158,7 @@ def main():
     }] + [{
         "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
         "replaces": f"mtd_gan_tpu/ops/pallas_pipeline.py:{line}",
-        "launches": staged_sweep[key],
+        "launches": staged_launches[key],
         "max_abs_err": k3_max_abs_err if key == "K3" else staged_max_abs_err[key],
         "ms": staged_times[key][0], "plain_ms": staged_times[key][1],
         "bound_ms": staged_times[key][3][0], "bound_by": staged_times[key][3][1],
@@ -4875,9 +5169,11 @@ def main():
         ("K5", "staged_mix_h", "spectral_staged.cu", 844),
         ("K6", "staged_irdft_w_add", "spectral_staged.cu", 908))] + [{
         "name": name, "route": "cuda", "source": f"mtd_gan_tpu_torch/csrc/{src}",
-        "replaces": replaces, "launches": bf16_launches[name],
+        "replaces": replaces,
+        "launches": bf16_launches[name] + gate_launches.get(name, 0),
         "max_abs_err": (max(bf16_err[name], k2_bf16_slice_err) if name == "K2-bf16"
-                        else bf16_err[name]), "ms": bf16_times[name][0],
+                        else max(bf16_err[name], gate_err["K1-bf16"])),
+        "ms": bf16_times[name][0],
         "plain_ms": bf16_times[name][1], "bound_ms": bf16_times[name][2],
         "bound_by": bf16_times[name][3], "library_ms": None,
     } for name, src, replaces in (

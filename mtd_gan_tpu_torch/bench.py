@@ -30,7 +30,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -48,16 +48,17 @@ SEED = 2024  # the root's weights and inputs key
 PEAK_TF32_FLOPS = 495e12
 
 
-def block_work(n: int, size: int, variant: str, c: int = 32):
-    """(conv FLOPs, other FLOPs, bytes) one fused Res-FFT block call needs.
-    Conv FLOPs: the multiply-adds of each C->C 3x3 conv, 2*9*C*C per
-    pixel. Other FLOPs: each conv's 3-op epilogue per output; the spectral
-    mix 2*(2C)^2 per (h, k) bin plus bias and ReLU; a real 2-D FFT forward
-    and one inverse, 2.5*HW*log2(HW) each per channel; the spectral add;
-    the C->1 post conv. Bytes: every input read once, every output written
-    once, fp32."""
-    hw = size * size
-    k = size // 2 + 1
+def block_work(n: int, size: int, variant: str, c: int = 32, w: Optional[int] = None):
+    """(conv FLOPs, other FLOPs, bytes) one fused Res-FFT block call needs on
+    size x ``w`` images (``w`` None: square). Conv FLOPs: the multiply-adds
+    of each C->C 3x3 conv, 2*9*C*C per pixel. Other FLOPs: each conv's 3-op
+    epilogue per output; the spectral mix 2*(2C)^2 per (h, k) bin plus bias
+    and ReLU; a real 2-D FFT forward and one inverse, 2.5*HW*log2(HW) each
+    per channel; the spectral add; the C->1 post conv. Bytes: every input
+    read once, every output written once, fp32."""
+    w = w or size
+    hw = size * w
+    k = w // 2 + 1
     n_convs = 1 if variant == "plain" else 2
     conv = n * n_convs * 2 * 9 * c * c * hw
     other = n * (n_convs * 3 * c * hw

@@ -34,7 +34,7 @@
 // the same bits. So the pre conv is K1's launch_conv3x3 call, the rows are
 // K4 (launch_rdft_w) on the same host table, and on the last block the
 // whole of `out` is recomputed through K1's launches (residual conv, K4,
-// K1's column pass of block_columns.cuh, K6 in place); the residual conv's
+// K1's column pass, columns_mixed.cuh, K6 in place); the residual conv's
 // mask comes from the same tensor-core kernel with a gate epilogue, and the
 // spectral mask from the mix function K1's column pass calls. A sample's
 // spectrum (32 x 33 x 64 complex fp32, 540 KB) does not fit one SM, so the
@@ -417,7 +417,8 @@ __device__ __forceinline__ float& chan(float2* s, int pitch, int ch, int p) {
 // the bins u = n K + k = blk, blk + gridDim.x, ... (so that `bins` spread
 // evenly over one wave of blocks). spec_in: row spectrum of hin (K4's); spec_g: row spectrum of g (K4's),
 // overwritten with the row spectrum whose c2r (K6) is the adjoint of the
-// forward rFFT. For each bin k, with K1's schedule (block_columns.cuh):
+// forward rFFT. For each bin k, with K1's schedule (columns_mixed.cuh at a
+// power of two: K4's DIF steps, the mix in digit-reversed order, DIT back):
 //   a = DIF steps of spec_in[n, :, k, :]                  (s_in / scale, digit-reversed)
 //   b = DIF steps of c_k spec_g[n, :, k, :]               (c_k = 2 inside, 1 at k = 0 and
 //        W/2, whose imaginary parts are zeroed: the forward c2r drops them)
@@ -939,7 +940,7 @@ int block_bwd_impl(const T* x, const T* g, int n, int c, int h, int w, const flo
     RETURN_IF_ERROR(launch_conv3x3(hin, km, kb, nullptr, res, n, c, c, h, w, 1, 1, 0,
                                    stream));
     RETURN_IF_ERROR(launch_rdft_w(hin, sb, tw, n, c, h, w, stream));
-    RETURN_IF_ERROR(launch_column_rows_any(sb, mix, mb, tw, n, c, h, w, stream));
+    RETURN_IF_ERROR(launch_columns_mixed(sb, mix, mb, tw, n, c, h, w / 2 + 1, stream));
     RETURN_IF_ERROR(launch_irdft_w(sb, res, obuf, tw, n, c, h, w, stream));
     // dpost = gfin * [post_conv(out) + post_b + img > 0] = imgbar
     RETURN_IF_ERROR(launch_conv(obuf, post_w, post_b, img, gfin, imgbar, n, c, 1, h, w,

@@ -1,19 +1,21 @@
 // The column pass of the spectral branch at any H on Hopper (sm_90a), fp32:
-// K8's pass B (spectral_tiled.cu) and K5 (spectral_staged.cu); its device
-// functions also run K7's (spectral_fused.cu) on a CTA's bins. In place on
-// the half spectrum (N, C, K, H) complex, one bin (n, k) per CTA or per
-// thread-block cluster of S CTAs: the H-point FFT of each channel's column,
-// at every position relu(mix [Re; Im] + bias) over the stacked 2C channels,
-// the inverse H-point FFT, both scaled 1/sqrt(H). The spectrum in device
-// memory is complex fp32, or bf16 pairs for K5-bf16s (the JAX stage B at
+// K1's column pass (block_fused.cu), K8's pass B (spectral_tiled.cu) and
+// K5 (spectral_staged.cu); its device functions also run K7's
+// (spectral_fused.cu) on a CTA's bins. In place on the half spectrum (N,
+// C, K, H) complex, one bin (n, k) per CTA or per thread-block cluster of
+// S CTAs: the H-point FFT of each channel's column, at every position
+// relu(mix [Re; Im] + bias) over the stacked 2C channels, the inverse
+// H-point FFT, both scaled 1/sqrt(H). The spectrum in device memory is
+// complex fp32, or bf16 pairs for K5-bf16s (the JAX stage B at
 // bound_dtype = bfloat16): widened as the bin is staged, rounded once as
 // it is written back; the FFTs and the mix are fp32 in shared memory
 // either way.
 //
-// Design. It runs K1's column schedule (block_columns.cuh) on a mixed
-// radix. H = P * Q, P a power of two and Q odd: the bin's columns are
-// staged in decimated order (element Q p + q at q P + p), padded as K4's
-// rows, with 16-byte loads where H is even; the P-point FFTs of the Q
+// Design. It runs K4's register radix steps on the columns (DIF forward,
+// the mix in digit-reversed order, DIT back) on a mixed radix. H = P * Q,
+// P a power of two and Q odd: the bin's columns are staged in decimated
+// order (element Q p + q at q P + p), padded as K4's rows, with 16-byte
+// loads where H is even; the P-point FFTs of the Q
 // subsequences are K4's in-place DIF register steps on the host table of
 // cuda_pipeline.rdft_twiddles(H) (no sine or cosine on the card); the odd
 // step then takes the Q values Y_q[k1] of each k1 < P to

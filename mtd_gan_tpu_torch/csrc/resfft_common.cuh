@@ -4,7 +4,7 @@
 // (block_bwd.cu) run their C -> 1 exit conv, and K2 that conv's adjoint,
 // on it), and the complex and mixed-radix index helpers of the spectral
 // passes. Every spectral pass runs K4's register radix steps: rows on
-// rdft_rows.cuh, K1's and K2's column passes on block_columns.cuh, K5's,
+// rdft_rows.cuh, K2's backward column pass in block_bwd.cu, K1's, K5's,
 // K8's and K7's on columns_mixed.cuh (K7, spectral_fused.cu, its rows on
 // rdft_rows.cuh too). K1's and K2's C -> C convs run on K3's tensor-core
 // kernel (conv3x3_tc.cuh). fp32 throughout, apart from the bf16

@@ -19,8 +19,8 @@
 // interleave K5's output rows by chunk; that is layout, not semantics.
 // Domain: C in {8, 16, 32}; 2 <= H, W <= 1024, any parity, primes
 // included. They serve the slice sizes that neither K1 (block_fused.cu),
-// K8 (spectral_tiled.cu) nor K7 (spectral_fused.cu) takes: 1024^2,
-// 800^2, 200^2, 130x64, 448x449, ...
+// K8 (spectral_tiled.cu) nor K7 (spectral_fused.cu) takes: 800^2, 200^2,
+// 130x64, 448x449, ...
 //
 // Bounds on an H100 SXM (1024x1024, C = 32, batch 2): K4 moves 268 MB in
 // and 269 MB out, 0.16 ms at 3.35 TB/s (its FFTs are 1.7 GFLOP, 0.03 ms

@@ -10,8 +10,8 @@
 // with orthonormal FFTs; the inverse along W keeps only the real parts of
 // the W bins 0 and W/2 (the Hermitian fold of the JAX _irdft_w_factors).
 // Domain: C in {8, 16, 32}; H % 64 == 0 with 64 <= H <= 768; W even with
-// 2 <= W <= 1024. It serves the slice sizes K1 (block_fused.cu, H == W a
-// power of two) does not take: 320^2, 448^2, 512x320, ...
+// 2 <= W <= 1024. It serves the slice sizes K1 (block_fused.cu: H and W
+// multiples of 128 from H = 256) does not take: 320^2, 448^2, 512x320, ...
 //
 // Bound on an H100 SXM (448x448, C = 32, batch 8): 11.3 GFLOP (the 2C x 2C
 // spectral mix 6.7 G, two real 2-D FFTs 4.5 G at 2.5 N log2 N), i.e.

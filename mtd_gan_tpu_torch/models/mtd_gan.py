@@ -30,7 +30,7 @@ from torch import nn
 from mtd_gan_tpu_torch import losses
 from mtd_gan_tpu_torch._device import DeviceLike, resolve_device
 from mtd_gan_tpu_torch.ops.cuda_fftconv import in_fused_domain, in_tiled_domain
-from mtd_gan_tpu_torch.ops.cuda_pipeline import (KERNEL_CHANNELS, KERNEL_SIZES,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (KERNEL_CHANNELS, in_k1_domain,
                                                  resfft_generator_nchw)
 from mtd_gan_tpu_torch.ops.cuda_staged import conv3x3, in_staged_domain
 from mtd_gan_tpu_torch.ops.fft_conv import FFTConvBlock, check_impls
@@ -130,7 +130,8 @@ def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) 
     every 3x3 conv but the entry conv on K3-bf16). The routes:
 
     - ``"k1"``: the fused-block pipeline (``ops/cuda_pipeline.py``), H == W
-      in {64, 128, 256, 512};
+      in {64, 128}, and 256 <= H <= 1024, 128 <= W <= 1024 with H and W
+      multiples of 128 (``in_k1_domain``);
     - ``"tiled"``: the generator with the K8 spectral branch
       (``ops/cuda_fftconv.py``), H % 64 == 0 with 64 <= H <= 768 and W even
       with 2 <= W <= 1024;
@@ -147,22 +148,23 @@ def generate_route(h: int, w: int, c: int, dtype: Optional[torch.dtype] = None) 
 
     Differences from the JAX routing (``mtd_gan_tpu/models/mtd_gan.py``
     generate), each the same function on another path: there, on the TPU,
-    H >= 256 with H and W multiples of 128 goes to the K1 pipeline (384^2,
-    640^2, 1024^2, H != W), other H >= 256 with H % 64 == 0 and W even to
-    ``GeneratorTiled`` (K8), and everything else, at any width, to the XLA
-    generator. Here K1 takes only its four square sizes; K8 takes H from
-    64; the small inputs neither takes (96^2, 100x72, 33x33, ...) run the
-    JAX package's small-input kernel, K7; and what none of those takes up
-    to 1024 a side (1024^2, 800^2, 200^2, 130x64, 448x449, ...) runs the
-    JAX package's unfused kernels K3 - K6. Only the rest runs the plain
-    module, the port of the XLA path. The JAX routing does not look at the
+    H >= 256 with H and W multiples of 128 goes to the K1 pipeline, other
+    H >= 256 with H % 64 == 0 and W even to ``GeneratorTiled`` (K8), and
+    everything else, at any width, to the XLA generator. Here K1 takes the
+    same shapes up to 1024 a side; a side above 1024 runs the plain module.
+    K1 also takes 64^2 and 128^2; K8 takes H from 64; the small inputs
+    neither takes (96^2, 100x72, 33x33, ...) run the JAX package's
+    small-input kernel, K7; and what none of those takes up to 1024 a side
+    (800^2, 200^2, 130x64, 448x449, ...) runs the JAX package's unfused
+    kernels K3 - K6. Only the rest runs the plain module, the port of the
+    XLA path. The JAX routing does not look at the
     type either; its K1 pipeline always computes with bf16 boundaries,
     where here a bf16 generator takes the bf16 variants and an fp32 one
     the fp32 kernels. The staged route keeps its spectrum fp32
     (``bound_dtype`` of ``ResFFTGenerator``), where the JAX unfused
     pipeline's default rounds it to bf16 (ROADMAP.md, queue 2)."""
     if c in KERNEL_CHANNELS:
-        if h == w and h in KERNEL_SIZES:
+        if in_k1_domain(h, w):
             return "k1"
         if in_tiled_domain(h, w):
             return "tiled"

@@ -100,7 +100,8 @@ def block_fused_library() -> ctypes.CDLL:
         _P, _I, _I, _I, _I, _I,      # x, n, c_in, c, h, w
         _P, _P, _P,                  # pre_w, pre_b, skip
         _P, _P, _P, _P,              # km, kb, mix, mb
-        _P, _P, _P, _P,              # post_w, post_b, img, twiddles
+        _P, _P, _I, _P,              # post_w, post_b, adjoint, img
+        _P, _P,                      # twiddles of W, twiddles of H
         _P, _P, _P, _P, _P,          # hbuf, spec, out, final_out, stream
     ]
     lib.block_fused_forward.restype = ctypes.c_int
@@ -108,7 +109,8 @@ def block_fused_library() -> ctypes.CDLL:
         _P, _I, _I, _I, _I, _I,      # x, n, c_in, c, h, w
         _P, _P, _P,                  # pre_w, pre_b, skip
         _P, _P, _P, _P,              # km, kb, mix, mb
-        _P, _P, _P, _P,              # post_w, post_b, img, twiddles
+        _P, _P, _I, _P,              # post_w, post_b, adjoint, img
+        _P, _P,                      # twiddles of W, twiddles of H
         _P, _P, _P, _P, _P, _P,      # hbuf, spec, res, out, final_out, stream
     ]
     lib.block_fused_forward_bf16.restype = ctypes.c_int

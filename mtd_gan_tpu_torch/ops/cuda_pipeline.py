@@ -33,14 +33,22 @@ from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 Tensor = torch.Tensor
 ConvParams = Tuple[Tensor, Tensor]  # (weight (C_out, C_in, 3, 3), bias (C_out,))
 
-# image sizes the kernel path takes (H == W); the column pass holds C*H
-# complex values in shared memory
-KERNEL_SIZES = (64, 128, 256, 512)
 # channel counts the kernel is instantiated for
 KERNEL_CHANNELS = (8, 16, 32)
 # activation types: fp32, and bf16 for the bf16 variant
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 BF16 = torch.bfloat16
+
+
+def in_k1_domain(h: int, w: int) -> bool:
+    """Whether K1 (csrc/block_fused.cu ``in_domain``) takes H x W
+    activations: H == W in {64, 128}, or 256 <= H <= 1024 and 128 <= W <=
+    1024 with H and W multiples of 128 (the shapes the JAX ``generate``
+    sends to its K1 pipeline, H >= 256 with H and W multiples of 128, up
+    to 1024 a side)."""
+    if h == w and h in (64, 128):
+        return True
+    return 256 <= h <= 1024 and 128 <= w <= 1024 and h % 128 == 0 and w % 128 == 0
 
 
 def round_bf16(t: Tensor) -> Tensor:
@@ -55,7 +63,7 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
                           pre: Optional[ConvParams] = None,
                           skip: Optional[Tensor] = None,
                           post: Optional[ConvParams] = None,
-                          img: Optional[Tensor] = None):
+                          img: Optional[Tensor] = None, transpose: bool = False):
     """Plain PyTorch K1 (``F.conv2d`` + ``torch.fft``) on ``(N, C, H*W)``::
 
         a     = relu(conv(x, pre) + skip)      if pre else x
@@ -64,7 +72,12 @@ def block_fused_reference(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
 
     Returns ``out``, or ``(out, final)`` with ``post``. A bf16 ``x`` takes
     K1's bf16 variant (module docstring): ``skip`` bf16, ``out`` bf16,
-    ``final`` fp32."""
+    ``final`` fp32. ``transpose``: the ``pre`` and ``post`` weights are
+    stride-1 ``ConvTranspose2d`` weights (a generator's decoder), whose
+    convs are :func:`conv_transpose_as_conv` of them."""
+    if transpose:
+        pre, post = ((conv_transpose_as_conv(p[0]), p[1]) if p is not None else None
+                     for p in (pre, post))
     if x.dtype == BF16:
         return _block_fused_reference_bf16(x, h, w, km, kb, mix, mb, pre, skip, post, img)
     n = x.shape[0]
@@ -108,9 +121,10 @@ def _block_fused_reference_bf16(x, h, w, km, kb, mix, mb, pre, skip, post, img):
 
 
 def rdft_twiddles(w: int) -> Tensor:
-    """The twiddle table of the row passes K4 and K6 and of K1's FFTs
-    (which run the same steps): ``exp(-2 pi i t / W)`` for ``t < W``, computed in
-    float64 and rounded once to complex64 (CPU tensor)."""
+    """The twiddle table of W points of the row passes K4 and K6 and of
+    K1's FFTs, which run the same steps (the column FFTs take the table of
+    H points): ``exp(-2 pi i t / W)`` for ``t < W``, computed in float64
+    and rounded once to complex64 (CPU tensor)."""
     t = np.arange(w, dtype=np.float64)
     return torch.from_numpy(np.exp(-2j * np.pi * t / w).astype(np.complex64))
 
@@ -149,30 +163,33 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
                 skip: Optional[Tensor] = None,
                 post: Optional[ConvParams] = None,
                 img: Optional[Tensor] = None,
-                scratch: Optional[Dict[str, Tensor]] = None):
+                scratch: Optional[Dict[str, Tensor]] = None, transpose: bool = False):
     """K1: same arguments and result as :func:`block_fused_reference`.
 
     A CPU ``x`` takes the plain version. A CUDA ``x`` launches the kernel
     (one C entry call per block, counted in ``block_fused.launches``; a bf16
     ``x`` launches the bf16 variant, counted in
-    ``block_fused.launches_bf16``) or raises: on an unsupported shape, type
-    or layout, or on a CUDA error. The
-    kernel's FFTs, along W and along H (H == W), read K4's twiddle table
-    (:func:`rdft_twiddles`, cached per device and W). A dict passed as
-    ``scratch`` receives the pre conv's output ``hin`` (with ``pre``), on
-    the card only."""
+    ``block_fused.launches_bf16``) or raises: on a shape outside
+    :func:`in_k1_domain`, an unsupported type or layout, or a CUDA error.
+    The kernel's FFTs along W read K4's twiddle table of W points and those
+    along H the table of H points (:func:`rdft_twiddles`, cached per device
+    and length). With ``transpose`` the kernel reads the ``pre`` and
+    ``post`` weights flipped in place (K3's adjoint read), with no copy. A
+    dict passed as ``scratch`` receives the pre conv's output ``hin``
+    (with ``pre``), on the card only."""
     if x.device.type == "cpu":
-        return block_fused_reference(x, h, w, km, kb, mix, mb, pre=pre,
-                                     skip=skip, post=post, img=img)
+        return block_fused_reference(x, h, w, km, kb, mix, mb, pre=pre, skip=skip,
+                                     post=post, img=img, transpose=transpose)
     if x.device.type != "cuda":
         raise ValueError(f"block_fused: unsupported device {x.device}")
     n, c_in, hw = x.shape
     c = km.shape[0]
     act = act_dtype(x, "block_fused")
     bf = act == BF16
-    if h != w or h not in KERNEL_SIZES or hw != h * w:
-        raise ValueError(f"block_fused: the kernel takes H == W in "
-                         f"{KERNEL_SIZES}, got x {tuple(x.shape)} at {h}x{w}")
+    if not in_k1_domain(h, w) or hw != h * w:
+        raise ValueError(f"block_fused: x {tuple(x.shape)} at {h}x{w} is outside "
+                         f"in_k1_domain (H == W in (64, 128), or 256 <= H <= 1024 and "
+                         f"128 <= W <= 1024, both multiples of 128)")
     if bf and c_in != c:
         raise ValueError(f"block_fused: the bf16 variant takes C_in == C, got {c_in} -> {c}")
     if c not in KERNEL_CHANNELS:
@@ -190,13 +207,14 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
     for t, shape, name in (
             (x, (n, c_in, hw), "x"), (km, (c, c, 3, 3), "km"), (kb, (c,), "kb"),
             (mix, (2 * c, 2 * c), "mix"), (mb, (2 * c,), "mb"),
-            (pre_w, (c, c_in, 3, 3), "pre weight"), (pre_b, (c,), "pre bias"),
-            (skip, (n, c, hw), "skip"), (post_w, (1, c, 3, 3), "post weight"),
+            (pre_w, (c_in, c, 3, 3) if transpose else (c, c_in, 3, 3), "pre weight"),
+            (pre_b, (c,), "pre bias"), (skip, (n, c, hw), "skip"),
+            (post_w, (c, 1, 3, 3) if transpose else (1, c, 3, 3), "post weight"),
             (post_b, (1,), "post bias"), (img, (n, 1, hw), "img")):
         _check(t, shape, dev, name, dtype=act if name in ("x", "skip") else torch.float32)
 
     lib = _build.block_fused_library()
-    tw = _device_twiddles(w, dev)
+    tw_w, tw_h = _device_twiddles(w, dev), _device_twiddles(h, dev)
     f32 = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
     out = torch.empty((n, c, hw), device=dev, dtype=act)
     hbuf = torch.empty_like(out) if pre is not None else None
@@ -210,13 +228,14 @@ def block_fused(x: Tensor, h: int, w: int, km: Tensor, kb: Tensor,
             err = lib.block_fused_forward_bf16(
                 ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
                 ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-                ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(res), ptr(out),
-                ptr(final), stream)
+                int(transpose), ptr(img), ptr(tw_w), ptr(tw_h), ptr(hbuf), ptr(spec),
+                ptr(res), ptr(out), ptr(final), stream)
         else:
             err = lib.block_fused_forward(
                 ptr(x), n, c_in, c, h, w, ptr(pre_w), ptr(pre_b), ptr(skip),
                 ptr(km), ptr(kb), ptr(mix), ptr(mb), ptr(post_w), ptr(post_b),
-                ptr(img), ptr(tw), ptr(hbuf), ptr(spec), ptr(out), ptr(final), stream)
+                int(transpose), ptr(img), ptr(tw_w), ptr(tw_h), ptr(hbuf), ptr(spec),
+                ptr(out), ptr(final), stream)
     if err != 0:
         msg = lib.block_fused_error_string(err).decode()
         raise RuntimeError(f"block_fused: CUDA error {err} ({msg})")
@@ -237,14 +256,15 @@ def prep_generator_params(state: Mapping[str, Tensor],
                           num_layers: int) -> Dict[str, object]:
     """Generator state dict (reference names) -> pipeline weights, all
     contiguous fp32 on the state's device: ``enc0`` (entry conv),
-    ``dec0_post`` (exit deconv as a conv), ``enc[i]`` = ``encoder.{i+1}``,
-    ``dec[i]`` = ``decoder.{i+1}`` as a conv, ``blocks[i]`` =
-    ``(km, kb, mix, mb)`` of ``enforce.{i}``."""
+    ``dec0_post`` (exit deconv), ``enc[i]`` = ``encoder.{i+1}``, ``dec[i]``
+    = ``decoder.{i+1}`` (a deconv), ``blocks[i]`` = ``(km, kb, mix, mb)``
+    of ``enforce.{i}``. The deconvs keep their ``ConvTranspose2d`` weights,
+    which K1 reads flipped in place; for the fp32 contiguous parameters of
+    a generator every entry is a view of its parameter, so that
+    preparing them launches nothing on the card."""
     L = num_layers
     f32 = lambda t: t.detach().float().contiguous()
     conv = lambda name: (f32(state[f"{name}.weight"]), f32(state[f"{name}.bias"]))
-    deconv = lambda name: (conv_transpose_as_conv(f32(state[f"{name}.weight"])),
-                           f32(state[f"{name}.bias"]))
     blocks: List[Tuple[Tensor, Tensor, Tensor, Tensor]] = []
     for i in range(2 * L + 1):
         km, kb = conv(f"enforce.{i}.img_conv")
@@ -252,9 +272,9 @@ def prep_generator_params(state: Mapping[str, Tensor],
         blocks.append((km, kb, mix[:, :, 0, 0].contiguous(), mb))
     return {
         "enc0": conv("encoder.0"),
-        "dec0_post": deconv("decoder.0"),
+        "dec0_post": conv("decoder.0"),
         "enc": [conv(f"encoder.{i}") for i in range(1, L + 1)],
-        "dec": [deconv(f"decoder.{i}") for i in range(1, L + 1)],
+        "dec": [conv(f"decoder.{i}") for i in range(1, L + 1)],
         "blocks": blocks,
     }
 
@@ -264,11 +284,13 @@ def entry_conv(x: Tensor, weight: Tensor, bias: Tensor,
     """The generator's entry conv (C_in = 1) on ``(N, H, W, 1)`` ``x`` as
     ``F.conv2d``, channel-major ``(N, C, H*W)`` out in ``act_dtype``: for
     bf16 on bf16 operands, as the JAX pipeline's entry conv
-    (``x.astype(act)``, ``k0.astype(act)``, ``b0.astype(act)``)."""
+    (``x.astype(act)``, ``k0.astype(act)``, ``b0.astype(act)``). ``x`` is
+    read as ``(N, 1, H, W)`` (a reshape: NCHW strides, so that the conv
+    and its output keep the channel-major layout and nothing is copied)."""
     n, h, w, _ = x.shape
     if act_dtype == BF16:
         x, weight, bias = x.to(BF16), weight.to(BF16), bias.to(BF16)
-    a = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1))
+    a = torch.relu(F.conv2d(x.reshape(n, 1, h, w), weight, bias, padding=1))
     return a.reshape(n, -1, h * w).contiguous()
 
 
@@ -291,10 +313,11 @@ def resfft_generator_nchw(state: Mapping[str, Tensor], x: Tensor,
     a = entry_conv(x, *pp["enc0"], act_dtype)
     img = x.reshape(n, 1, h * w)
 
-    def blk(a_, i, pre=None, skip=None, post=None):
+    def blk(a_, i, pre=None, skip=None, post=None, deconv=False):
         km, kb, mix, mb = pp["blocks"][i]
         return block_fused(a_, h, w, km, kb, mix, mb, pre=pre, skip=skip,
-                           post=post, img=img if post is not None else None)
+                           post=post, img=img if post is not None else None,
+                           transpose=deconv)
 
     skips = []
     for i in range(L):
@@ -303,7 +326,7 @@ def resfft_generator_nchw(state: Mapping[str, Tensor], x: Tensor,
     a = blk(a, L, pre=pp["enc"][L - 1])
     # decoder block 2L-i takes dec_{i+1} (pp["dec"][i]) and skips[i]
     for i in range(L - 1, 0, -1):
-        a = blk(a, 2 * L - i, pre=pp["dec"][i], skip=skips[i])
+        a = blk(a, 2 * L - i, pre=pp["dec"][i], skip=skips[i], deconv=True)
     _, final = blk(a, 2 * L, pre=pp["dec"][0], skip=skips[0],
-                   post=pp["dec0_post"])
+                   post=pp["dec0_post"], deconv=True)
     return final.reshape(n, h, w, 1)

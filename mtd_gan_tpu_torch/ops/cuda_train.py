@@ -25,21 +25,24 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mtd_gan_tpu_torch.ops import _build
-from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, ConvParams, KERNEL_CHANNELS,
-                                                 KERNEL_SIZES, _check, act_dtype,
-                                                 _device_twiddles, block_fused,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import (BF16, ConvParams, KERNEL_CHANNELS, _check,
+                                                 act_dtype, _device_twiddles, block_fused,
                                                  block_fused_reference, entry_conv)
 from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
 Tensor = torch.Tensor
 Grads = Dict[str, Tensor]
 
-# K2 takes K1's sizes (KERNEL_SIZES, H == W): the 64x64 training patches
-# and whole slices up to 512x512. A train step takes the kernels at
+# K2 takes H == W in BWD_SIZES: the 64x64 training patches and whole
+# slices up to 512x512, where its column pass (block_bwd.cu) runs on one
+# CTA a bin or, at 512x512 and C = 32, a cluster of two. K1 takes more
+# (cuda_pipeline.in_k1_domain); BlockTrain takes K2's sizes only. A train
+# step takes the kernels at
 # TRAIN_SIZES only: every discriminator a trainer pairs with a ResFFT
 # generator takes 64x64 patches (models/mtd_gan.py
 # check_discriminator_input), so no trainer sends whole slices; they reach
 # K2 through resfft_generator_train or BlockTrain in a caller's own loop.
+BWD_SIZES = (64, 128, 256, 512)
 TRAIN_SIZES = (64,)
 # Launch geometry: aim for about two blocks per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 264
@@ -113,6 +116,12 @@ def _launch_geometry(n: int, h: int, k: int) -> Tuple[int, int]:
     return (min(_wgrad_units(n, h), _TARGET_BLOCKS), min(n * k, _TARGET_BLOCKS))
 
 
+def _check_bwd_shape(h: int, w: int, who: str) -> None:
+    """Raise unless K2 takes H x W (H == W in ``BWD_SIZES``)."""
+    if h != w or h not in BWD_SIZES:
+        raise ValueError(f"{who}: K2 takes H == W in {BWD_SIZES}, got {h}x{w}")
+
+
 def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
               kb: Tensor, mix: Tensor, mb: Tensor,
               pre: Optional[ConvParams] = None, skip: Optional[Tensor] = None,
@@ -138,9 +147,9 @@ def block_bwd(x: Tensor, g: Optional[Tensor], h: int, w: int, km: Tensor,
     c = km.shape[0]
     act = act_dtype(x, "block_bwd")
     bf = act == BF16
-    if h != w or h not in KERNEL_SIZES or hw != h * w:
-        raise ValueError(f"block_bwd: the kernel takes H == W in {KERNEL_SIZES}, "
-                         f"got x {tuple(x.shape)} at {h}x{w}")
+    _check_bwd_shape(h, w, "block_bwd")
+    if hw != h * w:
+        raise ValueError(f"block_bwd: x {tuple(x.shape)} does not hold {h}x{w} images")
     if c not in KERNEL_CHANNELS or c_in != c:
         raise ValueError(f"block_bwd: the kernel takes C_in == C in "
                          f"{KERNEL_CHANNELS}, got {c_in} -> {c}")
@@ -226,11 +235,15 @@ class BlockTrain(torch.autograd.Function):
     ``post_w`` is the exit deconv already written as a conv. Activations of
     bf16 run both kernels' bf16 variants: the cotangent of the block output
     is rounded to bf16 on its way in, those of ``x`` and ``skip`` leave in
-    bf16."""
+    bf16. Off the CPU (whose plain versions take any shape) the shape must
+    be one K2 takes (``BWD_SIZES``): the forward raises before it launches
+    K1 otherwise, K1 taking more shapes than K2."""
 
     @staticmethod
     def forward(ctx, x, skip, img, km, kb, mix, mb, pre_w, pre_b, post_w, post_b,
                 h, w):
+        if x.device.type != "cpu":
+            _check_bwd_shape(h, w, "BlockTrain")
         pre = (pre_w, pre_b) if pre_w is not None else None
         post = (post_w, post_b) if post_w is not None else None
         ctx.save_for_backward(x, skip, img, km, kb, mix, mb, pre_w, pre_b,
@@ -259,7 +272,7 @@ def train_route(h: int, w: int, c: int) -> str:
     in ``TRAIN_SIZES`` and C in ``KERNEL_CHANNELS``; else ``"autograd"``,
     the plain generator under autograd (the JAX trainer's
     ``g_forward="auto"`` fallback, ``mtd_gan_tpu/engine/gan.py``). The
-    kernels take whole slices too (``KERNEL_SIZES``), but no trainer does
+    kernels take whole slices too (``BWD_SIZES``), but no trainer does
     (``TRAIN_SIZES``). A bf16 generator takes the same route:
     :class:`BlockTrain` runs K1's and K2's bf16 variants, which take the
     same batches, on its bf16 activations, and the autograd route runs the

@@ -165,7 +165,8 @@ def test_bf16_routes():
     assert generate_route(512, 512, 32, BF16) == "k1"
     assert generate_route(64, 64, 8, BF16) == "k1"
     for h, w, c, route in ((448, 448, 32, "tiled"), (96, 96, 32, "fused"),
-                           (1024, 1024, 32, "staged"), (200, 200, 32, "staged"),
+                           (1024, 1024, 32, "k1"), (960, 960, 32, "staged"),
+                           (200, 200, 32, "staged"),
                            (512, 512, 64, "plain")):
         assert generate_route(h, w, c, BF16) == route, (h, w, c)
     assert generate_route(448, 448, 32) == "tiled"

@@ -51,3 +51,26 @@ def test_k7_split_stamps_every_phase():
     assert stamped.count("shared_optin() - 256,") == 2
     stamped = tool.replace(stamped, 'extern "C" {\n', tool.SET_STAMPS)
     assert stamped.count("int set_stamps(void* p)") == 1
+
+
+def test_k1_columns_calls_the_headers_launchers():
+    """K1 (``csrc/block_fused.cu``) and K2's recompute of K1's forward
+    (``csrc/block_bwd.cu``) run the launcher of ``columns_mixed.cuh``,
+    whose kernel this tool splits, with the arguments its header declares:
+    the spectrum (n, c, W/2 + 1, H) on the table of H points. No second
+    forward column pass is left: ``block_columns.cuh`` holds only the mix
+    that every column pass applies."""
+    csrc = os.path.join(ROOT, "mtd_gan_tpu_torch", "csrc")
+    text = {}
+    for name in ("block_columns.cuh", "columns_mixed.cuh", "block_fused.cu", "block_bwd.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            text[name] = " ".join(f.read().split())
+    assert ("cudaError_t launch_columns_mixed(TS* spec, const float* mix, "
+            "const float* mix_bias, const float2* tw, int n, int c, int h, int k, "
+            "cudaStream_t stream)") in text["columns_mixed.cuh"]
+    assert ("launch_columns_mixed(spec2, mix, mb, reinterpret_cast<const float2*>(tw_h), "
+            "n, c, h, w / 2 + 1, stream)") in text["block_fused.cu"]
+    assert "launch_columns_mixed(sb, mix, mb, tw, n, c, h, w / 2 + 1, stream)" in text[
+        "block_bwd.cu"]
+    assert "__global__" not in text["block_columns.cuh"]
+    assert "mix_output" in text["block_columns.cuh"]

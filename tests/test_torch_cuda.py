@@ -29,6 +29,7 @@ from mtd_gan_tpu_torch.ops import cuda_staged as cs
 from mtd_gan_tpu_torch.ops.cuda_pipeline import block_fused, block_fused_reference
 from mtd_gan_tpu_torch.ops.cuda_train import (block_bwd, block_bwd_reference,
                                               resfft_generator_train)
+from mtd_gan_tpu_torch.ops.layers import conv_transpose_as_conv
 
 # the tests share the machine with other test workers: one intra-op
 # thread each keeps PyTorch from oversubscribing the cores
@@ -52,14 +53,16 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, variant, c, size, n=2, seed=0):
-    """std 1/sqrt(fan_in) weights, 0.1 biases, channel-major activations."""
+def _inputs(dev, variant, c, size, n=2, seed=0, width=None):
+    """std 1/sqrt(fan_in) weights, 0.1 biases, channel-major activations of
+    size x ``width`` (default: square)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     w = lambda *s: t(rng.standard_normal(s) / np.sqrt(np.prod(s[1:])))
     b = lambda k: t(rng.standard_normal(k) * 0.1)
-    hw = size * size
-    args = dict(x=t(rng.random((n, c, hw))), h=size, w=size, km=w(c, c, 3, 3),
+    width = width or size
+    hw = size * width
+    args = dict(x=t(rng.random((n, c, hw))), h=size, w=width, km=w(c, c, 3, 3),
                 kb=b(c), mix=w(2 * c, 2 * c), mb=b(2 * c))
     if variant != "plain":
         args["pre"] = (w(c, c, 3, 3), b(c))
@@ -88,6 +91,70 @@ def test_kernel_matches_plain_version(dev, variant, c, size):
     for g, w in zip(got, want):
         rel = ((g - w).abs().max() / w.abs().max()).item()
         assert rel < TOL_REL, (variant, c, size, rel)
+
+
+# K1 at the JAX gate's shapes beyond its squares (chip_smoke.py phase 35):
+# (batch, H, W); K5's mixed-radix column pass at every H: the odd factors
+# 3, 5, 7 of H in its odd step, 1024 and 896 on a 2-CTA cluster at C = 32,
+# 256 x 1024 at a power-of-two H
+K1_GATE_SHAPES = [(2, 1024, 1024), (4, 384, 384), (2, 640, 384), (2, 256, 1024),
+                  (2, 896, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("n,h,w", K1_GATE_SHAPES)
+def test_kernel_matches_plain_version_on_the_jax_gate(dev, n, h, w, dtype):
+    """K1 and K1-bf16 (pre+skip+post, C = 32) against their plain versions:
+    fp32 TOL_REL per output, bf16 1e-2 max-relative (one bf16 unit is
+    3.9e-3 of a value; chip_smoke.py TOL_BF16_REL); one launch."""
+    args = _inputs(dev, "pre+skip+post", 32, h, n=n, seed=h + w, width=w)
+    if dtype == BF16:
+        args = {k: v.to(BF16) if k in ("x", "skip") else v for k, v in args.items()}
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(block_fused, counter)
+    got = block_fused(**args)
+    torch.cuda.synchronize()
+    assert getattr(block_fused, counter) == before + 1
+    want = block_fused_reference(**args)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        rel = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        assert rel < (TOL_REL if dtype == torch.float32 else 1e-2), (n, h, w, dtype, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_kernel_reads_deconv_weights_in_place(dev, dtype):
+    """A decoder block's call: ``ConvTranspose2d`` weights for the pre and
+    the exit conv with ``transpose``, read flipped in place, give the bits of the same call on their flipped copies
+    (``conv_transpose_as_conv``), at 384x384 (the odd step) and 256x256."""
+    for h in (384, 256):
+        args = _inputs(dev, "pre+skip+post", 32, h, n=2, seed=h)
+        if dtype == BF16:
+            args = {k: v.to(BF16) if k in ("x", "skip") else v for k, v in args.items()}
+        (pw, pb), (qw, qb) = args["pre"], args["post"]
+        flipped = block_fused(**args)
+        t_args = dict(args, pre=(conv_transpose_as_conv(pw), pb),
+                      post=(conv_transpose_as_conv(qw), qb))
+        assert t_args["post"][0].shape == (32, 1, 3, 3)
+        in_place = block_fused(**t_args, transpose=True)
+        torch.cuda.synchronize()
+        for a, b in zip(flipped, in_place):
+            assert torch.equal(a, b), (h, dtype)
+
+
+def test_generate_at_384_runs_the_k1_route(dev):
+    """384x384, the JAX K1 pipeline's shape the tiled route served before:
+    21 K1 launches per call, within 1e-3 of the plain module."""
+    model = MTDGANModel(gen_features=32, num_layers=10, device=dev, seed=1)
+    x = torch.rand((2, 384, 384, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    before = (block_fused.launches, spectral_branch_tiled.launches)
+    got = model.generate(x)
+    torch.cuda.synchronize()
+    assert (block_fused.launches - before[0], spectral_branch_tiled.launches) == (21, before[1])
+    with torch.no_grad():
+        want = model.generator(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert (got - want).abs().max().item() < 1e-3
 
 
 @pytest.mark.parametrize("c_in", [16, 12])

@@ -1,7 +1,8 @@
 """The FFT passes on the radix steps of mtd_gan_tpu_torch/csrc/rdft_rows.cuh,
 modelled in float64 numpy on the CPU: K4's row rDFT (rdft_w_kernel), its
-inverse (irdft_w_kernel), which K6, K1 and K2 run, K1's column pass
-(block_columns.cuh column_mix_rows_kernel), K2's backward column pass
+inverse (irdft_w_kernel), which K6, K1 and K2 run, the column pass at a
+power-of-two H (columns_mixed.cuh with no odd step, as K1 runs it at its
+squares), K2's backward column pass
 (block_bwd.cu column_bwd_kernel), K5's and K8's mixed-radix column pass
 (columns_mixed.cuh) and K7 (spectral_fused.cu), which runs those row and
 column steps in one cluster per sample. Each model follows the kernel's
@@ -226,8 +227,8 @@ def test_k6_row_schedule_inverts_k4_on_the_fp32_table(w):
 
 
 def _column_model(z, mix, mb, tw):
-    """K1's column pass (column_mix_rows_kernel) on the columns z (C, H)
-    of one bin: the forward DIF steps leave X in digit-reversed order; the
+    """The column pass at a power-of-two H (columns_mixed.cuh with no odd
+    step: K1's at its squares) on the columns z (C, H) of one bin: the forward DIF steps leave X in digit-reversed order; the
     mix is pointwise in h, so it runs there; it writes conj of its output,
     the DIT steps in reverse order bring that back to natural order, and
     the store takes conj again: the inverse FFT, with no permutation."""

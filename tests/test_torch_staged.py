@@ -306,7 +306,8 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
 
 @pytest.mark.parametrize("h,w,c,route", [
     (512, 512, 32, "k1"), (448, 448, 32, "tiled"), (96, 96, 32, "fused"),
-    (1024, 1024, 32, "staged"), (200, 200, 32, "staged"), (800, 800, 8, "staged"),
+    (1024, 1024, 32, "k1"), (960, 960, 32, "staged"), (200, 200, 32, "staged"),
+    (800, 800, 8, "staged"),
     (448, 449, 32, "staged"), (130, 64, 16, "staged"), (2, 2, 32, "fused"),
     (1, 64, 32, "plain"), (1100, 64, 32, "plain"), (64, 1025, 32, "plain"),
     (512, 512, 64, "plain"), (200, 200, 64, "plain"), (96, 96, 24, "plain")])

@@ -121,8 +121,9 @@ def test_tiled_generator_matches_jax_generator_tiled(tiled_generator_case, which
 
 
 @pytest.mark.parametrize("h,w,route", [
-    (64, 64, "k1"), (512, 512, "k1"), (448, 448, "tiled"), (384, 384, "tiled"),
-    (512, 320, "tiled"), (192, 192, "tiled"), (100, 100, "fused"), (96, 96, "fused"),
+    (64, 64, "k1"), (512, 512, "k1"), (448, 448, "tiled"), (384, 384, "k1"),
+    (704, 704, "tiled"), (512, 320, "tiled"), (192, 192, "tiled"), (100, 100, "fused"),
+    (96, 96, "fused"),
     (64, 127, "fused"), (33, 33, "fused"), (448, 449, "staged"), (832, 832, "staged"),
     (129, 129, "staged")])
 def test_generate_route(h, w, route):

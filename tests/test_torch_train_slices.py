@@ -26,8 +26,8 @@ from mtd_gan_tpu_torch import train as train_cli
 from mtd_gan_tpu_torch.data.dicom import write_synthetic_dicom
 from mtd_gan_tpu_torch.models.mtd_gan import ResFFTGenerator
 from mtd_gan_tpu_torch.ops import cuda_train
-from mtd_gan_tpu_torch.ops.cuda_pipeline import KERNEL_CHANNELS, KERNEL_SIZES
-from mtd_gan_tpu_torch.ops.cuda_train import (TRAIN_SIZES, block_bwd,
+from mtd_gan_tpu_torch.ops.cuda_pipeline import KERNEL_CHANNELS
+from mtd_gan_tpu_torch.ops.cuda_train import (BWD_SIZES, TRAIN_SIZES, block_bwd,
                                               resfft_generator_train, resolve_g_forward,
                                               train_route)
 from mtd_gan_tpu_torch.utils.torch_import import generator_state_dict_from_flax
@@ -49,7 +49,7 @@ def test_whole_slices_take_the_kernels_outside_a_train_step(h, c):
     trainer does (the 64x64 discriminators): a train step's route stays
     at the 64x64 patches, ``auto`` resolves to autograd and ``pallas``
     raises, for a bf16 generator as for fp32."""
-    assert h in KERNEL_SIZES and h not in TRAIN_SIZES
+    assert h in BWD_SIZES and h not in TRAIN_SIZES
     assert train_route(64, 64, c) == "kernels"
     assert train_route(h, h, c) == "autograd"
     assert resolve_g_forward("auto", h, h, c) == "einsum"
